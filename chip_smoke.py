@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed N] [--out DIR]
+
+Phases; each raises on failure, and the script then exits non-zero:
+
+0. device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions.  No CUDA card -> the script stops here.
+1. build: nvcc compiles ``opengl_raytracer_torch/csrc/*.cu`` for sm_90a.
+2. K2 (fused shade, ``csrc/shade.cu``) against its plain torch version on
+   1920x1080 = 2,073,600 rays of seeded random hits and path state.
+3. K1 (sub-block traversal, ``csrc/subblock_traversal.cu``) against its
+   plain torch version on 2,073,600 rays: half primary rays of the 1080p
+   camera, half bounce-like rays from random points in the scene.
+4. main path: ``Renderer`` at 1920x1080 with 4 bounces on a 31,736-triangle
+   stand-in of the reference's default scene (its seven boxes, a bumpy
+   tessellated sphere for the dragon, a smooth sphere for the mirror ball);
+   1 warm-up and 8 timed frames, every kernel's launch count, image
+   checks; then a 96x54 frame rendered on the card and on the CPU (the
+   plain versions), which must agree.
+5. multi-part: the same scene with a finer bumpy sphere (94,180 triangles,
+   4 sub-block parts), one timed 1080p frame.
+
+The line before the last is a JSON object with each kernel's launches in
+phase 4, its largest disagreement with its plain version and both times;
+the last line is ``{"ok": true, "device": {...}}``.  The script imports
+nothing of JAX.  ``--out DIR`` also writes the 1080p image, downsampled
+4x, as ``DIR/smoke_1080p.npy``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WIDTH, HEIGHT, BOUNCES = 1920, 1080, 4
+N_RAYS = WIDTH * HEIGHT
+TIMED_FRAMES = 8
+SMALL = (96, 54)  # the frame rendered on both the card and the CPU
+DEVICE = "cuda"
+# the reference's default camera (opengl_raytracer_tpu/presets.py:21-22)
+CAM_POS = (-33.7, 14.8, -21.1)
+CAM_DIR = (65.0, -25.4)
+
+KERNELS = {
+    "subblock_traversal": dict(
+        source="opengl_raytracer_torch/csrc/subblock_traversal.cu",
+        replaces="opengl_raytracer_tpu/ops/subblock_traversal.py:141"),
+    "shade": dict(
+        source="opengl_raytracer_torch/csrc/shade.cu",
+        replaces="opengl_raytracer_tpu/ops/shade.py:62"),
+}
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+# --------------------------------------------------------------- scene
+
+def _lat_long(center, radius, n_lat, n_lon, smooth):
+    """Triangles of a lat-long sphere, two per cell (polar cells included,
+    as a UV sphere is tessellated).  ``radius(theta, phi)`` may vary."""
+    th = np.linspace(0.0, np.pi, n_lat + 1)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    unit = np.stack([np.sin(T) * np.cos(P), np.cos(T), np.sin(T) * np.sin(P)],
+                    axis=-1)
+    pts = unit * radius(T, P)[..., None] + np.asarray(center, np.float64)
+
+    def cells(a):
+        c00, c10 = a[:-1, :-1], a[1:, :-1]
+        c11, c01 = a[1:, 1:], a[:-1, 1:]
+        return np.concatenate([np.stack([c00, c10, c11], -2).reshape(-1, 3, 3),
+                               np.stack([c00, c11, c01], -2).reshape(-1, 3, 3)])
+
+    tris = cells(pts).astype(np.float32)
+    normals = cells(unit).astype(np.float32) if smooth else None
+    return tris, normals
+
+
+def standin_objects(n_lat: int, n_lon: int) -> list:
+    """The reference's default scene (opengl_raytracer_tpu/presets.py:25-46)
+    with procedural geometry for its two OBJ meshes: a bumpy sphere of
+    n_lat x n_lon cells in place of the dragon and a smooth 32 x 64 sphere
+    in place of the mirror ball."""
+    from opengl_raytracer_torch import Rect, Triangles
+
+    bumpy, _ = _lat_long(
+        [-5, -10, 0],
+        lambda t, p: 9.0 * (1.0 + 0.15 * np.sin(7 * t) * np.cos(7 * p)),
+        n_lat, n_lon, smooth=False)
+    ball, ball_n = _lat_long([-25, -20, 20], lambda t, p: np.full_like(t, 7.0),
+                             32, 64, smooth=True)
+    return [
+        Triangles(bumpy, color=(0.96, 0.96, 0.86), roughness=1),
+        Triangles(ball, ball_n, color=(1, 1, 1), roughness=0),
+        Rect([8, 5, 0.1], [0, 0, 30], [0, 0, 0], [1, 0.25, 0.3],
+             roughness=1, scale=10),
+        Rect([8, 5, 0.1], [0, 0, -30], [0, 0, 0], [0.3, 0.25, 1],
+             roughness=1, scale=10),
+        Rect([8, 6, 0.1], [0, -25, 0], [90, 0, 0], [0.25, 1, 0.3],
+             roughness=1, scale=10),
+        Rect([6, 8, 0.1], [25, 0, 0], [0, 90, 0], [0.9, 0.9, 0.9],
+             roughness=0, scale=10),
+        Rect([8, 6, 0.1], [0, 25, 0], [90, 0, 0], [1, 1, 1],
+             roughness=1, scale=10),
+        Rect([5, 5, 0.25], [0, 23.9, 0], [-90, 0, 0], [0, 0, 0],
+             [1, 1, 1], 1.5, scale=5),
+        Rect([6, 8, 0.1], [-35, 0, 0], [0, 90, 0], [0.9, 0.9, 0.9],
+             roughness=1, scale=10),
+    ]
+
+
+# -------------------------------------------------------------- timing
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` calls after one
+    warm-up call, with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_pair(kernel_fn, plain_fn, iters: int, plain_iters: int):
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain;
+    each is the better of its two runs."""
+    p1 = cuda_ms(plain_fn, plain_iters)
+    k1 = cuda_ms(kernel_fn, iters)
+    k2 = cuda_ms(kernel_fn, iters)
+    p2 = cuda_ms(plain_fn, plain_iters)
+    return min(k1, k2), min(p1, p2)
+
+
+def check_count(counts: dict, name: str, expected: int) -> None:
+    if counts[name] != expected:
+        raise RuntimeError(f"{name} launched {counts[name]} times in the "
+                           f"main path, expected {expected}")
+
+
+# -------------------------------------------------------------- phases
+
+def device_phase() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: chip_smoke.py checks the port's kernels on an "
+            "NVIDIA card and has nothing to run without one")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    say("device", name=repr(name), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0])
+    return name
+
+
+def import_port() -> None:
+    sys.path.insert(0, REPO)
+    try:
+        import opengl_raytracer_torch  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            f"the port's package opengl_raytracer_torch is not beside "
+            f"chip_smoke.py in {REPO}: {e}") from e
+
+
+def build_phase() -> None:
+    from opengl_raytracer_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    _kernels.lib()
+    sec = time.perf_counter() - t0
+    say("build", seconds=f"{sec:.2f}",
+        lib=os.path.relpath(_kernels.LIB_PATH, REPO),
+        sources=",".join(os.path.relpath(s, REPO) for s in _kernels.sources()),
+        flags="'" + " ".join(_kernels.NVCC_FLAGS) + "'")
+    for line in _kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say("ptxas", line=line.strip())
+
+
+def make_scene(n_lat: int, n_lon: int, device):
+    from opengl_raytracer_torch import Scene
+    from opengl_raytracer_torch.ops import bvh
+
+    t0 = time.perf_counter()
+    scene = Scene(standin_objects(n_lat, n_lon))
+    data = scene.send(device)
+    say("scene", triangles=scene.total_triangles, parts=len(data.parts),
+        table_bytes=sum(n.nbytes + t.nbytes for n, t, _ in data.parts),
+        sh_slot_bytes=data.sh_slot.nbytes,
+        bvh_builder=bvh.last_builder,
+        build_s=f"{time.perf_counter() - t0:.2f}")
+    return scene, data
+
+
+def k2_phase(data, seed: int, device):
+    """K2 against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    from opengl_raytracer_torch.ops import shade
+    from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+    from opengl_raytracer_torch.utils.config import SKY_COLOR
+
+    R = N_RAYS
+    g = np.random.default_rng(seed)
+    f32 = np.float32
+    t = g.uniform(0.1, 80.0, R).astype(f32)
+    t[g.uniform(size=R) < 0.2] = BIG  # misses
+    u = g.uniform(0, 1, R).astype(f32)
+    v = (g.uniform(0, 1, R) * (1 - u)).astype(f32)
+    d = g.normal(size=(3, R))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def col3(a):
+        return tuple(dev(a[k]) for k in range(3))
+
+    near = Nearest(t=dev(t), tri=torch.zeros(R, dtype=torch.int32,
+                                              device=device),
+                   u=dev(u), v=dev(v),
+                   slot=dev(g.integers(0, data.sh_slot.shape[0], R)
+                            .astype(np.int32)))
+    o3 = col3(g.uniform(-30, 30, (3, R)).astype(f32))
+    d3 = col3(d.astype(f32))
+    rc3 = col3(g.uniform(0, 1, (3, R)).astype(f32))
+    inc3 = col3(g.uniform(0, 1, (3, R)).astype(f32))
+    alive = dev(g.uniform(size=R) < 0.8)
+    seeds = dev(g.integers(0, 2**32, R, dtype=np.uint64).astype(np.int64))
+    sky = tuple(float(c) for c in np.asarray(SKY_COLOR, f32))
+
+    worst = 0.0
+    for lam in (True, False):
+        args = (data, near, o3, d3, rc3, inc3, alive, seeds, sky,
+                2.0 if lam else 1.0, lam)
+        got = shade.shade_update(*args)  # CUDA tensors: the kernel
+        ref = shade._shade_plain(*args)
+        for gk, rk in zip(got[:4], ref[:4]):
+            for a in range(3):
+                torch.testing.assert_close(gk[a], rk[a], rtol=1e-5, atol=1e-6)
+                worst = max(worst, float((gk[a] - rk[a]).abs().max()))
+        if not torch.equal(got[4], ref[4]):
+            raise RuntimeError("K2: alive differs from the plain version")
+        if not torch.equal(got[5], ref[5]):
+            raise RuntimeError("K2: seed differs from the plain version")
+        say("k2", lambertian=lam, rays=R, alive_out=int(got[4].sum()),
+            max_abs_err=worst, seed_alive="exact")
+
+    args = (data, near, o3, d3, rc3, inc3, alive, seeds, sky, 2.0, True)
+    ms, plain_ms = time_pair(lambda: shade.shade_update(*args),
+                             lambda: shade._shade_plain(*args), 20, 5)
+    say("k2", rays=R, ms=ms, plain_ms=plain_ms, tolerance="rtol=1e-5,atol=1e-6")
+    return worst, ms, plain_ms
+
+
+def k1_rays(data, camera, seed: int, device):
+    """Half primary rays of the 1080p camera, half bounce-like rays from
+    random points in the scene's bounds; a tenth of the rays dead."""
+    from opengl_raytracer_torch.ops.camera import pixel_uv, ray_dirs_soa
+    from opengl_raytracer_torch.ops.intersect import BIG
+
+    g = np.random.default_rng(seed + 1)
+    half = N_RAYS // 2
+    pix = torch.from_numpy(g.integers(0, N_RAYS, half))
+    u, v = pixel_uv(pix % WIDTH, pix // WIDTH, WIDTH, HEIGHT)
+    dp = torch.stack(ray_dirs_soa(camera, u, v, WIDTH, HEIGHT)).numpy()
+    op = np.repeat(np.asarray(camera.pos, np.float32)[:, None], half, 1)
+    nb = N_RAYS - half
+    ob = g.uniform(data.root_min, data.root_max, (nb, 3)).T
+    db = g.normal(size=(3, nb))
+    db /= np.linalg.norm(db, axis=0, keepdims=True)
+    o = np.concatenate([op, ob], 1).astype(np.float32)
+    d = np.concatenate([dp, db], 1).astype(np.float32)
+    t0 = np.full(N_RAYS, BIG, np.float32)
+    t0[g.uniform(size=N_RAYS) < 0.1] = -BIG
+    o3 = tuple(torch.from_numpy(o[a].copy()).to(device) for a in range(3))
+    d3 = tuple(torch.from_numpy(d[a].copy()).to(device) for a in range(3))
+    return o3, d3, torch.from_numpy(t0).to(device)
+
+
+def k1_phase(data, camera, seed: int, device):
+    """K1 against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+
+    node_rows, tri_rows, remap = data.parts[0]
+    o3, d3, t0 = k1_rays(data, camera, seed, device)
+    ov = sbt.overflow_tensor(device)
+    ov.zero_()
+    tk, sk, uk, vk = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
+    tp, sp, up, vp, dropped = sbt._traverse_plain(node_rows, tri_rows, o3,
+                                                  d3, t0)
+    overflow = int(ov.item())
+    if overflow or int(dropped):
+        raise RuntimeError(f"K1 stack overflow: kernel {overflow}, plain "
+                           f"{int(dropped)} dropped pushes")
+    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
+    hit = (tp < BIG) & (tp > -BIG)
+    if not torch.equal(hit, (tk < BIG) & (tk > -BIG)):
+        raise RuntimeError("K1: hit set differs from the plain version")
+    n_hit = int(hit.sum())
+    if n_hit < N_RAYS // 4:
+        raise RuntimeError(f"K1: only {n_hit} of {N_RAYS} rays hit")
+    err = float((tk - tp)[hit].abs().max())
+    tri_k, tri_p = remap[sk.long()], remap[sp.long()]
+    diff = hit & (tri_k != tri_p)
+    n_diff = int(diff.sum())
+    if n_diff:
+        # every disagreement must be a tie: the kernel's triangle is hit at
+        # the plain version's t
+        idx = torch.nonzero(diff).squeeze(1)
+        c = tri_rows.reshape(-1, 16)[sk[idx].long()].T
+        valid, t, _, _ = mt_single(
+            tuple(x[idx] for x in o3), tuple(x[idx] for x in d3),
+            c[0:3], c[3:6], c[6:9], c[9:12])
+        ref_t = tp[idx]
+        if not bool((valid & ((t - ref_t).abs()
+                              <= 1e-6 + 1e-6 * ref_t.abs())).all()):
+            raise RuntimeError(f"K1: {n_diff} rays hit another triangle "
+                               f"than the plain version, not at a t tie")
+    same = hit & ~diff
+    for a, b in ((uk, up), (vk, vp)):
+        torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
+    say("k1", rays=N_RAYS, hit=n_hit, dead=int((t0 <= -BIG).sum()),
+        max_abs_err_t=err, tri_ties=n_diff, overflow=overflow,
+        tolerance="t:rtol=1e-6,atol=1e-6")
+
+    ms, plain_ms = time_pair(
+        lambda: sbt.traverse_part(node_rows, tri_rows, o3, d3, t0),
+        lambda: sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0), 5, 1)
+    say("k1", rays=N_RAYS, ms=ms, plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def main_path_phase(scene, camera, out_dir):
+    """The port's Renderer at 1080p; returns the kernels' launch counts."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.utils.image import rmse
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
+    _kernels.reset_counts()
+    r = Renderer(scene, cfg, device=DEVICE)
+    parts = len(r.scene.parts)
+    state = r.render(camera, frames=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = r.render(camera, frames=TIMED_FRAMES, state=state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    frames = 1 + TIMED_FRAMES
+    check_count(counts, "subblock_traversal", parts * cfg.n_bounces * frames)
+    check_count(counts, "shade", cfg.n_bounces * frames)
+
+    img = r.image(state)
+    if img.shape != (HEIGHT, WIDTH, 3):
+        raise RuntimeError(f"image shape {img.shape}")
+    if not np.isfinite(img).all():
+        raise RuntimeError("image holds non-finite values")
+    if not 0.01 < float(img.mean()) < 10.0:
+        raise RuntimeError(f"image mean {img.mean()} is not a lit frame")
+    ms = sec * 1000.0 / TIMED_FRAMES
+    say("main", width=WIDTH, height=HEIGHT, bounces=BOUNCES, parts=parts,
+        ms_per_frame=ms, fps=1000.0 / ms, frames=frames,
+        k1_launches=counts["subblock_traversal"],
+        k2_launches=counts["shade"], finite=True, mean=float(img.mean()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        small = img.reshape(HEIGHT // 4, 4, WIDTH // 4, 4, 3).mean((1, 3))
+        np.save(os.path.join(out_dir, "smoke_1080p.npy"),
+                small.astype(np.float32))
+
+    # the same scene, small, on the card and on the CPU (plain versions)
+    small_cfg = RenderConfig(width=SMALL[0], height=SMALL[1], bounces=BOUNCES)
+    imgs = []
+    for device in (DEVICE, "cpu"):
+        rs = Renderer(scene, small_cfg, device=device)
+        imgs.append(rs.image(rs.render(camera, frames=1)))
+    err = rmse(imgs[0], imgs[1])
+    if not (np.isfinite(imgs[0]).all() and err < 1e-4):
+        raise RuntimeError(f"{SMALL[0]}x{SMALL[1]} frame: card vs CPU rmse "
+                           f"{err} (limit 1e-4)")
+    say("reference", width=SMALL[0], height=SMALL[1], rmse_card_vs_cpu=err,
+        limit=1e-4, max_abs=float(np.abs(imgs[0] - imgs[1]).max()))
+    return counts
+
+
+def multipart_phase(camera):
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import _kernels
+
+    scene, data = make_scene(150, 300, DEVICE)
+    parts = len(data.parts)
+    if parts != 4:
+        raise RuntimeError(f"multi-part scene split into {parts} parts, "
+                           f"expected 4")
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
+    r = Renderer(data, cfg, device=DEVICE)
+    state = r.render(camera, frames=1)  # warm-up
+    _kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = r.render(camera, frames=1, state=state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0
+    counts = dict(_kernels.launch_counts)
+    check_count(counts, "subblock_traversal", parts * cfg.n_bounces)
+    check_count(counts, "shade", cfg.n_bounces)
+    img = r.image(state)
+    if not np.isfinite(img).all():
+        raise RuntimeError("multi-part image holds non-finite values")
+    say("multipart", triangles=scene.total_triangles, parts=parts,
+        ms_per_frame=ms, k1_launches=counts["subblock_traversal"],
+        k2_launches=counts["shade"], mean=float(img.mean()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="directory for the downsampled 1080p image")
+    args = ap.parse_args(argv)
+
+    name = device_phase()
+    import_port()
+    from opengl_raytracer_torch import make_camera
+
+    build_phase()
+    camera = make_camera(CAM_POS, CAM_DIR)
+    scene, data = make_scene(83, 166, DEVICE)
+    if scene.total_triangles != 31736 or len(data.parts) != 1:
+        raise RuntimeError("the stand-in scene changed size")
+    k2 = k2_phase(data, args.seed, data.device)
+    k1 = k1_phase(data, camera, args.seed, data.device)
+    counts = main_path_phase(scene, camera, args.out)
+    multipart_phase(camera)
+
+    for mod in ("jax", "opengl_raytracer_tpu"):
+        if mod in sys.modules:
+            raise RuntimeError(f"{mod} was imported")
+    kernels = []
+    for kname, (err, ms, plain_ms) in (("subblock_traversal", k1),
+                                       ("shade", k2)):
+        kernels.append(dict(name=kname, route="cuda", **KERNELS[kname],
+                            launches=counts[kname], max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

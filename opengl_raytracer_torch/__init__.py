@@ -1,0 +1,32 @@
+"""Progressive Monte-Carlo path tracer in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper.
+
+The port of ``opengl_raytracer_tpu`` (JAX / XLA / Pallas), which stays in
+the repository as its reference.  This package imports ``torch`` and
+``numpy`` and never JAX.  Its main path renders a ``Scene`` of ``Rect`` and
+``Triangles`` objects through the sub-block BVH traversal kernel (K1,
+``csrc/subblock_traversal.cu``) and the fused shade kernel (K2,
+``csrc/shade.cu``); on CPU tensors each kernel's plain torch version runs
+instead.
+"""
+
+from opengl_raytracer_torch.models.rect import Rect
+from opengl_raytracer_torch.models.scene import Scene, SceneData, scene_from_numpy
+from opengl_raytracer_torch.models.trisoup import Triangles
+from opengl_raytracer_torch.ops.camera import Camera, make_camera
+from opengl_raytracer_torch.renderer import Renderer, RenderState, state_from_numpy
+from opengl_raytracer_torch.utils.config import RenderConfig
+
+__all__ = [
+    "Camera",
+    "Rect",
+    "RenderConfig",
+    "RenderState",
+    "Renderer",
+    "Scene",
+    "SceneData",
+    "Triangles",
+    "make_camera",
+    "scene_from_numpy",
+    "state_from_numpy",
+]

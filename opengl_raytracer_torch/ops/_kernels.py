@@ -1,0 +1,115 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface under
+``build/torch_kernels/`` at the repository root, at first use, and loaded
+with ``ctypes``.  There is no fallback: a wrapper given CUDA tensors either
+launches its kernel or raises.  The build is not fast-math (``/`` and
+``sqrt`` stay IEEE-rounded; mul+add contraction is allowed).
+
+``launch_counts`` holds one integer per kernel; a wrapper adds one where it
+launches its kernel and nowhere else, so a caller can show which kernels
+a run went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launch_counts = {"subblock_traversal": 0, "shade": 0}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output of the last build in this process
+
+
+def reset_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "cannot be built")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into ``LIB_PATH`` unless it is newer than
+    every source; returns the library's path.  Raises when nvcc fails."""
+    global build_log
+    srcs = sources()
+    if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
+            >= max(os.path.getmtime(s) for s in srcs)):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built and loaded at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(build())
+            p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_float)
+            so.oglrt_subblock_traverse.restype = i32
+            so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
+            so.oglrt_shade.restype = i32
+            so.oglrt_shade.argtypes = ([p, i32] + [p] * 18
+                                       + [f32, f32, f32, f32, i32]
+                                       + [p] * 14 + [i64, p])
+            _lib = so
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError`` from a launch."""
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype, device, numel=None) -> None:
+    """The checks a kernel's wrapper makes on each tensor it passes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")

@@ -1,0 +1,139 @@
+"""Monte-Carlo path integrator: scatter model + bounce loop + sample loop.
+
+The shader's path logic (fragment.glsl:220-366), as in
+``opengl_raytracer_tpu/ops/integrator.py``:
+
+* ``scatter_soa`` — ``diffuse()`` (fragment.glsl:220-232), ``reflect`` and
+  ``lerp()`` (fragment.glsl:234-240);
+* ``raytrace`` — the bounce loop (fragment.glsl:309-350).  Before every
+  bounce segment but the first, rays are reordered by a Morton/octant
+  coherence key (a stable argsort and one gather of every per-ray column);
+  then the traversal (K1) finds the nearest hits and the fused shade
+  kernel (K2) updates the path state.  Terminated paths carry an ``alive``
+  mask; dead rays keep their frozen light.  At the end the light is
+  scattered back to pixel order by each ray's original index;
+* ``trace`` — ``rays_per_pixel`` independent paths averaged, the RNG state
+  carried sequentially across samples (fragment.glsl:352-366).
+
+All per-ray vec3 state travels as 3-tuples of (R,) columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opengl_raytracer_torch.ops import rng
+from opengl_raytracer_torch.ops.intersect import TINY
+from opengl_raytracer_torch.ops.morton import DEAD_KEY, ray_sort_keys_soa
+
+
+def _norm3(x, y, z):
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
+    """Next bounce direction; returns (new_seed, (dx, dy, dz)).
+
+    Draws three RNG values (fragment.glsl:221), computes the mirror
+    direction with ``reflect`` and blends by ``1 - roughness``."""
+    seed, x0 = rng.random_value(seed)
+    seed, x1 = rng.random_value(seed)
+    seed, x2 = rng.random_value(seed)
+    xi = (x0, x1, x2)
+
+    if lambertian:
+        # normalize(normal + xi), denominator clamped at a denormal tiny
+        s = tuple(n3[a] + xi[a] for a in range(3))
+        s_len = _norm3(*s).clamp_min(TINY)
+        diffuse = tuple(s[a] / s_len for a in range(3))
+    else:
+        # hemisphere mode: sign-flip xi into the normal's hemisphere
+        flip = (xi[0] * n3[0] + xi[1] * n3[1] + xi[2] * n3[2]) < 0.0
+        xi_h = tuple(torch.where(flip, -xi[a], xi[a]) for a in range(3))
+        h_len = _norm3(*xi_h).clamp_min(TINY)
+        diffuse = tuple(xi_h[a] / h_len for a in range(3))
+
+    # GLSL reflect(I, N) = I - 2*dot(N, I)*N (fragment.glsl:320).
+    d_dn = d3[0] * n3[0] + d3[1] * n3[1] + d3[2] * n3[2]
+    spec = tuple(d3[a] - 2.0 * d_dn * n3[a] for a in range(3))
+
+    # lerp(diffuseDir, specularDir, roughness): both inputs renormalized
+    # with the zero-stays-zero guard, then the blend renormalized.
+    dif_len = _norm3(*diffuse)
+    g0 = tuple(torch.where(dif_len > 0.0, diffuse[a] / dif_len.clamp_min(TINY),
+                           0.0) for a in range(3))
+    spec_len = _norm3(*spec)
+    g1 = tuple(torch.where(spec_len > 0.0, spec[a] / spec_len.clamp_min(TINY),
+                           0.0) for a in range(3))
+    t = 1.0 - roughness
+    out = tuple(g0[a] * (1.0 - t) + g1[a] * t for a in range(3))
+    o_len = _norm3(*out).clamp_min(TINY)
+    return seed, tuple(out[a] / o_len for a in range(3))
+
+
+def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
+             lambertian: bool):
+    """One path per ray: returns (incoming light 3x(R,), final seed), both
+    in the input ray order.
+
+    ``raycast_fn(o3, d3, alive)`` returns a ``Nearest`` with
+    leaf slots (ops/subblock_traversal.raycast_subblock)."""
+    from opengl_raytracer_torch.ops.shade import shade_update
+
+    R = o3[0].shape[0]
+    dev = o3[0].device
+    emission_scale = 2.0 if lambertian else 1.0  # fragment.glsl:329-331
+    lo, hi = scene.root_min, scene.root_max
+
+    ones = torch.ones(R, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(R, dtype=torch.float32, device=dev)
+    origin, direction = tuple(o3), tuple(d3)
+    ray_color = (ones, ones, ones)
+    incoming = (zeros, zeros, zeros)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    seed = seed0
+    orig = torch.arange(R, device=dev)
+
+    for i in range(int(n_bounces)):
+        if i > 0:
+            # Primary rays arrive screen-coherent; bounce rays are sorted.
+            # Dead rays hold the sentinel key and sort to the tail, and
+            # alive is re-derived from it.
+            keys = ray_sort_keys_soa(origin, direction, lo, hi, alive)
+            perm = torch.argsort(keys, stable=True)
+            cols = torch.stack([*origin, *direction, *ray_color, *incoming])
+            cols = cols[:, perm]
+            origin, direction, ray_color, incoming = (
+                tuple(cols[3 * g + a] for a in range(3)) for g in range(4))
+            alive = keys[perm] != DEAD_KEY
+            seed = seed[perm]
+            orig = orig[perm]
+
+        nearest = raycast_fn(origin, direction, alive)
+        origin, direction, ray_color, incoming, alive, seed = shade_update(
+            scene, nearest, origin, direction, ray_color, incoming, alive,
+            seed, sky_color, emission_scale, lambertian)
+
+    # Restore pixel order by scattering into each ray's original index.
+    light = torch.stack(incoming)
+    out = torch.empty_like(light)
+    out[:, orig] = light
+    seed_out = torch.empty_like(seed)
+    seed_out[orig] = seed
+    return tuple(out[a] for a in range(3)), seed_out
+
+
+def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
+          rays_per_pixel: int, lambertian: bool):
+    """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
+    Returns ((R, 3) color, new seed)."""
+    colors = []
+    seed = seed0
+    for _ in range(rays_per_pixel):
+        color, seed = raytrace(scene, raycast_fn, o3, d3, seed, sky_color,
+                               n_bounces, lambertian)
+        colors.append(torch.stack(color, dim=-1))
+    if rays_per_pixel == 1:
+        return colors[0], seed
+    return torch.stack(colors).mean(dim=0), seed
+

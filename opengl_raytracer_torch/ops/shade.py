@@ -1,0 +1,92 @@
+"""K2: fused shade / scatter / bounce-state update, one pass per bounce.
+
+:func:`shade_update` is the port of
+``opengl_raytracer_tpu/ops/shade.py:shade_update``.  On CUDA tensors it
+launches the kernel of ``csrc/shade.cu``, which also does the material row
+gather ``sh_slot[clip(slot)]`` and the three RNG draws that the JAX wrapper
+computes outside its kernel.  On CPU tensors it runs :func:`_shade_plain`:
+the integrator's unfused formulas (``integrator.py:281-311`` of the JAX
+package): finalize_hit, scatter, then the state update.  Seeds and alive
+flags agree exactly; floats agree to mul+add contraction rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opengl_raytracer_torch.ops import _kernels
+from opengl_raytracer_torch.ops.integrator import scatter_soa
+from opengl_raytracer_torch.ops.intersect import finalize_hit_soa
+
+
+def _shade_plain(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
+                 emission_scale, lambertian):
+    hit = finalize_hit_soa(scene, o3, d3, nearest)
+    seed_h, new_dir = scatter_soa(seed, hit.normal, d3, hit.roughness,
+                                  lambertian)
+    was_hit = alive & hit.did_hit
+    was_miss = alive & ~hit.did_hit
+    em = hit.emission * emission_scale
+    zero = torch.zeros_like(hit.t)
+    inc = tuple(
+        inc3[a]
+        + torch.where(was_hit, hit.emission_color[a] * em * rc3[a], zero)
+        + torch.where(was_miss, sky_color[a], zero)
+        for a in range(3))
+    rc = tuple(torch.where(was_hit, rc3[a] * hit.color[a], rc3[a])
+               for a in range(3))
+    o = tuple(torch.where(was_hit, hit.point[a] + hit.normal[a] * 1e-4, o3[a])
+              for a in range(3))
+    d = tuple(torch.where(was_hit, new_dir[a], d3[a]) for a in range(3))
+    seed = torch.where(was_hit, seed_h, seed)
+    alive = was_hit & ~(hit.emission > 0.0)
+    return o, d, rc, inc, alive, seed
+
+
+def _shade_cuda(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
+                emission_scale, lambertian):
+    dev = seed.device
+    R = seed.shape[0]
+    req = _kernels.require
+    cols = (nearest.t, nearest.u, nearest.v, *o3, *d3, *rc3, *inc3)
+    for k, x in enumerate(cols):
+        req(x, f"float column {k}", torch.float32, dev, R)
+    req(nearest.slot, "slot", torch.int32, dev, R)
+    req(alive, "alive", torch.bool, dev, R)
+    req(seed, "seed", torch.int64, dev, R)
+    req(scene.sh_slot, "sh_slot", torch.float32, dev)
+    if scene.sh_slot.dim() != 2 or scene.sh_slot.shape[1] != 24:
+        raise ValueError(f"sh_slot must be (S, 24), got {scene.sh_slot.shape}")
+    out = torch.empty((12, R), dtype=torch.float32, device=dev)
+    alive_out = torch.empty(R, dtype=torch.bool, device=dev)
+    seed_out = torch.empty(R, dtype=torch.int64, device=dev)
+    err = _kernels.lib().oglrt_shade(
+        scene.sh_slot.data_ptr(), scene.sh_slot.shape[0],
+        nearest.slot.data_ptr(), *(x.data_ptr() for x in cols),
+        alive.data_ptr(), seed.data_ptr(),
+        *(float(c) for c in sky_color), float(emission_scale),
+        int(bool(lambertian)),
+        *(out[k].data_ptr() for k in range(12)),
+        alive_out.data_ptr(), seed_out.data_ptr(), R,
+        _kernels.stream_ptr(dev))
+    _kernels.launch_counts["shade"] += 1
+    _kernels.check(err, "shade")
+    o, d, rc, inc = (tuple(out[3 * g + a] for a in range(3))
+                     for g in range(4))
+    return o, d, rc, inc, alive_out, seed_out
+
+
+def shade_update(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
+                 emission_scale, lambertian):
+    """Fused finalize + scatter + state update for one bounce.
+
+    vec3 state is 3-tuples of contiguous (R,) float32 columns; ``alive`` is
+    (R,) bool, ``seed`` (R,) int64 uint32 states, ``nearest`` the
+    traversal's :class:`Nearest`.  ``sky_color`` is 3 floats,
+    ``emission_scale`` a float and ``lambertian`` a bool.  Returns
+    (o3', d3', rc3', inc3', alive', seed')."""
+    if seed.is_cuda:
+        return _shade_cuda(scene, nearest, o3, d3, rc3, inc3, alive, seed,
+                           sky_color, emission_scale, lambertian)
+    return _shade_plain(scene, nearest, o3, d3, rc3, inc3, alive, seed,
+                        sky_color, emission_scale, lambertian)

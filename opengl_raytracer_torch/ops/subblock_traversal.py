@@ -1,0 +1,201 @@
+"""K1: nearest-hit traversal over the sub-block BVH tables.
+
+The wrapper :func:`raycast_subblock` is the port of
+``opengl_raytracer_tpu/ops/subblock_traversal.py:raycast_subblock``: it
+chains the scene's parts, feeding each the running best ``t`` so later
+parts prune against earlier hits, combines them with a strict ``<``, and
+resolves ``tri = remap[slot]``.  Each part is one call of
+:func:`traverse_part`, which on CUDA tensors launches the kernel of
+``csrc/subblock_traversal.cu`` and on CPU tensors runs
+:func:`_traverse_plain`, the same per-ray stack walk written with torch
+ops (all rays stepping together, one stack entry popped per ray per step).
+
+Both versions push a node's children far-first in the order its row
+stores for the ray's own octant, open a child iff its slab test hits with
+``near <= best_t``, and update the best hit with a strict ``<``.  They visit
+the same nodes in the same order, so they agree ray by ray up to mul+add
+contraction.  Against the JAX kernel, whose order follows a packet's
+dominant octant, only the winning slot at an exact ``t`` tie may differ.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opengl_raytracer_torch.ops import _kernels
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest, mt_single
+from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, ORD0
+
+STACK = 128  # per-ray stack entries; ops/wide2.py's depth cap bounds use
+INV_CLAMP = 1e18
+
+_overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
+
+
+def overflow_tensor(device) -> torch.Tensor:
+    """The running count of stack pushes dropped on ``device`` (0 unless a
+    scene's tree is deeper than ops/wide2.py allows)."""
+    device = torch.device(device)
+    if device not in _overflow:
+        _overflow[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _overflow[device]
+
+
+def _traverse_plain(node_rows, tri_rows, o3, d3, t0):
+    """Plain torch version of the kernel.  Returns (t, slot, u, v,
+    dropped_pushes) for one part; t is ``t0`` where nothing improved it."""
+    dev = t0.device
+    R = t0.shape[0]
+    bt = t0.clone()
+    slot = torch.zeros(R, dtype=torch.int32, device=dev)
+    bu = torch.zeros(R, dtype=torch.float32, device=dev)
+    bv = torch.zeros(R, dtype=torch.float32, device=dev)
+    inv = [(1.0 / d3[a]).clamp(-INV_CLAMP, INV_CLAMP) for a in range(3)]
+    oi = [o3[a] * inv[a] for a in range(3)]
+    octant = (((d3[0] < 0.0).long() << 2) | ((d3[1] < 0.0).long() << 1)
+              | (d3[2] < 0.0).long())
+    ord_lane = ORD0 + octant * 8
+    stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
+    sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
+    lanes6 = torch.arange(6, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        ent = stack[act, sp[act]].long()
+        is_node = ent >= 0
+
+        rays = act[is_node]
+        if rays.numel():
+            rows = node_rows[ent[is_node]]
+            inv_r = [x[rays] for x in inv]
+            oi_r = [x[rays] for x in oi]
+            bt_r = bt[rays]
+            lane = ord_lane[rays]
+            for k in range(8):
+                pk = rows.gather(1, (lane + k)[:, None]).squeeze(1).long()
+                child = pk >> 3
+                b = rows.gather(1, (pk & 7)[:, None] * 6 + lanes6)
+                t1 = [b[:, a] * inv_r[a] - oi_r[a] for a in range(3)]
+                t2 = [b[:, 3 + a] * inv_r[a] - oi_r[a] for a in range(3)]
+                near = torch.maximum(
+                    torch.maximum(torch.minimum(t1[0], t2[0]),
+                                  torch.minimum(t1[1], t2[1])),
+                    torch.minimum(t1[2], t2[2]))
+                far = torch.minimum(
+                    torch.minimum(torch.maximum(t1[0], t2[0]),
+                                  torch.maximum(t1[1], t2[1])),
+                    torch.maximum(t1[2], t2[2]))
+                ok = ((far >= near) & (far >= 0.0) & (near <= bt_r)
+                      & (child != EMPTY_PACKED))
+                pos = sp[rays]
+                fits = ok & (pos < STACK)
+                dropped += (ok & ~fits).sum()
+                tgt = rays[fits]
+                stack[tgt, pos[fits]] = child[fits].to(torch.int32)
+                sp[tgt] += 1
+
+        rays = act[~is_node]
+        if rays.numel():
+            q = -ent[~is_node] - 1
+            rows = tri_rows[q]
+            o_r = [x[rays] for x in o3]
+            d_r = [x[rays] for x in d3]
+            bt_r, sl_r, bu_r, bv_r = bt[rays], slot[rays], bu[rays], bv[rays]
+            for j in range(8):
+                c = rows[:, j * 16:j * 16 + 12].unbind(1)
+                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
+                                           c[9:12])
+                better = valid & (t < bt_r)  # strict <, fragment.glsl:275
+                bt_r = torch.where(better, t, bt_r)
+                sl_r = torch.where(better, (q * 8 + j).to(torch.int32), sl_r)
+                bu_r = torch.where(better, u, bu_r)
+                bv_r = torch.where(better, v, bv_r)
+            bt[rays], slot[rays], bu[rays], bv[rays] = bt_r, sl_r, bu_r, bv_r
+    return bt, slot, bu, bv, dropped
+
+
+def _traverse_cuda(node_rows, tri_rows, o3, d3, t0, overflow):
+    dev = t0.device
+    R = t0.shape[0]
+    req = _kernels.require
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
+                       (*o3, *d3, t0)):
+        req(x, name, torch.float32, dev, R)
+    req(node_rows, "node_rows", torch.float32, dev)
+    req(tri_rows, "tri_rows", torch.float32, dev)
+    req(overflow, "overflow", torch.int32, dev, 1)
+    if node_rows.dim() != 2 or node_rows.shape[1] != 128:
+        raise ValueError(f"node_rows must be (W, 128), got {node_rows.shape}")
+    if tri_rows.dim() != 2 or tri_rows.shape[1] != 128:
+        raise ValueError(f"tri_rows must be (Q, 128), got {tri_rows.shape}")
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    slot = torch.empty(R, dtype=torch.int32, device=dev)
+    u = torch.empty(R, dtype=torch.float32, device=dev)
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    ptr = [x.data_ptr() for x in (*o3, *d3, t0, node_rows, tri_rows,
+                                  t, slot, u, v, overflow)]
+    err = _kernels.lib().oglrt_subblock_traverse(
+        *ptr, R, _kernels.stream_ptr(dev))
+    _kernels.launch_counts["subblock_traversal"] += 1
+    _kernels.check(err, "subblock_traverse")
+    return t, slot, u, v
+
+
+def traverse_part(node_rows, tri_rows, o3, d3, t0):
+    """Nearest hit over one part's tables -> (t, slot, u, v).
+
+    ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
+    ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray).  CUDA
+    tensors launch the kernel; CPU tensors run the plain version.
+    Dropped stack pushes add to :func:`overflow_tensor`."""
+    overflow = overflow_tensor(t0.device)
+    if t0.is_cuda:
+        return _traverse_cuda(node_rows, tri_rows, o3, d3, t0, overflow)
+    t, slot, u, v, dropped = _traverse_plain(node_rows, tri_rows, o3, d3, t0)
+    overflow += dropped.to(torch.int32)
+    return t, slot, u, v
+
+
+def raycast_subblock(scene, o3, d3, active=None):
+    """Nearest hit per ray over every sub-block part of ``scene``.
+
+    ``o3``/``d3`` are 3-tuples of (R,) float32 columns; ``active`` an
+    optional (R,) bool mask whose False rays report ``t = BIG``."""
+    if scene.p2_node_rows.shape[0] == 0:
+        raise ValueError("scene has no sub-block tables (exceeded caps?)")
+    o3 = tuple(x.contiguous() for x in o3)
+    d3 = tuple(x.contiguous() for x in d3)
+    R = o3[0].shape[0]
+    dev = o3[0].device
+    near = None
+    slot_base = 0
+    for node_rows, tri_rows, remap in scene.parts:
+        t0 = (torch.full((R,), BIG, dtype=torch.float32, device=dev)
+              if near is None else near.t)
+        if active is not None:
+            t0 = torch.where(active, t0, -BIG)
+        t, slot, u, v = traverse_part(node_rows, tri_rows, o3, d3,
+                                      t0.contiguous())
+        did_hit = (t < BIG) & (t > -BIG)
+        slot = slot.clamp(0, remap.shape[0] - 1)
+        pn = Nearest(
+            t=torch.where(did_hit, t, BIG),
+            tri=remap[slot.long()],
+            u=torch.where(did_hit, u, 0.0),
+            v=torch.where(did_hit, v, 0.0),
+            slot=slot + slot_base,
+        )
+        slot_base += int(remap.shape[0])
+        if near is None:
+            near = pn
+        else:
+            better = pn.t < near.t  # strict <: ties keep the earlier part
+            near = Nearest(*(torch.where(better, a, b)
+                             for a, b in zip(pn, near)))
+    if active is not None:
+        near = near._replace(t=torch.where(active, near.t, BIG))
+    return near

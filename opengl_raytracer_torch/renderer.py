@@ -1,0 +1,271 @@
+"""Progressive tile renderer.
+
+The port of ``opengl_raytracer_tpu/renderer.py``:
+
+* the per-pixel front (seed, three warm-ups, angle-linear ray, two jitter
+  draws) follows fragment.glsl ``main()`` (fragment.glsl:376-407);
+* progressive accumulation is the running mean ``(prev * frameNumber +
+  curr) / (frameNumber + F)`` (fragment.glsl:409-414);
+* one ``(W/tiles) x (H/tiles)`` band renders per step, and the frame
+  counter advances after a full sweep (main.py:409-418).  Remainder tiles
+  clamp the band into the frame and mask the merge.
+
+``accum`` is updated IN PLACE by every step, the analogue of the JAX
+package's buffer donation (its ``jax.jit(..., donate_argnums=(2,))``): a
+caller that keeps an image across steps copies it first.  ``accum`` is
+stored top-row-first; ray generation uses GL bottom-up pixel coordinates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from opengl_raytracer_torch.models.scene import Scene, SceneData
+from opengl_raytracer_torch.ops import rng
+from opengl_raytracer_torch.ops.camera import Camera, pixel_uv, ray_dirs_soa
+from opengl_raytracer_torch.ops.integrator import trace
+from opengl_raytracer_torch.ops.subblock_traversal import raycast_subblock
+from opengl_raytracer_torch.utils.config import SKY_COLOR, RenderConfig
+
+_PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
+_DEFAULT_CHUNK = 2 * 1024 * 1024
+_NOT_PORTED = ("brute", "bvh", "packet", "pallas")
+
+
+def make_raycast_fn(scene: SceneData, traversal: str):
+    """Bind ``raycast(o3, d3, active) -> Nearest`` for the chosen
+    traversal.  Only "pallas2" (the sub-block kernel, K1) is ported."""
+    if traversal in _NOT_PORTED:
+        raise NotImplementedError(
+            f"traversal {traversal!r} is not yet ported, see ROADMAP.md")
+    if traversal != "pallas2":
+        raise ValueError(f"unknown traversal {traversal!r}")
+
+    def fn(o3, d3, active=None):
+        return raycast_subblock(scene, o3, d3, active)
+
+    return fn
+
+
+@dataclasses.dataclass
+class RenderState:
+    """Resumable render state (the reference's accum FBO pair, frame_count
+    and tile cursor, screen.py:65-66, main.py:282)."""
+
+    accum: torch.Tensor  # (H, W, 3) float32, top row first
+    frame_count: int = 0
+    tile_x: int = 0
+    tile_y: int = 0
+    total_frames: int = 0  # tile draws issued (reference main.py:276)
+
+
+def state_from_numpy(accum, frame_count: int, tile_x: int, tile_y: int,
+                     total_frames: int, device) -> RenderState:
+    """RenderState on ``device`` from a NumPy accumulation buffer and the
+    JAX package's counters."""
+    acc = torch.from_numpy(np.ascontiguousarray(accum, np.float32)).to(device)
+    return RenderState(accum=acc, frame_count=int(frame_count),
+                       tile_x=int(tile_x), tile_y=int(tile_y),
+                       total_frames=int(total_frames))
+
+
+def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
+                  frame_number, sky_brightness: float, jitter_amount: float,
+                  lambertian: bool, px, py, raycast_fn):
+    """Trace a flat batch of pixels; px/py int (R,) tensors, py in GL
+    convention (0 = bottom row); ``frame_number`` an int or an (R,)
+    tensor.  Returns (R, 3) linear color."""
+    seed = rng.seed_pixels(px, py, frame_number)
+    seed = rng.warmup(seed, 3)
+
+    u, v = pixel_uv(px, py, config.width, config.height)
+    d = ray_dirs_soa(camera, u, v, config.width, config.height,
+                     aspect=config.ray_aspect)
+
+    # Anti-alias jitter (fragment.glsl:398-400).
+    jit = float(np.float32(jitter_amount))
+    seed, r1 = rng.random_value(seed)
+    seed, r2 = rng.random_value(seed)
+    d = tuple(
+        d[a] + (float(camera.right[a]) * r1 + float(camera.up[a]) * r2) * jit
+        for a in range(3))
+    d_len = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    d = tuple(d[a] / d_len for a in range(3))
+
+    origin = tuple(torch.full_like(d[0], float(camera.pos[a]))
+                   for a in range(3))
+    sky = tuple(float(c) for c in
+                np.asarray(SKY_COLOR, np.float32) * np.float32(sky_brightness))
+    color, _ = trace(scene, raycast_fn, origin, d, seed, sky,
+                     n_bounces=config.n_bounces,
+                     rays_per_pixel=config.rays_per_pixel,
+                     lambertian=bool(lambertian))
+    return color
+
+
+def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
+                frame_count, sky_brightness, jitter_amount, lambertian,
+                px, py, raycast_fn):
+    """Chunked render of a flat pixel list -> (R, 3) colors.  Chunks of up
+    to 2M rays (or ``config.ray_chunk``) bound the per-ray state."""
+    R = px.shape[0]
+    chunk = min(config.ray_chunk or min(R, _DEFAULT_CHUNK), R)
+    chunk = -(-chunk // _PACKET) * _PACKET
+    n_chunks = -(-R // chunk)
+    pad = n_chunks * chunk - R
+    frame_is_tensor = isinstance(frame_count, torch.Tensor)
+    if pad:
+        px = torch.cat([px, px.new_zeros(pad)])
+        py = torch.cat([py, py.new_zeros(pad)])
+        if frame_is_tensor:
+            frame_count = torch.cat([frame_count, frame_count.new_zeros(pad)])
+    colors = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        frame_c = frame_count[sl] if frame_is_tensor else frame_count
+        colors.append(render_pixels(
+            scene, config, camera, frame_c, sky_brightness, jitter_amount,
+            lambertian, px[sl], py[sl], raycast_fn))
+    return torch.cat(colors)[:R]
+
+
+def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
+               frame_count: int, tile_x: int, tile_y: int,
+               sky_brightness, jitter_amount, lambertian, *,
+               config: RenderConfig, raycast_fn) -> None:
+    """Render one tile and fold it into ``accum`` in place."""
+    H, W = config.height, config.width
+    tw, th = config.tile_w, config.tile_h
+    dev = accum.device
+
+    # Remainder tiles: the band window is clamped into the frame, so its
+    # leading rows/cols re-render pixels of the previous tile; the merge
+    # masks those out (fragment.glsl:382-386, main.py:156-157).
+    col0 = min(tile_x * tw, W - tw)
+    py0 = min(tile_y * th, H - th)
+    dx0 = tile_x * tw - col0
+    dy0 = tile_y * th - py0
+    cols = torch.arange(tw, dtype=torch.int64, device=dev)
+    rows = torch.arange(th, dtype=torch.int64, device=dev)
+    px = (col0 + cols)[None, :].expand(th, tw).reshape(-1)
+    py = (py0 + rows)[:, None].expand(th, tw).reshape(-1)
+
+    # Frame batching (F > 1): replicate the tile's rays F times, seed copy
+    # s with frame number frame_count + s, and fold the SUM into the
+    # running mean with weight F.
+    F = config.frames_per_step
+    n_band = px.shape[0]
+    if F > 1:
+        px = px.repeat(F)
+        py = py.repeat(F)
+        frames = frame_count + torch.arange(
+            F, dtype=torch.int64, device=dev).repeat_interleave(n_band)
+    else:
+        frames = frame_count
+
+    colors = render_flat(scene, config, camera, frames, sky_brightness,
+                         jitter_amount, lambertian, px, py, raycast_fn)
+    if F > 1:
+        colors = colors.reshape(F, n_band, 3).sum(dim=0)
+
+    # GL py ascends bottom-up; accum rows descend top-down.
+    tile_img = colors.reshape(th, tw, 3).flip(0)
+    row0 = H - py0 - th
+    valid = (cols[None, :] >= dx0) & (rows[:, None] >= dy0)
+    mask_img = valid.flip(0)[:, :, None]
+
+    prev = accum[row0:row0 + th, col0:col0 + tw]
+    fc = float(frame_count)
+    merged = torch.where(mask_img, (prev * fc + tile_img) / (fc + F), prev)
+    prev.copy_(merged)
+
+
+class Renderer:
+    """Owns the traversal binding and the host-side tile/frame bookkeeping
+    (the reference's App.main loop, main.py:273-430, minus windowing).
+    ``device`` names where the scene tables, the rays and ``accum`` live;
+    CUDA devices run the hand-written kernels, the CPU their plain
+    versions."""
+
+    def __init__(self, scene, config: RenderConfig = RenderConfig(), *,
+                 device):
+        # "cuda" names the current card: resolve it to "cuda:<index>" so it
+        # compares equal to the device of the tensors placed there
+        self.device = torch.empty(0, device=device).device
+        scene_data = scene.send(self.device) if isinstance(scene, Scene) \
+            else scene
+        if scene_data.device != self.device:
+            raise ValueError(f"scene lives on {scene_data.device}, renderer "
+                             f"on {self.device}")
+        self.scene = scene_data
+        self.config = config
+
+        if config.tile_w < 1 or config.tile_h < 1:
+            raise ValueError(
+                f"tile_size={config.tile_size} exceeds the frame "
+                f"({config.width}x{config.height})")
+
+        traversal = config.traversal
+        if traversal == "auto":
+            if scene_data.p2_node_rows.shape[0] == 0:
+                raise NotImplementedError(
+                    "scene exceeds the sub-block table caps; its fallback "
+                    "traversals are not yet ported, see ROADMAP.md")
+            traversal = "pallas2"
+        self._raycast = make_raycast_fn(scene_data, traversal)
+        self.traversal = traversal
+
+    def init_state(self) -> RenderState:
+        accum = torch.zeros((self.config.height, self.config.width, 3),
+                            dtype=torch.float32, device=self.device)
+        return RenderState(accum=accum)
+
+    def step(self, state: RenderState, camera: Camera,
+             sky_brightness: float | None = None,
+             jitter_amount: float | None = None,
+             lambertian: bool | None = None) -> RenderState:
+        """One tile draw + tile cursor advance (main.py:375-418).
+        ``state.accum`` is updated in place and carried into the result."""
+        cfg = self.config
+        _tile_step(
+            self.scene, camera, state.accum, state.frame_count,
+            state.tile_x, state.tile_y,
+            cfg.sky_brightness if sky_brightness is None else sky_brightness,
+            cfg.jitter_amount if jitter_amount is None else jitter_amount,
+            cfg.lambertian if lambertian is None else lambertian,
+            config=cfg, raycast_fn=self._raycast)
+
+        tile_x, tile_y, frames = state.tile_x + 1, state.tile_y, state.frame_count
+        if tile_x >= cfg.num_tiles_x:
+            tile_x = 0
+            tile_y += 1
+            if tile_y >= cfg.num_tiles_y:
+                tile_y = 0
+                frames += cfg.frames_per_step
+        return RenderState(accum=state.accum, frame_count=frames,
+                           tile_x=tile_x, tile_y=tile_y,
+                           total_frames=state.total_frames + 1)
+
+    def render(self, camera: Camera, frames: int = 1,
+               state: RenderState | None = None) -> RenderState:
+        """Run ``frames`` full progressive sweeps and return the state."""
+        if state is None:
+            state = self.init_state()
+        F = self.config.frames_per_step
+        if frames % F:
+            raise ValueError(
+                f"frames={frames} must be a multiple of frames_per_step={F} "
+                f"(each sweep converges {F} frames)")
+        tiles = self.config.num_tiles_x * self.config.num_tiles_y
+        for _ in range((frames // F) * tiles):
+            state = self.step(state, camera)
+        return state
+
+    @staticmethod
+    def image(state: RenderState) -> np.ndarray:
+        """A copy of the accumulated frame as (H, W, 3) float32, top row
+        first (``accum`` itself changes in place with every step)."""
+        return state.accum.to("cpu", copy=True).numpy()

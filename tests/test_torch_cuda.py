@@ -1,0 +1,169 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
+skips without one.  On a machine with a card (and without JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX.)
+
+Tolerances: the kernels round every float operation to nearest in the
+plain versions' order (no mul+add contraction), so they are expected to
+agree bit for bit; the checks allow ``t`` ``rtol=atol=1e-6`` and the shade
+floats ``rtol=1e-5, atol=1e-6`` as the CPU tests against the JAX package
+do, with seeds, alive flags and hit slots exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from opengl_raytracer_torch import (Rect, RenderConfig, Renderer, Scene,
+                                    Triangles, make_camera)
+from opengl_raytracer_torch.models import scene as scene_mod
+from opengl_raytracer_torch.ops import _kernels, shade
+from opengl_raytracer_torch.ops import subblock_traversal as sbt
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.utils.image import rmse
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _objects(n_tris=400):
+    g = np.random.default_rng(0)
+    tris = g.uniform(-3, 3, (n_tris, 3, 3)).astype(np.float32)
+    return [
+        Triangles(tris, color=(0.3, 0.3, 0.9), roughness=0.5),
+        Rect([10, 10, 10], [0, 0, 0], [0, 0, 0], [0.8, 0.8, 0.8],
+             roughness=1),
+        Rect([1.5, 1.5, 0.1], [0, 4.5, 0], [90, 0, 0], [0, 0, 0], [1, 1, 1],
+             1.5, roughness=1),
+    ]
+
+
+def _rays(R, device, seed=1):
+    g = np.random.default_rng(seed)
+    o = g.uniform(-4.5, 4.5, (3, R)).astype(np.float32)
+    d = g.normal(size=(3, R))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    d = d.astype(np.float32)
+    d[:, :3] = np.eye(3, dtype=np.float32)  # axis-parallel: clamped inverses
+    t0 = np.full(R, BIG, np.float32)
+    t0[g.uniform(size=R) < 0.1] = -BIG  # dead rays
+    return (tuple(torch.from_numpy(o[a].copy()).to(device) for a in range(3)),
+            tuple(torch.from_numpy(d[a].copy()).to(device) for a in range(3)),
+            torch.from_numpy(t0).to(device))
+
+
+def test_traverse_kernel_matches_plain(cuda):
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    node_rows, tri_rows, _ = data.parts[0]
+    o3, d3, t0 = _rays(3000, cuda)  # not a multiple of the block size
+    ov = sbt.overflow_tensor(cuda)
+    ov.zero_()
+    before = _kernels.launch_counts["subblock_traversal"]
+    tk, sk, uk, vk = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
+    assert _kernels.launch_counts["subblock_traversal"] == before + 1
+    tp, sp, up, vp, dropped = sbt._traverse_plain(node_rows, tri_rows, o3,
+                                                  d3, t0)
+    torch.cuda.synchronize()
+    assert int(ov.item()) == 0 and int(dropped) == 0
+    hit = (tp < BIG) & (tp > -BIG)
+    assert int(hit.sum()) > 1000
+    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
+    assert torch.equal(sk[hit], sp[hit])
+    torch.testing.assert_close(uk[hit], up[hit], rtol=0, atol=1e-6)
+    torch.testing.assert_close(vk[hit], vp[hit], rtol=0, atol=1e-6)
+    assert (tk[t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
+
+
+def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
+    """The part-chaining wrapper on the card against the same wrapper on
+    the CPU (plain version), on a scene split into several parts."""
+    orig = scene_mod.build_subblock_parts
+    monkeypatch.setattr(scene_mod, "build_subblock_parts",
+                        lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
+    scene = Scene(_objects(1200), max_leaf_tris=16)
+    on_card, on_cpu = scene.send(cuda), scene.send("cpu")
+    assert len(on_card.parts) > 1
+    o3, d3, _ = _rays(4096, cuda, seed=2)
+    active = torch.from_numpy(np.random.default_rng(3).uniform(size=4096)
+                              < 0.8)
+    got = sbt.raycast_subblock(on_card, o3, d3, active.to(cuda))
+    ref = sbt.raycast_subblock(on_cpu, tuple(x.cpu() for x in o3),
+                               tuple(x.cpu() for x in d3), active)
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.tri.cpu(), ref.tri)
+    assert torch.equal(got.slot.cpu(), ref.slot)
+    assert (got.t.cpu()[~active] == BIG).all()
+
+
+@pytest.mark.parametrize("lambertian", [True, False])
+def test_shade_kernel_matches_plain(cuda, lambertian):
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    R = 5000
+    g = np.random.default_rng(4)
+    f32 = np.float32
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    t = g.uniform(0.1, 10, R).astype(f32)
+    t[g.uniform(size=R) < 0.2] = BIG
+    u = g.uniform(0, 1, R).astype(f32)
+    v = (g.uniform(0, 1, R) * (1 - u)).astype(f32)
+    d = g.normal(size=(3, R))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    near = Nearest(t=dev(t), tri=dev(np.zeros(R, np.int32)), u=dev(u),
+                   v=dev(v), slot=dev(g.integers(-2, data.sh_slot.shape[0] + 2,
+                                                 R).astype(np.int32)))
+    col3 = lambda a: tuple(dev(a[k]) for k in range(3))  # noqa: E731
+    args = (data, near, col3(g.uniform(-4, 4, (3, R)).astype(f32)),
+            col3(d.astype(f32)), col3(g.uniform(0, 1, (3, R)).astype(f32)),
+            col3(g.uniform(0, 1, (3, R)).astype(f32)),
+            dev(g.uniform(size=R) < 0.8),
+            dev(g.integers(0, 2**32, R, dtype=np.uint64).astype(np.int64)),
+            (0.1, 0.6, 0.92), 2.0 if lambertian else 1.0, lambertian)
+    before = _kernels.launch_counts["shade"]
+    got = shade.shade_update(*args)
+    assert _kernels.launch_counts["shade"] == before + 1
+    ref = shade._shade_plain(*args)
+    for gk, rk in zip(got[:4], ref[:4]):
+        for a in range(3):
+            torch.testing.assert_close(gk[a], rk[a], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[4], ref[4])
+    assert torch.equal(got[5], ref[5])
+    assert (got[5] >= 0).all() and (got[5] < 2**32).all()
+
+
+def test_kernel_wrappers_reject_bad_input(cuda):
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    node_rows, tri_rows, _ = data.parts[0]
+    o3, d3, t0 = _rays(256, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        sbt.traverse_part(node_rows, tri_rows, o3, d3, t0.double())
+    strided = torch.zeros(512, device=cuda)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        sbt.traverse_part(node_rows, tri_rows, (strided, *o3[1:]), d3, t0)
+    with pytest.raises(ValueError, match="is on"):
+        sbt.traverse_part(node_rows.cpu(), tri_rows, o3, d3, t0)
+
+
+def test_render_on_card_matches_cpu(cuda):
+    soup, _, light = _objects()  # no enclosing box: misses see the sky
+    scene = Scene([soup, light], max_leaf_tris=16)
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    imgs = []
+    for device in (cuda, "cpu"):
+        r = Renderer(scene, RenderConfig(width=24, height=16, bounces=2,
+                                         tile_size=2), device=device)
+        imgs.append(r.image(r.render(cam, frames=2)))
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
+    assert rmse(imgs[0], imgs[1]) < 1e-4

@@ -1,0 +1,101 @@
+"""K2's plain torch version against the JAX fused shade kernel
+(``opengl_raytracer_tpu/ops/shade.py:shade_update``, interpret mode).
+
+Same NumPy inputs on both sides: a scene's slot-order material table, and
+random hits (slots, t with misses mixed in, barycentrics), ray state,
+alive flags and uint32 seeds over the full range.  Tolerance as in
+tests/test_shade.py: floats ``rtol=1e-5, atol=1e-6`` (mul+add contraction
+differs between the two programs); seed and alive exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from opengl_raytracer_tpu.models.rect import Rect as JRect
+from opengl_raytracer_tpu.models.scene import Scene as JScene
+from opengl_raytracer_tpu.ops.intersect import Nearest as JNearest
+from opengl_raytracer_tpu.ops.shade import shade_update as j_shade_update
+
+from opengl_raytracer_torch import scene_from_numpy
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.ops.shade import shade_update
+
+R = 1024
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    jdata = JScene([
+        JRect([0, -1, 0], [14, 0.4, 14], [0.7, 0.8, 0.6], roughness=0.9),
+        JRect([0.5, 0.6, 1.0], [1.2, 1.8, 0.9], [0.9, 0.3, 0.2],
+              roughness=0.4),
+        JRect([-1.5, 0.2, -0.5], [0.8, 0.8, 0.8], [1, 1, 1],
+              emission=2.5, roughness=1.0),
+        JRect([1.8, 0.1, -1.2], [0.6, 1.1, 0.6], [0.2, 0.4, 0.9],
+              roughness=0.0),
+    ], max_leaf_tris=8).send()
+    fields = dict(
+        p2_node_rows=np.asarray(jdata.p2_node_rows),
+        p2_tri_rows=np.asarray(jdata.p2_tri_rows),
+        p2_remap=np.asarray(jdata.p2_remap), p2_extra=(),
+        sh_slot=np.asarray(jdata.sh_slot),
+        node_min=np.asarray(jdata.node_min),
+        node_max=np.asarray(jdata.node_max))
+    return jdata, scene_from_numpy(fields, "cpu")
+
+
+def _inputs(n_slot, seed=3):
+    g = np.random.default_rng(seed)
+    f32 = np.float32
+    t = g.uniform(0.1, 10.0, R).astype(f32)
+    t[g.uniform(size=R) < 0.2] = BIG  # misses
+    u = g.uniform(0, 1, R).astype(f32)
+    v = (g.uniform(0, 1, R) * (1 - u)).astype(f32)
+    d = g.normal(size=(3, R))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return dict(
+        slot=g.integers(0, n_slot, R).astype(np.int32), t=t, u=u, v=v,
+        o=g.uniform(-4, 4, (3, R)).astype(f32), d=d.astype(f32),
+        rc=g.uniform(0, 1, (3, R)).astype(f32),
+        inc=g.uniform(0, 1, (3, R)).astype(f32),
+        alive=g.uniform(size=R) < 0.8,
+        seed=g.integers(0, 2**32, R, dtype=np.uint64).astype(np.uint32))
+
+
+@pytest.mark.parametrize("lambertian", [True, False])
+def test_shade_plain_matches_jax_kernel(scenes, lambertian):
+    jdata, tdata = scenes
+    x = _inputs(tdata.sh_slot.shape[0])
+    sky = np.asarray([0.3, 0.4, 0.9], np.float32) * np.float32(0.8)
+    em_scale = 2.0 if lambertian else 1.0
+
+    jn = JNearest(t=jnp.asarray(x["t"]), tri=jnp.zeros(R, jnp.int32),
+                  u=jnp.asarray(x["u"]), v=jnp.asarray(x["v"]),
+                  slot=jnp.asarray(x["slot"]))
+    col3 = lambda k: tuple(jnp.asarray(c) for c in x[k])  # noqa: E731
+    ref = j_shade_update(jdata, jn, col3("o"), col3("d"), col3("rc"),
+                         col3("inc"), jnp.asarray(x["alive"]),
+                         jnp.asarray(x["seed"]), jnp.asarray(sky),
+                         np.float32(em_scale), lambertian, interpret=True)
+
+    tn = Nearest(t=torch.from_numpy(x["t"]), tri=torch.zeros(R, dtype=torch.int32),
+                 u=torch.from_numpy(x["u"]), v=torch.from_numpy(x["v"]),
+                 slot=torch.from_numpy(x["slot"]))
+    tcol3 = lambda k: tuple(torch.from_numpy(c) for c in x[k])  # noqa: E731
+    got = shade_update(tdata, tn, tcol3("o"), tcol3("d"), tcol3("rc"),
+                       tcol3("inc"), torch.from_numpy(x["alive"]),
+                       torch.from_numpy(x["seed"].astype(np.int64)),
+                       tuple(float(c) for c in sky), em_scale, lambertian)
+
+    for g_ref, g_got in zip(ref[:4], got[:4]):
+        for a in range(3):
+            np.testing.assert_allclose(np.asarray(g_ref[a]), g_got[a].numpy(),
+                                       rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ref[4]), got[4].numpy())
+    np.testing.assert_array_equal(np.asarray(ref[5]).astype(np.int64),
+                                  got[5].numpy())
+    # the inputs exercise every branch: hits, misses, emissive kills
+    assert got[4].sum() > 0 and (~got[4] & torch.from_numpy(x["alive"])).sum() > 0
