@@ -13,20 +13,29 @@ Phases; each raises on failure, and the script then exits non-zero:
 3. K1 (sub-block traversal, ``csrc/subblock_traversal.cu``) against its
    plain torch version on 2,073,600 rays: half primary rays of the 1080p
    camera, half bounce-like rays from random points in the scene.
-4. main path: ``Renderer`` at 1920x1080 with 4 bounces on a 31,736-triangle
+4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``) against its plain
+   torch version on the same 2,073,600 rays.
+5. main path: ``Renderer`` at 1920x1080 with 4 bounces on a 31,736-triangle
    stand-in of the reference's default scene (its seven boxes, a bumpy
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
-   1 warm-up and 8 timed frames, every kernel's launch count, image
-   checks; then a 96x54 frame rendered on the card and on the CPU (the
-   plain versions), which must agree.
-5. multi-part: the same scene with a finer bumpy sphere (94,180 triangles,
-   4 sub-block parts), one timed 1080p frame.
+   "auto" resolves to "pallas2" (K1 + K2); 1 warm-up and 8 timed frames,
+   every kernel's launch count, image checks; then a 96x54 frame rendered
+   on the card and on the CPU (the plain versions), which must agree.
+6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
+   counts, the image against phase 5's (the same seeds: only exact-t ties
+   may differ), and the 96x54 card-vs-CPU check.
+7. small paths: the reference's 84-triangle box without its meshes, at
+   96x54 with 4 bounces, on the card and on the CPU, for "auto" (which
+   resolves to brute force), "bvh" and "packet" (K3).
+8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
+   triangles, 4 sub-block parts), one timed 1080p frame.
 
-The line before the last is a JSON object with each kernel's launches in
-phase 4, its largest disagreement with its plain version and both times;
-the last line is ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX.  ``--out DIR`` also writes the 1080p image, downsampled
-4x, as ``DIR/smoke_1080p.npy``.
+Each phase prints its seconds.  The line before the last is a JSON object
+with each kernel's launches in the 1080p path that runs it (phase 5 for K1
+and K2, phase 6 for K3), its largest disagreement with its plain version
+and both times; the last line is ``{"ok": true, "device": {...}}``.  The
+script imports nothing of JAX.  ``--out DIR`` also writes the phase-5
+1080p image, downsampled 4x, as ``DIR/smoke_1080p.npy``.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ KERNELS = {
     "shade": dict(
         source="opengl_raytracer_torch/csrc/shade.cu",
         replaces="opengl_raytracer_tpu/ops/shade.py:62"),
+    "wide_traversal": dict(
+        source="opengl_raytracer_torch/csrc/wide_traversal.cu",
+        replaces="opengl_raytracer_tpu/ops/pallas_traversal.py:69"),
 }
 
 
@@ -153,6 +165,14 @@ def check_count(counts: dict, name: str, expected: int) -> None:
     if counts[name] != expected:
         raise RuntimeError(f"{name} launched {counts[name]} times in the "
                            f"main path, expected {expected}")
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds (a failure propagates)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(name, phase_seconds=f"{time.perf_counter() - t0:.2f}")
+    return out
 
 
 # -------------------------------------------------------------- phases
@@ -252,8 +272,8 @@ def k2_phase(data, seed: int, device):
 
     worst = 0.0
     for lam in (True, False):
-        args = (data, near, o3, d3, rc3, inc3, alive, seeds, sky,
-                2.0 if lam else 1.0, lam)
+        args = (data.sh_slot, near.slot, near, o3, d3, rc3, inc3, alive,
+                seeds, sky, 2.0 if lam else 1.0, lam)
         got = shade.shade_update(*args)  # CUDA tensors: the kernel
         ref = shade._shade_plain(*args)
         for gk, rk in zip(got[:4], ref[:4]):
@@ -267,7 +287,8 @@ def k2_phase(data, seed: int, device):
         say("k2", lambertian=lam, rays=R, alive_out=int(got[4].sum()),
             max_abs_err=worst, seed_alive="exact")
 
-    args = (data, near, o3, d3, rc3, inc3, alive, seeds, sky, 2.0, True)
+    args = (data.sh_slot, near.slot, near, o3, d3, rc3, inc3, alive, seeds,
+            sky, 2.0, True)
     ms, plain_ms = time_pair(lambda: shade.shade_update(*args),
                              lambda: shade._shade_plain(*args), 20, 5)
     say("k2", rays=R, ms=ms, plain_ms=plain_ms, tolerance="rtol=1e-5,atol=1e-6")
@@ -299,49 +320,66 @@ def k1_rays(data, camera, seed: int, device):
     return o3, d3, torch.from_numpy(t0).to(device)
 
 
-def k1_phase(data, camera, seed: int, device):
-    """K1 against its plain version; returns (max_abs_err, ms, plain_ms)."""
-    from opengl_raytracer_torch.ops import subblock_traversal as sbt
-    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+def check_hits(name, kernel, plain, min_hits, tie_t):
+    """A traversal kernel's (t, slot, u, v) against its plain version's:
+    t within rtol=atol=1e-6, the same hit set, a slot difference only at a
+    t tie (``tie_t(rays, slots)`` gives (valid, t) of the kernel's slots
+    for those rays), u/v within 1e-5 elsewhere; returns (max |t error|,
+    hits, ties)."""
+    from opengl_raytracer_torch.ops.intersect import BIG
 
-    node_rows, tri_rows, remap = data.parts[0]
-    o3, d3, t0 = k1_rays(data, camera, seed, device)
-    ov = sbt.overflow_tensor(device)
-    ov.zero_()
-    tk, sk, uk, vk = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
-    tp, sp, up, vp, dropped = sbt._traverse_plain(node_rows, tri_rows, o3,
-                                                  d3, t0)
-    overflow = int(ov.item())
-    if overflow or int(dropped):
-        raise RuntimeError(f"K1 stack overflow: kernel {overflow}, plain "
-                           f"{int(dropped)} dropped pushes")
-    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
-    hit = (tp < BIG) & (tp > -BIG)
-    if not torch.equal(hit, (tk < BIG) & (tk > -BIG)):
-        raise RuntimeError("K1: hit set differs from the plain version")
+    t_k, s_k, u_k, v_k = kernel
+    t_p, s_p, u_p, v_p = plain
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    hit = (t_p < BIG) & (t_p > -BIG)
+    if not torch.equal(hit, (t_k < BIG) & (t_k > -BIG)):
+        raise RuntimeError(f"{name}: hit set differs from the plain version")
     n_hit = int(hit.sum())
-    if n_hit < N_RAYS // 4:
-        raise RuntimeError(f"K1: only {n_hit} of {N_RAYS} rays hit")
-    err = float((tk - tp)[hit].abs().max())
-    tri_k, tri_p = remap[sk.long()], remap[sp.long()]
-    diff = hit & (tri_k != tri_p)
+    if n_hit < min_hits:
+        raise RuntimeError(f"{name}: only {n_hit} of {t_p.numel()} rays hit")
+    err = float((t_k - t_p)[hit].abs().max())
+    diff = hit & (s_k != s_p)
     n_diff = int(diff.sum())
     if n_diff:
         # every disagreement must be a tie: the kernel's triangle is hit at
         # the plain version's t
         idx = torch.nonzero(diff).squeeze(1)
-        c = tri_rows.reshape(-1, 16)[sk[idx].long()].T
+        valid, t = tie_t(idx, s_k[idx])
+        ref_t = t_p[idx]
+        if not bool((valid & ((t - ref_t).abs()
+                              <= 1e-6 + 1e-6 * ref_t.abs())).all()):
+            raise RuntimeError(f"{name}: {n_diff} rays hit another triangle "
+                               f"than the plain version, not at a t tie")
+    same = hit & ~diff
+    for a, b in ((u_k, u_p), (v_k, v_p)):
+        torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
+    return err, n_hit, n_diff
+
+
+def k1_phase(data, camera, seed: int, device):
+    """K1 against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+
+    node_rows, tri_rows, _ = data.parts[0]
+    o3, d3, t0 = k1_rays(data, camera, seed, device)
+    ov = sbt.overflow_tensor(device)
+    ov.zero_()
+    kernel = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
+    *plain, dropped = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0)
+    overflow = int(ov.item())
+    if overflow or int(dropped):
+        raise RuntimeError(f"K1 stack overflow: kernel {overflow}, plain "
+                           f"{int(dropped)} dropped pushes")
+
+    def tie_t(idx, slots):
+        c = tri_rows.reshape(-1, 16)[slots.long()].T
         valid, t, _, _ = mt_single(
             tuple(x[idx] for x in o3), tuple(x[idx] for x in d3),
             c[0:3], c[3:6], c[6:9], c[9:12])
-        ref_t = tp[idx]
-        if not bool((valid & ((t - ref_t).abs()
-                              <= 1e-6 + 1e-6 * ref_t.abs())).all()):
-            raise RuntimeError(f"K1: {n_diff} rays hit another triangle "
-                               f"than the plain version, not at a t tie")
-    same = hit & ~diff
-    for a, b in ((uk, up), (vk, vp)):
-        torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
+        return valid, t
+
+    err, n_hit, n_diff = check_hits("K1", kernel, plain, N_RAYS // 4, tie_t)
     say("k1", rays=N_RAYS, hit=n_hit, dead=int((t0 <= -BIG).sum()),
         max_abs_err_t=err, tri_ties=n_diff, overflow=overflow,
         tolerance="t:rtol=1e-6,atol=1e-6")
@@ -353,16 +391,56 @@ def k1_phase(data, camera, seed: int, device):
     return err, ms, plain_ms
 
 
-def main_path_phase(scene, camera, out_dir):
-    """The port's Renderer at 1080p; returns the kernels' launch counts."""
+def k3_phase(data, camera, seed: int, device):
+    """K3 against its plain version on K1's rays; returns (max_abs_err, ms,
+    plain_ms)."""
+    from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    o3, d3, t0 = k1_rays(data, camera, seed, device)
+    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+    stack = wide.stack_size(data.pw_max_stack)
+    args = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, leaf_octets, stack)
+    ov = wide.overflow_tensor(device)
+    ov.zero_()
+    kernel = wide.traverse_wide(*args)
+    *plain, dropped = wide._traverse_plain(*args)
+    overflow = int(ov.item())
+    if overflow or int(dropped):
+        raise RuntimeError(f"K3 stack overflow: kernel {overflow}, plain "
+                           f"{int(dropped)} dropped pushes")
+
+    def tie_t(idx, slots):
+        tri = data.pl_remap[slots.long()].long()
+        valid, t, _, _ = mt_single(
+            tuple(x[idx] for x in o3), tuple(x[idx] for x in d3),
+            *(getattr(data, f)[tri].unbind(1)
+              for f in ("v0", "e1", "e2", "face")))
+        return valid, t
+
+    err, n_hit, n_diff = check_hits("K3", kernel, plain, N_RAYS // 4, tie_t)
+    say("k3", rays=N_RAYS, hit=n_hit, dead=int((t0 <= -BIG).sum()),
+        leaf_octets=leaf_octets, stack=stack, max_abs_err_t=err,
+        tri_ties=n_diff, overflow=overflow,
+        tolerance="t:rtol=1e-6,atol=1e-6")
+    ms, plain_ms = time_pair(lambda: wide.traverse_wide(*args),
+                             lambda: wide._traverse_plain(*args), 5, 1)
+    say("k3", rays=N_RAYS, ms=ms, plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def render_1080p(scene, camera, traversal: str):
+    """1 warm-up and TIMED_FRAMES timed 1080p frames of ``traversal``, the
+    launch counts set to 0 just before; returns (renderer, image, counts,
+    ms/frame)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops import _kernels
-    from opengl_raytracer_torch.utils.image import rmse
 
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                       traversal=traversal)
     _kernels.reset_counts()
     r = Renderer(scene, cfg, device=DEVICE)
-    parts = len(r.scene.parts)
     state = r.render(camera, frames=1)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -370,10 +448,6 @@ def main_path_phase(scene, camera, out_dir):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = dict(_kernels.launch_counts)
-    frames = 1 + TIMED_FRAMES
-    check_count(counts, "subblock_traversal", parts * cfg.n_bounces * frames)
-    check_count(counts, "shade", cfg.n_bounces * frames)
-
     img = r.image(state)
     if img.shape != (HEIGHT, WIDTH, 3):
         raise RuntimeError(f"image shape {img.shape}")
@@ -381,10 +455,53 @@ def main_path_phase(scene, camera, out_dir):
         raise RuntimeError("image holds non-finite values")
     if not 0.01 < float(img.mean()) < 10.0:
         raise RuntimeError(f"image mean {img.mean()} is not a lit frame")
-    ms = sec * 1000.0 / TIMED_FRAMES
+    return r, img, counts, sec * 1000.0 / TIMED_FRAMES
+
+
+def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
+    """A 96x54 frame of ``traversal`` on the card and on the CPU (the plain
+    versions), which must agree; returns (the traversal it resolved to, the
+    card run's launch counts)."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.utils.image import rmse
+
+    cfg = RenderConfig(width=SMALL[0], height=SMALL[1], bounces=BOUNCES,
+                       traversal=traversal)
+    imgs, resolved, counts = [], [], {}
+    for device in (DEVICE, "cpu"):
+        _kernels.reset_counts()
+        rs = Renderer(scene, cfg, device=device)
+        resolved.append(rs.traversal)
+        imgs.append(rs.image(rs.render(camera, frames=1)))
+        counts = counts or dict(_kernels.launch_counts)
+    err = rmse(imgs[0], imgs[1])
+    if not (np.isfinite(imgs[0]).all() and float(imgs[0].mean()) > 0.01
+            and err < limit):
+        raise RuntimeError(f"{traversal} {SMALL[0]}x{SMALL[1]} frame: card vs "
+                           f"CPU rmse {err} (limit {limit}), mean "
+                           f"{imgs[0].mean()}")
+    say("reference", traversal=traversal, resolved=resolved[0],
+        width=SMALL[0], height=SMALL[1], rmse_card_vs_cpu=err, limit=limit,
+        max_abs=float(np.abs(imgs[0] - imgs[1]).max()))
+    return resolved[0], counts
+
+
+def main_path_phase(scene, camera, out_dir):
+    """The port's Renderer at 1080p under "auto" ("pallas2": K1 + K2);
+    returns (launch counts, image)."""
+    r, img, counts, ms = render_1080p(scene, camera, "auto")
+    if r.traversal != "pallas2":
+        raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
+    parts = len(r.scene.parts)
+    frames = 1 + TIMED_FRAMES
+    check_count(counts, "subblock_traversal",
+                parts * r.config.n_bounces * frames)
+    check_count(counts, "shade", r.config.n_bounces * frames)
+    check_count(counts, "wide_traversal", 0)
     say("main", width=WIDTH, height=HEIGHT, bounces=BOUNCES, parts=parts,
-        ms_per_frame=ms, fps=1000.0 / ms, frames=frames,
-        k1_launches=counts["subblock_traversal"],
+        traversal=r.traversal, ms_per_frame=ms, fps=1000.0 / ms,
+        frames=frames, k1_launches=counts["subblock_traversal"],
         k2_launches=counts["shade"], finite=True, mean=float(img.mean()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if out_dir:
@@ -392,20 +509,53 @@ def main_path_phase(scene, camera, out_dir):
         small = img.reshape(HEIGHT // 4, 4, WIDTH // 4, 4, 3).mean((1, 3))
         np.save(os.path.join(out_dir, "smoke_1080p.npy"),
                 small.astype(np.float32))
+    card_vs_cpu(scene, camera, "auto")
+    return counts, img
 
-    # the same scene, small, on the card and on the CPU (plain versions)
-    small_cfg = RenderConfig(width=SMALL[0], height=SMALL[1], bounces=BOUNCES)
-    imgs = []
-    for device in (DEVICE, "cpu"):
-        rs = Renderer(scene, small_cfg, device=device)
-        imgs.append(rs.image(rs.render(camera, frames=1)))
-    err = rmse(imgs[0], imgs[1])
-    if not (np.isfinite(imgs[0]).all() and err < 1e-4):
-        raise RuntimeError(f"{SMALL[0]}x{SMALL[1]} frame: card vs CPU rmse "
-                           f"{err} (limit 1e-4)")
-    say("reference", width=SMALL[0], height=SMALL[1], rmse_card_vs_cpu=err,
-        limit=1e-4, max_abs=float(np.abs(imgs[0] - imgs[1]).max()))
+
+def wide_path_phase(scene, camera, main_img):
+    """The K3 path: "pallas" at 1080p; returns its launch counts."""
+    from opengl_raytracer_torch.utils.image import rmse
+
+    r, img, counts, ms = render_1080p(scene, camera, "pallas")
+    frames = 1 + TIMED_FRAMES
+    check_count(counts, "wide_traversal", r.config.n_bounces * frames)
+    check_count(counts, "shade", r.config.n_bounces * frames)
+    check_count(counts, "subblock_traversal", 0)
+    # the same seeds as phase 5's frames: only exact-t ties may differ
+    err = rmse(img, main_img)
+    if err > 1e-3:
+        raise RuntimeError(f"pallas 1080p image vs pallas2's: rmse {err} "
+                           f"(limit 1e-3)")
+    say("pallas", width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+        ms_per_frame=ms, fps=1000.0 / ms, frames=frames,
+        k3_launches=counts["wide_traversal"], k2_launches=counts["shade"],
+        k1_launches=counts["subblock_traversal"], mean=float(img.mean()),
+        rmse_vs_pallas2=err, limit=1e-3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    card_vs_cpu(scene, camera, "pallas")
     return counts
+
+
+def small_paths_phase(camera):
+    """The reference's box without its meshes (84 triangles) on the card
+    and the CPU: "auto" (brute force), "bvh" and "packet" (K3)."""
+    from opengl_raytracer_torch import Scene
+
+    box = Scene(standin_objects(83, 166)[2:])
+    if box.total_triangles != 84:
+        raise RuntimeError(f"the demo box has {box.total_triangles} "
+                           f"triangles, expected 84")
+    for traversal, expect in (("auto", "brute"), ("bvh", "bvh"),
+                              ("packet", "packet")):
+        got, counts = card_vs_cpu(box, camera, traversal)
+        if got != expect:
+            raise RuntimeError(f"{traversal} resolved to {got}, not {expect}")
+        k3 = counts["wide_traversal"]
+        if (k3 > 0) != (traversal == "packet"):
+            raise RuntimeError(f"{traversal}: {k3} K3 launches")
+        say("small", traversal=traversal, resolved=got, k3_launches=k3,
+            k2_launches=counts["shade"])
 
 
 def multipart_phase(camera):
@@ -444,26 +594,30 @@ def main(argv=None) -> int:
                     help="directory for the downsampled 1080p image")
     args = ap.parse_args(argv)
 
-    name = device_phase()
+    name = timed("device", device_phase)
     import_port()
     from opengl_raytracer_torch import make_camera
 
-    build_phase()
+    timed("build", build_phase)
     camera = make_camera(CAM_POS, CAM_DIR)
     scene, data = make_scene(83, 166, DEVICE)
     if scene.total_triangles != 31736 or len(data.parts) != 1:
         raise RuntimeError("the stand-in scene changed size")
-    k2 = k2_phase(data, args.seed, data.device)
-    k1 = k1_phase(data, camera, args.seed, data.device)
-    counts = main_path_phase(scene, camera, args.out)
-    multipart_phase(camera)
+    k2 = timed("k2", k2_phase, data, args.seed, data.device)
+    k1 = timed("k1", k1_phase, data, camera, args.seed, data.device)
+    k3 = timed("k3", k3_phase, data, camera, args.seed, data.device)
+    counts, main_img = timed("main", main_path_phase, scene, camera, args.out)
+    counts["wide_traversal"] = timed("pallas", wide_path_phase, scene, camera,
+                                     main_img)["wide_traversal"]
+    timed("small", small_paths_phase, camera)
+    timed("multipart", multipart_phase, camera)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:
             raise RuntimeError(f"{mod} was imported")
     kernels = []
     for kname, (err, ms, plain_ms) in (("subblock_traversal", k1),
-                                       ("shade", k2)):
+                                       ("shade", k2), ("wide_traversal", k3)):
         kernels.append(dict(name=kname, route="cuda", **KERNELS[kname],
                             launches=counts[kname], max_abs_err=err, ms=ms,
                             plain_ms=plain_ms))

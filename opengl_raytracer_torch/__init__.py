@@ -3,11 +3,13 @@ kernels for NVIDIA Hopper.
 
 The port of ``opengl_raytracer_tpu`` (JAX / XLA / Pallas), which stays in
 the repository as its reference.  This package imports ``torch`` and
-``numpy`` and never JAX.  Its main path renders a ``Scene`` of ``Rect`` and
-``Triangles`` objects through the sub-block BVH traversal kernel (K1,
-``csrc/subblock_traversal.cu``) and the fused shade kernel (K2,
-``csrc/shade.cu``); on CPU tensors each kernel's plain torch version runs
-instead.
+``numpy`` and never JAX.  It renders a ``Scene`` of ``Rect`` and
+``Triangles`` objects with every traversal of the JAX package: the
+sub-block BVH traversal kernel (K1, ``csrc/subblock_traversal.cu``, the
+main path), the wide-BVH traversal kernel (K3, ``csrc/wide_traversal.cu``),
+brute force and the per-ray BVH walk (torch ops), each followed by the
+fused shade kernel (K2, ``csrc/shade.cu``).  On CPU tensors each kernel's
+plain torch version runs instead.
 """
 
 from opengl_raytracer_torch.models.rect import Rect

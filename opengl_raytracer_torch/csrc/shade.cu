@@ -11,8 +11,11 @@
 //   * the state update: incoming light, throughput, next origin and
 //     direction, seed and alive.
 // It also folds in what the JAX wrapper does outside its kernel: the
-// material row gather sh_slot[clip(slot)] (shade.py:192-193) and the three
-// RNG draws with the advanced seed (shade.py:188-190).  The draws are exact
+// material row gather table[clip(index)] (shade.py:192-193) and the three
+// RNG draws with the advanced seed (shade.py:188-190).  The table and index
+// are the wrapper's arguments: the slot-order rows sh_slot by leaf slot
+// after the sub-block traversal, the triangle-order rows sh_abc by
+// triangle after every other traversal (intersect.py:244-248).  The draws are exact
 // uint32 math, the uint32 -> float conversion rounds to nearest and the
 // divide by 2^32 is exact, so seed and alive are bit-identical to the JAX
 // package.  The float arithmetic is written with round-to-nearest

@@ -1,11 +1,20 @@
 """Scene compiler: scene-graph objects -> the device tables the renderer reads.
 
-Flattening, the per-object material broadcast and the BVH permutation
-follow ``opengl_raytracer_tpu/models/scene.py`` line for line (reference:
-scene.py:9-236), so both packages build bit-identical tables from the same
-objects.  :meth:`Scene.send` uploads only what this package's traversal
-and shading read: the sub-block parts (ops/wide2.py), the slot-order
-material table ``sh_slot`` and the scene's root bounds.
+Flattening, the per-object material broadcast, the BVH permutation and
+every table follow ``opengl_raytracer_tpu/models/scene.py`` line for line
+(reference: scene.py:9-236), so both packages build bit-identical tables
+from the same objects.  :meth:`Scene.send` uploads what this package's
+traversals and shading read:
+
+* the per-triangle arrays ``v0/e1/e2/face`` and the binary BVH
+  ``node_*`` (brute force, ops/intersect.py, and the per-ray BVH walk,
+  ops/traversal.py);
+* the octet-aligned triangle tiles ``pl_tri_tiles``/``pl_remap`` and the
+  8-wide node tiles ``pw_tiles``/``pw_entry`` (the wide-BVH kernel K3,
+  ops/pallas_traversal.py and ops/wide_bvh.py);
+* the sub-block parts (K1, ops/wide2.py);
+* the shading rows, in triangle order (``sh_abc``) and in sub-block slot
+  order (``sh_slot``).
 """
 
 from __future__ import annotations
@@ -17,21 +26,45 @@ import torch
 
 from opengl_raytracer_torch.ops import bvh as bvh_mod
 from opengl_raytracer_torch.ops.wide2 import build_subblock_parts
+from opengl_raytracer_torch.ops.wide_bvh import (TRIS_PER_OCTET, collapse_wide,
+                                                 wide_max_stack)
 
 
 class SceneData(NamedTuple):
     """Device-resident scene.
 
-    The sub-block tables are in device memory; the root bounds are small
-    host arrays the sort keys read as scalars."""
+    Triangle arrays are in BVH-permuted order, padded to a multiple of 8
+    with degenerate triangles the intersector rejects.  The tables are in
+    device memory; the root bounds are small host arrays the sort keys
+    read as scalars."""
 
+    v0: torch.Tensor  # (T, 3) f32 first vertex
+    e1: torch.Tensor  # (T, 3) f32 v1 - v0
+    e2: torch.Tensor  # (T, 3) f32 v2 - v0
+    face: torch.Tensor  # (T, 3) f32 cross(e1, e2)
+    # Binary BVH in DFS preorder with miss links (ops/bvh.py).
+    node_min: torch.Tensor  # (N, 3) f32
+    node_max: torch.Tensor  # (N, 3) f32
+    node_miss: torch.Tensor  # (N,) i32
+    node_first: torch.Tensor  # (N,) i32
+    node_count: torch.Tensor  # (N,) i32, 0 for internal nodes
+    # Wide-BVH kernel tables (ops/wide_bvh.py, ops/pallas_traversal.py).
+    pw_tiles: torch.Tensor  # (W/8, 8, 128) f32 wide-node children
+    pw_entry: torch.Tensor  # (W, 8) i32 child entries in slot order
+    pl_tri_tiles: torch.Tensor  # (G, 8, 128) f32 triangle octets
+    pl_remap: torch.Tensor  # (G*64,) i32 aligned slot -> triangle
+    pw_max_stack: int  # per-ray stack bound of the wide tree
+    # Sub-block kernel tables (ops/wide2.py); (0, 128) when the scene
+    # exceeds the builder's caps.
     p2_node_rows: torch.Tensor  # (Wp, 128) f32: wide nodes, one per row
     p2_tri_rows: torch.Tensor  # (Qp, 128) f32: leaf octets, one per row
     p2_remap: torch.Tensor  # (Qp*8,) i32: slot -> triangle (scene order)
     p2_extra: tuple  # further parts' (node_rows, tri_rows, remap)
-    # Shading row per leaf slot across all parts (slot bases accumulate in
-    # part order): [n0.xyz, n1.xyz, emission, roughness, n2.xyz, face.xyz,
-    # 0, 0, color.xyz, emission_color.xyz, 0, 0].
+    # Shading row per triangle: [n0.xyz, n1.xyz, emission, roughness,
+    # n2.xyz, face.xyz, 0, 0, color.xyz, emission_color.xyz, 0, 0].
+    sh_abc: torch.Tensor  # (T, 24) f32
+    # The same rows per leaf slot across all sub-block parts (slot bases
+    # accumulate in part order); (0, 24) without sub-block tables.
     sh_slot: torch.Tensor  # (S, 24) f32
     root_min: np.ndarray  # (3,) f32 scene AABB (the main BVH's node 0)
     root_max: np.ndarray  # (3,) f32
@@ -42,30 +75,42 @@ class SceneData(NamedTuple):
                 *self.p2_extra)
 
     @property
+    def num_tris(self) -> int:
+        return self.v0.shape[0]
+
+    @property
     def device(self) -> torch.device:
-        return self.sh_slot.device
+        return self.sh_abc.device
+
+
+_F32 = ("v0", "e1", "e2", "face", "node_min", "node_max", "pw_tiles",
+        "pl_tri_tiles", "p2_node_rows", "p2_tri_rows", "sh_abc", "sh_slot")
+_I32 = ("node_miss", "node_first", "node_count", "pw_entry", "pl_remap",
+        "p2_remap")
 
 
 def scene_from_numpy(fields: dict, device) -> SceneData:
     """SceneData on ``device`` from NumPy arrays named as the JAX package's
-    ``SceneData`` fields: ``p2_node_rows``, ``p2_tri_rows``, ``p2_remap``,
-    ``p2_extra`` (a sequence of (node_rows, tri_rows, remap)), ``sh_slot``,
-    ``node_min`` and ``node_max``; other keys are ignored."""
+    ``SceneData`` fields: the per-triangle ``v0/e1/e2/face``, the
+    ``node_*`` BVH arrays, ``pw_tiles``, ``pw_entry``, ``pl_tri_tiles``,
+    ``pl_remap``, the ``p2_*`` sub-block tables (``p2_extra`` a sequence of
+    (node_rows, tri_rows, remap)), ``sh_abc`` and ``sh_slot``; other keys
+    are ignored."""
 
-    def up(a):  # np.array copies: the sources may be read-only views
-        return torch.from_numpy(np.array(a)).to(device)
+    def up(a, dtype):  # np.array copies: the sources may be read-only views
+        return torch.from_numpy(np.array(a, dtype)).to(device)
 
+    node_min = np.asarray(fields["node_min"], np.float32)
+    node_max = np.asarray(fields["node_max"], np.float32)
     return SceneData(
-        p2_node_rows=up(np.asarray(fields["p2_node_rows"], np.float32)),
-        p2_tri_rows=up(np.asarray(fields["p2_tri_rows"], np.float32)),
-        p2_remap=up(np.asarray(fields["p2_remap"], np.int32)),
+        **{k: up(fields[k], np.float32) for k in _F32},
+        **{k: up(fields[k], np.int32) for k in _I32},
+        pw_max_stack=wide_max_stack(np.asarray(fields["pw_entry"])),
         p2_extra=tuple(
-            (up(np.asarray(n, np.float32)), up(np.asarray(t, np.float32)),
-             up(np.asarray(r, np.int32)))
+            (up(n, np.float32), up(t, np.float32), up(r, np.int32))
             for n, t, r in fields["p2_extra"]),
-        sh_slot=up(np.asarray(fields["sh_slot"], np.float32)),
-        root_min=np.asarray(fields["node_min"], np.float32)[0].copy(),
-        root_max=np.asarray(fields["node_max"], np.float32)[0].copy(),
+        root_min=node_min[0].copy(),
+        root_max=node_max[0].copy(),
     )
 
 
@@ -74,10 +119,13 @@ class Scene:
 
     API mirrors the reference (scene.py:9): ``Scene(objects)`` plus
     ``total_triangles`` (scene.py:135) and ``total_boxes`` (scene.py:219).
+    ``build_bvh=False`` gives a single-leaf pseudo-BVH over every triangle,
+    as in the JAX package; its leaf is too large for the BVH traversals,
+    so the renderer runs such a scene by brute force.
     """
 
     def __init__(self, objects: list, max_leaf_tris: int = 32,
-                 bvh_method: str = "sah"):
+                 build_bvh: bool = True, bvh_method: str = "sah"):
         if not objects:
             raise ValueError("Scene requires at least one object")
         self.objects = objects
@@ -132,9 +180,10 @@ class Scene:
         self.total_triangles = n_tris
         if n_tris == 0:
             raise ValueError("Scene has no triangles")
-        self.bvh = bvh_mod.build_bvh(self.v0, self.v1, self.v2,
-                                     max_leaf_tris, method=bvh_method)
-        self.total_boxes = self.bvh.num_nodes
+        self.bvh = (bvh_mod.build_bvh(self.v0, self.v1, self.v2,
+                                      max_leaf_tris, method=bvh_method)
+                    if build_bvh else None)
+        self.total_boxes = self.bvh.num_nodes if self.bvh is not None else 0
         self._fields: dict | None = None
 
     def fields(self, pad_to: int = 8) -> dict:
@@ -142,14 +191,16 @@ class Scene:
         computed once."""
         if self._fields is not None:
             return self._fields
-        perm = self.bvh.perm
+        T = self.total_triangles
+        perm = (self.bvh.perm if self.bvh is not None
+                else np.arange(T, dtype=np.int64))
 
         def permute_pad(arr: np.ndarray) -> np.ndarray:
             arr = arr[perm]
-            T = arr.shape[0]
-            Tp = max(((T + pad_to - 1) // pad_to) * pad_to, pad_to)
-            if Tp != T:
-                pad_shape = (Tp - T,) + arr.shape[1:]
+            n = arr.shape[0]
+            Tp = max(((n + pad_to - 1) // pad_to) * pad_to, pad_to)
+            if Tp != n:
+                pad_shape = (Tp - n,) + arr.shape[1:]
                 arr = np.concatenate([arr, np.zeros(pad_shape, arr.dtype)])
             return arr
 
@@ -160,15 +211,57 @@ class Scene:
         e2 = v2 - v0
         face = np.cross(e1, e2)
 
+        if self.bvh is not None:
+            binary = self.bvh
+        else:
+            # Single-leaf pseudo-BVH over everything (scene.py:253-260).
+            binary = bvh_mod.BVH(
+                node_min=np.minimum(np.minimum(v0, v1), v2).min(
+                    axis=0, keepdims=True),
+                node_max=np.maximum(np.maximum(v0, v1), v2).max(
+                    axis=0, keepdims=True),
+                node_miss=np.array([1], np.int32),
+                node_first=np.array([0], np.int32),
+                node_count=np.array([T], np.int32),
+                perm=perm, depth=0)
+        node_count = binary.node_count
+
         tri16 = np.zeros((v0.shape[0], 16), np.float32)
         tri16[:, 0:3] = v0
         tri16[:, 3:6] = e1
         tri16[:, 6:9] = e2
         tri16[:, 9:12] = face
 
+        # Octet-aligned triangle table of the wide-BVH kernel
+        # (scene.py:264-301): each leaf's triangles copied to an 8-aligned
+        # slot range, with the slack of one leaf's octets so a fixed-octet
+        # leaf read cannot run off the table, in whole 64-triangle tiles;
+        # slot s = g*64 + k*8 + j -> tile g, row j, lanes [k*16, k*16+16).
+        tpr = TRIS_PER_OCTET
+        leaf_octets_pad = -(-self.max_leaf_tris // tpr)
+        leaf_ids = np.nonzero(node_count > 0)[0]
+        counts = node_count[leaf_ids].astype(np.int64)
+        offsets = np.concatenate(([0], np.cumsum(-(-counts // tpr) * tpr)))
+        t_aligned = int(offsets[-1]) + leaf_octets_pad * tpr
+        t_aligned = -(-t_aligned // 64) * 64
+
+        leaf_first_octet = np.zeros(binary.num_nodes, np.int32)
+        leaf_first_octet[leaf_ids] = (offsets[:-1] // tpr).astype(np.int32)
+        pl_remap = np.zeros(t_aligned, np.int64)
+        valid = np.zeros(t_aligned, bool)
+        for off, first, cnt in zip(offsets[:-1], binary.node_first[leaf_ids],
+                                   counts):
+            pl_remap[off:off + cnt] = np.arange(first, first + cnt)
+            valid[off:off + cnt] = True
+        aligned16 = np.zeros((t_aligned, 16), np.float32)
+        aligned16[valid] = tri16[pl_remap[valid]]
+        pl_tri_tiles = (aligned16.reshape(t_aligned // 64, 8, 8, 16)
+                        .transpose(0, 2, 1, 3)
+                        .reshape(t_aligned // 64, 8, 128))
+        wide = collapse_wide(binary, leaf_first_octet)
+
         # Sub-block tables: a separate leaf<=8 build over the FINAL
         # (permuted) triangles; remap lands directly in that index space.
-        T = self.total_triangles
         try:
             parts = build_subblock_parts(v0[:T], v1[:T], v2[:T], tri16[:T])
         except ValueError:
@@ -196,11 +289,16 @@ class Scene:
             sh_slot = np.zeros((0, 24), np.float32)
 
         self._fields = dict(
+            v0=v0, e1=e1, e2=e2, face=face,
+            node_min=binary.node_min, node_max=binary.node_max,
+            node_miss=binary.node_miss, node_first=binary.node_first,
+            node_count=node_count,
+            pw_tiles=wide.tiles, pw_entry=wide.entry,
+            pl_tri_tiles=pl_tri_tiles, pl_remap=pl_remap.astype(np.int32),
             p2_node_rows=p2[0], p2_tri_rows=p2[1], p2_remap=p2[2],
             p2_extra=tuple((p.node_rows, p.tri_rows, p.remap)
                            for p in parts[1:]),
-            sh_slot=sh_slot,
-            node_min=self.bvh.node_min, node_max=self.bvh.node_max,
+            sh_abc=sh_abc, sh_slot=sh_slot,
         )
         return self._fields
 

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface under
 ``build/torch_kernels/`` at the repository root, at first use, and loaded
 with ``ctypes``.  There is no fallback: a wrapper given CUDA tensors either
 launches its kernel or raises.  The build is not fast-math (``/`` and
@@ -28,9 +29,9 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"subblock_traversal": 0, "shade": 0}
+launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -64,13 +65,33 @@ def build() -> str:
             >= max(os.path.getmtime(s) for s in srcs)):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    build_log = "".join(outs)
+    try:
+        failed = [(s, p.returncode) for s, p in zip(srcs, procs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = f"{LIB_PATH}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return LIB_PATH
 
 
@@ -88,6 +109,9 @@ def lib() -> ctypes.CDLL:
             so.oglrt_shade.argtypes = ([p, i32] + [p] * 18
                                        + [f32, f32, f32, f32, i32]
                                        + [p] * 14 + [i64, p])
+            so.oglrt_wide_traverse.restype = i32
+            so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
+                                               + [p] * 5 + [i64, p])
             _lib = so
         return _lib
 

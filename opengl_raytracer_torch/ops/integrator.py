@@ -5,13 +5,14 @@ The shader's path logic (fragment.glsl:220-366), as in
 
 * ``scatter_soa`` — ``diffuse()`` (fragment.glsl:220-232), ``reflect`` and
   ``lerp()`` (fragment.glsl:234-240);
-* ``raytrace`` — the bounce loop (fragment.glsl:309-350).  Before every
-  bounce segment but the first, rays are reordered by a Morton/octant
-  coherence key (a stable argsort and one gather of every per-ray column);
-  then the traversal (K1) finds the nearest hits and the fused shade
-  kernel (K2) updates the path state.  Terminated paths carry an ``alive``
-  mask; dead rays keep their frozen light.  At the end the light is
-  scattered back to pixel order by each ray's original index;
+* ``raytrace`` — the bounce loop (fragment.glsl:309-350).  With
+  ``reorder`` (the wide-BVH kernels' traversals), before every bounce
+  segment but the first, rays are reordered by a Morton/octant coherence
+  key (a stable argsort and one gather of every per-ray column), and at
+  the end the light is scattered back to pixel order by each ray's
+  original index.  Each segment, the traversal finds the nearest hits and
+  the fused shade kernel (K2) updates the path state.  Terminated paths
+  carry an ``alive`` mask; dead rays keep their frozen light;
 * ``trace`` — ``rays_per_pixel`` independent paths averaged, the RNG state
   carried sequentially across samples (fragment.glsl:352-366).
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import rng
-from opengl_raytracer_torch.ops.intersect import TINY
+from opengl_raytracer_torch.ops.intersect import TINY, shading_table
 from opengl_raytracer_torch.ops.morton import DEAD_KEY, ray_sort_keys_soa
 
 
@@ -72,12 +73,14 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
 
 
 def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
-             lambertian: bool):
+             lambertian: bool, reorder: bool = False):
     """One path per ray: returns (incoming light 3x(R,), final seed), both
     in the input ray order.
 
-    ``raycast_fn(o3, d3, alive)`` returns a ``Nearest`` with
-    leaf slots (ops/subblock_traversal.raycast_subblock)."""
+    ``raycast_fn(o3, d3, alive)`` returns a ``Nearest``; its rays' shading
+    rows are picked by ``intersect.shading_table``.  ``reorder`` sorts the
+    rays by coherence key before every bounce segment but the first (the
+    JAX renderer's ``reorder``, ``renderer.py:276``)."""
     from opengl_raytracer_torch.ops.shade import shade_update
 
     R = o3[0].shape[0]
@@ -95,7 +98,7 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
     orig = torch.arange(R, device=dev)
 
     for i in range(int(n_bounces)):
-        if i > 0:
+        if reorder and i > 0:
             # Primary rays arrive screen-coherent; bounce rays are sorted.
             # Dead rays hold the sentinel key and sort to the tail, and
             # alive is re-derived from it.
@@ -110,10 +113,13 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
             orig = orig[perm]
 
         nearest = raycast_fn(origin, direction, alive)
+        table, index = shading_table(scene, nearest)
         origin, direction, ray_color, incoming, alive, seed = shade_update(
-            scene, nearest, origin, direction, ray_color, incoming, alive,
-            seed, sky_color, emission_scale, lambertian)
+            table, index, nearest, origin, direction, ray_color, incoming,
+            alive, seed, sky_color, emission_scale, lambertian)
 
+    if not reorder:
+        return incoming, seed
     # Restore pixel order by scattering into each ray's original index.
     light = torch.stack(incoming)
     out = torch.empty_like(light)
@@ -124,14 +130,14 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
 
 
 def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
-          rays_per_pixel: int, lambertian: bool):
+          rays_per_pixel: int, lambertian: bool, reorder: bool = False):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
     Returns ((R, 3) color, new seed)."""
     colors = []
     seed = seed0
     for _ in range(rays_per_pixel):
         color, seed = raytrace(scene, raycast_fn, o3, d3, seed, sky_color,
-                               n_bounces, lambertian)
+                               n_bounces, lambertian, reorder)
         colors.append(torch.stack(color, dim=-1))
     if rays_per_pixel == 1:
         return colors[0], seed

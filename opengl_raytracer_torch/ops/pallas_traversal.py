@@ -1,0 +1,235 @@
+"""K3: nearest-hit traversal over the 8-wide BVH tiles.
+
+The wrapper :func:`raycast_pallas` is the port of
+``opengl_raytracer_tpu/ops/pallas_traversal.py:raycast_pallas``: it runs
+the traversal, resolves ``tri = pl_remap[slot]`` and masks dead rays to
+``t = BIG``.  The traversal is :func:`traverse_wide`, which on CUDA
+tensors launches the kernel of ``csrc/wide_traversal.cu`` and on CPU
+tensors runs :func:`_traverse_plain`, the same per-ray stack walk written
+with torch ops (all rays stepping together, one stack entry popped per
+ray per step).
+
+Both versions read the JAX package's tables as they are (ops/wide_bvh.py,
+models/scene.py) and keep the JAX kernel's semantics (its lines cited):
+
+* slab test with the unclamped ``inv = 1/d`` as ``(b - o) * inv``; a NaN
+  from ``0 * inf`` (an axis-parallel ray whose origin lies on a slab
+  plane) propagates through min and max, so that child is not opened; a
+  child is opened iff ``far >= near & far >= 0 & max(near, 0) <= best_t``
+  (:123-138);
+* ordered children pushed far-first, each gated by the EMPTY_PACKED
+  sentinel only (empty slots' swapped boxes pass the slab test), decoded
+  as ``packed >> 3`` and ``packed & 7`` (:153-176);
+* a leaf entry names its first octet, and a fixed ``leaf_octets`` octets
+  are tested from it, over-reading into neighbouring leaves' triangles as
+  the JAX kernel does (:179-184); within an octet the least ``t`` wins,
+  the lowest slot among equal ``t``, and across octets a strict ``<``
+  (:216-223).
+
+The push order comes from each ray's own direction octant; the JAX kernel
+uses its 1024-ray block's dominant octant (the sign of the summed
+directions, :93-97), which changes only the winning slot at an exact ``t``
+tie.  The JAX kernel also opens a node for its whole block when any ray of
+the block opens it (:140-146), so a ray there tests leaves its own slab
+tests did not open.  That finds nothing nearer while the slab tests are
+conservative; a ray whose slab test is NaN (lying in a box's face plane)
+can miss here, as in the JAX package's per-ray ``raycast_bvh``, where the
+JAX kernel may hit.  The winner's barycentrics come from its own test, in
+the formula the JAX wrapper recomputes them with (:314-322).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opengl_raytracer_torch.ops import _kernels
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest, mt_single
+from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_PACKED, ORD_LANE0,
+                                                 TRIS_PER_OCTET)
+
+TILE = 8 * 128  # floats per (8, 128) tile
+GROUP = 16  # lanes per node or per triangle in a tile row
+STACKS = (64, 128, 512)  # the kernel's compiled per-ray stack sizes
+
+_overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
+
+
+def overflow_tensor(device) -> torch.Tensor:
+    """The running count of stack pushes dropped on ``device`` (0 unless a
+    stack smaller than the tree's bound is asked for)."""
+    device = torch.device(device)
+    if device not in _overflow:
+        _overflow[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _overflow[device]
+
+
+def stack_size(max_stack: int) -> int:
+    """The smallest compiled stack that holds ``max_stack`` entries."""
+    for s in STACKS:
+        if max_stack <= s:
+            return s
+    raise ValueError(f"wide BVH stack bound {max_stack} exceeds {STACKS[-1]}")
+
+
+def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
+                    stack: int):
+    """Plain torch version of the kernel.  Returns (t, slot, u, v,
+    dropped_pushes); t is ``t0`` where nothing improved it."""
+    dev = t0.device
+    R = t0.shape[0]
+    bt = t0.clone()
+    slot = torch.zeros(R, dtype=torch.int32, device=dev)
+    bu = torch.zeros(R, dtype=torch.float32, device=dev)
+    bv = torch.zeros(R, dtype=torch.float32, device=dev)
+    inv = torch.stack([1.0 / d3[a] for a in range(3)], dim=1)  # (R, 3)
+    org = torch.stack(tuple(o3), dim=1)
+    octant = (((d3[0] < 0.0).long() << 2) | ((d3[1] < 0.0).long() << 1)
+              | (d3[2] < 0.0).long())
+    pw = pw_tiles.reshape(-1)
+    tri = tri_tiles.reshape(-1)
+    n_octets = tri_tiles.shape[0] * 8
+    rows = torch.arange(8, device=dev) * 128  # child / triangle rows
+    lanes6 = torch.arange(6, device=dev)
+    lanes12 = torch.arange(12, device=dev)
+    stk = torch.zeros((R, stack), dtype=torch.int32, device=dev)
+    sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        ent = stk[act, sp[act]].long()
+        is_node = ent >= 0
+
+        rays = act[is_node]
+        if rays.numel():
+            w = ent[is_node]
+            group = (w >> 3) * TILE + (w & 7) * GROUP  # (n,)
+            box = pw[group[:, None, None] + rows[None, :, None]
+                     + lanes6[None, None, :]]  # (n, child j, 6)
+            o_r, inv_r = org[rays][:, None, :], inv[rays][:, None, :]
+            t1 = (box[:, :, 0:3] - o_r) * inv_r
+            t2 = (box[:, :, 3:6] - o_r) * inv_r
+            tmin, tmax = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            near = torch.maximum(torch.maximum(tmin[..., 0], tmin[..., 1]),
+                                 tmin[..., 2])
+            far = torch.minimum(torch.minimum(tmax[..., 0], tmax[..., 1]),
+                                tmax[..., 2])
+            opened = ((far >= near) & (far >= 0.0)
+                      & (torch.maximum(near, torch.zeros_like(near))
+                         <= bt[rays][:, None]))  # (n, child j)
+            packed = pw[group[:, None] + rows[None, :] + ORD_LANE0
+                        + octant[rays][:, None]].long()  # (n, rank i)
+            child = packed >> 3
+            push = opened.gather(1, packed & 7) & (child != EMPTY_PACKED)
+            for i in range(8):  # far first: rank 0 pops last
+                pos = sp[rays]
+                fits = push[:, i] & (pos < stack)
+                dropped += (push[:, i] & ~fits).sum()
+                tgt = rays[fits]
+                stk[tgt, pos[fits]] = child[fits, i].to(torch.int32)
+                sp[tgt] += 1
+
+        rays = act[~is_node]
+        if rays.numel():
+            first = -ent[~is_node] - 1
+            o_r = tuple(x[rays][:, None] for x in o3)
+            d_r = tuple(x[rays][:, None] for x in d3)
+            bt_r, sl_r, bu_r, bv_r = bt[rays], slot[rays], bu[rays], bv[rays]
+            for k in range(leaf_octets):
+                q = first + k
+                inside = q < n_octets  # the table's slack makes this hold
+                qc = q.clamp_max(n_octets - 1)
+                base = (qc >> 3) * TILE + (qc & 7) * GROUP
+                c = tri[base[:, None, None] + rows[None, :, None]
+                        + lanes12[None, None, :]].unbind(2)  # 12 x (n, j)
+                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
+                                           c[9:12])
+                tc = torch.where(valid, t, BIG)
+                j = torch.argmin(tc, dim=1, keepdim=True)  # lowest slot on ties
+                tm = tc.gather(1, j)[:, 0]
+                better = inside & (tm < bt_r)  # strict <, fragment.glsl:275
+                bt_r = torch.where(better, tm, bt_r)
+                sl_r = torch.where(better, (q * 8 + j[:, 0]).to(torch.int32),
+                                   sl_r)
+                bu_r = torch.where(better, u.gather(1, j)[:, 0], bu_r)
+                bv_r = torch.where(better, v.gather(1, j)[:, 0], bv_r)
+            bt[rays], slot[rays], bu[rays], bv[rays] = bt_r, sl_r, bu_r, bv_r
+    return bt, slot, bu, bv, dropped
+
+
+def _traverse_cuda(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
+                   stack: int, overflow):
+    dev = t0.device
+    R = t0.shape[0]
+    req = _kernels.require
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
+                       (*o3, *d3, t0)):
+        req(x, name, torch.float32, dev, R)
+    req(pw_tiles, "pw_tiles", torch.float32, dev)
+    req(tri_tiles, "pl_tri_tiles", torch.float32, dev)
+    req(overflow, "overflow", torch.int32, dev, 1)
+    for name, x in (("pw_tiles", pw_tiles), ("pl_tri_tiles", tri_tiles)):
+        if x.dim() != 3 or tuple(x.shape[1:]) != (8, 128):
+            raise ValueError(f"{name} must be (n, 8, 128), got {x.shape}")
+    if stack not in STACKS:
+        raise ValueError(f"stack {stack} is not one of {STACKS}")
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    slot = torch.empty(R, dtype=torch.int32, device=dev)
+    u = torch.empty(R, dtype=torch.float32, device=dev)
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    err = _kernels.lib().oglrt_wide_traverse(
+        *(x.data_ptr() for x in (*o3, *d3, t0, pw_tiles, tri_tiles)),
+        tri_tiles.shape[0] * 8, int(leaf_octets), int(stack),
+        *(x.data_ptr() for x in (t, slot, u, v, overflow)),
+        R, _kernels.stream_ptr(dev))
+    _kernels.launch_counts["wide_traversal"] += 1
+    _kernels.check(err, "wide_traverse")
+    return t, slot, u, v
+
+
+def traverse_wide(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
+                  stack: int):
+    """Nearest hit over the wide-BVH tiles -> (t, slot, u, v).
+
+    ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
+    ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray, which comes
+    out unchanged).  ``leaf_octets`` octets are tested per leaf entry, and
+    ``stack`` (one of STACKS) is the per-ray stack size.  CUDA tensors
+    launch the kernel; CPU tensors run the plain version.  Dropped stack
+    pushes add to :func:`overflow_tensor`."""
+    overflow = overflow_tensor(t0.device)
+    if t0.is_cuda:
+        return _traverse_cuda(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets,
+                              stack, overflow)
+    t, slot, u, v, dropped = _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0,
+                                             leaf_octets, stack)
+    overflow += dropped.to(torch.int32)
+    return t, slot, u, v
+
+
+def raycast_pallas(scene, o3, d3, active=None, max_leaf_tris: int = 16
+                   ) -> Nearest:
+    """Nearest hit per ray over ``scene``'s wide-BVH tables.
+
+    ``o3``/``d3`` are 3-tuples of (R,) float32 columns and ``active`` an
+    optional (R,) bool mask whose False rays report ``t = BIG``;
+    ``max_leaf_tris`` must cover the scene's largest leaf.  The result has
+    no slot: the shading rows are gathered by ``tri``."""
+    o3 = tuple(x.contiguous() for x in o3)
+    d3 = tuple(x.contiguous() for x in d3)
+    R = o3[0].shape[0]
+    t0 = torch.full((R,), BIG, dtype=torch.float32, device=o3[0].device)
+    if active is not None:
+        t0 = torch.where(active, t0, -BIG)
+    leaf_octets = -(-max_leaf_tris // TRIS_PER_OCTET)
+    t, slot, u, v = traverse_wide(scene.pw_tiles, scene.pl_tri_tiles, o3, d3,
+                                  t0, leaf_octets,
+                                  stack_size(scene.pw_max_stack))
+    did_hit = (t < BIG) & (t > -BIG)
+    return Nearest(t=torch.where(did_hit, t, BIG),
+                   tri=scene.pl_remap[slot.long()],
+                   u=torch.where(did_hit, u, 0.0),
+                   v=torch.where(did_hit, v, 0.0))

@@ -1,12 +1,17 @@
 """K2: fused shade / scatter / bounce-state update, one pass per bounce.
 
 :func:`shade_update` is the port of
-``opengl_raytracer_tpu/ops/shade.py:shade_update``.  On CUDA tensors it
+``opengl_raytracer_tpu/ops/shade.py:shade_update``, for every traversal:
+it takes the shading table and the index column as arguments
+(``intersect.shading_table``), ``(sh_slot, slot)`` after the sub-block
+traversal and ``(sh_abc, tri)`` after every other one.  On CUDA tensors it
 launches the kernel of ``csrc/shade.cu``, which also does the material row
-gather ``sh_slot[clip(slot)]`` and the three RNG draws that the JAX wrapper
+gather ``table[clip(index)]`` and the three RNG draws that the JAX wrapper
 computes outside its kernel.  On CPU tensors it runs :func:`_shade_plain`:
 the integrator's unfused formulas (``integrator.py:281-311`` of the JAX
-package): finalize_hit, scatter, then the state update.  Seeds and alive
+package): finalize_hit, scatter, then the state update.  So on the card
+the kernel replaces, after the brute, BVH and wide-BVH traversals, the
+same unfused ops it replaces after the sub-block one.  Seeds and alive
 flags agree exactly; floats agree to mul+add contraction rounding.
 """
 
@@ -19,9 +24,9 @@ from opengl_raytracer_torch.ops.integrator import scatter_soa
 from opengl_raytracer_torch.ops.intersect import finalize_hit_soa
 
 
-def _shade_plain(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
-                 emission_scale, lambertian):
-    hit = finalize_hit_soa(scene, o3, d3, nearest)
+def _shade_plain(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
+                 sky_color, emission_scale, lambertian):
+    hit = finalize_hit_soa(table, index, o3, d3, nearest)
     seed_h, new_dir = scatter_soa(seed, hit.normal, d3, hit.roughness,
                                   lambertian)
     was_hit = alive & hit.did_hit
@@ -43,26 +48,27 @@ def _shade_plain(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
     return o, d, rc, inc, alive, seed
 
 
-def _shade_cuda(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
-                emission_scale, lambertian):
+def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
+                sky_color, emission_scale, lambertian):
     dev = seed.device
     R = seed.shape[0]
     req = _kernels.require
     cols = (nearest.t, nearest.u, nearest.v, *o3, *d3, *rc3, *inc3)
     for k, x in enumerate(cols):
         req(x, f"float column {k}", torch.float32, dev, R)
-    req(nearest.slot, "slot", torch.int32, dev, R)
+    req(index, "index", torch.int32, dev, R)
     req(alive, "alive", torch.bool, dev, R)
     req(seed, "seed", torch.int64, dev, R)
-    req(scene.sh_slot, "sh_slot", torch.float32, dev)
-    if scene.sh_slot.dim() != 2 or scene.sh_slot.shape[1] != 24:
-        raise ValueError(f"sh_slot must be (S, 24), got {scene.sh_slot.shape}")
+    req(table, "table", torch.float32, dev)
+    if table.dim() != 2 or table.shape[1] != 24 or table.shape[0] == 0:
+        raise ValueError(f"table must be (S, 24) with S > 0, got "
+                         f"{tuple(table.shape)}")
     out = torch.empty((12, R), dtype=torch.float32, device=dev)
     alive_out = torch.empty(R, dtype=torch.bool, device=dev)
     seed_out = torch.empty(R, dtype=torch.int64, device=dev)
     err = _kernels.lib().oglrt_shade(
-        scene.sh_slot.data_ptr(), scene.sh_slot.shape[0],
-        nearest.slot.data_ptr(), *(x.data_ptr() for x in cols),
+        table.data_ptr(), table.shape[0], index.data_ptr(),
+        *(x.data_ptr() for x in cols),
         alive.data_ptr(), seed.data_ptr(),
         *(float(c) for c in sky_color), float(emission_scale),
         int(bool(lambertian)),
@@ -76,17 +82,17 @@ def _shade_cuda(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
     return o, d, rc, inc, alive_out, seed_out
 
 
-def shade_update(scene, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
-                 emission_scale, lambertian):
+def shade_update(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
+                 sky_color, emission_scale, lambertian):
     """Fused finalize + scatter + state update for one bounce.
 
-    vec3 state is 3-tuples of contiguous (R,) float32 columns; ``alive`` is
+    ``table`` is the (S, 24) float32 shading table and ``index`` the (R,)
+    int32 column that picks each ray's row, clamped into the table.  vec3
+    state is 3-tuples of contiguous (R,) float32 columns; ``alive`` is
     (R,) bool, ``seed`` (R,) int64 uint32 states, ``nearest`` the
     traversal's :class:`Nearest`.  ``sky_color`` is 3 floats,
     ``emission_scale`` a float and ``lambertian`` a bool.  Returns
     (o3', d3', rc3', inc3', alive', seed')."""
-    if seed.is_cuda:
-        return _shade_cuda(scene, nearest, o3, d3, rc3, inc3, alive, seed,
-                           sky_color, emission_scale, lambertian)
-    return _shade_plain(scene, nearest, o3, d3, rc3, inc3, alive, seed,
-                        sky_color, emission_scale, lambertian)
+    args = (table, index, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
+            emission_scale, lambertian)
+    return _shade_cuda(*args) if seed.is_cuda else _shade_plain(*args)

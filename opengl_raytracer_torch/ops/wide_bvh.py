@@ -1,0 +1,209 @@
+"""8-wide BVH tables of the wide-BVH traversal kernel (K3).
+
+A NumPy copy of ``opengl_raytracer_tpu/ops/wide_bvh.py`` (``collapse_wide``,
+``validate_wide``, ``encode_leaf`` and their constants), so that both
+packages build bit-identical tables and their nearest hits can be compared
+ray by ray.  The layout was shaped for the TPU's (8, 128) tiles; the CUDA
+kernel (csrc/wide_traversal.cu) reads it as it is, by index arithmetic:
+
+* ``tiles (ceil(W/8), 8, 128) f32`` — child j of wide node w at tile
+  ``w//8``, row j, lanes ``(w%8)*16 + 0..5`` as [bmin.xyz, bmax.xyz]; at
+  lane ``(w%8)*16 + ORD_LANE0 + o``, row i, the rank-i far-first push
+  entry for direction octant o, packed as the exact-integer float
+  ``entry*8 + j``.  Empty child slots hold FINITE swapped (+big, -big)
+  boxes, which pass the min/max slab test: only the EMPTY_PACKED sentinel
+  keeps them off the stack.
+* ``entry (W, 8) i32`` — the child entries in slot order (validation and
+  the stack bound): internal child -> its wide index (>= 0); leaf child ->
+  ``-first_octet - 1`` (< 0); empty -> EMPTY_ENTRY.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from opengl_raytracer_torch.ops.bvh import BVH
+
+WIDTH = 8
+EMPTY_ENTRY = np.int32(-(2**31))
+# Triangles per leaf octet of the triangle tiles (models/scene.py): leaves
+# start on octet boundaries, and a leaf entry names its first octet.
+TRIS_PER_OCTET = 8
+
+
+class WideBVH(NamedTuple):
+    tiles: np.ndarray  # (ceil(W/8), 8, 128) f32
+    entry: np.ndarray  # (W, 8) i32 (slot order)
+    num_nodes: int
+    max_depth: int  # of the wide tree
+    max_stack: int  # safe per-ray stack bound: (max_depth + 2) * 7 + 4
+
+
+# Lane layout of a node's 16-lane group, per child row j: lanes 0-2 bmin,
+# 3-5 bmax, 6-13 the per-octant ordered push entries, 14-15 pad.
+ORD_LANE0 = 6
+
+# Ordered push entries are exact-integer float32 values (entry * 8 + slot),
+# exact below 2^24, so |entry| must stay under 2^21.
+PACK_LIMIT = 1 << 21
+EMPTY_PACKED = -(1 << 20)  # decoded entry sentinel for empty slots
+MAX_STACK = 512  # the JAX kernel's stack; deeper trees are rejected
+
+
+def encode_leaf(first_octet: int, count: int) -> int:
+    # Only the octet start is encoded: leaf padding slots are degenerate
+    # triangles the epsilon test rejects, and the traversal's fixed-octet
+    # over-read past a short leaf tests neighbouring REAL triangles, which
+    # is harmless for a nearest-hit query.
+    del count
+    return -first_octet - 1
+
+
+def stack_bound(max_depth: int) -> int:
+    return (max_depth + 2) * (WIDTH - 1) + 4
+
+
+def collapse_wide(bvh: BVH, leaf_first_octet: np.ndarray) -> WideBVH:
+    """Collapse a binary BVH (ops/bvh.py layout) into the 8-wide layout.
+
+    ``leaf_first_octet``: per binary node, the first octet of its leaf in
+    the octet-aligned triangle table (meaningful for leaves only)."""
+    N = bvh.num_nodes
+    # Binary children from the preorder + miss links: internal node i has
+    # left = i + 1 and right = miss[left].
+    is_leaf = bvh.node_count > 0
+    # Subtree sizes: the subtree of i spans [i, min(miss[i], N)).
+    span = np.minimum(bvh.node_miss, N) - np.arange(N)
+
+    children: list[list[int]] = []  # wide node -> binary node ids
+    wide_of_binary: dict[int, int] = {}
+
+    def make_wide(binary_root: int) -> int:
+        """A wide node whose slots cover binary_root's subtree: expand the
+        internal slot with the largest subtree until 8 slots are filled."""
+        slots = [int(binary_root)]
+        while len(slots) < WIDTH:
+            best, best_size = -1, 0
+            for k, b in enumerate(slots):
+                if not is_leaf[b] and span[b] > best_size:
+                    best, best_size = k, int(span[b])
+            if best < 0:
+                break
+            b = slots.pop(best)
+            left = b + 1
+            slots.extend([left, int(bvh.node_miss[left])])
+        children.append(slots)
+        return len(children) - 1
+
+    # BFS, so wide indices are allocated root first.
+    root = make_wide(0)
+    queue = [root]
+    depth_of = {root: 0}
+    max_depth = 0
+    qi = 0
+    while qi < len(queue):
+        w = queue[qi]
+        qi += 1
+        for b in children[w]:
+            if not is_leaf[b]:
+                cw = make_wide(b)
+                wide_of_binary[b] = cw
+                depth_of[cw] = depth_of[w] + 1
+                max_depth = max(max_depth, depth_of[cw])
+                queue.append(cw)
+
+    W = len(children)
+    Wp = -(-W // 8) * 8
+    tiles = np.zeros((Wp // 8, 8, 128), np.float32)
+    far = np.float32(1e30)
+    for g in range(8):
+        tiles[:, :, g * 16:g * 16 + 3] = far
+        tiles[:, :, g * 16 + 3:g * 16 + 6] = -far
+    entry = np.full((W, 8), EMPTY_ENTRY, np.int32)
+
+    for w, slots in enumerate(children):
+        tile, group = w // 8, (w % 8) * 16
+        for j, b in enumerate(slots):
+            tiles[tile, j, group:group + 3] = bvh.node_min[b]
+            tiles[tile, j, group + 3:group + 6] = bvh.node_max[b]
+            if is_leaf[b]:
+                entry[w, j] = encode_leaf(int(leaf_first_octet[b]),
+                                          int(bvh.node_count[b]))
+            else:
+                entry[w, j] = wide_of_binary[b]
+
+    if W >= PACK_LIMIT // 8:
+        raise ValueError(f"wide BVH too large to pack ordered entries ({W})")
+    max_octet = int(leaf_first_octet.max()) if len(leaf_first_octet) else 0
+    if max_octet >= -EMPTY_PACKED - 1:
+        raise ValueError(f"leaf octet index {max_octet} collides with the "
+                         f"empty-slot sentinel")
+    max_stack = stack_bound(max_depth)
+    if max_stack > MAX_STACK:
+        raise ValueError(
+            f"wide BVH worst-case stack {max_stack} exceeds the kernel's "
+            f"{MAX_STACK}-entry stack (pathologically deep tree)")
+
+    centroids = np.zeros((W, WIDTH, 3), np.float32)
+    finite = np.zeros((W, WIDTH), bool)
+    for w in range(W):
+        tile, group = w // 8, (w % 8) * 16
+        lo = tiles[tile, :, group:group + 3]
+        hi = tiles[tile, :, group + 3:group + 6]
+        centroids[w] = (lo + hi) * 0.5
+        finite[w] = lo[:, 0] <= hi[:, 0]
+
+    # Per-octant far-first push order: a LIFO stack pops the last push
+    # first, so far-to-near pushes give near-first traversal.
+    packed_empty = EMPTY_PACKED * 8
+    for o in range(8):
+        d = np.array([-1.0 if (o >> 2) & 1 else 1.0,
+                      -1.0 if (o >> 1) & 1 else 1.0,
+                      -1.0 if o & 1 else 1.0], np.float32)
+        key = centroids @ d  # (W, 8)
+        key = np.where(finite, key, np.inf)  # empty slots sorted first
+        order = np.argsort(-key, axis=1, kind="stable")  # far first
+        ent_o = np.take_along_axis(entry, order, axis=1).astype(np.int64)
+        packed = np.where(ent_o == np.int64(EMPTY_ENTRY), packed_empty,
+                          ent_o * 8 + order)
+        assert np.abs(packed).max() < (1 << 24)
+        for w in range(W):
+            tile, group = w // 8, (w % 8) * 16
+            tiles[tile, :, group + ORD_LANE0 + o] = packed[w].astype(np.float32)
+
+    return WideBVH(tiles=tiles, entry=entry, num_nodes=W,
+                   max_depth=max_depth, max_stack=max_stack)
+
+
+def wide_max_stack(entry: np.ndarray) -> int:
+    """The per-ray stack bound of a wide tree given by its ``entry`` table:
+    collapse_wide's ``max_stack``, recomputed from the tree's depth."""
+    depth = np.zeros(entry.shape[0], np.int64)
+    max_depth = 0
+    for w in range(entry.shape[0]):  # BFS order: parents come first
+        for e in entry[w]:
+            if e >= 0:
+                depth[e] = depth[w] + 1
+                max_depth = max(max_depth, int(depth[e]))
+    return stack_bound(max_depth)
+
+
+def validate_wide(wide: WideBVH, bvh: BVH) -> None:
+    """Every binary leaf must be reachable exactly once via wide entries."""
+    is_leaf = bvh.node_count > 0
+    seen = []
+    stack = [0]
+    while stack:
+        w = stack.pop()
+        for e in wide.entry[w]:
+            e = int(e)
+            if e == int(EMPTY_ENTRY):
+                continue
+            if e >= 0:
+                stack.append(e)
+            else:
+                seen.append(e)
+    assert len(seen) == int(is_leaf.sum()), (len(seen), int(is_leaf.sum()))
+    assert len(set(seen)) == len(seen), "duplicate leaf entries"

@@ -27,27 +27,77 @@ from opengl_raytracer_torch.models.scene import Scene, SceneData
 from opengl_raytracer_torch.ops import rng
 from opengl_raytracer_torch.ops.camera import Camera, pixel_uv, ray_dirs_soa
 from opengl_raytracer_torch.ops.integrator import trace
+from opengl_raytracer_torch.ops.intersect import raycast_brute
+from opengl_raytracer_torch.ops.pallas_traversal import raycast_pallas
 from opengl_raytracer_torch.ops.subblock_traversal import raycast_subblock
+from opengl_raytracer_torch.ops.traversal import raycast_bvh
 from opengl_raytracer_torch.utils.config import SKY_COLOR, RenderConfig
 
 _PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
 _DEFAULT_CHUNK = 2 * 1024 * 1024
-_NOT_PORTED = ("brute", "bvh", "packet", "pallas")
+# brute force's (R, 2048) intermediates and the BVH walk's per-ray state
+# bound their chunks, as in the JAX package (renderer.py:239-241)
+_SMALL_CHUNK = 128 * 1024
+_BRUTE_MAX_TRIS = 128  # "auto" picks brute force up to this many triangles
+_MAX_LEAF = 1024  # larger leaves (build_bvh=False) only by brute force
+_REORDER = ("packet", "pallas", "pallas2")
 
 
-def make_raycast_fn(scene: SceneData, traversal: str):
+def effective_max_leaf(scene: SceneData) -> int:
+    """The leaf-loop bound of this scene's BVH, from its own node table
+    (``opengl_raytracer_tpu/renderer.py:53-76``): a smaller bound would
+    skip triangles, a larger one would read past the slack of the wide
+    kernel's octet table."""
+    count = scene.node_count
+    return int(count.max()) if count.numel() else 1
+
+
+def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
     """Bind ``raycast(o3, d3, active) -> Nearest`` for the chosen
-    traversal.  Only "pallas2" (the sub-block kernel, K1) is ported."""
-    if traversal in _NOT_PORTED:
-        raise NotImplementedError(
-            f"traversal {traversal!r} is not yet ported, see ROADMAP.md")
-    if traversal != "pallas2":
-        raise ValueError(f"unknown traversal {traversal!r}")
+    traversal: "brute" (dense sweep), "bvh" (per-ray stackless walk),
+    "pallas" and "packet" (both the wide-BVH kernel, K3) or "pallas2" (the
+    sub-block kernel, K1).  ``max_leaf_tris`` must cover the scene's
+    largest leaf (:func:`effective_max_leaf`)."""
+    if traversal == "brute":
+        return lambda o3, d3, active=None: raycast_brute(scene, o3, d3, active)
+    if traversal == "bvh":
+        return lambda o3, d3, active=None: raycast_bvh(
+            scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
+    if traversal in ("pallas", "packet"):
+        return lambda o3, d3, active=None: raycast_pallas(
+            scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
+    if traversal == "pallas2":
+        return lambda o3, d3, active=None: raycast_subblock(scene, o3, d3,
+                                                            active)
+    raise ValueError(f"unknown traversal {traversal!r}")
 
-    def fn(o3, d3, active=None):
-        return raycast_subblock(scene, o3, d3, active)
 
-    return fn
+def resolve_traversal(scene: SceneData, traversal: str) -> str:
+    """The traversal a ``RenderConfig.traversal`` name runs on ``scene``.
+
+    "auto" follows the JAX package (``renderer.py:415-464``): brute force
+    for scenes of at most 128 (padded) triangles, else the sub-block
+    kernel "pallas2" when the scene has its tables, else the wide-BVH
+    kernel "pallas".  The JAX package's 13 MB bound between "pallas" and
+    "packet" is the TPU's VMEM budget for the wide kernel's tables; it does
+    not apply on the card, where both names run K3.  Last, a scene with a
+    leaf over 1024 triangles (``Scene(build_bvh=False)``) runs by brute
+    force under "auto" and is refused by every other traversal."""
+    resolved = traversal
+    if traversal == "auto":
+        if scene.num_tris <= _BRUTE_MAX_TRIS:
+            resolved = "brute"
+        elif scene.p2_node_rows.shape[0] > 0:
+            resolved = "pallas2"
+        else:
+            resolved = "pallas"
+    if resolved != "brute" and effective_max_leaf(scene) > _MAX_LEAF:
+        if traversal != "auto":
+            raise ValueError(
+                "scene has BVH leaves over 1024 triangles (was it built "
+                "with build_bvh=False?); use traversal='brute'")
+        resolved = "brute"
+    return resolved
 
 
 @dataclasses.dataclass
@@ -74,7 +124,8 @@ def state_from_numpy(accum, frame_count: int, tile_x: int, tile_y: int,
 
 def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
                   frame_number, sky_brightness: float, jitter_amount: float,
-                  lambertian: bool, px, py, raycast_fn):
+                  lambertian: bool, px, py, raycast_fn,
+                  reorder: bool = False):
     """Trace a flat batch of pixels; px/py int (R,) tensors, py in GL
     convention (0 = bottom row); ``frame_number`` an int or an (R,)
     tensor.  Returns (R, 3) linear color."""
@@ -102,17 +153,20 @@ def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
     color, _ = trace(scene, raycast_fn, origin, d, seed, sky,
                      n_bounces=config.n_bounces,
                      rays_per_pixel=config.rays_per_pixel,
-                     lambertian=bool(lambertian))
+                     lambertian=bool(lambertian), reorder=reorder)
     return color
 
 
 def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
                 frame_count, sky_brightness, jitter_amount, lambertian,
-                px, py, raycast_fn):
+                px, py, raycast_fn, traversal: str):
     """Chunked render of a flat pixel list -> (R, 3) colors.  Chunks of up
-    to 2M rays (or ``config.ray_chunk``) bound the per-ray state."""
+    to 2M rays for the kernels' traversals and 128K for "brute" and "bvh"
+    (or ``config.ray_chunk``) bound the per-ray state."""
     R = px.shape[0]
-    chunk = min(config.ray_chunk or min(R, _DEFAULT_CHUNK), R)
+    default = (_SMALL_CHUNK if traversal in ("brute", "bvh")
+               else _DEFAULT_CHUNK)
+    chunk = min(config.ray_chunk or min(R, default), R)
     chunk = -(-chunk // _PACKET) * _PACKET
     n_chunks = -(-R // chunk)
     pad = n_chunks * chunk - R
@@ -128,14 +182,15 @@ def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
         frame_c = frame_count[sl] if frame_is_tensor else frame_count
         colors.append(render_pixels(
             scene, config, camera, frame_c, sky_brightness, jitter_amount,
-            lambertian, px[sl], py[sl], raycast_fn))
+            lambertian, px[sl], py[sl], raycast_fn,
+            reorder=traversal in _REORDER))
     return torch.cat(colors)[:R]
 
 
 def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
                frame_count: int, tile_x: int, tile_y: int,
                sky_brightness, jitter_amount, lambertian, *,
-               config: RenderConfig, raycast_fn) -> None:
+               config: RenderConfig, raycast_fn, traversal: str) -> None:
     """Render one tile and fold it into ``accum`` in place."""
     H, W = config.height, config.width
     tw, th = config.tile_w, config.tile_h
@@ -167,7 +222,8 @@ def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
         frames = frame_count
 
     colors = render_flat(scene, config, camera, frames, sky_brightness,
-                         jitter_amount, lambertian, px, py, raycast_fn)
+                         jitter_amount, lambertian, px, py, raycast_fn,
+                         traversal)
     if F > 1:
         colors = colors.reshape(F, n_band, 3).sum(dim=0)
 
@@ -188,7 +244,8 @@ class Renderer:
     (the reference's App.main loop, main.py:273-430, minus windowing).
     ``device`` names where the scene tables, the rays and ``accum`` live;
     CUDA devices run the hand-written kernels, the CPU their plain
-    versions."""
+    versions.  ``traversal`` is the name the config's one resolved to
+    (:func:`resolve_traversal`)."""
 
     def __init__(self, scene, config: RenderConfig = RenderConfig(), *,
                  device):
@@ -208,15 +265,9 @@ class Renderer:
                 f"tile_size={config.tile_size} exceeds the frame "
                 f"({config.width}x{config.height})")
 
-        traversal = config.traversal
-        if traversal == "auto":
-            if scene_data.p2_node_rows.shape[0] == 0:
-                raise NotImplementedError(
-                    "scene exceeds the sub-block table caps; its fallback "
-                    "traversals are not yet ported, see ROADMAP.md")
-            traversal = "pallas2"
-        self._raycast = make_raycast_fn(scene_data, traversal)
-        self.traversal = traversal
+        self.traversal = resolve_traversal(scene_data, config.traversal)
+        self._raycast = make_raycast_fn(scene_data, self.traversal,
+                                        effective_max_leaf(scene_data))
 
     def init_state(self) -> RenderState:
         accum = torch.zeros((self.config.height, self.config.width, 3),
@@ -236,7 +287,7 @@ class Renderer:
             cfg.sky_brightness if sky_brightness is None else sky_brightness,
             cfg.jitter_amount if jitter_amount is None else jitter_amount,
             cfg.lambertian if lambertian is None else lambertian,
-            config=cfg, raycast_fn=self._raycast)
+            config=cfg, raycast_fn=self._raycast, traversal=self.traversal)
 
         tile_x, tile_y, frames = state.tile_x + 1, state.tile_y, state.frame_count
         if tile_x >= cfg.num_tiles_x:

@@ -35,10 +35,13 @@ class RenderConfig:
         parameter divides the window, main.py:125-126). 1 = whole frame
         per step.  Need not divide the frame exactly — remainder tiles
         are masked like the reference's modulo gating.
-    traversal: "auto" | "pallas2" in this package.  "auto" resolves to
-        "pallas2", the sub-block BVH traversal kernel, whenever the scene
-        has sub-block tables.  The names "brute", "bvh", "packet" and
-        "pallas" of the JAX package are not yet ported and raise.
+    traversal: "auto" | "brute" | "bvh" | "packet" | "pallas" | "pallas2",
+        the names of the JAX package.  "brute" sweeps every triangle,
+        "bvh" walks the binary BVH per ray, "pallas" and "packet" both run
+        the wide-BVH kernel (K3) and "pallas2" the sub-block kernel (K1).
+        "auto" picks brute force for scenes of up to 128 triangles, else
+        "pallas2" when the scene has sub-block tables, else "pallas"
+        (renderer.resolve_traversal).
     ray_chunk: rays processed per inner chunk (bounds peak memory). 0 =
         whole frame at once, up to 2M rays per chunk.
     aspect: display aspect ratio for ray generation (reference main.py:137

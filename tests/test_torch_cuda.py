@@ -22,8 +22,10 @@ from opengl_raytracer_torch import (Rect, RenderConfig, Renderer, Scene,
                                     Triangles, make_camera)
 from opengl_raytracer_torch.models import scene as scene_mod
 from opengl_raytracer_torch.ops import _kernels, shade
+from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.renderer import effective_max_leaf
 from opengl_raytracer_torch.utils.image import rmse
 
 pytestmark = pytest.mark.cuda
@@ -84,6 +86,42 @@ def test_traverse_kernel_matches_plain(cuda):
     assert (tk[t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
 
 
+def test_wide_kernel_matches_plain(cuda):
+    """K3 against its plain version, with three rays lying in face planes
+    of the scene's bounding box: their slab tests meet 0 * inf = NaN, which
+    both versions propagate, so both miss."""
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    o3, d3, t0 = _rays(3000, cuda)
+    lo = data.root_min
+    for r, a in ((3, 0), (4, 1), (5, 2)):
+        b = (a + 1) % 3
+        for k in range(3):
+            o3[k][r] = float(lo[k]) + 1.0
+            d3[k][r] = 0.0
+        o3[a][r] = float(lo[a])
+        o3[b][r] = float(lo[b]) - 1.0
+        d3[b][r] = 1.0
+        t0[r] = BIG
+    args = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
+            -(-effective_max_leaf(data) // 8), wide.stack_size(data.pw_max_stack))
+    ov = wide.overflow_tensor(cuda)
+    ov.zero_()
+    before = _kernels.launch_counts["wide_traversal"]
+    tk, sk, uk, vk = wide.traverse_wide(*args)
+    assert _kernels.launch_counts["wide_traversal"] == before + 1
+    tp, sp, up, vp, dropped = wide._traverse_plain(*args)
+    torch.cuda.synchronize()
+    assert int(ov.item()) == 0 and int(dropped) == 0
+    hit = (tp < BIG) & (tp > -BIG)
+    assert int(hit.sum()) > 1000
+    assert (tk[3:6] == BIG).all() and (tp[3:6] == BIG).all()
+    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
+    assert torch.equal(sk[hit], sp[hit])
+    torch.testing.assert_close(uk[hit], up[hit], rtol=0, atol=1e-6)
+    torch.testing.assert_close(vk[hit], vp[hit], rtol=0, atol=1e-6)
+    assert (tk[t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
+
+
 def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
     """The part-chaining wrapper on the card against the same wrapper on
     the CPU (plain version), on a scene split into several parts."""
@@ -125,7 +163,8 @@ def test_shade_kernel_matches_plain(cuda, lambertian):
                    v=dev(v), slot=dev(g.integers(-2, data.sh_slot.shape[0] + 2,
                                                  R).astype(np.int32)))
     col3 = lambda a: tuple(dev(a[k]) for k in range(3))  # noqa: E731
-    args = (data, near, col3(g.uniform(-4, 4, (3, R)).astype(f32)),
+    args = (data.sh_slot, near.slot, near,
+            col3(g.uniform(-4, 4, (3, R)).astype(f32)),
             col3(d.astype(f32)), col3(g.uniform(0, 1, (3, R)).astype(f32)),
             col3(g.uniform(0, 1, (3, R)).astype(f32)),
             dev(g.uniform(size=R) < 0.8),
@@ -154,16 +193,21 @@ def test_kernel_wrappers_reject_bad_input(cuda):
         sbt.traverse_part(node_rows, tri_rows, (strided, *o3[1:]), d3, t0)
     with pytest.raises(ValueError, match="is on"):
         sbt.traverse_part(node_rows.cpu(), tri_rows, o3, d3, t0)
+    with pytest.raises(ValueError, match="stack"):
+        wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, 2, 100)
 
 
-def test_render_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("traversal", ["pallas2", "pallas"])
+def test_render_on_card_matches_cpu(cuda, traversal):
     soup, _, light = _objects()  # no enclosing box: misses see the sky
     scene = Scene([soup, light], max_leaf_tris=16)
     cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
     imgs = []
     for device in (cuda, "cpu"):
         r = Renderer(scene, RenderConfig(width=24, height=16, bounces=2,
-                                         tile_size=2), device=device)
+                                         tile_size=2, traversal=traversal),
+                     device=device)
+        assert r.traversal == traversal
         imgs.append(r.image(r.render(cam, frames=2)))
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
     assert rmse(imgs[0], imgs[1]) < 1e-4

@@ -1,6 +1,7 @@
-"""The whole slice: the torch ``Renderer`` on CPU (plain versions of K1 and
-K2) against the JAX ``Renderer(traversal="pallas2")`` (its Pallas kernels
-in interpret mode, as tests/test_subblock.py runs it).
+"""The whole slice: the torch ``Renderer`` on CPU (the kernels' plain
+versions) against the JAX ``Renderer`` for every traversal name (its
+Pallas kernels in interpret mode, as tests/test_subblock.py and
+tests/test_pallas.py run them), and the ``"auto"`` rule.
 
 Tolerance: RMSE < 1e-4, every value finite, and >= 99% of components
 within 1e-4 relative.  The two programs round mul+add differently (XLA
@@ -11,6 +12,7 @@ one path, as tests/test_shade.py allows.
 import numpy as np
 import pytest
 
+import opengl_raytracer_torch.models.scene as tscene_mod
 from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
 from opengl_raytracer_tpu.models.trisoup import Triangles as JTriangles
@@ -52,17 +54,20 @@ def _render(scene, frames=2, **cfg):
     return r.image(r.render(make_camera(*CAM), frames=frames))
 
 
-def test_renderer_matches_jax_pallas2(scene):
-    jr = JRenderer(JScene(_objects(JRect, JTriangles)),
-                   JRenderConfig(width=16, height=16, bounces=2,
-                                 traversal="pallas2"))
-    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=2))
-    got = _render(scene)
+def _assert_matches(ref, got):
     assert np.isfinite(got).all()
     assert rmse(ref, got) < 1e-4
     rel = np.abs(ref - got) / np.maximum(1.0, np.abs(ref))
     assert np.mean(rel > 1e-4) < 0.01
     assert got.mean() > 0.05  # lit, not black
+
+
+def test_renderer_matches_jax_pallas2(scene):
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)),
+                   JRenderConfig(width=16, height=16, bounces=2,
+                                 traversal="pallas2"))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=2))
+    _assert_matches(ref, _render(scene))
 
 
 def test_remainder_tiles_match_whole_frame(scene):
@@ -83,7 +88,60 @@ def test_frames_per_step_matches_sequential(scene):
 
 
 @pytest.mark.parametrize("traversal", ["brute", "bvh", "packet", "pallas"])
-def test_unported_traversals_raise(scene, traversal):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Renderer(scene, RenderConfig(width=16, height=16,
-                                     traversal=traversal), device="cpu")
+def test_renderer_matches_jax(scene, traversal):
+    """One frame of each other traversal against the JAX Renderer's:
+    "packet" runs the wide-BVH kernel's plain version here and the XLA
+    packet traversal there, "pallas" the JAX wide kernel in interpret
+    mode."""
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)),
+                   JRenderConfig(width=16, height=16, bounces=2,
+                                 traversal=traversal))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=1))
+    _assert_matches(ref, _render(scene, frames=1, traversal=traversal))
+
+
+def _resolved(scene, traversal="auto"):
+    return Renderer(scene, RenderConfig(width=16, height=16,
+                                        traversal=traversal),
+                    device="cpu").traversal
+
+
+def test_auto_picks_brute_for_small_scenes():
+    """At most 128 (padded) triangles: brute force, as in the JAX package."""
+    objs = _objects(Rect, Triangles)[:4]  # 48 triangles
+    assert _resolved(Scene(objs)) == "brute"
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)[:4]), JRenderConfig())
+    assert jr.traversal == "brute"
+
+
+def test_auto_picks_subblock_kernel(scene):
+    assert scene.send("cpu").p2_node_rows.shape[0] > 0
+    assert _resolved(scene) == "pallas2"
+
+
+def test_auto_picks_wide_kernel_without_subblock_tables(monkeypatch):
+    """A scene past the sub-block builder's caps has no p2 tables; "auto"
+    then runs K3, and an explicit "pallas2" refuses the scene."""
+    def over_caps(*a, **k):
+        raise ValueError("over the caps")
+
+    monkeypatch.setattr(tscene_mod, "build_subblock_parts", over_caps)
+    big = Scene(_objects(Rect, Triangles))
+    assert big.send("cpu").p2_node_rows.shape[0] == 0
+    assert _resolved(big) == "pallas"
+    r = Renderer(big, RenderConfig(width=16, height=16, bounces=2,
+                                   traversal="pallas2"), device="cpu")
+    with pytest.raises(ValueError, match="no sub-block tables"):
+        r.render(make_camera(*CAM), frames=1)
+
+
+def test_unpartitioned_scene_runs_brute_force():
+    """build_bvh=False over 1024 triangles: a single giant leaf, which
+    "auto" renders by brute force and every BVH traversal refuses."""
+    g = np.random.default_rng(4)
+    tris = g.uniform(-1, 1, (1100, 3, 3)).astype(np.float32)
+    flat = Scene([Triangles(tris, color=(0.5, 0.5, 0.5))], build_bvh=False)
+    assert _resolved(flat) == "brute"
+    for traversal in ("bvh", "packet", "pallas", "pallas2"):
+        with pytest.raises(ValueError, match="over 1024 triangles"):
+            _resolved(flat, traversal)

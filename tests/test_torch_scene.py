@@ -1,7 +1,9 @@
 """The torch port's scene tables and sort keys against the JAX package.
 
-Both packages build the sub-block tables with the same builder from the
-same objects, so every table must be BIT-equal (compared as raw 32-bit
+Both packages build every table with the same builders from the same
+objects (the per-triangle arrays, the binary BVH, the wide-BVH tiles, the
+octet-aligned triangle tiles, the sub-block parts and both shading
+tables), so every table must be BIT-equal (compared as raw 32-bit
 patterns); the Morton/octant sort keys must be bit-equal too.
 """
 
@@ -20,6 +22,7 @@ from opengl_raytracer_tpu.ops.morton import ray_sort_keys_soa as j_keys
 import opengl_raytracer_torch.models.scene as tscene_mod
 from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
 from opengl_raytracer_torch.ops.morton import ray_sort_keys_soa
+from opengl_raytracer_torch.ops.wide_bvh import collapse_wide, validate_wide
 
 
 def _objects(rect_cls, tri_cls, n_tris):
@@ -46,26 +49,31 @@ def _assert_bit_equal(a, b, name):
     np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=name)
 
 
+# SceneData fields both packages have, besides the sub-block parts
+_SHARED = ("v0", "e1", "e2", "face", "node_min", "node_max", "node_miss",
+           "node_first", "node_count", "pw_tiles", "pw_entry",
+           "pl_tri_tiles", "pl_remap", "sh_abc", "sh_slot")
+
+
 def _jax_fields(data):
-    return dict(
-        p2_node_rows=np.asarray(data.p2_node_rows),
-        p2_tri_rows=np.asarray(data.p2_tri_rows),
-        p2_remap=np.asarray(data.p2_remap),
-        p2_extra=[tuple(np.asarray(x) for x in p) for p in data.p2_extra],
-        sh_slot=np.asarray(data.sh_slot),
-        node_min=np.asarray(data.node_min),
-        node_max=np.asarray(data.node_max),
-    )
+    """np.asarray of every field of a JAX SceneData."""
+    fields = {k: np.asarray(getattr(data, k)) for k in data._fields
+              if k != "p2_extra"}
+    fields["p2_extra"] = [tuple(np.asarray(x) for x in p)
+                          for p in data.p2_extra]
+    return fields
 
 
 def _assert_scene_equal(jdata, tdata):
+    for name in _SHARED:
+        _assert_bit_equal(getattr(jdata, name),
+                          getattr(tdata, name).numpy(), name)
     assert len(tdata.p2_extra) == len(jdata.p2_extra)
     jparts = [(jdata.p2_node_rows, jdata.p2_tri_rows, jdata.p2_remap),
               *jdata.p2_extra]
     for k, (jp, tp) in enumerate(zip(jparts, tdata.parts)):
         for name, ja, ta in zip(("node_rows", "tri_rows", "remap"), jp, tp):
             _assert_bit_equal(ja, ta.numpy(), f"part {k} {name}")
-    _assert_bit_equal(jdata.sh_slot, tdata.sh_slot.numpy(), "sh_slot")
     _assert_bit_equal(np.asarray(jdata.node_min)[0], tdata.root_min, "root_min")
     _assert_bit_equal(np.asarray(jdata.node_max)[0], tdata.root_max, "root_max")
 
@@ -91,6 +99,33 @@ def test_multi_part_tables_bit_equal(monkeypatch):
     tdata = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16).send("cpu")
     assert len(tdata.p2_extra) >= 1
     _assert_scene_equal(jdata, tdata)
+
+
+@pytest.mark.parametrize("leaf", [8, 16, 32, "no_bvh"])
+def test_wide_tables_bit_equal(leaf):
+    """The wide-BVH and octet tiles, the binary BVH, the per-triangle
+    arrays and sh_abc at every leaf size, and for the single-leaf
+    pseudo-BVH of build_bvh=False; the port's stack bound recomputed from
+    pw_entry equals collapse_wide's."""
+    kw = (dict(build_bvh=False) if leaf == "no_bvh"
+          else dict(max_leaf_tris=leaf))
+    jdata = JScene(_objects(JRect, JTriangles, 300), **kw).send()
+    scene = Scene(_objects(Rect, Triangles, 300), **kw)
+    tdata = scene.send("cpu")
+    _assert_scene_equal(jdata, tdata)
+    if leaf == "no_bvh":
+        assert scene.bvh is None
+        assert tdata.node_count.tolist() == [scene.total_triangles]
+    else:
+        # the leaves' first octets, as Scene.fields lays the octets out
+        counts = scene.bvh.node_count
+        octets = -(-counts[counts > 0].astype(np.int64) // 8)
+        first = np.zeros(len(counts), np.int32)
+        first[counts > 0] = np.concatenate(([0], np.cumsum(octets)))[:-1]
+        wide = collapse_wide(scene.bvh, first)
+        validate_wide(wide, scene.bvh)
+        np.testing.assert_array_equal(wide.entry, tdata.pw_entry.numpy())
+        assert wide.max_stack == tdata.pw_max_stack
 
 
 def test_scene_from_numpy_round_trip():

@@ -1,9 +1,16 @@
-"""K2's plain torch version against the JAX fused shade kernel
-(``opengl_raytracer_tpu/ops/shade.py:shade_update``, interpret mode).
+"""K2's plain torch version against the JAX package's shading, on both
+tables the wrapper takes:
 
-Same NumPy inputs on both sides: a scene's slot-order material table, and
-random hits (slots, t with misses mixed in, barycentrics), ray state,
-alive flags and uint32 seeds over the full range.  Tolerance as in
+* ``(sh_slot, slot)`` against the JAX fused shade kernel
+  (``opengl_raytracer_tpu/ops/shade.py:shade_update``, interpret mode);
+* ``(sh_abc, tri)`` against the JAX integrator's unfused path
+  (``opengl_raytracer_tpu/ops/integrator.py:281-311``: ``finalize_hit_soa``
+  gathering ``sh_abc[tri]``, ``scatter_soa`` and the state update), which
+  the brute, BVH and wide-BVH traversals run.
+
+Same NumPy inputs on both sides: a scene's material tables, and random
+hits (slots or triangles, t with misses mixed in, barycentrics), ray
+state, alive flags and uint32 seeds over the full range.  Tolerance as in
 tests/test_shade.py: floats ``rtol=1e-5, atol=1e-6`` (mul+add contraction
 differs between the two programs); seed and alive exact.
 """
@@ -16,11 +23,13 @@ import jax.numpy as jnp
 
 from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
+from opengl_raytracer_tpu.ops.integrator import scatter_soa as j_scatter_soa
 from opengl_raytracer_tpu.ops.intersect import Nearest as JNearest
+from opengl_raytracer_tpu.ops.intersect import finalize_hit_soa as j_finalize
 from opengl_raytracer_tpu.ops.shade import shade_update as j_shade_update
 
 from opengl_raytracer_torch import scene_from_numpy
-from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest, shading_table
 from opengl_raytracer_torch.ops.shade import shade_update
 
 R = 1024
@@ -37,17 +46,13 @@ def scenes():
         JRect([1.8, 0.1, -1.2], [0.6, 1.1, 0.6], [0.2, 0.4, 0.9],
               roughness=0.0),
     ], max_leaf_tris=8).send()
-    fields = dict(
-        p2_node_rows=np.asarray(jdata.p2_node_rows),
-        p2_tri_rows=np.asarray(jdata.p2_tri_rows),
-        p2_remap=np.asarray(jdata.p2_remap), p2_extra=(),
-        sh_slot=np.asarray(jdata.sh_slot),
-        node_min=np.asarray(jdata.node_min),
-        node_max=np.asarray(jdata.node_max))
+    fields = {k: np.asarray(getattr(jdata, k)) for k in jdata._fields
+              if k != "p2_extra"}
+    fields["p2_extra"] = ()
     return jdata, scene_from_numpy(fields, "cpu")
 
 
-def _inputs(n_slot, seed=3):
+def _inputs(n_rows, seed=3):
     g = np.random.default_rng(seed)
     f32 = np.float32
     t = g.uniform(0.1, 10.0, R).astype(f32)
@@ -57,7 +62,7 @@ def _inputs(n_slot, seed=3):
     d = g.normal(size=(3, R))
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     return dict(
-        slot=g.integers(0, n_slot, R).astype(np.int32), t=t, u=u, v=v,
+        slot=g.integers(0, n_rows, R).astype(np.int32), t=t, u=u, v=v,
         o=g.uniform(-4, 4, (3, R)).astype(f32), d=d.astype(f32),
         rc=g.uniform(0, 1, (3, R)).astype(f32),
         inc=g.uniform(0, 1, (3, R)).astype(f32),
@@ -84,12 +89,20 @@ def test_shade_plain_matches_jax_kernel(scenes, lambertian):
     tn = Nearest(t=torch.from_numpy(x["t"]), tri=torch.zeros(R, dtype=torch.int32),
                  u=torch.from_numpy(x["u"]), v=torch.from_numpy(x["v"]),
                  slot=torch.from_numpy(x["slot"]))
-    tcol3 = lambda k: tuple(torch.from_numpy(c) for c in x[k])  # noqa: E731
-    got = shade_update(tdata, tn, tcol3("o"), tcol3("d"), tcol3("rc"),
-                       tcol3("inc"), torch.from_numpy(x["alive"]),
-                       torch.from_numpy(x["seed"].astype(np.int64)),
-                       tuple(float(c) for c in sky), em_scale, lambertian)
+    got = _port_shade(tdata, tn, x, sky, em_scale, lambertian)
+    _assert_shade_equal(ref, got, x)
 
+
+def _port_shade(tdata, tn, x, sky, em_scale, lambertian):
+    table, index = shading_table(tdata, tn)
+    tcol3 = lambda k: tuple(torch.from_numpy(c) for c in x[k])  # noqa: E731
+    return shade_update(table, index, tn, tcol3("o"), tcol3("d"),
+                        tcol3("rc"), tcol3("inc"), torch.from_numpy(x["alive"]),
+                        torch.from_numpy(x["seed"].astype(np.int64)),
+                        tuple(float(c) for c in sky), em_scale, lambertian)
+
+
+def _assert_shade_equal(ref, got, x):
     for g_ref, g_got in zip(ref[:4], got[:4]):
         for a in range(3):
             np.testing.assert_allclose(np.asarray(g_ref[a]), g_got[a].numpy(),
@@ -99,3 +112,50 @@ def test_shade_plain_matches_jax_kernel(scenes, lambertian):
                                   got[5].numpy())
     # the inputs exercise every branch: hits, misses, emissive kills
     assert got[4].sum() > 0 and (~got[4] & torch.from_numpy(x["alive"])).sum() > 0
+
+
+def _j_unfused_shade(jdata, jn, o3, d3, rc3, inc3, alive, seed, sky,
+                     em_scale, lambertian):
+    """The JAX integrator's unfused bounce update (integrator.py:281-311)."""
+    hit = j_finalize(jdata, o3, d3, jn)
+    seed_h, new_dir = j_scatter_soa(seed, hit.normal, d3, hit.roughness,
+                                    lambertian)
+    was_hit = alive & hit.did_hit
+    was_miss = alive & ~hit.did_hit
+    em = hit.emission * em_scale
+    inc = tuple(inc3[a]
+                + jnp.where(was_hit, hit.emission_color[a] * em * rc3[a], 0.0)
+                + jnp.where(was_miss, sky[a], 0.0) for a in range(3))
+    rc = tuple(jnp.where(was_hit, rc3[a] * hit.color[a], rc3[a])
+               for a in range(3))
+    o = tuple(jnp.where(was_hit, hit.point[a] + hit.normal[a] * np.float32(1e-4),
+                        o3[a]) for a in range(3))
+    d = tuple(jnp.where(was_hit, new_dir[a], d3[a]) for a in range(3))
+    seed = jnp.where(was_hit, seed_h, seed)
+    return o, d, rc, inc, was_hit & ~(hit.emission > 0.0), seed
+
+
+@pytest.mark.parametrize("lambertian", [True, False])
+def test_shade_plain_on_triangle_table_matches_jax_unfused(scenes, lambertian):
+    """Without a slot (brute, bvh and the wide-BVH traversal) the wrapper
+    shades from sh_abc by triangle, as the JAX integrator's unfused path
+    does."""
+    jdata, tdata = scenes
+    x = _inputs(tdata.sh_abc.shape[0], seed=5)
+    tri = x.pop("slot")
+    sky = np.asarray([0.3, 0.4, 0.9], np.float32) * np.float32(0.8)
+    em_scale = 2.0 if lambertian else 1.0
+
+    jn = JNearest(t=jnp.asarray(x["t"]), tri=jnp.asarray(tri),
+                  u=jnp.asarray(x["u"]), v=jnp.asarray(x["v"]))
+    col3 = lambda k: tuple(jnp.asarray(c) for c in x[k])  # noqa: E731
+    ref = _j_unfused_shade(jdata, jn, col3("o"), col3("d"), col3("rc"),
+                           col3("inc"), jnp.asarray(x["alive"]),
+                           jnp.asarray(x["seed"]), jnp.asarray(sky),
+                           np.float32(em_scale), lambertian)
+
+    tn = Nearest(t=torch.from_numpy(x["t"]), tri=torch.from_numpy(tri),
+                 u=torch.from_numpy(x["u"]), v=torch.from_numpy(x["v"]))
+    assert shading_table(tdata, tn)[0] is tdata.sh_abc
+    got = _port_shade(tdata, tn, x, sky, em_scale, lambertian)
+    _assert_shade_equal(ref, got, x)

@@ -1,17 +1,25 @@
-"""K1's plain torch version and the part-chaining wrapper against the JAX
-package's ``raycast_subblock`` (interpret mode) and ``raycast_packet``.
+"""The port's traversals against the JAX package's, on the same tables
+(``scene_from_numpy`` of the JAX SceneData's fields):
 
-Both sides read the same tables (``scene_from_numpy`` of the JAX
-SceneData).  Tolerances:
+* K1's plain torch version and the part-chaining wrapper against
+  ``raycast_subblock`` (interpret mode) and ``raycast_packet``;
+* K3's plain torch version (``raycast_pallas``) against the JAX
+  ``raycast_pallas`` in interpret mode, with axis-parallel rays whose
+  origins lie on slab planes;
+* ``raycast_brute`` against the JAX ``raycast_brute`` and against the
+  scalar oracle of tests/oracle.py, and ``raycast_bvh`` against the JAX
+  ``raycast_bvh``.
+
+Tolerances:
 
 * ``t`` within ``rtol=atol=1e-6``, widened per ray by the rounding bound
   of ``t = -(r.face)/det``: XLA contracts the dot products into FMAs and
   eager torch does not, and a ray starting next to a triangle's plane
   cancels ``r.face`` (4 ulps of ``sum|r_a face_a| / |det|``);
-* the hit triangle equal on every hit ray except where the port's triangle
-  is hit at the same ``t`` (the JAX kernel orders children by its packet's
-  dominant octant, the port by the ray's own, so exact ties may resolve
-  differently);
+* the same hit set, and the hit triangle equal on every hit ray except
+  where the port's triangle is hit at the same ``t`` (the JAX kernels
+  order children by their packet's dominant octant, the port by the ray's
+  own, so exact ties may resolve differently);
 * u/v within 1e-5 where the triangles agree; inactive rays report
   ``t = BIG``.
 """
@@ -26,16 +34,31 @@ import opengl_raytracer_tpu.ops.wide2 as jwide2
 from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
 from opengl_raytracer_tpu.models.trisoup import Triangles as JTriangles
+from opengl_raytracer_tpu.ops.intersect import raycast_brute as j_brute
+from opengl_raytracer_tpu.ops.pallas_traversal import raycast_pallas as j_pallas
 from opengl_raytracer_tpu.ops.subblock_traversal import raycast_subblock as j_subblock
+from opengl_raytracer_tpu.ops.traversal import raycast_bvh as j_bvh
 from opengl_raytracer_tpu.ops.traversal import raycast_packet as j_packet
 
-from opengl_raytracer_torch import scene_from_numpy
-from opengl_raytracer_torch.ops.intersect import BIG
+import oracle
+from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
+from opengl_raytracer_torch.ops import pallas_traversal
+from opengl_raytracer_torch.ops.intersect import BIG, raycast_brute
 from opengl_raytracer_torch.ops.subblock_traversal import (overflow_tensor,
                                                            raycast_subblock)
+from opengl_raytracer_torch.ops.traversal import raycast_bvh
 
 
-def _jax_scene(n_tris, budget=None, monkeypatch=None):
+def _fields(data):
+    """np.asarray of every field of a JAX SceneData."""
+    fields = {k: np.asarray(getattr(data, k)) for k in data._fields
+              if k != "p2_extra"}
+    fields["p2_extra"] = [tuple(np.asarray(x) for x in p)
+                          for p in data.p2_extra]
+    return fields
+
+
+def _jax_scene(n_tris, budget=None, monkeypatch=None, leaf=16):
     if budget is not None:
         orig = jwide2.build_subblock_parts
         monkeypatch.setattr(jwide2, "build_subblock_parts",
@@ -45,16 +68,8 @@ def _jax_scene(n_tris, budget=None, monkeypatch=None):
     objs = [JTriangles(tris, color=(0.5, 0.5, 0.5), roughness=1.0),
             # a box around the soup: shared quad edges give exact-t ties
             JRect([10, 10, 10], [0, 0, 0], [0, 0, 0], [0.8, 0.8, 0.8])]
-    data = JScene(objs, max_leaf_tris=16).send()
-    fields = dict(
-        p2_node_rows=np.asarray(data.p2_node_rows),
-        p2_tri_rows=np.asarray(data.p2_tri_rows),
-        p2_remap=np.asarray(data.p2_remap),
-        p2_extra=[tuple(np.asarray(x) for x in p) for p in data.p2_extra],
-        sh_slot=np.asarray(data.sh_slot),
-        node_min=np.asarray(data.node_min),
-        node_max=np.asarray(data.node_max))
-    return data, scene_from_numpy(fields, "cpu")
+    data = JScene(objs, max_leaf_tris=leaf).send()
+    return data, scene_from_numpy(_fields(data), "cpu")
 
 
 def _rays(R, seed=1):
@@ -80,10 +95,19 @@ def _mt(o, d, v0, e1, e2, face):
     return ok, t
 
 
+def _cols(x):
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in x)
+
+
+def _leaf(jdata):
+    return int(np.asarray(jdata.node_count).max())
+
+
 def _check(jdata, ref, got, o, d, active=None):
     rt, gt = np.asarray(ref.t), got.t.numpy()
     hit = rt < 1e29
     assert hit.sum() > len(rt) // 8
+    np.testing.assert_array_equal(gt < 1e29, hit)  # the same hit set
     np.testing.assert_array_equal(gt[~hit], rt[~hit])
     if active is not None:
         assert (gt[~active] == BIG).all()
@@ -155,3 +179,129 @@ def test_plain_matches_jax_packet(parts, monkeypatch):
                    max_leaf_tris=int(np.asarray(jdata.node_count).max()))
     got = _run_port(tdata, o, d)
     assert _check(jdata, ref, got, o, d) < R // 100
+
+
+def _slab_plane_rays(jdata, o, d, first=4, n=12):
+    """Rays ``first..first+n``: axis-parallel, each with its origin on a
+    slab plane of one of the root's child boxes, inside the scene's bounds,
+    so that box's slab test meets 0 * inf = NaN and the child is not
+    opened."""
+    tiles = np.asarray(jdata.pw_tiles)
+    lo0, hi0 = np.asarray(jdata.node_min)[0], np.asarray(jdata.node_max)[0]
+    planes = [(j, a, side) for j in range(8) for a in range(3)
+              for side in (0, 3)
+              if tiles[0, j, 0] <= tiles[0, j, 3]  # not an empty slot
+              and lo0[a] < tiles[0, j, side + a] < hi0[a]]
+    assert len(planes) >= n
+    for k, (j, a, side) in enumerate(planes[:n]):
+        b, c = (a + 1) % 3, (a + 2) % 3
+        lo, hi = tiles[0, j, 0:3], tiles[0, j, 3:6]
+        r = first + k
+        o[:, r] = (lo + hi) * np.float32(0.5)
+        o[a, r] = tiles[0, j, side + a]
+        o[b, r] = lo[b] - np.float32(1.0)
+        d[:, r] = 0.0
+        d[b, r] = 1.0
+        assert d[a, r] == 0.0 and d[c, r] == 0.0
+
+
+@pytest.mark.parametrize("leaf", [8, 16])
+def test_k3_plain_matches_jax_pallas(leaf):
+    """K3's plain version against the JAX kernel in interpret mode, with
+    an active mask, on tables carried over by scene_from_numpy."""
+    jdata, tdata = _jax_scene(200, leaf=leaf)
+    assert tdata.pl_tri_tiles.shape[0] > 0
+    R = 256
+    o, d = _rays(R, seed=3)
+    _slab_plane_rays(jdata, o, d)
+    active = np.random.default_rng(8).uniform(size=R) < 0.8
+    active[:16] = True
+    ref = j_pallas(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
+                   jnp.asarray(active), max_leaf_tris=_leaf(jdata),
+                   interpret=True)
+    ov = pallas_traversal.overflow_tensor("cpu")
+    ov.zero_()
+    got = pallas_traversal.raycast_pallas(
+        tdata, _cols(o), _cols(d), torch.from_numpy(active),
+        max_leaf_tris=_leaf(jdata))
+    assert int(ov.item()) == 0 and got.slot is None
+    _check(jdata, ref, got, o, d, active)
+
+
+def test_brute_matches_jax_brute():
+    """The matmul sweep against the JAX one, over several 2048-triangle
+    chunks, with an active mask; the box's shared quad edges make ties,
+    which both resolve to the lowest index."""
+    jdata, tdata = _jax_scene(5000)
+    R = 512
+    o, d = _rays(R, seed=4)
+    active = np.random.default_rng(9).uniform(size=R) < 0.8
+    ref = j_brute(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
+                  jnp.asarray(active))
+    got = raycast_brute(tdata, _cols(o), _cols(d), torch.from_numpy(active))
+    assert got.slot is None
+    _check(jdata, ref, got, o, d, active)
+    none = raycast_brute(tdata, _cols(o), _cols(d), torch.zeros(R, dtype=bool))
+    assert (none.t == BIG).all()  # an all-dead batch skips the sweep
+
+
+def test_brute_matches_oracle():
+    """The port's brute force on its own Scene against the scalar GLSL
+    oracle: the same hits, t within 1e-5 relative, the same material."""
+    g = np.random.default_rng(6)
+    tris = g.uniform(-3, 3, (60, 3, 3)).astype(np.float32)
+    objs = [Triangles(tris, color=(0.2, 0.4, 0.6), roughness=0.5),
+            Rect([10, 10, 10], [0, 0, 0], [0, 0, 0], [0.8, 0.7, 0.6])]
+    scene = Scene(objs)
+    data = scene.send("cpu")
+    o, d = _rays(128, seed=5)
+    got = raycast_brute(data, _cols(o), _cols(d))
+    sc = oracle.OracleScene.from_scene(scene)
+    color = data.sh_abc[got.tri.long()][:, 16:19].numpy()
+    for r in range(o.shape[1]):
+        ref = oracle.raycast(sc, o[:, r], d[:, r])
+        gt = float(got.t[r])
+        if ref is None:
+            assert gt == BIG
+            continue
+        np.testing.assert_allclose(gt, ref["t"], rtol=1e-5)
+        np.testing.assert_array_equal(color[r], ref["color"])
+
+
+def test_bvh_matches_jax_bvh():
+    """The stackless walk against the JAX one: the same nodes in the same
+    order, so the same triangle wins every hit, ties included."""
+    jdata, tdata = _jax_scene(257, leaf=8)
+    R = 512
+    o, d = _rays(R, seed=6)
+    active = np.random.default_rng(10).uniform(size=R) < 0.8
+    ref = j_bvh(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
+                jnp.asarray(active), max_leaf_tris=_leaf(jdata))
+    got = raycast_bvh(tdata, _cols(o), _cols(d), torch.from_numpy(active),
+                      max_leaf_tris=_leaf(jdata))
+    assert _check(jdata, ref, got, o, d, active) == 0
+
+
+def test_k3_face_plane_rays_follow_per_ray_slab_test():
+    """A ray lying in a face plane of the scene's bounding box meets a NaN
+    slab at every box that shares the plane: the port's per-ray walk opens
+    none of them and misses, as the JAX package's per-ray ``raycast_bvh``
+    does.  (The JAX wide kernel shares node visits within a 1024-ray block,
+    so there such a ray tests whatever leaves its block-mates open and may
+    hit.)  Just off the plane, all three find the same hit."""
+    jdata, tdata = _jax_scene(200, leaf=8)
+    lo0 = np.asarray(jdata.node_min)[0]
+    R = 128
+    o, d = _rays(R, seed=11)
+    o[:, :2] = np.asarray([[0.0, lo0[1], lo0[2] - 1.0],
+                           [0.0, lo0[1] + np.float32(1e-3), lo0[2] - 1.0]],
+                          np.float32).T
+    d[:, :2] = np.asarray([[0.0, 0.0, 1.0]] * 2, np.float32).T
+    got = pallas_traversal.raycast_pallas(tdata, _cols(o), _cols(d),
+                                          max_leaf_tris=_leaf(jdata))
+    ref = j_bvh(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
+                max_leaf_tris=_leaf(jdata))
+    assert float(got.t[0]) == BIG and float(ref.t[0]) == BIG
+    assert float(got.t[1]) < BIG
+    np.testing.assert_allclose(float(got.t[1]), float(ref.t[1]), rtol=1e-6)
+    _check(jdata, ref, got, o, d)
