@@ -29,6 +29,17 @@ Phases; each raises on failure, and the script then exits non-zero:
    resolves to brute force), "bvh" and "packet" (K3).
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
    triangles, 4 sub-block parts), one timed 1080p frame.
+9. cli: the user's entry point.  Phase 5's two spheres are written as OBJ
+   files (``stanford_minidragon/dragon.obj``, bare ``v``/``f``;
+   ``sphere/sphere.obj``, ``v//n`` with normals) under
+   ``OGLRT_MODELS_PATH``; ``presets.default_scene()`` must load them with
+   the native parser into 31,736 triangles.  ``python -m
+   opengl_raytracer_torch``'s ``main`` runs twice at 1920x1080 / 4 bounces
+   / 4 frames with a checkpoint (the second call resumes to frame 8):
+   "auto" must resolve to "pallas2" with the K1/K2 counts of 4 frames and
+   no K3 launch.  The resumed image must equal 8 straight frames of
+   ``App`` (rmse <= 1e-7), the PNG must decode to the image's bytes, and a
+   96x54 ``App`` frame on the card must agree with the CPU's.
 
 Each phase prints its seconds.  The line before the last is a JSON object
 with each kernel's launches in the 1080p path that runs it (phase 5 for K1
@@ -41,6 +52,7 @@ script imports nothing of JAX.  ``--out DIR`` also writes the phase-5
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -80,25 +92,60 @@ def say(phase: str, **kv) -> None:
 
 # --------------------------------------------------------------- scene
 
-def _lat_long(center, radius, n_lat, n_lon, smooth):
-    """Triangles of a lat-long sphere, two per cell (polar cells included,
-    as a UV sphere is tessellated).  ``radius(theta, phi)`` may vary."""
+def _lat_long_grid(n_lat, n_lon):
+    """Unit vectors, theta and phi on an (n_lat+1) x (n_lon+1) lat-long
+    grid."""
     th = np.linspace(0.0, np.pi, n_lat + 1)
     ph = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)
     T, P = np.meshgrid(th, ph, indexing="ij")
     unit = np.stack([np.sin(T) * np.cos(P), np.cos(T), np.sin(T) * np.sin(P)],
                     axis=-1)
+    return unit, T, P
+
+
+def _cells(a):
+    """Two triangles per cell of a grid of (..., k) values (polar cells
+    included, as a UV sphere is tessellated) -> (2 * cells, 3, k)."""
+    c00, c10 = a[:-1, :-1], a[1:, :-1]
+    c11, c01 = a[1:, 1:], a[:-1, 1:]
+    k = a.shape[-1]
+    return np.concatenate([np.stack([c00, c10, c11], -2).reshape(-1, 3, k),
+                           np.stack([c00, c11, c01], -2).reshape(-1, 3, k)])
+
+
+def _bumpy(t, p):
+    return 1.0 + 0.15 * np.sin(7 * t) * np.cos(7 * p)
+
+
+def _lat_long(center, radius, n_lat, n_lon, smooth):
+    """Triangles of a lat-long sphere, two per cell.  ``radius(theta, phi)``
+    may vary."""
+    unit, T, P = _lat_long_grid(n_lat, n_lon)
     pts = unit * radius(T, P)[..., None] + np.asarray(center, np.float64)
-
-    def cells(a):
-        c00, c10 = a[:-1, :-1], a[1:, :-1]
-        c11, c01 = a[1:, 1:], a[:-1, 1:]
-        return np.concatenate([np.stack([c00, c10, c11], -2).reshape(-1, 3, 3),
-                               np.stack([c00, c11, c01], -2).reshape(-1, 3, 3)])
-
-    tris = cells(pts).astype(np.float32)
-    normals = cells(unit).astype(np.float32) if smooth else None
+    tris = _cells(pts).astype(np.float32)
+    normals = _cells(unit).astype(np.float32) if smooth else None
     return tris, normals
+
+
+def write_lat_long_obj(path, radius, n_lat, n_lon, smooth):
+    """The same sphere about the origin as an OBJ file: one ``v`` line per
+    grid point, then ``f`` lines in ``_lat_long``'s triangle order; bare
+    ``v`` faces, or with ``smooth`` unit ``vn`` normals and ``v//n``
+    faces."""
+    unit, T, P = _lat_long_grid(n_lat, n_lon)
+    pts = (unit * radius(T, P)[..., None]).reshape(-1, 3)
+    idx = np.arange(1, pts.shape[0] + 1).reshape(n_lat + 1, n_lon + 1, 1)
+    faces = _cells(idx)[..., 0]
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in pts]
+    if smooth:
+        lines += [f"vn {x:.9g} {y:.9g} {z:.9g}"
+                  for x, y, z in unit.reshape(-1, 3)]
+        lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in faces]
+    else:
+        lines += [f"f {a} {b} {c}" for a, b, c in faces]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def standin_objects(n_lat: int, n_lon: int) -> list:
@@ -108,10 +155,8 @@ def standin_objects(n_lat: int, n_lon: int) -> list:
     in place of the mirror ball."""
     from opengl_raytracer_torch import Rect, Triangles
 
-    bumpy, _ = _lat_long(
-        [-5, -10, 0],
-        lambda t, p: 9.0 * (1.0 + 0.15 * np.sin(7 * t) * np.cos(7 * p)),
-        n_lat, n_lon, smooth=False)
+    bumpy, _ = _lat_long([-5, -10, 0], lambda t, p: 9.0 * _bumpy(t, p),
+                         n_lat, n_lon, smooth=False)
     ball, ball_n = _lat_long([-25, -20, 20], lambda t, p: np.full_like(t, 7.0),
                              32, 64, smooth=True)
     return [
@@ -587,6 +632,163 @@ def multipart_phase(camera):
         k2_launches=counts["shade"], mean=float(img.mean()))
 
 
+class _Tee(io.TextIOBase):
+    """Writes through to ``out`` and keeps a copy of the text."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_phase():
+    """The user's entry point on the reference's default scene, loaded from
+    OBJ files: ``presets.default_scene()``, two CLI runs at 1080p (4
+    frames, then 4 more resumed from the checkpoint), the resumed image
+    against 8 straight frames of ``App``, the PNG round trip, and a 96x54
+    ``App`` frame on the card against the CPU."""
+    import contextlib
+    import re
+    import tempfile
+
+    from opengl_raytracer_torch import __main__ as cli
+    from opengl_raytracer_torch import app as app_mod
+    from opengl_raytracer_torch import presets
+    from opengl_raytracer_torch.models import obj
+    from opengl_raytracer_torch.ops import _kernels, bvh
+    from opengl_raytracer_torch.utils.image import load_png, rmse, to_uint8
+
+    torch.cuda.reset_peak_memory_stats()
+    saved_env = os.environ.get("OGLRT_MODELS_PATH")
+    App = app_mod.App
+    with tempfile.TemporaryDirectory() as tmp:
+        # the stand-in meshes of phase 5 in their object frames: Mesh's
+        # bake (scale 0.25 about [-5, -10, 0]; scale 7 about [-25, -20,
+        # 20]) places them where phase 5's Triangles lie
+        dragon = os.path.join(tmp, "stanford_minidragon", "dragon.obj")
+        sphere = os.path.join(tmp, "sphere", "sphere.obj")
+        write_lat_long_obj(dragon, lambda t, p: 36.0 * _bumpy(t, p), 83, 166,
+                           smooth=False)
+        write_lat_long_obj(sphere, lambda t, p: np.ones_like(t), 32, 64,
+                           smooth=True)
+        os.environ["OGLRT_MODELS_PATH"] = tmp
+        try:
+            t0 = time.perf_counter()
+            for path in (dragon, sphere):
+                obj.load_obj(path)
+            parse_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            scene = presets.default_scene()
+            scene_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            data = scene.send(DEVICE)
+            tables_s = time.perf_counter() - t0
+            if (scene.total_triangles != 27556 + 4096 + 84
+                    or len(data.parts) != 1):
+                raise RuntimeError(
+                    f"OBJ-loaded default scene: {scene.total_triangles} "
+                    f"triangles in {len(data.parts)} parts, expected 31736 "
+                    f"in 1")
+            if obj.last_parser != "native" or bvh.last_builder != "native":
+                raise RuntimeError(f"parser {obj.last_parser}, BVH builder "
+                                   f"{bvh.last_builder}: expected native")
+            say("cli", triangles=scene.total_triangles, parts=len(data.parts),
+                parser=obj.last_parser, bvh_builder=bvh.last_builder,
+                obj_parse_s=f"{parse_s:.3f}",
+                default_scene_s=f"{scene_s:.3f}",
+                tables_upload_s=f"{tables_s:.3f}")
+
+            png = os.path.join(tmp, "cli.png")
+            argv = ["--width", str(WIDTH), "--height", str(HEIGHT),
+                    "--bounces", str(BOUNCES), "--frames", "4", "--out", png,
+                    "--checkpoint", os.path.join(tmp, "ck.npz")]
+            apps = []
+
+            class Recorded(App):  # the App each CLI call builds
+                def main(self):
+                    apps.append(self)
+                    super().main()
+
+            app_mod.App = Recorded
+            for call in (1, 2):
+                _kernels.reset_counts()
+                tee = _Tee(sys.stdout)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    rc = cli.main(argv)
+                torch.cuda.synchronize()
+                call_s = time.perf_counter() - t0
+                counts = dict(_kernels.launch_counts)
+                a = apps[-1]
+                if rc != 0 or a.device.type != torch.device(DEVICE).type:
+                    raise RuntimeError(f"CLI call {call}: rc {rc} on "
+                                       f"{a.device}")
+                if a.renderer.traversal != "pallas2":
+                    raise RuntimeError(f"CLI: auto resolved to "
+                                       f"{a.renderer.traversal}, not pallas2")
+                if a.state.frame_count != 4 * call:
+                    raise RuntimeError(f"CLI call {call} ended at frame "
+                                       f"{a.state.frame_count}")
+                parts = len(a.renderer.scene.parts)
+                n = a.config.n_bounces
+                check_count(counts, "subblock_traversal", parts * n * 4)
+                check_count(counts, "shade", n * 4)
+                check_count(counts, "wide_traversal", 0)
+                frame_ms = [int(m) for m in re.findall(
+                    r"Frame \d+\s+(\d+) ms", "".join(tee.parts))]
+                print()
+                say("cli", call=call, traversal=a.renderer.traversal,
+                    frames=f"{4 * call - 3}-{4 * call}",
+                    cli_ms_per_frame=frame_ms, call_s=f"{call_s:.3f}",
+                    k1_launches=counts["subblock_traversal"],
+                    k2_launches=counts["shade"],
+                    k3_launches=counts["wide_traversal"])
+            app_mod.App = App
+            img = apps[-1].image()
+
+            straight = App(window_size=(WIDTH, HEIGHT), bounces=BOUNCES,
+                           headless=True, max_frames=8, device=DEVICE,
+                           output=os.path.join(tmp, "straight.png"))
+            err = rmse(img, straight.image())
+            if not np.isfinite(img).all() or err > 1e-7:
+                raise RuntimeError(f"resumed CLI image vs 8 straight frames: "
+                                   f"rmse {err} (limit 1e-7)")
+            decoded = np.round(load_png(png) * 255.0).astype(np.uint8)
+            if not np.array_equal(decoded, to_uint8(img)):
+                raise RuntimeError("the CLI's PNG differs from to_uint8 of "
+                                   "its image")
+            say("cli", resumed_vs_straight_rmse=err, limit=1e-7,
+                png_round_trip="exact", mean=float(img.mean()),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+            small = []
+            for device in (DEVICE, "cpu"):
+                a = App(window_size=SMALL, bounces=BOUNCES, scene=scene,
+                        headless=True, max_frames=1, device=device,
+                        output=os.path.join(tmp, f"small_{device}.png"))
+                small.append(a.image())
+            err = rmse(small[0], small[1])
+            if not (np.isfinite(small[0]).all()
+                    and float(small[0].mean()) > 0.01 and err < 1e-4):
+                raise RuntimeError(f"App {SMALL[0]}x{SMALL[1]}: card vs CPU "
+                                   f"rmse {err} (limit 1e-4), mean "
+                                   f"{small[0].mean()}")
+            say("cli", width=SMALL[0], height=SMALL[1],
+                rmse_card_vs_cpu=err, limit=1e-4)
+        finally:
+            app_mod.App = App
+            if saved_env is None:
+                os.environ.pop("OGLRT_MODELS_PATH", None)
+            else:
+                os.environ["OGLRT_MODELS_PATH"] = saved_env
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -611,6 +813,7 @@ def main(argv=None) -> int:
                                      main_img)["wide_traversal"]
     timed("small", small_paths_phase, camera)
     timed("multipart", multipart_phase, camera)
+    timed("cli", cli_phase)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:

@@ -3,8 +3,10 @@ kernels for NVIDIA Hopper.
 
 The port of ``opengl_raytracer_tpu`` (JAX / XLA / Pallas), which stays in
 the repository as its reference.  This package imports ``torch`` and
-``numpy`` and never JAX.  It renders a ``Scene`` of ``Rect`` and
-``Triangles`` objects with every traversal of the JAX package: the
+``numpy`` and never JAX.  It renders a ``Scene`` of ``Mesh`` (OBJ files),
+``Rect`` and ``Triangles`` objects, through ``App`` and the CLI
+(``python -m opengl_raytracer_torch``) or the ``Renderer`` directly, with
+every traversal of the JAX package: the
 sub-block BVH traversal kernel (K1, ``csrc/subblock_traversal.cu``, the
 main path), the wide-BVH traversal kernel (K3, ``csrc/wide_traversal.cu``),
 brute force and the per-ray BVH walk (torch ops), each followed by the
@@ -12,6 +14,7 @@ fused shade kernel (K2, ``csrc/shade.cu``).  On CPU tensors each kernel's
 plain torch version runs instead.
 """
 
+from opengl_raytracer_torch.models.mesh import Mesh
 from opengl_raytracer_torch.models.rect import Rect
 from opengl_raytracer_torch.models.scene import Scene, SceneData, scene_from_numpy
 from opengl_raytracer_torch.models.trisoup import Triangles
@@ -21,6 +24,7 @@ from opengl_raytracer_torch.utils.config import RenderConfig
 
 __all__ = [
     "Camera",
+    "Mesh",
     "Rect",
     "RenderConfig",
     "RenderState",

@@ -19,6 +19,7 @@ traversals and shading read:
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -121,11 +122,14 @@ class Scene:
     ``total_triangles`` (scene.py:135) and ``total_boxes`` (scene.py:219).
     ``build_bvh=False`` gives a single-leaf pseudo-BVH over every triangle,
     as in the JAX package; its leaf is too large for the BVH traversals,
-    so the renderer runs such a scene by brute force.
+    so the renderer runs such a scene by brute force.  ``verbose`` prints
+    the reference's build banner, the BVH build's progress bar and the scene
+    stats (scene.py:137-143, 238-245).
     """
 
     def __init__(self, objects: list, max_leaf_tris: int = 32,
-                 build_bvh: bool = True, bvh_method: str = "sah"):
+                 build_bvh: bool = True, bvh_method: str = "sah",
+                 verbose: bool = False):
         if not objects:
             raise ValueError("Scene requires at least one object")
         self.objects = objects
@@ -153,6 +157,9 @@ class Scene:
         pos = np.vstack(pos_list)
         normals = np.vstack(norm_list)
         n_tris = pos.shape[0] // 3
+        if pos.shape[0] % 3 and verbose:
+            print(f"Warning: {pos.shape[0] % 3} leftover vertex/vertices "
+                  f"ignored when building triangles")
 
         # Consume vertices three at a time (scene.py:89-111).
         self.v0 = pos[0::3][:n_tris]
@@ -180,11 +187,36 @@ class Scene:
         self.total_triangles = n_tris
         if n_tris == 0:
             raise ValueError("Scene has no triangles")
-        self.bvh = (bvh_mod.build_bvh(self.v0, self.v1, self.v2,
-                                      max_leaf_tris, method=bvh_method)
-                    if build_bvh else None)
+        self.bvh = None
+        if build_bvh:
+            if verbose:
+                print("\nSlicing bounding boxes...")
+            t_build = time.time()
+            self.bvh = bvh_mod.build_bvh(self.v0, self.v1, self.v2,
+                                         max_leaf_tris, method=bvh_method,
+                                         progress=verbose)
+            if verbose:
+                print(f"Time taken: {round(time.time() - t_build, 2)} "
+                      f"seconds")
         self.total_boxes = self.bvh.num_nodes if self.bvh is not None else 0
+        if verbose:
+            self._print_stats()
         self._fields: dict | None = None
+
+    def _print_stats(self) -> None:
+        """Scene stats, as the reference prints them after its upload
+        (scene.py:238-245)."""
+        print("\n---Scene---")
+        print(f"Number of triangles: {self.total_triangles:,}")
+        print(f"Number of vertices: {self.total_triangles * 3:,}")
+        print(f"Number of objects: {len(self.objects)}")
+        if self.bvh is not None:
+            counts = self.bvh.node_count[self.bvh.node_count > 0]
+            print(f"\nNumber of bounding boxes: {self.total_boxes:,}")
+            print(f"Avg number of triangles per bounding box: "
+                  f"{counts.mean():.1f}")
+            print(f"Min number of triangles per bounding box: {counts.min()}")
+            print(f"Max number of triangles per bounding box: {counts.max()}")
 
     def fields(self, pad_to: int = 8) -> dict:
         """The compiled tables as NumPy arrays (see scene_from_numpy);

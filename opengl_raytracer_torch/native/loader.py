@@ -1,12 +1,13 @@
-"""Loader for the native (C++) BVH builder.
+"""Loader for the native (C++) OBJ parser and BVH builder.
 
-The builder's source is ``opengl_raytracer_tpu/native/bvh.cpp`` in the same
-repository.  It is compiled from that path, never imported: the JAX
-package's Python modules import JAX, which this package does not use.  The
-library goes into ``build/native/`` at the repository root with the same
-g++ flags the JAX package uses, so both packages build identical trees.
-When no compiler is available, ``ops/bvh.py`` falls back to its NumPy
-builder.
+Their sources are ``opengl_raytracer_tpu/native/objparser.cpp`` and
+``opengl_raytracer_tpu/native/bvh.cpp`` in the same repository.  They are
+compiled from those paths, never imported: the JAX package's Python modules
+import JAX, which this package does not use.  The library goes into
+``build/native/`` at the repository root with the same g++ flags the JAX
+package uses, so both packages parse and build identically.  When no
+compiler is available, ``models/obj.py`` and ``ops/bvh.py`` fall back to
+their Python versions.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SOURCE = os.path.join(_REPO, "opengl_raytracer_tpu", "native", "bvh.cpp")
+_SOURCES = [os.path.join(_REPO, "opengl_raytracer_tpu", "native", s)
+            for s in ("objparser.cpp", "bvh.cpp")]
 _BUILD_DIR = os.path.join(_REPO, "build", "native")
-_LIB_PATH = os.path.join(_BUILD_DIR, "liboglrt_bvh.so")
+_LIB_PATH = os.path.join(_BUILD_DIR, "liboglrt_native.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -30,15 +32,17 @@ _tried = False
 
 
 def _build() -> bool:
-    if not os.path.exists(_SOURCE):
+    """Compile ``_SOURCES`` into ``_LIB_PATH`` unless the library is newer
+    than every source; False when a source is missing or g++ fails."""
+    if not all(os.path.exists(s) for s in _SOURCES):
         return False
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SOURCE)):
+    if (os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
+            >= max(os.path.getmtime(s) for s in _SOURCES)):
         return True
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           _SOURCE, "-o", tmp]
+           *_SOURCES, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.SubprocessError, OSError):
@@ -61,6 +65,13 @@ def get_lib():
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:
             return None
+        lib.obj_parse.restype = ctypes.c_longlong
+        lib.obj_parse.argtypes = [ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_void_p),
+                                  ctypes.c_int]  # progress
+        lib.obj_free.restype = None
+        lib.obj_free.argtypes = [ctypes.c_void_p]
+
         f32p = ctypes.POINTER(ctypes.c_float)
         i32p = ctypes.POINTER(ctypes.c_int)
         lib.bvh_build.restype = ctypes.c_longlong
@@ -79,10 +90,34 @@ def get_lib():
         return _lib
 
 
+def load_obj_native(file_path: str, progress: bool = False) -> np.ndarray:
+    """Parse an OBJ with the C++ parser -> (N, 8) float32, the layout of
+    ``models/obj.py:load_obj_py``.  ``progress`` prints the reference's
+    carriage-return percent bar from the C++ side (loadObject.pyx:20-21).
+    Raises RuntimeError without the library and IOError when the parse
+    fails (a missing file, an index out of range)."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    out_ptr = ctypes.c_void_p()
+    n_floats = lib.obj_parse(file_path.encode(), ctypes.byref(out_ptr),
+                             int(bool(progress)))
+    if n_floats < 0:
+        raise IOError(f"native OBJ parse failed for {file_path!r} ({n_floats})")
+    try:
+        buf = ctypes.cast(out_ptr, ctypes.POINTER(ctypes.c_float))
+        arr = np.ctypeslib.as_array(buf, shape=(n_floats,)).copy()
+    finally:
+        lib.obj_free(out_ptr)
+    return arr.reshape(-1, 8)
+
+
 def build_bvh_native(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-                     max_leaf_tris: int, method: int = 0):
+                     max_leaf_tris: int, method: int = 0,
+                     progress: bool = False):
     """C++ BVH build -> ``ops.bvh.BVH``; None if the library is
-    unavailable.  method: 0 = reference mean-split, 1 = binned SAH."""
+    unavailable.  method: 0 = reference mean-split, 1 = binned SAH.
+    ``progress`` prints the reference's percent bar from the C++ side."""
     lib = get_lib()
     if lib is None:
         return None
@@ -110,7 +145,7 @@ def build_bvh_native(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         fp(node_min), fp(node_max), ip(node_miss), ip(node_first),
         ip(node_count),
         perm.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-        ip(depth), 0,
+        ip(depth), int(bool(progress)),
     )
     if n <= 0:
         raise RuntimeError(f"native BVH build failed ({n})")

@@ -35,32 +35,39 @@ last_builder: str | None = None  # "native" or "numpy": the last build_bvh's
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
               max_leaf_tris: int = 16, method: str = "sah",
-              prefer_native: bool = True) -> BVH:
+              prefer_native: bool = True,
+              progress: bool | None = None) -> BVH:
     """Build a BVH over triangles given as three (T, 3) arrays.
 
     method: "mean" (the reference's centroid-mean split) or "sah" (binned
     surface-area heuristic; native builder only).  Falls back to the NumPy
     mean-split builder when the native library cannot be built or fails.
     ``last_builder`` records which of the two ran ("native" or "numpy").
+    ``progress`` prints the reference's carriage-return percent bar during
+    the build (boundingBoxes.pyx:64-65); default auto (utils/progress.py).
     """
+    from opengl_raytracer_torch.utils.progress import progress_enabled
+
     global last_builder
+    show = progress_enabled(progress)
     if prefer_native:
         try:
             from opengl_raytracer_torch.native import loader
 
             bvh = loader.build_bvh_native(
-                v0, v1, v2, max_leaf_tris, method=1 if method == "sah" else 0)
+                v0, v1, v2, max_leaf_tris, method=1 if method == "sah" else 0,
+                progress=show)
             if bvh is not None:
                 last_builder = "native"
                 return bvh
         except Exception:
             pass
     last_builder = "numpy"
-    return build_bvh_numpy(v0, v1, v2, max_leaf_tris)
+    return build_bvh_numpy(v0, v1, v2, max_leaf_tris, progress=show)
 
 
 def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-                    max_leaf_tris: int = 16) -> BVH:
+                    max_leaf_tris: int = 16, progress: bool = False) -> BVH:
     """Pure-NumPy mean-split builder (the readable spec of the native one)."""
     T = v0.shape[0]
     if T == 0:
@@ -102,6 +109,11 @@ def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
             node_children.append((-1, -1))
             perm_chunks.append(idx)
             perm_offset += n
+            if progress and (perm_offset * 100) // T != ((perm_offset - n)
+                                                         * 100) // T:
+                # percent of triangles placed into finished leaves
+                print(f"\r{round(perm_offset / T * 100, 2)}%...",
+                      end="", flush=True)
             continue
 
         cent = centroids[idx]
@@ -121,6 +133,9 @@ def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         # Push right first so left is visited first (preorder: left = me + 1).
         stack.append((right, depth + 1, (me, 1)))
         stack.append((left, depth + 1, (me, 0)))
+
+    if progress:
+        print("")
 
     N = len(node_count)
     # Miss links: miss[root] = N; for internal node i with children (l, r):

@@ -25,12 +25,14 @@ import torch
 
 from opengl_raytracer_torch.models.scene import Scene, SceneData
 from opengl_raytracer_torch.ops import rng
-from opengl_raytracer_torch.ops.camera import Camera, pixel_uv, ray_dirs_soa
+from opengl_raytracer_torch.ops.camera import (Camera, make_camera, pixel_uv,
+                                               ray_dirs_soa)
 from opengl_raytracer_torch.ops.integrator import trace
 from opengl_raytracer_torch.ops.intersect import raycast_brute
 from opengl_raytracer_torch.ops.pallas_traversal import raycast_pallas
 from opengl_raytracer_torch.ops.subblock_traversal import raycast_subblock
 from opengl_raytracer_torch.ops.traversal import raycast_bvh
+from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.utils.config import SKY_COLOR, RenderConfig
 
 _PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
@@ -274,6 +276,12 @@ class Renderer:
                             dtype=torch.float32, device=self.device)
         return RenderState(accum=accum)
 
+    def reset(self, state: RenderState) -> RenderState:
+        """Zero the accumulation and the counters (reference resetFrames,
+        main.py:252-271).  ``accum`` is a new buffer, so a copy or a view
+        of the old one that a caller still holds is left as it was."""
+        return RenderState(accum=torch.zeros_like(state.accum))
+
     def step(self, state: RenderState, camera: Camera,
              sky_brightness: float | None = None,
              jitter_amount: float | None = None,
@@ -300,9 +308,16 @@ class Renderer:
                            tile_x=tile_x, tile_y=tile_y,
                            total_frames=state.total_frames + 1)
 
-    def render(self, camera: Camera, frames: int = 1,
-               state: RenderState | None = None) -> RenderState:
-        """Run ``frames`` full progressive sweeps and return the state."""
+    def render(self, camera: Camera | None = None, frames: int = 1,
+               state: RenderState | None = None,
+               cam_pos=None, cam_dir=None) -> RenderState:
+        """Run ``frames`` full progressive sweeps and return the state.
+        Without ``camera``, the camera is made from ``cam_pos`` and
+        ``cam_dir``, each defaulting to the reference's preset pose."""
+        if camera is None:
+            camera = make_camera(
+                DEFAULT_CAM_POS if cam_pos is None else cam_pos,
+                DEFAULT_CAM_DIR if cam_dir is None else cam_dir)
         if state is None:
             state = self.init_state()
         F = self.config.frames_per_step

@@ -2,12 +2,19 @@
 
 The reference displays by blitting the RGBA32F accumulation FBO to the
 8-bit default framebuffer (clamped unorm conversion, main.py:397-399) and
-saves a PNG on exit (main.py:432-439).  Here: explicit conversion + PIL.
+saves a PNG on exit (main.py:432-439).  Here: explicit conversion, and a
+PNG encoder and decoder on the standard library (``zlib``, ``struct``) and
+NumPy, so writing an image needs no imaging package.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -15,14 +22,100 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return np.round(np.clip(np.asarray(img), 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def save_png(path: str, img: np.ndarray) -> None:
-    """Save (H, W, 3) float or uint8 image (top row first) as PNG."""
-    from PIL import Image
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """Save an (H, W, 3) float or uint8 image (top row first) as an 8-bit
+    RGB, non-interlaced PNG whose rows all use filter type 0 (None)."""
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = to_uint8(arr)
-    Image.fromarray(arr, mode="RGB").save(path)
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {arr.shape}")
+    h, w, _ = arr.shape
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)  # column 0: filter type 0
+    rows[:, 1:] = arr.reshape(h, 3 * w)
+    # bit depth 8, colour type 2 (RGB), deflate, adaptive filtering, no
+    # interlace
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + _chunk(b"IHDR", header)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))
+
+
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (types 0-4) of an 8-bit image."""
+    stride = w * bpp
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != h * (stride + 1):
+        raise ValueError("PNG image data has the wrong size")
+    data = data.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = int(data[y, 0]), data[y, 1:].astype(np.int32)
+        if ftype == 0:  # None
+            cur = line
+        elif ftype == 1:  # Sub: a running sum along each channel
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: left to right, byte by byte
+            ln, up, res = line.tolist(), prev.tolist(), [0] * stride
+            for x in range(stride):
+                a = res[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc
+                                                            else c)
+                res[x] = (ln[x] + pred) & 0xFF
+            cur = np.asarray(res, np.int32)
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def load_png(path: str) -> np.ndarray:
+    """Load an 8-bit RGB or RGBA, non-interlaced PNG as (H, W, 3) float32
+    in [0, 1] (alpha dropped)."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path!r} is not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(blob):
+        (length,) = struct.unpack(">I", blob[pos:pos + 4])
+        tag = blob[pos + 4:pos + 8]
+        data = blob[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path!r} has no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    channels = {2: 3, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path!r}: only 8-bit RGB/RGBA non-interlaced PNGs "
+                         f"are read (bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace})")
+    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels)
+    img = pix.reshape(h, w, channels)[:, :, :3]
+    return img.astype(np.float32) / 255.0
 
 
 def rmse(a: np.ndarray, b: np.ndarray) -> float:

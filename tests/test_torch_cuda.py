@@ -211,3 +211,25 @@ def test_render_on_card_matches_cpu(cuda, traversal):
         imgs.append(r.image(r.render(cam, frames=2)))
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
     assert rmse(imgs[0], imgs[1]) < 1e-4
+
+
+def test_app_on_card_matches_cpu(cuda, tmp_path):
+    """A 24x16 headless App render ("auto": K1 + K2 on the card) against
+    the same App on the CPU."""
+    from opengl_raytracer_torch.app import App
+
+    soup, _, light = _objects()
+    scene = Scene([soup, light], max_leaf_tris=16)
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        app = App(window_size=(24, 16), bounces=2, scene=scene, headless=True,
+                  max_frames=2, output=str(tmp_path / f"{device.type}.png"),
+                  run=False, device=device)
+        app.camPos = np.array([0.0, 0.0, 4.4], np.float32)
+        app.camDir = np.array([180.0, 0.0], np.float32)
+        app.camera = app._make_camera()
+        app.main()
+        assert app.renderer.traversal == "pallas2"
+        imgs.append(app.image())
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
+    assert rmse(imgs[0], imgs[1]) < 1e-4
