@@ -40,6 +40,19 @@ Phases; each raises on failure, and the script then exits non-zero:
    no K3 launch.  The resumed image must equal 8 straight frames of
    ``App`` (rmse <= 1e-7), the PNG must decode to the image's bytes, and a
    96x54 ``App`` frame on the card must agree with the CPU's.
+10. sharded: multi-device rendering (``parallel/sharding.py``) on the one
+   card.  ``ShardedRenderer`` renders phase 5's scene at 1920x1080 / 4
+   bounces over meshes of the card repeated, (dp, sp) in ``MESHES``: one
+   sweep of sp frames each, "auto" resolving to "pallas2" with parts x 5
+   x dp x sp K1 launches, 5 x dp x sp K2 and no K3, held against a
+   sequential ``Renderer`` at sp frames (rmse <= 1e-6); then timed, with
+   each shard's host enqueue.  On one card the shards run one after
+   another, so this is the cost of splitting a frame, not a scaling
+   number.  The CLI's ``main`` with ``--dp 1 --sp 1`` runs phase 9's
+   two calls on the OBJ-loaded default scene: the resumed checkpoint must
+   equal phase 9's 8 straight frames (rmse <= 1e-7).  Last, a 96x54
+   frame of a (2, 2) mesh on the card must agree with the same mesh of
+   the CPU.
 
 Each phase prints its seconds.  The line before the last is a JSON object
 with each kernel's launches in the 1080p path that runs it (phase 5 for K1
@@ -68,6 +81,10 @@ N_RAYS = WIDTH * HEIGHT
 TIMED_FRAMES = 8
 SMALL = (96, 54)  # the frame rendered on both the card and the CPU
 DEVICE = "cuda"
+# phase 10's (dp, sp) meshes: __graft_entry__.dryrun_multichip:123-127's
+# shapes for 2 and 4 devices, over the one card repeated
+MESHES = ((2, 1), (1, 2), (2, 2), (4, 1))
+SHARD_SWEEPS = 4  # timed sweeps per mesh
 # the reference's default camera (opengl_raytracer_tpu/presets.py:21-22)
 CAM_POS = (-33.7, 14.8, -21.1)
 CAM_DIR = (65.0, -25.4)
@@ -222,18 +239,23 @@ def timed(name: str, fn, *args):
 
 # -------------------------------------------------------------- phases
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: chip_smoke.py checks the port's kernels on an "
             "NVIDIA card and has nothing to run without one")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     say("device", name=repr(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
@@ -646,12 +668,27 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
+def write_standin_objs(root: str):
+    """Phase 5's stand-in meshes in their object frames as the default
+    scene's OBJ files under ``root``: Mesh's bake (scale 0.25 about [-5,
+    -10, 0]; scale 7 about [-25, -20, 20]) places them where phase 5's
+    Triangles lie.  Returns (dragon, sphere) paths."""
+    dragon = os.path.join(root, "stanford_minidragon", "dragon.obj")
+    sphere = os.path.join(root, "sphere", "sphere.obj")
+    write_lat_long_obj(dragon, lambda t, p: 36.0 * _bumpy(t, p), 83, 166,
+                       smooth=False)
+    write_lat_long_obj(sphere, lambda t, p: np.ones_like(t), 32, 64,
+                       smooth=True)
+    return dragon, sphere
+
+
 def cli_phase():
     """The user's entry point on the reference's default scene, loaded from
     OBJ files: ``presets.default_scene()``, two CLI runs at 1080p (4
     frames, then 4 more resumed from the checkpoint), the resumed image
     against 8 straight frames of ``App``, the PNG round trip, and a 96x54
-    ``App`` frame on the card against the CPU."""
+    ``App`` frame on the card against the CPU.  Returns the 8 straight
+    frames' image."""
     import contextlib
     import re
     import tempfile
@@ -667,15 +704,7 @@ def cli_phase():
     saved_env = os.environ.get("OGLRT_MODELS_PATH")
     App = app_mod.App
     with tempfile.TemporaryDirectory() as tmp:
-        # the stand-in meshes of phase 5 in their object frames: Mesh's
-        # bake (scale 0.25 about [-5, -10, 0]; scale 7 about [-25, -20,
-        # 20]) places them where phase 5's Triangles lie
-        dragon = os.path.join(tmp, "stanford_minidragon", "dragon.obj")
-        sphere = os.path.join(tmp, "sphere", "sphere.obj")
-        write_lat_long_obj(dragon, lambda t, p: 36.0 * _bumpy(t, p), 83, 166,
-                           smooth=False)
-        write_lat_long_obj(sphere, lambda t, p: np.ones_like(t), 32, 64,
-                           smooth=True)
+        dragon, sphere = write_standin_objs(tmp)
         os.environ["OGLRT_MODELS_PATH"] = tmp
         try:
             t0 = time.perf_counter()
@@ -781,12 +810,201 @@ def cli_phase():
                                    f"{small[0].mean()}")
             say("cli", width=SMALL[0], height=SMALL[1],
                 rmse_card_vs_cpu=err, limit=1e-4)
+            return straight.image()
         finally:
             app_mod.App = App
             if saved_env is None:
                 os.environ.pop("OGLRT_MODELS_PATH", None)
             else:
                 os.environ["OGLRT_MODELS_PATH"] = saved_env
+
+
+def _sharded_api(scene, camera, card: str) -> None:
+    """Phase 10's meshes of the one card repeated, each one sweep of sp
+    frames against the sequential Renderer at sp frames, then timed."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+    from opengl_raytracer_torch.parallel import sharding
+    from opengl_raytracer_torch.utils.image import rmse
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
+    seq = Renderer(scene, cfg, device=DEVICE)
+    state = seq.init_state()
+    seq_at = {}
+    for f in (1, 2):
+        state = seq.render(camera, frames=1, state=state)
+        seq_at[f] = seq.image(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq.render(camera, frames=SHARD_SWEEPS, state=state)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1000.0 / SHARD_SWEEPS
+    say("sharded", mesh="sequential", ms_per_frame=seq_ms, card=repr(card))
+
+    enqueue = []
+    plain_render_flat = sharding.render_flat
+
+    def timed_render_flat(*args, **kw):  # one shard's host enqueue
+        t0 = time.perf_counter()
+        out = plain_render_flat(*args, **kw)
+        enqueue.append((time.perf_counter() - t0) * 1000.0)
+        return out
+
+    for dp, sp in MESHES:
+        mesh = make_mesh(devices=[DEVICE] * (dp * sp), dp=dp, sp=sp)
+        sr = ShardedRenderer(scene, cfg, mesh)
+        if sr.traversal != "pallas2" or len(sr.scenes) != 1:
+            raise RuntimeError(f"mesh {dp}x{sp}: auto resolved to "
+                               f"{sr.traversal}, scene on {list(sr.scenes)}")
+        parts = len(sr.scene.parts)
+        _kernels.reset_counts()
+        state = sr.render(camera, frames=sp)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launch_counts)
+        check_count(counts, "subblock_traversal",
+                    parts * cfg.n_bounces * dp * sp)
+        check_count(counts, "shade", cfg.n_bounces * dp * sp)
+        check_count(counts, "wide_traversal", 0)
+        img = sr.image(state)
+        err = rmse(img, seq_at[sp])
+        if not np.isfinite(img).all() or err > 1e-6:
+            raise RuntimeError(f"mesh {dp}x{sp} vs the sequential render at "
+                               f"{sp} frames: rmse {err} (limit 1e-6)")
+        enqueue.clear()
+        sharding.render_flat = timed_render_flat
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sr.render(camera, frames=sp * SHARD_SWEEPS, state=state)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        finally:
+            sharding.render_flat = plain_render_flat
+        say("sharded", mesh=f"{dp}x{sp}", traversal=sr.traversal,
+            k1_launches=counts["subblock_traversal"],
+            k2_launches=counts["shade"], k3_launches=counts["wide_traversal"],
+            rmse_vs_sequential=err, limit=1e-6,
+            max_abs=float(np.abs(img - seq_at[sp]).max()),
+            ms_per_frame=sec * 1000.0 / (sp * SHARD_SWEEPS),
+            enqueue_ms_per_shard=[round(x, 3) for x in enqueue],
+            enqueue_ms_median=float(np.median(enqueue)), card=repr(card))
+
+
+def _sharded_cli(straight8) -> None:
+    """Phase 10's CLI runs: ``--dp 1 --sp 1`` at 1080p, 4 frames with a
+    checkpoint, then 4 more resumed, against 8 straight ``App`` frames."""
+    import contextlib
+    import tempfile
+
+    from opengl_raytracer_torch import __main__ as cli
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.parallel import sharding
+    from opengl_raytracer_torch.utils.checkpoint import load_checkpoint
+    from opengl_raytracer_torch.utils.image import load_png, rmse, to_uint8
+
+    saved_env = os.environ.get("OGLRT_MODELS_PATH")
+    Sharded = sharding.ShardedRenderer
+    made = []
+
+    class Recorded(Sharded):  # the ShardedRenderer each CLI call builds
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_standin_objs(tmp)
+        os.environ["OGLRT_MODELS_PATH"] = tmp
+        sharding.ShardedRenderer = Recorded
+        try:
+            png, ck = os.path.join(tmp, "sharded.png"), os.path.join(tmp,
+                                                                     "ck.npz")
+            argv = ["--width", str(WIDTH), "--height", str(HEIGHT),
+                    "--bounces", str(BOUNCES), "--frames", "4", "--dp", "1",
+                    "--sp", "1", "--out", png, "--checkpoint", ck]
+            for call in (1, 2):
+                _kernels.reset_counts()
+                tee = _Tee(sys.stdout)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    rc = cli.main(argv)
+                torch.cuda.synchronize()
+                call_s = time.perf_counter() - t0
+                counts = dict(_kernels.launch_counts)
+                r = made[-1]
+                out = "".join(tee.parts)
+                kind = torch.device(DEVICE).type
+                if rc != 0 or f"mesh: dp=1 x sp=1 on 1 {kind} device(s)" \
+                        not in out:
+                    raise RuntimeError(f"sharded CLI call {call}: rc {rc}")
+                if r.traversal != "pallas2" or r.home.type != kind:
+                    raise RuntimeError(f"sharded CLI: {r.traversal} on "
+                                       f"{r.home}")
+                n, parts = r.config.n_bounces, len(r.scene.parts)
+                check_count(counts, "subblock_traversal", parts * n * 4)
+                check_count(counts, "shade", n * 4)
+                check_count(counts, "wide_traversal", 0)
+                state = load_checkpoint(ck, "cpu")[0]
+                if state.frame_count != 4 * call:
+                    raise RuntimeError(f"sharded CLI call {call} ended at "
+                                       f"frame {state.frame_count}")
+                say("sharded", cli_call=call, triangles=int(r.scene.num_tris),
+                    frames=f"{4 * call - 3}-{4 * call}",
+                    call_s=f"{call_s:.3f}",
+                    k1_launches=counts["subblock_traversal"],
+                    k2_launches=counts["shade"],
+                    k3_launches=counts["wide_traversal"])
+            img = state.accum.numpy()
+            err = rmse(img, straight8)
+            if not np.isfinite(img).all() or err > 1e-7:
+                raise RuntimeError(f"resumed sharded CLI image vs 8 straight "
+                                   f"frames: rmse {err} (limit 1e-7)")
+            decoded = np.round(load_png(png) * 255.0).astype(np.uint8)
+            if not np.array_equal(decoded, to_uint8(img)):
+                raise RuntimeError("the sharded CLI's PNG differs from its "
+                                   "checkpoint's image")
+            say("sharded", cli_resumed_vs_straight_rmse=err, limit=1e-7,
+                png_round_trip="exact")
+        finally:
+            sharding.ShardedRenderer = Sharded
+            if saved_env is None:
+                os.environ.pop("OGLRT_MODELS_PATH", None)
+            else:
+                os.environ["OGLRT_MODELS_PATH"] = saved_env
+
+
+def _sharded_small(scene, camera) -> None:
+    """Phase 10's 96x54 frame of a (2, 2) mesh of the card against the
+    same mesh of the CPU (the plain versions)."""
+    from opengl_raytracer_torch import RenderConfig
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+    from opengl_raytracer_torch.utils.image import rmse
+
+    cfg = RenderConfig(width=SMALL[0], height=SMALL[1], bounces=BOUNCES)
+    imgs = []
+    for device in (DEVICE, "cpu"):
+        sr = ShardedRenderer(scene, cfg, make_mesh(devices=[device] * 4,
+                                                   dp=2, sp=2))
+        imgs.append(sr.image(sr.render(camera, frames=2)))
+    err = rmse(imgs[0], imgs[1])
+    if not (np.isfinite(imgs[0]).all() and float(imgs[0].mean()) > 0.01
+            and err < 1e-4):
+        raise RuntimeError(f"sharded 2x2 {SMALL[0]}x{SMALL[1]}: card vs CPU "
+                           f"rmse {err} (limit 1e-4), mean {imgs[0].mean()}")
+    say("sharded", mesh="2x2", width=SMALL[0], height=SMALL[1],
+        rmse_card_vs_cpu=err, limit=1e-4,
+        max_abs=float(np.abs(imgs[0] - imgs[1]).max()))
+
+
+def sharded_phase(scene, camera, straight8) -> None:
+    """Multi-device rendering on one card: ``ShardedRenderer`` over meshes
+    of the card repeated, through the API and through the CLI, and a
+    small mesh frame on the card against the CPU."""
+    card = card_line()
+    _sharded_api(scene, camera, card)
+    _sharded_cli(straight8)
+    _sharded_small(scene, camera)
 
 
 def main(argv=None) -> int:
@@ -813,7 +1031,8 @@ def main(argv=None) -> int:
                                      main_img)["wide_traversal"]
     timed("small", small_paths_phase, camera)
     timed("multipart", multipart_phase, camera)
-    timed("cli", cli_phase)
+    straight8 = timed("cli", cli_phase)
+    timed("sharded", sharded_phase, scene, camera, straight8)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:

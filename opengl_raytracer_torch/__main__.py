@@ -11,6 +11,8 @@ card and writes a PNG.
     python -m opengl_raytracer_torch --device cpu --width 96 --height 54 \\
         --frames 2 --obj path/to/model.obj --out render.png
     python -m opengl_raytracer_torch --interactive      # pygame window
+    python -m opengl_raytracer_torch --devices 4 --dp 2 --sp 2  # 4 cards
+    python -m opengl_raytracer_torch --device cpu --devices 2 --frames 2
 
 Assets named by the default scene (``stanford_minidragon``, ``sphere``)
 are searched along ``OGLRT_MODELS_PATH`` (``models/mesh.py``).
@@ -63,15 +65,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None,
                    help="resume from / save to this .npz checkpoint")
     p.add_argument("--devices", type=int, default=1,
-                   help="render across N devices (not yet ported: only 1)")
+                   help="shard the render across N devices (headless; "
+                        "(dp, sp) mesh via parallel.sharding): the first N "
+                        "CUDA cards, or with --device cpu the CPU N times")
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel mesh axis (not yet ported: only 1)")
+                   help="data-parallel mesh axis (rows); default derived")
     p.add_argument("--sp", type=int, default=None,
-                   help="sample-parallel mesh axis (not yet ported: only 1)")
+                   help="sample-parallel mesh axis (frames); default 2 "
+                        "when the device count is even")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on: 'cuda' (default; the "
                         "hand-written kernels) or 'cpu' (their plain "
-                        "versions)")
+                        "versions); with --devices/--dp/--sp only its "
+                        "type counts")
     return p
 
 
@@ -96,12 +102,84 @@ def monitor_screen_size(render_height: int) -> tuple[int, int] | None:
     return (int(render_height * aspect), int(render_height))
 
 
+def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
+    """Headless multi-device render: ShardedRenderer over a (dp, sp) mesh.
+
+    Pixel rows shard over ``dp`` and frame samples over ``sp``; images
+    match the sequential renderer (tests/test_torch_sharding.py).  The mesh
+    is the first ``--devices`` CUDA cards, or with ``--device cpu`` the CPU
+    repeated ``--devices`` times (the counterpart of the JAX package's
+    virtual CPU devices)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from opengl_raytracer_torch.models.scene import Scene
+    from opengl_raytracer_torch.ops.camera import make_camera
+    from opengl_raytracer_torch.parallel.sharding import (ShardedRenderer,
+                                                          make_mesh)
+    from opengl_raytracer_torch.presets import (DEFAULT_CAM_DIR,
+                                                DEFAULT_CAM_POS,
+                                                default_objects)
+    from opengl_raytracer_torch.utils.checkpoint import (load_checkpoint,
+                                                         save_checkpoint)
+    from opengl_raytracer_torch.utils.config import RenderConfig
+    from opengl_raytracer_torch.utils.image import save_png
+
+    if scene is None:
+        scene = Scene(default_objects(args.dragon), max_leaf_tris=args.leaf,
+                      bvh_method=args.bvh_method, verbose=True)
+    cfg = RenderConfig(
+        width=args.width, height=args.height, bounces=args.bounces,
+        rays_per_pixel=args.spp, jitter_amount=args.jitter,
+        lambertian=not args.no_lambertian, sky_brightness=args.sky,
+        tile_size=args.tiles, traversal=args.traversal,
+    )
+    kind = torch.device(args.device).type
+    devices = None if kind == "cuda" else [torch.device(kind)] * args.devices
+    mesh = make_mesh(n_devices=args.devices if args.devices > 1 else None,
+                     dp=args.dp, sp=args.sp, devices=devices)
+    print(f"mesh: dp={mesh.shape['dp']} x sp={mesh.shape['sp']} on "
+          f"{mesh.devices.size} {mesh.devices.flat[0].type} device(s)")
+    r = ShardedRenderer(scene, cfg, mesh)
+
+    cam_pos_arr = np.asarray(
+        cam_pos if cam_pos is not None else DEFAULT_CAM_POS, np.float32)
+    cam_dir_arr = np.asarray(
+        cam_dir if cam_dir is not None else DEFAULT_CAM_DIR, np.float32)
+
+    state = None
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        loaded, cp, cd = load_checkpoint(args.checkpoint, "cpu")
+        state = r.restore_state(loaded)
+        if cp is not None:
+            cam_pos_arr = cp.astype(np.float32)
+            cam_dir_arr = cd.astype(np.float32)
+        print(f"Resumed from {args.checkpoint} at frame {state.frame_count}")
+    camera = make_camera(cam_pos_arr, cam_dir_arr)
+
+    sp = r.frames_per_step
+    frames = -(-args.frames // sp) * sp
+    if frames != args.frames:
+        print(f"frames rounded up to {frames} (multiple of sp={sp})")
+    t0 = time.time()
+    state = r.render(camera=camera, frames=frames, state=state)
+    img = r.image(state)  # a copy to the host: waits for the devices
+    dt = time.time() - t0
+    print(f"{frames} frames in {dt:.1f} s ({frames / dt:.2f} frames/s)")
+
+    out = args.out or "render_sharded.png"
+    save_png(out, img)
+    print(f"Wrote {out}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, state, cam_pos_arr, cam_dir_arr)
+        print(f"Checkpoint saved to {args.checkpoint}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.devices > 1 or (args.dp or 1) > 1 or (args.sp or 1) > 1:
-        raise SystemExit(
-            "--devices/--dp/--sp: multi-device rendering is not yet ported "
-            "to opengl_raytracer_torch (ROADMAP.md); render on one device")
 
     import numpy as np
 
@@ -144,6 +222,11 @@ def main(argv=None) -> int:
             cam_pos = [0.0, 0.0, 0.0]
         if cam_dir is None:
             cam_dir = [0.0, 0.0]
+
+    if args.devices > 1 or args.dp or args.sp:
+        if args.interactive:
+            raise SystemExit("--devices/--dp/--sp is headless-only")
+        return _main_sharded(args, scene, cam_pos, cam_dir)
 
     screen_size = tuple(args.screen_size) if args.screen_size else None
     if screen_size is None and args.interactive:

@@ -8,9 +8,10 @@ with ``ctypes``.  There is no fallback: a wrapper given CUDA tensors either
 launches its kernel or raises.  The build is not fast-math (``/`` and
 ``sqrt`` stay IEEE-rounded; mul+add contraction is allowed).
 
-``launch_counts`` holds one integer per kernel; a wrapper adds one where it
-launches its kernel and nowhere else, so a caller can show which kernels
-a run went through.
+Every wrapper launches through :func:`launch`, which makes its tensors'
+device the current one for the call.  ``launch_counts`` holds one integer
+per kernel; ``launch`` adds one where it launches a kernel and nowhere
+else, so a caller can show which kernels a run went through.
 """
 
 from __future__ import annotations
@@ -125,6 +126,21 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(symbol: str, counter: str, device: torch.device, *args) -> None:
+    """Launch the library's ``symbol`` on ``device``: call it with ``args``
+    and the device's current stream while ``device`` is the current one,
+    add one to ``launch_counts[counter]``, and raise on a launch error.
+
+    A ctypes launch runs in the context of the CURRENT device, whatever
+    device its pointers and stream belong to, so the guard is what keeps a
+    kernel for ``cuda:1`` off ``cuda:0`` when a process drives several
+    cards (``parallel/sharding.py``)."""
+    with torch.cuda.device(device):
+        err = getattr(lib(), symbol)(*args, stream_ptr(device))
+    launch_counts[counter] += 1
+    check(err, symbol)
 
 
 def require(t: torch.Tensor, name: str, dtype, device, numel=None) -> None:

@@ -180,13 +180,11 @@ def _traverse_cuda(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     slot = torch.empty(R, dtype=torch.int32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
-    err = _kernels.lib().oglrt_wide_traverse(
+    _kernels.launch(
+        "oglrt_wide_traverse", "wide_traversal", dev,
         *(x.data_ptr() for x in (*o3, *d3, t0, pw_tiles, tri_tiles)),
         tri_tiles.shape[0] * 8, int(leaf_octets), int(stack),
-        *(x.data_ptr() for x in (t, slot, u, v, overflow)),
-        R, _kernels.stream_ptr(dev))
-    _kernels.launch_counts["wide_traversal"] += 1
-    _kernels.check(err, "wide_traverse")
+        *(x.data_ptr() for x in (t, slot, u, v, overflow)), R)
     return t, slot, u, v
 
 

@@ -66,17 +66,15 @@ def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
     out = torch.empty((12, R), dtype=torch.float32, device=dev)
     alive_out = torch.empty(R, dtype=torch.bool, device=dev)
     seed_out = torch.empty(R, dtype=torch.int64, device=dev)
-    err = _kernels.lib().oglrt_shade(
+    _kernels.launch(
+        "oglrt_shade", "shade", dev,
         table.data_ptr(), table.shape[0], index.data_ptr(),
         *(x.data_ptr() for x in cols),
         alive.data_ptr(), seed.data_ptr(),
         *(float(c) for c in sky_color), float(emission_scale),
         int(bool(lambertian)),
         *(out[k].data_ptr() for k in range(12)),
-        alive_out.data_ptr(), seed_out.data_ptr(), R,
-        _kernels.stream_ptr(dev))
-    _kernels.launch_counts["shade"] += 1
-    _kernels.check(err, "shade")
+        alive_out.data_ptr(), seed_out.data_ptr(), R)
     o, d, rc, inc = (tuple(out[3 * g + a] for a in range(3))
                      for g in range(4))
     return o, d, rc, inc, alive_out, seed_out

@@ -138,10 +138,8 @@ def _traverse_cuda(node_rows, tri_rows, o3, d3, t0, overflow):
     v = torch.empty(R, dtype=torch.float32, device=dev)
     ptr = [x.data_ptr() for x in (*o3, *d3, t0, node_rows, tri_rows,
                                   t, slot, u, v, overflow)]
-    err = _kernels.lib().oglrt_subblock_traverse(
-        *ptr, R, _kernels.stream_ptr(dev))
-    _kernels.launch_counts["subblock_traversal"] += 1
-    _kernels.check(err, "subblock_traverse")
+    _kernels.launch("oglrt_subblock_traverse", "subblock_traversal", dev,
+                    *ptr, R)
     return t, slot, u, v
 
 

@@ -1,0 +1,6 @@
+"""Multi-device rendering (the port of ``opengl_raytracer_tpu/parallel``)."""
+
+from opengl_raytracer_torch.parallel.sharding import (Mesh, ShardedRenderer,
+                                                      make_mesh)
+
+__all__ = ["Mesh", "ShardedRenderer", "make_mesh"]

@@ -189,26 +189,57 @@ def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
     return torch.cat(colors)[:R]
 
 
+def band_window(config: RenderConfig, tile_x: int, tile_y: int):
+    """(col0, py0, dx0, dy0) of a tile's band: its first column and GL row
+    and how many leading columns and rows re-render the previous tile.
+    Remainder tiles clamp the window into the frame, and the merge masks
+    those leading pixels out (fragment.glsl:382-386, main.py:156-157)."""
+    tw, th = config.tile_w, config.tile_h
+    col0 = min(tile_x * tw, config.width - tw)
+    py0 = min(tile_y * th, config.height - th)
+    return col0, py0, tile_x * tw - col0, tile_y * th - py0
+
+
+def band_pixels(col0: int, py0: int, tw: int, rows: int, device):
+    """Row-major (px, py) int64 (rows * tw,) of ``rows`` band rows from GL
+    row ``py0``, columns ``col0 .. col0 + tw - 1``."""
+    cols = torch.arange(tw, dtype=torch.int64, device=device)
+    ys = torch.arange(rows, dtype=torch.int64, device=device)
+    return ((col0 + cols)[None, :].expand(rows, tw).reshape(-1),
+            (py0 + ys)[:, None].expand(rows, tw).reshape(-1))
+
+
+def fold_band(accum: torch.Tensor, colors: torch.Tensor, config: RenderConfig,
+              window, frame_count: int, weight: int) -> None:
+    """Fold a band's (th * tw, 3) color sum, row-major from its bottom GL
+    row, into ``accum`` in place: ``(prev * fc + colors) / (fc + weight)``
+    where the window's mask is set."""
+    col0, py0, dx0, dy0 = window
+    tw, th = config.tile_w, config.tile_h
+    dev = accum.device
+    # GL py ascends bottom-up; accum rows descend top-down.
+    tile_img = colors.reshape(th, tw, 3).flip(0)
+    row0 = config.height - py0 - th
+    valid = ((torch.arange(tw, device=dev)[None, :] >= dx0)
+             & (torch.arange(th, device=dev)[:, None] >= dy0))
+    mask_img = valid.flip(0)[:, :, None]
+
+    prev = accum[row0:row0 + th, col0:col0 + tw]
+    fc = float(frame_count)
+    merged = torch.where(mask_img, (prev * fc + tile_img) / (fc + weight),
+                         prev)
+    prev.copy_(merged)
+
+
 def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
                frame_count: int, tile_x: int, tile_y: int,
                sky_brightness, jitter_amount, lambertian, *,
                config: RenderConfig, raycast_fn, traversal: str) -> None:
     """Render one tile and fold it into ``accum`` in place."""
-    H, W = config.height, config.width
-    tw, th = config.tile_w, config.tile_h
     dev = accum.device
-
-    # Remainder tiles: the band window is clamped into the frame, so its
-    # leading rows/cols re-render pixels of the previous tile; the merge
-    # masks those out (fragment.glsl:382-386, main.py:156-157).
-    col0 = min(tile_x * tw, W - tw)
-    py0 = min(tile_y * th, H - th)
-    dx0 = tile_x * tw - col0
-    dy0 = tile_y * th - py0
-    cols = torch.arange(tw, dtype=torch.int64, device=dev)
-    rows = torch.arange(th, dtype=torch.int64, device=dev)
-    px = (col0 + cols)[None, :].expand(th, tw).reshape(-1)
-    py = (py0 + rows)[:, None].expand(th, tw).reshape(-1)
+    window = band_window(config, tile_x, tile_y)
+    px, py = band_pixels(window[0], window[1], config.tile_w, config.tile_h,
+                         dev)
 
     # Frame batching (F > 1): replicate the tile's rays F times, seed copy
     # s with frame number frame_count + s, and fold the SUM into the
@@ -228,17 +259,7 @@ def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
                          traversal)
     if F > 1:
         colors = colors.reshape(F, n_band, 3).sum(dim=0)
-
-    # GL py ascends bottom-up; accum rows descend top-down.
-    tile_img = colors.reshape(th, tw, 3).flip(0)
-    row0 = H - py0 - th
-    valid = (cols[None, :] >= dx0) & (rows[:, None] >= dy0)
-    mask_img = valid.flip(0)[:, :, None]
-
-    prev = accum[row0:row0 + th, col0:col0 + tw]
-    fc = float(frame_count)
-    merged = torch.where(mask_img, (prev * fc + tile_img) / (fc + F), prev)
-    prev.copy_(merged)
+    fold_band(accum, colors, config, window, frame_count, F)
 
 
 class Renderer:

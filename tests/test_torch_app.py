@@ -315,11 +315,60 @@ def test_cli_checkpoint_resumes(tmp_path):
     np.testing.assert_array_equal(cd, [180, 0])
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--dp", "2"],
-                                   ["--sp", "2"]])
-def test_cli_refuses_multi_device(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(flags + ["--device", "cpu"])
+def _ball_flags(tmp_path):
+    obj = write_latlong_obj(tmp_path / "ball" / "ball.obj", 10, 10,
+                            radius=3.0, normals=True)
+    return ["--width", "32", "--height", "24", "--bounces", "2", "--obj",
+            obj, "--traversal", "packet", "--frames", "2"]
+
+
+@pytest.mark.parametrize("mesh,flags", [
+    ("1x2", ["--devices", "2"]),
+    ("2x1", ["--devices", "2", "--dp", "2"]),
+    ("2x2", ["--devices", "4", "--dp", "2", "--sp", "2"])])
+def test_cli_sharded_matches_jax_main(tmp_path, capsys, mesh, flags):
+    """The sharded CLI on CPU meshes against the JAX CLI given the same
+    flags on its virtual CPU devices; "packet" in both, because the JAX
+    mesh's "auto" picks "packet" off a TPU and the port's "pallas2"."""
+    flags = _ball_flags(tmp_path) + flags
+    assert j_main(flags + ["--out", str(tmp_path / "j.png")]) == 0
+    capsys.readouterr()
+    assert main(flags + ["--device", "cpu",
+                         "--out", str(tmp_path / "t.png")]) == 0
+    dp, sp = mesh.split("x")
+    assert (f"mesh: dp={dp} x sp={sp} on {int(dp) * int(sp)} cpu device(s)"
+            in capsys.readouterr().out)
+    ref, got = load_png(str(tmp_path / "j.png")), load_png(str(tmp_path / "t.png"))
+    assert got.shape == (24, 32, 3) and got.mean() > 0.01
+    assert rmse(ref, got) < 1e-4
+
+
+def test_cli_sharded_rounds_frames_up_and_resumes(tmp_path, capsys,
+                                                  monkeypatch):
+    """--frames 3 on sp = 2 renders 4; a second call resumes from the
+    checkpoint to frame 8, and the default output is render_sharded.png."""
+    monkeypatch.chdir(tmp_path)
+    flags = _ball_flags(tmp_path)[:-1] + [
+        "3", "--device", "cpu", "--devices", "2", "--checkpoint", "ck.npz"]
+    assert main(flags) == 0
+    assert "frames rounded up to 4 (multiple of sp=2)" in capsys.readouterr().out
+    assert load_checkpoint("ck.npz", "cpu")[0].frame_count == 4
+    assert main(flags) == 0
+    assert "Resumed from ck.npz at frame 4" in capsys.readouterr().out
+    state = load_checkpoint("ck.npz", "cpu")[0]
+    assert state.frame_count == 8
+    np.testing.assert_array_equal(
+        np.round(load_png("render_sharded.png") * 255).astype(np.uint8),
+        to_uint8(state.accum.numpy()))
+
+
+def test_cli_sharded_refusals(tmp_path):
+    with pytest.raises(SystemExit, match="headless-only"):
+        main(["--interactive", "--devices", "2", "--device", "cpu"])
+    # --device cpu is ONE cpu device unless --devices says more, as JAX's
+    # make_mesh on a host with one device
+    with pytest.raises(ValueError, match="!= 1 devices"):
+        main(_ball_flags(tmp_path) + ["--device", "cpu", "--dp", "2"])
 
 
 # ------------------------------------------------------------------ PNG

@@ -213,6 +213,30 @@ def test_render_on_card_matches_cpu(cuda, traversal):
     assert rmse(imgs[0], imgs[1]) < 1e-4
 
 
+def test_sharded_on_card_matches_cpu(cuda):
+    """A 96x54 frame of a (2, 2) mesh of the one card ("auto": K1 + K2 on
+    every shard) against the same mesh of the CPU; the scene is uploaded
+    to the card once."""
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+
+    soup, _, light = _objects()
+    scene = Scene([soup, light], max_leaf_tris=16)
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    cfg = RenderConfig(width=96, height=54, bounces=2)
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        sr = ShardedRenderer(scene, cfg, make_mesh(devices=[device] * 4,
+                                                   dp=2, sp=2))
+        assert sr.traversal == "pallas2" and list(sr.scenes) == [device]
+        before = _kernels.launch_counts["subblock_traversal"]
+        imgs.append(sr.image(sr.render(cam, frames=2)))
+        launched = _kernels.launch_counts["subblock_traversal"] - before
+        assert launched == (len(sr.scene.parts) * cfg.n_bounces * 4
+                            if device.type == "cuda" else 0)
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
+    assert rmse(imgs[0], imgs[1]) < 1e-4
+
+
 def test_app_on_card_matches_cpu(cuda, tmp_path):
     """A 24x16 headless App render ("auto": K1 + K2 on the card) against
     the same App on the CPU."""

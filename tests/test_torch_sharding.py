@@ -1,0 +1,344 @@
+"""The port's multi-device rendering (``opengl_raytracer_torch/parallel``)
+on meshes of the CPU repeated, against the JAX ``ShardedRenderer`` on its
+virtual CPU devices (tests/conftest.py) and against the port's sequential
+``Renderer``; and the device guard of the kernel wrappers.
+
+Tolerances: rmse <= 1e-6, as tests/test_sharding.py holds the JAX mesh to
+its sequential renderer.  sp shards render frame numbers whose RNG
+streams depend only on (x, y, frameNumber), and per-ray results do not
+depend on which shard holds the ray, so the images differ only by the
+order of the running mean's float additions.  A checkpoint resume is
+bit-identical.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from opengl_raytracer_tpu.models.rect import Rect as JRect
+from opengl_raytracer_tpu.models.scene import Scene as JScene
+from opengl_raytracer_tpu.ops.camera import make_camera as j_make_camera
+from opengl_raytracer_tpu.parallel.sharding import ShardedRenderer as JSharded
+from opengl_raytracer_tpu.parallel.sharding import make_mesh as j_make_mesh
+from opengl_raytracer_tpu.utils.checkpoint import save_checkpoint as j_save
+from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
+
+from opengl_raytracer_torch import Rect, RenderConfig, Renderer, Scene
+from opengl_raytracer_torch import make_camera
+from opengl_raytracer_torch.ops import _kernels, shade
+from opengl_raytracer_torch.ops import pallas_traversal as wide
+from opengl_raytracer_torch.ops import subblock_traversal as sbt
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.parallel import Mesh, ShardedRenderer, make_mesh
+from opengl_raytracer_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+from opengl_raytracer_torch.utils.image import rmse
+
+CAM = ([0.0, 0.0, 4.0], [180.0, 0.0])
+
+
+def small_scene(rect_cls=Rect, scene_cls=Scene):
+    """The three-Rect scene of tests/test_sharding.py:19-25."""
+    return scene_cls([
+        rect_cls([4, 4, 0.1], [0, 0, -2], [0, 0, 0], color=[0.8, 0.2, 0.2],
+                 roughness=1),
+        rect_cls([4, 4, 0.1], [0, 2, 0], [90, 0, 0], color=[0, 0, 0],
+                 emission_color=[1, 1, 1], emission=1.0, roughness=1),
+        rect_cls([4, 4, 0.1], [0, -2, 0], [90, 0, 0], color=[0.7, 0.7, 0.7],
+                 roughness=1),
+    ])
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return small_scene()
+
+
+def cpu_mesh(dp, sp):
+    return make_mesh(devices=["cpu"] * (dp * sp), dp=dp, sp=sp)
+
+
+def sharded(scene, dp, sp, frames, **cfg):
+    sr = ShardedRenderer(scene, RenderConfig(**cfg), cpu_mesh(dp, sp))
+    state = sr.render(make_camera(*CAM), frames=frames)
+    assert state.frame_count == frames
+    return sr, sr.image(state)
+
+
+def sequential(scene, frames, **cfg):
+    r = Renderer(scene, RenderConfig(**cfg), device="cpu")
+    return r.image(r.render(make_camera(*CAM), frames=frames))
+
+
+# ------------------------------------------------ against the JAX mesh
+
+@pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2), (2, 2)])
+def test_sharded_matches_jax_sharded(scene, dp, sp):
+    cfg = dict(width=16, height=16, bounces=2, traversal="bvh")
+    jr = JSharded(small_scene(JRect, JScene), JRenderConfig(**cfg),
+                  j_make_mesh(dp * sp, dp=dp, sp=sp))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=2 * sp))
+    sr, got = sharded(scene, dp, sp, 2 * sp, **cfg)
+    assert sr.frames_per_step == jr.frames_per_step == sp
+    assert np.isfinite(got).all() and got.mean() > 0.01
+    assert rmse(ref, got) <= 1e-6
+
+
+# ------------------------------------------ against the port's Renderer
+
+@pytest.mark.parametrize("dp,sp", [(8, 1), (4, 2), (2, 4), (1, 1)])
+def test_sharded_matches_sequential(scene, dp, sp):
+    cfg = dict(width=16, height=16, bounces=2, traversal="bvh")
+    _, got = sharded(scene, dp, sp, 2 * sp, **cfg)
+    assert rmse(got, sequential(scene, 2 * sp, **cfg)) <= 1e-6
+
+
+def test_sharded_pallas2_matches_sequential(scene):
+    """The sub-block traversal (K1's plain version here) and K2 on every
+    shard; one sweep of sp frames equals the sequential running mean."""
+    cfg = dict(width=16, height=16, bounces=2, traversal="pallas2")
+    sr, got = sharded(scene, 2, 2, 2, **cfg)
+    assert sr.traversal == "pallas2"
+    np.testing.assert_array_equal(got, sequential(scene, 2, **cfg))
+
+
+def test_auto_resolves_as_the_ports_renderer(scene):
+    """"auto" is the port's rule ("pallas2" with sub-block tables; brute
+    force on this 36-triangle scene), not the JAX mesh's "packet"."""
+    sr = ShardedRenderer(scene, RenderConfig(width=16, height=16),
+                         cpu_mesh(2, 1))
+    r = Renderer(scene, RenderConfig(width=16, height=16), device="cpu")
+    assert sr.traversal == r.traversal == "brute"
+    big = Scene([Rect([1, 1, 1], [3 * i, 0, 0], [0, 0, 0], [0.5, 0.5, 0.5])
+                 for i in range(12)])  # 144 triangles
+    assert ShardedRenderer(big, RenderConfig(width=16, height=16),
+                           cpu_mesh(1, 2)).traversal == "pallas2"
+
+
+@pytest.mark.parametrize("w,h,tile_size", [(16, 16, 2), (16, 20, 3)])
+def test_sharded_tiles_match_sequential(scene, w, h, tile_size):
+    """Band rows split over dp within a tile; (16, 20, 3) has tile_h = 6
+    with a remainder band (20 = 3 * 6 + 2), so the clamp and mask of the
+    remainder band run under sharding."""
+    cfg = dict(width=w, height=h, bounces=2, traversal="bvh")
+    _, got = sharded(scene, 2, 2, 2, tile_size=tile_size, **cfg)
+    assert rmse(got, sequential(scene, 2, **cfg)) <= 1e-6
+
+
+def test_sharded_odd_shard_matches_sequential(scene):
+    """8 rows x 12 columns = 96 rays a shard, not a multiple of 128:
+    render_flat pads each shard's chunk to whole packets."""
+    cfg = dict(width=12, height=16, bounces=1, traversal="pallas2")
+    sr, got = sharded(scene, 2, 1, 1, **cfg)
+    assert sr.traversal == "pallas2"
+    assert rmse(got, sequential(scene, 1, **cfg)) <= 1e-6
+
+
+def test_scene_sent_once_per_distinct_device(scene):
+    sr = ShardedRenderer(scene, RenderConfig(width=16, height=16),
+                         cpu_mesh(2, 2))
+    assert list(sr.scenes) == [torch.device("cpu")]
+    data = scene.send("cpu")
+    assert ShardedRenderer(data, RenderConfig(width=16, height=16),
+                           cpu_mesh(1, 2)).scene is data
+    with pytest.raises(ValueError, match="scene lives on cpu, mesh device "
+                                         "meta"):
+        ShardedRenderer(data, RenderConfig(width=16, height=16),
+                        make_mesh(devices=["cpu", "meta"]))
+
+
+def test_state_buffers_are_owned(scene):
+    """``accum`` changes in place with every step: ``image`` and
+    ``restore_state`` copy, ``reset`` allocates a new buffer."""
+    sr = ShardedRenderer(scene, RenderConfig(width=16, height=16, bounces=1),
+                         cpu_mesh(1, 2))
+    state = sr.render(make_camera(*CAM), frames=2)
+    img = sr.image(state)
+    restored = sr.restore_state(state)
+    assert restored.accum.data_ptr() != state.accum.data_ptr()
+    assert restored.frame_count == 2
+    fresh = sr.reset(state)
+    assert fresh.frame_count == 0 and not fresh.accum.any()
+    sr.step(state, make_camera(*CAM))
+    np.testing.assert_array_equal(sr.image(restored), img)
+    assert not np.array_equal(sr.image(state), img)
+
+
+# --------------------------------------------------------- checkpoints
+
+def test_sharded_checkpoint_resume(scene, tmp_path):
+    """A render interrupted half way and resumed from disk is
+    bit-identical to an uninterrupted one."""
+    cfg = RenderConfig(width=16, height=16, bounces=2, tile_size=2,
+                       traversal="bvh")
+    sr = ShardedRenderer(scene, cfg, cpu_mesh(2, 2))
+    full = sr.image(sr.render(make_camera(*CAM), frames=4))
+
+    half = sr.render(make_camera(*CAM), frames=2)
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(path, half, cam_pos=CAM[0], cam_dir=CAM[1])
+    loaded, cam_pos, cam_dir = load_checkpoint(path, "cpu")
+    resumed = sr.restore_state(loaded)
+    assert resumed.frame_count == 2
+    resumed = sr.render(make_camera(cam_pos, cam_dir), frames=2,
+                        state=resumed)
+    np.testing.assert_array_equal(sr.image(resumed), full)
+
+
+def test_port_resumes_a_jax_sharded_checkpoint(scene, tmp_path):
+    """Two frames of the JAX mesh saved mid-render (a non-zero tile
+    cursor), then resumed by the port's mesh to frame 4: equal to 4
+    straight frames of the port's mesh."""
+    kw = dict(width=16, height=16, bounces=2, tile_size=2, traversal="bvh")
+    jr = JSharded(small_scene(JRect, JScene), JRenderConfig(**kw),
+                  j_make_mesh(4, dp=2, sp=2))
+    jcam = j_make_camera(*CAM)
+    jstate = jr.render(camera=jcam, frames=2)
+    jstate = jr.step(jstate, jcam)
+    path = str(tmp_path / "j.npz")
+    j_save(path, jstate, cam_pos=CAM[0], cam_dir=CAM[1])
+
+    sr = ShardedRenderer(scene, RenderConfig(**kw), cpu_mesh(2, 2))
+    loaded, cam_pos, cam_dir = load_checkpoint(path, "cpu")
+    state = sr.restore_state(loaded)
+    assert (state.frame_count, state.tile_x, state.tile_y,
+            state.total_frames) == (2, 1, 0, 5)
+    cam = make_camera(cam_pos, cam_dir)
+    for _ in range(3):  # the rest of the sweep: frame 4
+        state = sr.step(state, cam)
+    assert (state.frame_count, state.tile_x, state.tile_y) == (4, 0, 0)
+    straight = sr.image(sr.render(make_camera(*CAM), frames=4))
+    assert rmse(sr.image(state), straight) <= 1e-6
+
+
+# --------------------------------------------------------------- errors
+
+def test_make_mesh_defaults_and_errors():
+    assert make_mesh(devices=["cpu"] * 4).shape == {"dp": 2, "sp": 2}
+    assert make_mesh(devices=["cpu"] * 3).shape == {"dp": 3, "sp": 1}
+    assert make_mesh(devices=["cpu"]).shape == {"dp": 1, "sp": 1}
+    mesh = make_mesh(2, devices=["cpu"] * 4)
+    assert mesh.devices.size == 2 and isinstance(mesh, Mesh)
+    with pytest.raises(ValueError, match="!="):
+        make_mesh(4, dp=3, sp=2, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="!="):
+        make_mesh(dp=2, devices=["cpu"] * 4)  # sp defaults to 1
+    with pytest.raises(ValueError, match="does not divide"):
+        make_mesh(sp=3, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="only 2 available"):
+        make_mesh(3, devices=["cpu"] * 2)
+
+
+def test_make_mesh_refuses_more_cards_than_exist():
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"only {n} available on platform "
+                                         f"cuda"):
+        make_mesh(n + 1)
+
+
+@pytest.mark.parametrize("cfg,dp,match", [
+    (dict(width=16, height=15), 2, "must divide height"),
+    (dict(width=16, height=16, tile_size=3), 2, "tile band height"),
+    (dict(width=16, height=16, frames_per_step=2), 1, "frames_per_step"),
+])
+def test_constructor_errors(scene, cfg, dp, match):
+    with pytest.raises(ValueError, match=match):
+        ShardedRenderer(scene, RenderConfig(**cfg), cpu_mesh(dp, 1))
+
+
+def test_render_refuses_frames_not_a_multiple_of_sp(scene):
+    sr = ShardedRenderer(scene, RenderConfig(width=16, height=16),
+                         cpu_mesh(1, 2))
+    with pytest.raises(ValueError, match="multiple of sp=2"):
+        sr.render(make_camera(*CAM), frames=3)
+
+
+# --------------------------------------------------------- device guard
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The card's runtime as far as a launch sees it: ``torch.cuda.device``
+    (the guard) sets the device ``torch.cuda.current_device`` reports,
+    and the kernel library records that device at every call."""
+    current = ["outside the guard"]
+    calls = []
+
+    @contextlib.contextmanager
+    def guard(device):
+        prev, current[0] = current[0], torch.device(device)
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    class Lib:
+        def __getattr__(self, symbol):
+            def kernel(*args):
+                calls.append((symbol, torch.cuda.current_device()))
+                return 0
+            return kernel
+
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(_kernels, "lib", Lib)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda device: 0)
+    return calls
+
+
+def _launch(kernel, device, odd_one=None):
+    """Call ``kernel``'s CUDA wrapper with every tensor on ``device`` but
+    ``odd_one``'s, which lies on the meta device."""
+    R = 256
+
+    def t(name, shape, dtype=torch.float32):
+        dev = "meta" if name == odd_one else device
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    o3 = tuple(t(f"o{a}", R) for a in "xyz")
+    d3 = tuple(t(f"d{a}", R) for a in "xyz")
+    if kernel == "shade":
+        near = Nearest(t=t("t", R), tri=t("tri", R, torch.int32),
+                       u=t("u", R), v=t("v", R))
+        return shade._shade_cuda(
+            t("table", (4, 24)), t("index", R, torch.int32), near, o3, d3,
+            o3, d3, t("alive", R, torch.bool), t("seed", R, torch.int64),
+            (0.1, 0.6, 0.9), 2.0, True)
+    t0 = t("t0", R).fill_(BIG)
+    overflow = t("overflow", 1, torch.int32)
+    if kernel == "subblock_traversal":
+        return sbt._traverse_cuda(t("node_rows", (2, 128)),
+                                  t("tri_rows", (2, 128)), o3, d3, t0,
+                                  overflow)
+    return wide._traverse_cuda(t("pw_tiles", (1, 8, 128)),
+                               t("pl_tri_tiles", (1, 8, 128)), o3, d3, t0, 1,
+                               64, overflow)
+
+
+KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
+                  "shade": "oglrt_shade",
+                  "wide_traversal": "oglrt_wide_traverse"}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kernel", sorted(KERNEL_SYMBOLS))
+def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
+    before = dict(_kernels.launch_counts)
+    _launch(kernel, device)
+    assert fake_card == [(KERNEL_SYMBOLS[kernel], torch.device(device))]
+    assert _kernels.launch_counts[kernel] == before[kernel] + 1
+    assert torch.cuda.current_device() == "outside the guard"
+
+
+@pytest.mark.parametrize("kernel,odd_one", [
+    ("subblock_traversal", "node_rows"), ("subblock_traversal", "dz"),
+    ("shade", "alive"), ("shade", "table"),
+    ("wide_traversal", "oy"), ("wide_traversal", "pl_tri_tiles")])
+def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
+    """Each wrapper takes its device from one tensor (``t0`` or ``seed``)
+    and refuses any other tensor that lies elsewhere, before launching."""
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(ValueError, match="is on meta, expected cpu"):
+        _launch(kernel, "cpu", odd_one)
+    assert fake_card == [] and _kernels.launch_counts == before
