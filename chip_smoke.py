@@ -11,8 +11,20 @@ Phases; each raises on failure, and the script then exits non-zero:
 2. K2 (fused shade, ``csrc/shade.cu``) against its plain torch version on
    1920x1080 = 2,073,600 rays of seeded random hits and path state.
 3. K1 (sub-block traversal, ``csrc/subblock_traversal.cu``) against its
-   plain torch version on 2,073,600 rays: half primary rays of the 1080p
-   camera, half bounce-like rays from random points in the scene.
+   plain torch version on two ray sets: 2,073,600 rays, half primary rays
+   of the 1080p camera and half bounce-like rays from random points in the
+   scene; and the five bounce segments of one 1080p "auto" frame, each
+   captured as ``raytrace`` hands it to the traversal (after the reorder
+   sort).  On each set t, slot, u and v must equal the plain version's
+   bit for bit, with no stack overflow; the script prints ms per launch,
+   the plain version's per-ray counts (node visits, leaf octets, loop
+   steps) and the share of a warp's lanes they keep busy, and the
+   operations, bound and share of bound.
+3b. k1prof: the profile build of K1 (``probes/k1.py``, the same source
+   compiled with ``-DOGLRT_K1_PROFILE``) on both ray sets: its hits must
+   equal the kernel's and its visit, octet and barycentric-test counts
+   the plain version's; it prints cycles per stage, per visit and per
+   fetch.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``) against its plain
    torch version on the same 2,073,600 rays.
 5. main path: ``Renderer`` at 1920x1080 with 4 bounces on a 31,736-triangle
@@ -28,7 +40,8 @@ Phases; each raises on failure, and the script then exits non-zero:
    96x54 with 4 bounces, on the card and on the CPU, for "auto" (which
    resolves to brute force), "bvh" and "packet" (K3).
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
-   triangles, 4 sub-block parts), one timed 1080p frame.
+   triangles, 4 sub-block parts), 1 warm-up and 4 1080p frames, each
+   timed alone (its own device sync).
 9. cli: the user's entry point.  Phase 5's two spheres are written as OBJ
    files (``stanford_minidragon/dragon.obj``, bare ``v``/``f``;
    ``sphere/sphere.obj``, ``v//n`` with normals) under
@@ -53,13 +66,23 @@ Phases; each raises on failure, and the script then exits non-zero:
    equal phase 9's 8 straight frames (rmse <= 1e-7).  Last, a 96x54
    frame of a (2, 2) mesh on the card must agree with the same mesh of
    the CPU.
+11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
+   "auto" frames of phase 5's scene: device ms and launches per frame by
+   kernel group (K1, K2, sorts, gathers and scatters, other torch kernels,
+   copies), and the device's busy share and idle share of phase 5's
+   unprofiled ms/frame.  It runs last: the profiler slows the host's
+   launches for the rest of the process.
 
 Each phase prints its seconds.  The line before the last is a JSON object
 with each kernel's launches in the 1080p path that runs it (phase 5 for K1
-and K2, phase 6 for K3), its largest disagreement with its plain version
-and both times; the last line is ``{"ok": true, "device": {...}}``.  The
-script imports nothing of JAX.  ``--out DIR`` also writes the phase-5
-1080p image, downsampled 4x, as ``DIR/smoke_1080p.npy``.
+and K2, phase 6 for K3), its largest disagreement with its plain version,
+both times at 2,073,600 rays, and its bound: the larger of the bytes it
+must move over 3.35 TB/s and the fp32 operations this run's rays cost it
+over 67 TFLOP/s (an H100 SXM's peaks); the last line is ``{"ok": true,
+"device": {...}}``.  No single PyTorch call computes any of the three
+kernels (``library_ms`` null).  The script imports nothing of JAX.
+``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
+``DIR/smoke_1080p.npy``.
 """
 
 from __future__ import annotations
@@ -79,6 +102,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 4
 N_RAYS = WIDTH * HEIGHT
 TIMED_FRAMES = 8
+MULTIPART_FRAMES = 4
+PROFILED_FRAMES = 4
 SMALL = (96, 54)  # the frame rendered on both the card and the CPU
 DEVICE = "cuda"
 # phase 10's (dp, sp) meshes: __graft_entry__.dryrun_multichip:123-127's
@@ -272,19 +297,61 @@ def import_port() -> None:
             f"chip_smoke.py in {REPO}: {e}") from e
 
 
+def ptxas_props(log: str, unit: str, kernel: str) -> dict:
+    """What ``nvcc -Xptxas -v`` reported for ``kernel`` in the unit whose
+    section of ``log`` starts ``== unit``: registers, stack frame and
+    spill bytes."""
+    import re
+
+    sec = log.split(f"== {unit}", 1)[1].split("\n== ", 1)[0]
+    m = re.search(rf"Function properties for \S*{kernel}\S*\n\s*(\d+) bytes "
+                  rf"stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                  rf"spill loads", sec)
+    r = re.search(rf"Compiling entry function '\S*{kernel}\S*'.*?Used "
+                  rf"(\d+) registers", sec, re.S)
+    if not (m and r):
+        raise RuntimeError(f"no ptxas properties for {kernel} in:\n{sec}")
+    return dict(registers=int(r.group(1)), stack=int(m.group(1)),
+                spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+
+
 def build_phase() -> None:
+    import threading
+
     from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.probes import k1 as k1_probe
 
     t0 = time.perf_counter()
+    errors = []
+
+    def build_profile():  # the K1 profile build, beside the kernels' build
+        try:
+            k1_probe.lib()
+        except Exception as e:  # re-raised below, in this thread
+            errors.append(e)
+
+    th = threading.Thread(target=build_profile)
+    th.start()
     _kernels.lib()
+    th.join()
+    if errors:
+        raise errors[0]
     sec = time.perf_counter() - t0
     say("build", seconds=f"{sec:.2f}",
         lib=os.path.relpath(_kernels.LIB_PATH, REPO),
+        profile_lib=os.path.relpath(k1_probe.PROFILE_LIB, REPO),
         sources=",".join(os.path.relpath(s, REPO) for s in _kernels.sources()),
         flags="'" + " ".join(_kernels.NVCC_FLAGS) + "'")
-    for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+    for line in (_kernels.build_log + k1_probe.build_log).splitlines():
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("== ")):
             say("ptxas", line=line.strip())
+    k1 = ptxas_props(_kernels.build_log, "subblock_traversal.cu",
+                     "traverse_kernel")
+    say("ptxas", k1_traverse_kernel=k1)
+    if k1["spill_stores"] or k1["spill_loads"] or k1["stack"] >= 64:
+        raise RuntimeError(f"K1 spills or keeps a stack frame of 64 bytes "
+                           f"or more: {k1}")
 
 
 def make_scene(n_lat: int, n_lon: int, device):
@@ -296,14 +363,67 @@ def make_scene(n_lat: int, n_lon: int, device):
     data = scene.send(device)
     say("scene", triangles=scene.total_triangles, parts=len(data.parts),
         table_bytes=sum(n.nbytes + t.nbytes for n, t, _ in data.parts),
+        k1_table_bytes=sum(n.nbytes + o.nbytes for n, o in data.k1_parts),
         sh_slot_bytes=data.sh_slot.nbytes,
         bvh_builder=bvh.last_builder,
         build_s=f"{time.perf_counter() - t0:.2f}")
     return scene, data
 
 
+# Each kernel's bound: the larger of the bytes it must move (each input
+# read once, each output written once) over the card's memory rate and its
+# fp32 operations over the card's fp32 rate, each mul, add, sub, min, max,
+# compare, reciprocal or division counted as 1.  An H100 SXM's peaks (data
+# sheet): HBM3, and fp32 outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# A traversal's rays (K1, K3): 7 f32 columns in; t, slot, u, v out.
+TRAVERSAL_BYTES_PER_RAY = 44
+# K1's operations, as csrc/subblock_traversal.cu does them, from the plain
+# version's counts of this run's rays (probes/k1.work):
+K1_OPS_PER_RAY = 12  # 3 reciprocals, 6 clamps, 3 products o * inv
+K1_OPS_PER_NODE = 8 * 25  # per child: 6 mul, 6 sub, 10 min/max, 3 compares
+K1_OPS_PER_OCTET = 8 * 20  # per triangle: det 5, |det| test 2, 1/det 1,
+#                            r 3, t 7, the t tests 2
+K1_OPS_PER_CANDIDATE = 26  # a triangle whose t beats the best hit: p 9,
+#                            u 7, v 6, the barycentric tests 4
+# K2's work per ray (csrc/shade.cu): 73 bytes in (t, u, v, o, d, ray color,
+# incoming light, slot, alive, seed), 57 out, and the material table read
+# once; about 180 fp32 operations (normal, scatter, update, three draws).
+K2_BYTES_PER_RAY = 130
+K2_OPS_PER_RAY = 180
+# K3's operations (csrc/wide_traversal.cu), from its plain version's counts:
+# per node visit 8 slab tests of 26 (K1's 25 and the clamp of near at 0),
+# per octet 8 triangle tests of 47 (K1's 46 and the octet's argmin); per
+# ray 3 reciprocals.
+K3_OPS_PER_RAY = 3
+K3_OPS_PER_NODE = 8 * 26
+K3_OPS_PER_OCTET = 8 * 47
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card takes to move ``n_bytes`` and do ``n_ops``
+    fp32 operations, and which of the two bounds it."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_FP32 * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_bound(w: dict, k1) -> tuple[int, int, float, str]:
+    """K1's operations and bytes for the ray set whose counts ``w`` holds
+    (``probes/k1.work``), over the part's Hopper tables ``k1``, and the
+    bound they give."""
+    ops = (w["live"] * K1_OPS_PER_RAY + w["visits"] * K1_OPS_PER_NODE
+           + w["octets"] * K1_OPS_PER_OCTET
+           + w["candidates"] * K1_OPS_PER_CANDIDATE)
+    n_bytes = (w["rays"] * TRAVERSAL_BYTES_PER_RAY
+               + sum(x.numel() * x.element_size() for x in k1))
+    return (ops, n_bytes, *bound_ms(n_bytes, ops))
+
+
 def k2_phase(data, seed: int, device):
-    """K2 against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
+    (bound_ms, bound_by))."""
     from opengl_raytracer_torch.ops import shade
     from opengl_raytracer_torch.ops.intersect import BIG, Nearest
     from opengl_raytracer_torch.utils.config import SKY_COLOR
@@ -358,8 +478,12 @@ def k2_phase(data, seed: int, device):
             sky, 2.0, True)
     ms, plain_ms = time_pair(lambda: shade.shade_update(*args),
                              lambda: shade._shade_plain(*args), 20, 5)
-    say("k2", rays=R, ms=ms, plain_ms=plain_ms, tolerance="rtol=1e-5,atol=1e-6")
-    return worst, ms, plain_ms
+    bound = bound_ms(R * K2_BYTES_PER_RAY + data.sh_slot.nbytes,
+                     R * K2_OPS_PER_RAY)
+    say("k2", rays=R, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], share_of_bound=bound[0] / ms,
+        tolerance="rtol=1e-5,atol=1e-6")
+    return worst, ms, plain_ms, bound
 
 
 def k1_rays(data, camera, seed: int, device):
@@ -423,44 +547,137 @@ def check_hits(name, kernel, plain, min_hits, tie_t):
     return err, n_hit, n_diff
 
 
-def k1_phase(data, camera, seed: int, device):
-    """K1 against its plain version; returns (max_abs_err, ms, plain_ms)."""
+def frame_segments(scene, camera):
+    """The five bounce segments of one 1920x1080 "auto" frame, each as
+    ``raytrace`` hands it to the traversal (after the reorder sort):
+    (o3, d3, t0) with t0 = BIG for a live ray and -BIG for a dead one, the
+    entry the first part gets."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops.intersect import BIG
+
+    r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
+                                     bounces=BOUNCES), device=DEVICE)
+    if r.traversal != "pallas2":
+        raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
+    segments = []
+    traverse = r._raycast
+
+    def record(o3, d3, active=None):
+        t0 = torch.where(active, BIG, -BIG).to(torch.float32)
+        segments.append((tuple(x.clone() for x in o3),
+                         tuple(x.clone() for x in d3), t0))
+        return traverse(o3, d3, active)
+
+    r._raycast = record
+    r.render(camera, frames=1)
+    torch.cuda.synchronize()
+    if len(segments) != r.config.n_bounces:
+        raise RuntimeError(f"captured {len(segments)} segments")
+    return segments
+
+
+def k1_phase(data, camera, segments, seed: int, device):
+    """K1 against its plain version on phase 3's rays and on the frame's
+    segments; returns (max_abs_err, ms, plain_ms, (bound_ms, bound_by),
+    frame_ms, the ray sets)."""
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
-    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    node_rows, tri_rows, _ = data.parts[0]
-    o3, d3, t0 = k1_rays(data, camera, seed, device)
+    rows = data.parts[0][:2]
+    sets = [("random", *k1_rays(data, camera, seed, device))]
+    sets += [(f"frame_b{i}", *seg) for i, seg in enumerate(segments)]
     ov = sbt.overflow_tensor(device)
-    ov.zero_()
-    kernel = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
-    *plain, dropped = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0)
-    overflow = int(ov.item())
-    if overflow or int(dropped):
-        raise RuntimeError(f"K1 stack overflow: kernel {overflow}, plain "
-                           f"{int(dropped)} dropped pushes")
+    frame_ms, out = 0.0, None
+    for name, o3, d3, t0 in sets:
+        ov.zero_()
+        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
+        *plain, dropped, counts = sbt._traverse_plain(*rows, o3, d3, t0,
+                                                      counts=True)
+        overflow = int(ov.item())
+        if overflow or int(dropped):
+            raise RuntimeError(f"K1 stack overflow on {name}: kernel "
+                               f"{overflow} group pushes, plain "
+                               f"{int(dropped)} pushes dropped")
+        for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
+            if not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().max()
+                raise RuntimeError(f"K1 {field} differs from the plain "
+                                   f"version on {name}: max |d| {diff}")
+        t_k = kernel[0]
+        hit = int(((t_k < BIG) & (t_k > -BIG)).sum())
+        w = k1_probe.work(counts, t0)
+        ops, n_bytes, bound, by = k1_bound(w, data.k1_parts[0])
+        if name == "random" and hit < N_RAYS // 4:
+            raise RuntimeError(f"K1: only {hit} of {N_RAYS} rays hit")
+        ms = cuda_ms(lambda: sbt.traverse_part(data, 0, o3, d3, t0), 10)
+        say("k1", set=name, rays=w["rays"], live=w["live"], hit=hit,
+            max_abs_err=0.0, tri_ties=0, overflow=overflow, ms=ms,
+            visits_per_ray=round(w["visits_per_ray"], 3),
+            octets_per_ray=round(w["octets_per_ray"], 3),
+            steps_per_ray=round(w["steps_per_ray"], 3),
+            candidates_per_ray=round(w["candidates_per_ray"], 3),
+            lanes_steps=round(w["lanes_steps"], 4),
+            lanes_visits=round(w["lanes_visits"], 4),
+            lanes_octets=round(w["lanes_octets"], 4),
+            gops=round(ops / 1e9, 4), mbytes=round(n_bytes / 1e6, 3),
+            bound_ms=round(bound, 5), bound_by=by,
+            share_of_bound=round(bound / ms, 4))
+        if name == "random":
+            plain_ms = min(cuda_ms(lambda: sbt._traverse_plain(
+                *rows, o3, d3, t0), 1) for _ in range(2))
+            out = (ms, plain_ms, (bound, by))
+        else:
+            frame_ms += ms
+    say("k1", frame_ms=frame_ms, segments=len(segments),
+        tolerance="exact (t, slot, u, v bit for bit)")
+    return 0.0, *out, frame_ms, sets
 
-    def tie_t(idx, slots):
-        c = tri_rows.reshape(-1, 16)[slots.long()].T
-        valid, t, _, _ = mt_single(
-            tuple(x[idx] for x in o3), tuple(x[idx] for x in d3),
-            c[0:3], c[3:6], c[6:9], c[9:12])
-        return valid, t
 
-    err, n_hit, n_diff = check_hits("K1", kernel, plain, N_RAYS // 4, tie_t)
-    say("k1", rays=N_RAYS, hit=n_hit, dead=int((t0 <= -BIG).sum()),
-        max_abs_err_t=err, tri_ties=n_diff, overflow=overflow,
-        tolerance="t:rtol=1e-6,atol=1e-6")
+def k1prof_phase(data, sets):
+    """The K1 profile build on phase 3's ray sets: its hits against the
+    kernel's, its visit, octet and edge-load counts against the plain
+    version's, and the cycles of each stage."""
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    ms, plain_ms = time_pair(
-        lambda: sbt.traverse_part(node_rows, tri_rows, o3, d3, t0),
-        lambda: sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0), 5, 1)
-    say("k1", rays=N_RAYS, ms=ms, plain_ms=plain_ms)
-    return err, ms, plain_ms
+    rows, k1 = data.parts[0][:2], data.k1_parts[0]
+    frame = dict.fromkeys(k1_probe.STAGES + k1_probe.EVENTS, 0)
+    before = dict(_kernels.launch_counts)
+    for name, o3, d3, t0 in sets:
+        hits, stages = k1_probe.profile(k1, o3, d3, t0)
+        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
+        if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
+            raise RuntimeError(f"K1 profile build differs from the kernel "
+                               f"on {name}")
+        counts = sbt._traverse_plain(*rows, o3, d3, t0, counts=True)[5]
+        for ev, row in (("visits", 0), ("octets", 1), ("edge_loads", 3)):
+            if stages[ev] != int(counts[row].long().sum()):
+                raise RuntimeError(f"K1 profile {ev} {stages[ev]} on {name}, "
+                                   f"plain {int(counts[row].long().sum())}")
+        if name.startswith("frame"):
+            for k in frame:
+                frame[k] += stages[k]
+        else:
+            _say_stages(name, k1_probe.stage_report(stages))
+    _say_stages("frame", k1_probe.stage_report(frame))
+    launched = _kernels.launch_counts["k1_profile"] - before["k1_profile"]
+    if launched != len(sets):
+        raise RuntimeError(f"k1_profile launched {launched} times")
+
+
+def _say_stages(name, rep):
+    say("k1prof", set=name, **{
+        s: f"{rep[s]['share']:.3f}/{rep[s]['per_event']:.1f}"
+           + (f"/{rep[s]['per_unit']:.1f}" if "per_unit" in rep[s] else "")
+        for s in rep if s != "events"}, events=rep["events"],
+        key="share/cycles-per-event[/per-16B-load-or-triangle]")
 
 
 def k3_phase(data, camera, seed: int, device):
     """K3 against its plain version on K1's rays; returns (max_abs_err, ms,
-    plain_ms)."""
+    plain_ms, (bound_ms, bound_by))."""
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.ops.intersect import BIG, mt_single
     from opengl_raytracer_torch.renderer import effective_max_leaf
@@ -472,11 +689,18 @@ def k3_phase(data, camera, seed: int, device):
     ov = wide.overflow_tensor(device)
     ov.zero_()
     kernel = wide.traverse_wide(*args)
-    *plain, dropped = wide._traverse_plain(*args)
+    *plain, dropped, counts = wide._traverse_plain(*args, counts=True)
     overflow = int(ov.item())
     if overflow or int(dropped):
         raise RuntimeError(f"K3 stack overflow: kernel {overflow}, plain "
                            f"{int(dropped)} dropped pushes")
+    live = int((t0 > -BIG).sum())
+    visits, leaves = (int(c.sum()) for c in counts.long())
+    ops = (live * K3_OPS_PER_RAY + visits * K3_OPS_PER_NODE
+           + leaves * leaf_octets * K3_OPS_PER_OCTET)
+    n_bytes = (N_RAYS * TRAVERSAL_BYTES_PER_RAY + data.pw_tiles.nbytes
+               + data.pl_tri_tiles.nbytes)
+    bound = bound_ms(n_bytes, ops)
 
     def tie_t(idx, slots):
         tri = data.pl_remap[slots.long()].long()
@@ -493,8 +717,12 @@ def k3_phase(data, camera, seed: int, device):
         tolerance="t:rtol=1e-6,atol=1e-6")
     ms, plain_ms = time_pair(lambda: wide.traverse_wide(*args),
                              lambda: wide._traverse_plain(*args), 5, 1)
-    say("k3", rays=N_RAYS, ms=ms, plain_ms=plain_ms)
-    return err, ms, plain_ms
+    say("k3", rays=N_RAYS, ms=ms, plain_ms=plain_ms,
+        visits_per_ray=visits / max(live, 1),
+        leaves_per_ray=leaves / max(live, 1), gops=ops / 1e9,
+        mbytes=n_bytes / 1e6, bound_ms=bound[0], bound_by=bound[1],
+        share_of_bound=bound[0] / ms)
+    return err, ms, plain_ms, bound
 
 
 def render_1080p(scene, camera, traversal: str):
@@ -556,7 +784,7 @@ def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
 
 def main_path_phase(scene, camera, out_dir):
     """The port's Renderer at 1080p under "auto" ("pallas2": K1 + K2);
-    returns (launch counts, image)."""
+    returns (launch counts, image, ms/frame)."""
     r, img, counts, ms = render_1080p(scene, camera, "auto")
     if r.traversal != "pallas2":
         raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
@@ -566,10 +794,12 @@ def main_path_phase(scene, camera, out_dir):
                 parts * r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "wide_traversal", 0)
+    check_count(counts, "k1_profile", 0)
     say("main", width=WIDTH, height=HEIGHT, bounces=BOUNCES, parts=parts,
         traversal=r.traversal, ms_per_frame=ms, fps=1000.0 / ms,
         frames=frames, k1_launches=counts["subblock_traversal"],
-        k2_launches=counts["shade"], finite=True, mean=float(img.mean()),
+        k2_launches=counts["shade"], k1_profile_launches=counts["k1_profile"],
+        finite=True, mean=float(img.mean()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -577,7 +807,69 @@ def main_path_phase(scene, camera, out_dir):
         np.save(os.path.join(out_dir, "smoke_1080p.npy"),
                 small.astype(np.float32))
     card_vs_cpu(scene, camera, "auto")
-    return counts, img
+    return counts, img, ms
+
+
+def _kernel_group(name: str) -> str:
+    n = name.lower()
+    for group, keys in (("K3", ("wide_traverse",)), ("K1", ("traverse",)),
+                        ("K2", ("shade_kernel",)), ("sort", ("radix", "sort")),
+                        ("copy", ("memcpy", "memset")),
+                        ("gather/scatter", ("gather", "scatter", "index"))):
+        if any(k in n for k in keys):
+            return group
+    return "other torch kernels"
+
+
+def _device_events(prof):
+    """(name, start us, end us) of every kernel, copy and set the profiler
+    saw on the card."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events() if e.device_type == cuda]
+    if not out:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                start = e.start_ns() / 1e3
+                out.append((e.name(), start, start + e.duration_ns() / 1e3))
+    return out
+
+
+def frame_profile_phase(scene, camera, main_ms):
+    """torch.profiler over PROFILED_FRAMES 1080p "auto" frames: device ms
+    and launches per frame by kernel group, and the device's busy share
+    and idle share of ``main_ms``, the unprofiled ms/frame of phase 5."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+
+    r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
+                                     bounces=BOUNCES), device=DEVICE)
+    state = r.render(camera, frames=2)  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r.render(camera, frames=PROFILED_FRAMES, state=state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    events = sorted(_device_events(prof), key=lambda e: e[1])
+    if not events:
+        raise RuntimeError("the profiler saw no work on the card")
+    groups = {}
+    busy, end = 0.0, float("-inf")
+    for name, t0, t1 in events:
+        g = groups.setdefault(_kernel_group(name), [0.0, 0])
+        g[0] += t1 - t0
+        g[1] += 1
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    f = PROFILED_FRAMES
+    busy_ms = busy / 1e3 / f
+    say("profile", frames=f, profiled_wall_ms_per_frame=wall_ms / f,
+        unprofiled_ms_per_frame=main_ms, device_busy_ms_per_frame=busy_ms,
+        idle_share=1.0 - busy_ms / main_ms, card=repr(card_line()))
+    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        say("profile", group=repr(g), ms_per_frame=us / 1e3 / f,
+            launches_per_frame=n / f, share_of_frame=us / 1e3 / f / main_ms)
 
 
 def wide_path_phase(scene, camera, main_img):
@@ -638,19 +930,23 @@ def multipart_phase(camera):
     r = Renderer(data, cfg, device=DEVICE)
     state = r.render(camera, frames=1)  # warm-up
     _kernels.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = r.render(camera, frames=1, state=state)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1000.0
+    frames_ms = []
+    for _ in range(MULTIPART_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = r.render(camera, frames=1, state=state)
+        torch.cuda.synchronize()
+        frames_ms.append((time.perf_counter() - t0) * 1000.0)
     counts = dict(_kernels.launch_counts)
-    check_count(counts, "subblock_traversal", parts * cfg.n_bounces)
-    check_count(counts, "shade", cfg.n_bounces)
+    check_count(counts, "subblock_traversal",
+                parts * cfg.n_bounces * MULTIPART_FRAMES)
+    check_count(counts, "shade", cfg.n_bounces * MULTIPART_FRAMES)
     img = r.image(state)
     if not np.isfinite(img).all():
         raise RuntimeError("multi-part image holds non-finite values")
     say("multipart", triangles=scene.total_triangles, parts=parts,
-        ms_per_frame=ms, k1_launches=counts["subblock_traversal"],
+        ms_per_frame=sum(frames_ms) / len(frames_ms), frames_ms=frames_ms,
+        k1_launches=counts["subblock_traversal"],
         k2_launches=counts["shade"], mean=float(img.mean()))
 
 
@@ -1024,25 +1320,33 @@ def main(argv=None) -> int:
     if scene.total_triangles != 31736 or len(data.parts) != 1:
         raise RuntimeError("the stand-in scene changed size")
     k2 = timed("k2", k2_phase, data, args.seed, data.device)
-    k1 = timed("k1", k1_phase, data, camera, args.seed, data.device)
+    segments = timed("segments", frame_segments, scene, camera)
+    *k1, frame_ms, sets = timed("k1", k1_phase, data, camera, segments,
+                                args.seed, data.device)
+    timed("k1prof", k1prof_phase, data, sets)
+    del sets, segments
     k3 = timed("k3", k3_phase, data, camera, args.seed, data.device)
-    counts, main_img = timed("main", main_path_phase, scene, camera, args.out)
+    counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
+                                      args.out)
     counts["wide_traversal"] = timed("pallas", wide_path_phase, scene, camera,
                                      main_img)["wide_traversal"]
     timed("small", small_paths_phase, camera)
     timed("multipart", multipart_phase, camera)
     straight8 = timed("cli", cli_phase)
     timed("sharded", sharded_phase, scene, camera, straight8)
+    timed("profile", frame_profile_phase, scene, camera, main_ms)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:
             raise RuntimeError(f"{mod} was imported")
     kernels = []
-    for kname, (err, ms, plain_ms) in (("subblock_traversal", k1),
-                                       ("shade", k2), ("wide_traversal", k3)):
+    for kname, (err, ms, plain_ms, (bound, by)) in (
+            ("subblock_traversal", k1), ("shade", k2), ("wide_traversal", k3)):
         kernels.append(dict(name=kname, route="cuda", **KERNELS[kname],
                             launches=counts[kname], max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=None, share_of_bound=bound / ms))
+    kernels[0]["frame_ms"] = frame_ms  # K1 over the five captured segments
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,53 +5,83 @@
 // `_raycast_one_part`, wrapped by `raycast_subblock`).  That kernel's 64-row
 // packet pool, one-hot stacks and scalar round trips answer the TPU's vector
 // memory and its lack of dynamic lane indexing; here each thread walks one
-// ray with a private stack, over the SAME tables (ops/wide2.py), so the two
-// packages can be compared ray by ray.
+// ray over the SAME tree (ops/wide2.py), read in a Hopper layout packed from
+// its rows at upload (ops/wide2.pack_k1), so the two packages can be
+// compared ray by ray:
+//   nodes[w]  (64 words, 256 B): the 8 child boxes as structure of arrays
+//     lo.x[8] lo.y[8] lo.z[8] hi.x[8] hi.y[8] hi.z[8] (f32), the 8 child
+//     entries (i32: >= 0 a node, -q-1 leaf octet q, kEmpty none), and per
+//     octant the near-first child order, 8 x 3 bits in one word;
+//   octets[q] (96 floats, 384 B): triangle j's v0, face, e1, e2 at 12j.
+// Both are read with 16-byte loads: 14 for a node visit, 2 per triangle
+// for its t, and a third for its barycentrics when t beats the best hit.
 //
-// Tables (row-major, 128 floats per row):
-//   node_rows[w]: child j's [min.xyz, max.xyz] at [j*6, j*6+6); at
-//     [48 + oct*8 + k] the far-first push order for octant `oct`, packed as
-//     exact-integer floats entry*8 + j.  entry >= 0 is a wide node,
-//     -q-1 is leaf octet q, EMPTY_PACKED an empty slot.
-//   tri_rows[q]: triangle j at [j*16, j*16+12) as v0, e1, e2, face.
+// What bounds it on this card: not bytes (the 2-3 MB tables of a part sit
+// in the 50 MB L2, and a launch moves ~44 B per ray) and not FP32 rate
+// (~0.2-0.3 ms of operations per 2M-ray launch).  It is the latency of the
+// dependent loads a ray's walk chains together (entry -> node -> child),
+// and warp divergence: the 32 rays of a warp walk different subtrees and
+// run node and leaf bodies one after the other.  The design answers both:
+//   * a stack of node groups: one 32-bit entry per open node, holding the
+//     node and the mask of its children still to visit in this ray's
+//     near-first order.  A visit pushes at most one entry (the tree's depth
+//     bound of ops/wide2.py, max_depth <= 15, bounds the open nodes at 16),
+//     the top entry lives in registers and the rest in this thread's column
+//     of shared memory (stride = block size: no bank conflicts; 8 KB a
+//     block), so no local memory is touched;
+//   * 16-byte loads of 256-byte nodes, all issued before the first use,
+//     instead of 56 scalar loads spread over three lines of a 512-byte row;
+//   * a two-phase loop (Aila and Laine's while-while, HPG 2009): nodes
+//     until the next entry is a leaf octet, then octets until the next is
+//     a node, so a warp's lanes run node bodies together and leaf bodies
+//     together more often;
+//   * a triangle's test stops at |det| < EPS or at a t that cannot be
+//     accepted (t <= EPS or t >= best_t), before its edges are loaded and
+//     its barycentrics computed: the rest of the test cannot accept it.
+// The kernel is latency-bound, so warps per SM matter: it compiles to 64
+// registers (8 blocks of 4 warps an SM); a cap below that spilled and ran
+// slower on the card, and so did persistent warps fetching rays from a
+// counter and staging the tree's top nodes in shared memory (PERF.md).
 //
-// Semantics kept from the Pallas kernel:
+// Semantics kept from the Pallas kernel, and from the plain torch version
+// (ops/subblock_traversal.py) bit for bit:
 //   * inverses 1/d clamped to +-1e18; slab as b*inv - o*inv; a child is
-//     opened iff far >= near && far >= 0 && near <= best_t;
-//   * children are pushed far-first so that they pop near-first.  The order
-//     comes from THIS ray's octant (sign bits of d); the Pallas kernel uses
-//     its packet's dominant octant, which changes only which slot wins at
-//     an exact t tie;
+//     opened iff far >= near && far >= 0 && near <= best_t, tested when its
+//     parent is visited;
+//   * children are visited near-first in the order of THIS ray's octant
+//     (sign bits of d): a group pops its lowest remaining rank, which is the
+//     order in which the plain version's far-first pushes pop (the Pallas
+//     kernel uses its packet's dominant octant, which changes only which
+//     slot wins at an exact t tie);
 //   * EPS Moller-Trumbore with t = -(r.face)/det and a strict < update;
 //     slot = q*8 + j;
 //   * a dead ray enters with t0 = -BIG and can neither open nodes nor
 //     accept hits (it exits at once here).
-// A push that would pass the stack's end is counted into `overflow` (the
-// Pallas kernel drops such pushes silently).  The wide-depth cap of
-// ops/wide2.py (max_depth <= 15) keeps a single stack under
-// (max_depth + 1) * 7 + 1 <= 113 entries, so the count stays 0 for every
-// scene the builder accepts.
-//
 // The arithmetic is written with round-to-nearest intrinsics (__fmul_rn,
-// __fadd_rn, __fsub_rn, __fdiv_rn), which nvcc never contracts into FMAs,
-// in the order of the plain torch version (ops/subblock_traversal.py), so
-// the kernel reproduces that version bit for bit.  (The Pallas kernel, run
-// by XLA, contracts; against it t agrees to contraction rounding.)
+// __fadd_rn, __fsub_rn, __frcp_rn: 1/x correctly rounded, as the plain
+// version's 1.0 / x), which nvcc never contracts into FMAs, in the order of
+// the plain version, so t, slot, u and v are its values bit for bit.
+// A group push past the shared column's end is counted into `overflow`.
 //
-// What bounds it on the card: dependent loads of 512-byte node rows and
-// 384-byte leaf octets (the tables stay in L2), and warp divergence when
-// the 32 rays of a warp walk different subtrees - not FLOPs.  This first
-// version keeps one ray per thread with the stack in local memory; the
-// reorder sort in the integrator makes neighbouring threads' rays coherent.
+// Built with -DOGLRT_K1_PROFILE (opengl_raytracer_torch/probes/k1.py), the
+// same source exports `oglrt_subblock_traverse_profile` instead: the same
+// walk, with clock64() sums per stage (group pop, node fetch, slab tests,
+// group push, octet fetch, triangle tests) and event counts, reduced per
+// warp into `prof`.  Each fetch stage ends in a use of every load it issued
+// (an XOR into a sink word), so its cycles include the loads' latency.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRow = 128;
-constexpr int kOrd0 = 48;
+constexpr int kBlock = 128;
+// Node groups per thread in shared memory.  At most max_depth + 1 <= 16
+// groups are open at once (one per node on the path from the root), one
+// of them in registers, so 16 leave one to spare.
+constexpr int kGroups = 16;
 constexpr int kEmpty = -(1 << 20);
-constexpr int kStack = 128;
+constexpr int kDone = INT_MIN;
 constexpr float kBig = 1e30f;
 constexpr float kEps = 1e-6f;
 constexpr float kInvClamp = 1e18f;
@@ -64,19 +94,98 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
     return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
 }
 
-__global__ void __launch_bounds__(128)
-traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-                const float* __restrict__ oz, const float* __restrict__ dx,
-                const float* __restrict__ dy, const float* __restrict__ dz,
-                const float* __restrict__ t0,
-                const float* __restrict__ node_rows,
-                const float* __restrict__ tri_rows,
-                float* __restrict__ t_out, int* __restrict__ slot_out,
-                float* __restrict__ u_out, float* __restrict__ v_out,
-                int* __restrict__ overflow, long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+#ifdef OGLRT_K1_PROFILE
+enum { kPop, kNodeFetch, kSlab, kPush, kOctetFetch, kTriangles, kStages };
+enum { kVisits, kOctets, kGroupPushes, kGroupPops, kSmemPushes, kSmemPops,
+       kEdgeLoads, kCounts };
+struct Prof {
+    unsigned long long cyc[kStages];
+    unsigned long long cnt[kCounts];
+    unsigned sink;
+};
+#define PROF_PARAM , Prof& prof
+#define PROF_PASS , prof
+#define PROF_T(name) const long long name = clock64()
+#define PROF_ADD(stage, t) prof.cyc[stage] += (unsigned long long)(clock64() - (t))
+#define PROF_CNT(c) ++prof.cnt[c]
+#define PROF_SINK(x) prof.sink ^= (x)
+#else
+#define PROF_PARAM
+#define PROF_PASS
+#define PROF_T(name)
+#define PROF_ADD(stage, t)
+#define PROF_CNT(c)
+#define PROF_SINK(x)
+#endif
 
+// Entry of slot s (0-7) of a node's two entry vectors, without indexing a
+// register array (which would go to local memory).
+__device__ __forceinline__ int pick(const int4& a, const int4& b, unsigned s) {
+    const int lo = (s & 2) ? ((s & 1) ? a.w : a.z) : ((s & 1) ? a.y : a.x);
+    const int hi = (s & 2) ? ((s & 1) ? b.w : b.z) : ((s & 1) ? b.y : b.x);
+    return (s & 4) ? hi : lo;
+}
+
+// The open node groups of one ray: `top` in registers (node << 8 | mask of
+// near-first ranks still to visit; 0 = none), older ones in the thread's
+// shared-memory column.
+struct Groups {
+    unsigned top;
+    int sp;
+    int dropped;
+    unsigned* col;
+
+    __device__ __forceinline__ void push(unsigned g PROF_PARAM) {
+        PROF_T(t);
+        PROF_CNT(kGroupPushes);
+        if (top) {
+            if (sp < kGroups) {
+                col[sp++ * kBlock] = top;
+                PROF_CNT(kSmemPushes);
+            } else {
+                ++dropped;
+            }
+        }
+        top = g;
+        PROF_ADD(kPush, t);
+    }
+
+    // The next entry to visit: the nearest child still open in the top
+    // group, or kDone when no group is open.
+    __device__ __forceinline__ int pop(const int4* __restrict__ nodes, int oct
+                                       PROF_PARAM) {
+        if (!top) return kDone;
+        PROF_T(t);
+        const unsigned w = top >> 8;
+        unsigned m = top & 0xFFu;
+        const int4* nb = nodes + (size_t)w * 16;
+        const int4 e0 = __ldg(nb + 12), e1 = __ldg(nb + 13);
+        const unsigned ord = __ldg(reinterpret_cast<const unsigned*>(nb) + 56 + oct);
+        const unsigned r = __ffs(m) - 1;
+        const int child = pick(e0, e1, (ord >> (3 * r)) & 7u);
+        m &= m - 1;
+        if (m) {
+            top = (w << 8) | m;
+        } else if (sp) {
+            top = col[--sp * kBlock];
+            PROF_CNT(kSmemPops);
+        } else {
+            top = 0;
+        }
+        PROF_CNT(kGroupPops);
+        PROF_ADD(kPop, t);
+        return child;
+    }
+};
+
+__device__ __forceinline__ void trace_ray(
+    long long i, const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t0, const int4* __restrict__ nodes,
+    const float4* __restrict__ octets, unsigned* col, float* __restrict__ t_out,
+    int* __restrict__ slot_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ overflow PROF_PARAM) {
     float bt = t0[i];
     int bslot = 0;
     float bu = 0.0f, bv = 0.0f;
@@ -84,77 +193,119 @@ traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     if (bt > -kBig) {
         const float o0 = ox[i], o1 = oy[i], o2 = oz[i];
         const float d0 = dx[i], d1 = dy[i], d2 = dz[i];
-        const float inv0 = fminf(fmaxf(__fdiv_rn(1.0f, d0), -kInvClamp), kInvClamp);
-        const float inv1 = fminf(fmaxf(__fdiv_rn(1.0f, d1), -kInvClamp), kInvClamp);
-        const float inv2 = fminf(fmaxf(__fdiv_rn(1.0f, d2), -kInvClamp), kInvClamp);
+        const float inv0 = fminf(fmaxf(__frcp_rn(d0), -kInvClamp), kInvClamp);
+        const float inv1 = fminf(fmaxf(__frcp_rn(d1), -kInvClamp), kInvClamp);
+        const float inv2 = fminf(fmaxf(__frcp_rn(d2), -kInvClamp), kInvClamp);
         const float oi0 = mul(o0, inv0), oi1 = mul(o1, inv1), oi2 = mul(o2, inv2);
         const int oct = ((d0 < 0.0f) << 2) | ((d1 < 0.0f) << 1) | (d2 < 0.0f);
 
-        int stack[kStack];
-        int sp = 0;
-        stack[sp++] = 0;  // the root wide node
-        int dropped = 0;
+        Groups g{0u, 0, 0, col};
+        int cur = 0;  // the root wide node
+        for (;;) {
+            while (cur >= 0) {  // node phase
+                PROF_T(tf);
+                const float4* fb = reinterpret_cast<const float4*>(nodes + (size_t)cur * 16);
+                const float4 lx0 = __ldg(fb + 0), lx1 = __ldg(fb + 1);
+                const float4 ly0 = __ldg(fb + 2), ly1 = __ldg(fb + 3);
+                const float4 lz0 = __ldg(fb + 4), lz1 = __ldg(fb + 5);
+                const float4 hx0 = __ldg(fb + 6), hx1 = __ldg(fb + 7);
+                const float4 hy0 = __ldg(fb + 8), hy1 = __ldg(fb + 9);
+                const float4 hz0 = __ldg(fb + 10), hz1 = __ldg(fb + 11);
+                const int4 e0 = __ldg(nodes + (size_t)cur * 16 + 12);
+                const int4 e1 = __ldg(nodes + (size_t)cur * 16 + 13);
+                const unsigned ord =
+                    __ldg(reinterpret_cast<const unsigned*>(fb) + 56 + oct);
+                PROF_SINK(__float_as_uint(lx0.x) ^ __float_as_uint(lx1.x) ^
+                          __float_as_uint(ly0.x) ^ __float_as_uint(ly1.x) ^
+                          __float_as_uint(lz0.x) ^ __float_as_uint(lz1.x) ^
+                          __float_as_uint(hx0.x) ^ __float_as_uint(hx1.x) ^
+                          __float_as_uint(hy0.x) ^ __float_as_uint(hy1.x) ^
+                          __float_as_uint(hz0.x) ^ __float_as_uint(hz1.x) ^
+                          (unsigned)e0.x ^ (unsigned)e1.x ^ ord);
+                PROF_ADD(kNodeFetch, tf);
+                PROF_CNT(kVisits);
 
-        while (sp > 0) {
-            const int e = stack[--sp];
-            if (e >= 0) {
-                const float* row = node_rows + (long long)e * kRow;
-                const float* ord = row + kOrd0 + oct * 8;
+                PROF_T(ts);
+                const float lx[8] = {lx0.x, lx0.y, lx0.z, lx0.w, lx1.x, lx1.y, lx1.z, lx1.w};
+                const float ly[8] = {ly0.x, ly0.y, ly0.z, ly0.w, ly1.x, ly1.y, ly1.z, ly1.w};
+                const float lz[8] = {lz0.x, lz0.y, lz0.z, lz0.w, lz1.x, lz1.y, lz1.z, lz1.w};
+                const float hx[8] = {hx0.x, hx0.y, hx0.z, hx0.w, hx1.x, hx1.y, hx1.z, hx1.w};
+                const float hy[8] = {hy0.x, hy0.y, hy0.z, hy0.w, hy1.x, hy1.y, hy1.z, hy1.w};
+                const float hz[8] = {hz0.x, hz0.y, hz0.z, hz0.w, hz1.x, hz1.y, hz1.z, hz1.w};
+                const int ent[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+                unsigned hit = 0;  // by slot
 #pragma unroll
-                for (int k = 0; k < 8; ++k) {
-                    const int pk = (int)__ldg(ord + k);
-                    const int ent = pk >> 3;
-                    if (ent == kEmpty) continue;
-                    const float* b = row + (pk & 7) * 6;
-                    const float t1x = sub(mul(__ldg(b + 0), inv0), oi0);
-                    const float t1y = sub(mul(__ldg(b + 1), inv1), oi1);
-                    const float t1z = sub(mul(__ldg(b + 2), inv2), oi2);
-                    const float t2x = sub(mul(__ldg(b + 3), inv0), oi0);
-                    const float t2y = sub(mul(__ldg(b + 4), inv1), oi1);
-                    const float t2z = sub(mul(__ldg(b + 5), inv2), oi2);
+                for (int j = 0; j < 8; ++j) {
+                    const float t1x = sub(mul(lx[j], inv0), oi0);
+                    const float t1y = sub(mul(ly[j], inv1), oi1);
+                    const float t1z = sub(mul(lz[j], inv2), oi2);
+                    const float t2x = sub(mul(hx[j], inv0), oi0);
+                    const float t2y = sub(mul(hy[j], inv1), oi1);
+                    const float t2z = sub(mul(hz[j], inv2), oi2);
                     const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                                              fminf(t1z, t2z));
                     const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
                                             fmaxf(t1z, t2z));
-                    if (far >= near && far >= 0.0f && near <= bt) {
-                        if (sp < kStack) {
-                            stack[sp++] = ent;
-                        } else {
-                            ++dropped;
-                        }
-                    }
+                    if (far >= near && far >= 0.0f && near <= bt && ent[j] != kEmpty)
+                        hit |= 1u << j;
                 }
-            } else {
-                const int q = -e - 1;
-                const float* row = tri_rows + (long long)q * kRow;
-#pragma unroll 2
-                for (int j = 0; j < 8; ++j) {
-                    const float* c = row + j * 16;
-                    const float v0x = __ldg(c + 0), v0y = __ldg(c + 1), v0z = __ldg(c + 2);
-                    const float e1x = __ldg(c + 3), e1y = __ldg(c + 4), e1z = __ldg(c + 5);
-                    const float e2x = __ldg(c + 6), e2y = __ldg(c + 7), e2z = __ldg(c + 8);
-                    const float fx = __ldg(c + 9), fy = __ldg(c + 10), fz = __ldg(c + 11);
-                    const float det = dot3(d0, d1, d2, fx, fy, fz);
-                    const float inv_det = __fdiv_rn(1.0f, det);
-                    const float rx = sub(o0, v0x), ry = sub(o1, v0y), rz = sub(o2, v0z);
-                    const float t = mul(-dot3(rx, ry, rz, fx, fy, fz), inv_det);
-                    const float px = sub(mul(ry, d2), mul(rz, d1));
-                    const float py = sub(mul(rz, d0), mul(rx, d2));
-                    const float pz = sub(mul(rx, d1), mul(ry, d0));
-                    const float u = mul(-dot3(e2x, e2y, e2z, px, py, pz), inv_det);
-                    const float v = mul(dot3(e1x, e1y, e1z, px, py, pz), inv_det);
-                    const bool valid = fabsf(det) >= kEps && t > kEps && u >= 0.0f &&
-                                       v >= 0.0f && add(u, v) <= 1.0f;
-                    if (valid && t < bt) {  // strict <, fragment.glsl:275
-                        bt = t;
-                        bslot = q * 8 + j;
-                        bu = u;
-                        bv = v;
-                    }
+                unsigned m = 0;  // by near-first rank
+#pragma unroll
+                for (int r = 0; r < 8; ++r)
+                    m |= ((hit >> ((ord >> (3 * r)) & 7u)) & 1u) << r;
+                PROF_ADD(kSlab, ts);
+
+                if (m) {
+                    const unsigned r = __ffs(m) - 1;
+                    const int child = pick(e0, e1, (ord >> (3 * r)) & 7u);
+                    m &= m - 1;
+                    if (m) g.push(((unsigned)cur << 8) | m PROF_PASS);
+                    cur = child;
+                } else {
+                    cur = g.pop(nodes, oct PROF_PASS);
                 }
             }
+            if (cur == kDone) break;
+            do {  // leaf phase: cur = -q-1
+                const int q = -cur - 1;
+                const float4* ob = octets + (size_t)q * 24;
+                PROF_CNT(kOctets);
+#pragma unroll 2
+                for (int j = 0; j < 8; ++j) {
+                    PROF_T(tf);
+                    const float4 a = __ldg(ob + 3 * j);  // v0.xyz, face.x
+                    const float4 b = __ldg(ob + 3 * j + 1);  // face.yz, e1.xy
+                    PROF_SINK(__float_as_uint(a.x) ^ __float_as_uint(b.x));
+                    PROF_ADD(kOctetFetch, tf);
+                    PROF_T(tt);
+                    const float det = dot3(d0, d1, d2, a.w, b.x, b.y);
+                    if (fabsf(det) >= kEps) {
+                        const float inv_det = __frcp_rn(det);
+                        const float rx = sub(o0, a.x), ry = sub(o1, a.y), rz = sub(o2, a.z);
+                        const float t = mul(-dot3(rx, ry, rz, a.w, b.x, b.y), inv_det);
+                        if (t > kEps && t < bt) {  // strict <, fragment.glsl:275
+                            const float4 c = __ldg(ob + 3 * j + 2);  // e1.z, e2.xyz
+                            PROF_CNT(kEdgeLoads);
+                            const float px = sub(mul(ry, d2), mul(rz, d1));
+                            const float py = sub(mul(rz, d0), mul(rx, d2));
+                            const float pz = sub(mul(rx, d1), mul(ry, d0));
+                            const float u = mul(-dot3(c.y, c.z, c.w, px, py, pz), inv_det);
+                            const float v = mul(dot3(b.z, b.w, c.x, px, py, pz), inv_det);
+                            if (u >= 0.0f && v >= 0.0f && add(u, v) <= 1.0f) {
+                                bt = t;
+                                bslot = q * 8 + j;
+                                bu = u;
+                                bv = v;
+                            }
+                        }
+                    }
+                    PROF_ADD(kTriangles, tt);
+                }
+                cur = g.pop(nodes, oct PROF_PASS);
+            } while (cur < 0 && cur != kDone);
+            if (cur == kDone) break;
         }
-        if (dropped) atomicAdd(overflow, dropped);
+        if (g.dropped) atomicAdd(overflow, g.dropped);
     }
     t_out[i] = bt;
     slot_out[i] = bslot;
@@ -162,19 +313,94 @@ traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     v_out[i] = bv;
 }
 
+#ifndef OGLRT_K1_PROFILE
+
+__global__ void __launch_bounds__(kBlock)
+traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                const float* __restrict__ oz, const float* __restrict__ dx,
+                const float* __restrict__ dy, const float* __restrict__ dz,
+                const float* __restrict__ t0, const int4* __restrict__ nodes,
+                const float4* __restrict__ octets, float* __restrict__ t_out,
+                int* __restrict__ slot_out, float* __restrict__ u_out,
+                float* __restrict__ v_out, int* __restrict__ overflow,
+                long long n) {
+    __shared__ unsigned stack[kGroups * kBlock];
+    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+    if (i < n)
+        trace_ray(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets,
+                  stack + threadIdx.x, t_out, slot_out, u_out, v_out, overflow);
+}
+
 }  // namespace
 
 extern "C" int oglrt_subblock_traverse(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* t0, const float* node_rows,
-    const float* tri_rows, float* t_out, int* slot_out, float* u_out,
+    const float* dy, const float* dz, const float* t0, const void* nodes,
+    const void* octets, float* t_out, int* slot_out, float* u_out,
     float* v_out, int* overflow, long long n, void* stream) {
     if (n > 0) {
-        const int block = 128;
-        const long long grid = (n + block - 1) / block;
-        traverse_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-            ox, oy, oz, dx, dy, dz, t0, node_rows, tri_rows, t_out, slot_out,
-            u_out, v_out, overflow, n);
+        const long long grid = (n + kBlock - 1) / kBlock;
+        traverse_kernel<<<(unsigned)grid, kBlock, 0, (cudaStream_t)stream>>>(
+            ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
+            static_cast<const float4*>(octets), t_out, slot_out, u_out, v_out,
+            overflow, n);
     }
     return (int)cudaGetLastError();
 }
+
+#else  // OGLRT_K1_PROFILE
+
+__device__ __forceinline__ void warp_sum_into(unsigned long long x,
+                                              unsigned long long* dst) {
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if ((threadIdx.x & 31) == 0 && x) atomicAdd(dst, x);
+}
+
+__global__ void __launch_bounds__(kBlock)
+traverse_profile_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                        const float* __restrict__ oz, const float* __restrict__ dx,
+                        const float* __restrict__ dy, const float* __restrict__ dz,
+                        const float* __restrict__ t0, const int4* __restrict__ nodes,
+                        const float4* __restrict__ octets, float* __restrict__ t_out,
+                        int* __restrict__ slot_out, float* __restrict__ u_out,
+                        float* __restrict__ v_out, int* __restrict__ overflow,
+                        unsigned long long* __restrict__ prof_out,
+                        unsigned* __restrict__ sink, long long n) {
+    __shared__ unsigned stack[kGroups * kBlock];
+    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+    Prof prof = {};
+    if (i < n)
+        trace_ray(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets,
+                  stack + threadIdx.x, t_out, slot_out, u_out, v_out, overflow,
+                  prof);
+    // every lane of the warp reaches here: sum the warp's counters, then one
+    // atomic per counter per warp
+#pragma unroll
+    for (int k = 0; k < kStages; ++k) warp_sum_into(prof.cyc[k], prof_out + k);
+#pragma unroll
+    for (int k = 0; k < kCounts; ++k)
+        warp_sum_into(prof.cnt[k], prof_out + kStages + k);
+    unsigned s = prof.sink;
+    for (int off = 16; off > 0; off >>= 1) s ^= __shfl_down_sync(0xffffffffu, s, off);
+    if ((threadIdx.x & 31) == 0) atomicXor(sink, s);
+}
+
+}  // namespace
+
+extern "C" int oglrt_subblock_traverse_profile(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* t0, const void* nodes,
+    const void* octets, float* t_out, int* slot_out, float* u_out,
+    float* v_out, int* overflow, unsigned long long* prof, unsigned* sink,
+    long long n, void* stream) {
+    if (n > 0) {
+        const long long grid = (n + kBlock - 1) / kBlock;
+        traverse_profile_kernel<<<(unsigned)grid, kBlock, 0, (cudaStream_t)stream>>>(
+            ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
+            static_cast<const float4*>(octets), t_out, slot_out, u_out, v_out,
+            overflow, prof, sink, n);
+    }
+    return (int)cudaGetLastError();
+}
+
+#endif  // OGLRT_K1_PROFILE

@@ -12,7 +12,8 @@ traversals and shading read:
 * the octet-aligned triangle tiles ``pl_tri_tiles``/``pl_remap`` and the
   8-wide node tiles ``pw_tiles``/``pw_entry`` (the wide-BVH kernel K3,
   ops/pallas_traversal.py and ops/wide_bvh.py);
-* the sub-block parts (K1, ops/wide2.py);
+* the sub-block parts (ops/wide2.py), and the same tables in the layout
+  the K1 kernel reads (``k1_parts``, ops/wide2.pack_k1);
 * the shading rows, in triangle order (``sh_abc``) and in sub-block slot
   order (``sh_slot``).
 """
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from opengl_raytracer_torch.ops import bvh as bvh_mod
-from opengl_raytracer_torch.ops.wide2 import build_subblock_parts
+from opengl_raytracer_torch.ops.wide2 import build_subblock_parts, pack_k1
 from opengl_raytracer_torch.ops.wide_bvh import (TRIS_PER_OCTET, collapse_wide,
                                                  wide_max_stack)
 
@@ -61,6 +62,9 @@ class SceneData(NamedTuple):
     p2_tri_rows: torch.Tensor  # (Qp, 128) f32: leaf octets, one per row
     p2_remap: torch.Tensor  # (Qp*8,) i32: slot -> triangle (scene order)
     p2_extra: tuple  # further parts' (node_rows, tri_rows, remap)
+    # Per part, in the order of ``parts``: (nodes (Wp, 64) i32, octets
+    # (Qp, 96) f32), the Hopper layout the K1 kernel reads.
+    k1_parts: tuple
     # Shading row per triangle: [n0.xyz, n1.xyz, emission, roughness,
     # n2.xyz, face.xyz, 0, 0, color.xyz, emission_color.xyz, 0, 0].
     sh_abc: torch.Tensor  # (T, 24) f32
@@ -96,13 +100,18 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     ``node_*`` BVH arrays, ``pw_tiles``, ``pw_entry``, ``pl_tri_tiles``,
     ``pl_remap``, the ``p2_*`` sub-block tables (``p2_extra`` a sequence of
     (node_rows, tri_rows, remap)), ``sh_abc`` and ``sh_slot``; other keys
-    are ignored."""
+    are ignored.  Each part's K1 tables (``k1_parts``) are packed here from
+    its ``p2_*`` rows (ops/wide2.pack_k1)."""
 
     def up(a, dtype):  # np.array copies: the sources may be read-only views
         return torch.from_numpy(np.array(a, dtype)).to(device)
 
     node_min = np.asarray(fields["node_min"], np.float32)
     node_max = np.asarray(fields["node_max"], np.float32)
+    rows = [(fields["p2_node_rows"], fields["p2_tri_rows"]),
+            *((n, t) for n, t, _ in fields["p2_extra"])]
+    k1 = [pack_k1(np.asarray(n, np.float32), np.asarray(t, np.float32))
+          for n, t in rows]
     return SceneData(
         **{k: up(fields[k], np.float32) for k in _F32},
         **{k: up(fields[k], np.int32) for k in _I32},
@@ -110,6 +119,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         p2_extra=tuple(
             (up(n, np.float32), up(t, np.float32), up(r, np.int32))
             for n, t, r in fields["p2_extra"]),
+        k1_parts=tuple((up(n, np.int32), up(o, np.float32)) for n, o in k1),
         root_min=node_min[0].copy(),
         root_max=node_max[0].copy(),
     )

@@ -32,11 +32,16 @@ LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0}
+# "k1_profile" counts the K1 profile build (opengl_raytracer_torch/probes/k1.py),
+# which no path of the renderer launches
+launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
+                 "k1_profile": 0}
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""  # nvcc's output of the last build in this process
+# nvcc's output for the loaded library: of this process's build, or read
+# back from the log kept beside a library built earlier (saved_log)
+build_log = ""
 
 
 def reset_counts() -> None:
@@ -57,6 +62,56 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def compile_library(lib_path: str, units: list) -> str:
+    """Compile ``units``, a list of (source, extra nvcc flags), one ``nvcc
+    -c`` each, all started together, and link them into ``lib_path``;
+    returns nvcc's output, each unit's under a line ``== <file> <flags>``,
+    and keeps it beside the library (:func:`saved_log`).  Raises when nvcc
+    fails."""
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    objs = [f"{lib_path}.{i}.{tag}.o" for i in range(len(units))]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for (s, flags), o in zip(units, objs)]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    log = "".join(f"== {os.path.basename(s)} {' '.join(flags)}\n{out}"
+                  for (s, flags), out in zip(units, outs))
+    try:
+        failed = [(s, p.returncode) for (s, _), p in zip(units, procs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = f"{lib_path}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{log}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{lib_path}.log")
+        os.replace(tmp, lib_path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
+
+
+def saved_log(lib_path: str) -> str:
+    """nvcc's output of the build that made ``lib_path``, "" if none was
+    kept."""
+    try:
+        with open(f"{lib_path}.log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` into ``LIB_PATH`` unless it is newer than
     every source; returns the library's path.  Raises when nvcc fails."""
@@ -64,35 +119,9 @@ def build() -> str:
     srcs = sources()
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
             >= max(os.path.getmtime(s) for s in srcs)):
+        build_log = saved_log(LIB_PATH)
         return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
-            for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(srcs, objs)]
-    outs = [p.communicate()[0] for p in procs]  # waits for every process
-    build_log = "".join(outs)
-    try:
-        failed = [(s, p.returncode) for s, p in zip(srcs, procs)
-                  if p.returncode != 0]
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
-        tmp = f"{LIB_PATH}.{tag}"
-        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
-                              capture_output=True, text=True)
-        build_log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, LIB_PATH)
-    finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
+    build_log = compile_library(LIB_PATH, [(s, []) for s in srcs])
     return LIB_PATH
 
 
@@ -128,17 +157,19 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(symbol: str, counter: str, device: torch.device, *args) -> None:
-    """Launch the library's ``symbol`` on ``device``: call it with ``args``
-    and the device's current stream while ``device`` is the current one,
-    add one to ``launch_counts[counter]``, and raise on a launch error.
+def launch(symbol: str, counter: str, device: torch.device, *args,
+           library: ctypes.CDLL | None = None) -> None:
+    """Launch ``symbol`` of ``library`` (default: :func:`lib`) on
+    ``device``: call it with ``args`` and the device's current stream while
+    ``device`` is the current one, add one to ``launch_counts[counter]``,
+    and raise on a launch error.
 
     A ctypes launch runs in the context of the CURRENT device, whatever
     device its pointers and stream belong to, so the guard is what keeps a
     kernel for ``cuda:1`` off ``cuda:0`` when a process drives several
     cards (``parallel/sharding.py``)."""
     with torch.cuda.device(device):
-        err = getattr(lib(), symbol)(*args, stream_ptr(device))
+        err = getattr(library or lib(), symbol)(*args, stream_ptr(device))
     launch_counts[counter] += 1
     check(err, symbol)
 

@@ -72,9 +72,11 @@ def stack_size(max_stack: int) -> int:
 
 
 def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
-                    stack: int):
+                    stack: int, counts: bool = False):
     """Plain torch version of the kernel.  Returns (t, slot, u, v,
-    dropped_pushes); t is ``t0`` where nothing improved it."""
+    dropped_pushes); t is ``t0`` where nothing improved it.  With
+    ``counts``, also a (2, R) int32 tensor of each ray's node visits and
+    leaf entries (each tests ``leaf_octets`` octets)."""
     dev = t0.device
     R = t0.shape[0]
     bt = t0.clone()
@@ -94,6 +96,7 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     stk = torch.zeros((R, stack), dtype=torch.int32, device=dev)
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    work = torch.zeros((2, R), dtype=torch.int32, device=dev)
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -104,6 +107,9 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
         is_node = ent >= 0
 
         rays = act[is_node]
+        if counts:
+            work[0, rays] += 1
+            work[1, act[~is_node]] += 1
         if rays.numel():
             w = ent[is_node]
             group = (w >> 3) * TILE + (w & 7) * GROUP  # (n,)
@@ -157,6 +163,8 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
                 bu_r = torch.where(better, u.gather(1, j)[:, 0], bu_r)
                 bv_r = torch.where(better, v.gather(1, j)[:, 0], bv_r)
             bt[rays], slot[rays], bu[rays], bv[rays] = bt_r, sl_r, bu_r, bv_r
+    if counts:
+        return bt, slot, bu, bv, dropped, work
     return bt, slot, bu, bv, dropped
 
 

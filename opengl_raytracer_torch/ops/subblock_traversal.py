@@ -6,16 +6,19 @@ chains the scene's parts, feeding each the running best ``t`` so later
 parts prune against earlier hits, combines them with a strict ``<``, and
 resolves ``tri = remap[slot]``.  Each part is one call of
 :func:`traverse_part`, which on CUDA tensors launches the kernel of
-``csrc/subblock_traversal.cu`` and on CPU tensors runs
-:func:`_traverse_plain`, the same per-ray stack walk written with torch
-ops (all rays stepping together, one stack entry popped per ray per step).
+``csrc/subblock_traversal.cu`` over the part's Hopper tables
+(``SceneData.k1_parts``, ops/wide2.pack_k1) and on CPU tensors runs
+:func:`_traverse_plain` over its ``p2_*`` rows: the same per-ray stack walk
+written with torch ops (all rays stepping together, one stack entry popped
+per ray per step).
 
-Both versions push a node's children far-first in the order its row
+Both versions visit a node's children near-first in the order its row
 stores for the ray's own octant, open a child iff its slab test hits with
-``near <= best_t``, and update the best hit with a strict ``<``.  They visit
-the same nodes in the same order, so they agree ray by ray up to mul+add
-contraction.  Against the JAX kernel, whose order follows a packet's
-dominant octant, only the winning slot at an exact ``t`` tie may differ.
+``near <= best_t`` at the parent's visit, and update the best hit with a
+strict ``<``.  They visit the same nodes in the same order, so they agree
+ray by ray, bit for bit.  Against the JAX kernel, whose order follows a
+packet's dominant octant, only the winning slot at an exact ``t`` tie may
+differ.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import _kernels
-from opengl_raytracer_torch.ops.intersect import BIG, Nearest, mt_single
-from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, ORD0
+from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
+from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, K1_NODE_WORDS,
+                                              K1_OCTET_FLOATS, ORD0)
 
-STACK = 128  # per-ray stack entries; ops/wide2.py's depth cap bounds use
+STACK = 128  # per-ray stack entries of the plain version
 INV_CLAMP = 1e18
 
 _overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
@@ -34,16 +38,23 @@ _overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
 
 def overflow_tensor(device) -> torch.Tensor:
     """The running count of stack pushes dropped on ``device`` (0 unless a
-    scene's tree is deeper than ops/wide2.py allows)."""
+    scene's tree is deeper than ops/wide2.py allows): child pushes in the
+    plain version, node-group pushes in the kernel."""
     device = torch.device(device)
     if device not in _overflow:
         _overflow[device] = torch.zeros(1, dtype=torch.int32, device=device)
     return _overflow[device]
 
 
-def _traverse_plain(node_rows, tri_rows, o3, d3, t0):
+def _traverse_plain(node_rows, tri_rows, o3, d3, t0, counts: bool = False):
     """Plain torch version of the kernel.  Returns (t, slot, u, v,
-    dropped_pushes) for one part; t is ``t0`` where nothing improved it."""
+    dropped_pushes) for one part; t is ``t0`` where nothing improved it.
+
+    With ``counts``, also a (4, R) int32 tensor of each ray's node visits,
+    leaf octets tested, loop steps (stack pops: visits + octets) and
+    triangles whose ``t`` beat the best hit (``|det| >= EPS``, ``EPS < t <
+    best_t``: those the kernel goes on to test for barycentrics), the work
+    the kernel does for the same ray."""
     dev = t0.device
     R = t0.shape[0]
     bt = t0.clone()
@@ -59,6 +70,7 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0):
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
     lanes6 = torch.arange(6, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    work = torch.zeros((4, R), dtype=torch.int32, device=dev)
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -69,6 +81,9 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0):
         is_node = ent >= 0
 
         rays = act[is_node]
+        if counts:
+            work[0, rays] += 1
+            work[1, act[~is_node]] += 1
         if rays.numel():
             rows = node_rows[ent[is_node]]
             inv_r = [x[rays] for x in inv]
@@ -109,50 +124,65 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0):
                 c = rows[:, j * 16:j * 16 + 12].unbind(1)
                 valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
                                            c[9:12])
+                if counts:
+                    det = d_r[0] * c[9] + d_r[1] * c[10] + d_r[2] * c[11]
+                    work[3, rays] += ((det.abs() >= EPS) & (t > EPS)
+                                      & (t < bt_r)).to(torch.int32)
                 better = valid & (t < bt_r)  # strict <, fragment.glsl:275
                 bt_r = torch.where(better, t, bt_r)
                 sl_r = torch.where(better, (q * 8 + j).to(torch.int32), sl_r)
                 bu_r = torch.where(better, u, bu_r)
                 bv_r = torch.where(better, v, bv_r)
             bt[rays], slot[rays], bu[rays], bv[rays] = bt_r, sl_r, bu_r, bv_r
+    if counts:
+        work[2] = work[0] + work[1]
+        return bt, slot, bu, bv, dropped, work
     return bt, slot, bu, bv, dropped
 
 
-def _traverse_cuda(node_rows, tri_rows, o3, d3, t0, overflow):
+def _traverse_cuda(nodes, octets, o3, d3, t0, overflow):
     dev = t0.device
     R = t0.shape[0]
     req = _kernels.require
     for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
                        (*o3, *d3, t0)):
         req(x, name, torch.float32, dev, R)
-    req(node_rows, "node_rows", torch.float32, dev)
-    req(tri_rows, "tri_rows", torch.float32, dev)
+    req(nodes, "k1 nodes", torch.int32, dev)
+    req(octets, "k1 octets", torch.float32, dev)
     req(overflow, "overflow", torch.int32, dev, 1)
-    if node_rows.dim() != 2 or node_rows.shape[1] != 128:
-        raise ValueError(f"node_rows must be (W, 128), got {node_rows.shape}")
-    if tri_rows.dim() != 2 or tri_rows.shape[1] != 128:
-        raise ValueError(f"tri_rows must be (Q, 128), got {tri_rows.shape}")
+    if nodes.dim() != 2 or nodes.shape[1] != K1_NODE_WORDS \
+            or nodes.shape[0] == 0:
+        raise ValueError(f"k1 nodes must be (W, {K1_NODE_WORDS}) with W > 0, "
+                         f"got {tuple(nodes.shape)}")
+    if octets.dim() != 2 or octets.shape[1] != K1_OCTET_FLOATS:
+        raise ValueError(f"k1 octets must be (Q, {K1_OCTET_FLOATS}), got "
+                         f"{tuple(octets.shape)}")
+    if nodes.data_ptr() % 16 or octets.data_ptr() % 16:
+        raise ValueError("k1 tables must be 16-byte aligned (16-byte loads)")
     t = torch.empty(R, dtype=torch.float32, device=dev)
     slot = torch.empty(R, dtype=torch.int32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
-    ptr = [x.data_ptr() for x in (*o3, *d3, t0, node_rows, tri_rows,
+    ptr = [x.data_ptr() for x in (*o3, *d3, t0, nodes, octets,
                                   t, slot, u, v, overflow)]
     _kernels.launch("oglrt_subblock_traverse", "subblock_traversal", dev,
                     *ptr, R)
     return t, slot, u, v
 
 
-def traverse_part(node_rows, tri_rows, o3, d3, t0):
-    """Nearest hit over one part's tables -> (t, slot, u, v).
+def traverse_part(scene, part: int, o3, d3, t0):
+    """Nearest hit over part ``part`` of ``scene`` -> (t, slot, u, v).
 
     ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
     ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray).  CUDA
-    tensors launch the kernel; CPU tensors run the plain version.
-    Dropped stack pushes add to :func:`overflow_tensor`."""
+    tensors launch the kernel over the part's Hopper tables
+    (``scene.k1_parts``); CPU tensors run the plain version over its rows
+    (``scene.parts``).  Dropped stack pushes add to
+    :func:`overflow_tensor`."""
     overflow = overflow_tensor(t0.device)
     if t0.is_cuda:
-        return _traverse_cuda(node_rows, tri_rows, o3, d3, t0, overflow)
+        return _traverse_cuda(*scene.k1_parts[part], o3, d3, t0, overflow)
+    node_rows, tri_rows, _ = scene.parts[part]
     t, slot, u, v, dropped = _traverse_plain(node_rows, tri_rows, o3, d3, t0)
     overflow += dropped.to(torch.int32)
     return t, slot, u, v
@@ -171,13 +201,12 @@ def raycast_subblock(scene, o3, d3, active=None):
     dev = o3[0].device
     near = None
     slot_base = 0
-    for node_rows, tri_rows, remap in scene.parts:
+    for part, (_, _, remap) in enumerate(scene.parts):
         t0 = (torch.full((R,), BIG, dtype=torch.float32, device=dev)
               if near is None else near.t)
         if active is not None:
             t0 = torch.where(active, t0, -BIG)
-        t, slot, u, v = traverse_part(node_rows, tri_rows, o3, d3,
-                                      t0.contiguous())
+        t, slot, u, v = traverse_part(scene, part, o3, d3, t0.contiguous())
         did_hit = (t < BIG) & (t > -BIG)
         slot = slot.clamp(0, remap.shape[0] - 1)
         pn = Nearest(

@@ -4,7 +4,8 @@ A NumPy copy of ``opengl_raytracer_tpu/ops/wide2.py``'s builder, so that
 this package and the JAX package traverse bit-identical tables and their
 nearest hits can be compared ray by ray.  The layout was shaped for the
 TPU kernel (one dynamically loadable 128-float row per node and per leaf
-octet); the CUDA kernel (csrc/subblock_traversal.cu) reads it as it is:
+octet); K1's plain torch version (ops/subblock_traversal.py) reads it as
+it is:
 
 * ``node_rows (Wp, 128) f32`` — wide node w = row w:
   - lanes ``[j*6, j*6+6)``: child j's [bmin.xyz, bmax.xyz]; empty slots
@@ -24,6 +25,24 @@ octet); the CUDA kernel (csrc/subblock_traversal.cu) reads it as it is:
 
 Entries: internal child -> wide index (>= 0); leaf child -> ``-q - 1``;
 empty -> EMPTY_PACKED.
+
+The CUDA kernel (csrc/subblock_traversal.cu) reads the same tables in a
+Hopper layout, packed from these rows once per part at upload
+(:func:`pack_k1`; :func:`unpack_k1` gives the rows back bit for bit), and
+read with 16-byte loads:
+
+* ``nodes (Wp, 64) i32`` — wide node w, 256 bytes:
+  - words ``[0, 48)``: the f32 bits of the 8 child boxes as structure of
+    arrays, ``lo.x[8], lo.y[8], lo.z[8], hi.x[8], hi.y[8], hi.z[8]``;
+  - words ``[48, 56)``: child j's entry (as above);
+  - word ``56 + o``: octant o's near-first child order, the slot of rank
+    i in bits ``[3i, 3i+3)`` — the row's far-first lanes reversed; ranks
+    of empty slots name the empty slots in increasing order.
+* ``octets (Qp, 96) f32`` — leaf octet q, 384 bytes: triangle j's
+  [v0.xyz, face.xyz, e1.xyz, e2.xyz] at ``[12j, 12j+12)`` (the rows
+  without their 4 zero pad floats, the face ahead of the edges: the
+  first two 16-byte loads of a triangle give its ``t``, the third its
+  barycentrics, which only a triangle nearer than the best hit needs).
 
 Reference behavior matched: per-ray-sized traversal work of the GLSL
 stack walk (fragment.glsl:246-307) with near-first child ordering and
@@ -48,9 +67,10 @@ _BIG = np.float32(1e30)
 # accept the same scenes.
 MAX_WIDE_NODES = 1 << 15
 MAX_OCTETS = 1 << 16
-# Node-stack depth the JAX kernel validates against.  The CUDA kernel's
-# single per-ray stack (ops/subblock_traversal.STACK) holds at most
-# (max_depth + 1) * 7 + 1 entries, which this bound keeps under 128.
+# Node-stack depth the JAX kernel validates against.  The plain version's
+# per-ray stack (ops/subblock_traversal.STACK) holds at most
+# (max_depth + 1) * 7 + 1 entries, which this bound keeps under 128; the
+# CUDA kernel's stack of node groups at most max_depth + 1 <= 16.
 STACK_N = 128
 
 
@@ -320,6 +340,84 @@ def build_subblock(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         num_octets=Qp,
         max_depth=max_depth,
     )
+
+
+K1_NODE_WORDS = 64
+K1_OCTET_FLOATS = 96
+_K1_ENT0 = 48  # first child-entry word of a Hopper node
+_K1_ORD0 = 56  # first order word
+# a triangle's 12 floats of a tri_rows lane group, in the octet's order
+_K1_TRI = np.array([0, 1, 2, 9, 10, 11, 3, 4, 5, 6, 7, 8])
+
+
+def pack_k1(node_rows: np.ndarray, tri_rows: np.ndarray
+            ) -> tuple[np.ndarray, np.ndarray]:
+    """The Hopper layout of one part's tables -> (nodes (Wp, 64) i32,
+    octets (Qp, 96) f32); see the module docstring.  Raises ValueError on
+    rows whose order lanes are not a per-octant permutation of one set of
+    child entries."""
+    W = node_rows.shape[0]
+    nodes = np.zeros((W, K1_NODE_WORDS), np.int32)
+    boxes = np.ascontiguousarray(node_rows[:, :48], np.float32)
+    nodes[:, :48] = boxes.reshape(W, 8, 6).transpose(0, 2, 1).reshape(
+        W, 48).view(np.int32)
+    packed = node_rows[:, ORD0:ORD0 + 64].astype(np.int64).reshape(W, 8, 8)
+    if not np.array_equal(packed.astype(np.float32),
+                          node_rows[:, ORD0:ORD0 + 64].reshape(W, 8, 8)):
+        raise ValueError("order lanes are not exact integers")
+    empty = packed == np.int64(EMPTY_PACKED) * 8
+    ent, slot = packed >> 3, packed & 7
+    entry = np.full((W, 8), EMPTY_PACKED, np.int64)
+    w_idx = np.nonzero(~empty)[0]
+    s_idx = slot[~empty]
+    e_idx = ent[~empty]
+    entry[w_idx, s_idx] = e_idx
+    if not np.array_equal(entry[w_idx, s_idx], e_idx):
+        raise ValueError("octants disagree on a child entry")
+    near_first = slot[:, :, ::-1].copy()  # pop order: last push lane first
+    hole = empty[:, :, ::-1]
+    free = entry == EMPTY_PACKED
+    n_free = free.sum(axis=1)
+    if not (hole.sum(axis=2) == n_free[:, None]).all():
+        raise ValueError("an octant's order is not a permutation of its "
+                         "node's children")
+    # empty ranks name the empty slots in increasing order
+    free_slots = np.argsort(~free, axis=1, kind="stable")  # (W, 8)
+    hole_ranks = np.argsort(~hole, axis=2, kind="stable")  # (W, 8, 8)
+    for k in range(8):
+        w_k, o_k = np.nonzero(n_free[:, None].repeat(8, 1) > k)
+        near_first[w_k, o_k, hole_ranks[w_k, o_k, k]] = free_slots[w_k, k]
+    if not (np.sort(near_first, axis=2) == np.arange(8)).all():
+        raise ValueError("order lanes are not a permutation of the slots")
+    nodes[:, _K1_ENT0:_K1_ORD0] = entry
+    word = (near_first << (3 * np.arange(8))).sum(axis=2)
+    nodes[:, _K1_ORD0:] = word.astype(np.int32)
+    Q = tri_rows.shape[0]
+    octets = np.ascontiguousarray(
+        tri_rows.reshape(Q, 8, 16)[:, :, _K1_TRI].reshape(Q, K1_OCTET_FLOATS),
+        np.float32)
+    return nodes, octets
+
+
+def unpack_k1(nodes: np.ndarray, octets: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """The (node_rows, tri_rows) that :func:`pack_k1` packed."""
+    W = nodes.shape[0]
+    rows = np.zeros((W, 128), np.float32)
+    rows[:, :48] = np.ascontiguousarray(nodes[:, :48]).view(
+        np.float32).reshape(W, 6, 8).transpose(0, 2, 1).reshape(W, 48)
+    entry = nodes[:, _K1_ENT0:_K1_ORD0].astype(np.int64)
+    word = nodes[:, _K1_ORD0:].astype(np.int64) & 0xFFFFFF
+    near_first = (word[:, :, None] >> (3 * np.arange(8))) & 7
+    slot = near_first[:, :, ::-1]  # back to far-first push lanes
+    ent = np.take_along_axis(entry[:, None, :].repeat(8, 1), slot, axis=2)
+    packed = np.where(ent == EMPTY_PACKED, np.int64(EMPTY_PACKED) * 8,
+                      ent * 8 + slot)
+    rows[:, ORD0:ORD0 + 64] = packed.reshape(W, 64).astype(np.float32)
+    Q = octets.shape[0]
+    tri = np.zeros((Q, 8, 16), np.float32)
+    tri[:, :, _K1_TRI] = octets.reshape(Q, 8, 12)
+    return rows, tri.reshape(Q, 128)
 
 
 TABLE_BUDGET_BYTES = 7_864_320  # 7.5 MB

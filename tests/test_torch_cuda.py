@@ -9,9 +9,10 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; the checks allow ``t`` ``rtol=atol=1e-6`` and the shade
-floats ``rtol=1e-5, atol=1e-6`` as the CPU tests against the JAX package
-do, with seeds, alive flags and hit slots exact.
+agree bit for bit; K1 is held to that (t, slot, u and v equal), K3's
+checks allow ``t`` ``rtol=atol=1e-6`` and the shade floats ``rtol=1e-5,
+atol=1e-6`` as the CPU tests against the JAX package do, with seeds, alive
+flags and hit slots exact.
 """
 
 import numpy as np
@@ -64,26 +65,69 @@ def _rays(R, device, seed=1):
             torch.from_numpy(t0).to(device))
 
 
+def _k1_matches_plain(data, o3, d3, t0):
+    """Every part of ``data``: the K1 kernel over its Hopper tables equals
+    the plain version over its rows, bit for bit; returns the hit count."""
+    n_hit = 0
+    for part, (node_rows, tri_rows, _) in enumerate(data.parts):
+        ov = sbt.overflow_tensor(t0.device)
+        ov.zero_()
+        before = _kernels.launch_counts["subblock_traversal"]
+        got = sbt.traverse_part(data, part, o3, d3, t0)
+        assert _kernels.launch_counts["subblock_traversal"] == before + 1
+        *ref, dropped = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0)
+        torch.cuda.synchronize()
+        assert int(ov.item()) == 0 and int(dropped) == 0
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert (got[0][t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
+        n_hit += int(((ref[0] < BIG) & (ref[0] > -BIG)).sum())
+    return n_hit
+
+
 def test_traverse_kernel_matches_plain(cuda):
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
-    node_rows, tri_rows, _ = data.parts[0]
     o3, d3, t0 = _rays(3000, cuda)  # not a multiple of the block size
-    ov = sbt.overflow_tensor(cuda)
-    ov.zero_()
-    before = _kernels.launch_counts["subblock_traversal"]
-    tk, sk, uk, vk = sbt.traverse_part(node_rows, tri_rows, o3, d3, t0)
-    assert _kernels.launch_counts["subblock_traversal"] == before + 1
-    tp, sp, up, vp, dropped = sbt._traverse_plain(node_rows, tri_rows, o3,
-                                                  d3, t0)
-    torch.cuda.synchronize()
-    assert int(ov.item()) == 0 and int(dropped) == 0
-    hit = (tp < BIG) & (tp > -BIG)
-    assert int(hit.sum()) > 1000
-    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
-    assert torch.equal(sk[hit], sp[hit])
-    torch.testing.assert_close(uk[hit], up[hit], rtol=0, atol=1e-6)
-    torch.testing.assert_close(vk[hit], vp[hit], rtol=0, atol=1e-6)
-    assert (tk[t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
+    assert _k1_matches_plain(data, o3, d3, t0) > 1000
+
+
+def test_traverse_kernel_matches_plain_multi_part(cuda, monkeypatch):
+    """Each part of a scene split into several, with the entry t of a
+    later part (prunes against it)."""
+    orig = scene_mod.build_subblock_parts
+    monkeypatch.setattr(scene_mod, "build_subblock_parts",
+                        lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
+    data = Scene(_objects(1200), max_leaf_tris=16).send(cuda)
+    assert len(data.k1_parts) == len(data.parts) > 1
+    o3, d3, t0 = _rays(4096, cuda, seed=5)
+    t0 = torch.where(torch.arange(4096, device=cuda) % 3 == 0,
+                     torch.full_like(t0, 3.0), t0)
+    assert _k1_matches_plain(data, o3, d3, t0) > 1000
+
+
+def test_k1_profile_matches_kernel(cuda):
+    """The profile build (probes/k1.py) finds the kernel's hits, counts
+    the plain version's visits, octets and barycentric tests, and counts
+    its launches apart from the kernel's."""
+    from opengl_raytracer_torch.probes import k1 as k1_probe
+
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    (node_rows, tri_rows, _), k1 = data.parts[0], data.k1_parts[0]
+    o3, d3, t0 = _rays(3000, cuda, seed=6)
+    kernel = sbt.traverse_part(data, 0, o3, d3, t0)
+    before = dict(_kernels.launch_counts)
+    hits, stages = k1_probe.profile(k1, o3, d3, t0)
+    assert _kernels.launch_counts["k1_profile"] == before["k1_profile"] + 1
+    assert (_kernels.launch_counts["subblock_traversal"]
+            == before["subblock_traversal"])
+    for a, b in zip(hits, kernel):
+        assert torch.equal(a, b)
+    counts = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0,
+                                 counts=True)[5].long()
+    assert stages["visits"] == int(counts[0].sum())
+    assert stages["octets"] == int(counts[1].sum())
+    assert stages["edge_loads"] == int(counts[3].sum())
+    assert all(stages[s] > 0 for s in k1_probe.STAGES)
 
 
 def test_wide_kernel_matches_plain(cuda):
@@ -184,17 +228,35 @@ def test_shade_kernel_matches_plain(cuda, lambertian):
 
 def test_kernel_wrappers_reject_bad_input(cuda):
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
-    node_rows, tri_rows, _ = data.parts[0]
     o3, d3, t0 = _rays(256, cuda)
     with pytest.raises(ValueError, match="dtype"):
-        sbt.traverse_part(node_rows, tri_rows, o3, d3, t0.double())
+        sbt.traverse_part(data, 0, o3, d3, t0.double())
     strided = torch.zeros(512, device=cuda)[::2]
     with pytest.raises(ValueError, match="contiguous"):
-        sbt.traverse_part(node_rows, tri_rows, (strided, *o3[1:]), d3, t0)
-    with pytest.raises(ValueError, match="is on"):
-        sbt.traverse_part(node_rows.cpu(), tri_rows, o3, d3, t0)
+        sbt.traverse_part(data, 0, (strided, *o3[1:]), d3, t0)
     with pytest.raises(ValueError, match="stack"):
         wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, 2, 100)
+
+
+def test_k1_wrapper_rejects_bad_tables(cuda):
+    """K1's Hopper tables of the wrong shape, type or device, or not on a
+    16-byte boundary, are refused before any launch."""
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    rows, (nodes, octets) = data.parts[0][:2], data.k1_parts[0]
+    o3, d3, t0 = _rays(256, cuda)
+    before = _kernels.launch_counts["subblock_traversal"]
+    bad = [((nodes.cpu(), octets), "is on"),
+           ((nodes, octets.cpu()), "is on"),
+           ((nodes.float(), octets), "dtype"),
+           ((nodes, octets.double()), "dtype"),
+           ((rows[0].view(torch.int32), octets), "must be"),
+           ((nodes, rows[1]), "must be"),
+           ((nodes[:0], octets), "must be"),
+           ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
+    for k1, match in bad:
+        with pytest.raises(ValueError, match=match):
+            sbt.traverse_part(data._replace(k1_parts=(k1,)), 0, o3, d3, t0)
+    assert _kernels.launch_counts["subblock_traversal"] == before
 
 
 @pytest.mark.parametrize("traversal", ["pallas2", "pallas"])

@@ -308,8 +308,8 @@ def _launch(kernel, device, odd_one=None):
     t0 = t("t0", R).fill_(BIG)
     overflow = t("overflow", 1, torch.int32)
     if kernel == "subblock_traversal":
-        return sbt._traverse_cuda(t("node_rows", (2, 128)),
-                                  t("tri_rows", (2, 128)), o3, d3, t0,
+        return sbt._traverse_cuda(t("node_rows", (2, 64), torch.int32),
+                                  t("tri_rows", (2, 96)), o3, d3, t0,
                                   overflow)
     return wide._traverse_cuda(t("pw_tiles", (1, 8, 128)),
                                t("pl_tri_tiles", (1, 8, 128)), o3, d3, t0, 1,
@@ -342,3 +342,24 @@ def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
     with pytest.raises(ValueError, match="is on meta, expected cpu"):
         _launch(kernel, "cpu", odd_one)
     assert fake_card == [] and _kernels.launch_counts == before
+
+
+def test_cached_build_keeps_its_nvcc_log(tmp_path, monkeypatch):
+    """A library built earlier comes with the nvcc output of its own build
+    (ptxas' registers and spills), kept beside it, so a second run in the
+    same checkout still reports them."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != -o ]; do shift; done\n'
+                    'echo "ptxas info    : Used 42 registers"\n: > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    lib = tmp_path / "build" / "lib.so"
+    monkeypatch.setattr(_kernels, "LIB_PATH", str(lib))
+    monkeypatch.setattr(_kernels, "build_log", "")
+    assert _kernels.build() == str(lib)
+    first = _kernels.build_log
+    assert "== subblock_traversal.cu" in first and "Used 42 registers" in first
+    _kernels.build_log = ""
+    assert _kernels.build() == str(lib)  # newer than every source: no nvcc
+    assert _kernels.build_log == first

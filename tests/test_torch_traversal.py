@@ -8,7 +8,13 @@
   origins lie on slab planes;
 * ``raycast_brute`` against the JAX ``raycast_brute`` and against the
   scalar oracle of tests/oracle.py, and ``raycast_bvh`` against the JAX
-  ``raycast_bvh``.
+  ``raycast_bvh``;
+* K1's Hopper tables (``SceneData.k1_parts``, ops/wide2.pack_k1): they
+  decode back to the ``p2_*`` rows bit for bit, the JAX scene's carry
+  over to the same tables as the port's own, and a scalar NumPy walk over
+  them in the kernel's way (a stack of node groups, each child opened at
+  its parent's visit with ``near <= best_t``) visits what the plain
+  version counts and finds its hits exactly.
 
 Tolerances:
 
@@ -42,11 +48,14 @@ from opengl_raytracer_tpu.ops.traversal import raycast_packet as j_packet
 
 import oracle
 from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
+from opengl_raytracer_torch.models import scene as scene_mod
 from opengl_raytracer_torch.ops import pallas_traversal
+from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, raycast_brute
 from opengl_raytracer_torch.ops.subblock_traversal import (overflow_tensor,
                                                            raycast_subblock)
 from opengl_raytracer_torch.ops.traversal import raycast_bvh
+from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, pack_k1, unpack_k1
 
 
 def _fields(data):
@@ -305,3 +314,191 @@ def test_k3_face_plane_rays_follow_per_ray_slab_test():
     assert float(got.t[1]) < BIG
     np.testing.assert_allclose(float(got.t[1]), float(ref.t[1]), rtol=1e-6)
     _check(jdata, ref, got, o, d)
+
+
+def _port_scene(n_tris, budget=None, monkeypatch=None, leaf=16):
+    """The port's own Scene of _jax_scene's objects."""
+    if budget is not None:
+        orig = scene_mod.build_subblock_parts
+        monkeypatch.setattr(scene_mod, "build_subblock_parts",
+                            lambda *a, **k: orig(*a, budget_bytes=budget))
+    rng = np.random.default_rng(0)
+    tris = rng.uniform(-3, 3, (n_tris, 3, 3)).astype(np.float32)
+    objs = [Triangles(tris, color=(0.5, 0.5, 0.5), roughness=1.0),
+            Rect([10, 10, 10], [0, 0, 0], [0, 0, 0], [0.8, 0.8, 0.8])]
+    return Scene(objs, max_leaf_tris=leaf)
+
+
+_PARTS = {"single": (257, None, 1), "multi": (600, 96 * 1024, 2)}
+
+
+@pytest.mark.parametrize("parts", ["single", "multi"])
+def test_k1_tables_decode_to_rows(parts, monkeypatch):
+    """Every part's Hopper tables give its rows back bit for bit, order
+    lanes included; each octant's order word is a permutation of the 8
+    slots; rows whose order lanes are not a permutation are refused."""
+    n, budget, n_parts = _PARTS[parts]
+    data = _port_scene(n, budget, monkeypatch).send("cpu")
+    assert len(data.k1_parts) == len(data.parts) == n_parts
+    for (node_rows, tri_rows, _), (nodes, octets) in zip(data.parts,
+                                                         data.k1_parts):
+        assert nodes.dtype == torch.int32 and octets.dtype == torch.float32
+        assert tuple(nodes.shape) == (node_rows.shape[0], 64)
+        assert tuple(octets.shape) == (tri_rows.shape[0], 96)
+        rows, tris = unpack_k1(nodes.numpy(), octets.numpy())
+        np.testing.assert_array_equal(rows.view(np.int32),
+                                      node_rows.numpy().view(np.int32))
+        np.testing.assert_array_equal(tris.view(np.int32),
+                                      tri_rows.numpy().view(np.int32))
+        word = nodes.numpy()[:, 56:].astype(np.int64)
+        slots = (word[:, :, None] >> (3 * np.arange(8))) & 7
+        assert (np.sort(slots, axis=2) == np.arange(8)).all()
+        assert (word >> 24 == 0).all()
+    bad = data.parts[0][0].numpy().copy()
+    lanes = bad[0, 48:56]  # octant 0 of the root: a slot named twice
+    lanes[lanes != EMPTY_PACKED * 8] = lanes[lanes != EMPTY_PACKED * 8][0]
+    with pytest.raises(ValueError):
+        pack_k1(bad, data.parts[0][1].numpy())
+
+
+@pytest.mark.parametrize("parts", ["single", "multi"])
+def test_k1_tables_from_jax_scene_match_port(parts, monkeypatch):
+    """scene_from_numpy of the JAX scene's fields packs the same Hopper
+    tables as the port's own Scene of the same objects."""
+    n, budget, n_parts = _PARTS[parts]
+    _, tdata = _jax_scene(n, budget, monkeypatch)
+    port = _port_scene(n, budget, monkeypatch).send("cpu")
+    assert len(tdata.k1_parts) == len(port.k1_parts) == n_parts
+    for a, b in zip(tdata.k1_parts, port.k1_parts):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _scalar_walk(nodes, octets, o, d, t0):
+    """One ray's walk as csrc/subblock_traversal.cu does it, in NumPy
+    float32 scalars over the Hopper tables: a stack of node groups (a node
+    and the mask of its children still to visit, by near-first rank in the
+    ray's octant), each child opened by the slab test with ``near <=
+    best_t`` when its parent is visited, the strict ``<`` update.  Returns
+    (t, slot, u, v, node visits, octets tested, triangles whose t beat the
+    best hit)."""
+    f32 = np.float32
+    bt, slot, bu, bv = f32(t0), 0, f32(0), f32(0)
+    if not bt > -BIG:
+        return bt, slot, bu, bv, 0, 0, 0
+    with np.errstate(divide="ignore"):
+        inv = [np.clip(f32(1) / d[a], f32(-1e18), f32(1e18)) for a in range(3)]
+    with np.errstate(over="ignore"):  # empty slots' +-1e30 bounds
+        return _walk(nodes, octets, o, d, inv, bt, slot, bu, bv)
+
+
+def _walk(nodes, octets, o, d, inv, bt, slot, bu, bv):
+    f32 = np.float32
+    oi = [o[a] * inv[a] for a in range(3)]
+    octant = (int(d[0] < 0) << 2) | (int(d[1] < 0) << 1) | int(d[2] < 0)
+    boxes = np.ascontiguousarray(nodes[:, :48]).view(np.float32)
+    groups, cur, visits, tested, cands = [], 0, 0, 0, 0
+    while True:
+        if cur >= 0:
+            visits += 1
+            b = boxes[cur].reshape(6, 8)
+            hit = 0
+            for j in range(8):
+                t1 = [b[a, j] * inv[a] - oi[a] for a in range(3)]
+                t2 = [b[3 + a, j] * inv[a] - oi[a] for a in range(3)]
+                near = max(max(min(t1[0], t2[0]), min(t1[1], t2[1])),
+                           min(t1[2], t2[2]))
+                far = min(min(max(t1[0], t2[0]), max(t1[1], t2[1])),
+                          max(t1[2], t2[2]))
+                if (far >= near and far >= 0 and near <= bt
+                        and nodes[cur, 48 + j] != EMPTY_PACKED):
+                    hit |= 1 << j
+            word = int(nodes[cur, 56 + octant])
+            mask = sum(1 << r for r in range(8)
+                       if hit >> ((word >> (3 * r)) & 7) & 1)
+            if mask:
+                groups.append((cur, mask))
+        else:
+            tested += 1
+            q = -cur - 1
+            for j in range(8):
+                c = octets[q, 12 * j:12 * j + 12]
+                v0, fc, e1, e2 = c[0:3], c[3:6], c[6:9], c[9:12]
+                det = d[0] * fc[0] + d[1] * fc[1] + d[2] * fc[2]
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    inv_det = f32(1) / det
+                    r = [o[a] - v0[a] for a in range(3)]
+                    t = -(r[0] * fc[0] + r[1] * fc[1] + r[2] * fc[2]) * inv_det
+                    p = [r[1] * d[2] - r[2] * d[1], r[2] * d[0] - r[0] * d[2],
+                         r[0] * d[1] - r[1] * d[0]]
+                    u = -(e2[0] * p[0] + e2[1] * p[1] + e2[2] * p[2]) * inv_det
+                    v = (e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2]) * inv_det
+                cands += bool(abs(det) >= f32(1e-6) and f32(1e-6) < t < bt)
+                valid = (abs(det) >= f32(1e-6) and t > f32(1e-6) and u >= 0
+                         and v >= 0 and u + v <= 1)
+                if valid and t < bt:
+                    bt, slot, bu, bv = t, q * 8 + j, u, v
+        if not groups:
+            return bt, slot, bu, bv, visits, tested, cands
+        w, mask = groups.pop()
+        rank = (mask & -mask).bit_length() - 1
+        cur = int(nodes[w, 48 + ((int(nodes[w, 56 + octant]) >> (3 * rank))
+                                 & 7)])
+        if mask & (mask - 1):
+            groups.append((w, mask & (mask - 1)))
+
+
+def test_plain_counts_match_scalar_walk():
+    """The plain version's per-ray node visits, leaf octets, steps and
+    barycentric tests equal those of the kernel's walk written as scalar NumPy over the
+    Hopper tables, and so do t, slot, u and v, bit for bit."""
+    data = _port_scene(2000).send("cpu")
+    (node_rows, tri_rows, _), (nodes, octets) = data.parts[0], data.k1_parts[0]
+    R = 48
+    o, d = _rays(R, seed=12)
+    t0 = np.full(R, BIG, np.float32)
+    t0[[5, 17]] = -BIG  # dead rays
+    t0[9] = np.float32(2.5)  # a later part's entry: prunes against it
+    *got, dropped, counts = sbt._traverse_plain(
+        node_rows, tri_rows, _cols(o), _cols(d), torch.from_numpy(t0),
+        counts=True)
+    assert int(dropped) == 0
+    nodes, octets = nodes.numpy(), octets.numpy()
+    for r in range(R):
+        t, slot, u, v, visits, tested, cands = _scalar_walk(
+            nodes, octets, o[:, r], d[:, r], t0[r])
+        assert tuple(int(c) for c in counts[:, r]) \
+            == (visits, tested, visits + tested, cands), r
+        assert (float(got[0][r]), int(got[1][r]), float(got[2][r]),
+                float(got[3][r])) == (float(t), slot, float(u), float(v)), r
+    assert int(counts[0].max()) > 3 and int(counts[1].sum()) > R
+
+
+@pytest.mark.parametrize("parts", ["single", "multi"])
+def test_counting_leaves_hits_unchanged(parts, monkeypatch):
+    """The plain version with per-ray counts returns the same t, slot, u
+    and v as without, and the part chain run through it still agrees with
+    the JAX kernel in interpret mode."""
+    n, budget, n_parts = _PARTS[parts]
+    jdata, tdata = _jax_scene(n, budget, monkeypatch)
+    R = 256
+    o, d = _rays(R, seed=13)
+    t0 = torch.full((R,), BIG)
+    for node_rows, tri_rows, _ in tdata.parts:
+        plain = sbt._traverse_plain(node_rows, tri_rows, _cols(o), _cols(d),
+                                    t0)
+        counted = sbt._traverse_plain(node_rows, tri_rows, _cols(o),
+                                      _cols(d), t0, counts=True)
+        assert len(counted) == 6 and counted[5].shape == (4, R)
+        for a, b in zip(plain, counted[:5]):
+            assert torch.equal(a, b)
+    plain_fn = sbt._traverse_plain
+    monkeypatch.setattr(sbt, "_traverse_plain",
+                        lambda *a: plain_fn(*a, counts=True)[:5])
+    active = np.random.default_rng(14).uniform(size=R) < 0.7
+    ref = j_subblock(jdata, tuple(jnp.asarray(x) for x in o),
+                     tuple(jnp.asarray(x) for x in d), jnp.asarray(active),
+                     interpret=True)
+    got = _run_port(tdata, o, d, active)
+    assert len(tdata.parts) == n_parts
+    _check(jdata, ref, got, o, d, active)
