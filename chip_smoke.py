@@ -24,9 +24,41 @@ Phases; each raises on failure, and the script then exits non-zero:
    compiled with ``-DOGLRT_K1_PROFILE``) on both ray sets: its hits must
    equal the kernel's and its visit, octet and barycentric-test counts
    the plain version's; it prints cycles per stage, per visit and per
-   fetch.
-4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``) against its plain
-   torch version on the same 2,073,600 rays.
+   fetch, and the ms of a profile launch on the random rays.
+4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
+   Hopper tables ``SceneData.k3``) against its plain torch version (over
+   the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
+   (b) the five bounce segments of one 1080p "pallas" frame of the
+   stand-in scene, captured as phase 3's are; (c) and (d) the same two on
+   the 1,964,180-triangle scene of phase 4c.  On each, t, slot, u and v
+   must equal the plain version's bit for bit, with no overflow; the
+   script prints ms per launch, the plain version's per-ray counts (node
+   visits, leaf entries, octets, barycentric tests), the busy-lane share,
+   and the operations both at a full triangle test per slot (the earlier
+   yardstick) and as the kernel does them (t first), the bound and the
+   share.
+4b. k3prof: the profile build of K3 (``probes/k3.py``, the same source
+   compiled with ``-DOGLRT_K3_PROFILE``) on the primary rays and the
+   sorted first-bounce rays (segments 0 and 1) of both scenes: its hits
+   must equal the kernel's and its visit, leaf, octet and candidate counts
+   the plain version's; it prints cycles per stage and the share of tested
+   octets that hold the entered leaf's own triangles.  Then its octet
+   fetch reads octets 0, 1, 7, 8, 9, 100, 101, 555 and the last through
+   K3's own loads, which must equal the triangle tiles' slices bit for
+   bit, on both scenes.  It prints the ms of a profile launch and of the
+   kernel on the primary rays, and of the fetch.
+4c. big: the reference's default scene with a 700 x 1400-cell bumpy
+   sphere, 1,964,180 triangles: past the sub-block builder's caps, so
+   "auto" must resolve to "pallas" (K3 + K2).  Host build and upload
+   seconds, 1 warm-up and 4 timed 1080p frames, K3 = K2 = 5 x frames and
+   no K1 or probe launch, peak memory, and a 96x54 frame on the card
+   against the CPU's.
+4d. k2probe: K2's row fetch apart from its math (``probes/k2.py``, the
+   counterpart of experiments/shadeglue_ab.py): two CUDA sums over
+   2,073,600 rows gathered by sorted, jittered slots from 30,336, one
+   from K2's (S, 24) row table and one from a (24, S) table, each equal
+   to its plain version bit for bit; their ms and bytes bound beside
+   phase 2's K2.
 5. main path: ``Renderer`` at 1920x1080 with 4 bounces on a 31,736-triangle
    stand-in of the reference's default scene (its seven boxes, a bumpy
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
@@ -67,19 +99,20 @@ Phases; each raises on failure, and the script then exits non-zero:
    frame of a (2, 2) mesh on the card must agree with the same mesh of
    the CPU.
 11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
-   "auto" frames of phase 5's scene: device ms and launches per frame by
-   kernel group (K1, K2, sorts, gathers and scatters, other torch kernels,
-   copies), and the device's busy share and idle share of phase 5's
-   unprofiled ms/frame.  It runs last: the profiler slows the host's
+   "auto" frames of phase 5's scene and of phase 4c's: device ms and
+   launches per frame by kernel group (K1, K3, K2, sorts, gathers and
+   scatters, other torch kernels, copies), and the device's busy share and
+   idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
    launches for the rest of the process.
 
-Each phase prints its seconds.  The line before the last is a JSON object
-with each kernel's launches in the 1080p path that runs it (phase 5 for K1
-and K2, phase 6 for K3), its largest disagreement with its plain version,
-both times at 2,073,600 rays, and its bound: the larger of the bytes it
-must move over 3.35 TB/s and the fp32 operations this run's rays cost it
-over 67 TFLOP/s (an H100 SXM's peaks); the last line is ``{"ok": true,
-"device": {...}}``.  No single PyTorch call computes any of the three
+Each phase prints its seconds; every render path must launch no probe
+kernel.  The line before the last is a JSON object with each kernel's
+launches in the 1080p path that runs it (phase 5 for K1 and K2, phase 6
+for K3, and K3's in phase 4c), its largest disagreement with its plain
+version, both times at 2,073,600 rays, and its bound: the larger of the
+bytes it must move over 3.35 TB/s and the fp32 operations this run's rays
+cost it over 67 TFLOP/s (an H100 SXM's peaks); the last line is ``{"ok":
+true, "device": {...}}``.  No single PyTorch call computes any of the three
 kernels (``library_ms`` null).  The script imports nothing of JAX.
 ``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
 ``DIR/smoke_1080p.npy``.
@@ -102,6 +135,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, BOUNCES = 1920, 1080, 4
 N_RAYS = WIDTH * HEIGHT
 TIMED_FRAMES = 8
+BIG_FRAMES = 4  # timed 1080p frames of the 1,964,180-triangle scene
+BIG = (700, 1400)  # its bumpy sphere's cells
+BIG_TRIANGLES = 1_964_180
 MULTIPART_FRAMES = 4
 PROFILED_FRAMES = 4
 SMALL = (96, 54)  # the frame rendered on both the card and the CPU
@@ -254,6 +290,14 @@ def check_count(counts: dict, name: str, expected: int) -> None:
                            f"main path, expected {expected}")
 
 
+def check_probes(counts: dict) -> None:
+    """No probe kernel launches on a render path."""
+    from opengl_raytracer_torch.ops import _kernels
+
+    for name in _kernels.PROBE_COUNTERS:
+        check_count(counts, name, 0)
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds (a failure propagates)."""
     t0 = time.perf_counter()
@@ -297,22 +341,30 @@ def import_port() -> None:
             f"chip_smoke.py in {REPO}: {e}") from e
 
 
-def ptxas_props(log: str, unit: str, kernel: str) -> dict:
-    """What ``nvcc -Xptxas -v`` reported for ``kernel`` in the unit whose
-    section of ``log`` starts ``== unit``: registers, stack frame and
-    spill bytes."""
+def ptxas_entries(log: str, unit: str, kernel: str) -> list:
+    """What ``nvcc -Xptxas -v`` reported for each entry function whose name
+    holds ``kernel`` (each template instance) in the unit whose section of
+    ``log`` starts ``== unit``: name, registers, stack frame and spill
+    bytes."""
     import re
 
     sec = log.split(f"== {unit}", 1)[1].split("\n== ", 1)[0]
-    m = re.search(rf"Function properties for \S*{kernel}\S*\n\s*(\d+) bytes "
-                  rf"stack frame, (\d+) bytes spill stores, (\d+) bytes "
-                  rf"spill loads", sec)
-    r = re.search(rf"Compiling entry function '\S*{kernel}\S*'.*?Used "
-                  rf"(\d+) registers", sec, re.S)
-    if not (m and r):
-        raise RuntimeError(f"no ptxas properties for {kernel} in:\n{sec}")
-    return dict(registers=int(r.group(1)), stack=int(m.group(1)),
-                spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+    out = []
+    for block in sec.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", block)
+        r = re.search(r"Used (\d+) registers", block)
+        if not (m and r):
+            raise RuntimeError(f"no ptxas properties for {name} in:\n{sec}")
+        out.append(dict(name=name, registers=int(r.group(1)),
+                        stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                        spill_loads=int(m.group(3))))
+    if not out:
+        raise RuntimeError(f"no ptxas entry for {kernel} in:\n{sec}")
+    return out
 
 
 def build_phase() -> None:
@@ -320,53 +372,77 @@ def build_phase() -> None:
 
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.probes import k1 as k1_probe
+    from opengl_raytracer_torch.probes import k2 as k2_probe
+    from opengl_raytracer_torch.probes import k3 as k3_probe
 
     t0 = time.perf_counter()
     errors = []
+    probes = (k1_probe, k3_probe, k2_probe)
 
-    def build_profile():  # the K1 profile build, beside the kernels' build
+    def build_probe(mod):  # each probe library, beside the kernels' build
         try:
-            k1_probe.lib()
+            mod.lib()
         except Exception as e:  # re-raised below, in this thread
             errors.append(e)
 
-    th = threading.Thread(target=build_profile)
-    th.start()
+    threads = [threading.Thread(target=build_probe, args=(m,))
+               for m in probes]
+    for th in threads:
+        th.start()
     _kernels.lib()
-    th.join()
+    for th in threads:
+        th.join()
     if errors:
         raise errors[0]
     sec = time.perf_counter() - t0
     say("build", seconds=f"{sec:.2f}",
         lib=os.path.relpath(_kernels.LIB_PATH, REPO),
-        profile_lib=os.path.relpath(k1_probe.PROFILE_LIB, REPO),
+        probe_libs=",".join(os.path.relpath(getattr(m, "PROFILE_LIB", None)
+                                            or m.PROBE_LIB, REPO)
+                            for m in probes),
         sources=",".join(os.path.relpath(s, REPO) for s in _kernels.sources()),
         flags="'" + " ".join(_kernels.NVCC_FLAGS) + "'")
-    for line in (_kernels.build_log + k1_probe.build_log).splitlines():
+    log = _kernels.build_log + "".join(m.build_log for m in probes)
+    for line in log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("== ")):
             say("ptxas", line=line.strip())
-    k1 = ptxas_props(_kernels.build_log, "subblock_traversal.cu",
-                     "traverse_kernel")
-    say("ptxas", k1_traverse_kernel=k1)
-    if k1["spill_stores"] or k1["spill_loads"] or k1["stack"] >= 64:
-        raise RuntimeError(f"K1 spills or keeps a stack frame of 64 bytes "
-                           f"or more: {k1}")
+    for tag, unit, kernel in (("k1", "subblock_traversal.cu", "traverse_kernel"),
+                              ("k3", "wide_traversal.cu",
+                               "wide_traverse_kernel")):
+        for props in ptxas_entries(_kernels.build_log, unit, kernel):
+            say("ptxas", **{tag: props})
+            if (props["spill_stores"] or props["spill_loads"]
+                    or props["stack"] >= 64):
+                raise RuntimeError(f"{tag.upper()} spills or keeps a stack "
+                                   f"frame of 64 bytes or more: {props}")
 
 
 def make_scene(n_lat: int, n_lon: int, device):
+    """The stand-in scene with an n_lat x n_lon bumpy sphere, its tables
+    and its upload; prints the host's seconds for each."""
     from opengl_raytracer_torch import Scene
     from opengl_raytracer_torch.ops import bvh
 
     t0 = time.perf_counter()
     scene = Scene(standin_objects(n_lat, n_lon))
+    t1 = time.perf_counter()
+    scene.fields()
+    t2 = time.perf_counter()
     data = scene.send(device)
-    say("scene", triangles=scene.total_triangles, parts=len(data.parts),
+    if data.device.type == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    say("scene", triangles=scene.total_triangles,
+        parts=len(data.parts) if data.p2_node_rows.shape[0] else 0,
         table_bytes=sum(n.nbytes + t.nbytes for n, t, _ in data.parts),
         k1_table_bytes=sum(n.nbytes + o.nbytes for n, o in data.k1_parts),
-        sh_slot_bytes=data.sh_slot.nbytes,
-        bvh_builder=bvh.last_builder,
-        build_s=f"{time.perf_counter() - t0:.2f}")
+        k3_tile_bytes=data.pw_tiles.nbytes + data.pl_tri_tiles.nbytes,
+        k3_table_bytes=sum(x.nbytes for x in data.k3),
+        pw_max_stack=data.pw_max_stack, sh_slot_bytes=data.sh_slot.nbytes,
+        bvh_builder=bvh.last_builder, bvh_s=f"{t1 - t0:.2f}",
+        tables_s=f"{t2 - t1:.2f}", upload_s=f"{t3 - t2:.2f}",
+        build_s=f"{t3 - t0:.2f}")
     return scene, data
 
 
@@ -392,13 +468,17 @@ K1_OPS_PER_CANDIDATE = 26  # a triangle whose t beats the best hit: p 9,
 # once; about 180 fp32 operations (normal, scatter, update, three draws).
 K2_BYTES_PER_RAY = 130
 K2_OPS_PER_RAY = 180
-# K3's operations (csrc/wide_traversal.cu), from its plain version's counts:
-# per node visit 8 slab tests of 26 (K1's 25 and the clamp of near at 0),
-# per octet 8 triangle tests of 47 (K1's 46 and the octet's argmin); per
-# ray 3 reciprocals.
+# K3's operations (csrc/wide_traversal.cu), from its plain version's counts
+# (probes/k3.work): per ray 3 reciprocals; per node visit 8 slab tests of 26
+# (K1's 25 and the clamp of near at 0); per octet, as the kernel tests a
+# triangle (t first), K1's 8 x 20, and per candidate K1's 26.  Before the
+# t-first test the octet was priced at 8 full tests of 47 (K1's 46 and the
+# octet's argmin), printed beside it as the earlier yardstick.
 K3_OPS_PER_RAY = 3
 K3_OPS_PER_NODE = 8 * 26
-K3_OPS_PER_OCTET = 8 * 47
+K3_OPS_PER_OCTET = K1_OPS_PER_OCTET
+K3_OPS_PER_CANDIDATE = K1_OPS_PER_CANDIDATE
+K3_OPS_PER_OCTET_FULL = 8 * 47
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -511,54 +591,21 @@ def k1_rays(data, camera, seed: int, device):
     return o3, d3, torch.from_numpy(t0).to(device)
 
 
-def check_hits(name, kernel, plain, min_hits, tie_t):
-    """A traversal kernel's (t, slot, u, v) against its plain version's:
-    t within rtol=atol=1e-6, the same hit set, a slot difference only at a
-    t tie (``tie_t(rays, slots)`` gives (valid, t) of the kernel's slots
-    for those rays), u/v within 1e-5 elsewhere; returns (max |t error|,
-    hits, ties)."""
-    from opengl_raytracer_torch.ops.intersect import BIG
-
-    t_k, s_k, u_k, v_k = kernel
-    t_p, s_p, u_p, v_p = plain
-    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
-    hit = (t_p < BIG) & (t_p > -BIG)
-    if not torch.equal(hit, (t_k < BIG) & (t_k > -BIG)):
-        raise RuntimeError(f"{name}: hit set differs from the plain version")
-    n_hit = int(hit.sum())
-    if n_hit < min_hits:
-        raise RuntimeError(f"{name}: only {n_hit} of {t_p.numel()} rays hit")
-    err = float((t_k - t_p)[hit].abs().max())
-    diff = hit & (s_k != s_p)
-    n_diff = int(diff.sum())
-    if n_diff:
-        # every disagreement must be a tie: the kernel's triangle is hit at
-        # the plain version's t
-        idx = torch.nonzero(diff).squeeze(1)
-        valid, t = tie_t(idx, s_k[idx])
-        ref_t = t_p[idx]
-        if not bool((valid & ((t - ref_t).abs()
-                              <= 1e-6 + 1e-6 * ref_t.abs())).all()):
-            raise RuntimeError(f"{name}: {n_diff} rays hit another triangle "
-                               f"than the plain version, not at a t tie")
-    same = hit & ~diff
-    for a, b in ((u_k, u_p), (v_k, v_p)):
-        torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
-    return err, n_hit, n_diff
-
-
-def frame_segments(scene, camera):
-    """The five bounce segments of one 1920x1080 "auto" frame, each as
-    ``raytrace`` hands it to the traversal (after the reorder sort):
-    (o3, d3, t0) with t0 = BIG for a live ray and -BIG for a dead one, the
-    entry the first part gets."""
+def frame_segments(scene, camera, traversal: str = "auto",
+                   expect: str = "pallas2"):
+    """The five bounce segments of one 1920x1080 frame of ``traversal``
+    (which must resolve to ``expect``), each as ``raytrace`` hands it to
+    the traversal (after the reorder sort): (o3, d3, t0) with t0 = BIG for
+    a live ray and -BIG for a dead one, the entry the first part gets."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops.intersect import BIG
 
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bounces=BOUNCES), device=DEVICE)
-    if r.traversal != "pallas2":
-        raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
+                                     bounces=BOUNCES, traversal=traversal),
+                 device=DEVICE)
+    if r.traversal != expect:
+        raise RuntimeError(f"{traversal} resolved to {r.traversal}, not "
+                           f"{expect}")
     segments = []
     traverse = r._raycast
 
@@ -662,8 +709,12 @@ def k1prof_phase(data, sets):
         else:
             _say_stages(name, k1_probe.stage_report(stages))
     _say_stages("frame", k1_probe.stage_report(frame))
+    _, o3, d3, t0 = sets[0]
+    iters = 3
+    say("k1prof", set=sets[0][0], profile_ms=cuda_ms(
+        lambda: k1_probe.profile(k1, o3, d3, t0), iters))
     launched = _kernels.launch_counts["k1_profile"] - before["k1_profile"]
-    if launched != len(sets):
+    if launched != len(sets) + iters + 1:
         raise RuntimeError(f"k1_profile launched {launched} times")
 
 
@@ -675,60 +726,173 @@ def _say_stages(name, rep):
         key="share/cycles-per-event[/per-16B-load-or-triangle]")
 
 
-def k3_phase(data, camera, seed: int, device):
-    """K3 against its plain version on K1's rays; returns (max_abs_err, ms,
-    plain_ms, (bound_ms, bound_by))."""
+def k3_bound(w: dict, data) -> tuple:
+    """K3's operations for the ray set whose counts ``w`` holds
+    (``probes/k3.work``): as the kernel does them and at a full triangle
+    test per slot (the earlier yardstick); its bytes over the scene's
+    Hopper tables; and the bound the first gives."""
+    ops = (w["live"] * K3_OPS_PER_RAY + w["visits"] * K3_OPS_PER_NODE
+           + w["octets"] * K3_OPS_PER_OCTET
+           + w["candidates"] * K3_OPS_PER_CANDIDATE)
+    ops_full = (w["live"] * K3_OPS_PER_RAY + w["visits"] * K3_OPS_PER_NODE
+                + w["octets"] * K3_OPS_PER_OCTET_FULL)
+    n_bytes = (w["rays"] * TRAVERSAL_BYTES_PER_RAY
+               + sum(x.numel() * x.element_size() for x in data.k3))
+    return (ops, ops_full, n_bytes, *bound_ms(n_bytes, ops))
+
+
+def k3_phase(scenes, camera, seed: int):
+    """K3 against its plain version on four ray sets: for each scene of
+    ``scenes`` ((name, SceneData, frame segments) pairs), phase 3's random
+    rays and the frame's five segments.  Returns (max_abs_err, ms,
+    plain_ms, (bound_ms, bound_by)) of the first scene's random rays."""
     from opengl_raytracer_torch.ops import pallas_traversal as wide
-    from opengl_raytracer_torch.ops.intersect import BIG, mt_single
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.probes import k3 as k3_probe
     from opengl_raytracer_torch.renderer import effective_max_leaf
 
-    o3, d3, t0 = k1_rays(data, camera, seed, device)
-    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
-    stack = wide.stack_size(data.pw_max_stack)
-    args = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, leaf_octets, stack)
-    ov = wide.overflow_tensor(device)
-    ov.zero_()
-    kernel = wide.traverse_wide(*args)
-    *plain, dropped, counts = wide._traverse_plain(*args, counts=True)
-    overflow = int(ov.item())
-    if overflow or int(dropped):
-        raise RuntimeError(f"K3 stack overflow: kernel {overflow}, plain "
-                           f"{int(dropped)} dropped pushes")
-    live = int((t0 > -BIG).sum())
-    visits, leaves = (int(c.sum()) for c in counts.long())
-    ops = (live * K3_OPS_PER_RAY + visits * K3_OPS_PER_NODE
-           + leaves * leaf_octets * K3_OPS_PER_OCTET)
-    n_bytes = (N_RAYS * TRAVERSAL_BYTES_PER_RAY + data.pw_tiles.nbytes
-               + data.pl_tri_tiles.nbytes)
-    bound = bound_ms(n_bytes, ops)
+    out = None
+    for scene_name, data, segments in scenes:
+        device = data.device
+        leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+        stack = wide.stack_size(data.pw_max_stack)
+        column = wide.group_column(data.pw_max_stack)
+        sets = [("random", *k1_rays(data, camera, seed, device))]
+        sets += [(f"frame_b{i}", *seg) for i, seg in enumerate(segments)]
+        ov = wide.overflow_tensor(device)
+        frame_ms = 0.0
+        for name, o3, d3, t0 in sets:
+            tiles = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
+                     leaf_octets, stack)
+            ov.zero_()
+            kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+            *plain, dropped, counts = wide._traverse_plain(*tiles,
+                                                           counts=True)
+            overflow = int(ov.item())
+            if overflow or int(dropped):
+                raise RuntimeError(f"K3 overflow on {scene_name} {name}: "
+                                   f"kernel {overflow} group pushes, plain "
+                                   f"{int(dropped)} pushes dropped")
+            for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
+                if not torch.equal(a, b):
+                    diff = (a.double() - b.double()).abs().max()
+                    raise RuntimeError(f"K3 {field} differs from the plain "
+                                       f"version on {scene_name} {name}: "
+                                       f"max |d| {diff}")
+            t_k = kernel[0]
+            hit = int(((t_k < BIG) & (t_k > -BIG)).sum())
+            if name == "random" and hit < N_RAYS // 4:
+                raise RuntimeError(f"K3: only {hit} of {N_RAYS} rays hit")
+            w = k3_probe.work(counts, t0, leaf_octets)
+            ops, ops_full, n_bytes, bound, by = k3_bound(w, data)
+            ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0,
+                                                    leaf_octets), 10)
+            say("k3", scene=scene_name, set=name, rays=w["rays"],
+                live=w["live"], hit=hit, max_abs_err=0.0, tri_ties=0,
+                overflow=overflow, leaf_octets=leaf_octets, groups=column,
+                ms=ms, visits_per_ray=round(w["visits_per_ray"], 3),
+                leaves_per_ray=round(w["leaves_per_ray"], 3),
+                octets_per_ray=round(w["octets_per_ray"], 3),
+                candidates_per_ray=round(w["candidates_per_ray"], 3),
+                lanes_steps=round(w["lanes_steps"], 4),
+                lanes_visits=round(w["lanes_visits"], 4),
+                lanes_leaves=round(w["lanes_leaves"], 4),
+                gops=round(ops / 1e9, 4), gops_full_tests=round(
+                    ops_full / 1e9, 4), mbytes=round(n_bytes / 1e6, 3),
+                bound_ms=round(bound, 5), bound_by=by,
+                share_of_bound=round(bound / ms, 4),
+                share_of_full_test_bound=round(
+                    bound_ms(n_bytes, ops_full)[0] / ms, 4))
+            if name != "random":
+                frame_ms += ms
+            elif out is None:
+                ms, plain_ms = time_pair(
+                    lambda: wide.traverse_wide(data, o3, d3, t0, leaf_octets),
+                    lambda: wide._traverse_plain(*tiles), 5, 1)
+                out = (0.0, ms, plain_ms, (bound, by))
+                say("k3", scene=scene_name, set=name, ms=ms,
+                    plain_ms=plain_ms)
+        say("k3", scene=scene_name, frame_ms=frame_ms,
+            segments=len(segments),
+            tolerance="exact (t, slot, u, v bit for bit)")
+    return out
 
-    def tie_t(idx, slots):
-        tri = data.pl_remap[slots.long()].long()
-        valid, t, _, _ = mt_single(
-            tuple(x[idx] for x in o3), tuple(x[idx] for x in d3),
-            *(getattr(data, f)[tri].unbind(1)
-              for f in ("v0", "e1", "e2", "face")))
-        return valid, t
 
-    err, n_hit, n_diff = check_hits("K3", kernel, plain, N_RAYS // 4, tie_t)
-    say("k3", rays=N_RAYS, hit=n_hit, dead=int((t0 <= -BIG).sum()),
-        leaf_octets=leaf_octets, stack=stack, max_abs_err_t=err,
-        tri_ties=n_diff, overflow=overflow,
-        tolerance="t:rtol=1e-6,atol=1e-6")
-    ms, plain_ms = time_pair(lambda: wide.traverse_wide(*args),
-                             lambda: wide._traverse_plain(*args), 5, 1)
-    say("k3", rays=N_RAYS, ms=ms, plain_ms=plain_ms,
-        visits_per_ray=visits / max(live, 1),
-        leaves_per_ray=leaves / max(live, 1), gops=ops / 1e9,
-        mbytes=n_bytes / 1e6, bound_ms=bound[0], bound_by=bound[1],
-        share_of_bound=bound[0] / ms)
-    return err, ms, plain_ms, bound
+def k3prof_phase(scenes):
+    """The K3 profile build on the primary rays and the sorted first-bounce
+    rays (segments 0 and 1) of each scene: its hits against the kernel's,
+    its counts against the plain version's, its stages, the over-read's
+    share of own octets; then the octet fetch against the tiles."""
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.probes import k3 as k3_probe
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    before = dict(_kernels.launch_counts)
+    runs, iters = 0, 3
+    for scene_name, data, segments in scenes:
+        leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+        stack = wide.stack_size(data.pw_max_stack)
+        for name, (o3, d3, t0) in (("primary", segments[0]),
+                                   ("bounce1_sorted", segments[1])):
+            hits, stages, hist = k3_probe.profile(data, o3, d3, t0,
+                                                  leaf_octets)
+            runs += 1
+            kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+            if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
+                raise RuntimeError(f"K3 profile build differs from the "
+                                   f"kernel on {scene_name} {name}")
+            counts = wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles,
+                                          o3, d3, t0, leaf_octets, stack,
+                                          counts=True)[5].long()
+            share = k3_probe.own_share(data, leaf_octets, hist)
+            expect = dict(visits=int(counts[0].sum()),
+                          leaves=int(counts[1].sum()),
+                          candidates=int(counts[2].sum()))
+            expect["octets"] = expect["leaves"] * leaf_octets
+            got = {k: stages[k] for k in expect}
+            if got != expect or share["entries"] != expect["leaves"] \
+                    or share["octets"] != stages["octets"]:
+                raise RuntimeError(f"K3 profile counts {got}, leaf entries "
+                                   f"{share}, on {scene_name} {name}; plain "
+                                   f"{expect}")
+            rep = k3_probe.stage_report(stages)
+            say("k3prof", scene=scene_name, set=name, **{
+                s: f"{rep[s]['share']:.3f}/{rep[s]['per_event']:.1f}"
+                   + (f"/{rep[s]['per_unit']:.1f}" if "per_unit" in rep[s]
+                      else "")
+                for s in k3_probe.STAGES}, events=rep["events"],
+                expands_per_leaf=round(expect["visits"]
+                                       / max(expect["leaves"], 1), 3),
+                own_octet_share=round(share["own_share"], 4),
+                key="share/cycles-per-event[/per-16B-load-or-triangle]")
+            if name == "primary":
+                say("k3prof", scene=scene_name, set=name,
+                    profile_ms=cuda_ms(lambda: k3_probe.profile(
+                        data, o3, d3, t0, leaf_octets), iters),
+                    kernel_ms=cuda_ms(lambda: wide.traverse_wide(
+                        data, o3, d3, t0, leaf_octets), iters))
+                runs += iters + 1
+        idx = [0, 1, 7, 8, 9, 100, 101, 555, data.k3[1].shape[0] - 1]
+        idx = [q for q in idx if q < data.k3[1].shape[0]]
+        got = k3_probe.octet_fetch(data, idx)
+        want = k3_probe.tile_octets(data.pl_tri_tiles, idx)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise RuntimeError(f"K3 octet fetch differs from the tiles on "
+                               f"{scene_name}")
+        say("k3prof", scene=scene_name, octet_fetch=idx, bits="equal",
+            fetch_ms=cuda_ms(lambda: k3_probe.octet_fetch(data, idx), iters))
+    launched = {k: _kernels.launch_counts[k] - before[k]
+                for k in ("k3_profile", "k3_fetch")}
+    if launched != {"k3_profile": runs,
+                    "k3_fetch": len(scenes) * (iters + 2)}:
+        raise RuntimeError(f"K3 probes launched {launched}")
 
 
-def render_1080p(scene, camera, traversal: str):
-    """1 warm-up and TIMED_FRAMES timed 1080p frames of ``traversal``, the
+def render_1080p(scene, camera, traversal: str, frames: int = TIMED_FRAMES):
+    """1 warm-up and ``frames`` timed 1080p frames of ``traversal``, the
     launch counts set to 0 just before; returns (renderer, image, counts,
-    ms/frame)."""
+    ms/frame).  No probe kernel may launch."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops import _kernels
 
@@ -739,10 +903,11 @@ def render_1080p(scene, camera, traversal: str):
     state = r.render(camera, frames=1)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = r.render(camera, frames=TIMED_FRAMES, state=state)
+    state = r.render(camera, frames=frames, state=state)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = dict(_kernels.launch_counts)
+    check_probes(counts)
     img = r.image(state)
     if img.shape != (HEIGHT, WIDTH, 3):
         raise RuntimeError(f"image shape {img.shape}")
@@ -750,7 +915,7 @@ def render_1080p(scene, camera, traversal: str):
         raise RuntimeError("image holds non-finite values")
     if not 0.01 < float(img.mean()) < 10.0:
         raise RuntimeError(f"image mean {img.mean()} is not a lit frame")
-    return r, img, counts, sec * 1000.0 / TIMED_FRAMES
+    return r, img, counts, sec * 1000.0 / frames
 
 
 def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
@@ -770,6 +935,7 @@ def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
         resolved.append(rs.traversal)
         imgs.append(rs.image(rs.render(camera, frames=1)))
         counts = counts or dict(_kernels.launch_counts)
+        check_probes(counts)
     err = rmse(imgs[0], imgs[1])
     if not (np.isfinite(imgs[0]).all() and float(imgs[0].mean()) > 0.01
             and err < limit):
@@ -785,6 +951,8 @@ def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
 def main_path_phase(scene, camera, out_dir):
     """The port's Renderer at 1080p under "auto" ("pallas2": K1 + K2);
     returns (launch counts, image, ms/frame)."""
+    from opengl_raytracer_torch.ops import _kernels
+
     r, img, counts, ms = render_1080p(scene, camera, "auto")
     if r.traversal != "pallas2":
         raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
@@ -794,11 +962,11 @@ def main_path_phase(scene, camera, out_dir):
                 parts * r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "wide_traversal", 0)
-    check_count(counts, "k1_profile", 0)
     say("main", width=WIDTH, height=HEIGHT, bounces=BOUNCES, parts=parts,
         traversal=r.traversal, ms_per_frame=ms, fps=1000.0 / ms,
         frames=frames, k1_launches=counts["subblock_traversal"],
-        k2_launches=counts["shade"], k1_profile_launches=counts["k1_profile"],
+        k2_launches=counts["shade"],
+        probe_launches=sum(counts[k] for k in _kernels.PROBE_COUNTERS),
         finite=True, mean=float(img.mean()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if out_dir:
@@ -835,10 +1003,16 @@ def _device_events(prof):
     return out
 
 
-def frame_profile_phase(scene, camera, main_ms):
-    """torch.profiler over PROFILED_FRAMES 1080p "auto" frames: device ms
+def frame_profile_phase(scenes, camera):
+    """torch.profiler over PROFILED_FRAMES 1080p "auto" frames of each of
+    ``scenes`` ((name, scene, unprofiled ms/frame of its phase)): device ms
     and launches per frame by kernel group, and the device's busy share
-    and idle share of ``main_ms``, the unprofiled ms/frame of phase 5."""
+    and idle share of the unprofiled ms/frame."""
+    for name, scene, main_ms in scenes:
+        _profile_frames(name, scene, camera, main_ms)
+
+
+def _profile_frames(name, scene, camera, main_ms):
     from opengl_raytracer_torch import RenderConfig, Renderer
 
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
@@ -856,19 +1030,20 @@ def frame_profile_phase(scene, camera, main_ms):
         raise RuntimeError("the profiler saw no work on the card")
     groups = {}
     busy, end = 0.0, float("-inf")
-    for name, t0, t1 in events:
-        g = groups.setdefault(_kernel_group(name), [0.0, 0])
+    for kname, t0, t1 in events:
+        g = groups.setdefault(_kernel_group(kname), [0.0, 0])
         g[0] += t1 - t0
         g[1] += 1
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
     f = PROFILED_FRAMES
     busy_ms = busy / 1e3 / f
-    say("profile", frames=f, profiled_wall_ms_per_frame=wall_ms / f,
+    say("profile", scene=name, traversal=r.traversal, frames=f,
+        profiled_wall_ms_per_frame=wall_ms / f,
         unprofiled_ms_per_frame=main_ms, device_busy_ms_per_frame=busy_ms,
         idle_share=1.0 - busy_ms / main_ms, card=repr(card_line()))
     for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        say("profile", group=repr(g), ms_per_frame=us / 1e3 / f,
+        say("profile", scene=name, group=repr(g), ms_per_frame=us / 1e3 / f,
             launches_per_frame=n / f, share_of_frame=us / 1e3 / f / main_ms)
 
 
@@ -894,6 +1069,64 @@ def wide_path_phase(scene, camera, main_img):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     card_vs_cpu(scene, camera, "pallas")
     return counts
+
+
+def big_phase(scene, data, camera):
+    """Phase 4c: the 1,964,180-triangle scene under "auto", which must run
+    K3 ("pallas"): 1 warm-up and BIG_FRAMES timed 1080p frames, their
+    launch counts and peak memory, and the 96x54 card-vs-CPU check;
+    returns the launch counts and ms/frame."""
+    torch.cuda.reset_peak_memory_stats()
+    r, img, counts, ms = render_1080p(data, camera, "auto", BIG_FRAMES)
+    if r.traversal != "pallas":
+        raise RuntimeError(f"auto resolved to {r.traversal} on the big "
+                           f"scene, not pallas")
+    frames = 1 + BIG_FRAMES
+    check_count(counts, "wide_traversal", r.config.n_bounces * frames)
+    check_count(counts, "shade", r.config.n_bounces * frames)
+    check_count(counts, "subblock_traversal", 0)
+    say("big", triangles=scene.total_triangles, width=WIDTH, height=HEIGHT,
+        bounces=BOUNCES, traversal=r.traversal, ms_per_frame=ms,
+        fps=1000.0 / ms, frames=frames, k3_launches=counts["wide_traversal"],
+        k2_launches=counts["shade"],
+        k1_launches=counts["subblock_traversal"], mean=float(img.mean()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card=repr(card_line()))
+    card_vs_cpu(scene, camera, "auto")
+    return counts, ms
+
+
+def k2probe_phase(seed: int, k2_ms: float):
+    """Phase 4d: the two row-fetch sums of probes/k2.py against their plain
+    version, bit for bit; their ms and bytes bound beside K2's."""
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.probes import k2 as k2_probe
+
+    R, S = k2_probe.R_PROBE, k2_probe.S_PROBE
+    table, table_t, slots = k2_probe.probe_inputs(seed, device=DEVICE)
+    before = _kernels.launch_counts["k2_probe"]
+    rows = k2_probe.rows_sum(table, slots)
+    cols = k2_probe.cols_sum(table_t, slots)
+    plain = k2_probe.sum_plain(table[slots.long()].unbind(1))
+    for name, got in (("rows", rows), ("cols", cols)):
+        if not torch.equal(got, plain):
+            raise RuntimeError(f"K2 probe {name} sum differs from the plain "
+                               f"version: max |d| "
+                               f"{float((got - plain).abs().max())}")
+    iters = 20
+    ms_rows = cuda_ms(lambda: k2_probe.rows_sum(table, slots), iters)
+    ms_cols = cuda_ms(lambda: k2_probe.cols_sum(table_t, slots), iters)
+    plain_ms = cuda_ms(lambda: k2_probe.sum_plain(
+        table[slots.long()].unbind(1)), 3)
+    launched = _kernels.launch_counts["k2_probe"] - before
+    if launched != 2 * (2 + iters):
+        raise RuntimeError(f"k2_probe launched {launched} times")
+    bound, by = bound_ms(k2_probe.bytes_moved(R, S), R * 46)
+    say("k2probe", rays=R, rows=S, rows_sum_ms=ms_rows, cols_sum_ms=ms_cols,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        share_of_bound_rows=bound / ms_rows, k2_ms=k2_ms,
+        rows_sum_share_of_k2=ms_rows / k2_ms, max_abs_err=0.0,
+        tolerance="exact", card=repr(card_line()))
 
 
 def small_paths_phase(camera):
@@ -938,6 +1171,7 @@ def multipart_phase(camera):
         torch.cuda.synchronize()
         frames_ms.append((time.perf_counter() - t0) * 1000.0)
     counts = dict(_kernels.launch_counts)
+    check_probes(counts)
     check_count(counts, "subblock_traversal",
                 parts * cfg.n_bounces * MULTIPART_FRAMES)
     check_count(counts, "shade", cfg.n_bounces * MULTIPART_FRAMES)
@@ -1050,6 +1284,7 @@ def cli_phase():
                 torch.cuda.synchronize()
                 call_s = time.perf_counter() - t0
                 counts = dict(_kernels.launch_counts)
+                check_probes(counts)
                 a = apps[-1]
                 if rc != 0 or a.device.type != torch.device(DEVICE).type:
                     raise RuntimeError(f"CLI call {call}: rc {rc} on "
@@ -1158,6 +1393,7 @@ def _sharded_api(scene, camera, card: str) -> None:
         state = sr.render(camera, frames=sp)
         torch.cuda.synchronize()
         counts = dict(_kernels.launch_counts)
+        check_probes(counts)
         check_count(counts, "subblock_traversal",
                     parts * cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
@@ -1228,6 +1464,7 @@ def _sharded_cli(straight8) -> None:
                 torch.cuda.synchronize()
                 call_s = time.perf_counter() - t0
                 counts = dict(_kernels.launch_counts)
+                check_probes(counts)
                 r = made[-1]
                 out = "".join(tee.parts)
                 kind = torch.device(DEVICE).type
@@ -1325,7 +1562,23 @@ def main(argv=None) -> int:
                                 args.seed, data.device)
     timed("k1prof", k1prof_phase, data, sets)
     del sets, segments
-    k3 = timed("k3", k3_phase, data, camera, args.seed, data.device)
+    big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
+    if (big_scene.total_triangles != BIG_TRIANGLES
+            or big.p2_node_rows.shape[0] != 0):
+        raise RuntimeError(f"the big scene has {big_scene.total_triangles} "
+                           f"triangles and {big.p2_node_rows.shape[0]} "
+                           f"sub-block rows, expected {BIG_TRIANGLES} and 0")
+    k3_scenes = [
+        ("standin-31k", data, timed("segments", frame_segments, data, camera,
+                                    "pallas", "pallas")),
+        ("standin-1.96m", big, timed("segments", frame_segments, big, camera,
+                                     "auto", "pallas"))]
+    k3 = timed("k3", k3_phase, k3_scenes, camera, args.seed)
+    timed("k3prof", k3prof_phase, k3_scenes)
+    del k3_scenes
+    big_counts, big_ms = timed("big", big_phase, big_scene, big, camera)
+    del big_scene
+    timed("k2probe", k2probe_phase, args.seed, k2[1])
     counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
                                       args.out)
     counts["wide_traversal"] = timed("pallas", wide_path_phase, scene, camera,
@@ -1334,7 +1587,9 @@ def main(argv=None) -> int:
     timed("multipart", multipart_phase, camera)
     straight8 = timed("cli", cli_phase)
     timed("sharded", sharded_phase, scene, camera, straight8)
-    timed("profile", frame_profile_phase, scene, camera, main_ms)
+    timed("profile", frame_profile_phase,
+          [("standin-31k", scene, main_ms), ("standin-1.96m", big, big_ms)],
+          camera)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:
@@ -1347,6 +1602,7 @@ def main(argv=None) -> int:
                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                             library_ms=None, share_of_bound=bound / ms))
     kernels[0]["frame_ms"] = frame_ms  # K1 over the five captured segments
+    kernels[2]["launches_big_scene_auto"] = big_counts["wide_traversal"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Time one checkout of the port on one CUDA card, to compare commits in
+turns.
+
+    python3 chip_turns.py [--tree DIR] [--seed N]
+
+Loads the port and the ``chip_smoke.py`` of ``DIR`` (default: this file's
+directory) and prints, as its last line, one JSON object with what it
+measured on the card:
+
+* K3 (the wide-BVH traversal) per launch, in ms: the mean of 10 launches
+  after a warm-up, the better of two such runs, on ``chip_smoke.py``'s
+  phase-4 random rays (2,073,600) of standin-31k and of standin-1.96m;
+* ms/frame at 1920x1080 and 4 bounces, 1 sample a pixel: standin-31k
+  under "pallas" and "auto", standin-1.96m under "auto" (1 warm-up frame,
+  then FRAMES frames timed together on the host clock between device
+  syncs), and the traversal each name resolved to.
+
+Both trees are driven through the same calls: ``Renderer`` and
+``chip_smoke.py``'s scene and ray helpers, and K3 through its wrapper,
+``traverse_wide``, in whichever signature the tree has.  To compare a
+parent with a change, unpack each with ``git archive`` into a directory
+that ``.gitignore`` lists and run this script on them in turns (parent,
+change, change, parent) in one call on one card.  The card's name and
+power limit are in the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import sys
+import time
+
+FRAMES = 8
+
+
+def k3_launch(wide, data, o3, d3, t0, leaf_octets):
+    """A call of the tree's K3 wrapper on these rays."""
+    first = next(iter(inspect.signature(wide.traverse_wide).parameters))
+    if first == "scene":
+        return lambda: wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+    stack = wide.stack_size(data.pw_max_stack)  # the wrapper before K3's
+    return lambda: wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3,
+                                      d3, t0, leaf_octets, stack)
+
+
+def frame_ms(torch, data, camera, traversal):
+    """(ms/frame over FRAMES 1080p frames after one warm-up, the traversal
+    the name resolved to)."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+
+    r = Renderer(data, RenderConfig(width=1920, height=1080, bounces=4,
+                                    traversal=traversal), device="cuda")
+    state = r.render(camera, frames=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(camera, frames=FRAMES, state=state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / FRAMES, r.traversal
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)), help="root of the checkout to time")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card: chip_turns.py times the port on one",
+              file=sys.stderr)
+        return 1
+    import chip_smoke as cs  # the tree's own
+
+    if os.path.dirname(os.path.abspath(cs.__file__)) != tree:
+        raise RuntimeError(f"chip_smoke.py came from {cs.__file__}")
+    from opengl_raytracer_torch import make_camera
+    from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    camera = make_camera(cs.CAM_POS, cs.CAM_DIR)
+    out = dict(tree=tree, card=cs.card_line(), torch=torch.__version__)
+    for tag, cells, names in (("31k", (83, 166), ("pallas", "auto")),
+                              ("1.96m", (700, 1400), ("auto",))):
+        scene, data = cs.make_scene(*cells, "cuda")
+        out[f"triangles_{tag}"] = scene.total_triangles
+        del scene
+        o3, d3, t0 = cs.k1_rays(data, camera, args.seed, "cuda")
+        leaf_octets = -(-effective_max_leaf(data) // 8)
+        fn = k3_launch(wide, data, o3, d3, t0, leaf_octets)
+        out[f"k3_random_{tag}_ms"] = min(cs.cuda_ms(fn, 10)
+                                         for _ in range(2))
+        del o3, d3, t0
+        for name in names:
+            ms, resolved = frame_ms(torch, data, camera, name)
+            out[f"{name}_{tag}_ms_per_frame"] = ms
+            out[f"{name}_{tag}_resolved"] = resolved
+        del data
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

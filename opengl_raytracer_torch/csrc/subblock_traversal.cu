@@ -16,12 +16,16 @@
 // Both are read with 16-byte loads: 14 for a node visit, 2 per triangle
 // for its t, and a third for its barycentrics when t beats the best hit.
 //
-// What bounds it on this card: not bytes (the 2-3 MB tables of a part sit
-// in the 50 MB L2, and a launch moves ~44 B per ray) and not FP32 rate
-// (~0.2-0.3 ms of operations per 2M-ray launch).  It is the latency of the
-// dependent loads a ray's walk chains together (entry -> node -> child),
-// and warp divergence: the 32 rays of a warp walk different subtrees and
-// run node and leaf bodies one after the other.  The design answers both:
+// What bounds it on this card (an H100 80GB HBM3 at 700 W, measured by
+// chip_smoke.py): not bytes (the 2-3 MB tables of a part sit in the 50 MB
+// L2, and a launch moves ~44 B per ray) and not FP32 rate: 2M random rays
+// cost ~2.7 G operations, a bound of ~0.04 ms, a tenth of the launch or
+// less.  It is the latency of the dependent loads a ray's walk chains
+// together (entry -> node -> child -> octet), and above all the leaf side:
+// the stage profile (probes/k1.py) puts ~71% of the cycles of a frame's
+// bounce segments in octet fetch and triangle tests.  Divergence costs
+// little there: sorted by the integrator, a segment's warps keep 0.74-0.96
+// of their lanes busy (0.35 on unsorted random rays).  The design:
 //   * a stack of node groups: one 32-bit entry per open node, holding the
 //     node and the mask of its children still to visit in this ray's
 //     near-first order.  A visit pushes at most one entry (the tree's depth

@@ -1,79 +1,115 @@
-// K3: nearest-hit traversal over the 8-wide BVH tiles, for Hopper.
+// K3: nearest-hit traversal over the 8-wide BVH, for Hopper.
 //
 // Replaces the Pallas kernel `_traverse_kernel` of
-// opengl_raytracer_tpu/ops/pallas_traversal.py (launched by
+// opengl_raytracer_tpu/ops/pallas_traversal.py:69 (launched at :295 by
 // `raycast_pallas`).  That kernel marries 1024 rays to one node pointer and
 // an SMEM stack, selects node and octet records with arithmetic one-hot
-// blends, folds the children's hit flags into a scalar bitmask by an
-// any-reduction and pulls each push entry out with a masked sum: all
-// answers to Mosaic's (8, 128) vector tiles and its lack of dynamic lane
-// indexing.  Here each thread walks one ray with a private stack, and reads
-// the SAME tables (ops/wide_bvh.py, models/scene.py) by index arithmetic, so
-// the two packages can be compared ray by ray:
-//   pw_tiles (W/8, 8, 128): child j of wide node w at tile w/8, row j,
-//     lanes (w%8)*16 + 0..5 [bmin.xyz, bmax.xyz]; the rank-j push entry of
-//     octant o at lane (w%8)*16 + 6 + o, packed as the exact-integer float
-//     entry*8 + child.  entry >= 0 is a wide node, -q-1 the leaf whose
-//     triangles start at octet q, EMPTY_PACKED an empty child slot.
-//   pl_tri_tiles (G, 8, 128): triangle slot s at tile s/64, row s%8, lanes
-//     ((s%64)/8)*16 + 0..11 as [v0, e1, e2, face].
+// blends and folds the children's hit flags into a scalar bitmask: answers
+// to Mosaic's (8, 128) vector tiles and its lack of dynamic lane indexing.
+// Here each thread walks one ray over the SAME tree, read in a Hopper
+// layout packed from the TPU tiles at upload (ops/wide_bvh.pack_k3; the
+// plain torch version, ops/pallas_traversal.py, reads the tiles
+// themselves), so the two packages can be compared ray by ray:
+//   nodes[w]  (64 words, 256 B): the 8 child boxes as structure of arrays
+//     lo.x[8] lo.y[8] lo.z[8] hi.x[8] hi.y[8] hi.z[8] (f32), the 8 child
+//     entries (i32: >= 0 a wide node, -q-1 the leaf starting at octet q,
+//     EMPTY_PACKED none), and per octant one word: the near-first slot
+//     order, 3 bits a rank, under the mask of the non-empty slots (bits
+//     24-31);
+//   octets[q] (96 floats, 384 B): triangle j's v0, face, e1, e2 at 12j.
 //
-// Semantics kept from the Pallas kernel (pallas_traversal.py lines):
-//   * the slab test with the unclamped inverse 1/d, as (b - o) * inv
+// What bounds it on this card.  Not bytes: a launch moves 44 B a ray, and
+// the tables of a scene of a few ten thousand triangles sit in the 50 MB
+// L2.  On a scene of two million triangles they do not (about 115 MB in
+// this layout), so an octet read may go to HBM.  The fp32 work is small
+// too (some thousands of operations a ray, a bound of about a tenth of a
+// millisecond a 2M-ray launch).  What the walk pays for is the latency of
+// the loads it chains (entry -> node -> child -> octet), and, above all,
+// the leaf side: a leaf tests a fixed ceil(max_leaf / 8) octets, four at a
+// max leaf of 32, where the sub-block kernel (K1) tests one.  The design:
+//   * a stack of node groups, one 32-bit entry per open node: the node
+//     and the mask of its children still to visit, by near-first rank in
+//     this ray's octant.  A visit pushes at most one group, so at most
+//     max_depth + 1 are open (one per node on the path from the root).
+//     The top group lives in registers, the rest in this thread's column
+//     of shared memory (stride = block size: no bank conflicts).  The
+//     column is compiled for 16 groups and for 71 (the deepest tree the
+//     wide builder accepts, max_depth 70: its MAX_STACK of 512 entries);
+//     the wrapper picks the smaller that holds the scene's depth.  No
+//     register array is indexed at run time, so no local memory is used;
+//   * 16-byte loads: 12 and the octant's word for a node visit, all issued
+//     before the first use, then one word, the entry of the child it
+//     enters; two for a triangle's t and a third for its edges.  The visit
+//     holds no entries in registers (the word's mask closes empty slots),
+//     so ptxas fits it in 80 registers (six blocks of four warps an SM)
+//     without spilling.  The walk is latency-bound, so warps per SM
+//     matter: on the H100 a build at 96 registers (five blocks) ran slower
+//     than one at 80 that spilled 24 bytes, and a minBlocks hint of 6 in
+//     __launch_bounds__ gave the same 80 registers but a slower walk.
+//     A dropped group is counted in a register and added to `overflow`
+//     once: an atomic at the push itself, though never executed, made the
+//     walk much slower;
+//   * a two-phase loop (Aila and Laine's while-while, HPG 2009): nodes
+//     until the next entry is a leaf, then that leaf's octets until the
+//     next entry is a node, so a warp's lanes run like bodies together;
+//   * a triangle's test stops at |det| < EPS or at a t that cannot be
+//     accepted (t <= EPS or t >= best_t), before its edges are loaded.
+//
+// Semantics kept from the Pallas kernel (pallas_traversal.py lines), and
+// from the plain version bit for bit:
+//   * the slab test with the UNCLAMPED inverse 1/d, as (b - o) * inv
 //     (:76, :123-134).  An axis-parallel ray whose origin lies on a slab
-//     plane makes 0 * inf = NaN, which jnp.minimum/maximum propagate, so
-//     that child is not opened; fminf/fmaxf would drop the NaN and open it,
-//     so min and max here are NaN-propagating.  A child is opened iff
-//     far >= near && far >= 0 && max(near, 0) <= best_t (:135-138);
+//     plane makes 0 * inf = NaN, which jnp.minimum/maximum (and torch's)
+//     propagate, so that child is not opened.  Here min and max are the
+//     plain fminf/fmaxf, which drop a NaN, plus one test: a child whose six
+//     slab values hold a NaN stays closed.  Without a NaN both forms give
+//     the same near and far; with one, the propagating form's near or far
+//     is NaN and `far >= near` fails.  Only a ray with a non-finite origin
+//     or inverse can make a NaN, so the test runs for those rays alone.
+//     A child is opened iff far >= near && far >= 0 && max(near, 0) <=
+//     best_t (:135-138), tested when its parent is visited;
 //   * empty child slots hold finite swapped boxes that pass the slab test;
-//     only the EMPTY_PACKED sentinel keeps them off the stack.  The packed
-//     entry is decoded with an arithmetic shift (:160-166);
+//     only their EMPTY_PACKED entry keeps them closed (:160-166), here
+//     through the order word's mask, packed from the entries;
 //   * a leaf tests a fixed `leaf_octets` octets from its first one, reading
-//     into neighbouring leaves' real triangles (:182-184); the table's
-//     slack keeps the read inside it, and octets past its end are skipped;
-//   * within an octet the least t wins and the lowest slot among equal t;
-//     across octets and nodes the update is a strict < (:216-223); the
-//     Moller-Trumbore form and acceptance test are those of :203-216;
-//   * the push order comes from THIS ray's octant; the Pallas kernel takes
-//     its block's dominant octant (:93-97), which changes only which slot
-//     wins at an exact t tie.  The Pallas kernel opens a node for its whole
-//     block when any of its rays opens it (:140-146); that finds nothing
-//     nearer while slab tests are conservative, but a ray lying in a box's
-//     face plane (a NaN slab) can miss here where the Pallas kernel hits;
-//   * a dead ray enters with t0 = -BIG, can neither open nodes nor accept
-//     hits, and leaves with t = -BIG (it exits at once here).
-// The winner's barycentrics come from its own test, in the formula the JAX
-// wrapper recomputes them with outside its kernel (:314-322).
-//
-// The per-ray stack holds at most (max_depth + 2) * 7 + 4 entries
-// (ops/wide_bvh.py); the kernel is compiled for 64, 128 and 512 entries and
-// the wrapper picks the smallest that holds the scene's bound, so local
-// memory is reserved for no more than the tree needs.  A push past the end
-// is counted into `overflow` (the Pallas kernel drops it silently).
-//
+//     into neighbouring leaves' real triangles (:182-184), and stops at the
+//     table's end; the count comes from the scene's own node_count;
+//   * within an octet the Pallas kernel takes the least t, the lowest slot
+//     among equal t, and across octets a strict < (:216-223).  That is one
+//     sequential strict < over the octet's slots in increasing order,
+//     starting from the best t: the first slot reaching the least t wins
+//     in both, and neither updates unless that t beats the best.  So the
+//     triangles are tested one after another, and the edge test of one
+//     whose t does not beat the running best is skipped;
+//   * children are visited near-first in the order of THIS ray's octant: a
+//     group pops its lowest remaining rank, the order in which the plain
+//     version's far-first pushes pop.  The Pallas kernel takes its block's
+//     dominant octant (:93-97), which changes only which slot wins at an
+//     exact t tie, and opens a node for its whole block when any of its
+//     rays opens it (:140-146), so a ray lying in a box's face plane (a
+//     NaN slab) can miss here where the Pallas kernel hits;
+//   * a dead ray enters with t0 = -BIG and leaves at once with t = -BIG.
 // The arithmetic is written with round-to-nearest intrinsics (__fmul_rn,
 // __fadd_rn, __fsub_rn, __fdiv_rn), which nvcc never contracts into FMAs,
-// in the order of the plain torch version (ops/pallas_traversal.py), so the
-// kernel reproduces that version bit for bit.
+// in the order of the plain version, so t, slot, u and v are its values
+// bit for bit.  A group push past the shared column is counted into
+// `overflow`.
 //
-// What bounds it on the card: per node, eight dependent reads of 24-byte
-// child boxes and eight push entries scattered over a 4 KB tile (512 bytes
-// apart), and per leaf octet eight 48-byte triangle reads 512 bytes apart;
-// the tables stay in L2.  Rays of one warp walk different subtrees, so
-// warps diverge.  This first version keeps one ray per thread with the
-// stack in local memory and relies on the integrator's coherence sort to
-// make neighbouring threads' rays alike; making it fast (node records laid
-// out for coalesced reads, warp-coherent traversal) is later work.
+// Built with -DOGLRT_K3_PROFILE (opengl_raytracer_torch/probes/k3.py), the
+// same source exports instead `oglrt_wide_traverse_profile`: the same walk
+// with clock64() sums per stage (group pop, node fetch, slab tests, group
+// push, octet fetch, triangle tests) and event counts, reduced per warp,
+// and each leaf entry counted by its first octet; and
+// `oglrt_k3_octet_fetch`, which reads chosen octets through this file's
+// own triangle loads and writes them back in the TPU tiles' lane order.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 8 * 128;
-constexpr int kRow = 128;
-constexpr int kGroup = 16;
-constexpr int kOrdLane0 = 6;
-constexpr int kEmpty = -(1 << 20);
+constexpr int kBlock = 128;
+constexpr int kDone = INT_MIN;
 constexpr float kBig = 1e30f;
 constexpr float kEps = 1e-6f;
 
@@ -84,29 +120,117 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
     return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
 }
-// NaN-propagating min and max, as torch.minimum / jnp.minimum.
-__device__ __forceinline__ float nmin(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+
+// Triangle j of an octet: v0.xyz + face.x, face.yz + e1.xy (its t needs
+// only these two), and e1.z + e2.xyz (its barycentrics).
+__device__ __forceinline__ void load_tri_t(const float4* __restrict__ ob, int j,
+                                           float4& a, float4& b) {
+    a = __ldg(ob + 3 * j);
+    b = __ldg(ob + 3 * j + 1);
 }
-__device__ __forceinline__ float nmax(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+__device__ __forceinline__ float4 load_tri_edges(const float4* __restrict__ ob,
+                                                 int j) {
+    return __ldg(ob + 3 * j + 2);
 }
 
-template <int kStack>
-__global__ void __launch_bounds__(128)
-wide_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-                     const float* __restrict__ oz, const float* __restrict__ dx,
-                     const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ t0,
-                     const float* __restrict__ pw_tiles,
-                     const float* __restrict__ tri_tiles, long long n_octets,
-                     int leaf_octets, float* __restrict__ t_out,
-                     int* __restrict__ slot_out, float* __restrict__ u_out,
-                     float* __restrict__ v_out, int* __restrict__ overflow,
-                     long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+#ifdef OGLRT_K3_PROFILE
+enum { kPop, kNodeFetch, kSlab, kPush, kOctetFetch, kTriangles, kStages };
+enum { kVisits, kLeaves, kOctets, kCandidates, kGroupPushes, kGroupPops,
+       kSmemPushes, kSmemPops, kCounts };
+struct Prof {
+    unsigned long long cyc[kStages];
+    unsigned long long cnt[kCounts];
+    unsigned sink;
+    int* leaf_hist;
+};
+#define PROF_PARAM , Prof& prof
+#define PROF_PASS , prof
+#define PROF_T(name) const long long name = clock64()
+#define PROF_ADD(stage, t) prof.cyc[stage] += (unsigned long long)(clock64() - (t))
+#define PROF_CNT(c) ++prof.cnt[c]
+#define PROF_SINK(x) prof.sink ^= (x)
+#define PROF_LEAF(first) atomicAdd(prof.leaf_hist + (first), 1)
+#else
+#define PROF_PARAM
+#define PROF_PASS
+#define PROF_T(name)
+#define PROF_ADD(stage, t)
+#define PROF_CNT(c)
+#define PROF_SINK(x)
+#define PROF_LEAF(first)
+#endif
 
+// Entry of slot s (0-7) of a node's two entry vectors, without indexing a
+// register array (which would go to local memory).
+__device__ __forceinline__ int pick(const int4& a, const int4& b, unsigned s) {
+    const int lo = (s & 2) ? ((s & 1) ? a.w : a.z) : ((s & 1) ? a.y : a.x);
+    const int hi = (s & 2) ? ((s & 1) ? b.w : b.z) : ((s & 1) ? b.y : b.x);
+    return (s & 4) ? hi : lo;
+}
+
+// The open node groups of one ray: `top` in registers (node << 8 | mask of
+// near-first ranks still to visit; 0 = none), older ones in the thread's
+// shared-memory column of kCol entries.
+template <int kCol>
+struct Groups {
+    unsigned top;
+    int sp;
+    int dropped;
+    unsigned* col;
+
+    __device__ __forceinline__ void push(unsigned g PROF_PARAM) {
+        PROF_T(t);
+        PROF_CNT(kGroupPushes);
+        if (top) {
+            if (sp < kCol) {
+                col[sp++ * kBlock] = top;
+                PROF_CNT(kSmemPushes);
+            } else {
+                ++dropped;  // the group is lost, and counted
+            }
+        }
+        top = g;
+        PROF_ADD(kPush, t);
+    }
+
+    // The next entry to visit: the nearest child still open in the top
+    // group, or kDone when no group is open.
+    __device__ __forceinline__ int pop(const int4* __restrict__ nodes, int oct
+                                       PROF_PARAM) {
+        if (!top) return kDone;
+        PROF_T(t);
+        const unsigned w = top >> 8;
+        unsigned m = top & 0xFFu;
+        const int4* nb = nodes + (size_t)w * 16;
+        const int4 e0 = __ldg(nb + 12), e1 = __ldg(nb + 13);
+        const unsigned ord = __ldg(reinterpret_cast<const unsigned*>(nb) + 56 + oct);
+        const unsigned r = __ffs(m) - 1;
+        const int child = pick(e0, e1, (ord >> (3 * r)) & 7u);
+        m &= m - 1;
+        if (m) {
+            top = (w << 8) | m;
+        } else if (sp) {
+            top = col[--sp * kBlock];
+            PROF_CNT(kSmemPops);
+        } else {
+            top = 0;
+        }
+        PROF_CNT(kGroupPops);
+        PROF_ADD(kPop, t);
+        return child;
+    }
+};
+
+template <int kCol>
+__device__ __forceinline__ void trace_ray(
+    long long i, const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t0, const int4* __restrict__ nodes,
+    const float4* __restrict__ octets, int n_octets, int leaf_octets,
+    unsigned* col, float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ overflow PROF_PARAM) {
     float bt = t0[i];
     int bslot = 0;
     float bu = 0.0f, bv = 0.0f;
@@ -117,94 +241,128 @@ wide_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         const float inv0 = __fdiv_rn(1.0f, d0);
         const float inv1 = __fdiv_rn(1.0f, d1);
         const float inv2 = __fdiv_rn(1.0f, d2);
+        // only 0 * inf (or a non-finite origin) makes a NaN slab value
+        const bool maybe_nan = !(isfinite(inv0) && isfinite(inv1) &&
+                                 isfinite(inv2) && isfinite(o0) &&
+                                 isfinite(o1) && isfinite(o2));
         const int oct = ((d0 < 0.0f) << 2) | ((d1 < 0.0f) << 1) | (d2 < 0.0f);
 
-        int stack[kStack];
-        int sp = 0;
-        stack[sp++] = 0;  // the root wide node
-        int dropped = 0;
+        Groups<kCol> g{0u, 0, 0, col};
+        int cur = 0;  // the root wide node
+        for (;;) {
+            while (cur >= 0) {  // node phase
+                PROF_T(tf);
+                const float4* fb = reinterpret_cast<const float4*>(nodes + (size_t)cur * 16);
+                const float4 lx0 = __ldg(fb + 0), lx1 = __ldg(fb + 1);
+                const float4 ly0 = __ldg(fb + 2), ly1 = __ldg(fb + 3);
+                const float4 lz0 = __ldg(fb + 4), lz1 = __ldg(fb + 5);
+                const float4 hx0 = __ldg(fb + 6), hx1 = __ldg(fb + 7);
+                const float4 hy0 = __ldg(fb + 8), hy1 = __ldg(fb + 9);
+                const float4 hz0 = __ldg(fb + 10), hz1 = __ldg(fb + 11);
+                const unsigned ord =
+                    __ldg(reinterpret_cast<const unsigned*>(fb) + 56 + oct);
+                PROF_SINK(__float_as_uint(lx0.x) ^ __float_as_uint(lx1.x) ^
+                          __float_as_uint(ly0.x) ^ __float_as_uint(ly1.x) ^
+                          __float_as_uint(lz0.x) ^ __float_as_uint(lz1.x) ^
+                          __float_as_uint(hx0.x) ^ __float_as_uint(hx1.x) ^
+                          __float_as_uint(hy0.x) ^ __float_as_uint(hy1.x) ^
+                          __float_as_uint(hz0.x) ^ __float_as_uint(hz1.x) ^ ord);
+                PROF_ADD(kNodeFetch, tf);
+                PROF_CNT(kVisits);
 
-        while (sp > 0) {
-            const int e = stack[--sp];
-            if (e >= 0) {
-                const float* g = pw_tiles + (long long)(e >> 3) * kTile +
-                                 (e & 7) * kGroup;
-                unsigned opened = 0;
+                PROF_T(ts);
+                const float lx[8] = {lx0.x, lx0.y, lx0.z, lx0.w, lx1.x, lx1.y, lx1.z, lx1.w};
+                const float ly[8] = {ly0.x, ly0.y, ly0.z, ly0.w, ly1.x, ly1.y, ly1.z, ly1.w};
+                const float lz[8] = {lz0.x, lz0.y, lz0.z, lz0.w, lz1.x, lz1.y, lz1.z, lz1.w};
+                const float hx[8] = {hx0.x, hx0.y, hx0.z, hx0.w, hx1.x, hx1.y, hx1.z, hx1.w};
+                const float hy[8] = {hy0.x, hy0.y, hy0.z, hy0.w, hy1.x, hy1.y, hy1.z, hy1.w};
+                const float hz[8] = {hz0.x, hz0.y, hz0.z, hz0.w, hz1.x, hz1.y, hz1.z, hz1.w};
+                unsigned hit = 0;  // by slot
 #pragma unroll
                 for (int j = 0; j < 8; ++j) {
-                    const float* b = g + j * kRow;
-                    const float t1x = mul(sub(__ldg(b + 0), o0), inv0);
-                    const float t1y = mul(sub(__ldg(b + 1), o1), inv1);
-                    const float t1z = mul(sub(__ldg(b + 2), o2), inv2);
-                    const float t2x = mul(sub(__ldg(b + 3), o0), inv0);
-                    const float t2y = mul(sub(__ldg(b + 4), o1), inv1);
-                    const float t2z = mul(sub(__ldg(b + 5), o2), inv2);
-                    const float near = nmax(nmax(nmin(t1x, t2x), nmin(t1y, t2y)),
-                                            nmin(t1z, t2z));
-                    const float far = nmin(nmin(nmax(t1x, t2x), nmax(t1y, t2y)),
-                                           nmax(t1z, t2z));
-                    if (far >= near && far >= 0.0f && nmax(near, 0.0f) <= bt) {
-                        opened |= 1u << j;
-                    }
+                    const float t1x = mul(sub(lx[j], o0), inv0);
+                    const float t1y = mul(sub(ly[j], o1), inv1);
+                    const float t1z = mul(sub(lz[j], o2), inv2);
+                    const float t2x = mul(sub(hx[j], o0), inv0);
+                    const float t2y = mul(sub(hy[j], o1), inv1);
+                    const float t2z = mul(sub(hz[j], o2), inv2);
+                    const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                                             fminf(t1z, t2z));
+                    const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                                            fmaxf(t1z, t2z));
+                    bool open = far >= near && far >= 0.0f &&
+                                fmaxf(near, 0.0f) <= bt;
+                    if (maybe_nan)
+                        open = open && !(isnan(t1x) || isnan(t1y) || isnan(t1z) ||
+                                         isnan(t2x) || isnan(t2y) || isnan(t2z));
+                    hit |= (unsigned)open << j;
                 }
-                const float* ord = g + kOrdLane0 + oct;
+                hit &= ord >> 24;  // empty slots stay closed
+                unsigned m = 0;  // by near-first rank
 #pragma unroll
-                for (int r = 0; r < 8; ++r) {  // far first: rank 0 pops last
-                    const int pk = (int)__ldg(ord + r * kRow);
-                    const int ent = pk >> 3;
-                    if (((opened >> (pk & 7)) & 1u) && ent != kEmpty) {
-                        if (sp < kStack) {
-                            stack[sp++] = ent;
-                        } else {
-                            ++dropped;
-                        }
-                    }
+                for (int r = 0; r < 8; ++r)
+                    m |= ((hit >> ((ord >> (3 * r)) & 7u)) & 1u) << r;
+                PROF_ADD(kSlab, ts);
+
+                if (m) {
+                    const unsigned r = __ffs(m) - 1;
+                    const int child = __ldg(reinterpret_cast<const int*>(fb) + 48 +
+                                            ((ord >> (3 * r)) & 7u));
+                    m &= m - 1;
+                    if (m) g.push(((unsigned)cur << 8) | m PROF_PASS);
+                    cur = child;
+                } else {
+                    cur = g.pop(nodes, oct PROF_PASS);
                 }
-            } else {
-                const int first = -e - 1;
+            }
+            if (cur == kDone) break;
+            do {  // leaf phase: cur = -q-1, the leaf's first octet q
+                const int first = -cur - 1;
+                PROF_CNT(kLeaves);
+                PROF_LEAF(first);
                 for (int k = 0; k < leaf_octets; ++k) {
                     const int q = first + k;
                     if (q >= n_octets) break;
-                    const float* oc = tri_tiles + (long long)(q >> 3) * kTile +
-                                      (q & 7) * kGroup;
-                    float tm = 0.0f, um = 0.0f, vm = 0.0f;
-                    int jm = 0;
+                    const float4* ob = octets + (size_t)q * 24;
+                    PROF_CNT(kOctets);
 #pragma unroll 2
                     for (int j = 0; j < 8; ++j) {
-                        const float* c = oc + j * kRow;
-                        const float v0x = __ldg(c + 0), v0y = __ldg(c + 1), v0z = __ldg(c + 2);
-                        const float e1x = __ldg(c + 3), e1y = __ldg(c + 4), e1z = __ldg(c + 5);
-                        const float e2x = __ldg(c + 6), e2y = __ldg(c + 7), e2z = __ldg(c + 8);
-                        const float fx = __ldg(c + 9), fy = __ldg(c + 10), fz = __ldg(c + 11);
-                        const float det = dot3(d0, d1, d2, fx, fy, fz);
-                        const float inv_det = __fdiv_rn(1.0f, det);
-                        const float rx = sub(o0, v0x), ry = sub(o1, v0y), rz = sub(o2, v0z);
-                        const float t = mul(-dot3(rx, ry, rz, fx, fy, fz), inv_det);
-                        const float px = sub(mul(ry, d2), mul(rz, d1));
-                        const float py = sub(mul(rz, d0), mul(rx, d2));
-                        const float pz = sub(mul(rx, d1), mul(ry, d0));
-                        const float u = mul(-dot3(e2x, e2y, e2z, px, py, pz), inv_det);
-                        const float v = mul(dot3(e1x, e1y, e1z, px, py, pz), inv_det);
-                        const bool valid = fabsf(det) >= kEps && t > kEps && u >= 0.0f &&
-                                           v >= 0.0f && add(u, v) <= 1.0f;
-                        const float tc = valid ? t : kBig;
-                        if (j == 0 || tc < tm) {  // lowest slot among equal t
-                            tm = tc;
-                            jm = j;
-                            um = u;
-                            vm = v;
+                        PROF_T(tl);
+                        float4 a, b;  // v0.xyz, face.x; face.yz, e1.xy
+                        load_tri_t(ob, j, a, b);
+                        PROF_SINK(__float_as_uint(a.x) ^ __float_as_uint(b.x));
+                        PROF_ADD(kOctetFetch, tl);
+                        PROF_T(tt);
+                        const float det = dot3(d0, d1, d2, a.w, b.x, b.y);
+                        if (fabsf(det) >= kEps) {
+                            const float inv_det = __fdiv_rn(1.0f, det);
+                            const float rx = sub(o0, a.x), ry = sub(o1, a.y),
+                                        rz = sub(o2, a.z);
+                            const float t = mul(-dot3(rx, ry, rz, a.w, b.x, b.y), inv_det);
+                            if (t > kEps && t < bt) {  // strict <, fragment.glsl:275
+                                const float4 c = load_tri_edges(ob, j);  // e1.z, e2.xyz
+                                PROF_CNT(kCandidates);
+                                const float px = sub(mul(ry, d2), mul(rz, d1));
+                                const float py = sub(mul(rz, d0), mul(rx, d2));
+                                const float pz = sub(mul(rx, d1), mul(ry, d0));
+                                const float u = mul(-dot3(c.y, c.z, c.w, px, py, pz), inv_det);
+                                const float v = mul(dot3(b.z, b.w, c.x, px, py, pz), inv_det);
+                                if (u >= 0.0f && v >= 0.0f && add(u, v) <= 1.0f) {
+                                    bt = t;
+                                    bslot = q * 8 + j;
+                                    bu = u;
+                                    bv = v;
+                                }
+                            }
                         }
-                    }
-                    if (tm < bt) {  // strict <, fragment.glsl:275
-                        bt = tm;
-                        bslot = q * 8 + jm;
-                        bu = um;
-                        bv = vm;
+                        PROF_ADD(kTriangles, tt);
                     }
                 }
-            }
+                cur = g.pop(nodes, oct PROF_PASS);
+            } while (cur < 0 && cur != kDone);
+            if (cur == kDone) break;
         }
-        if (dropped) atomicAdd(overflow, dropped);
+        if (g.dropped) atomicAdd(overflow, g.dropped);
     }
     t_out[i] = bt;
     slot_out[i] = bslot;
@@ -212,40 +370,166 @@ wide_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     v_out[i] = bv;
 }
 
-template <int kStack>
+#ifndef OGLRT_K3_PROFILE
+
+template <int kCol>
+__global__ void __launch_bounds__(kBlock)
+wide_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const float* __restrict__ t0, const int4* __restrict__ nodes,
+                     const float4* __restrict__ octets, int n_octets,
+                     int leaf_octets, float* __restrict__ t_out,
+                     int* __restrict__ slot_out, float* __restrict__ u_out,
+                     float* __restrict__ v_out, int* __restrict__ overflow,
+                     long long n) {
+    __shared__ unsigned stack[kCol * kBlock];
+    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+    if (i < n)
+        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
+                        leaf_octets, stack + threadIdx.x, t_out, slot_out,
+                        u_out, v_out, overflow);
+}
+
+template <int kCol>
 void launch(const float* ox, const float* oy, const float* oz, const float* dx,
-            const float* dy, const float* dz, const float* t0,
-            const float* pw_tiles, const float* tri_tiles, long long n_octets,
-            int leaf_octets, float* t_out, int* slot_out, float* u_out,
-            float* v_out, int* overflow, long long n, cudaStream_t stream) {
-    const int block = 128;
-    const long long grid = (n + block - 1) / block;
-    wide_traverse_kernel<kStack><<<(unsigned)grid, block, 0, stream>>>(
-        ox, oy, oz, dx, dy, dz, t0, pw_tiles, tri_tiles, n_octets, leaf_octets,
-        t_out, slot_out, u_out, v_out, overflow, n);
+            const float* dy, const float* dz, const float* t0, const void* nodes,
+            const void* octets, long long n_octets, int leaf_octets,
+            float* t_out, int* slot_out, float* u_out, float* v_out,
+            int* overflow, long long n, cudaStream_t stream) {
+    const long long grid = (n + kBlock - 1) / kBlock;
+    wide_traverse_kernel<kCol><<<(unsigned)grid, kBlock, 0, stream>>>(
+        ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
+        static_cast<const float4*>(octets), (int)n_octets, leaf_octets, t_out,
+        slot_out, u_out, v_out, overflow, n);
 }
 
 }  // namespace
 
 extern "C" int oglrt_wide_traverse(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* t0, const float* pw_tiles,
-    const float* tri_tiles, long long n_octets, int leaf_octets,
-    int stack_size, float* t_out, int* slot_out, float* u_out, float* v_out,
-    int* overflow, long long n, void* stream) {
+    const float* dy, const float* dz, const float* t0, const void* nodes,
+    const void* octets, long long n_octets, int leaf_octets, int groups,
+    float* t_out, int* slot_out, float* u_out, float* v_out, int* overflow,
+    long long n, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
-    if (stack_size == 64) {
-        launch<64>(ox, oy, oz, dx, dy, dz, t0, pw_tiles, tri_tiles, n_octets,
+    if (groups == 16) {
+        launch<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
                    leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
-    } else if (stack_size == 128) {
-        launch<128>(ox, oy, oz, dx, dy, dz, t0, pw_tiles, tri_tiles, n_octets,
-                    leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
-    } else if (stack_size == 512) {
-        launch<512>(ox, oy, oz, dx, dy, dz, t0, pw_tiles, tri_tiles, n_octets,
-                    leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
+    } else if (groups == 71) {
+        launch<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
+                   leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
+
+#else  // OGLRT_K3_PROFILE
+
+__device__ __forceinline__ void warp_sum_into(unsigned long long x,
+                                              unsigned long long* dst) {
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if ((threadIdx.x & 31) == 0 && x) atomicAdd(dst, x);
+}
+
+template <int kCol>
+__global__ void __launch_bounds__(kBlock)
+wide_traverse_profile_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t0, const int4* __restrict__ nodes,
+    const float4* __restrict__ octets, int n_octets, int leaf_octets,
+    float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ overflow, unsigned long long* __restrict__ prof_out,
+    int* __restrict__ leaf_hist, unsigned* __restrict__ sink, long long n) {
+    __shared__ unsigned stack[kCol * kBlock];
+    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+    Prof prof = {};
+    prof.leaf_hist = leaf_hist;
+    if (i < n)
+        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
+                        leaf_octets, stack + threadIdx.x, t_out, slot_out,
+                        u_out, v_out, overflow, prof);
+    // every lane of the warp reaches here: sum the warp's counters, then one
+    // atomic per counter per warp
+#pragma unroll
+    for (int k = 0; k < kStages; ++k) warp_sum_into(prof.cyc[k], prof_out + k);
+#pragma unroll
+    for (int k = 0; k < kCounts; ++k)
+        warp_sum_into(prof.cnt[k], prof_out + kStages + k);
+    unsigned s = prof.sink;
+    for (int off = 16; off > 0; off >>= 1) s ^= __shfl_down_sync(0xffffffffu, s, off);
+    if ((threadIdx.x & 31) == 0) atomicXor(sink, s);
+}
+
+// One block per requested octet, one thread per triangle: the triangle
+// read with K3's own loads, written in the TPU tiles' lane order
+// [v0, e1, e2, face, 0 0 0 0] (16 floats).
+__global__ void octet_fetch_kernel(const float4* __restrict__ octets,
+                                   const long long* __restrict__ idx,
+                                   float* __restrict__ out) {
+    const int j = threadIdx.x;
+    const float4* ob = octets + idx[blockIdx.x] * 24;
+    float4 a, b;
+    load_tri_t(ob, j, a, b);
+    const float4 c = load_tri_edges(ob, j);
+    float* o = out + ((size_t)blockIdx.x * 8 + j) * 16;
+    const float lanes[16] = {a.x, a.y, a.z, b.z, b.w, c.x, c.y, c.z,
+                             c.w, a.w, b.x, b.y, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) o[k] = lanes[k];
+}
+
+template <int kCol>
+void launch_profile(const float* ox, const float* oy, const float* oz,
+                    const float* dx, const float* dy, const float* dz,
+                    const float* t0, const void* nodes, const void* octets,
+                    long long n_octets, int leaf_octets, float* t_out,
+                    int* slot_out, float* u_out, float* v_out, int* overflow,
+                    unsigned long long* prof, int* leaf_hist, unsigned* sink,
+                    long long n, cudaStream_t stream) {
+    const long long grid = (n + kBlock - 1) / kBlock;
+    wide_traverse_profile_kernel<kCol><<<(unsigned)grid, kBlock, 0, stream>>>(
+        ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
+        static_cast<const float4*>(octets), (int)n_octets, leaf_octets, t_out,
+        slot_out, u_out, v_out, overflow, prof, leaf_hist, sink, n);
+}
+
+}  // namespace
+
+extern "C" int oglrt_wide_traverse_profile(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* t0, const void* nodes,
+    const void* octets, long long n_octets, int leaf_octets, int groups,
+    float* t_out, int* slot_out, float* u_out, float* v_out, int* overflow,
+    unsigned long long* prof, int* leaf_hist, unsigned* sink, long long n,
+    void* stream) {
+    if (n <= 0) return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (groups == 16) {
+        launch_profile<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
+                           leaf_octets, t_out, slot_out, u_out, v_out,
+                           overflow, prof, leaf_hist, sink, n, s);
+    } else if (groups == 71) {
+        launch_profile<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
+                           leaf_octets, t_out, slot_out, u_out, v_out,
+                           overflow, prof, leaf_hist, sink, n, s);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int oglrt_k3_octet_fetch(const void* octets, const long long* idx,
+                                    int n_idx, float* out, void* stream) {
+    if (n_idx > 0)
+        octet_fetch_kernel<<<n_idx, 8, 0, (cudaStream_t)stream>>>(
+            static_cast<const float4*>(octets), idx, out);
+    return (int)cudaGetLastError();
+}
+
+#endif  // OGLRT_K3_PROFILE

@@ -10,8 +10,10 @@ traversals and shading read:
   ``node_*`` (brute force, ops/intersect.py, and the per-ray BVH walk,
   ops/traversal.py);
 * the octet-aligned triangle tiles ``pl_tri_tiles``/``pl_remap`` and the
-  8-wide node tiles ``pw_tiles``/``pw_entry`` (the wide-BVH kernel K3,
-  ops/pallas_traversal.py and ops/wide_bvh.py);
+  8-wide node tiles ``pw_tiles``/``pw_entry`` (the wide-BVH kernel K3's
+  plain version, ops/pallas_traversal.py and ops/wide_bvh.py), and the
+  same tree in the layout the K3 kernel reads (``k3``,
+  ops/wide_bvh.pack_k3);
 * the sub-block parts (ops/wide2.py), and the same tables in the layout
   the K1 kernel reads (``k1_parts``, ops/wide2.pack_k1);
 * the shading rows, in triangle order (``sh_abc``) and in sub-block slot
@@ -29,7 +31,7 @@ import torch
 from opengl_raytracer_torch.ops import bvh as bvh_mod
 from opengl_raytracer_torch.ops.wide2 import build_subblock_parts, pack_k1
 from opengl_raytracer_torch.ops.wide_bvh import (TRIS_PER_OCTET, collapse_wide,
-                                                 wide_max_stack)
+                                                 pack_k3, wide_max_stack)
 
 
 class SceneData(NamedTuple):
@@ -65,6 +67,9 @@ class SceneData(NamedTuple):
     # Per part, in the order of ``parts``: (nodes (Wp, 64) i32, octets
     # (Qp, 96) f32), the Hopper layout the K1 kernel reads.
     k1_parts: tuple
+    # (nodes (W, 64) i32, octets (G*8, 96) f32): the wide tiles in the
+    # Hopper layout the K3 kernel reads (ops/wide_bvh.pack_k3).
+    k3: tuple
     # Shading row per triangle: [n0.xyz, n1.xyz, emission, roughness,
     # n2.xyz, face.xyz, 0, 0, color.xyz, emission_color.xyz, 0, 0].
     sh_abc: torch.Tensor  # (T, 24) f32
@@ -101,7 +106,8 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     ``pl_remap``, the ``p2_*`` sub-block tables (``p2_extra`` a sequence of
     (node_rows, tri_rows, remap)), ``sh_abc`` and ``sh_slot``; other keys
     are ignored.  Each part's K1 tables (``k1_parts``) are packed here from
-    its ``p2_*`` rows (ops/wide2.pack_k1)."""
+    its ``p2_*`` rows (ops/wide2.pack_k1), and K3's (``k3``) from the wide
+    tiles (ops/wide_bvh.pack_k3)."""
 
     def up(a, dtype):  # np.array copies: the sources may be read-only views
         return torch.from_numpy(np.array(a, dtype)).to(device)
@@ -112,6 +118,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
             *((n, t) for n, t, _ in fields["p2_extra"])]
     k1 = [pack_k1(np.asarray(n, np.float32), np.asarray(t, np.float32))
           for n, t in rows]
+    k3 = pack_k3(fields["pw_tiles"], fields["pl_tri_tiles"])
     return SceneData(
         **{k: up(fields[k], np.float32) for k in _F32},
         **{k: up(fields[k], np.int32) for k in _I32},
@@ -120,6 +127,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
             (up(n, np.float32), up(t, np.float32), up(r, np.int32))
             for n, t, r in fields["p2_extra"]),
         k1_parts=tuple((up(n, np.int32), up(o, np.float32)) for n, o in k1),
+        k3=(up(k3[0], np.int32), up(k3[1], np.float32)),
         root_min=node_min[0].copy(),
         root_max=node_max[0].copy(),
     )

@@ -32,10 +32,13 @@ LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# "k1_profile" counts the K1 profile build (opengl_raytracer_torch/probes/k1.py),
-# which no path of the renderer launches
+# the probes' kernels (opengl_raytracer_torch/probes/), which no path of the
+# renderer launches: "k1_profile" and "k3_profile" count the profile builds
+# of K1 and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
 launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
-                 "k1_profile": 0}
+                 "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
+                 "k2_probe": 0}
+PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
 
 _lock = threading.Lock()
 _lib = None
@@ -139,6 +142,7 @@ def lib() -> ctypes.CDLL:
             so.oglrt_shade.argtypes = ([p, i32] + [p] * 18
                                        + [f32, f32, f32, f32, i32]
                                        + [p] * 14 + [i64, p])
+            # (..., nodes, octets, n_octets, leaf_octets, groups, ...)
             so.oglrt_wide_traverse.restype = i32
             so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
                                                + [p] * 5 + [i64, p])

@@ -1,16 +1,17 @@
-"""K3: nearest-hit traversal over the 8-wide BVH tiles.
+"""K3: nearest-hit traversal over the 8-wide BVH.
 
 The wrapper :func:`raycast_pallas` is the port of
 ``opengl_raytracer_tpu/ops/pallas_traversal.py:raycast_pallas``: it runs
 the traversal, resolves ``tri = pl_remap[slot]`` and masks dead rays to
-``t = BIG``.  The traversal is :func:`traverse_wide`, which on CUDA
-tensors launches the kernel of ``csrc/wide_traversal.cu`` and on CPU
-tensors runs :func:`_traverse_plain`, the same per-ray stack walk written
-with torch ops (all rays stepping together, one stack entry popped per
-ray per step).
+``t = BIG``.  The traversal is :func:`traverse_wide`, which picks the
+scene's tables by the rays' device: on CUDA tensors it launches the kernel
+of ``csrc/wide_traversal.cu`` over the scene's Hopper layout
+(``SceneData.k3``, ops/wide_bvh.pack_k3); on CPU tensors it runs
+:func:`_traverse_plain` over the JAX package's tiles (``pw_tiles``,
+``pl_tri_tiles``): the same per-ray stack walk written with torch ops (all
+rays stepping together, one stack entry popped per ray per step).
 
-Both versions read the JAX package's tables as they are (ops/wide_bvh.py,
-models/scene.py) and keep the JAX kernel's semantics (its lines cited):
+Both versions keep the JAX kernel's semantics (its lines cited):
 
 * slab test with the unclamped ``inv = 1/d`` as ``(b - o) * inv``; a NaN
   from ``0 * inf`` (an axis-parallel ray whose origin lies on a slab
@@ -24,18 +25,21 @@ models/scene.py) and keep the JAX kernel's semantics (its lines cited):
   are tested from it, over-reading into neighbouring leaves' triangles as
   the JAX kernel does (:179-184); within an octet the least ``t`` wins,
   the lowest slot among equal ``t``, and across octets a strict ``<``
-  (:216-223).
+  (:216-223).  The kernel tests an octet's triangles one after another
+  with a strict ``<`` from the running best, which picks the same winner.
 
-The push order comes from each ray's own direction octant; the JAX kernel
-uses its 1024-ray block's dominant octant (the sign of the summed
-directions, :93-97), which changes only the winning slot at an exact ``t``
-tie.  The JAX kernel also opens a node for its whole block when any ray of
-the block opens it (:140-146), so a ray there tests leaves its own slab
-tests did not open.  That finds nothing nearer while the slab tests are
-conservative; a ray whose slab test is NaN (lying in a box's face plane)
-can miss here, as in the JAX package's per-ray ``raycast_bvh``, where the
-JAX kernel may hit.  The winner's barycentrics come from its own test, in
-the formula the JAX wrapper recomputes them with (:314-322).
+They visit the same nodes in the same order, so they agree ray by ray,
+bit for bit.  The push order comes from each ray's own direction octant;
+the JAX kernel uses its 1024-ray block's dominant octant (the sign of the
+summed directions, :93-97), which changes only the winning slot at an
+exact ``t`` tie.  The JAX kernel also opens a node for its whole block
+when any ray of the block opens it (:140-146), so a ray there tests leaves
+its own slab tests did not open.  That finds nothing nearer while the slab
+tests are conservative; a ray whose slab test is NaN (lying in a box's
+face plane) can miss here, as in the JAX package's per-ray
+``raycast_bvh``, where the JAX kernel may hit.  The winner's barycentrics
+come from its own test, in the formula the JAX wrapper recomputes them
+with (:314-322).
 """
 
 from __future__ import annotations
@@ -43,20 +47,25 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import _kernels
-from opengl_raytracer_torch.ops.intersect import BIG, Nearest, mt_single
+from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
 from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_PACKED, ORD_LANE0,
-                                                 TRIS_PER_OCTET)
+                                                 TRIS_PER_OCTET, wide_depth)
+from opengl_raytracer_torch.ops.wide2 import K1_NODE_WORDS, K1_OCTET_FLOATS
 
 TILE = 8 * 128  # floats per (8, 128) tile
 GROUP = 16  # lanes per node or per triangle in a tile row
-STACKS = (64, 128, 512)  # the kernel's compiled per-ray stack sizes
+STACKS = (64, 128, 512)  # the plain version's per-ray stack sizes
+# The kernel's compiled node-group columns: a tree of depth D keeps at most
+# D + 1 groups open; 71 holds the deepest tree ops/wide_bvh.py accepts.
+GROUPS = (16, 71)
 
 _overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
 
 
 def overflow_tensor(device) -> torch.Tensor:
-    """The running count of stack pushes dropped on ``device`` (0 unless a
-    stack smaller than the tree's bound is asked for)."""
+    """The running count of pushes dropped on ``device`` (0 unless a stack
+    smaller than the tree's bound is asked for): entry pushes in the plain
+    version, node-group pushes in the kernel."""
     device = torch.device(device)
     if device not in _overflow:
         _overflow[device] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -64,19 +73,33 @@ def overflow_tensor(device) -> torch.Tensor:
 
 
 def stack_size(max_stack: int) -> int:
-    """The smallest compiled stack that holds ``max_stack`` entries."""
+    """The smallest plain-version stack that holds ``max_stack`` entries."""
     for s in STACKS:
         if max_stack <= s:
             return s
     raise ValueError(f"wide BVH stack bound {max_stack} exceeds {STACKS[-1]}")
 
 
+def group_column(max_stack: int) -> int:
+    """The smallest compiled group column that holds the ``max_depth + 1``
+    node groups of the wide tree whose stack bound is ``max_stack``."""
+    need = wide_depth(max_stack) + 1
+    for c in GROUPS:
+        if need <= c:
+            return c
+    raise ValueError(f"wide BVH depth {need - 1} needs {need} node groups, "
+                     f"more than the kernel's {GROUPS[-1]}")
+
+
 def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
                     stack: int, counts: bool = False):
     """Plain torch version of the kernel.  Returns (t, slot, u, v,
     dropped_pushes); t is ``t0`` where nothing improved it.  With
-    ``counts``, also a (2, R) int32 tensor of each ray's node visits and
-    leaf entries (each tests ``leaf_octets`` octets)."""
+    ``counts``, also a (3, R) int32 tensor of each ray's node visits, leaf
+    entries (each tests ``leaf_octets`` octets, fewer at the table's end)
+    and triangles whose ``t`` beat the best hit at their test (``|det| >=
+    EPS``, ``EPS < t < best_t``, the best taken in the kernel's order, slot
+    by slot: those whose edges the kernel loads)."""
     dev = t0.device
     R = t0.shape[0]
     bt = t0.clone()
@@ -96,7 +119,7 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     stk = torch.zeros((R, stack), dtype=torch.int32, device=dev)
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    work = torch.zeros((2, R), dtype=torch.int32, device=dev)
+    work = torch.zeros((3, R), dtype=torch.int32, device=dev)
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -153,6 +176,14 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
                         + lanes12[None, None, :]].unbind(2)  # 12 x (n, j)
                 valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
                                            c[9:12])
+                if counts:
+                    det = d_r[0] * c[9] + d_r[1] * c[10] + d_r[2] * c[11]
+                    beat = (det.abs() >= EPS) & (t > EPS)
+                    run = bt_r
+                    for j in range(8):  # the kernel's running best
+                        cand = inside & beat[:, j] & (t[:, j] < run)
+                        work[2, rays] += cand.to(torch.int32)
+                        run = torch.where(cand & valid[:, j], t[:, j], run)
                 tc = torch.where(valid, t, BIG)
                 j = torch.argmin(tc, dim=1, keepdim=True)  # lowest slot on ties
                 tm = tc.gather(1, j)[:, 0]
@@ -168,50 +199,59 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     return bt, slot, bu, bv, dropped
 
 
-def _traverse_cuda(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
-                   stack: int, overflow):
+def _traverse_cuda(nodes, octets, o3, d3, t0, leaf_octets: int,
+                   groups: int, overflow):
     dev = t0.device
     R = t0.shape[0]
     req = _kernels.require
     for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
                        (*o3, *d3, t0)):
         req(x, name, torch.float32, dev, R)
-    req(pw_tiles, "pw_tiles", torch.float32, dev)
-    req(tri_tiles, "pl_tri_tiles", torch.float32, dev)
+    req(nodes, "k3 nodes", torch.int32, dev)
+    req(octets, "k3 octets", torch.float32, dev)
     req(overflow, "overflow", torch.int32, dev, 1)
-    for name, x in (("pw_tiles", pw_tiles), ("pl_tri_tiles", tri_tiles)):
-        if x.dim() != 3 or tuple(x.shape[1:]) != (8, 128):
-            raise ValueError(f"{name} must be (n, 8, 128), got {x.shape}")
-    if stack not in STACKS:
-        raise ValueError(f"stack {stack} is not one of {STACKS}")
+    if nodes.dim() != 2 or nodes.shape[1] != K1_NODE_WORDS \
+            or nodes.shape[0] == 0:
+        raise ValueError(f"k3 nodes must be (W, {K1_NODE_WORDS}) with W > 0, "
+                         f"got {tuple(nodes.shape)}")
+    if octets.dim() != 2 or octets.shape[1] != K1_OCTET_FLOATS:
+        raise ValueError(f"k3 octets must be (Q, {K1_OCTET_FLOATS}), got "
+                         f"{tuple(octets.shape)}")
+    if nodes.data_ptr() % 16 or octets.data_ptr() % 16:
+        raise ValueError("k3 tables must be 16-byte aligned (16-byte loads)")
+    if groups not in GROUPS:
+        raise ValueError(f"group column {groups} is not one of {GROUPS}")
+    if leaf_octets < 1:
+        raise ValueError(f"leaf_octets {leaf_octets} must be at least 1")
     t = torch.empty(R, dtype=torch.float32, device=dev)
     slot = torch.empty(R, dtype=torch.int32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
     _kernels.launch(
         "oglrt_wide_traverse", "wide_traversal", dev,
-        *(x.data_ptr() for x in (*o3, *d3, t0, pw_tiles, tri_tiles)),
-        tri_tiles.shape[0] * 8, int(leaf_octets), int(stack),
+        *(x.data_ptr() for x in (*o3, *d3, t0, nodes, octets)),
+        octets.shape[0], int(leaf_octets), int(groups),
         *(x.data_ptr() for x in (t, slot, u, v, overflow)), R)
     return t, slot, u, v
 
 
-def traverse_wide(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
-                  stack: int):
-    """Nearest hit over the wide-BVH tiles -> (t, slot, u, v).
+def traverse_wide(scene, o3, d3, t0, leaf_octets: int):
+    """Nearest hit over ``scene``'s wide BVH -> (t, slot, u, v).
 
     ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
     ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray, which comes
-    out unchanged).  ``leaf_octets`` octets are tested per leaf entry, and
-    ``stack`` (one of STACKS) is the per-ray stack size.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version.  Dropped stack
-    pushes add to :func:`overflow_tensor`."""
+    out unchanged).  ``leaf_octets`` octets are tested per leaf entry.
+    CUDA tensors launch the kernel over the scene's Hopper tables
+    (``scene.k3``) with the group column its depth needs; CPU tensors run
+    the plain version over its tiles.  Dropped pushes add to
+    :func:`overflow_tensor`."""
     overflow = overflow_tensor(t0.device)
     if t0.is_cuda:
-        return _traverse_cuda(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets,
-                              stack, overflow)
-    t, slot, u, v, dropped = _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0,
-                                             leaf_octets, stack)
+        return _traverse_cuda(*scene.k3, o3, d3, t0, leaf_octets,
+                              group_column(scene.pw_max_stack), overflow)
+    t, slot, u, v, dropped = _traverse_plain(
+        scene.pw_tiles, scene.pl_tri_tiles, o3, d3, t0, leaf_octets,
+        stack_size(scene.pw_max_stack))
     overflow += dropped.to(torch.int32)
     return t, slot, u, v
 
@@ -231,9 +271,7 @@ def raycast_pallas(scene, o3, d3, active=None, max_leaf_tris: int = 16
     if active is not None:
         t0 = torch.where(active, t0, -BIG)
     leaf_octets = -(-max_leaf_tris // TRIS_PER_OCTET)
-    t, slot, u, v = traverse_wide(scene.pw_tiles, scene.pl_tri_tiles, o3, d3,
-                                  t0, leaf_octets,
-                                  stack_size(scene.pw_max_stack))
+    t, slot, u, v = traverse_wide(scene, o3, d3, t0, leaf_octets)
     did_hit = (t < BIG) & (t > -BIG)
     return Nearest(t=torch.where(did_hit, t, BIG),
                    tri=scene.pl_remap[slot.long()],

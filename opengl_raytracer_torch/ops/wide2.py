@@ -356,6 +356,36 @@ def pack_k1(node_rows: np.ndarray, tri_rows: np.ndarray
     octets (Qp, 96) f32); see the module docstring.  Raises ValueError on
     rows whose order lanes are not a per-octant permutation of one set of
     child entries."""
+    return pack_nodes(node_rows), pack_octets(tri_rows.reshape(-1, 8, 16))
+
+
+def unpack_k1(nodes: np.ndarray, octets: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """The (node_rows, tri_rows) that :func:`pack_k1` packed."""
+    return unpack_nodes(nodes), unpack_octets(octets).reshape(-1, 128)
+
+
+def pack_octets(tris: np.ndarray) -> np.ndarray:
+    """(Q, 8, 16) triangle lane groups [v0, e1, e2, face, 4 pad] -> the
+    (Q, 96) Hopper octets [v0, face, e1, e2] per triangle."""
+    Q = tris.shape[0]
+    return np.ascontiguousarray(
+        tris[:, :, _K1_TRI].reshape(Q, K1_OCTET_FLOATS), np.float32)
+
+
+def unpack_octets(octets: np.ndarray) -> np.ndarray:
+    """The (Q, 8, 16) lane groups that :func:`pack_octets` packed (pad
+    lanes 0)."""
+    Q = octets.shape[0]
+    tri = np.zeros((Q, 8, 16), np.float32)
+    tri[:, :, _K1_TRI] = octets.reshape(Q, 8, 12)
+    return tri
+
+
+def pack_nodes(node_rows: np.ndarray) -> np.ndarray:
+    """Rows of 8-wide nodes (child j's box at lanes ``[6j, 6j+6)``, octant
+    o's far-first packed entries at ``ORD0 + 8o``) -> the (W, 64) i32
+    Hopper nodes of the module docstring."""
     W = node_rows.shape[0]
     nodes = np.zeros((W, K1_NODE_WORDS), np.int32)
     boxes = np.ascontiguousarray(node_rows[:, :48], np.float32)
@@ -392,16 +422,12 @@ def pack_k1(node_rows: np.ndarray, tri_rows: np.ndarray
     nodes[:, _K1_ENT0:_K1_ORD0] = entry
     word = (near_first << (3 * np.arange(8))).sum(axis=2)
     nodes[:, _K1_ORD0:] = word.astype(np.int32)
-    Q = tri_rows.shape[0]
-    octets = np.ascontiguousarray(
-        tri_rows.reshape(Q, 8, 16)[:, :, _K1_TRI].reshape(Q, K1_OCTET_FLOATS),
-        np.float32)
-    return nodes, octets
+    return nodes
 
 
-def unpack_k1(nodes: np.ndarray, octets: np.ndarray
-              ) -> tuple[np.ndarray, np.ndarray]:
-    """The (node_rows, tri_rows) that :func:`pack_k1` packed."""
+def unpack_nodes(nodes: np.ndarray) -> np.ndarray:
+    """The (W, 128) node rows that :func:`pack_nodes` packed (lanes past
+    the order lanes 0)."""
     W = nodes.shape[0]
     rows = np.zeros((W, 128), np.float32)
     rows[:, :48] = np.ascontiguousarray(nodes[:, :48]).view(
@@ -414,10 +440,7 @@ def unpack_k1(nodes: np.ndarray, octets: np.ndarray
     packed = np.where(ent == EMPTY_PACKED, np.int64(EMPTY_PACKED) * 8,
                       ent * 8 + slot)
     rows[:, ORD0:ORD0 + 64] = packed.reshape(W, 64).astype(np.float32)
-    Q = octets.shape[0]
-    tri = np.zeros((Q, 8, 16), np.float32)
-    tri[:, :, _K1_TRI] = octets.reshape(Q, 8, 12)
-    return rows, tri.reshape(Q, 128)
+    return rows
 
 
 TABLE_BUDGET_BYTES = 7_864_320  # 7.5 MB

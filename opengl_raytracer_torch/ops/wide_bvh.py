@@ -16,6 +16,26 @@ kernel (csrc/wide_traversal.cu) reads it as it is, by index arithmetic:
 * ``entry (W, 8) i32`` — the child entries in slot order (validation and
   the stack bound): internal child -> its wide index (>= 0); leaf child ->
   ``-first_octet - 1`` (< 0); empty -> EMPTY_ENTRY.
+
+The K3 kernel (csrc/wide_traversal.cu) reads the same tree in a Hopper
+layout, packed from the tiles once at upload (:func:`pack_k3`, inverse
+:func:`unpack_k3`; ``SceneData.k3``) and read with 16-byte loads, the
+layout of K1's tables (ops/wide2.py):
+
+* ``nodes (W, 64) i32`` — wide node w, 256 bytes: the 8 child boxes as
+  structure of arrays (words ``[0, 48)``: ``lo.x[8] ... hi.z[8]``), the 8
+  child entries (words ``[48, 56)``: ``>= 0`` a wide node, ``-q-1`` the
+  leaf starting at octet q, EMPTY_PACKED an empty slot), and per octant
+  the near-first slot order, 3 bits a rank (word ``56 + o``, bits
+  ``[0, 24)``: the tile's far-first push lanes reversed; bits ``[24, 32)``
+  the mask of the non-empty slots, the same in every octant's word, so a
+  visit needs no entry to close an empty slot).  Only the W real nodes
+  are kept: the tiles' padding groups past them are rebuilt by
+  :func:`unpack_k3`.
+* ``octets (Q, 96) f32`` — octet q (slots ``8q .. 8q+7``), 384 bytes:
+  triangle j's [v0, face, e1, e2] at ``[12j, 12j+12)``, so the first two
+  16-byte loads of a triangle give its ``t``; 48 bytes a slot against the
+  tiles' 64.
 """
 
 from __future__ import annotations
@@ -25,6 +45,8 @@ from typing import NamedTuple
 import numpy as np
 
 from opengl_raytracer_torch.ops.bvh import BVH
+from opengl_raytracer_torch.ops.wide2 import (pack_nodes, pack_octets,
+                                              unpack_nodes, unpack_octets)
 
 WIDTH = 8
 EMPTY_ENTRY = np.int32(-(2**31))
@@ -188,6 +210,75 @@ def wide_max_stack(entry: np.ndarray) -> int:
                 depth[e] = depth[w] + 1
                 max_depth = max(max_depth, int(depth[e]))
     return stack_bound(max_depth)
+
+
+def wide_depth(max_stack: int) -> int:
+    """The wide tree's depth, from its stack bound (:func:`stack_bound`)."""
+    return (max_stack - 4) // (WIDTH - 1) - 2
+
+
+_FAR = np.float32(1e30)
+
+
+def _padding_group() -> np.ndarray:
+    """A tile's (8, 16) lane group past the last wide node."""
+    g = np.zeros((8, 16), np.float32)
+    g[:, 0:3], g[:, 3:6] = _FAR, -_FAR
+    return g
+
+
+def pack_k3(pw_tiles: np.ndarray, pl_tri_tiles: np.ndarray
+            ) -> tuple[np.ndarray, np.ndarray]:
+    """K3's Hopper layout of the wide tiles -> (nodes (W, 64) i32, octets
+    (Q, 96) f32); see the module docstring.  Raises ValueError on tiles the
+    layout cannot give back bit for bit: pad lanes that are not 0, padding
+    groups between nodes, order lanes that are not a per-octant permutation
+    of one set of child entries."""
+    groups = np.ascontiguousarray(
+        np.asarray(pw_tiles, np.float32).reshape(-1, 8, 8, 16)
+        .transpose(0, 2, 1, 3)).reshape(-1, 8, 16)  # [w, row, lane]
+    bits = groups.view(np.int32)
+    if bits[:, :, 14:].any():
+        raise ValueError("pw_tiles pad lanes 14-15 are not 0")
+    real = bits[:, :, ORD_LANE0:ORD_LANE0 + 8].any(axis=(1, 2))
+    W = int(real.sum())
+    if not real[:W].all() or not (
+            bits[W:] == _padding_group().view(np.int32)).all():
+        raise ValueError("pw_tiles holds padding groups between wide nodes")
+    rows = np.zeros((W, 128), np.float32)
+    rows[:, :48] = groups[:W, :, 0:6].reshape(W, 48)
+    # order lanes: octant o, rank i at ORD0 + 8o + i
+    rows[:, 48:112] = groups[:W, :, ORD_LANE0:ORD_LANE0 + 8].transpose(
+        0, 2, 1).reshape(W, 64)
+    tris = np.ascontiguousarray(
+        np.asarray(pl_tri_tiles, np.float32).reshape(-1, 8, 8, 16)
+        .transpose(0, 2, 1, 3)).reshape(-1, 8, 16)  # [octet, triangle, lane]
+    if tris.view(np.int32)[:, :, 12:].any():
+        raise ValueError("pl_tri_tiles pad lanes 12-15 are not 0")
+    nodes = pack_nodes(rows)
+    full = nodes[:, 48:56] != EMPTY_PACKED
+    mask = (full.astype(np.int64) << np.arange(8)).sum(axis=1)
+    words = nodes[:, 56:64].astype(np.int64) | (mask[:, None] << 24)
+    nodes[:, 56:64] = words.astype(np.uint32).view(np.int32)
+    return nodes, pack_octets(tris)
+
+
+def unpack_k3(nodes: np.ndarray, octets: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """The (pw_tiles, pl_tri_tiles) that :func:`pack_k3` packed."""
+    W = nodes.shape[0]
+    Wp = -(-W // 8) * 8
+    rows = unpack_nodes(nodes)
+    groups = np.repeat(_padding_group()[None], Wp, axis=0)
+    groups[:W, :, 0:6] = rows[:, :48].reshape(W, 8, 6)
+    groups[:W, :, ORD_LANE0:ORD_LANE0 + 8] = rows[:, 48:112].reshape(
+        W, 8, 8).transpose(0, 2, 1)
+    pw_tiles = (groups.reshape(-1, 8, 8, 16).transpose(0, 2, 1, 3)
+                .reshape(-1, 8, 128))
+    tris = unpack_octets(octets)
+    pl_tri_tiles = (tris.reshape(-1, 8, 8, 16).transpose(0, 2, 1, 3)
+                    .reshape(-1, 8, 128))
+    return pw_tiles, pl_tri_tiles
 
 
 def validate_wide(wide: WideBVH, bvh: BVH) -> None:

@@ -9,10 +9,9 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1 is held to that (t, slot, u and v equal), K3's
-checks allow ``t`` ``rtol=atol=1e-6`` and the shade floats ``rtol=1e-5,
-atol=1e-6`` as the CPU tests against the JAX package do, with seeds, alive
-flags and hit slots exact.
+agree bit for bit; K1, K3 and the probes are held to that (t, slot, u and
+v equal), the shade floats to ``rtol=1e-5, atol=1e-6`` as the CPU tests
+against the JAX package do, with seeds and alive flags exact.
 """
 
 import numpy as np
@@ -130,12 +129,9 @@ def test_k1_profile_matches_kernel(cuda):
     assert all(stages[s] > 0 for s in k1_probe.STAGES)
 
 
-def test_wide_kernel_matches_plain(cuda):
-    """K3 against its plain version, with three rays lying in face planes
-    of the scene's bounding box: their slab tests meet 0 * inf = NaN, which
-    both versions propagate, so both miss."""
-    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
-    o3, d3, t0 = _rays(3000, cuda)
+def _face_plane_rays(data, o3, d3, t0):
+    """Rays 3-5 lie in face planes of the scene's bounding box: their slab
+    tests meet 0 * inf = NaN, which both versions keep closed."""
     lo = data.root_min
     for r, a in ((3, 0), (4, 1), (5, 2)):
         b = (a + 1) % 3
@@ -146,24 +142,144 @@ def test_wide_kernel_matches_plain(cuda):
         o3[b][r] = float(lo[b]) - 1.0
         d3[b][r] = 1.0
         t0[r] = BIG
-    args = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
-            -(-effective_max_leaf(data) // 8), wide.stack_size(data.pw_max_stack))
+
+
+def _k3_plain(data, o3, d3, t0, counts=False):
+    leaf_octets = -(-effective_max_leaf(data) // 8)
+    return wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
+                                leaf_octets,
+                                wide.stack_size(data.pw_max_stack),
+                                counts=counts)
+
+
+def test_wide_kernel_matches_plain(cuda):
+    """K3 over the Hopper tables against its plain version over the tiles,
+    bit for bit, with three rays lying in face planes of the scene's
+    bounding box: their slab tests meet 0 * inf = NaN, which both versions
+    propagate, so both miss."""
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    o3, d3, t0 = _rays(3000, cuda)
+    _face_plane_rays(data, o3, d3, t0)
+    leaf_octets = -(-effective_max_leaf(data) // 8)
     ov = wide.overflow_tensor(cuda)
     ov.zero_()
     before = _kernels.launch_counts["wide_traversal"]
-    tk, sk, uk, vk = wide.traverse_wide(*args)
+    tk, sk, uk, vk = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
     assert _kernels.launch_counts["wide_traversal"] == before + 1
-    tp, sp, up, vp, dropped = wide._traverse_plain(*args)
+    tp, sp, up, vp, dropped = _k3_plain(data, o3, d3, t0)
     torch.cuda.synchronize()
     assert int(ov.item()) == 0 and int(dropped) == 0
     hit = (tp < BIG) & (tp > -BIG)
     assert int(hit.sum()) > 1000
     assert (tk[3:6] == BIG).all() and (tp[3:6] == BIG).all()
-    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=1e-6)
-    assert torch.equal(sk[hit], sp[hit])
-    torch.testing.assert_close(uk[hit], up[hit], rtol=0, atol=1e-6)
-    torch.testing.assert_close(vk[hit], vp[hit], rtol=0, atol=1e-6)
+    for a, b in ((tk, tp), (sk, sp), (uk, up), (vk, vp)):
+        assert torch.equal(a, b)
     assert (tk[t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
+
+
+@pytest.mark.parametrize("leaf", [8, 32])
+def test_wide_kernel_both_columns_match_plain(cuda, leaf):
+    """Both compiled group columns (16 and 71) give the plain version's
+    hits, with a later part's entry t, at one and four octets a leaf."""
+    data = Scene(_objects(1500), max_leaf_tris=leaf).send(cuda)
+    o3, d3, t0 = _rays(4096, cuda, seed=7)
+    t0 = torch.where(torch.arange(4096, device=cuda) % 3 == 0,
+                     torch.full_like(t0, 3.0), t0)
+    leaf_octets = -(-effective_max_leaf(data) // 8)
+    ref = _k3_plain(data, o3, d3, t0)[:4]
+    ov = wide.overflow_tensor(cuda)
+    for groups in wide.GROUPS:
+        ov.zero_()
+        got = wide._traverse_cuda(*data.k3, o3, d3, t0, leaf_octets, groups,
+                                  ov)
+        assert int(ov.item()) == 0
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_k3_profile_matches_kernel(cuda):
+    """The K3 profile build (probes/k3.py) finds the kernel's hits, counts
+    the plain version's visits, leaves and candidates, counts each leaf
+    entry by its first octet, and counts its launches apart."""
+    from opengl_raytracer_torch.probes import k3 as k3_probe
+
+    data = Scene(_objects(), max_leaf_tris=32).send(cuda)
+    o3, d3, t0 = _rays(3000, cuda, seed=6)
+    leaf_octets = -(-effective_max_leaf(data) // 8)
+    kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+    before = dict(_kernels.launch_counts)
+    hits, stages, hist = k3_probe.profile(data, o3, d3, t0, leaf_octets)
+    assert _kernels.launch_counts["k3_profile"] == before["k3_profile"] + 1
+    assert (_kernels.launch_counts["wide_traversal"]
+            == before["wide_traversal"])
+    for a, b in zip(hits, kernel):
+        assert torch.equal(a, b)
+    counts = _k3_plain(data, o3, d3, t0, counts=True)[5].long()
+    assert stages["visits"] == int(counts[0].sum())
+    assert stages["leaves"] == int(counts[1].sum())
+    assert stages["candidates"] == int(counts[2].sum())
+    share = k3_probe.own_share(data, leaf_octets, hist)
+    assert share["entries"] == stages["leaves"]
+    assert share["octets"] == stages["octets"]
+    assert 0.0 < share["own_share"] <= 1.0
+    assert all(stages[s] > 0 for s in k3_probe.STAGES)
+
+
+def test_k3_octet_fetch_matches_tiles(cuda):
+    """Octets read on the card by K3's own triangle loads equal the
+    triangle tiles' slices bit for bit (the TPU probe's octets 0, 1, 7, 8,
+    9, 100, 101, 555 and the last)."""
+    from opengl_raytracer_torch.probes import k3 as k3_probe
+
+    data = Scene(_objects(1200), max_leaf_tris=32).send(cuda)
+    Q = data.k3[1].shape[0]
+    idx = [q for q in (0, 1, 7, 8, 9, 100, 101, 555) if q < Q] + [Q - 1]
+    assert len(idx) >= 8
+    before = _kernels.launch_counts["k3_fetch"]
+    got = k3_probe.octet_fetch(data, idx)
+    assert _kernels.launch_counts["k3_fetch"] == before + 1
+    want = k3_probe.tile_octets(data.pl_tri_tiles, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_k2_probe_kernels_match_plain(cuda):
+    """Both row-fetch sums of probes/k2.py equal their plain version bit
+    for bit, on a table whose row count is not a multiple of anything."""
+    from opengl_raytracer_torch.probes import k2 as k2_probe
+
+    table, table_t, slots = k2_probe.probe_inputs(3, R=100_003, S=3_031,
+                                                  device=cuda)
+    before = _kernels.launch_counts["k2_probe"]
+    rows = k2_probe.rows_sum(table, slots)
+    cols = k2_probe.cols_sum(table_t, slots)
+    assert _kernels.launch_counts["k2_probe"] == before + 2
+    plain = k2_probe.sum_plain(table[slots.long()].unbind(1))
+    assert torch.equal(rows, plain) and torch.equal(cols, plain)
+    cpu = k2_probe.rows_sum(table.cpu(), slots.cpu())
+    assert torch.equal(cpu, plain.cpu())
+
+
+def test_k3_wrapper_rejects_bad_tables(cuda):
+    """K3's Hopper tables of the wrong shape, type or device, or not on a
+    16-byte boundary, are refused before any launch."""
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    nodes, octets = data.k3
+    o3, d3, t0 = _rays(256, cuda)
+    before = _kernels.launch_counts["wide_traversal"]
+    bad = [((nodes.cpu(), octets), "is on"),
+           ((nodes, octets.cpu()), "is on"),
+           ((nodes.float(), octets), "dtype"),
+           ((nodes, octets.double()), "dtype"),
+           ((data.pw_tiles.view(torch.int32), octets), "must be"),
+           ((nodes, data.pl_tri_tiles), "must be"),
+           ((nodes[:0], octets), "must be"),
+           ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
+    for k3, match in bad:
+        with pytest.raises(ValueError, match=match):
+            wide.traverse_wide(data._replace(k3=k3), o3, d3, t0, 2)
+    with pytest.raises(ValueError, match="leaf_octets"):
+        wide.traverse_wide(data, o3, d3, t0, 0)
+    assert _kernels.launch_counts["wide_traversal"] == before
 
 
 def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
@@ -234,8 +350,9 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     strided = torch.zeros(512, device=cuda)[::2]
     with pytest.raises(ValueError, match="contiguous"):
         sbt.traverse_part(data, 0, (strided, *o3[1:]), d3, t0)
-    with pytest.raises(ValueError, match="stack"):
-        wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, 2, 100)
+    with pytest.raises(ValueError, match="group column"):
+        wide._traverse_cuda(*data.k3, o3, d3, t0, 2, 100,
+                            wide.overflow_tensor(cuda))
 
 
 def test_k1_wrapper_rejects_bad_tables(cuda):

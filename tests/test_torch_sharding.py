@@ -311,9 +311,9 @@ def _launch(kernel, device, odd_one=None):
         return sbt._traverse_cuda(t("node_rows", (2, 64), torch.int32),
                                   t("tri_rows", (2, 96)), o3, d3, t0,
                                   overflow)
-    return wide._traverse_cuda(t("pw_tiles", (1, 8, 128)),
-                               t("pl_tri_tiles", (1, 8, 128)), o3, d3, t0, 1,
-                               64, overflow)
+    return wide._traverse_cuda(t("pw_tiles", (2, 64), torch.int32),
+                               t("pl_tri_tiles", (2, 96)), o3, d3, t0, 1,
+                               16, overflow)
 
 
 KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
