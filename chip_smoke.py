@@ -25,6 +25,21 @@ Phases; each raises on failure, and the script then exits non-zero:
    equal the kernel's and its visit, octet and barycentric-test counts
    the plain version's; it prints cycles per stage, per visit and per
    fetch, and the ms of a profile launch on the random rays.
+3c. glue: the main path's glue kernels against their plain torch versions
+   at 2,073,600 rays, each bit for bit (max |d| 0): G1, the ray front
+   (``csrc/ray_front.cu``), on a quarter of the 1080p frame's rows with
+   frames_per_step = 4 from frame 2^32 - 2 (the frame numbers wrap), and
+   on the whole frame at frame 2^32 - 1; G2, the int32 sort keys
+   (``csrc/sort_keys.cu``), on phase 3's ray sets and on its random rays
+   with out-of-box origins, NaN and +-inf in their columns (and the
+   stable argsort of the int32 keys equals that of the uint32 keys, each
+   timed); G3, reorder and restore (``csrc/permute.cu``), on a random
+   permutation and on the one that sorts the frame's primary rays by key
+   (restore after reorder is the identity); G4, K1's part epilogue
+   (``csrc/subblock_epilogue.cu``), on K1's output for each of phase 3's
+   sets, as the only part and as a later part against the previous set's
+   hits.  Each prints ms per launch, the plain version's, its bytes bound
+   and the share.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
    the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
@@ -63,7 +78,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    stand-in of the reference's default scene (its seven boxes, a bumpy
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
    "auto" resolves to "pallas2" (K1 + K2); 1 warm-up and 8 timed frames,
-   every kernel's launch count, image checks; then a 96x54 frame rendered
+   every kernel's launch count (per frame: K1 parts x 5, K2 5, G1 1 per
+   chunk, G2 and the reorder 4, the restore 1, G4 parts x 5; every other
+   render phase checks the glue counts of its own path the same way),
+   image checks; then a 96x54 frame rendered
    on the card and on the CPU (the plain versions), which must agree.
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
@@ -100,20 +118,23 @@ Phases; each raises on failure, and the script then exits non-zero:
    the CPU.
 11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
    "auto" frames of phase 5's scene and of phase 4c's: device ms and
-   launches per frame by kernel group (K1, K3, K2, sorts, gathers and
-   scatters, other torch kernels, copies), and the device's busy share and
+   launches per frame by kernel group (K1, K3, K2, G1-G4 each, sorts,
+   gathers and scatters, other torch kernels, copies), and the device's
+   busy share and
    idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
    launches for the rest of the process.
 
 Each phase prints its seconds; every render path must launch no probe
 kernel.  The line before the last is a JSON object with each kernel's
-launches in the 1080p path that runs it (phase 5 for K1 and K2, phase 6
-for K3, and K3's in phase 4c), its largest disagreement with its plain
-version, both times at 2,073,600 rays, and its bound: the larger of the
-bytes it must move over 3.35 TB/s and the fp32 operations this run's rays
-cost it over 67 TFLOP/s (an H100 SXM's peaks); the last line is ``{"ok":
-true, "device": {...}}``.  No single PyTorch call computes any of the three
-kernels (``library_ms`` null).  The script imports nothing of JAX.
+launches in the 1080p path that runs it (phase 5 for K1, K2 and G1-G4,
+phase 6 for K3, and K3's in phase 4c), its largest disagreement with its
+plain version, both times at 2,073,600 rays, and its bound: the larger of
+the bytes it must move over 3.35 TB/s and the fp32 operations this run's
+rays cost it over 67 TFLOP/s (an H100 SXM's peaks); G3's two entry points
+(reorder, restore) are two rows of one source.  The last line is ``{"ok":
+true, "device": {...}}``.  No single PyTorch call computes any of the
+kernels (``library_ms`` null): each writes several outputs of mixed
+types.  The script imports nothing of JAX.
 ``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
 ``DIR/smoke_1080p.npy``.
 """
@@ -160,7 +181,25 @@ KERNELS = {
     "wide_traversal": dict(
         source="opengl_raytracer_torch/csrc/wide_traversal.cu",
         replaces="opengl_raytracer_tpu/ops/pallas_traversal.py:69"),
+    # the main path's glue (G1-G4): JAX code that XLA fuses under jax.jit,
+    # not Pallas kernels; "replaces" names the JAX lines
+    "ray_front": dict(
+        source="opengl_raytracer_torch/csrc/ray_front.cu",
+        replaces="opengl_raytracer_tpu/renderer.py:162"),
+    "sort_keys": dict(
+        source="opengl_raytracer_torch/csrc/sort_keys.cu",
+        replaces="opengl_raytracer_tpu/ops/morton.py:47"),
+    "reorder": dict(
+        source="opengl_raytracer_torch/csrc/permute.cu",
+        replaces="opengl_raytracer_tpu/ops/integrator.py:209"),
+    "restore": dict(
+        source="opengl_raytracer_torch/csrc/permute.cu",
+        replaces="opengl_raytracer_tpu/ops/integrator.py:336"),
+    "subblock_epilogue": dict(
+        source="opengl_raytracer_torch/csrc/subblock_epilogue.cu",
+        replaces="opengl_raytracer_tpu/ops/subblock_traversal.py:842"),
 }
+GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue")
 
 
 def say(phase: str, **kv) -> None:
@@ -288,6 +327,21 @@ def check_count(counts: dict, name: str, expected: int) -> None:
     if counts[name] != expected:
         raise RuntimeError(f"{name} launched {counts[name]} times in the "
                            f"main path, expected {expected}")
+
+
+def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
+               parts: int = 0) -> None:
+    """The glue kernels' launches in ``renders`` chunk renders of
+    ``traversal``: one ray front each; with the reorder (the kernels'
+    traversals) n_bounces - 1 key and reorder launches and one restore;
+    after K1, one epilogue per part and bounce segment."""
+    reorder = traversal in ("packet", "pallas", "pallas2")
+    check_count(counts, "ray_front", renders)
+    for name in ("sort_keys", "reorder"):
+        check_count(counts, name, (n_bounces - 1) * renders if reorder else 0)
+    check_count(counts, "restore", renders if reorder else 0)
+    check_count(counts, "subblock_epilogue",
+                parts * n_bounces * renders if traversal == "pallas2" else 0)
 
 
 def check_probes(counts: dict) -> None:
@@ -726,6 +780,223 @@ def _say_stages(name, rep):
         key="share/cycles-per-event[/per-16B-load-or-triangle]")
 
 
+# The glue kernels' work per ray (csrc/ray_front.cu, sort_keys.cu,
+# permute.cu, subblock_epilogue.cu): bytes each input read once and each
+# output written once; integer and fp32 operations, each counted as 1
+# against the fp32 rate.  G1: px, py, a frame number (int64) in, six float
+# columns and a seed out; seed, warm-ups, two draws, uv, direction, jitter,
+# two normalizes.  G2: six float columns and a flag in, an int32 key out;
+# three quantized coordinates, five direction levels, the Morton spread.
+# G3: the reorder reads an index, a key, 12 columns, a seed and an index
+# and writes 12 columns, a seed, an index and a flag; the restore moves 3
+# columns, a seed and an index in and 3 columns and a seed out.  G4 (per
+# part): K1's t, slot, u, v, a remap entry (the table counted once), the
+# active flag, the earlier parts' five columns from the second part on; out
+# five columns and, before the last part, the next entry t.
+G1_BYTES_PER_RAY = 56  # 48 with an int frame number
+G1_OPS_PER_RAY = 85
+G2_BYTES_PER_RAY = 29
+G2_OPS_PER_RAY = 90
+G3_REORDER_BYTES_PER_RAY = 8 + 4 + 48 + 8 + 8 + 48 + 8 + 8 + 1
+G3_RESTORE_BYTES_PER_RAY = 8 + 12 + 8 + 12 + 8
+G4_OPS_PER_RAY = 12
+
+
+def g4_bytes(R: int, remap, first: bool, masked: bool, last: bool) -> int:
+    per_ray = 16 + 20 + (0 if first else 20) + (1 if masked else 0) \
+        + (4 if masked and not last else 0)
+    return R * per_ray + remap.numel() * remap.element_size()
+
+
+def _glue_row(name, err, ms, plain_ms, n_bytes, n_ops, **extra):
+    bound, by = bound_ms(n_bytes, n_ops)
+    say("glue", kernel=name, rays=N_RAYS, ms=ms, plain_ms=plain_ms,
+        mbytes=round(n_bytes / 1e6, 3), bound_ms=bound, bound_by=by,
+        share_of_bound=bound / ms, max_abs_err=err, tolerance="exact",
+        **extra)
+    return err, ms, plain_ms, (bound, by)
+
+
+def _assert_equal(name, got, ref) -> float:
+    """Every tensor of ``got`` equals ``ref``'s (nested tuples), dtype and
+    bits; returns the largest |difference| over them (0.0)."""
+    def flat(x):
+        if isinstance(x, (tuple, list)):
+            return [y for z in x for y in flat(z)]
+        return [] if x is None else [x]
+
+    g, r = flat(got), flat(ref)
+    if len(g) != len(r):
+        raise RuntimeError(f"{name}: {len(g)} outputs, plain {len(r)}")
+    for k, (a, b) in enumerate(zip(g, r)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max() \
+                if a.shape == b.shape else "shape"
+            raise RuntimeError(f"{name}: output {k} differs from the plain "
+                               f"version ({a.dtype} vs {b.dtype}, max |d| "
+                               f"{diff})")
+    return max((float((a.double() - b.double()).abs().max())
+                for a, b in zip(g, r) if a.numel()), default=0.0)
+
+
+def glue_phase(data, camera, sets, seed: int):
+    """G1-G4 against their plain versions on the card at 2,073,600 rays,
+    bit for bit; their ms per launch, the plain versions' and the bound.
+    Returns {counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))}."""
+    from opengl_raytracer_torch.ops import front, morton, permute
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.renderer import band_pixels
+
+    out = {}
+    dev = data.device
+    before = dict(_kernels_counts())
+
+    # G1: a quarter of the 1080p frame's rows with frames_per_step = 4 at
+    # frame numbers that wrap past 2^32; then the whole frame at an int one
+    px, py = band_pixels(0, HEIGHT // 4, WIDTH, HEIGHT // 4, dev)
+    n_band = px.shape[0]
+    px, py = px.repeat(4), py.repeat(4)
+    frames = 2**32 - 2 + torch.arange(4, device=dev).repeat_interleave(n_band)
+    full = band_pixels(0, 0, WIDTH, HEIGHT, dev)
+    g1 = [(px, py, frames), (*full, 2**32 - 1)]
+    err = 0.0
+    for args in g1:
+        args = (*args, camera, WIDTH, HEIGHT, None, 0.05)
+        err = max(err, _assert_equal("G1", front.ray_front(*args),
+                                     front.ray_front_plain(*args)))
+    args = (*g1[0], camera, WIDTH, HEIGHT, None, 0.05)
+    ms, plain_ms = time_pair(lambda: front.ray_front(*args),
+                             lambda: front.ray_front_plain(*args), 20, 3)
+    out["ray_front"] = _glue_row("ray_front", err, ms, plain_ms,
+                                 N_RAYS * G1_BYTES_PER_RAY,
+                                 N_RAYS * G1_OPS_PER_RAY, frames_per_step=4,
+                                 first_frame=2**32 - 2)
+
+    # G2: phase 3's ray sets; the random one also with out-of-box
+    # origins, NaN and +-inf in its columns
+    lo, hi = data.root_min, data.root_max
+    g = np.random.default_rng(seed + 7)
+    _, o3, d3, t0 = sets[0]
+    odd_o = [x.clone() for x in o3]
+    odd_d = [x.clone() for x in d3]
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
+                            -1e30, 0.0], device=dev)
+    # 3,000 odd values in each column of o and of d
+    n_odd, n_far = min(500, N_RAYS // 24), min(20000, N_RAYS // 4)
+    for a in range(3):
+        idx = torch.from_numpy(g.choice(N_RAYS, 12 * n_odd, replace=False)
+                               ).to(dev)
+        odd_o[a][idx[:6 * n_odd]] = special.repeat(n_odd)
+        odd_d[a][idx[6 * n_odd:]] = special.repeat(n_odd)
+        far = torch.from_numpy(g.choice(N_RAYS, n_far, replace=False)).to(dev)
+        odd_o[a][far] = torch.from_numpy(g.uniform(-1e4, 1e4, n_far)
+                                         .astype(np.float32)).to(dev)
+    key_sets = [(tuple(odd_o), tuple(odd_d), t0 > -BIG)]
+    key_sets += [(s[1], s[2], s[3] > -BIG) for s in sets]
+    err = max(_assert_equal("G2", morton.sort_keys(o, d, lo, hi, alive),
+                            morton.sort_keys_i32_plain(o, d, lo, hi, alive))
+              for o, d, alive in key_sets)
+    o, d, alive = key_sets[1]
+    ms, plain_ms = time_pair(
+        lambda: morton.sort_keys(o, d, lo, hi, alive),
+        lambda: morton.sort_keys_i32_plain(o, d, lo, hi, alive), 20, 3)
+    keys32 = morton.sort_keys(o, d, lo, hi, alive)
+    keys64 = morton.ray_sort_keys_soa(o, d, lo, hi, alive)
+    if not torch.equal(torch.argsort(keys32, stable=True),
+                       torch.argsort(keys64, stable=True)):
+        raise RuntimeError("G2: the int32 keys sort unlike the uint32 keys")
+    sort32, sort64 = time_pair(lambda: torch.argsort(keys32, stable=True),
+                               lambda: torch.argsort(keys64, stable=True),
+                               10, 10)
+    out["sort_keys"] = _glue_row("sort_keys", err, ms, plain_ms,
+                                 N_RAYS * G2_BYTES_PER_RAY,
+                                 N_RAYS * G2_OPS_PER_RAY,
+                                 argsort_int32_ms=sort32,
+                                 argsort_int64_ms=sort64)
+
+    # G3: a random permutation of 12 random columns; then the permutation
+    # that sorts the 1080p frame's primary rays (in pixel order) by key
+    cols = [torch.from_numpy(g.normal(size=N_RAYS).astype(np.float32))
+            .to(dev) for _ in range(12)]
+    groups = tuple(tuple(cols[3 * k:3 * k + 3]) for k in range(4))
+    seeds = torch.from_numpy(g.integers(0, 2**32, N_RAYS)).to(dev)
+    orig = torch.arange(N_RAYS, device=dev)
+    perm = torch.from_numpy(g.permutation(N_RAYS)).to(dev)
+    o, d, alive = key_sets[2]
+    sorted_perm = torch.argsort(morton.sort_keys(o, d, lo, hi, alive),
+                                stable=True)
+    errs = [0.0, 0.0]
+    for p in (perm, sorted_perm):
+        fwd = permute.reorder(keys32, p, *groups, seeds, orig)
+        errs[0] = max(errs[0], _assert_equal(
+            "G3 reorder", fwd,
+            permute.reorder_plain(keys32, p, *groups, seeds, orig)))
+        back = permute.restore(fwd[3], fwd[5], fwd[6])
+        errs[1] = max(errs[1], _assert_equal(
+            "G3 restore", back,
+            permute.restore_plain(fwd[3], fwd[5], fwd[6])))
+        _assert_equal("G3 identity", back, (groups[3], seeds))
+    rows = {}
+    for tag, p in (("random", perm), ("sorted", sorted_perm)):
+        fwd = permute.reorder(keys32, p, *groups, seeds, orig)
+        rows[tag] = (
+            time_pair(lambda: permute.reorder(keys32, p, *groups, seeds,
+                                              orig),
+                      lambda: permute.reorder_plain(keys32, p, *groups,
+                                                    seeds, orig), 20, 3),
+            time_pair(lambda: permute.restore(fwd[3], fwd[5], fwd[6]),
+                      lambda: permute.restore_plain(fwd[3], fwd[5], fwd[6]),
+                      20, 3))
+    for k, (name, per_ray) in enumerate((("reorder", G3_REORDER_BYTES_PER_RAY),
+                                         ("restore",
+                                          G3_RESTORE_BYTES_PER_RAY))):
+        (ms, plain_ms), (ms_s, plain_s) = rows["random"][k], rows["sorted"][k]
+        out[name] = _glue_row(name, errs[k], ms, plain_ms, N_RAYS * per_ray,
+                              0,
+                              permutation="random", ms_sorted_perm=ms_s,
+                              plain_ms_sorted_perm=plain_s)
+
+    # G4: K1's own output on phase 3's sets, as the first and only part
+    # (the main path's) and as a later, not last part against the previous
+    # set's result
+    remap = data.parts[0][2]
+    near, err = None, 0.0
+    for name, o3, d3, t0 in sets:
+        k1 = sbt.traverse_part(data, 0, o3, d3, t0)
+        active = t0 > -BIG
+        for prev, last in ((None, True), (near, False)):
+            if prev is None and not last:
+                continue
+            a = (*k1, remap, 0 if prev is None else remap.shape[0], prev,
+                 active, last)
+            err = max(err, _assert_equal(f"G4 {name}", sbt.part_epilogue(*a),
+                                         sbt._epilogue_plain(*a)))
+        near = sbt.part_epilogue(*k1, remap, 0, None, active, True)[0]
+    k1 = sbt.traverse_part(data, 0, *sets[0][1:])
+    active = sets[0][3] > -BIG
+    a = (*k1, remap, 0, None, active, True)
+    ms, plain_ms = time_pair(lambda: sbt.part_epilogue(*a),
+                             lambda: sbt._epilogue_plain(*a), 20, 3)
+    out["subblock_epilogue"] = _glue_row(
+        "subblock_epilogue", err, ms, plain_ms,
+        g4_bytes(N_RAYS, remap, True, True, True), N_RAYS * G4_OPS_PER_RAY,
+        part="first and last")
+    launched = {k: v - before[k] for k, v in _kernels_counts().items()}
+    if any(launched[k] == 0 for k in out):
+        raise RuntimeError(f"glue kernels launched {launched}")
+    check_probes(launched)
+    say("glue", sets=len(sets), key_sets=len(key_sets),
+        card=repr(card_line()))
+    return out
+
+
+def _kernels_counts() -> dict:
+    from opengl_raytracer_torch.ops import _kernels
+
+    return dict(_kernels.launch_counts)
+
+
 def k3_bound(w: dict, data) -> tuple:
     """K3's operations for the ray set whose counts ``w`` holds
     (``probes/k3.work``): as the kernel does them and at a full triangle
@@ -962,10 +1233,12 @@ def main_path_phase(scene, camera, out_dir):
                 parts * r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "wide_traversal", 0)
+    check_glue(counts, r.traversal, r.config.n_bounces, frames, parts)
     say("main", width=WIDTH, height=HEIGHT, bounces=BOUNCES, parts=parts,
         traversal=r.traversal, ms_per_frame=ms, fps=1000.0 / ms,
         frames=frames, k1_launches=counts["subblock_traversal"],
         k2_launches=counts["shade"],
+        glue_launches={k: counts[k] for k in GLUE},
         probe_launches=sum(counts[k] for k in _kernels.PROBE_COUNTERS),
         finite=True, mean=float(img.mean()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -980,7 +1253,12 @@ def main_path_phase(scene, camera, out_dir):
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
-    for group, keys in (("K3", ("wide_traverse",)), ("K1", ("traverse",)),
+    for group, keys in (("G1 ray front", ("ray_front_kernel",)),
+                        ("G2 sort keys", ("coherence_key_kernel",)),
+                        ("G3 reorder", ("reorder_kernel",)),
+                        ("G3 restore", ("restore_kernel",)),
+                        ("G4 K1 epilogue", ("part_epilogue_kernel",)),
+                        ("K3", ("wide_traverse",)), ("K1", ("traverse",)),
                         ("K2", ("shade_kernel",)), ("sort", ("radix", "sort")),
                         ("copy", ("memcpy", "memset")),
                         ("gather/scatter", ("gather", "scatter", "index"))):
@@ -1056,6 +1334,7 @@ def wide_path_phase(scene, camera, main_img):
     check_count(counts, "wide_traversal", r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "subblock_traversal", 0)
+    check_glue(counts, r.traversal, r.config.n_bounces, frames)
     # the same seeds as phase 5's frames: only exact-t ties may differ
     err = rmse(img, main_img)
     if err > 1e-3:
@@ -1085,6 +1364,7 @@ def big_phase(scene, data, camera):
     check_count(counts, "wide_traversal", r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "subblock_traversal", 0)
+    check_glue(counts, r.traversal, r.config.n_bounces, frames)
     say("big", triangles=scene.total_triangles, width=WIDTH, height=HEIGHT,
         bounces=BOUNCES, traversal=r.traversal, ms_per_frame=ms,
         fps=1000.0 / ms, frames=frames, k3_launches=counts["wide_traversal"],
@@ -1175,6 +1455,7 @@ def multipart_phase(camera):
     check_count(counts, "subblock_traversal",
                 parts * cfg.n_bounces * MULTIPART_FRAMES)
     check_count(counts, "shade", cfg.n_bounces * MULTIPART_FRAMES)
+    check_glue(counts, r.traversal, cfg.n_bounces, MULTIPART_FRAMES, parts)
     img = r.image(state)
     if not np.isfinite(img).all():
         raise RuntimeError("multi-part image holds non-finite values")
@@ -1300,6 +1581,7 @@ def cli_phase():
                 check_count(counts, "subblock_traversal", parts * n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
+                check_glue(counts, "pallas2", n, 4, parts)
                 frame_ms = [int(m) for m in re.findall(
                     r"Frame \d+\s+(\d+) ms", "".join(tee.parts))]
                 print()
@@ -1398,6 +1680,7 @@ def _sharded_api(scene, camera, card: str) -> None:
                     parts * cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
         check_count(counts, "wide_traversal", 0)
+        check_glue(counts, sr.traversal, cfg.n_bounces, dp * sp, parts)
         img = sr.image(state)
         err = rmse(img, seq_at[sp])
         if not np.isfinite(img).all() or err > 1e-6:
@@ -1478,6 +1761,7 @@ def _sharded_cli(straight8) -> None:
                 check_count(counts, "subblock_traversal", parts * n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
+                check_glue(counts, r.traversal, n, 4, parts)
                 state = load_checkpoint(ck, "cpu")[0]
                 if state.frame_count != 4 * call:
                     raise RuntimeError(f"sharded CLI call {call} ended at "
@@ -1561,6 +1845,7 @@ def main(argv=None) -> int:
     *k1, frame_ms, sets = timed("k1", k1_phase, data, camera, segments,
                                 args.seed, data.device)
     timed("k1prof", k1prof_phase, data, sets)
+    glue = timed("glue", glue_phase, data, camera, sets, args.seed)
     del sets, segments
     big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
     if (big_scene.total_triangles != BIG_TRIANGLES
@@ -1596,7 +1881,8 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{mod} was imported")
     kernels = []
     for kname, (err, ms, plain_ms, (bound, by)) in (
-            ("subblock_traversal", k1), ("shade", k2), ("wide_traversal", k3)):
+            ("subblock_traversal", k1), ("shade", k2), ("wide_traversal", k3),
+            *((g, glue[g]) for g in GLUE)):
         kernels.append(dict(name=kname, route="cuda", **KERNELS[kname],
                             launches=counts[kname], max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,

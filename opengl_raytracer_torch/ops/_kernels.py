@@ -32,10 +32,15 @@ LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# the probes' kernels (opengl_raytracer_torch/probes/), which no path of the
-# renderer launches: "k1_profile" and "k3_profile" count the profile builds
-# of K1 and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
+# K1, K2 and K3; the glue kernels of the main path: "ray_front" (G1),
+# "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4);
+# and the probes' kernels (opengl_raytracer_torch/probes/), which no path of
+# the renderer launches: "k1_profile" and "k3_profile" count the profile
+# builds of K1 and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's
+# row-fetch sums
 launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
+                 "ray_front": 0, "sort_keys": 0, "reorder": 0, "restore": 0,
+                 "subblock_epilogue": 0,
                  "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
                  "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
@@ -146,6 +151,25 @@ def lib() -> ctypes.CDLL:
             so.oglrt_wide_traverse.restype = i32
             so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
                                                + [p] * 5 + [i64, p])
+            # the glue kernels: (px, py, frames, frame_term, camera, 7
+            # floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
+            # keys, n); (perm, keys, columns, seed, orig, 4 outputs, n);
+            # (orig, 3 columns, seed, 2 outputs, n); (K1's 4 columns,
+            # remap, n_remap, slot_base, 5 earlier columns, active, last,
+            # 6 outputs, n)
+            so.oglrt_ray_front.restype = i32
+            so.oglrt_ray_front.argtypes = ([p] * 3 + [ctypes.c_uint, p]
+                                           + [f32] * 7 + [p, p, i64, p])
+            so.oglrt_sort_keys.restype = i32
+            so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
+            so.oglrt_reorder.restype = i32
+            so.oglrt_reorder.argtypes = [p] * 9 + [i64, p]
+            so.oglrt_restore.restype = i32
+            so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
+            so.oglrt_subblock_epilogue.restype = i32
+            so.oglrt_subblock_epilogue.argtypes = ([p] * 5 + [i32, i32]
+                                                   + [p] * 6 + [i32]
+                                                   + [p] * 6 + [i64, p])
             _lib = so
         return _lib
 

@@ -56,20 +56,27 @@ def make_camera(pos, cam_dir) -> Camera:
                   forward=forward)
 
 
+def angle_linear_constants(width: int, height: int,
+                           fov: float = math.radians(90.0),
+                           aspect: float | None = None) -> tuple:
+    """(dir_start_x, dir_start_y, x_step, y_step) of the angle-linear
+    projection, each rounded to float32, as the JAX package's weakly typed
+    Python scalars become float32 in its float32 arithmetic."""
+    if aspect is None:
+        aspect = width / height
+    return (float(np.float32(-fov / 2.0 * aspect)),
+            float(np.float32(-fov / 2.0)), float(np.float32(fov * aspect)),
+            float(np.float32(fov)))
+
+
 def ray_dirs_soa(camera: Camera, u: torch.Tensor, v: torch.Tensor,
                  width: int, height: int,
                  fov: float = math.radians(90.0),
                  aspect: float | None = None) -> tuple:
     """Angle-linear primary ray directions for (R,) uv tensors, as a
     3-tuple of (R,) float32 columns (fragment.glsl:368-374)."""
-    if aspect is None:
-        aspect = width / height
-    # float32 constants, as the JAX package's weakly typed Python scalars
-    # become float32 in its float32 arithmetic
-    dir_start_x = float(np.float32(-fov / 2.0 * aspect))
-    dir_start_y = float(np.float32(-fov / 2.0))
-    x_step = float(np.float32(fov * aspect))
-    y_step = float(np.float32(fov))
+    dir_start_x, dir_start_y, x_step, y_step = angle_linear_constants(
+        width, height, fov, aspect)
 
     dx = dir_start_x + u * x_step
     dy = dir_start_y + v * y_step

@@ -8,11 +8,13 @@ The shader's path logic (fragment.glsl:220-366), as in
 * ``raytrace`` — the bounce loop (fragment.glsl:309-350).  With
   ``reorder`` (the wide-BVH kernels' traversals), before every bounce
   segment but the first, rays are reordered by a Morton/octant coherence
-  key (a stable argsort and one gather of every per-ray column), and at
-  the end the light is scattered back to pixel order by each ray's
-  original index.  Each segment, the traversal finds the nearest hits and
-  the fused shade kernel (K2) updates the path state.  Terminated paths
-  carry an ``alive`` mask; dead rays keep their frozen light;
+  key (int32 keys, ``morton.sort_keys``; a stable argsort; one gather of
+  every per-ray column, ``permute.reorder``), and at the end the light is
+  scattered back to pixel order by each ray's original index
+  (``permute.restore``).  Each segment, the traversal finds the nearest
+  hits and the fused shade kernel (K2) updates the path state.
+  Terminated paths carry an ``alive`` mask; dead rays keep their frozen
+  light;
 * ``trace`` — ``rays_per_pixel`` independent paths averaged, the RNG state
   carried sequentially across samples (fragment.glsl:352-366).
 
@@ -23,9 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from opengl_raytracer_torch.ops import rng
+from opengl_raytracer_torch.ops import permute, rng
 from opengl_raytracer_torch.ops.intersect import TINY, shading_table
-from opengl_raytracer_torch.ops.morton import DEAD_KEY, ray_sort_keys_soa
+from opengl_raytracer_torch.ops.morton import sort_keys
 
 
 def _norm3(x, y, z):
@@ -101,16 +103,12 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
         if reorder and i > 0:
             # Primary rays arrive screen-coherent; bounce rays are sorted.
             # Dead rays hold the sentinel key and sort to the tail, and
-            # alive is re-derived from it.
-            keys = ray_sort_keys_soa(origin, direction, lo, hi, alive)
+            # alive is re-derived from it (G2 keys, G3 gather).
+            keys = sort_keys(origin, direction, lo, hi, alive)
             perm = torch.argsort(keys, stable=True)
-            cols = torch.stack([*origin, *direction, *ray_color, *incoming])
-            cols = cols[:, perm]
-            origin, direction, ray_color, incoming = (
-                tuple(cols[3 * g + a] for a in range(3)) for g in range(4))
-            alive = keys[perm] != DEAD_KEY
-            seed = seed[perm]
-            orig = orig[perm]
+            origin, direction, ray_color, incoming, alive, seed, orig = (
+                permute.reorder(keys, perm, origin, direction, ray_color,
+                                incoming, seed, orig))
 
         nearest = raycast_fn(origin, direction, alive)
         table, index = shading_table(scene, nearest)
@@ -120,13 +118,8 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
 
     if not reorder:
         return incoming, seed
-    # Restore pixel order by scattering into each ray's original index.
-    light = torch.stack(incoming)
-    out = torch.empty_like(light)
-    out[:, orig] = light
-    seed_out = torch.empty_like(seed)
-    seed_out[orig] = seed
-    return tuple(out[a] for a in range(3)), seed_out
+    # Restore pixel order by scattering into each ray's original index (G3).
+    return permute.restore(incoming, seed, orig)
 
 
 def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,

@@ -6,14 +6,23 @@ start near each other and fly the same way.  Dead rays get the reserved
 sentinel ``0xFFFFFFFF`` and sort to the tail; live keys are clamped below
 it, so ``alive`` can be re-derived from a sorted key
 (``opengl_raytracer_tpu/ops/morton.py:47-78``).
+
+The integrator sorts the int32 form, :func:`sort_keys` (G2: the kernel of
+``csrc/sort_keys.cu`` on the card), so the radix sort runs over 32-bit
+keys.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from opengl_raytracer_torch.ops import _kernels
+
 DEAD_KEY = 0xFFFFFFFF
+DEAD_KEY32 = DEAD_KEY - 2**31  # INT32_MAX: the dead-ray key as int32
 
 
 def _spread3(x: torch.Tensor) -> torch.Tensor:
@@ -51,3 +60,42 @@ def ray_sort_keys_soa(o3, d3, lo, hi, alive=None) -> torch.Tensor:
     if alive is not None:
         key = torch.where(alive, key, DEAD_KEY)
     return key
+
+
+def sort_keys_i32_plain(o3, d3, lo, hi, alive=None) -> torch.Tensor:
+    """Plain version of the G2 kernel: :func:`ray_sort_keys_soa` mapped to
+    int32 as ``key - 2^31``, which keeps the order; ``DEAD_KEY`` becomes
+    ``DEAD_KEY32``."""
+    return (ray_sort_keys_soa(o3, d3, lo, hi, alive) - 2**31).to(torch.int32)
+
+
+def _sort_keys_cuda(o3, d3, lo, hi, alive):
+    dev = o3[0].device
+    R = o3[0].shape[0]
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o3, *d3)):
+        _kernels.require(x, name, torch.float32, dev, R)
+    if alive is not None:
+        _kernels.require(alive, "alive", torch.bool, dev, R)
+    f32 = np.float32
+    ext = [max(f32(hi[a] - lo[a]), f32(1e-6)) for a in range(3)]
+    # ``/ ext``: PyTorch's CUDA division by a Python number is a product
+    # with its float32 reciprocal
+    lo_c = (ctypes.c_float * 3)(*(float(f32(lo[a])) for a in range(3)))
+    inv = (ctypes.c_float * 3)(*(float(f32(1.0) / e) for e in ext))
+    keys = torch.empty(R, dtype=torch.int32, device=dev)
+    _kernels.launch("oglrt_sort_keys", "sort_keys", dev,
+                    *(x.data_ptr() for x in (*o3, *d3)),
+                    None if alive is None else alive.data_ptr(), lo_c, inv,
+                    keys.data_ptr(), R)
+    return keys
+
+
+def sort_keys(o3, d3, lo, hi, alive=None) -> torch.Tensor:
+    """int32 coherence keys (G2): the uint32 key of
+    :func:`ray_sort_keys_soa` minus 2^31, so a stable sort orders rays as
+    the uint32 keys do and dead rays (``DEAD_KEY32``) sort last.  CUDA
+    columns (contiguous float32) launch the kernel of
+    ``csrc/sort_keys.cu``; CPU columns run :func:`sort_keys_i32_plain`."""
+    if o3[0].is_cuda:
+        return _sort_keys_cuda(o3, d3, lo, hi, alive)
+    return sort_keys_i32_plain(o3, d3, lo, hi, alive)

@@ -4,7 +4,9 @@ The wrapper :func:`raycast_subblock` is the port of
 ``opengl_raytracer_tpu/ops/subblock_traversal.py:raycast_subblock``: it
 chains the scene's parts, feeding each the running best ``t`` so later
 parts prune against earlier hits, combines them with a strict ``<``, and
-resolves ``tri = remap[slot]``.  Each part is one call of
+resolves ``tri = remap[slot]``: after each part, :func:`part_epilogue`
+(G4; one launch of ``csrc/subblock_epilogue.cu`` on CUDA tensors, the
+plain :func:`_epilogue_plain` on CPU tensors).  Each part is one call of
 :func:`traverse_part`, which on CUDA tensors launches the kernel of
 ``csrc/subblock_traversal.cu`` over the part's Hopper tables
 (``SceneData.k1_parts``, ops/wide2.pack_k1) and on CPU tensors runs
@@ -188,6 +190,83 @@ def traverse_part(scene, part: int, o3, d3, t0):
     return t, slot, u, v
 
 
+def _epilogue_plain(t, slot, u, v, remap, slot_base: int, near, active,
+                    last: bool):
+    """Plain version of the G4 kernel: one part's hits resolved (miss
+    selects, slot clamp, ``tri = remap[slot]``, the part's slot base) and
+    combined with the earlier parts' ``near`` (None for the first part)
+    by a strict ``<``.  Returns (near, the next part's entry t): with
+    ``active``, the entry t is ``-BIG`` for an inactive ray, and after the
+    ``last`` part an inactive ray's t is ``BIG`` (entry t None)."""
+    did_hit = (t < BIG) & (t > -BIG)
+    slot = slot.clamp(0, remap.shape[0] - 1)
+    pn = Nearest(
+        t=torch.where(did_hit, t, BIG),
+        tri=remap[slot.long()],
+        u=torch.where(did_hit, u, 0.0),
+        v=torch.where(did_hit, v, 0.0),
+        slot=slot + slot_base,
+    )
+    if near is None:
+        near = pn
+    else:
+        better = pn.t < near.t  # strict <: ties keep the earlier part
+        near = Nearest(*(torch.where(better, a, b)
+                         for a, b in zip(pn, near)))
+    if active is None:
+        return near, None if last else near.t
+    if last:
+        return near._replace(t=torch.where(active, near.t, BIG)), None
+    return near, torch.where(active, near.t, -BIG)
+
+
+def _epilogue_cuda(t, slot, u, v, remap, slot_base: int, near, active,
+                   last: bool):
+    dev = t.device
+    R = t.shape[0]
+    req = _kernels.require
+    for name, x, dtype in (("t", t, torch.float32), ("slot", slot, torch.int32),
+                           ("u", u, torch.float32), ("v", v, torch.float32)):
+        req(x, name, dtype, dev, R)
+    req(remap, "remap", torch.int32, dev)
+    if remap.dim() != 1 or remap.shape[0] == 0:
+        raise ValueError(f"remap must be (N,) with N > 0, got "
+                         f"{tuple(remap.shape)}")
+    if near is not None:
+        for name, x, dtype in zip(("t", "tri", "u", "v", "slot"), near,
+                                  (torch.float32, torch.int32, torch.float32,
+                                   torch.float32, torch.int32)):
+            req(x, f"earlier {name}", dtype, dev, R)
+    if active is not None:
+        req(active, "active", torch.bool, dev, R)
+    out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32,
+        torch.int32)))
+    entry = (torch.empty(R, dtype=torch.float32, device=dev)
+             if active is not None and not last else None)
+    prev = (None,) * 5 if near is None else tuple(x.data_ptr() for x in near)
+    _kernels.launch(
+        "oglrt_subblock_epilogue", "subblock_epilogue", dev,
+        t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
+        remap.data_ptr(), remap.shape[0], slot_base, *prev,
+        None if active is None else active.data_ptr(), int(last),
+        *(x.data_ptr() for x in out),
+        None if entry is None else entry.data_ptr(), R)
+    if active is None:
+        return out, None if last else out.t
+    return out, entry
+
+
+def part_epilogue(t, slot, u, v, remap, slot_base: int, near, active,
+                  last: bool):
+    """One part's K1 output (t, slot, u, v) resolved and combined with
+    the earlier parts' ``near`` (G4): on CUDA tensors one launch of
+    ``csrc/subblock_epilogue.cu``, on CPU tensors :func:`_epilogue_plain`.
+    Returns (near, the next part's entry t)."""
+    args = (t, slot, u, v, remap, slot_base, near, active, last)
+    return _epilogue_cuda(*args) if t.is_cuda else _epilogue_plain(*args)
+
+
 def raycast_subblock(scene, o3, d3, active=None):
     """Nearest hit per ray over every sub-block part of ``scene``.
 
@@ -199,30 +278,16 @@ def raycast_subblock(scene, o3, d3, active=None):
     d3 = tuple(x.contiguous() for x in d3)
     R = o3[0].shape[0]
     dev = o3[0].device
+    if active is None:
+        t0 = torch.full((R,), BIG, dtype=torch.float32, device=dev)
+    else:
+        t0 = torch.where(active, BIG, -BIG).to(torch.float32)
     near = None
     slot_base = 0
-    for part, (_, _, remap) in enumerate(scene.parts):
-        t0 = (torch.full((R,), BIG, dtype=torch.float32, device=dev)
-              if near is None else near.t)
-        if active is not None:
-            t0 = torch.where(active, t0, -BIG)
-        t, slot, u, v = traverse_part(scene, part, o3, d3, t0.contiguous())
-        did_hit = (t < BIG) & (t > -BIG)
-        slot = slot.clamp(0, remap.shape[0] - 1)
-        pn = Nearest(
-            t=torch.where(did_hit, t, BIG),
-            tri=remap[slot.long()],
-            u=torch.where(did_hit, u, 0.0),
-            v=torch.where(did_hit, v, 0.0),
-            slot=slot + slot_base,
-        )
+    parts = scene.parts
+    for part, (_, _, remap) in enumerate(parts):
+        t, slot, u, v = traverse_part(scene, part, o3, d3, t0)
+        near, t0 = part_epilogue(t, slot, u, v, remap, slot_base, near,
+                                 active, part == len(parts) - 1)
         slot_base += int(remap.shape[0])
-        if near is None:
-            near = pn
-        else:
-            better = pn.t < near.t  # strict <: ties keep the earlier part
-            near = Nearest(*(torch.where(better, a, b)
-                             for a, b in zip(pn, near)))
-    if active is not None:
-        near = near._replace(t=torch.where(active, near.t, BIG))
     return near

@@ -3,7 +3,8 @@
 The port of ``opengl_raytracer_tpu/renderer.py``:
 
 * the per-pixel front (seed, three warm-ups, angle-linear ray, two jitter
-  draws) follows fragment.glsl ``main()`` (fragment.glsl:376-407);
+  draws) follows fragment.glsl ``main()`` (fragment.glsl:376-407); it is
+  ``ops/front.py:ray_front``, one kernel launch a chunk on the card;
 * progressive accumulation is the running mean ``(prev * frameNumber +
   curr) / (frameNumber + F)`` (fragment.glsl:409-414);
 * one ``(W/tiles) x (H/tiles)`` band renders per step, and the frame
@@ -24,9 +25,8 @@ import numpy as np
 import torch
 
 from opengl_raytracer_torch.models.scene import Scene, SceneData
-from opengl_raytracer_torch.ops import rng
-from opengl_raytracer_torch.ops.camera import (Camera, make_camera, pixel_uv,
-                                               ray_dirs_soa)
+from opengl_raytracer_torch.ops.camera import Camera, make_camera
+from opengl_raytracer_torch.ops.front import ray_front
 from opengl_raytracer_torch.ops.integrator import trace
 from opengl_raytracer_torch.ops.intersect import raycast_brute
 from opengl_raytracer_torch.ops.pallas_traversal import raycast_pallas
@@ -131,25 +131,10 @@ def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
     """Trace a flat batch of pixels; px/py int (R,) tensors, py in GL
     convention (0 = bottom row); ``frame_number`` an int or an (R,)
     tensor.  Returns (R, 3) linear color."""
-    seed = rng.seed_pixels(px, py, frame_number)
-    seed = rng.warmup(seed, 3)
-
-    u, v = pixel_uv(px, py, config.width, config.height)
-    d = ray_dirs_soa(camera, u, v, config.width, config.height,
-                     aspect=config.ray_aspect)
-
-    # Anti-alias jitter (fragment.glsl:398-400).
-    jit = float(np.float32(jitter_amount))
-    seed, r1 = rng.random_value(seed)
-    seed, r2 = rng.random_value(seed)
-    d = tuple(
-        d[a] + (float(camera.right[a]) * r1 + float(camera.up[a]) * r2) * jit
-        for a in range(3))
-    d_len = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    d = tuple(d[a] / d_len for a in range(3))
-
-    origin = tuple(torch.full_like(d[0], float(camera.pos[a]))
-                   for a in range(3))
+    # seed, 3 warm-ups, angle-linear ray, 2 jitter draws (G1)
+    origin, d, seed = ray_front(px, py, frame_number, camera, config.width,
+                                config.height, config.ray_aspect,
+                                jitter_amount)
     sky = tuple(float(c) for c in
                 np.asarray(SKY_COLOR, np.float32) * np.float32(sky_brightness))
     color, _ = trace(scene, raycast_fn, origin, d, seed, sky,

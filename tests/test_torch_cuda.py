@@ -9,8 +9,9 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1, K3 and the probes are held to that (t, slot, u and
-v equal), the shade floats to ``rtol=1e-5, atol=1e-6`` as the CPU tests
+agree bit for bit; K1, K3, the probes and the glue kernels G1-G4 (ray
+front, int32 sort keys, reorder and restore, K1's part epilogue) are held
+to that, the shade floats to ``rtol=1e-5, atol=1e-6`` as the CPU tests
 against the JAX package do, with seeds and alive flags exact.
 """
 
@@ -436,3 +437,199 @@ def test_app_on_card_matches_cpu(cuda, tmp_path):
         imgs.append(app.image())
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
     assert rmse(imgs[0], imgs[1]) < 1e-4
+
+
+# ------------------------------------------- the glue kernels (G1-G4)
+
+def _front_inputs(case, cuda, n=70_001):
+    """(px, py, frame) on the card: a 1080p frame's pixels with its
+    corners, at a frame number near 2^32 (an int, or per-ray numbers that
+    wrap past it), or pixel coordinates whose products with 1973 and 9277
+    wrap mod 2^32."""
+    g = np.random.default_rng(11)
+    px, py = g.integers(0, 1920, n), g.integers(0, 1080, n)
+    px[:4], py[:4] = [0, 1919, 0, 1919], [0, 0, 1079, 1079]
+    if case == "frame_int":
+        frame = 2**32 - 1
+    elif case == "frame_tensor_wrap":
+        frame = torch.from_numpy(2**32 - 2 + np.arange(n) % 4).to(cuda)
+    else:
+        px, py = g.integers(0, 2**31 - 1, n), g.integers(0, 2**31 - 1, n)
+        frame = torch.from_numpy(g.integers(0, 2**40, n)).to(cuda)
+    return torch.from_numpy(px).to(cuda), torch.from_numpy(py).to(cuda), frame
+
+
+@pytest.mark.parametrize("aspect", [None, 1.25])
+@pytest.mark.parametrize("case", ["frame_int", "frame_tensor_wrap",
+                                  "wide_pixels"])
+def test_ray_front_kernel_matches_plain(cuda, case, aspect):
+    from opengl_raytracer_torch.ops import front
+
+    px, py, frame = _front_inputs(case, cuda)
+    args = (px, py, frame, make_camera([-33.7, 14.8, -21.1], (65.0, -25.4)),
+            1920, 1080, aspect, 0.05)
+    before = _kernels.launch_counts["ray_front"]
+    o3, d3, seed = front.ray_front(*args)
+    assert _kernels.launch_counts["ray_front"] == before + 1
+    ro3, rd3, rseed = front.ray_front_plain(*args)
+    for a, b in zip((*o3, *d3, seed), (*ro3, *rd3, rseed)):
+        assert a.is_contiguous() and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _odd_rays(R, cuda, seed=12):
+    """Rays in and out of a box, with NaN and +-inf in their origin and
+    direction columns, and dead rays."""
+    g = np.random.default_rng(seed)
+    o = g.uniform(-6, 6, (3, R)).astype(np.float32)
+    o[:, :64] = g.uniform(-1e6, 1e6, (3, 64))
+    d = g.normal(size=(3, R))
+    d = (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
+    special = np.float32([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45])
+    for a in range(3):
+        o[a, 64 + a * 40:104 + a * 40] = np.resize(special, 40)
+        d[a, 200 + a * 40:240 + a * 40] = np.resize(special, 40)
+    alive = g.uniform(size=R) < 0.8
+    return (tuple(torch.from_numpy(o[a].copy()).to(cuda) for a in range(3)),
+            tuple(torch.from_numpy(d[a].copy()).to(cuda) for a in range(3)),
+            torch.from_numpy(alive).to(cuda))
+
+
+def test_sort_keys_kernel_matches_plain(cuda):
+    """The int32 keys equal the plain version's on the card, NaN and
+    infinite columns included (torch.clamp lets NaN through and the card
+    converts it as the kernel does), with and without an alive mask."""
+    from opengl_raytracer_torch.ops import morton
+
+    o3, d3, alive = _odd_rays(50_001, cuda)
+    lo = np.asarray([-4.0, -2.5, -3.0], np.float32)
+    hi = np.asarray([5.0, 3.5, 2.0], np.float32)
+    for mask in (alive, None):
+        before = _kernels.launch_counts["sort_keys"]
+        got = morton.sort_keys(o3, d3, lo, hi, mask)
+        assert _kernels.launch_counts["sort_keys"] == before + 1
+        ref = morton.sort_keys_i32_plain(o3, d3, lo, hi, mask)
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert (got[:64] != got[64]).any()  # the far rays are not all one key
+
+
+def test_permute_kernels_match_plain(cuda):
+    """Reorder and restore against their plain versions bit for bit on a
+    random permutation; restore after reorder is the identity."""
+    from opengl_raytracer_torch.ops import morton, permute
+
+    R = 100_003
+    g = np.random.default_rng(13)
+    cols = [torch.from_numpy(g.normal(size=R).astype(np.float32)).to(cuda)
+            for _ in range(12)]
+    keys = torch.from_numpy(g.integers(-2**31, 2**31 - 1, R)
+                            .astype(np.int32)).to(cuda)
+    keys[torch.from_numpy(g.uniform(size=R) < 0.3).to(cuda)] = \
+        morton.DEAD_KEY32
+    seed = torch.from_numpy(g.integers(0, 2**32, R)).to(cuda)
+    perm = torch.argsort(keys, stable=True)
+    orig = torch.randperm(R, device=cuda)
+    groups = (tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
+              tuple(cols[9:12]))
+    before = dict(_kernels.launch_counts)
+    got = permute.reorder(keys, perm, *groups, seed, orig)
+    back = permute.restore(got[3], got[5], got[6])
+    assert _kernels.launch_counts["reorder"] == before["reorder"] + 1
+    assert _kernels.launch_counts["restore"] == before["restore"] + 1
+    ref = permute.reorder_plain(keys, perm, *groups, seed, orig)
+    flat = [y for z in got for y in (z if isinstance(z, tuple) else (z,))]
+    rflat = [y for z in ref for y in (z if isinstance(z, tuple) else (z,))]
+    for a, b in zip(flat, rflat):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    rback = permute.restore_plain(got[3], got[5], got[6])
+    for a, b in zip((*back[0], back[1]), (*rback[0], rback[1])):
+        assert torch.equal(a, b)
+    # from pixel order (orig = arange) and back
+    fwd = permute.reorder(keys, perm, *groups, seed,
+                          torch.arange(R, device=cuda))
+    inc, seed_back = permute.restore(fwd[3], fwd[5], fwd[6])
+    for a in range(3):
+        assert torch.equal(inc[a], groups[3][a])
+    assert torch.equal(seed_back, seed)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_epilogue_kernel_matches_plain(cuda, monkeypatch, masked):
+    """Each part's epilogue on a scene split into several parts, on K1's
+    own output, against the plain version on the same inputs: the nearest
+    hit's five columns and the next part's entry t, bit for bit."""
+    orig = scene_mod.build_subblock_parts
+    monkeypatch.setattr(scene_mod, "build_subblock_parts",
+                        lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
+    data = Scene(_objects(1200), max_leaf_tris=16).send(cuda)
+    parts = data.parts
+    assert len(parts) > 2
+    o3, d3, _ = _rays(8191, cuda, seed=14)
+    active = (torch.from_numpy(np.random.default_rng(15).uniform(size=8191)
+                               < 0.7).to(cuda) if masked else None)
+    t0 = (torch.where(active, BIG, -BIG).to(torch.float32) if masked
+          else torch.full((8191,), BIG, device=cuda))
+    near, slot_base = None, 0
+    for part, (_, _, remap) in enumerate(parts):
+        k1 = sbt.traverse_part(data, part, o3, d3, t0)
+        last = part == len(parts) - 1
+        before = _kernels.launch_counts["subblock_epilogue"]
+        got, t0 = sbt.part_epilogue(*k1, remap, slot_base, near, active,
+                                    last)
+        assert _kernels.launch_counts["subblock_epilogue"] == before + 1
+        ref, ref_t0 = sbt._epilogue_plain(*k1, remap, slot_base, near,
+                                          active, last)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert (t0 is None) == (ref_t0 is None) == last
+        if not last:
+            assert torch.equal(t0, ref_t0)
+        near, slot_base = got, slot_base + int(remap.shape[0])
+    assert int((near.t < BIG).sum()) > 1000
+
+
+def test_glue_wrappers_reject_bad_input(cuda):
+    """A wrong dtype, device or length is refused before any launch."""
+    from opengl_raytracer_torch.ops import front, morton, permute
+
+    R = 256
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    px = torch.arange(R, device=cuda)
+    o3, d3, t0 = _rays(R, cuda)
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    keys = torch.zeros(R, dtype=torch.int32, device=cuda)
+    seed = torch.zeros(R, dtype=torch.int64, device=cuda)
+    slot = torch.zeros(R, dtype=torch.int32, device=cuda)
+    remap = torch.zeros(8, dtype=torch.int32, device=cuda)
+    bad = [
+        (lambda: front.ray_front(px.int(), px, 0, cam, 16, 16, None, 0.05),
+         "dtype"),
+        (lambda: front.ray_front(px, px.cpu(), 0, cam, 16, 16, None, 0.05),
+         "is on"),
+        (lambda: front.ray_front(px, px[:-1], 0, cam, 16, 16, None, 0.05),
+         "elements"),
+        (lambda: front.ray_front(px, px, px.int(), cam, 16, 16, None, 0.05),
+         "dtype"),
+        (lambda: morton.sort_keys((o3[0].double(), *o3[1:]), d3, lo, hi),
+         "dtype"),
+        (lambda: morton.sort_keys(o3, d3, lo, hi, keys[:-1].bool()),
+         "elements"),
+        (lambda: permute.reorder(keys, keys, o3, d3, o3, d3, seed, seed),
+         "dtype"),
+        (lambda: permute.reorder(keys.long(), seed, o3, d3, o3, d3, seed,
+                                 seed), "dtype"),
+        (lambda: permute.restore(d3, seed.cpu(), seed), "is on"),
+        (lambda: permute.restore(d3, seed, seed[:-1]), "elements"),
+        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap.long(), 0, None,
+                                   None, True), "dtype"),
+        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap[:0], 0, None,
+                                   None, True), "must be"),
+        (lambda: sbt.part_epilogue(t0, slot.float(), t0, t0, remap, 0, None,
+                                   None, True), "dtype"),
+        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap, 0, None,
+                                   keys[:-1].bool(), True), "elements"),
+    ]
+    before = dict(_kernels.launch_counts)
+    for call, match in bad:
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert _kernels.launch_counts == before

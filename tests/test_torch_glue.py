@@ -1,0 +1,291 @@
+"""The plain versions of the main path's glue kernels (G1-G4) against the
+JAX package, on the CPU, and against the torch code they were split out
+of.
+
+* G1, the ray front (``ops/front.py``): what the port's ``render_pixels``
+  hands to ``trace`` against the JAX ``render_pixels``' hand-off, with
+  frame numbers near 2^32 (an int and per-ray tensors that wrap), the
+  frame's corner pixels and pixel coordinates whose products with 1973
+  and 9277 wrap.  Seeds and origins exact; directions within 1e-6 (two
+  float32 programs of the same formulas), as tests/test_torch_rng_camera.py
+  holds them.
+* G2, the int32 sort keys (``ops/morton.py``): the JAX uint32 keys minus
+  2^31, bit for bit, on live, dead and out-of-box rays; a stable argsort
+  of them is the stable argsort of the uint32 keys.
+* G3, the reorder and restore (``ops/permute.py``): restore after reorder
+  is the identity, and both equal the integrator's former inline code bit
+  for bit.
+* G4, K1's part epilogue (``ops/subblock_traversal.py``): on a 4-part
+  scene with an active mask, the port's ``raycast_subblock`` against the
+  JAX ``raycast_subblock`` in interpret mode (the tolerances of
+  tests/test_torch_traversal.py: exact-t ties may pick another triangle),
+  and against the former inline part loop bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import opengl_raytracer_tpu.renderer as jrenderer
+from opengl_raytracer_tpu.ops.camera import make_camera as j_make_camera
+from opengl_raytracer_tpu.ops.morton import ray_sort_keys_soa as j_keys
+from opengl_raytracer_tpu.ops.subblock_traversal import (
+    raycast_subblock as j_subblock)
+from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
+
+import opengl_raytracer_torch.renderer as trenderer
+from opengl_raytracer_torch.ops import morton, permute
+from opengl_raytracer_torch.ops import subblock_traversal as sbt
+from opengl_raytracer_torch.ops.camera import make_camera
+from opengl_raytracer_torch.ops.front import ray_front, ray_front_plain
+from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.utils.config import RenderConfig
+from test_torch_traversal import _check, _jax_scene, _rays, _run_port
+
+CAM_POS, CAM_DIR = (-33.7, 14.8, -21.1), (65.0, -25.4)
+W, H = 1920, 1080
+
+
+# ------------------------------------------------------------- G1 front
+
+def _front_pixels(case, g):
+    """(px, py) int64 and the port's and the JAX package's frame number."""
+    n = 4096
+    px = g.integers(0, W, n)
+    py = g.integers(0, H, n)
+    px[:4], py[:4] = [0, W - 1, 0, W - 1], [0, 0, H - 1, H - 1]  # corners
+    if case == "frame_int":
+        return px, py, 2**32 - 1, np.uint32(2**32 - 1)
+    if case == "frame_tensor_wrap":  # frames_per_step = 4 from 2^32 - 2
+        frames = 2**32 - 2 + np.repeat(np.arange(4), n // 4)
+    else:  # "wide_pixels": px * 1973 and py * 9277 wrap mod 2^32
+        px = g.integers(0, 2**31 - 1, n)
+        py = g.integers(0, 2**31 - 1, n)
+        frames = g.integers(0, 2**40, n)
+    return px, py, torch.from_numpy(frames), frames.astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["frame_int", "frame_tensor_wrap",
+                                  "wide_pixels"])
+def test_front_plain_matches_jax_render_pixels(case, monkeypatch):
+    """What each render_pixels hands to trace (renderer.py:162-199)."""
+    seen = {}
+
+    def capture(key, zeros, stack):
+        def fake_trace(scene, raycast_fn, origin, d, seed, sky, **kw):
+            seen[key] = (stack(origin), stack(d), seed)
+            return zeros((d[0].shape[0], 3)), seed
+        return fake_trace
+
+    monkeypatch.setattr(jrenderer, "trace",
+                        capture("jax", jnp.zeros, lambda c: jnp.stack(c)))
+    monkeypatch.setattr(trenderer, "trace",
+                        capture("torch", torch.zeros, lambda c: torch.stack(c)))
+    px, py, frame, j_frame = _front_pixels(case, np.random.default_rng(7))
+    j_frame = j_frame if np.ndim(j_frame) == 0 else jnp.asarray(j_frame)
+    jrenderer.render_pixels(None, JRenderConfig(width=W, height=H),
+                            j_make_camera(CAM_POS, CAM_DIR), j_frame, 0.8,
+                            0.05, True, jnp.asarray(px.astype(np.int32)),
+                            jnp.asarray(py.astype(np.int32)), None)
+    trenderer.render_pixels(None, RenderConfig(width=W, height=H),
+                            make_camera(CAM_POS, CAM_DIR), frame, 0.8, 0.05,
+                            True, torch.from_numpy(px), torch.from_numpy(py),
+                            None)
+    jo, jd, js = seen["jax"]
+    to, td, ts = seen["torch"]
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts.numpy())
+    assert ts.dtype == torch.int64 and (ts >= 0).all() and (ts < 2**32).all()
+
+
+def test_front_runs_plain_on_cpu_tensors():
+    """On CPU tensors the wrapper is the plain version, bit for bit."""
+    g = np.random.default_rng(8)
+    px, py, frame, _ = _front_pixels("frame_tensor_wrap", g)
+    args = (torch.from_numpy(px), torch.from_numpy(py), frame,
+            make_camera(CAM_POS, CAM_DIR), W, H, 1.25, 0.05)
+    for a, b in zip(ray_front(*args), ray_front_plain(*args)):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+
+
+# -------------------------------------------------------------- G2 keys
+
+LO = np.asarray([-4.0, -2.5, -3.0], np.float32)
+HI = np.asarray([5.0, 3.5, 2.0], np.float32)
+
+
+def _key_rays(R, seed):
+    """Live rays in the box, out-of-box origins (clamped), a few far out,
+    axis-parallel directions, and dead rays."""
+    g = np.random.default_rng(seed)
+    o = g.uniform(-6, 6, (3, R)).astype(np.float32)
+    o[:, :16] = g.uniform(-1e6, 1e6, (3, 16)).astype(np.float32)
+    d = g.normal(size=(3, R)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    d[:, 16:24] = np.asarray([[1, 0, 0]] * 8, np.float32).T
+    d[:, 24:32] = np.asarray([[0, 0, -1]] * 8, np.float32).T
+    alive = g.uniform(size=R) < 0.7
+    return o, d, alive
+
+
+@pytest.mark.parametrize("R", [1000, 4096])
+def test_int32_keys_are_jax_keys_minus_2_31(R):
+    o, d, alive = _key_rays(R, R)
+    ref = np.asarray(j_keys(tuple(jnp.asarray(x) for x in o),
+                            tuple(jnp.asarray(x) for x in d),
+                            jnp.asarray(LO), jnp.asarray(HI),
+                            jnp.asarray(alive)))
+    args = (tuple(torch.from_numpy(x) for x in o),
+            tuple(torch.from_numpy(x) for x in d), LO, HI,
+            torch.from_numpy(alive))
+    got = morton.sort_keys_i32_plain(*args)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        (ref.astype(np.int64) - 2**31).astype(np.int32), got.numpy())
+    assert (got[~torch.from_numpy(alive)] == morton.DEAD_KEY32).all()
+    assert (got[torch.from_numpy(alive)] < morton.DEAD_KEY32).all()
+    assert torch.equal(morton.sort_keys(*args), got)  # CPU: the plain one
+    # the sort the integrator runs gives the uint32 keys' permutation
+    u32 = morton.ray_sort_keys_soa(*args)
+    assert torch.equal(torch.argsort(got, stable=True),
+                       torch.argsort(u32, stable=True))
+
+
+# ------------------------------------------------------- G3 permutation
+
+def _state(R, seed):
+    g = np.random.default_rng(seed)
+    cols = [torch.from_numpy(g.normal(size=R).astype(np.float32))
+            for _ in range(12)]
+    keys = torch.from_numpy(g.integers(-2**31, 2**31 - 1, R).astype(np.int32))
+    keys[torch.from_numpy(g.uniform(size=R) < 0.3)] = morton.DEAD_KEY32
+    seed_col = torch.from_numpy(g.integers(0, 2**32, R).astype(np.int64))
+    return cols, keys, seed_col
+
+
+def test_restore_after_reorder_is_identity():
+    R = 5000
+    cols, keys, seed = _state(R, 1)
+    perm = torch.argsort(keys, stable=True)
+    orig = torch.arange(R)
+    o, d, rc, inc, alive, seed_s, orig_s = permute.reorder(
+        keys, perm, tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
+        tuple(cols[9:12]), seed, orig)
+    assert torch.equal(orig_s, perm)
+    assert torch.equal(alive, keys[perm] != morton.DEAD_KEY32)
+    assert not alive[-int((keys == morton.DEAD_KEY32).sum()):].any()
+    back, seed_b = permute.restore(inc, seed_s, orig_s)
+    for a in range(3):
+        assert torch.equal(back[a], cols[9 + a])
+    assert torch.equal(seed_b, seed)
+
+
+def _reorder_inline(keys_u32, perm, origin, direction, ray_color, incoming,
+                    seed, orig):
+    """The integrator's reorder before it was split out (uint32 keys)."""
+    cols = torch.stack([*origin, *direction, *ray_color, *incoming])
+    cols = cols[:, perm]
+    origin, direction, ray_color, incoming = (
+        tuple(cols[3 * g + a] for a in range(3)) for g in range(4))
+    alive = keys_u32[perm] != morton.DEAD_KEY
+    return origin, direction, ray_color, incoming, alive, seed[perm], \
+        orig[perm]
+
+
+def _restore_inline(incoming, seed, orig):
+    light = torch.stack(incoming)
+    out = torch.empty_like(light)
+    out[:, orig] = light
+    seed_out = torch.empty_like(seed)
+    seed_out[orig] = seed
+    return tuple(out[a] for a in range(3)), seed_out
+
+
+def _flat(x):
+    return [y for z in x for y in (z if isinstance(z, tuple) else (z,))]
+
+
+def test_split_reorder_and_restore_equal_the_inline_code():
+    R = 4099
+    cols, keys, seed = _state(R, 2)
+    keys_u32 = keys.long() + 2**31
+    g = torch.Generator().manual_seed(3)
+    perm = torch.randperm(R, generator=g)
+    orig = torch.randperm(R, generator=g)
+    groups = (tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
+              tuple(cols[9:12]))
+    got = permute.reorder_plain(keys, perm, *groups, seed, orig)
+    want = _reorder_inline(keys_u32, perm, *groups, seed, orig)
+    for a, b in zip(_flat(got), _flat(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(_flat(permute.restore_plain(groups[3], seed, orig)),
+                    _flat(_restore_inline(groups[3], seed, orig))):
+        assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------- G4 epilogue
+
+def test_epilogue_on_four_parts_matches_jax(monkeypatch):
+    """The JAX kernel in interpret mode, with an active mask, on a scene
+    split into 4 parts: every part after the first combines with the
+    earlier parts' hits and prunes against their t."""
+    jdata, tdata = _jax_scene(800, 64 * 1024, monkeypatch)
+    assert len(tdata.parts) == 4
+    R = 512
+    o, d = _rays(R, seed=4)
+    active = np.random.default_rng(9).uniform(size=R) < 0.7
+    ref = j_subblock(jdata, tuple(jnp.asarray(x) for x in o),
+                     tuple(jnp.asarray(x) for x in d), jnp.asarray(active),
+                     interpret=True)
+    got = _run_port(tdata, o, d, active)
+    _check(jdata, ref, got, o, d, active)
+    assert (got.t.numpy()[active] < BIG).sum() > R // 4
+
+
+def _raycast_inline(scene, o3, d3, active):
+    """raycast_subblock's part loop before the epilogue was split out."""
+    R = o3[0].shape[0]
+    near = None
+    slot_base = 0
+    for part, (_, _, remap) in enumerate(scene.parts):
+        t0 = (torch.full((R,), BIG, dtype=torch.float32)
+              if near is None else near.t)
+        if active is not None:
+            t0 = torch.where(active, t0, -BIG)
+        t, slot, u, v = sbt.traverse_part(scene, part, o3, d3,
+                                          t0.contiguous())
+        did_hit = (t < BIG) & (t > -BIG)
+        slot = slot.clamp(0, remap.shape[0] - 1)
+        pn = Nearest(t=torch.where(did_hit, t, BIG), tri=remap[slot.long()],
+                     u=torch.where(did_hit, u, 0.0),
+                     v=torch.where(did_hit, v, 0.0), slot=slot + slot_base)
+        slot_base += int(remap.shape[0])
+        if near is None:
+            near = pn
+        else:
+            better = pn.t < near.t
+            near = Nearest(*(torch.where(better, a, b)
+                             for a, b in zip(pn, near)))
+    if active is not None:
+        near = near._replace(t=torch.where(active, near.t, BIG))
+    return near
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_split_epilogue_equals_the_inline_loop(masked, monkeypatch):
+    _, tdata = _jax_scene(800, 64 * 1024, monkeypatch)
+    R = 700
+    o, d = _rays(R, seed=5)
+    o3 = tuple(torch.from_numpy(x) for x in o)
+    d3 = tuple(torch.from_numpy(x) for x in d)
+    active = (torch.from_numpy(np.random.default_rng(6).uniform(size=R)
+                               < 0.6) if masked else None)
+    got = sbt.raycast_subblock(tdata, o3, d3, active)
+    want = _raycast_inline(tdata, o3, d3, active)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -27,7 +27,7 @@ from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
 from opengl_raytracer_torch import Rect, RenderConfig, Renderer, Scene
 from opengl_raytracer_torch import make_camera
-from opengl_raytracer_torch.ops import _kernels, shade
+from opengl_raytracer_torch.ops import _kernels, front, morton, permute, shade
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
@@ -298,6 +298,27 @@ def _launch(kernel, device, odd_one=None):
 
     o3 = tuple(t(f"o{a}", R) for a in "xyz")
     d3 = tuple(t(f"d{a}", R) for a in "xyz")
+    i64, i32 = torch.int64, torch.int32
+    if kernel == "ray_front":
+        return front._ray_front_cuda(t("px", R, i64), t("py", R, i64),
+                                     t("frames", R, i64), make_camera(*CAM),
+                                     16, 16, None, 0.05)
+    if kernel == "sort_keys":
+        return morton._sort_keys_cuda(o3, d3, np.zeros(3, np.float32),
+                                      np.ones(3, np.float32),
+                                      t("alive", R, torch.bool))
+    if kernel == "reorder":
+        return permute._reorder_cuda(t("keys", R, i32), t("perm", R, i64),
+                                     o3, d3, o3, d3, t("seed", R, i64),
+                                     t("orig", R, i64))
+    if kernel == "restore":
+        return permute._restore_cuda(d3, t("seed", R, i64), t("orig", R, i64))
+    if kernel == "subblock_epilogue":
+        near = Nearest(t=t("t", R), tri=t("tri", R, i32), u=t("u", R),
+                       v=t("v", R), slot=t("slot", R, i32))
+        return sbt._epilogue_cuda(near.t, near.slot, near.u, near.v,
+                                  t("remap", 8, i32), 8, near,
+                                  t("active", R, torch.bool), False)
     if kernel == "shade":
         near = Nearest(t=t("t", R), tri=t("tri", R, torch.int32),
                        u=t("u", R), v=t("v", R))
@@ -318,7 +339,12 @@ def _launch(kernel, device, odd_one=None):
 
 KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
                   "shade": "oglrt_shade",
-                  "wide_traversal": "oglrt_wide_traverse"}
+                  "wide_traversal": "oglrt_wide_traverse",
+                  "ray_front": "oglrt_ray_front",
+                  "sort_keys": "oglrt_sort_keys",
+                  "reorder": "oglrt_reorder",
+                  "restore": "oglrt_restore",
+                  "subblock_epilogue": "oglrt_subblock_epilogue"}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -334,10 +360,15 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
 @pytest.mark.parametrize("kernel,odd_one", [
     ("subblock_traversal", "node_rows"), ("subblock_traversal", "dz"),
     ("shade", "alive"), ("shade", "table"),
-    ("wide_traversal", "oy"), ("wide_traversal", "pl_tri_tiles")])
+    ("wide_traversal", "oy"), ("wide_traversal", "pl_tri_tiles"),
+    ("ray_front", "py"), ("ray_front", "frames"), ("sort_keys", "dz"),
+    ("sort_keys", "alive"), ("reorder", "perm"), ("reorder", "oz"),
+    ("restore", "seed"), ("subblock_epilogue", "remap"),
+    ("subblock_epilogue", "slot"), ("subblock_epilogue", "active")])
 def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
-    """Each wrapper takes its device from one tensor (``t0`` or ``seed``)
-    and refuses any other tensor that lies elsewhere, before launching."""
+    """Each wrapper takes its device from one tensor (``t0``, ``seed``,
+    ``px``, ``ox``, ``keys``, ``orig`` or K1's ``t``) and refuses any other
+    tensor that lies elsewhere, before launching."""
     before = dict(_kernels.launch_counts)
     with pytest.raises(ValueError, match="is on meta, expected cpu"):
         _launch(kernel, "cpu", odd_one)
