@@ -33,9 +33,19 @@ Phases; each raises on failure, and the script then exits non-zero:
    (``csrc/sort_keys.cu``), on phase 3's ray sets and on its random rays
    with out-of-box origins, NaN and +-inf in their columns (and the
    stable argsort of the int32 keys equals that of the uint32 keys, each
-   timed); G3, reorder and restore (``csrc/permute.cu``), on a random
-   permutation and on the one that sorts the frame's primary rays by key
-   (restore after reorder is the identity); G4, K1's part epilogue
+   timed); G3, reorder and restore (``csrc/permute.cu``), byte for byte
+   with return_seed on and off, on (a) 12 random columns with ~30% of the
+   rays dead (a live ray's light +0.0) under a random permutation and
+   under the stable sort of the frame's primary rays' keys (restore after
+   reorder is the identity), and (b) the four pre-reorder states and the
+   restore input of one 1080p "auto" frame, captured by wrapping
+   ``permute.reorder`` and ``permute.restore`` during the frame (every
+   live ray's light must be +0.0 in bits there); it prints each set's live
+   share, ms, plain ms, library ms (``torch.index_select`` of a stacked
+   (12, R) buffer, ``index_copy_`` of the (3, R) light), the bytes bound
+   at the live share beside the earlier 141-byte yardstick, and the
+   scattered 32-byte sectors and the GB/s they imply (the reorder's ms
+   covers its two launches, index pass and gather); G4, K1's part epilogue
    (``csrc/subblock_epilogue.cu``), on K1's output for each of phase 3's
    sets, as the only part and as a later part against the previous set's
    hits.  Each prints ms per launch, the plain version's, its bytes bound
@@ -79,7 +89,8 @@ Phases; each raises on failure, and the script then exits non-zero:
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
    "auto" resolves to "pallas2" (K1 + K2); 1 warm-up and 8 timed frames,
    every kernel's launch count (per frame: K1 parts x 5, K2 5, G1 1 per
-   chunk, G2 and the reorder 4, the restore 1, G4 parts x 5; every other
+   chunk, G2 4, the reorder 8 (4 calls of two launches), the restore 1,
+   G4 parts x 5; every other
    render phase checks the glue counts of its own path the same way),
    image checks; then a 96x54 frame rendered
    on the card and on the CPU (the plain versions), which must agree.
@@ -131,10 +142,15 @@ phase 6 for K3, and K3's in phase 4c), its largest disagreement with its
 plain version, both times at 2,073,600 rays, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and the fp32 operations this run's
 rays cost it over 67 TFLOP/s (an H100 SXM's peaks); G3's two entry points
-(reorder, restore) are two rows of one source.  The last line is ``{"ok":
-true, "device": {...}}``.  No single PyTorch call computes any of the
-kernels (``library_ms`` null): each writes several outputs of mixed
-types.  The script imports nothing of JAX.
+(reorder, restore) are two rows of one source, timed on the frame's own
+states (the reorder's mean over the four segments; its launches count
+both kernels of each of its calls, which its row gives as ``calls``, and
+its ms covers both).  The last line is
+``{"ok": true, "device": {...}}``.  G3's rows carry ``library_ms``: one
+``torch.index_select`` computes the reorder's float gather and one
+``index_copy_`` the restore's light scatter.  No single PyTorch call
+computes the other kernels (``library_ms`` null): each writes several
+outputs of mixed types.  The script imports nothing of JAX.
 ``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
 ``DIR/smoke_1080p.npy``.
 """
@@ -333,12 +349,14 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                parts: int = 0) -> None:
     """The glue kernels' launches in ``renders`` chunk renders of
     ``traversal``: one ray front each; with the reorder (the kernels'
-    traversals) n_bounces - 1 key and reorder launches and one restore;
-    after K1, one epilogue per part and bounce segment."""
+    traversals) n_bounces - 1 key launches and reorder calls, each call two
+    launches (index pass and gather), and one restore; after K1, one
+    epilogue per part and bounce segment."""
     reorder = traversal in ("packet", "pallas", "pallas2")
+    sorts = (n_bounces - 1) * renders if reorder else 0
     check_count(counts, "ray_front", renders)
-    for name in ("sort_keys", "reorder"):
-        check_count(counts, name, (n_bounces - 1) * renders if reorder else 0)
+    check_count(counts, "sort_keys", sorts)
+    check_count(counts, "reorder", 2 * sorts)
     check_count(counts, "restore", renders if reorder else 0)
     check_count(counts, "subblock_epilogue",
                 parts * n_bounces * renders if traversal == "pallas2" else 0)
@@ -787,9 +805,7 @@ def _say_stages(name, rep):
 # columns and a seed out; seed, warm-ups, two draws, uv, direction, jitter,
 # two normalizes.  G2: six float columns and a flag in, an int32 key out;
 # three quantized coordinates, five direction levels, the Morton spread.
-# G3: the reorder reads an index, a key, 12 columns, a seed and an index
-# and writes 12 columns, a seed, an index and a flag; the restore moves 3
-# columns, a seed and an index in and 3 columns and a seed out.  G4 (per
+# G3: see g3_reorder_work and g3_restore_work.  G4 (per
 # part): K1's t, slot, u, v, a remap entry (the table counted once), the
 # active flag, the earlier parts' five columns from the second part on; out
 # five columns and, before the last part, the next entry t.
@@ -797,9 +813,36 @@ G1_BYTES_PER_RAY = 56  # 48 with an int frame number
 G1_OPS_PER_RAY = 85
 G2_BYTES_PER_RAY = 29
 G2_OPS_PER_RAY = 90
-G3_REORDER_BYTES_PER_RAY = 8 + 4 + 48 + 8 + 8 + 48 + 8 + 8 + 1
-G3_RESTORE_BYTES_PER_RAY = 8 + 12 + 8 + 12 + 8
 G4_OPS_PER_RAY = 12
+# G3 before the fold (the earlier yardstick, printed beside the new one):
+# every ray read an int64 index, a key, 12 columns, a seed and an int64
+# index and wrote 12 columns, a seed, an index and a flag; the restore
+# moved 3 columns, a seed and an index in and 3 columns and a seed out.
+G3_UNFOLDED_REORDER_BYTES_PER_RAY = 8 + 4 + 48 + 8 + 8 + 48 + 8 + 8 + 1
+G3_UNFOLDED_RESTORE_BYTES_PER_RAY = 8 + 12 + 8 + 12 + 8
+
+
+def g3_reorder_work(alive, return_seed: bool) -> tuple[int, int]:
+    """(bytes, scattered 32-byte sectors) of one reorder whose sorted rays
+    are live where ``alive``: every ray reads its int64 index, sorted key
+    and int32 original index, and writes 12 columns, a seed, an index and a
+    flag; a live ray reads 9 columns and its seed, a dead ray 3 columns
+    (and its seed with ``return_seed``).  Each read by the permuted index
+    is one scattered sector: 11 for a live ray, 4 (5) for a dead one."""
+    n = alive.numel()
+    live = int(alive.sum())
+    dead = n - live
+    seed = 8 if return_seed else 0
+    n_bytes = (n * (8 + 4 + 4 + 48 + 8 + 4 + 1) + live * (36 + 8)
+               + dead * (12 + seed))
+    return n_bytes, live * 11 + dead * (4 + (1 if return_seed else 0))
+
+
+def g3_restore_work(n: int, with_seed: bool) -> tuple[int, int]:
+    """(bytes, scattered sectors) of one restore of ``n`` rays: 3 columns
+    and an int32 index in, 3 columns out, each write scattered; 16 bytes
+    and a sector more with the seed."""
+    return n * (28 + (16 if with_seed else 0)), n * (4 if with_seed else 3)
 
 
 def g4_bytes(R: int, remap, first: bool, masked: bool, last: bool) -> int:
@@ -817,19 +860,26 @@ def _glue_row(name, err, ms, plain_ms, n_bytes, n_ops, **extra):
     return err, ms, plain_ms, (bound, by)
 
 
-def _assert_equal(name, got, ref) -> float:
+def _assert_equal(name, got, ref, bits: bool = False) -> float:
     """Every tensor of ``got`` equals ``ref``'s (nested tuples), dtype and
-    bits; returns the largest |difference| over them (0.0)."""
+    value (with ``bits``, byte for byte: +0.0 is not -0.0); returns the
+    largest |difference| over them (0.0)."""
     def flat(x):
         if isinstance(x, (tuple, list)):
             return [y for z in x for y in flat(z)]
         return [] if x is None else [x]
 
+    def same(a, b):
+        if bits:
+            return torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+        return torch.equal(a, b)
+
     g, r = flat(got), flat(ref)
     if len(g) != len(r):
         raise RuntimeError(f"{name}: {len(g)} outputs, plain {len(r)}")
     for k, (a, b) in enumerate(zip(g, r)):
-        if a.dtype != b.dtype or not torch.equal(a, b):
+        if a.dtype != b.dtype or a.shape != b.shape or not same(a, b):
             diff = (a.double() - b.double()).abs().max() \
                 if a.shape == b.shape else "shape"
             raise RuntimeError(f"{name}: output {k} differs from the plain "
@@ -842,13 +892,14 @@ def _assert_equal(name, got, ref) -> float:
 def glue_phase(data, camera, sets, seed: int):
     """G1-G4 against their plain versions on the card at 2,073,600 rays,
     bit for bit; their ms per launch, the plain versions' and the bound.
-    Returns {counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))}."""
+    Returns ({counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))},
+    {counter: more keys of its row in the kernels line})."""
     from opengl_raytracer_torch.ops import front, morton, permute
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.ops.intersect import BIG
     from opengl_raytracer_torch.renderer import band_pixels
 
-    out = {}
+    out, extras = {}, {}
     dev = data.device
     before = dict(_kernels_counts())
 
@@ -915,47 +966,56 @@ def glue_phase(data, camera, sets, seed: int):
                                  argsort_int32_ms=sort32,
                                  argsort_int64_ms=sort64)
 
-    # G3: a random permutation of 12 random columns; then the permutation
-    # that sorts the 1080p frame's primary rays (in pixel order) by key
+    # G3 (a): 12 random columns, ~30% of the rays dead and a live ray's
+    # light +0.0, on a random permutation (dead rays scattered) and on the
+    # stable sort of the frame's primary rays' keys (dead rays at the
+    # tail); (b) the four pre-reorder states and the restore of one 1080p
+    # "auto" frame; (c) each with return_seed on and off
+    dead = torch.from_numpy(g.uniform(size=N_RAYS) < 0.3).to(dev)
     cols = [torch.from_numpy(g.normal(size=N_RAYS).astype(np.float32))
             .to(dev) for _ in range(12)]
+    for c in cols[9:]:
+        c[~dead] = 0.0
     groups = tuple(tuple(cols[3 * k:3 * k + 3]) for k in range(4))
     seeds = torch.from_numpy(g.integers(0, 2**32, N_RAYS)).to(dev)
-    orig = torch.arange(N_RAYS, device=dev)
-    perm = torch.from_numpy(g.permutation(N_RAYS)).to(dev)
-    o, d, alive = key_sets[2]
-    sorted_perm = torch.argsort(morton.sort_keys(o, d, lo, hi, alive),
-                                stable=True)
+    orig = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+    o, d, _ = key_sets[2]
+    keys_f = morton.sort_keys(o, d, lo, hi, ~dead)
+    perm_r = torch.from_numpy(g.permutation(N_RAYS)).to(dev)
+    states = [("random", (keys_f[perm_r], perm_r, *groups, seeds, orig)),
+              ("sorted", (*torch.sort(keys_f, stable=True), *groups, seeds,
+                          orig))]
+    frame, restore_in = frame_states(data, camera)
+    states += [(f"frame_b{k + 1}", st) for k, st in enumerate(frame)]
     errs = [0.0, 0.0]
-    for p in (perm, sorted_perm):
-        fwd = permute.reorder(keys32, p, *groups, seeds, orig)
-        errs[0] = max(errs[0], _assert_equal(
-            "G3 reorder", fwd,
-            permute.reorder_plain(keys32, p, *groups, seeds, orig)))
-        back = permute.restore(fwd[3], fwd[5], fwd[6])
-        errs[1] = max(errs[1], _assert_equal(
-            "G3 restore", back,
-            permute.restore_plain(fwd[3], fwd[5], fwd[6])))
-        _assert_equal("G3 identity", back, (groups[3], seeds))
-    rows = {}
-    for tag, p in (("random", perm), ("sorted", sorted_perm)):
-        fwd = permute.reorder(keys32, p, *groups, seeds, orig)
-        rows[tag] = (
-            time_pair(lambda: permute.reorder(keys32, p, *groups, seeds,
-                                              orig),
-                      lambda: permute.reorder_plain(keys32, p, *groups,
-                                                    seeds, orig), 20, 3),
-            time_pair(lambda: permute.restore(fwd[3], fwd[5], fwd[6]),
-                      lambda: permute.restore_plain(fwd[3], fwd[5], fwd[6]),
-                      20, 3))
-    for k, (name, per_ray) in enumerate((("reorder", G3_REORDER_BYTES_PER_RAY),
-                                         ("restore",
-                                          G3_RESTORE_BYTES_PER_RAY))):
-        (ms, plain_ms), (ms_s, plain_s) = rows["random"][k], rows["sorted"][k]
-        out[name] = _glue_row(name, errs[k], ms, plain_ms, N_RAYS * per_ray,
-                              0,
-                              permutation="random", ms_sorted_perm=ms_s,
-                              plain_ms_sorted_perm=plain_s)
+    for name, st in states:
+        for k, e in enumerate(_g3_check(name, st)):
+            errs[k] = max(errs[k], e)
+        if name.startswith("frame"):
+            _g3_live_light(name, st)
+        else:  # from pixel order and back
+            fwd = permute.reorder(*st)
+            _assert_equal("G3 identity", permute.restore(*fwd[3:4], *fwd[5:]),
+                          (groups[3], seeds), bits=True)
+    errs[1] = max(errs[1], _assert_equal(
+        "G3 restore frame", permute.restore(*restore_in),
+        permute.restore_plain(*restore_in), bits=True))
+    rows = {name: _g3_times(name, st) for name, st in states}
+    frame_rows = [rows[name] for name, _ in states[2:]]
+    reorder_ms, plain_ms, library_ms, n_bytes, extra = _g3_mean(frame_rows)
+    extra.update({f"{k}_{tag}_perm": rows[tag][k] for tag in ("random",
+                                                             "sorted")
+                  for k in ("ms", "library_ms")})
+    out["reorder"] = _glue_row("reorder", errs[0], reorder_ms, plain_ms,
+                               n_bytes, 0, set="frame_b1-4 (mean)",
+                               return_seed=False, library_ms=library_ms,
+                               **extra)
+    extras["reorder"] = dict(library_ms=library_ms, **extra)
+    restore_row = _g3_restore_times(*restore_in)
+    out["restore"] = _glue_row("restore", errs[1], *restore_row[:2],
+                               restore_row[3], 0, set="frame",
+                               library_ms=restore_row[2], **restore_row[4])
+    extras["restore"] = dict(library_ms=restore_row[2], **restore_row[4])
 
     # G4: K1's own output on phase 3's sets, as the first and only part
     # (the main path's) and as a later, not last part against the previous
@@ -986,9 +1046,167 @@ def glue_phase(data, camera, sets, seed: int):
     if any(launched[k] == 0 for k in out):
         raise RuntimeError(f"glue kernels launched {launched}")
     check_probes(launched)
-    say("glue", sets=len(sets), key_sets=len(key_sets),
+    say("glue", sets=len(sets), key_sets=len(key_sets), g3_sets=len(states),
         card=repr(card_line()))
-    return out
+    return out, extras
+
+
+def frame_states(data, camera):
+    """The four pre-reorder states of one 1920x1080 "auto" frame (K1),
+    each as the integrator hands it to ``permute.reorder`` (sorted keys,
+    permutation, the four column groups, seed, original index), and the
+    restore's input (incoming light, seed, original index), captured by
+    wrapping the two entry points during the frame."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import permute
+
+    def clone(x):
+        if isinstance(x, tuple):
+            return tuple(clone(y) for y in x)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    states, restores = [], []
+    reorder, restore = permute.reorder, permute.restore
+
+    def rec_reorder(*args):
+        if args[8]:
+            raise RuntimeError("the 1 spp frame reorders with return_seed")
+        states.append(clone(args[:8]))
+        return reorder(*args)
+
+    def rec_restore(*args):
+        restores.append(clone(args))
+        return restore(*args)
+
+    r = Renderer(data, RenderConfig(width=WIDTH, height=HEIGHT,
+                                    bounces=BOUNCES), device=DEVICE)
+    permute.reorder, permute.restore = rec_reorder, rec_restore
+    try:
+        r.render(camera, frames=1)
+    finally:
+        permute.reorder, permute.restore = reorder, restore
+    torch.cuda.synchronize()
+    if (r.traversal != "pallas2" or len(states) != r.config.n_bounces - 1
+            or len(restores) != 1 or restores[0][1] is not None):
+        raise RuntimeError(f"captured {len(states)} reorders and "
+                           f"{len(restores)} restores of {r.traversal}")
+    return states, restores[0]
+
+
+def _g3_check(name, st) -> tuple[float, float]:
+    """Reorder and restore against their plain versions byte for byte on
+    state ``st``, with return_seed on and off; their max |d| (0.0)."""
+    from opengl_raytracer_torch.ops import permute
+
+    errs = [0.0, 0.0]
+    for rs in (True, False):
+        ref = permute.reorder_plain(*st, rs)
+        fwd = permute.reorder(*st, rs)
+        errs[0] = max(errs[0], _assert_equal(
+            f"G3 reorder {name} return_seed={rs}", fwd, ref, bits=True))
+        seed = ref[5] if rs else None
+        errs[1] = max(errs[1], _assert_equal(
+            f"G3 restore {name} return_seed={rs}",
+            permute.restore(fwd[3], seed, fwd[6]),
+            permute.restore_plain(ref[3], seed, ref[6]), bits=True))
+    return errs[0], errs[1]
+
+
+def _g3_live_light(name, st) -> None:
+    """Every live ray of a captured state carries +0.0 light, in bits."""
+    from opengl_raytracer_torch.ops.morton import DEAD_KEY32
+
+    keys_s, perm, incoming = st[0], st[1], st[5]
+    live = torch.empty_like(keys_s, dtype=torch.bool)
+    live[perm] = keys_s != DEAD_KEY32
+    for a in range(3):
+        bad = int((incoming[a].view(torch.int32)[live] != 0).sum())
+        if bad:
+            raise RuntimeError(f"G3 {name}: {bad} live rays carry light")
+
+
+def _g3_times(name, st) -> dict:
+    """The reorder (return_seed off, as the 1 spp frame runs it) and the
+    restore of its output on state ``st``: ms of the kernel, of its plain
+    version and of the one PyTorch call (``torch.index_select`` of a
+    pre-stacked (12, R) buffer by the int64 permutation; ``index_copy_``
+    of a (3, R) light buffer by an int64 copy of the index); bytes, bound
+    and scattered sectors at the state's live share.  The reorder's ms
+    covers both its launches."""
+    from opengl_raytracer_torch.ops import permute
+    from opengl_raytracer_torch.ops.morton import DEAD_KEY32
+
+    keys_s, perm = st[:2]
+    alive = keys_s != DEAD_KEY32
+    stacked = torch.stack([c for grp in st[2:6] for c in grp])
+    ms, plain_ms = time_pair(lambda: permute.reorder(*st, False),
+                             lambda: permute.reorder_plain(*st, False), 20, 3)
+    lib = min(cuda_ms(lambda: torch.index_select(stacked, 1, perm), 20)
+              for _ in range(2))
+    n_bytes, sectors = g3_reorder_work(alive, False)
+    bound, _ = bound_ms(n_bytes, 0)
+    old_bound, _ = bound_ms(N_RAYS * G3_UNFOLDED_REORDER_BYTES_PER_RAY, 0)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, n_bytes=n_bytes,
+               live=float(alive.float().mean()), sectors=sectors)
+    say("glue", kernel="reorder", set=name, rays=N_RAYS,
+        live_share=row["live"], ms=ms, plain_ms=plain_ms, library_ms=lib,
+        mbytes=round(n_bytes / 1e6, 3), bound_ms=bound,
+        share_of_bound=bound / ms, unfolded_mbytes=round(
+            N_RAYS * G3_UNFOLDED_REORDER_BYTES_PER_RAY / 1e6, 3),
+        unfolded_bound_ms=old_bound, scattered_msectors=round(sectors / 1e6, 3),
+        sector_gbps=sectors * 32 / ms / 1e6,
+        slower_than_library=ms > lib)
+    fwd = permute.reorder(*st, False)
+    r = _g3_restore_times(fwd[3], None, fwd[6], name)
+    row.update(restore_ms=r[0], restore_library_ms=r[2])
+    return row
+
+
+def _g3_restore_times(incoming, seed, orig, name="frame"):
+    """The restore on (incoming, seed, orig): (ms, plain ms, library ms,
+    bytes, more keys) with its bound and scattered sectors."""
+    from opengl_raytracer_torch.ops import permute
+
+    light = torch.stack(incoming)
+    dst = torch.empty_like(light)
+    orig64 = orig.long()
+    ms, plain_ms = time_pair(lambda: permute.restore(incoming, seed, orig),
+                             lambda: permute.restore_plain(incoming, seed,
+                                                           orig), 20, 3)
+    lib = min(cuda_ms(lambda: dst.index_copy_(1, orig64, light), 20)
+              for _ in range(2))
+    n_bytes, sectors = g3_restore_work(orig.numel(), seed is not None)
+    bound, _ = bound_ms(n_bytes, 0)
+    extra = dict(scattered_msectors=round(sectors / 1e6, 3),
+                 sector_gbps=sectors * 32 / ms / 1e6,
+                 unfolded_bound_ms=bound_ms(
+                     orig.numel() * G3_UNFOLDED_RESTORE_BYTES_PER_RAY, 0)[0])
+    say("glue", kernel="restore", set=name, rays=orig.numel(), ms=ms,
+        plain_ms=plain_ms, library_ms=lib, mbytes=round(n_bytes / 1e6, 3),
+        bound_ms=bound, share_of_bound=bound / ms,
+        slower_than_library=ms > lib, **extra)
+    return ms, plain_ms, lib, n_bytes, extra
+
+
+def _g3_mean(rows):
+    """The reorder's row over the frame's segments: mean ms, plain ms and
+    library ms a launch, mean bytes, and the live shares and each
+    segment's times."""
+    n = len(rows)
+
+    def mean(k):
+        return sum(r[k] for r in rows) / n
+
+    extra = dict(live_shares=[r["live"] for r in rows],
+                 ms_segments=[r["ms"] for r in rows],
+                 library_ms_segments=[r["library_ms"] for r in rows],
+                 scattered_msectors=round(mean("sectors") / 1e6, 3),
+                 sector_gbps=mean("sectors") * 32 / mean("ms") / 1e6,
+                 unfolded_bound_ms=bound_ms(
+                     N_RAYS * G3_UNFOLDED_REORDER_BYTES_PER_RAY, 0)[0],
+                 restore_ms_segments=[r["restore_ms"] for r in rows])
+    return (mean("ms"), mean("plain_ms"), mean("library_ms"),
+            mean("n_bytes"), extra)
 
 
 def _kernels_counts() -> dict:
@@ -1255,7 +1473,8 @@ def _kernel_group(name: str) -> str:
     n = name.lower()
     for group, keys in (("G1 ray front", ("ray_front_kernel",)),
                         ("G2 sort keys", ("coherence_key_kernel",)),
-                        ("G3 reorder", ("reorder_kernel",)),
+                        ("G3 reorder", ("reorder_kernel",
+                                        "reorder_index_kernel")),
                         ("G3 restore", ("restore_kernel",)),
                         ("G4 K1 epilogue", ("part_epilogue_kernel",)),
                         ("K3", ("wide_traverse",)), ("K1", ("traverse",)),
@@ -1845,7 +2064,8 @@ def main(argv=None) -> int:
     *k1, frame_ms, sets = timed("k1", k1_phase, data, camera, segments,
                                 args.seed, data.device)
     timed("k1prof", k1prof_phase, data, sets)
-    glue = timed("glue", glue_phase, data, camera, sets, args.seed)
+    glue, glue_extra = timed("glue", glue_phase, data, camera, sets,
+                             args.seed)
     del sets, segments
     big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
     if (big_scene.total_triangles != BIG_TRIANGLES
@@ -1883,11 +2103,14 @@ def main(argv=None) -> int:
     for kname, (err, ms, plain_ms, (bound, by)) in (
             ("subblock_traversal", k1), ("shade", k2), ("wide_traversal", k3),
             *((g, glue[g]) for g in GLUE)):
-        kernels.append(dict(name=kname, route="cuda", **KERNELS[kname],
-                            launches=counts[kname], max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                            library_ms=None, share_of_bound=bound / ms))
+        row = dict(name=kname, route="cuda", **KERNELS[kname],
+                   launches=counts[kname], max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None, share_of_bound=bound / ms)
+        row.update(glue_extra.get(kname, {}))
+        kernels.append(row)
     kernels[0]["frame_ms"] = frame_ms  # K1 over the five captured segments
+    kernels[3 + GLUE.index("reorder")]["calls"] = counts["reorder"] // 2
     kernels[2]["launches_big_scene_auto"] = big_counts["wide_traversal"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

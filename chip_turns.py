@@ -14,7 +14,10 @@ measured on the card:
 * ms/frame at 1920x1080 and 4 bounces, 1 sample a pixel: standin-31k
   under "pallas" and "auto", standin-1.96m under "auto" (1 warm-up frame,
   then FRAMES frames timed together on the host clock between device
-  syncs), and the traversal each name resolved to.
+  syncs), and the traversal each name resolved to;
+* device ms and launches a frame by kernel group (``chip_smoke.py``'s
+  phase-11 groups: G3 reorder and restore, the sort, K1, ...) over
+  PROFILED more "auto" frames of standin-31k under ``torch.profiler``.
 
 Both trees are driven through the same calls: ``Renderer`` and
 ``chip_smoke.py``'s scene and ray helpers, and K3 through its wrapper,
@@ -35,6 +38,7 @@ import sys
 import time
 
 FRAMES = 8
+PROFILED = 4
 
 
 def k3_launch(wide, data, o3, d3, t0, leaf_octets):
@@ -47,9 +51,10 @@ def k3_launch(wide, data, o3, d3, t0, leaf_octets):
                                       d3, t0, leaf_octets, stack)
 
 
-def frame_ms(torch, data, camera, traversal):
+def frame_ms(torch, data, camera, traversal, cs=None):
     """(ms/frame over FRAMES 1080p frames after one warm-up, the traversal
-    the name resolved to)."""
+    the name resolved to, and with ``cs`` (the tree's chip_smoke) {group:
+    [device ms, launches] a frame} over PROFILED more frames)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
 
     r = Renderer(data, RenderConfig(width=1920, height=1080, bounces=4,
@@ -57,9 +62,20 @@ def frame_ms(torch, data, camera, traversal):
     state = r.render(camera, frames=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.render(camera, frames=FRAMES, state=state)
+    state = r.render(camera, frames=FRAMES, state=state)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1000.0 / FRAMES, r.traversal
+    ms = (time.perf_counter() - t0) * 1000.0 / FRAMES
+    groups = {}
+    if cs is not None:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            r.render(camera, frames=PROFILED, state=state)
+            torch.cuda.synchronize()
+        for name, a, b in cs._device_events(prof):
+            g = groups.setdefault(cs._kernel_group(name), [0.0, 0])
+            g[0] += (b - a) / 1e3 / PROFILED
+            g[1] += 1 / PROFILED
+    return ms, r.traversal, groups
 
 
 def main(argv=None) -> int:
@@ -98,9 +114,13 @@ def main(argv=None) -> int:
                                          for _ in range(2))
         del o3, d3, t0
         for name in names:
-            ms, resolved = frame_ms(torch, data, camera, name)
+            profile = cs if (tag, name) == ("31k", "auto") else None
+            ms, resolved, groups = frame_ms(torch, data, camera, name,
+                                            profile)
             out[f"{name}_{tag}_ms_per_frame"] = ms
             out[f"{name}_{tag}_resolved"] = resolved
+            if groups:
+                out[f"{name}_{tag}_groups"] = groups
         del data
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

@@ -1,34 +1,48 @@
 // G3: the integrator's reorder and restore permutations, for Hopper.
 //
-// Replace the multi-operand sorts that carry every per-ray column in the
+// Replace the multi-operand sorts that carry the per-ray columns in the
 // JAX integrator (opengl_raytracer_tpu/ops/integrator.py:209-268 and
 // :336-354, XLA sorts, not Pallas kernels).  The port sorts only the keys
-// (torch.argsort) and moves the columns with one launch each way:
+// (torch.sort, which hands back the sorted keys and the permutation) and
+// moves the columns, in two launches forward and one back:
 //
-//   * reorder_kernel: out row r at position i is column r at perm[i], for
-//     the 12 float columns (origin, direction, ray colour, incoming light),
-//     written as the rows of one (12, n) buffer so each stays contiguous
-//     for the traversal; also the sorted seed and original index and
-//     alive = keys[perm[i]] != INT32_MAX (the dead-ray sentinel of G2's
-//     int32 keys);
-//   * restore_kernel: incoming light and seed scattered back to pixel
-//     order, out[orig[i]] = in[i].
+//   * reorder_index_kernel, then reorder_kernel: out row r at position i is
+//     column r at perm[i], for the 12 float columns (origin, direction, ray
+//     colour, incoming light) as the rows of one (12, n) buffer, the seed
+//     and the int32 original index; alive = keys_s[i] != INT32_MAX (the
+//     dead-ray sentinel of G2's int32 keys), read from the sorted keys in
+//     order.  Each ray moves only what the frame reads again, as the JAX
+//     reorder does:
+//       - a live ray's incoming light is zero (light is added only where a
+//         path ends: an emitter hit or a miss clears alive, shade.cu), so
+//         the kernel writes +0.0 for it without a read (JAX :267-268);
+//       - a dead ray's origin, direction and ray colour are never read
+//         again (the traversals take t0 = -BIG for it, K2 selects on
+//         was_hit), so the kernel writes 0.0 for them without a read and
+//         reads only the dead ray's light (JAX carries it in the origin
+//         slots, :235; its other columns are junk there, zeros here);
+//       - a dead ray's seed is read only when the caller returns the seed
+//         (return_seed: rays_per_pixel > 1 chains it across samples, JAX
+//         :134-137); otherwise 0.
+//   * restore_kernel: the incoming light, and the seed only when the
+//     caller returns it, scattered back to pixel order, out[orig[i]] =
+//     in[i] (JAX :345-353).
 //
-// The JAX package folds incoming light into the origin columns and may
-// rebuild the seed from the original index: those answer the TPU's
-// per-column cost of a sort network.  Here a gather pays per byte, and the
-// folds would cost selects on both sides, so every column rides as it is.
-// Both are permutations, so they equal their plain versions
-// (ops/permute.py) bit for bit.
+// Both equal their plain versions (ops/permute.py) bit for bit: they copy
+// and select, and compute nothing.
 //
-// What bounds them on the card: bytes.  The reorder reads an 8-byte index,
-// a 4-byte key, 48 bytes of columns, a seed and an index, and writes 48 +
-// 17 bytes (about 140 bytes a ray); the restore moves 28 bytes in and 20
-// out.  Reads (and the restore's writes) by a permuted index are scattered
-// 4- or 8-byte accesses, each of which moves a 32-byte sector between L2
-// and the SM; writes and index reads are coalesced.  So the design keeps
-// the scattered side in L2: the grid's second dimension walks the
-// columns, one at a time, instead of one thread carrying a ray's 15.
+// What bounds them on the card: traffic between L2 and the SMs, most of it
+// scattered sectors, not DRAM bytes.  A read by a permuted index (and the
+// restore's write) is a 4- or 8-byte access that moves a 32-byte sector;
+// index, key and output accesses are coalesced.  A live ray costs 11
+// scattered reads (9 columns, seed, index) and a dead one 4 (3 columns,
+// index; 5 with the seed); the restore 3 scattered writes a ray (4 with
+// the seed).  The gather's grid walks the columns, one at a time, so a
+// column's scattered reads (8 or 16 MB at 2M rays) stay in the 50 MB L2;
+// its rows read one int32 a ray (index and liveness, from the index pass)
+// where each would otherwise read an 8-byte index and a 4-byte key.  Dead
+// rays hold the largest key and sort to the tail, so the live/dead branch
+// is the same for every lane of a warp but the one warp at the boundary.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,94 +50,156 @@
 namespace {
 
 constexpr int kCols = 12;
+constexpr int kRows = 10;  // the gather's: 3 origin/incoming, 6
+                           // direction/colour, the seed
 constexpr int kDeadKey = 0x7FFFFFFF;
+constexpr int kBlock = 256;
+constexpr int kRays = 8;  // rays a thread of the gather
 
 struct Cols12 {
     const float* c[kCols];
 };
 
-// blockIdx.y picks the column: 0-11 the float columns, 12 the seed, 13
-// the original index, 14 alive from the key.  Blocks run x-fastest, so the
-// card works through one column at a time and that column's scattered
-// reads (8 or 16 MB) stay in the 50 MB L2.  On an H100 at 2,073,600 rays
-// (chip_smoke.py's glue phase) one thread per ray reading all 15 columns,
-// a 140 MB working set, took 0.87 ms on a random permutation; this
-// layout 0.32 ms.
-__global__ void __launch_bounds__(256)
-reorder_kernel(const long long* __restrict__ perm, const int* __restrict__ keys,
-               Cols12 in, const long long* __restrict__ seed,
-               const long long* __restrict__ orig, float* __restrict__ out,
-               long long* __restrict__ seed_out, long long* __restrict__ orig_out,
-               bool* __restrict__ alive_out, long long n) {
+// Column k of ``in`` by selects over constant offsets: indexing the
+// parameter array by a run-time k would copy it to local memory.
+__device__ __forceinline__ const float* pick(const Cols12& in, int k) {
+    const float* s = in.c[0];
+#pragma unroll
+    for (int j = 1; j < kCols; ++j) s = k == j ? in.c[j] : s;
+    return s;
+}
+
+// The reorder's first launch: each ray's permuted index with its liveness
+// in the sign, pa[i] = alive ? perm[i] : ~perm[i] (int32, so the gather's
+// rows read 4 bytes a ray, not an 8-byte index and a 4-byte key each), and
+// the two outputs that need nothing else: the original index orig[perm[i]]
+// (one scattered read) and alive.
+__global__ void __launch_bounds__(kBlock)
+reorder_index_kernel(const long long* __restrict__ perm,
+                     const int* __restrict__ keys_s,
+                     const int* __restrict__ orig, int* __restrict__ pa,
+                     int* __restrict__ orig_out, bool* __restrict__ alive_out,
+                     long long n) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const long long p = perm[i];
-    const int r = blockIdx.y;
-    if (r < kCols) {
-        // selects over constant offsets: indexing the parameter array by r
-        // would copy it to local memory
-        const float* src = in.c[0];
+    const int p = (int)perm[i];
+    const bool live = keys_s[i] != kDeadKey;
+    pa[i] = live ? p : ~p;
+    orig_out[i] = orig[p];
+    alive_out[i] = live;
+}
+
+// The gather: blockIdx.y picks the row: 0-2 origin axis a (a live ray's
+// origin, a dead ray's light; each writes both outputs of its axis), 3-8
+// direction and ray colour, 9 the seed.  Blocks run x-fastest, so the card
+// works through one row at a time.  Each thread moves kRays rays of its
+// row, kBlock apart (coalesced), with every load of a phase issued
+// before the next phase: kRays scattered reads in flight a thread.
+template <bool kSeed>
+__global__ void __launch_bounds__(kBlock)
+reorder_kernel(const int* __restrict__ pa, Cols12 in,
+               const long long* __restrict__ seed, float* __restrict__ out,
+               long long* __restrict__ seed_out, long long n) {
+    const long long base =
+        (long long)blockIdx.x * kBlock * kRays + threadIdx.x;
+    long long at[kRays];
+    bool ok[kRays], live[kRays];
+    int p[kRays];
 #pragma unroll
-        for (int k = 1; k < kCols; ++k) src = r == k ? in.c[k] : src;
-        out[r * n + i] = src[p];
-    } else if (r == kCols) {
-        seed_out[i] = seed[p];
-    } else if (r == kCols + 1) {
-        orig_out[i] = orig[p];
+    for (int k = 0; k < kRays; ++k) {
+        at[k] = base + (long long)k * kBlock;
+        ok[k] = at[k] < n;
+        const int q = ok[k] ? pa[at[k]] : -1;
+        live[k] = q >= 0;
+        p[k] = live[k] ? q : ~q;
+    }
+    const int r = blockIdx.y;
+    if (r < 3) {
+        float v[kRays];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+            if (ok[k]) v[k] = pick(in, live[k] ? r : 9 + r)[p[k]];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+            if (!ok[k]) continue;
+            out[r * n + at[k]] = live[k] ? v[k] : 0.0f;
+            out[(9 + r) * n + at[k]] = live[k] ? 0.0f : v[k];
+        }
+    } else if (r < 9) {
+        const float* src = pick(in, r);
+        float v[kRays];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) v[k] = live[k] ? src[p[k]] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+            if (ok[k]) out[r * n + at[k]] = v[k];
     } else {
-        alive_out[i] = keys[p] != kDeadKey;
+        long long v[kRays];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+            v[k] = (live[k] || (kSeed && ok[k])) ? seed[p[k]] : 0;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+            if (ok[k]) seed_out[at[k]] = v[k];
     }
 }
 
-// blockIdx.y picks the column: 0-2 incoming light, 3 the seed (one
-// scattered destination at a time, as the reorder reads one source).
-__global__ void __launch_bounds__(256)
-restore_kernel(const long long* __restrict__ orig, const float* __restrict__ i0,
+// blockIdx.y picks the column: 0-2 incoming light, 3 the seed (launched
+// only when the caller returns it; one scattered destination at a time, as
+// the reorder reads one source).  One ray a thread.
+__global__ void __launch_bounds__(kBlock)
+restore_kernel(const int* __restrict__ orig, const float* __restrict__ i0,
                const float* __restrict__ i1, const float* __restrict__ i2,
                const long long* __restrict__ seed, float* __restrict__ out,
                long long* __restrict__ seed_out, long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
     if (i >= n) return;
-    const long long o = orig[i];
     const int r = blockIdx.y;
-    if (r == 3) {
+    const int o = orig[i];
+    if (r == 3)
         seed_out[o] = seed[i];
-    } else {
-        const float* src = r == 0 ? i0 : (r == 1 ? i1 : i2);
-        out[r * n + o] = src[i];
-    }
+    else
+        out[r * n + o] = (r == 0 ? i0 : (r == 1 ? i1 : i2))[i];
 }
 
 }  // namespace
 
-// cols: 12 float column pointers; out: (12, n) float32.
-extern "C" int oglrt_reorder(const long long* perm, const int* keys,
+// perm: int64 (n < 2^31); cols: 12 float column pointers; pa: an (n,)
+// int32 scratch buffer; out: (12, n) float32.  Two launches on the stream,
+// the index pass first.
+extern "C" int oglrt_reorder(const long long* perm, const int* keys_s,
                              const float* const* cols, const long long* seed,
-                             const long long* orig, float* out,
-                             long long* seed_out, long long* orig_out,
-                             bool* alive_out, long long n, void* stream) {
+                             const int* orig, int* pa, float* out,
+                             long long* seed_out, int* orig_out,
+                             bool* alive_out, int return_seed, long long n,
+                             void* stream) {
     if (n > 0) {
         Cols12 in;
         for (int r = 0; r < kCols; ++r) in.c[r] = cols[r];
-        const int block = 256;
-        const long long grid = (n + block - 1) / block;
-        reorder_kernel<<<dim3((unsigned)grid, kCols + 3), block, 0,
-                         (cudaStream_t)stream>>>(
-            perm, keys, in, seed, orig, out, seed_out, orig_out, alive_out, n);
+        cudaStream_t st = (cudaStream_t)stream;
+        reorder_index_kernel<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock,
+                               0, st>>>(perm, keys_s, orig, pa, orig_out,
+                                        alive_out, n);
+        const dim3 grid(
+            (unsigned)((n + kBlock * kRays - 1) / (kBlock * kRays)), kRows);
+        if (return_seed)
+            reorder_kernel<true><<<grid, kBlock, 0, st>>>(pa, in, seed, out,
+                                                          seed_out, n);
+        else
+            reorder_kernel<false><<<grid, kBlock, 0, st>>>(pa, in, seed, out,
+                                                           seed_out, n);
     }
     return (int)cudaGetLastError();
 }
 
-// out: (3, n) float32.
-extern "C" int oglrt_restore(const long long* orig, const float* i0,
+// out: (3, n) float32; seed and seed_out null: the light alone.
+extern "C" int oglrt_restore(const int* orig, const float* i0,
                              const float* i1, const float* i2,
                              const long long* seed, float* out,
                              long long* seed_out, long long n, void* stream) {
     if (n > 0) {
-        const int block = 256;
-        const long long grid = (n + block - 1) / block;
-        restore_kernel<<<dim3((unsigned)grid, 4), block, 0,
-                         (cudaStream_t)stream>>>(
+        const dim3 grid((unsigned)((n + kBlock - 1) / kBlock), seed ? 4 : 3);
+        restore_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
             orig, i0, i1, i2, seed, out, seed_out, n);
     }
     return (int)cudaGetLastError();

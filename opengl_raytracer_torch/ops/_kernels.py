@@ -10,8 +10,9 @@ launches its kernel or raises.  The build is not fast-math (``/`` and
 
 Every wrapper launches through :func:`launch`, which makes its tensors'
 device the current one for the call.  ``launch_counts`` holds one integer
-per kernel; ``launch`` adds one where it launches a kernel and nowhere
-else, so a caller can show which kernels a run went through.
+per kernel (G3's reorder: its two kernels); ``launch`` adds one where it
+launches a kernel and nowhere else, so a caller can show which kernels a
+run went through.
 """
 
 from __future__ import annotations
@@ -153,17 +154,17 @@ def lib() -> ctypes.CDLL:
                                                + [p] * 5 + [i64, p])
             # the glue kernels: (px, py, frames, frame_term, camera, 7
             # floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
-            # keys, n); (perm, keys, columns, seed, orig, 4 outputs, n);
-            # (orig, 3 columns, seed, 2 outputs, n); (K1's 4 columns,
-            # remap, n_remap, slot_base, 5 earlier columns, active, last,
-            # 6 outputs, n)
+            # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
+            # outputs, return_seed, n); (orig, 3 columns, seed or null, 2
+            # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
+            # earlier columns, active, last, 6 outputs, n)
             so.oglrt_ray_front.restype = i32
             so.oglrt_ray_front.argtypes = ([p] * 3 + [ctypes.c_uint, p]
                                            + [f32] * 7 + [p, p, i64, p])
             so.oglrt_sort_keys.restype = i32
             so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
             so.oglrt_reorder.restype = i32
-            so.oglrt_reorder.argtypes = [p] * 9 + [i64, p]
+            so.oglrt_reorder.argtypes = [p] * 10 + [i32, i64, p]
             so.oglrt_restore.restype = i32
             so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
             so.oglrt_subblock_epilogue.restype = i32
@@ -186,11 +187,11 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def launch(symbol: str, counter: str, device: torch.device, *args,
-           library: ctypes.CDLL | None = None) -> None:
+           library: ctypes.CDLL | None = None, kernels: int = 1) -> None:
     """Launch ``symbol`` of ``library`` (default: :func:`lib`) on
     ``device``: call it with ``args`` and the device's current stream while
-    ``device`` is the current one, add one to ``launch_counts[counter]``,
-    and raise on a launch error.
+    ``device`` is the current one, add ``kernels`` (the kernels ``symbol``
+    launches) to ``launch_counts[counter]``, and raise on a launch error.
 
     A ctypes launch runs in the context of the CURRENT device, whatever
     device its pointers and stream belong to, so the guard is what keeps a
@@ -198,7 +199,7 @@ def launch(symbol: str, counter: str, device: torch.device, *args,
     cards (``parallel/sharding.py``)."""
     with torch.cuda.device(device):
         err = getattr(library or lib(), symbol)(*args, stream_ptr(device))
-    launch_counts[counter] += 1
+    launch_counts[counter] += kernels
     check(err, symbol)
 
 

@@ -8,13 +8,16 @@ The shader's path logic (fragment.glsl:220-366), as in
 * ``raytrace`` — the bounce loop (fragment.glsl:309-350).  With
   ``reorder`` (the wide-BVH kernels' traversals), before every bounce
   segment but the first, rays are reordered by a Morton/octant coherence
-  key (int32 keys, ``morton.sort_keys``; a stable argsort; one gather of
-  every per-ray column, ``permute.reorder``), and at the end the light is
-  scattered back to pixel order by each ray's original index
-  (``permute.restore``).  Each segment, the traversal finds the nearest
-  hits and the fused shade kernel (K2) updates the path state.
-  Terminated paths carry an ``alive`` mask; dead rays keep their frozen
-  light;
+  key (int32 keys, ``morton.sort_keys``; a stable ``torch.sort``, which
+  returns the sorted keys with the permutation; one gather,
+  ``permute.reorder``, that moves only the columns a ray still needs, as
+  the JAX sort's folds do, ``opengl_raytracer_tpu/ops/integrator.py:226-268``),
+  and at the end the light is scattered back to pixel order by each ray's
+  int32 original index (``permute.restore``; the seed too only with
+  ``return_seed``, JAX ``:345-353``).  Each segment, the traversal finds
+  the nearest hits and the fused shade kernel (K2) updates the path
+  state.  Terminated paths carry an ``alive`` mask; dead rays keep their
+  frozen light;
 * ``trace`` — ``rays_per_pixel`` independent paths averaged, the RNG state
   carried sequentially across samples (fragment.glsl:352-366).
 
@@ -75,14 +78,18 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
 
 
 def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
-             lambertian: bool, reorder: bool = False):
+             lambertian: bool, reorder: bool = False,
+             return_seed: bool = True):
     """One path per ray: returns (incoming light 3x(R,), final seed), both
     in the input ray order.
 
     ``raycast_fn(o3, d3, alive)`` returns a ``Nearest``; its rays' shading
     rows are picked by ``intersect.shading_table``.  ``reorder`` sorts the
     rays by coherence key before every bounce segment but the first (the
-    JAX renderer's ``reorder``, ``renderer.py:276``)."""
+    JAX renderer's ``reorder``, ``renderer.py:276``).  ``return_seed=False``
+    (single-sample callers, as in the JAX ``raytrace``, ``:134-137``) lets
+    the reorder drop a dead ray's seed and the restore the seed column;
+    with ``reorder`` the seed returned is then None."""
     from opengl_raytracer_torch.ops.shade import shade_update
 
     R = o3[0].shape[0]
@@ -97,18 +104,18 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
     incoming = (zeros, zeros, zeros)
     alive = torch.ones(R, dtype=torch.bool, device=dev)
     seed = seed0
-    orig = torch.arange(R, device=dev)
+    orig = torch.arange(R, dtype=torch.int32, device=dev)
 
     for i in range(int(n_bounces)):
         if reorder and i > 0:
             # Primary rays arrive screen-coherent; bounce rays are sorted.
             # Dead rays hold the sentinel key and sort to the tail, and
-            # alive is re-derived from it (G2 keys, G3 gather).
-            keys = sort_keys(origin, direction, lo, hi, alive)
-            perm = torch.argsort(keys, stable=True)
+            # alive is re-derived from the sorted keys (G2 keys, G3 gather).
+            keys_s, perm = torch.sort(
+                sort_keys(origin, direction, lo, hi, alive), stable=True)
             origin, direction, ray_color, incoming, alive, seed, orig = (
-                permute.reorder(keys, perm, origin, direction, ray_color,
-                                incoming, seed, orig))
+                permute.reorder(keys_s, perm, origin, direction, ray_color,
+                                incoming, seed, orig, return_seed))
 
         nearest = raycast_fn(origin, direction, alive)
         table, index = shading_table(scene, nearest)
@@ -119,20 +126,25 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
     if not reorder:
         return incoming, seed
     # Restore pixel order by scattering into each ray's original index (G3).
-    return permute.restore(incoming, seed, orig)
+    return permute.restore(incoming, seed if return_seed else None, orig)
 
 
 def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
           rays_per_pixel: int, lambertian: bool, reorder: bool = False):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
-    Returns ((R, 3) color, new seed)."""
+    Returns ((R, 3) color, new seed).
+
+    With one sample the per-pixel seed dies here (each frame reseeds from
+    the pixel and the frame number), so the restore drops it and ``seed0``
+    stands in for it, as in the JAX ``trace`` (:381-386)."""
     colors = []
     seed = seed0
     for _ in range(rays_per_pixel):
         color, seed = raytrace(scene, raycast_fn, o3, d3, seed, sky_color,
-                               n_bounces, lambertian, reorder)
+                               n_bounces, lambertian, reorder,
+                               return_seed=rays_per_pixel > 1)
         colors.append(torch.stack(color, dim=-1))
     if rays_per_pixel == 1:
-        return colors[0], seed
+        return colors[0], seed0 if seed is None else seed
     return torch.stack(colors).mean(dim=0), seed
 

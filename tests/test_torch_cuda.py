@@ -513,8 +513,12 @@ def test_sort_keys_kernel_matches_plain(cuda):
 
 
 def test_permute_kernels_match_plain(cuda):
-    """Reorder and restore against their plain versions bit for bit on a
-    random permutation; restore after reorder is the identity."""
+    """Reorder and restore against their plain versions bit for bit, with
+    and without ``return_seed``, on a random permutation (dead rays
+    scattered) and on the stable sort of the keys (dead rays at the tail,
+    as the integrator runs it), at a count that leaves a part block; the
+    reorder's two kernels count as two launches; restore after reorder is
+    the identity."""
     from opengl_raytracer_torch.ops import morton, permute
 
     R = 100_003
@@ -525,30 +529,47 @@ def test_permute_kernels_match_plain(cuda):
                             .astype(np.int32)).to(cuda)
     keys[torch.from_numpy(g.uniform(size=R) < 0.3).to(cuda)] = \
         morton.DEAD_KEY32
+    for c in cols[9:]:  # a live ray carries no light
+        c[keys != morton.DEAD_KEY32] = 0.0
     seed = torch.from_numpy(g.integers(0, 2**32, R)).to(cuda)
-    perm = torch.argsort(keys, stable=True)
-    orig = torch.randperm(R, device=cuda)
+    random = torch.randperm(R, device=cuda)
+    keys_s, perm = torch.sort(keys, stable=True)
+    orig = torch.randperm(R, device=cuda).int()
     groups = (tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
               tuple(cols[9:12]))
-    before = dict(_kernels.launch_counts)
-    got = permute.reorder(keys, perm, *groups, seed, orig)
-    back = permute.restore(got[3], got[5], got[6])
-    assert _kernels.launch_counts["reorder"] == before["reorder"] + 1
-    assert _kernels.launch_counts["restore"] == before["restore"] + 1
-    ref = permute.reorder_plain(keys, perm, *groups, seed, orig)
-    flat = [y for z in got for y in (z if isinstance(z, tuple) else (z,))]
-    rflat = [y for z in ref for y in (z if isinstance(z, tuple) else (z,))]
-    for a, b in zip(flat, rflat):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    rback = permute.restore_plain(got[3], got[5], got[6])
-    for a, b in zip((*back[0], back[1]), (*rback[0], rback[1])):
-        assert torch.equal(a, b)
+    n_dead = int((keys == morton.DEAD_KEY32).sum())
+
+    def flat(x):
+        return [y for z in x
+                for y in (z if isinstance(z, tuple) else (z,))
+                if y is not None]
+
+    for ks, p in ((keys[random], random), (keys_s, perm)):
+        for return_seed in (True, False):
+            before = dict(_kernels.launch_counts)
+            got = permute.reorder(ks, p, *groups, seed, orig, return_seed)
+            seed_in = got[5] if return_seed else None
+            back = permute.restore(got[3], seed_in, got[6])
+            assert _kernels.launch_counts["reorder"] == before["reorder"] + 2
+            assert _kernels.launch_counts["restore"] == before["restore"] + 1
+            ref = permute.reorder_plain(ks, p, *groups, seed, orig,
+                                        return_seed)
+            for a, b in zip(flat(got), flat(ref)):
+                assert a.dtype == b.dtype
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            rback = permute.restore_plain(got[3], seed_in, got[6])
+            assert (back[1] is None) == (rback[1] is None) == (not return_seed)
+            for a, b in zip(flat(back), flat(rback)):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        if p is perm:
+            assert not got[4][-n_dead:].any() and got[4][:-n_dead].all()
     # from pixel order (orig = arange) and back
-    fwd = permute.reorder(keys, perm, *groups, seed,
-                          torch.arange(R, device=cuda))
+    fwd = permute.reorder(keys_s, perm, *groups, seed,
+                          torch.arange(R, dtype=torch.int32, device=cuda))
     inc, seed_back = permute.restore(fwd[3], fwd[5], fwd[6])
     for a in range(3):
-        assert torch.equal(inc[a], groups[3][a])
+        assert torch.equal(inc[a].view(torch.int32),
+                           groups[3][a].view(torch.int32))
     assert torch.equal(seed_back, seed)
 
 
@@ -613,12 +634,15 @@ def test_glue_wrappers_reject_bad_input(cuda):
          "dtype"),
         (lambda: morton.sort_keys(o3, d3, lo, hi, keys[:-1].bool()),
          "elements"),
-        (lambda: permute.reorder(keys, keys, o3, d3, o3, d3, seed, seed),
-         "dtype"),
+        (lambda: permute.reorder(keys, keys.float(), o3, d3, o3, d3, seed,
+                                 keys), "dtype"),
         (lambda: permute.reorder(keys.long(), seed, o3, d3, o3, d3, seed,
-                                 seed), "dtype"),
-        (lambda: permute.restore(d3, seed.cpu(), seed), "is on"),
-        (lambda: permute.restore(d3, seed, seed[:-1]), "elements"),
+                                 keys), "dtype"),
+        (lambda: permute.reorder(keys, seed, o3, d3, o3, d3, seed, seed,
+                                 False), "dtype"),
+        (lambda: permute.restore(d3, seed.cpu(), keys), "is on"),
+        (lambda: permute.restore(d3, None, seed), "dtype"),
+        (lambda: permute.restore(d3, seed, keys[:-1]), "elements"),
         (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap.long(), 0, None,
                                    None, True), "dtype"),
         (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap[:0], 0, None,

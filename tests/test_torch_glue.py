@@ -13,8 +13,11 @@ of.
   2^31, bit for bit, on live, dead and out-of-box rays; a stable argsort
   of them is the stable argsort of the uint32 keys.
 * G3, the reorder and restore (``ops/permute.py``): restore after reorder
-  is the identity, and both equal the integrator's former inline code bit
-  for bit.
+  is the identity; both equal the integrator's former inline code bit for
+  bit wherever the frame reads a column again; the plain reorder equals
+  the JAX sort's fold (``opengl_raytracer_tpu/ops/integrator.py:251-268``)
+  on the same state; and on a small frame every live ray's incoming light
+  is +0.0 in bits after each bounce, the fact the fold rests on.
 * G4, K1's part epilogue (``ops/subblock_traversal.py``): on a 4-part
   scene with an active mask, the port's ``raycast_subblock`` against the
   JAX ``raycast_subblock`` in interpret mode (the tolerances of
@@ -159,30 +162,51 @@ def test_int32_keys_are_jax_keys_minus_2_31(R):
 # ------------------------------------------------------- G3 permutation
 
 def _state(R, seed):
+    """12 float columns, int32 keys with ~30% dead, seeds; a live ray's
+    incoming light is +0.0, as the integrator keeps it."""
     g = np.random.default_rng(seed)
     cols = [torch.from_numpy(g.normal(size=R).astype(np.float32))
             for _ in range(12)]
     keys = torch.from_numpy(g.integers(-2**31, 2**31 - 1, R).astype(np.int32))
     keys[torch.from_numpy(g.uniform(size=R) < 0.3)] = morton.DEAD_KEY32
     seed_col = torch.from_numpy(g.integers(0, 2**32, R).astype(np.int64))
+    live = keys != morton.DEAD_KEY32
+    for c in cols[9:]:
+        c[live] = 0.0
     return cols, keys, seed_col
+
+
+def _groups(cols):
+    return tuple(tuple(cols[3 * k:3 * k + 3]) for k in range(4))
+
+
+def _bits(x):
+    return x.view(torch.int32)
 
 
 def test_restore_after_reorder_is_identity():
     R = 5000
     cols, keys, seed = _state(R, 1)
-    perm = torch.argsort(keys, stable=True)
-    orig = torch.arange(R)
-    o, d, rc, inc, alive, seed_s, orig_s = permute.reorder(
-        keys, perm, tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
-        tuple(cols[9:12]), seed, orig)
-    assert torch.equal(orig_s, perm)
-    assert torch.equal(alive, keys[perm] != morton.DEAD_KEY32)
-    assert not alive[-int((keys == morton.DEAD_KEY32).sum()):].any()
-    back, seed_b = permute.restore(inc, seed_s, orig_s)
-    for a in range(3):
-        assert torch.equal(back[a], cols[9 + a])
-    assert torch.equal(seed_b, seed)
+    keys_s, perm = torch.sort(keys, stable=True)
+    orig = torch.arange(R, dtype=torch.int32)
+    n_dead = int((keys == morton.DEAD_KEY32).sum())
+    for return_seed in (True, False):
+        o, d, rc, inc, alive, seed_s, orig_s = permute.reorder(
+            keys_s, perm, *_groups(cols), seed, orig, return_seed)
+        assert orig_s.dtype == torch.int32
+        assert torch.equal(orig_s.long(), perm)
+        assert torch.equal(alive, keys[perm] != morton.DEAD_KEY32)
+        assert alive[:-n_dead].all() and not alive[-n_dead:].any()
+        back, seed_b = permute.restore(inc, seed_s if return_seed else None,
+                                       orig_s)
+        for a in range(3):
+            assert torch.equal(_bits(back[a]), _bits(cols[9 + a]))
+        if return_seed:
+            assert torch.equal(seed_b, seed)
+        else:
+            assert seed_b is None
+            assert torch.equal(seed_s[alive], seed[perm][alive])
+            assert (seed_s[~alive] == 0).all()
 
 
 def _reorder_inline(keys_u32, perm, origin, direction, ray_color, incoming,
@@ -211,21 +235,125 @@ def _flat(x):
 
 
 def test_split_reorder_and_restore_equal_the_inline_code():
+    """Bit for bit wherever the frame reads a column again: a live ray's
+    every column, every ray's incoming light, alive, the index, and the
+    seed (with ``return_seed``; a live ray's without); the columns the
+    fold drops are zeros."""
     R = 4099
     cols, keys, seed = _state(R, 2)
     keys_u32 = keys.long() + 2**31
     g = torch.Generator().manual_seed(3)
     perm = torch.randperm(R, generator=g)
-    orig = torch.randperm(R, generator=g)
-    groups = (tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
-              tuple(cols[9:12]))
-    got = permute.reorder_plain(keys, perm, *groups, seed, orig)
+    orig = torch.randperm(R, generator=g).int()
+    groups = _groups(cols)
     want = _reorder_inline(keys_u32, perm, *groups, seed, orig)
-    for a, b in zip(_flat(got), _flat(want)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    live = want[4]
+    for return_seed in (True, False):
+        got = permute.reorder_plain(keys[perm], perm, *groups, seed, orig,
+                                    return_seed)
+        for k in range(3):  # origin, direction, ray colour
+            for a, b in zip(got[k], want[k]):
+                assert a.dtype == b.dtype
+                assert torch.equal(_bits(a[live]), _bits(b[live]))
+                assert (_bits(a[~live]) == 0).all()
+        for a, b in zip(got[3], want[3]):  # incoming light, every ray
+            assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(got[4], live)
+        assert torch.equal(got[6], want[6]) and got[6].dtype == torch.int32
+        if return_seed:
+            assert torch.equal(got[5], want[5])
+        else:
+            assert torch.equal(got[5][live], want[5][live])
+            assert (got[5][~live] == 0).all()
     for a, b in zip(_flat(permute.restore_plain(groups[3], seed, orig)),
                     _flat(_restore_inline(groups[3], seed, orig))):
         assert torch.equal(a, b)
+    light, no_seed = permute.restore_plain(groups[3], None, orig)
+    assert no_seed is None
+    for a, b in zip(light, _restore_inline(groups[3], seed, orig)[0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("return_seed", [True, False])
+def test_plain_reorder_equals_the_jax_sort_fold(return_seed):
+    """The same state through the JAX reorder's sort and fold
+    (``integrator.py:235, :251-268``) and through ``reorder_plain``: a
+    live ray's origin, direction, ray colour, seed and index, and every
+    ray's incoming light and alive, equal.  ``is_stable=True``: only dead
+    rays share a key, and the JAX sort may leave them in any order."""
+    import jax
+
+    R = 3001
+    cols, keys, seed = _state(R, 4)
+    orig = np.random.default_rng(5).permutation(R).astype(np.int32)
+    alive_in = jnp.asarray((keys != morton.DEAD_KEY32).numpy())
+    c = [jnp.asarray(x.numpy()) for x in cols]
+    merged = tuple(jnp.where(alive_in, c[a], c[9 + a]) for a in range(3))
+    keys_u32 = (keys.numpy().astype(np.int64) + 2**31).astype(np.uint32)
+    (keys_j, m0, m1, m2, d0, d1, d2, c0, c1, c2, seed_j, orig_j) = \
+        jax.lax.sort((jnp.asarray(keys_u32), *merged, *c[3:9],
+                      jnp.asarray(seed.numpy().astype(np.uint32)),
+                      jnp.asarray(orig)), num_keys=1, is_stable=True)
+    alive_j = np.asarray(keys_j != np.uint32(0xFFFFFFFF))
+    inc_j = [np.asarray(jnp.where(alive_j, jnp.zeros_like(m), m))
+             for m in (m0, m1, m2)]
+
+    keys_s, perm = torch.sort(keys, stable=True)
+    got = permute.reorder_plain(keys_s, perm, *_groups(cols), seed,
+                                torch.from_numpy(orig), return_seed)
+    live = got[4].numpy()
+    np.testing.assert_array_equal(live, alive_j)
+    for col, ref in zip((*got[0], *got[1], *got[2]),
+                        (m0, m1, m2, d0, d1, d2, c0, c1, c2)):
+        np.testing.assert_array_equal(col.numpy()[live].view(np.uint32),
+                                      np.asarray(ref)[live].view(np.uint32))
+    for col, ref in zip(got[3], inc_j):
+        np.testing.assert_array_equal(col.numpy().view(np.uint32),
+                                      ref.view(np.uint32))
+    np.testing.assert_array_equal(got[5].numpy()[live],
+                                  np.asarray(seed_j)[live].astype(np.int64))
+    np.testing.assert_array_equal(got[6].numpy()[live],
+                                  np.asarray(orig_j)[live])
+
+
+def test_live_rays_carry_no_light_after_each_bounce(monkeypatch):
+    """On a small "pallas2" frame on the CPU: after each bounce segment
+    every live ray's incoming light is +0.0 in bits, and so it is on the
+    reorder's input: the fold writes +0.0 for it without a read."""
+    from opengl_raytracer_torch import Rect, Renderer, Scene, Triangles
+    from opengl_raytracer_torch.ops import shade
+    from test_torch_render import CAM, _objects
+
+    seen = {"shade": 0, "reorder": 0}
+    shade_update, reorder = shade.shade_update, permute.reorder
+
+    def check_shade(*args):
+        out = shade_update(*args)
+        alive = out[4]
+        for a in range(3):
+            assert (_bits(out[3][a])[alive] == 0).all()
+        seen["shade"] += 1
+        return out
+
+    def check_reorder(keys_s, perm, origin, direction, ray_color, incoming,
+                      seed, orig, return_seed):
+        live = torch.empty_like(keys_s, dtype=torch.bool)
+        live[perm] = keys_s != morton.DEAD_KEY32
+        assert 0 < int(live.sum()) < live.numel()
+        for a in range(3):
+            assert (_bits(incoming[a])[live] == 0).all()
+        seen["reorder"] += 1
+        return reorder(keys_s, perm, origin, direction, ray_color, incoming,
+                       seed, orig, return_seed)
+
+    monkeypatch.setattr(shade, "shade_update", check_shade)
+    monkeypatch.setattr(permute, "reorder", check_reorder)
+    r = Renderer(Scene(_objects(Rect, Triangles)),
+                 RenderConfig(width=16, height=16, bounces=3,
+                              traversal="pallas2"), device="cpu")
+    img = r.image(r.render(make_camera(*CAM), frames=1))
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert seen == {"shade": 4, "reorder": 3}
 
 
 # ----------------------------------------------------------- G4 epilogue

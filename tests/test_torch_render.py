@@ -70,6 +70,18 @@ def test_renderer_matches_jax_pallas2(scene):
     _assert_matches(ref, _render(scene))
 
 
+def test_renderer_matches_jax_pallas2_two_samples(scene):
+    """rays_per_pixel=2: the seed chains across the samples, so the
+    integrator reorders with ``return_seed=True`` (a dead ray's seed moves
+    too) and restores the seed; against the JAX Renderer's scan."""
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)),
+                   JRenderConfig(width=16, height=16, bounces=2,
+                                 traversal="pallas2", rays_per_pixel=2))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=2))
+    _assert_matches(ref, _render(scene, traversal="pallas2",
+                                 rays_per_pixel=2))
+
+
 def test_remainder_tiles_match_whole_frame(scene):
     """tile_size=3 on a 16x16 frame leaves remainder tiles (clamped band
     windows with masked merges); per-ray results do not depend on which
