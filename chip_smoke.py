@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one CUDA card and check it.
 
-    python3 chip_smoke.py [--seed N] [--out DIR]
+    python3 chip_smoke.py [--seed N] [--out DIR] [--cards N]
+
+With ``--cards N`` (N > 1, a machine with N cards) it runs only phase 10's
+meshes, each shard on a card of its own (``cuda:0 ..``), with the peer
+copy of a shard's colours into the home card; the rest of this text is
+the run without it, which needs one card.
 
 Phases; each raises on failure, and the script then exits non-zero:
 
@@ -27,9 +32,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    fetch, and the ms of a profile launch on the random rays.
 3c. glue: the main path's glue kernels against their plain torch versions
    at 2,073,600 rays, each bit for bit (max |d| 0): G1, the ray front
-   (``csrc/ray_front.cu``), on a quarter of the 1080p frame's rows with
-   frames_per_step = 4 from frame 2^32 - 2 (the frame numbers wrap), and
-   on the whole frame at frame 2^32 - 1; G2, the int32 sort keys
+   (``csrc/ray_front.cu``, each ray's pixel and frame number from its
+   index and the step block's window), on a quarter of the 1080p frame's
+   rows with frames_per_step = 4 from frame 2^32 - 2 (the frame numbers
+   wrap), and on the whole frame at frame 2^32 - 1; G2, the int32 sort keys
    (``csrc/sort_keys.cu``), on phase 3's ray sets and on its random rays
    with out-of-box origins, NaN and +-inf in their columns (and the
    stable argsort of the int32 keys equals that of the uint32 keys, each
@@ -48,8 +54,15 @@ Phases; each raises on failure, and the script then exits non-zero:
    covers its two launches, index pass and gather); G4, K1's part epilogue
    (``csrc/subblock_epilogue.cu``), on K1's output for each of phase 3's
    sets, as the only part and as a later part against the previous set's
-   hits.  Each prints ms per launch, the plain version's, its bytes bound
-   and the share.
+   hits; G5, K3's wrapper prologue and epilogue (``csrc/wide_epilogue.cu``),
+   on K3's own output for phase 3's sets; G6, the band fold
+   (``csrc/band_fold.cu``), on the whole 1080p frame as one band at frame
+   2^32 - 2 and on three tiles of tile_size 7 (remainders on both axes)
+   with frames_per_step 2, into the buffer the step block names; and the
+   step block's write (``csrc/step_block.cu``) against a copy of the same
+   words; G7, the "bvh" walk (``csrc/bvh_walk.cu``), on phase 3's kind of
+   rays over the 84-triangle box of phase 7.  Each prints ms per launch,
+   the plain version's, its bound and the share.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
    the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
@@ -88,18 +101,28 @@ Phases; each raises on failure, and the script then exits non-zero:
    stand-in of the reference's default scene (its seven boxes, a bumpy
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
    "auto" resolves to "pallas2" (K1 + K2); 1 warm-up and 8 timed frames,
-   every kernel's launch count (per frame: K1 parts x 5, K2 5, G1 1 per
+   each step a block write and a replay of the step's CUDA graph; every
+   kernel's launch count (per frame: K1 parts x 5, K2 5, G1 1 per
    chunk, G2 4, the reorder 8 (4 calls of two launches), the restore 1,
-   G4 parts x 5; every other
-   render phase checks the glue counts of its own path the same way),
-   image checks; then a 96x54 frame rendered
-   on the card and on the CPU (the plain versions), which must agree.
+   G4 parts x 5, G5 5 (K1's entry t), G6 1, the block write 1; every
+   other render phase checks the glue counts of its own path the same
+   way, K3's paths with G5 10 a frame), image checks; then a 96x54 frame
+   rendered on the card and on the CPU (the plain versions), which must
+   agree.
+5b. graph: the compiled step on standin-31k "auto", standin-1.96m "auto"
+   and standin-31k "pallas": replayed 1080p frames against the step's
+   body run eagerly, bit for bit after every frame of a script with a
+   lambertian toggle, a sky change and a camera move with a reset; the
+   host time of ``Renderer.step`` (no device sync inside it) eager and
+   replayed, on an idle card and back to back, ms/frame of both, the
+   launches a frame and the peak device memory.  (It runs after phase 4c, while the big scene is loaded.)
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
    may differ), and the 96x54 card-vs-CPU check.
 7. small paths: the reference's 84-triangle box without its meshes, at
    96x54 with 4 bounces, on the card and on the CPU, for "auto" (which
-   resolves to brute force), "bvh" and "packet" (K3).
+   resolves to brute force), "bvh" (G7) and "packet" (K3), each step a
+   graph replay.
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
    triangles, 4 sub-block parts), 1 warm-up and 4 1080p frames, each
    timed alone (its own device sync).
@@ -120,7 +143,9 @@ Phases; each raises on failure, and the script then exits non-zero:
    sweep of sp frames each, "auto" resolving to "pallas2" with parts x 5
    x dp x sp K1 launches, 5 x dp x sp K2 and no K3, held against a
    sequential ``Renderer`` at sp frames (rmse <= 1e-6); then timed, with
-   each shard's host enqueue.  On one card the shards run one after
+   each shard's host time a step (its block write and graph replay) and
+   each step's (the shards, the peer copies, the sum and the fold on the
+   home device).  On one card the shards run one after
    another, so this is the cost of splitting a frame, not a scaling
    number.  The CLI's ``main`` with ``--dp 1 --sp 1`` runs phase 9's
    two calls on the OBJ-loaded default scene: the resumed checkpoint must
@@ -128,17 +153,19 @@ Phases; each raises on failure, and the script then exits non-zero:
    frame of a (2, 2) mesh on the card must agree with the same mesh of
    the CPU.
 11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
-   "auto" frames of phase 5's scene and of phase 4c's: device ms and
-   launches per frame by kernel group (K1, K3, K2, G1-G4 each, sorts,
-   gathers and scatters, other torch kernels, copies), and the device's
-   busy share and
+   "auto" frames of phase 5's scene and of phase 4c's (the replays'
+   kernels if the profiler sees inside a graph, else the eager body's;
+   it says which): device ms and launches per frame by kernel group (K1,
+   K3, K2, G1-G6 each, the block write, sorts, gathers and scatters,
+   other torch kernels, copies), and the device's busy share and
    idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
    launches for the rest of the process.
 
 Each phase prints its seconds; every render path must launch no probe
 kernel.  The line before the last is a JSON object with each kernel's
-launches in the 1080p path that runs it (phase 5 for K1, K2 and G1-G4,
-phase 6 for K3, and K3's in phase 4c), its largest disagreement with its
+launches in the 1080p path that runs it (phase 5 for K1, K2, G1-G6 and
+the block write, phase 6 for K3, and K3's and G5's in phase 4c), its
+largest disagreement with its
 plain version, both times at 2,073,600 rays, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and the fp32 operations this run's
 rays cost it over 67 TFLOP/s (an H100 SXM's peaks); G3's two entry points
@@ -148,9 +175,10 @@ both kernels of each of its calls, which its row gives as ``calls``, and
 its ms covers both).  The last line is
 ``{"ok": true, "device": {...}}``.  G3's rows carry ``library_ms``: one
 ``torch.index_select`` computes the reorder's float gather and one
-``index_copy_`` the restore's light scatter.  No single PyTorch call
+``index_copy_`` the restore's light scatter, and the block write's one
+``copy_`` of the words from a host tensor.  No single PyTorch call
 computes the other kernels (``library_ms`` null): each writes several
-outputs of mixed types.  The script imports nothing of JAX.
+outputs of mixed types, or (G6) selects, multiplies, adds and divides.  The script imports nothing of JAX.
 ``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
 ``DIR/smoke_1080p.npy``.
 """
@@ -214,8 +242,26 @@ KERNELS = {
     "subblock_epilogue": dict(
         source="opengl_raytracer_torch/csrc/subblock_epilogue.cu",
         replaces="opengl_raytracer_tpu/ops/subblock_traversal.py:842"),
+    # the compiled step's: K3's wrapper prologue and epilogue (G5, K1's
+    # entry t too), the band fold (G6), and the step block's write (the
+    # JAX step's traced arguments)
+    "wide_epilogue": dict(
+        source="opengl_raytracer_torch/csrc/wide_epilogue.cu",
+        replaces="opengl_raytracer_tpu/ops/pallas_traversal.py:270"),
+    "band_fold": dict(
+        source="opengl_raytracer_torch/csrc/band_fold.cu",
+        replaces="opengl_raytracer_tpu/renderer.py:367"),
+    "step_block": dict(
+        source="opengl_raytracer_torch/csrc/step_block.cu",
+        replaces="opengl_raytracer_tpu/renderer.py:495"),
+    # the "bvh" traversal's walk (G7), an XLA while loop in the JAX package
+    "bvh_walk": dict(
+        source="opengl_raytracer_torch/csrc/bvh_walk.cu",
+        replaces="opengl_raytracer_tpu/ops/traversal.py:56"),
 }
-GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue")
+GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue",
+        "wide_epilogue", "band_fold", "step_block", "bvh_walk")
+GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
 
 
 def say(phase: str, **kv) -> None:
@@ -346,12 +392,18 @@ def check_count(counts: dict, name: str, expected: int) -> None:
 
 
 def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
-               parts: int = 0) -> None:
+               parts: int = 0, steps: int | None = None,
+               blocks: int | None = None) -> None:
     """The glue kernels' launches in ``renders`` chunk renders of
-    ``traversal``: one ray front each; with the reorder (the kernels'
-    traversals) n_bounces - 1 key launches and reorder calls, each call two
-    launches (index pass and gather), and one restore; after K1, one
-    epilogue per part and bounce segment."""
+    ``traversal`` over ``steps`` tile steps (default: one a render): one
+    ray front a render; with the reorder (the kernels' traversals)
+    n_bounces - 1 key launches and reorder calls, each call two launches
+    (index pass and gather), and one restore; after K1, one epilogue per
+    part and bounce segment; G5's entry t before each K1 or K3 segment and
+    its epilogue after each K3 one; one fold a step; and ``blocks`` block
+    writes (default: one a step; on a mesh, one a shard and the home
+    block's)."""
+    steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
     sorts = (n_bounces - 1) * renders if reorder else 0
     check_count(counts, "ray_front", renders)
@@ -360,6 +412,12 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     check_count(counts, "restore", renders if reorder else 0)
     check_count(counts, "subblock_epilogue",
                 parts * n_bounces * renders if traversal == "pallas2" else 0)
+    g5 = {"pallas2": 1, "pallas": 2, "packet": 2}.get(traversal, 0)
+    check_count(counts, "wide_epilogue", g5 * n_bounces * renders)
+    check_count(counts, "band_fold", steps)
+    check_count(counts, "step_block", steps if blocks is None else blocks)
+    check_count(counts, "bvh_walk",
+                n_bounces * renders if traversal == "bvh" else 0)
 
 
 def check_probes(counts: dict) -> None:
@@ -576,9 +634,9 @@ def k1_bound(w: dict, k1) -> tuple[int, int, float, str]:
 def k2_phase(data, seed: int, device):
     """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
     (bound_ms, bound_by))."""
-    from opengl_raytracer_torch.ops import shade
+    from opengl_raytracer_torch import make_camera
+    from opengl_raytracer_torch.ops import shade, step_block
     from opengl_raytracer_torch.ops.intersect import BIG, Nearest
-    from opengl_raytracer_torch.utils.config import SKY_COLOR
 
     R = N_RAYS
     g = np.random.default_rng(seed)
@@ -607,12 +665,17 @@ def k2_phase(data, seed: int, device):
     inc3 = col3(g.uniform(0, 1, (3, R)).astype(f32))
     alive = dev(g.uniform(size=R) < 0.8)
     seeds = dev(g.integers(0, 2**32, R, dtype=np.uint64).astype(np.int64))
-    sky = tuple(float(c) for c in np.asarray(SKY_COLOR, f32))
+
+    def block(lam):  # the step block K2 reads its sky and mode from
+        b = step_block.new(device)
+        step_block.write_plain(b, step_block.pack(
+            0, (0,) * 5, make_camera(CAM_POS, CAM_DIR), 1.0, 0.0, lam))
+        return b
 
     worst = 0.0
     for lam in (True, False):
         args = (data.sh_slot, near.slot, near, o3, d3, rc3, inc3, alive,
-                seeds, sky, 2.0 if lam else 1.0, lam)
+                seeds, block(lam))
         got = shade.shade_update(*args)  # CUDA tensors: the kernel
         ref = shade._shade_plain(*args)
         for gk, rk in zip(got[:4], ref[:4]):
@@ -627,7 +690,7 @@ def k2_phase(data, seed: int, device):
             max_abs_err=worst, seed_alive="exact")
 
     args = (data.sh_slot, near.slot, near, o3, d3, rc3, inc3, alive, seeds,
-            sky, 2.0, True)
+            block(True))
     ms, plain_ms = time_pair(lambda: shade.shade_update(*args),
                              lambda: shade._shade_plain(*args), 20, 5)
     bound = bound_ms(R * K2_BYTES_PER_RAY + data.sh_slot.nbytes,
@@ -663,6 +726,18 @@ def k1_rays(data, camera, seed: int, device):
     return o3, d3, torch.from_numpy(t0).to(device)
 
 
+def eager_render(r, camera, frames: int = 1, state=None):
+    """``frames`` sweeps of Renderer ``r`` with each step's body run
+    eagerly (``Renderer._step_eager``), so a wrapper put around one of its
+    entry points sees every call; a replayed graph would pass none."""
+    state = r.init_state() if state is None else state
+    cfg = r.config
+    tiles = cfg.num_tiles_x * cfg.num_tiles_y
+    for _ in range(frames // cfg.frames_per_step * tiles):
+        state = r._step_eager(state, camera)
+    return state
+
+
 def frame_segments(scene, camera, traversal: str = "auto",
                    expect: str = "pallas2"):
     """The five bounce segments of one 1920x1080 frame of ``traversal``
@@ -688,7 +763,7 @@ def frame_segments(scene, camera, traversal: str = "auto",
         return traverse(o3, d3, active)
 
     r._raycast = record
-    r.render(camera, frames=1)
+    eager_render(r, camera)
     torch.cuda.synchronize()
     if len(segments) != r.config.n_bounces:
         raise RuntimeError(f"captured {len(segments)} segments")
@@ -809,8 +884,22 @@ def _say_stages(name, rep):
 # part): K1's t, slot, u, v, a remap entry (the table counted once), the
 # active flag, the earlier parts' five columns from the second part on; out
 # five columns and, before the last part, the next entry t.
-G1_BYTES_PER_RAY = 56  # 48 with an int frame number
-G1_OPS_PER_RAY = 85
+G1_BYTES_PER_RAY = 32  # writes only: the pixel comes from the index
+G1_OPS_PER_RAY = 95  # with the pixel and frame from the index
+# G5 (csrc/wide_epilogue.cu), one bounce: the prologue reads a flag and
+# writes t0; the epilogue reads t, slot, u, v (the remap table counted
+# once) and writes t, tri, u, v.  G6 (csrc/band_fold.cu) per band pixel at
+# one frame a step: 3 colours and 3 accum values read, 3 written; a sum,
+# product and quotient a channel
+G5_BYTES_PER_RAY = 5 + 16 + 16
+G5_OPS_PER_RAY = 8
+G6_BYTES_PER_PIXEL = 12 + 12 + 12
+G6_OPS_PER_PIXEL = 9
+# G7 (csrc/bvh_walk.cu): per node visit 6 sub, 6 mul, 10 min/max and 4
+# compares; per triangle test the full Moller-Trumbore of K1's plain
+# version (det 5, 1/det 1, r 3, t 7, p 9, u 7, v 6, the tests 7)
+G7_OPS_PER_VISIT = 26
+G7_OPS_PER_TEST = 45
 G2_BYTES_PER_RAY = 29
 G2_OPS_PER_RAY = 90
 G4_OPS_PER_RAY = 12
@@ -897,26 +986,23 @@ def glue_phase(data, camera, sets, seed: int):
     from opengl_raytracer_torch.ops import front, morton, permute
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.ops.intersect import BIG
-    from opengl_raytracer_torch.renderer import band_pixels
 
     out, extras = {}, {}
     dev = data.device
     before = dict(_kernels_counts())
 
     # G1: a quarter of the 1080p frame's rows with frames_per_step = 4 at
-    # frame numbers that wrap past 2^32; then the whole frame at an int one
-    px, py = band_pixels(0, HEIGHT // 4, WIDTH, HEIGHT // 4, dev)
-    n_band = px.shape[0]
-    px, py = px.repeat(4), py.repeat(4)
-    frames = 2**32 - 2 + torch.arange(4, device=dev).repeat_interleave(n_band)
-    full = band_pixels(0, 0, WIDTH, HEIGHT, dev)
-    g1 = [(px, py, frames), (*full, 2**32 - 1)]
+    # frame numbers that wrap past 2^32; then the whole frame at 2^32 - 1
+    quarter = make_block(dev, camera, 2**32 - 2, (0, HEIGHT // 4, 0, 0, 0))
+    whole = make_block(dev, camera, 2**32 - 1, (0, 0, 0, 0, 0))
+    g1 = [(quarter, 0, N_RAYS, N_RAYS, N_RAYS // 4, WIDTH),
+          (whole, 0, N_RAYS, N_RAYS, N_RAYS, WIDTH)]
     err = 0.0
     for args in g1:
-        args = (*args, camera, WIDTH, HEIGHT, None, 0.05)
+        args = (*args, WIDTH, HEIGHT, None)
         err = max(err, _assert_equal("G1", front.ray_front(*args),
                                      front.ray_front_plain(*args)))
-    args = (*g1[0], camera, WIDTH, HEIGHT, None, 0.05)
+    args = (*g1[0], WIDTH, HEIGHT, None)
     ms, plain_ms = time_pair(lambda: front.ray_front(*args),
                              lambda: front.ray_front_plain(*args), 20, 3)
     out["ray_front"] = _glue_row("ray_front", err, ms, plain_ms,
@@ -1042,6 +1128,11 @@ def glue_phase(data, camera, sets, seed: int):
         "subblock_epilogue", err, ms, plain_ms,
         g4_bytes(N_RAYS, remap, True, True, True), N_RAYS * G4_OPS_PER_RAY,
         part="first and last")
+
+    out["wide_epilogue"] = _g5_rows(data, sets)
+    out["band_fold"], extras["band_fold"] = _g6_rows(dev, camera, seed)
+    out["step_block"], extras["step_block"] = _block_rows(dev, camera)
+    out["bvh_walk"] = _g7_rows(camera, seed)
     launched = {k: v - before[k] for k, v in _kernels_counts().items()}
     if any(launched[k] == 0 for k in out):
         raise RuntimeError(f"glue kernels launched {launched}")
@@ -1049,6 +1140,164 @@ def glue_phase(data, camera, sets, seed: int):
     say("glue", sets=len(sets), key_sets=len(key_sets), g3_sets=len(states),
         card=repr(card_line()))
     return out, extras
+
+
+def make_block(device, camera, frame, window, lambertian=True, sky=1.0,
+               jitter=0.05, accum=None):
+    """A step block on ``device`` holding these values (its plain write)."""
+    from opengl_raytracer_torch.ops import step_block
+
+    block = step_block.new(device)
+    step_block.write_plain(block, step_block.pack(
+        frame, window, camera, sky, jitter, lambertian,
+        0 if accum is None else accum.data_ptr()))
+    return block
+
+
+def _g5_rows(data, sets):
+    """G5, K3's prologue and epilogue, against their plain versions bit
+    for bit on K3's own output for phase 3's ray sets (with their dead
+    rays); timed as one bounce's pair of launches on the random set."""
+    from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+    remap, dev, err = data.pl_remap, data.device, 0.0
+    for name, o3, d3, t0 in sets:
+        active = t0 > -BIG
+        got_t0 = wide.wide_prologue(active, N_RAYS, dev)
+        err = max(err, _assert_equal(f"G5 prologue {name}", got_t0,
+                                     wide._prologue_plain(active, N_RAYS,
+                                                          dev)))
+        k3 = wide.traverse_wide(data, o3, d3, got_t0, leaf_octets)
+        err = max(err, _assert_equal(
+            f"G5 epilogue {name}", tuple(wide.wide_epilogue(*k3, remap)[:4]),
+            tuple(wide._epilogue_plain(*k3, remap)[:4])))
+    _, o3, d3, t0 = sets[0]
+    active = t0 > -BIG
+    k3 = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+
+    def kernel():
+        wide.wide_prologue(active, N_RAYS, dev)
+        wide.wide_epilogue(*k3, remap)
+
+    def plain():
+        wide._prologue_plain(active, N_RAYS, dev)
+        wide._epilogue_plain(*k3, remap)
+
+    ms, plain_ms = time_pair(kernel, plain, 20, 3)
+    n_bytes = N_RAYS * G5_BYTES_PER_RAY + remap.numel() * remap.element_size()
+    return _glue_row("wide_epilogue", err, ms, plain_ms, n_bytes,
+                     N_RAYS * G5_OPS_PER_RAY, launches_a_call=2,
+                     set="random (prologue + epilogue)")
+
+
+def _g6_rows(dev, camera, seed):
+    """G6, the band fold, against its plain version bit for bit: the whole
+    1080p frame as one band (the main path's) at frame 2^32 - 2, and three
+    tiles of tile_size 7 (remainders along both axes) with
+    frames_per_step 2 at frame 2^24 + 1; timed on the whole frame."""
+    from opengl_raytracer_torch import RenderConfig
+    from opengl_raytracer_torch.ops import fold, step_block
+    from opengl_raytracer_torch.renderer import step_words
+
+    g = np.random.default_rng(seed + 9)
+    start = torch.from_numpy(g.uniform(0, 2, (HEIGHT, WIDTH, 3))
+                             .astype(np.float32)).to(dev)
+    err = 0.0
+    cases = [(RenderConfig(width=WIDTH, height=HEIGHT), 2**32 - 2, [(0, 0)]),
+             (RenderConfig(width=WIDTH, height=HEIGHT, tile_size=7,
+                           frames_per_step=2), 2**24 + 1,
+              [(0, 0), (7, 7), (3, 7)])]
+    for cfg, frame, tiles in cases:
+        got, ref = start.clone(), start.clone()
+        tw, th, F = cfg.tile_w, cfg.tile_h, cfg.frames_per_step
+        for tx, ty in tiles:
+            cols = tuple(torch.from_numpy(g.uniform(0, 3, F * tw * th)
+                                          .astype(np.float32)).to(dev)
+                         for _ in range(3))
+            bk, bp = step_block.new(dev), step_block.new(dev)
+            for b, acc in ((bk, got), (bp, ref)):
+                step_block.write_plain(b, step_words(cfg, frame, tx, ty,
+                                                     camera, 1.0, 0.0, True,
+                                                     acc))
+            fold.fold_band(got, cols, bk, tw, th, F, F)
+            fold.fold_plain(ref, cols, bp, tw, th, F, F)
+        err = max(err, _assert_equal(f"G6 tile_size={cfg.tile_size}", got,
+                                     ref, bits=True))
+    cfg = cases[0][0]
+    cols = tuple(torch.rand(N_RAYS, device=dev) for _ in range(3))
+    acc_k, acc_p = start.clone(), start.clone()
+    blocks = []
+    for acc in (acc_k, acc_p):
+        blocks.append(step_block.new(dev))
+        step_block.write_plain(blocks[-1], step_words(cfg, 5, 0, 0, camera,
+                                                      1.0, 0.0, True, acc))
+    ms, plain_ms = time_pair(
+        lambda: fold.fold_band(acc_k, cols, blocks[0], WIDTH, HEIGHT, 1, 1),
+        lambda: fold.fold_plain(acc_p, cols, blocks[1], WIDTH, HEIGHT, 1, 1),
+        20, 3)
+    return _glue_row("band_fold", err, ms, plain_ms,
+                     N_RAYS * G6_BYTES_PER_PIXEL, N_RAYS * G6_OPS_PER_PIXEL,
+                     set="1080p band, 1 frame"), {}
+
+
+def _g7_rows(camera, seed):
+    """G7, the "bvh" walk, against its plain version bit for bit on phase
+    3's kind of rays (half primary, half random in the box, a tenth dead)
+    over the 84-triangle demo box; its bound from the plain version's
+    counts (node visits and triangle tests)."""
+    from opengl_raytracer_torch import Scene
+    from opengl_raytracer_torch.ops import traversal
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    box = Scene(standin_objects(83, 166)[2:]).send(DEVICE)
+    leaf = effective_max_leaf(box)
+    o3, d3, t0 = k1_rays(box, camera, seed, box.device)
+    active = t0 > -BIG
+    got = traversal.raycast_bvh(box, o3, d3, active, leaf)
+    ref, work = traversal._walk_plain(box, o3, d3, active, leaf, counts=True)
+    err = _assert_equal("G7", tuple(got[:4]), tuple(ref[:4]))
+    hit = int((got.t < BIG).sum())
+    if hit < N_RAYS // 4:
+        raise RuntimeError(f"G7: only {hit} of {N_RAYS} rays hit")
+    ms, plain_ms = time_pair(
+        lambda: traversal.raycast_bvh(box, o3, d3, active, leaf),
+        lambda: traversal._walk_plain(box, o3, d3, active, leaf), 10, 1)
+    visits, tests = (int(w.long().sum()) for w in work)
+    tables = sum(getattr(box, k).numel() * 4 for k in (
+        "node_min", "node_max", "node_miss", "node_first", "node_count", "v0",
+        "e1", "e2", "face"))
+    return _glue_row("bvh_walk", err, ms, plain_ms,
+                     N_RAYS * (29 + 16) + tables,
+                     visits * G7_OPS_PER_VISIT + tests * G7_OPS_PER_TEST,
+                     set="random rays, 84-triangle box", hit=hit,
+                     visits_per_ray=visits / N_RAYS,
+                     tests_per_ray=tests / N_RAYS)
+
+
+def _block_rows(dev, camera):
+    """The step block's write against its plain version (a copy of the
+    same words), bit for bit; its time beside the plain version's and one
+    ``copy_`` from a host tensor (the library call)."""
+    from opengl_raytracer_torch.ops import step_block
+
+    words = step_block.pack(2**32 + 9, (1, 2, 3, 4, 5), camera, 0.7, 0.05,
+                            False, accum=0x7000_0000_1000)
+    got, ref = step_block.new(dev), step_block.new(dev)
+    step_block.write(got, words)
+    step_block.write_plain(ref, words)
+    err = _assert_equal("step block", got, ref)
+    host = torch.from_numpy(words)
+    ms, plain_ms = time_pair(lambda: step_block.write(got, words),
+                             lambda: step_block.write_plain(ref, words),
+                             50, 50)
+    lib = min(cuda_ms(lambda: ref.copy_(host), 50) for _ in range(2))
+    row = _glue_row("step_block", err, ms, plain_ms, 2 * step_block.WORDS * 4,
+                    0, library_ms=lib)
+    return row, dict(library_ms=lib)
 
 
 def frame_states(data, camera):
@@ -1082,7 +1331,7 @@ def frame_states(data, camera):
                                     bounces=BOUNCES), device=DEVICE)
     permute.reorder, permute.restore = rec_reorder, rec_restore
     try:
-        r.render(camera, frames=1)
+        eager_render(r, camera)
     finally:
         permute.reorder, permute.restore = reorder, restore
     torch.cuda.synchronize()
@@ -1469,9 +1718,110 @@ def main_path_phase(scene, camera, out_dir):
     return counts, img, ms
 
 
+def graph_phase(cases, camera):
+    """Phase 5b: the compiled step.  For each (name, scene data, traversal
+    name, the traversal it must resolve to) of ``cases``: a Renderer whose
+    steps replay its CUDA graph against one that runs the step's body
+    eagerly, 1080p frame by frame through a script (a lambertian toggle, a
+    sky change, a camera move with a reset), accum bit for bit after every
+    frame; each step's host time (no device sync inside it; the graph's
+    first step, which captures, left out) when each starts on an idle card;
+    the peak device memory; ms/frame of 8 replayed frames issued back to
+    back with each step's host time and every kernel's launches a frame,
+    then of 8 eager ones."""
+    from opengl_raytracer_torch import RenderConfig, Renderer, make_camera
+    from opengl_raytracer_torch.ops import _kernels
+
+    moved = make_camera((-30.0, 12.0, -20.0), (60.0, -20.0))
+    script = [(camera, 1.0, True, False), (camera, 1.0, False, False),
+              (camera, 0.6, True, False), (moved, 0.6, True, True),
+              (moved, 1.0, False, False), (moved, 1.0, True, False)]
+    for name, data, traversal, expect in cases:
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                           traversal=traversal)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graphed = Renderer(data, cfg, device=DEVICE)
+        eager = Renderer(data, cfg, device=DEVICE)
+        if graphed.traversal != expect:
+            raise RuntimeError(f"{traversal} resolved to {graphed.traversal}"
+                               f" on {name}, not {expect}")
+        sa, sb = graphed.init_state(), eager.init_state()
+        host_g, host_e = [], []
+        for k, (cam, sky, lam, reset) in enumerate(script):
+            if reset:
+                sa, sb = graphed.reset(sa), eager.reset(sb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sa = graphed.step(sa, cam, sky_brightness=sky, lambertian=lam)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sb = eager._step_eager(sb, cam, sky_brightness=sky,
+                                   lambertian=lam)
+            t3 = time.perf_counter()
+            torch.cuda.synchronize()
+            if k:
+                host_g.append((t1 - t0) * 1000.0)
+            host_e.append((t3 - t2) * 1000.0)
+            if not torch.equal(sa.accum.view(torch.int32),
+                               sb.accum.view(torch.int32)):
+                diff = float((sa.accum - sb.accum).abs().max())
+                raise RuntimeError(f"{name} {traversal}: replayed frame {k} "
+                                   f"differs from the eager body, max |d| "
+                                   f"{diff}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        _kernels.reset_counts()
+        ms_g, busy_g, sa = _timed_steps(graphed.step, sa, camera)
+        counts = dict(_kernels.launch_counts)
+        check_probes(counts)
+        n, parts = cfg.n_bounces, len(data.parts)
+        k1 = graphed.traversal == "pallas2"
+        check_count(counts, "subblock_traversal",
+                    parts * n * TIMED_FRAMES if k1 else 0)
+        check_count(counts, "wide_traversal", 0 if k1 else n * TIMED_FRAMES)
+        check_count(counts, "shade", n * TIMED_FRAMES)
+        check_glue(counts, graphed.traversal, n, TIMED_FRAMES, parts)
+        ms_e, busy_e, sb = _timed_steps(eager._step_eager, sb, camera)
+        say("graph", scene=name, traversal=traversal,
+            resolved=graphed.traversal, frames_vs_eager=len(script),
+            max_abs_err=0.0, tolerance="exact (accum bit for bit)",
+            host_ms_step_eager_idle=round(float(np.median(host_e)), 4),
+            host_ms_step_replay_idle=round(float(np.median(host_g)), 4),
+            host_ms_steps_replay_idle=[round(x, 4) for x in host_g],
+            host_ms_step_eager=round(float(np.median(busy_e)), 4),
+            host_ms_step_replay=round(float(np.median(busy_g)), 4),
+            host_ms_steps_replay=[round(x, 4) for x in busy_g],
+            ms_per_frame_replay=ms_g, ms_per_frame_eager=ms_e,
+            peak_mem_gb=peak,
+            launches_per_frame={k: v / TIMED_FRAMES
+                                for k, v in counts.items() if v},
+            card=repr(card_line()))
+        del graphed, eager, sa, sb
+
+
+def _timed_steps(step, state, camera):
+    """TIMED_FRAMES 1080p frames of ``step`` (tile_size 1: a step a frame)
+    issued back to back: (ms/frame between device syncs, each step's host
+    ms while the card works on the ones before it, the state)."""
+    host = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        h0 = time.perf_counter()
+        state = step(state, camera)
+        host.append((time.perf_counter() - h0) * 1000.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / TIMED_FRAMES, host, state
+
+
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for group, keys in (("G1 ray front", ("ray_front_kernel",)),
+                        ("G5 K3 prologue/epilogue", ("wide_prologue",
+                                                     "wide_epilogue")),
+                        ("G6 band fold", ("band_fold",)),
+                        ("block write", ("write_block",)),
                         ("G2 sort keys", ("coherence_key_kernel",)),
                         ("G3 reorder", ("reorder_kernel",
                                         "reorder_index_kernel")),
@@ -1509,6 +1859,12 @@ def frame_profile_phase(scenes, camera):
         _profile_frames(name, scene, camera, main_ms)
 
 
+def partial_eager(r):
+    """``r.render``'s signature over :func:`eager_render`."""
+    return lambda camera, frames, state: eager_render(r, camera, frames,
+                                                      state)
+
+
 def _profile_frames(name, scene, camera, main_ms):
     from opengl_raytracer_torch import RenderConfig, Renderer
 
@@ -1517,12 +1873,18 @@ def _profile_frames(name, scene, camera, main_ms):
     state = r.render(camera, frames=2)  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        r.render(camera, frames=PROFILED_FRAMES, state=state)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000.0
-    events = sorted(_device_events(prof), key=lambda e: e[1])
+    # the replays' kernels, if the profiler sees inside a graph; else the
+    # eager body's, which launches the same kernels one by one
+    for source, frames in (("replay", r.render), ("eager body",
+                                                  partial_eager(r))):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            frames(camera, frames=PROFILED_FRAMES, state=state)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+        events = sorted(_device_events(prof), key=lambda e: e[1])
+        if any(_kernel_group(e[0]) in ("K1", "K3") for e in events):
+            break
     if not events:
         raise RuntimeError("the profiler saw no work on the card")
     groups = {}
@@ -1536,7 +1898,7 @@ def _profile_frames(name, scene, camera, main_ms):
     f = PROFILED_FRAMES
     busy_ms = busy / 1e3 / f
     say("profile", scene=name, traversal=r.traversal, frames=f,
-        profiled_wall_ms_per_frame=wall_ms / f,
+        profiled=source, profiled_wall_ms_per_frame=wall_ms / f,
         unprofiled_ms_per_frame=main_ms, device_busy_ms_per_frame=busy_ms,
         idle_share=1.0 - busy_ms / main_ms, card=repr(card_line()))
     for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -1633,20 +1995,27 @@ def small_paths_phase(camera):
     and the CPU: "auto" (brute force), "bvh" and "packet" (K3)."""
     from opengl_raytracer_torch import Scene
 
+    from opengl_raytracer_torch import RenderConfig
+
     box = Scene(standin_objects(83, 166)[2:])
     if box.total_triangles != 84:
         raise RuntimeError(f"the demo box has {box.total_triangles} "
                            f"triangles, expected 84")
+    walks = 0
     for traversal, expect in (("auto", "brute"), ("bvh", "bvh"),
                               ("packet", "packet")):
         got, counts = card_vs_cpu(box, camera, traversal)
         if got != expect:
             raise RuntimeError(f"{traversal} resolved to {got}, not {expect}")
-        k3 = counts["wide_traversal"]
-        if (k3 > 0) != (traversal == "packet"):
-            raise RuntimeError(f"{traversal}: {k3} K3 launches")
+        k3, g7 = counts["wide_traversal"], counts["bvh_walk"]
+        if (k3 > 0) != (traversal == "packet") or (g7 > 0) != (got == "bvh"):
+            raise RuntimeError(f"{traversal}: {k3} K3 and {g7} G7 launches")
+        n = RenderConfig(bounces=BOUNCES).n_bounces
+        check_glue(counts, got, n, 1)
+        walks += g7
         say("small", traversal=traversal, resolved=got, k3_launches=k3,
-            k2_launches=counts["shade"])
+            k2_launches=counts["shade"], g7_launches=g7)
+    return walks
 
 
 def multipart_phase(camera):
@@ -1851,9 +2220,12 @@ def cli_phase():
                 os.environ["OGLRT_MODELS_PATH"] = saved_env
 
 
-def _sharded_api(scene, camera, card: str) -> None:
-    """Phase 10's meshes of the one card repeated, each one sweep of sp
-    frames against the sequential Renderer at sp frames, then timed."""
+def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
+    """Phase 10's meshes of the one card repeated (``cards`` 1) or of
+    cards ``cuda:0 ..`` (``cards`` 4: each shard on a card of its own),
+    each one sweep of sp frames against the sequential Renderer at sp
+    frames, then timed; on real cards also the peer copy of a shard's
+    colours into the home card."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
@@ -1875,18 +2247,20 @@ def _sharded_api(scene, camera, card: str) -> None:
     say("sharded", mesh="sequential", ms_per_frame=seq_ms, card=repr(card))
 
     enqueue = []
-    plain_render_flat = sharding.render_flat
+    plain_run = sharding._Shard.run
 
-    def timed_render_flat(*args, **kw):  # one shard's host enqueue
+    def timed_run(self, *args, **kw):  # one shard's host time a step
         t0 = time.perf_counter()
-        out = plain_render_flat(*args, **kw)
+        out = plain_run(self, *args, **kw)
         enqueue.append((time.perf_counter() - t0) * 1000.0)
         return out
 
     for dp, sp in MESHES:
-        mesh = make_mesh(devices=[DEVICE] * (dp * sp), dp=dp, sp=sp)
+        devices = ([DEVICE] * (dp * sp) if cards == 1
+                   else [f"cuda:{k}" for k in range(dp * sp)])
+        mesh = make_mesh(devices=devices, dp=dp, sp=sp)
         sr = ShardedRenderer(scene, cfg, mesh)
-        if sr.traversal != "pallas2" or len(sr.scenes) != 1:
+        if sr.traversal != "pallas2" or len(sr.scenes) != len(set(devices)):
             raise RuntimeError(f"mesh {dp}x{sp}: auto resolved to "
                                f"{sr.traversal}, scene on {list(sr.scenes)}")
         parts = len(sr.scene.parts)
@@ -1899,30 +2273,79 @@ def _sharded_api(scene, camera, card: str) -> None:
                     parts * cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
         check_count(counts, "wide_traversal", 0)
-        check_glue(counts, sr.traversal, cfg.n_bounces, dp * sp, parts)
+        check_glue(counts, sr.traversal, cfg.n_bounces, dp * sp, parts,
+                   steps=1, blocks=dp * sp + 1)
         img = sr.image(state)
         err = rmse(img, seq_at[sp])
         if not np.isfinite(img).all() or err > 1e-6:
             raise RuntimeError(f"mesh {dp}x{sp} vs the sequential render at "
                                f"{sp} frames: rmse {err} (limit 1e-6)")
         enqueue.clear()
-        sharding.render_flat = timed_render_flat
+        host = []
+        sharding._Shard.run = timed_run
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sr.render(camera, frames=sp * SHARD_SWEEPS, state=state)
+            for _ in range(SHARD_SWEEPS):  # one step a sweep of sp frames
+                h0 = time.perf_counter()
+                state = sr.step(state, camera)
+                host.append((time.perf_counter() - h0) * 1000.0)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
         finally:
-            sharding.render_flat = plain_render_flat
-        say("sharded", mesh=f"{dp}x{sp}", traversal=sr.traversal,
+            sharding._Shard.run = plain_run
+        if cards > 1 and dp * sp > 1:
+            _peer_copy(sr, dp, sp, card)
+        say("sharded", mesh=f"{dp}x{sp}", cards=len(set(devices)),
+            traversal=sr.traversal,
             k1_launches=counts["subblock_traversal"],
             k2_launches=counts["shade"], k3_launches=counts["wide_traversal"],
             rmse_vs_sequential=err, limit=1e-6,
             max_abs=float(np.abs(img - seq_at[sp]).max()),
             ms_per_frame=sec * 1000.0 / (sp * SHARD_SWEEPS),
-            enqueue_ms_per_shard=[round(x, 3) for x in enqueue],
-            enqueue_ms_median=float(np.median(enqueue)), card=repr(card))
+            host_ms_per_shard=[round(x, 4) for x in enqueue],
+            host_ms_shard_median=float(np.median(enqueue)),
+            host_ms_per_step=[round(x, 4) for x in host], card=repr(card))
+
+
+def _sync_all() -> None:
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def _peer_copy(sr, dp: int, sp: int, card: str) -> None:
+    """The copy of the last shard's colours (three columns of its band
+    rows) into the home card, as a mesh step makes it: ms a copy on the
+    host clock between syncs of every card, and the rate."""
+    shard = sr._shards[dp - 1][sp - 1]
+    cols = shard.graph.output
+    home = sr.home
+    iters = 20
+    _sync_all()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        for c in cols:
+            c.to(home)
+    _sync_all()
+    ms = (time.perf_counter() - t0) * 1000.0 / iters
+    n_bytes = sum(c.numel() * c.element_size() for c in cols)
+    say("sharded", mesh=f"{dp}x{sp}", peer_copy_from=str(shard.device),
+        to=str(home), mbytes=n_bytes / 1e6, copy_ms=ms,
+        gbps=n_bytes / ms / 1e6, card=repr(card))
+
+
+def cards_phase(cards: int) -> None:
+    """``--cards N``: phase 10's meshes over cards cuda:0 .. cuda:N-1, each
+    shard on its own card (the scaling and the peer copies), held against
+    the sequential render on cuda:0."""
+    from opengl_raytracer_torch import make_camera
+
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"{cards} cards asked for, "
+                           f"{torch.cuda.device_count()} present")
+    camera = make_camera(CAM_POS, CAM_DIR)
+    scene, _ = make_scene(83, 166, DEVICE)
+    _sharded_api(scene, camera, card_line(), cards)
 
 
 def _sharded_cli(straight8) -> None:
@@ -1980,7 +2403,7 @@ def _sharded_cli(straight8) -> None:
                 check_count(counts, "subblock_traversal", parts * n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
-                check_glue(counts, r.traversal, n, 4, parts)
+                check_glue(counts, r.traversal, n, 4, parts, blocks=8)
                 state = load_checkpoint(ck, "cpu")[0]
                 if state.frame_count != 4 * call:
                     raise RuntimeError(f"sharded CLI call {call} ended at "
@@ -2048,6 +2471,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="directory for the downsampled 1080p image")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="N > 1: only phase 10's meshes, over cards "
+                         "cuda:0 .. cuda:N-1")
     args = ap.parse_args(argv)
 
     name = timed("device", device_phase)
@@ -2055,6 +2481,12 @@ def main(argv=None) -> int:
     from opengl_raytracer_torch import make_camera
 
     timed("build", build_phase)
+    if args.cards > 1:
+        timed("sharded", cards_phase, args.cards)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     camera = make_camera(CAM_POS, CAM_DIR)
     scene, data = make_scene(83, 166, DEVICE)
     if scene.total_triangles != 31736 or len(data.parts) != 1:
@@ -2083,12 +2515,17 @@ def main(argv=None) -> int:
     del k3_scenes
     big_counts, big_ms = timed("big", big_phase, big_scene, big, camera)
     del big_scene
+    timed("graph", graph_phase,
+          [("standin-31k", data, "auto", "pallas2"),
+           ("standin-1.96m", big, "auto", "pallas"),
+           ("standin-31k", data, "pallas", "pallas")], camera)
     timed("k2probe", k2probe_phase, args.seed, k2[1])
     counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
                                       args.out)
-    counts["wide_traversal"] = timed("pallas", wide_path_phase, scene, camera,
-                                     main_img)["wide_traversal"]
-    timed("small", small_paths_phase, camera)
+    pallas_counts = timed("pallas", wide_path_phase, scene, camera,
+                          main_img)
+    counts["wide_traversal"] = pallas_counts["wide_traversal"]
+    counts["bvh_walk"] = timed("small", small_paths_phase, camera)
     timed("multipart", multipart_phase, camera)
     straight8 = timed("cli", cli_phase)
     timed("sharded", sharded_phase, scene, camera, straight8)
@@ -2112,6 +2549,9 @@ def main(argv=None) -> int:
     kernels[0]["frame_ms"] = frame_ms  # K1 over the five captured segments
     kernels[3 + GLUE.index("reorder")]["calls"] = counts["reorder"] // 2
     kernels[2]["launches_big_scene_auto"] = big_counts["wide_traversal"]
+    g5 = kernels[3 + GLUE.index("wide_epilogue")]
+    g5["launches_pallas"] = pallas_counts["wide_epilogue"]
+    g5["launches_big_scene_auto"] = big_counts["wide_epilogue"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,6 +15,10 @@ measured on the card:
   under "pallas" and "auto", standin-1.96m under "auto" (1 warm-up frame,
   then FRAMES frames timed together on the host clock between device
   syncs), and the traversal each name resolved to;
+* the host's time to enqueue one step (a frame), with no device sync
+  inside it: the median of FRAMES steps issued back to back;
+* ms per converged frame of standin-31k over (dp, sp) meshes (2, 1) and
+  (4, 1) of the one card repeated;
 * device ms and launches a frame by kernel group (``chip_smoke.py``'s
   phase-11 groups: G3 reorder and restore, the sort, K1, ...) over
   PROFILED more "auto" frames of standin-31k under ``torch.profiler``.
@@ -39,6 +43,8 @@ import time
 
 FRAMES = 8
 PROFILED = 4
+SWEEPS = 4  # timed sweeps of a mesh
+MESHES = ((2, 1), (4, 1))
 
 
 def k3_launch(wide, data, o3, d3, t0, leaf_octets):
@@ -52,9 +58,11 @@ def k3_launch(wide, data, o3, d3, t0, leaf_octets):
 
 
 def frame_ms(torch, data, camera, traversal, cs=None):
-    """(ms/frame over FRAMES 1080p frames after one warm-up, the traversal
-    the name resolved to, and with ``cs`` (the tree's chip_smoke) {group:
-    [device ms, launches] a frame} over PROFILED more frames)."""
+    """(ms/frame over FRAMES 1080p frames after one warm-up, the median
+    host time of one ``Renderer.step`` (a frame at tile_size 1) issued
+    back to back, the traversal the name resolved to, and with
+    ``cs`` (the tree's chip_smoke) {group: [device ms, launches] a frame}
+    over PROFILED more frames)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
 
     r = Renderer(data, RenderConfig(width=1920, height=1080, bounces=4,
@@ -65,6 +73,12 @@ def frame_ms(torch, data, camera, traversal, cs=None):
     state = r.render(camera, frames=FRAMES, state=state)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1000.0 / FRAMES
+    host = []
+    for _ in range(FRAMES):  # back to back, as render() issues them
+        h0 = time.perf_counter()
+        state = r.step(state, camera)
+        host.append((time.perf_counter() - h0) * 1000.0)
+    torch.cuda.synchronize()
     groups = {}
     if cs is not None:
         acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -75,7 +89,25 @@ def frame_ms(torch, data, camera, traversal, cs=None):
             g = groups.setdefault(cs._kernel_group(name), [0.0, 0])
             g[0] += (b - a) / 1e3 / PROFILED
             g[1] += 1 / PROFILED
-    return ms, r.traversal, groups
+    return ms, sorted(host)[len(host) // 2], r.traversal, groups
+
+
+def mesh_ms(torch, data, camera, dp, sp):
+    """ms per converged 1080p frame of a (dp, sp) mesh of the one card
+    repeated (1 warm-up sweep, then SWEEPS sweeps of sp frames each, timed
+    together between device syncs)."""
+    from opengl_raytracer_torch import RenderConfig
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+
+    sr = ShardedRenderer(data, RenderConfig(width=1920, height=1080,
+                                            bounces=4),
+                         make_mesh(devices=["cuda"] * (dp * sp), dp=dp, sp=sp))
+    state = sr.render(camera, frames=sp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sr.render(camera, frames=sp * SWEEPS, state=state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / (sp * SWEEPS)
 
 
 def main(argv=None) -> int:
@@ -102,8 +134,10 @@ def main(argv=None) -> int:
 
     camera = make_camera(cs.CAM_POS, cs.CAM_DIR)
     out = dict(tree=tree, card=cs.card_line(), torch=torch.__version__)
-    for tag, cells, names in (("31k", (83, 166), ("pallas", "auto")),
-                              ("1.96m", (700, 1400), ("auto",))):
+    # the profiled frames last: the profiler slows the host's launches
+    # for the rest of the process
+    for tag, cells, names in (("1.96m", (700, 1400), ("auto",)),
+                              ("31k", (83, 166), ("pallas", "auto"))):
         scene, data = cs.make_scene(*cells, "cuda")
         out[f"triangles_{tag}"] = scene.total_triangles
         del scene
@@ -113,11 +147,16 @@ def main(argv=None) -> int:
         out[f"k3_random_{tag}_ms"] = min(cs.cuda_ms(fn, 10)
                                          for _ in range(2))
         del o3, d3, t0
+        if tag == "31k":
+            for dp, sp in MESHES:
+                out[f"mesh_{dp}x{sp}_{tag}_ms_per_frame"] = mesh_ms(
+                    torch, data, camera, dp, sp)
         for name in names:
             profile = cs if (tag, name) == ("31k", "auto") else None
-            ms, resolved, groups = frame_ms(torch, data, camera, name,
-                                            profile)
+            ms, host, resolved, groups = frame_ms(torch, data, camera, name,
+                                                  profile)
             out[f"{name}_{tag}_ms_per_frame"] = ms
+            out[f"{name}_{tag}_host_ms_per_step"] = host
             out[f"{name}_{tag}_resolved"] = resolved
             if groups:
                 out[f"{name}_{tag}_groups"] = groups

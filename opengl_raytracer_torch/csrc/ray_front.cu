@@ -1,17 +1,27 @@
 // G1: the per-pixel ray front, for Hopper.
 //
 // Replaces what the JAX renderer fuses under jax.jit ahead of its first
-// traversal (opengl_raytracer_tpu/renderer.py:162-199, not a Pallas
-// kernel): the pixel seed x*1973 ^ y*9277 ^ frame*1664525, three LCG
-// warm-ups, uv at the pixel centre, the angle-linear direction, two jitter
-// draws, the normalizes, and the camera-position origin columns
-// (fragment.glsl:376-407).  The port's plain version
-// (ops/front.py:ray_front_plain) runs these as some 100 torch kernels of
-// int64-emulated uint32 math; here one thread per ray does them all.
+// traversal (opengl_raytracer_tpu/renderer.py:162-199 and the band's pixel
+// list and frame numbers of _tile_step, :300-353; not a Pallas kernel):
+// each ray's pixel and frame number, the pixel seed x*1973 ^ y*9277 ^
+// frame*1664525, three LCG warm-ups, uv at the pixel centre, the
+// angle-linear direction, two jitter draws, the normalizes, and the
+// camera-position origin columns (fragment.glsl:376-407).  The port's plain
+// version (ops/front.py:ray_front_plain) runs these as some 100 torch
+// kernels of int64-emulated uint32 math; here one thread per ray does them
+// all.
+//
+// Ray g of a step (g = base + i in this chunk) is pixel j = g mod n_band
+// of the band, row-major from its bottom GL row: px = col0 + j mod tw, py =
+// py0 + j / tw, at frame number frame + g / n_band (frames_per_step copies
+// of the band follow each other).  Rays at or past n_rays pad the last
+// chunk: pixel (0, 0) at the step's frame.  The window, the frame number,
+// the camera and the jitter are read from the step block
+// (step_block.cuh), so a captured step replays with new values.
 //
 // Bit for bit against the plain version ON THE CARD: seeds are exact
-// uint32 math (the int64 inputs are taken mod 2^32, so frame numbers near
-// 2^32 and px * 1973 wrap as there), and every float operation is a
+// uint32 math (the int64 frame number is taken mod 2^32, so frame numbers
+// near 2^32 and px * 1973 wrap as there), and every float operation is a
 // round-to-nearest intrinsic in torch's evaluation order.  Two divisions
 // of the plain version are by a Python number, which PyTorch's CUDA
 // division computes as a product with the float32 reciprocal
@@ -19,12 +29,14 @@
 // the RNG's / 2^32 is exact either way.  The other divisions are tensor
 // by tensor and stay __fdiv_rn.
 //
-// What bounds it on the card: bytes.  Per ray it reads px, py (and a frame
-// number under frame batching), 16-24 bytes, and writes six float columns
-// and a seed, 32 bytes, against some 60 operations: one coalesced pass.
+// What bounds it on the card: bytes.  Per ray it writes six float columns
+// and a seed, 32 bytes, and reads nothing but the block, against some 60
+// operations: one coalesced pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "step_block.cuh"
 
 namespace {
 
@@ -47,23 +59,32 @@ __device__ __forceinline__ float norm_len(const float* d) {
 }
 
 struct Front {
-    float pos[3], right[3], up[3], forward[3];
     float dir_start_x, dir_start_y, x_step, y_step;
     float inv_w, inv_h;  // float32(1 / width), float32(1 / height)
-    float jitter;
-    uint32_t frame_term;  // (frame * 1664525) mod 2^32 when no frame column
+    long long base, n_rays, n_band;
+    int tw;
 };
 
 __global__ void __launch_bounds__(256)
-ray_front_kernel(const long long* __restrict__ px, const long long* __restrict__ py,
-                 const long long* __restrict__ frames, Front c,
+ray_front_kernel(const StepBlock* __restrict__ blk, Front c,
                  float* __restrict__ out, long long* __restrict__ seed_out,
                  long long n) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const long long x = px[i], y = py[i];
-    const uint32_t f = frames ? (uint32_t)frames[i] * 1664525u : c.frame_term;
-    uint32_t s = ((uint32_t)x * 1973u) ^ ((uint32_t)y * 9277u) ^ f;
+    const long long g = c.base + i;
+    long long x = 0, y = 0, frame = blk->frame;
+    if (g < c.n_rays) {
+        const long long j = g % c.n_band;
+        x = blk->col0 + j % c.tw;
+        y = blk->py0 + j / c.tw;
+        frame += g / c.n_band;
+    }
+    const float* pos = blk->cam;
+    const float* right = blk->cam + 3;
+    const float* up = blk->cam + 6;
+    const float* forward = blk->cam + 9;
+    uint32_t s = ((uint32_t)x * 1973u) ^ ((uint32_t)y * 9277u)
+                 ^ ((uint32_t)frame * 1664525u);
 #pragma unroll
     for (int k = 0; k < 3; ++k) s = s * 747796405u + 2891336453u;
 
@@ -74,20 +95,21 @@ ray_front_kernel(const long long* __restrict__ px, const long long* __restrict__
     float d[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-        d[a] = add(add(mul(c.right[a], dx), mul(c.up[a], dy)), c.forward[a]);
+        d[a] = add(add(mul(right[a], dx), mul(up[a], dy)), forward[a]);
     float len = norm_len(d);
 #pragma unroll
     for (int a = 0; a < 3; ++a) d[a] = dvd(d[a], len);
 
     const float r1 = draw(s);
     const float r2 = draw(s);
+    const float jitter = blk->jitter;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-        d[a] = add(d[a], mul(add(mul(c.right[a], r1), mul(c.up[a], r2)), c.jitter));
+        d[a] = add(d[a], mul(add(mul(right[a], r1), mul(up[a], r2)), jitter));
     len = norm_len(d);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        out[a * n + i] = c.pos[a];
+        out[a * n + i] = pos[a];
         out[(3 + a) * n + i] = dvd(d[a], len);
     }
     seed_out[i] = (long long)s;
@@ -95,34 +117,30 @@ ray_front_kernel(const long long* __restrict__ px, const long long* __restrict__
 
 }  // namespace
 
-// out: (6, n) float32, rows ox oy oz dx dy dz; frames may be null.
-extern "C" int oglrt_ray_front(const long long* px, const long long* py,
-                               const long long* frames, unsigned frame_term,
-                               const float* cam /* pos right up forward */,
+// out: (6, n) float32, rows ox oy oz dx dy dz, for rays base .. base + n - 1
+// of a step of n_rays rays over a band of n_band pixels, tw a row.
+extern "C" int oglrt_ray_front(const void* blk, long long base,
+                               long long n_rays, long long n_band, int tw,
                                float dir_start_x, float dir_start_y,
                                float x_step, float y_step, float inv_w,
-                               float inv_h, float jitter, float* out,
-                               long long* seed_out, long long n, void* stream) {
+                               float inv_h, float* out, long long* seed_out,
+                               long long n, void* stream) {
     if (n > 0) {
         Front c;
-        for (int a = 0; a < 3; ++a) {
-            c.pos[a] = cam[a];
-            c.right[a] = cam[3 + a];
-            c.up[a] = cam[6 + a];
-            c.forward[a] = cam[9 + a];
-        }
         c.dir_start_x = dir_start_x;
         c.dir_start_y = dir_start_y;
         c.x_step = x_step;
         c.y_step = y_step;
         c.inv_w = inv_w;
         c.inv_h = inv_h;
-        c.jitter = jitter;
-        c.frame_term = frame_term;
+        c.base = base;
+        c.n_rays = n_rays;
+        c.n_band = n_band;
+        c.tw = tw;
         const int block = 256;
         const long long grid = (n + block - 1) / block;
         ray_front_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-            px, py, frames, c, out, seed_out, n);
+            (const StepBlock*)blk, c, out, seed_out, n);
     }
     return (int)cudaGetLastError();
 }

@@ -25,6 +25,10 @@
 // bit; against the JAX kernel (XLA contracts) floats agree to contraction
 // rounding.
 //
+// The sky colour, the emission scale and the lambertian switch are read
+// from the step block (step_block.cuh) when the kernel runs, so a captured
+// step replays with the values of the step it serves.
+//
 // What bounds it on the card: bytes.  Per ray it reads 13 float columns,
 // a seed, an alive flag, a slot and one 96-byte material row (a gather),
 // and writes 12 float columns, a seed and a flag - about 220 bytes against
@@ -34,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "step_block.cuh"
 
 namespace {
 
@@ -77,12 +83,13 @@ shade_kernel(const float* __restrict__ sh_slot, int n_slot,
              Cols3 o_in, Cols3 d_in, Cols3 rc_in, Cols3 inc_in,
              const bool* __restrict__ alive_in,
              const long long* __restrict__ seed_in,
-             float sky0, float sky1, float sky2, float em_scale, int lam,
-             OutCols3 o_out, OutCols3 d_out, OutCols3 rc_out,
+             const StepBlock* __restrict__ blk, OutCols3 o_out, OutCols3 d_out, OutCols3 rc_out,
              OutCols3 inc_out, bool* __restrict__ alive_out,
              long long* __restrict__ seed_out, long long n) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
+    const int lam = blk->lambertian;
+    const float em_scale = blk->em_scale;
 
     const uint32_t seed_old = (uint32_t)seed_in[i];
     uint32_t seed_new = seed_old;
@@ -165,7 +172,7 @@ shade_kernel(const float* __restrict__ sh_slot, int n_slot,
     const bool was_hit = alive && did_hit;
     const bool was_miss = alive && !did_hit;
     const float em = mul(emission, em_scale);
-    const float sky[3] = {sky0, sky1, sky2};
+    const float* sky = blk->sky;
     float r_inc[3], r_rc[3], r_o[3], r_d[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -199,8 +206,8 @@ extern "C" int oglrt_shade(
     const float* oz, const float* dx, const float* dy, const float* dz,
     const float* rc0, const float* rc1, const float* rc2, const float* in0,
     const float* in1, const float* in2, const bool* alive,
-    const long long* seed, float sky0, float sky1, float sky2,
-    float em_scale, int lam, float* no0, float* no1, float* no2, float* nd0,
+    const long long* seed, const void* blk, float* no0, float* no1,
+    float* no2, float* nd0,
     float* nd1, float* nd2, float* nrc0, float* nrc1, float* nrc2,
     float* nin0, float* nin1, float* nin2, bool* alive_out,
     long long* seed_out, long long n, void* stream) {
@@ -210,8 +217,7 @@ extern "C" int oglrt_shade(
         shade_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
             sh_slot, n_slot, slot, t, u, v, Cols3{ox, oy, oz},
             Cols3{dx, dy, dz}, Cols3{rc0, rc1, rc2}, Cols3{in0, in1, in2},
-            alive, seed, sky0, sky1, sky2, em_scale, lam,
-            OutCols3{no0, no1, no2}, OutCols3{nd0, nd1, nd2},
+            alive, seed, (const StepBlock*)blk, OutCols3{no0, no1, no2}, OutCols3{nd0, nd1, nd2},
             OutCols3{nrc0, nrc1, nrc2}, OutCols3{nin0, nin1, nin2},
             alive_out, seed_out, n);
     }

@@ -12,7 +12,9 @@ Every wrapper launches through :func:`launch`, which makes its tensors'
 device the current one for the call.  ``launch_counts`` holds one integer
 per kernel (G3's reorder: its two kernels); ``launch`` adds one where it
 launches a kernel and nowhere else, so a caller can show which kernels a
-run went through.
+run went through.  A CUDA graph's replay passes no wrapper: the graph
+keeps the counts its capture made and adds them at each replay
+(``step_graph.py``).
 """
 
 from __future__ import annotations
@@ -34,14 +36,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # K1, K2 and K3; the glue kernels of the main path: "ray_front" (G1),
-# "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4);
-# and the probes' kernels (opengl_raytracer_torch/probes/), which no path of
+# "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4),
+# "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
+# "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
+# traversal); and the probes' kernels (opengl_raytracer_torch/probes/), which no path of
 # the renderer launches: "k1_profile" and "k3_profile" count the profile
 # builds of K1 and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's
 # row-fetch sums
 launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
                  "ray_front": 0, "sort_keys": 0, "reorder": 0, "restore": 0,
-                 "subblock_epilogue": 0,
+                 "subblock_epilogue": 0, "wide_epilogue": 0, "band_fold": 0,
+                 "step_block": 0, "bvh_walk": 0,
                  "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
                  "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
@@ -123,11 +128,13 @@ def saved_log(lib_path: str) -> str:
 
 def build() -> str:
     """Compile ``csrc/*.cu`` into ``LIB_PATH`` unless it is newer than
-    every source; returns the library's path.  Raises when nvcc fails."""
+    every source and header; returns the library's path.  Raises when
+    nvcc fails."""
     global build_log
     srcs = sources()
+    deps = srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
-            >= max(os.path.getmtime(s) for s in srcs)):
+            >= max(os.path.getmtime(s) for s in deps)):
         build_log = saved_log(LIB_PATH)
         return LIB_PATH
     build_log = compile_library(LIB_PATH, [(s, []) for s in srcs])
@@ -145,22 +152,24 @@ def lib() -> ctypes.CDLL:
             so.oglrt_subblock_traverse.restype = i32
             so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
             so.oglrt_shade.restype = i32
-            so.oglrt_shade.argtypes = ([p, i32] + [p] * 18
-                                       + [f32, f32, f32, f32, i32]
-                                       + [p] * 14 + [i64, p])
+            # (table, n_rows, 18 inputs, the step block, 14 outputs, n)
+            so.oglrt_shade.argtypes = [p, i32] + [p] * 33 + [i64, p]
             # (..., nodes, octets, n_octets, leaf_octets, groups, ...)
             so.oglrt_wide_traverse.restype = i32
             so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
                                                + [p] * 5 + [i64, p])
-            # the glue kernels: (px, py, frames, frame_term, camera, 7
+            # the glue kernels: (block, base, n_rays, n_band, tw, 6
             # floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
             # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
             # outputs, return_seed, n); (orig, 3 columns, seed or null, 2
             # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
-            # earlier columns, active, last, 6 outputs, n)
+            # earlier columns, active, last, 6 outputs, n); (active or
+            # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
+            # (block, 3 colour columns, n_band, tw, th, n_frames, weight,
+            # width); (block, host words)
             so.oglrt_ray_front.restype = i32
-            so.oglrt_ray_front.argtypes = ([p] * 3 + [ctypes.c_uint, p]
-                                           + [f32] * 7 + [p, p, i64, p])
+            so.oglrt_ray_front.argtypes = ([p, i64, i64, i64, i32]
+                                           + [f32] * 6 + [p, p, i64, p])
             so.oglrt_sort_keys.restype = i32
             so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
             so.oglrt_reorder.restype = i32
@@ -171,6 +180,21 @@ def lib() -> ctypes.CDLL:
             so.oglrt_subblock_epilogue.argtypes = ([p] * 5 + [i32, i32]
                                                    + [p] * 6 + [i32]
                                                    + [p] * 6 + [i64, p])
+            so.oglrt_wide_prologue.restype = i32
+            so.oglrt_wide_prologue.argtypes = [p, p, i64, p]
+            so.oglrt_wide_epilogue.restype = i32
+            so.oglrt_wide_epilogue.argtypes = ([p] * 5 + [i32] + [p] * 4
+                                               + [i64, p])
+            so.oglrt_band_fold.restype = i32
+            so.oglrt_band_fold.argtypes = ([p] * 4 + [i64, i32, i32, i32, f32,
+                                                      i32, p])
+            so.oglrt_write_block.restype = i32
+            so.oglrt_write_block.argtypes = [p, p, p]
+            # (6 ray columns, active or null, 5 node tables, n_nodes, 4
+            # triangle tables, max_leaf, 4 outputs, n)
+            so.oglrt_bvh_walk.restype = i32
+            so.oglrt_bvh_walk.argtypes = ([p] * 12 + [i32] + [p] * 4 + [i32]
+                                          + [p] * 4 + [i64, p])
             _lib = so
         return _lib
 

@@ -1,31 +1,38 @@
 """G1: the per-pixel ray front.
 
-:func:`ray_front` gives each pixel's primary ray and RNG state, as the
-JAX renderer's ``render_pixels`` does ahead of ``trace``
-(``opengl_raytracer_tpu/renderer.py:162-199``; fragment.glsl:376-407): the
-seed ``x*1973 ^ y*9277 ^ frame*1664525``, three warm-up draws, uv at the
-pixel centre, the angle-linear direction, two jitter draws and the
-normalize, and origin columns at the camera.  On CUDA tensors it launches
-the kernel of ``csrc/ray_front.cu``; on CPU tensors it runs
-:func:`ray_front_plain`, the same math as torch ops (``ops/rng.py``,
-``ops/camera.py``).  The two agree bit for bit on the card.
+:func:`ray_front` gives each ray of a tile step its pixel, frame number,
+primary ray and RNG state, as the JAX renderer's ``_tile_step`` and
+``render_pixels`` do ahead of ``trace``
+(``opengl_raytracer_tpu/renderer.py:162-199``, ``:300-353``;
+fragment.glsl:376-407): ray ``g`` of a step is pixel ``g mod n_band`` of
+the band, row-major from its bottom GL row, at frame ``frame + g //
+n_band`` (``frames_per_step`` copies of the band); then the seed
+``x*1973 ^ y*9277 ^ frame*1664525``, three warm-up draws, uv at the pixel
+centre, the angle-linear direction, two jitter draws and the normalize,
+and origin columns at the camera.  The band window, the frame number, the
+camera and the jitter come from the step block (``ops/step_block.py``).
+On a CUDA block it launches the kernel of ``csrc/ray_front.cu``; on a CPU
+block it runs :func:`ray_front_plain`, the same math as torch ops
+(:func:`pixel_front`, ``ops/rng.py``, ``ops/camera.py``).  The two agree
+bit for bit on the card.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from opengl_raytracer_torch.ops import _kernels, rng
+from opengl_raytracer_torch.ops import _kernels, rng, step_block
 from opengl_raytracer_torch.ops.camera import (Camera, angle_linear_constants,
                                                pixel_uv, ray_dirs_soa)
 
 
-def ray_front_plain(px, py, frame_number, camera: Camera, width: int,
-                    height: int, aspect, jitter_amount: float):
-    """Plain torch version: returns (origin, direction, seed), origin and
+def pixel_front(px, py, frame_number, camera: Camera, width: int,
+                height: int, aspect, jitter_amount: float):
+    """The front's math for given pixels: ``px``/``py`` int64 (R,) (py in
+    GL convention, 0 = bottom row) at ``frame_number`` (an int or an (R,)
+    int64 tensor) in a ``width`` x ``height`` frame; ``aspect`` None means
+    width / height.  Returns (origin, direction, seed), origin and
     direction 3-tuples of (R,) float32 columns, seed (R,) int64 uint32
     states after the three warm-ups and the two jitter draws."""
     seed = rng.seed_pixels(px, py, frame_number)
@@ -49,42 +56,57 @@ def ray_front_plain(px, py, frame_number, camera: Camera, width: int,
     return origin, d, seed
 
 
-def _ray_front_cuda(px, py, frame_number, camera: Camera, width: int,
-                    height: int, aspect, jitter_amount: float):
-    dev = px.device
-    R = px.shape[0]
-    _kernels.require(px, "px", torch.int64, dev, R)
-    _kernels.require(py, "py", torch.int64, dev, R)
-    frames, frame_term = None, 0
-    if isinstance(frame_number, torch.Tensor):
-        _kernels.require(frame_number, "frame_number", torch.int64, dev, R)
-        frames = frame_number.data_ptr()
-    else:
-        frame_term = ((int(frame_number) & rng.MASK32) * 1664525) & rng.MASK32
-    cam = (ctypes.c_float * 12)(*(float(x) for x in np.concatenate(
-        [camera.pos, camera.right, camera.up, camera.forward])
-        .astype(np.float32)))
+def band_pixels(col0: int, py0: int, frame: int, base: int, n: int,
+                n_rays: int, n_band: int, tw: int, device):
+    """(px, py, frame numbers) int64 (n,) of rays ``base .. base + n - 1``
+    of a step: ray ``g`` is pixel ``j = g mod n_band`` of the band whose
+    bottom-left pixel is (col0, py0), ``tw`` a row (px = col0 + j mod tw,
+    py = py0 + j // tw), at frame ``frame + g // n_band``; rays at or past
+    ``n_rays`` pad a chunk as pixel (0, 0) at ``frame``."""
+    g = torch.arange(base, base + n, dtype=torch.int64, device=device)
+    valid = g < n_rays
+    j = g % n_band
+    px = torch.where(valid, col0 + j % tw, 0)
+    py = torch.where(valid, py0 + j // tw, 0)
+    return px, py, frame + torch.where(valid, g // n_band, 0)
+
+
+def ray_front_plain(block, base: int, n: int, n_rays: int, n_band: int,
+                    tw: int, width: int, height: int, aspect):
+    """Plain torch version: the block's values read back, the rays' pixels
+    (:func:`band_pixels`) and :func:`pixel_front`."""
+    v = step_block.values(block)
+    px, py, frames = band_pixels(v.col0, v.py0, v.frame, base, n, n_rays,
+                                 n_band, tw, block.device)
+    return pixel_front(px, py, frames, v.camera, width, height, aspect,
+                       v.jitter)
+
+
+def _ray_front_cuda(block, base: int, n: int, n_rays: int, n_band: int,
+                    tw: int, width: int, height: int, aspect):
+    dev = block.device
+    _kernels.require(block, "block", torch.int32, dev, step_block.WORDS)
     f32 = np.float32
     # (px + 0.5) / width: PyTorch's CUDA division by a Python number is a
     # product with its float32 reciprocal
     inv_w, inv_h = float(f32(1.0) / f32(width)), float(f32(1.0) / f32(height))
-    out = torch.empty((6, R), dtype=torch.float32, device=dev)
-    seed = torch.empty(R, dtype=torch.int64, device=dev)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    seed = torch.empty(n, dtype=torch.int64, device=dev)
     _kernels.launch(
-        "oglrt_ray_front", "ray_front", dev, px.data_ptr(), py.data_ptr(),
-        frames, frame_term, cam,
-        *angle_linear_constants(width, height, aspect=aspect), inv_w, inv_h,
-        float(f32(jitter_amount)), out.data_ptr(), seed.data_ptr(), R)
+        "oglrt_ray_front", "ray_front", dev, block.data_ptr(), base, n_rays,
+        n_band, tw, *angle_linear_constants(width, height, aspect=aspect),
+        inv_w, inv_h, out.data_ptr(), seed.data_ptr(), n)
     return (out[0], out[1], out[2]), (out[3], out[4], out[5]), seed
 
 
-def ray_front(px, py, frame_number, camera: Camera, width: int, height: int,
-              aspect, jitter_amount: float):
-    """Primary rays of the pixels ``px``/``py`` (int64 (R,), py in GL
-    convention, 0 = bottom row) at ``frame_number`` (an int, or an (R,)
-    int64 tensor under frame batching) in a ``width`` x ``height`` frame;
-    ``aspect`` None means width / height.  Returns (origin, direction,
-    seed) as :func:`ray_front_plain` does."""
-    args = (px, py, frame_number, camera, width, height, aspect,
-            jitter_amount)
-    return _ray_front_cuda(*args) if px.is_cuda else ray_front_plain(*args)
+def ray_front(block, base: int, n: int, n_rays: int, n_band: int, tw: int,
+              width: int, height: int, aspect):
+    """Primary rays of rays ``base .. base + n - 1`` of a step of
+    ``n_rays`` rays over a band of ``n_band`` pixels, ``tw`` a row, in a
+    ``width`` x ``height`` frame (``aspect`` None: width / height), with
+    the window, frame number, camera and jitter of ``block``.  Returns
+    (origin, direction, seed) as :func:`pixel_front` does."""
+    if tw < 1 or n_band < tw or n_band % tw or n < 0:
+        raise ValueError(f"a band of {n_band} pixels in rows of {tw} (n={n})")
+    args = (block, base, n, n_rays, n_band, tw, width, height, aspect)
+    return _ray_front_cuda(*args) if block.is_cuda else ray_front_plain(*args)

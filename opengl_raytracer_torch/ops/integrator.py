@@ -77,14 +77,15 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
     return seed, tuple(out[a] / o_len for a in range(3))
 
 
-def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
-             lambertian: bool, reorder: bool = False,
-             return_seed: bool = True):
+def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
+             reorder: bool = False, return_seed: bool = True):
     """One path per ray: returns (incoming light 3x(R,), final seed), both
     in the input ray order.
 
     ``raycast_fn(o3, d3, alive)`` returns a ``Nearest``; its rays' shading
-    rows are picked by ``intersect.shading_table``.  ``reorder`` sorts the
+    rows are picked by ``intersect.shading_table``; the shade kernel reads
+    the sky colour and ``lambertian`` from the step ``block``
+    (``ops/step_block.py``).  ``reorder`` sorts the
     rays by coherence key before every bounce segment but the first (the
     JAX renderer's ``reorder``, ``renderer.py:276``).  ``return_seed=False``
     (single-sample callers, as in the JAX ``raytrace``, ``:134-137``) lets
@@ -94,7 +95,6 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
 
     R = o3[0].shape[0]
     dev = o3[0].device
-    emission_scale = 2.0 if lambertian else 1.0  # fragment.glsl:329-331
     lo, hi = scene.root_min, scene.root_max
 
     ones = torch.ones(R, dtype=torch.float32, device=dev)
@@ -121,7 +121,7 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
         table, index = shading_table(scene, nearest)
         origin, direction, ray_color, incoming, alive, seed = shade_update(
             table, index, nearest, origin, direction, ray_color, incoming,
-            alive, seed, sky_color, emission_scale, lambertian)
+            alive, seed, block)
 
     if not reorder:
         return incoming, seed
@@ -129,10 +129,11 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
     return permute.restore(incoming, seed if return_seed else None, orig)
 
 
-def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
-          rays_per_pixel: int, lambertian: bool, reorder: bool = False):
+def trace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
+          rays_per_pixel: int, reorder: bool = False):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
-    Returns ((R, 3) color, new seed).
+    Returns (color, new seed), the color a 3-tuple of (R,) columns: the
+    restore's own at one sample.
 
     With one sample the per-pixel seed dies here (each frame reseeds from
     the pixel and the frame number), so the restore drops it and ``seed0``
@@ -140,11 +141,12 @@ def trace(scene, raycast_fn, o3, d3, seed0, sky_color, n_bounces: int,
     colors = []
     seed = seed0
     for _ in range(rays_per_pixel):
-        color, seed = raytrace(scene, raycast_fn, o3, d3, seed, sky_color,
-                               n_bounces, lambertian, reorder,
+        color, seed = raytrace(scene, raycast_fn, o3, d3, seed, block,
+                               n_bounces, reorder,
                                return_seed=rays_per_pixel > 1)
-        colors.append(torch.stack(color, dim=-1))
+        colors.append(color)
     if rays_per_pixel == 1:
         return colors[0], seed0 if seed is None else seed
-    return torch.stack(colors).mean(dim=0), seed
+    return tuple(torch.stack([c[a] for c in colors]).mean(dim=0)
+                 for a in range(3)), seed
 

@@ -113,13 +113,12 @@ def raycast_brute(scene, o3, d3, active=None, tri_chunk: int = 2048) -> Nearest:
 
     ``o3``/``d3`` are 3-tuples of (R,) columns and ``active`` an optional
     (R,) bool mask whose False rays report ``t = BIG``.  A batch with no
-    active ray skips the sweep."""
+    active ray reports ``init_nearest``'s misses; the choice is made on the
+    device (no host sync), so a captured step can run the sweep."""
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
     near = init_nearest(R, origin.device)
-    if active is not None and not bool(active.any()):
-        return near
     T = scene.v0.shape[0]
     C = min(tri_chunk, T)
     cross_od = torch.linalg.cross(origin, direction)
@@ -148,6 +147,9 @@ def raycast_brute(scene, o3, d3, active=None, tri_chunk: int = 2048) -> Nearest:
             v_best = torch.where(better, v.gather(1, arg)[:, 0], v_best)
     if active is not None:
         t_best = torch.where(active, t_best, BIG)
+        any_active = active.any()
+        tri, u_best, v_best = (torch.where(any_active, x, y) for x, y in (
+            (tri, near.tri), (u_best, near.u), (v_best, near.v)))
     return Nearest(t=t_best, tri=tri, u=u_best, v=v_best)
 
 

@@ -3,7 +3,9 @@
 The wrapper :func:`raycast_pallas` is the port of
 ``opengl_raytracer_tpu/ops/pallas_traversal.py:raycast_pallas``: it runs
 the traversal, resolves ``tri = pl_remap[slot]`` and masks dead rays to
-``t = BIG``.  The traversal is :func:`traverse_wide`, which picks the
+``t = BIG``, the entry t and the resolution each one launch of G5
+(``csrc/wide_epilogue.cu``, :func:`wide_prologue`, :func:`wide_epilogue`)
+on the card.  The traversal is :func:`traverse_wide`, which picks the
 scene's tables by the rays' device: on CUDA tensors it launches the kernel
 of ``csrc/wide_traversal.cu`` over the scene's Hopper layout
 (``SceneData.k3``, ops/wide_bvh.pack_k3); on CPU tensors it runs
@@ -256,6 +258,73 @@ def traverse_wide(scene, o3, d3, t0, leaf_octets: int):
     return t, slot, u, v
 
 
+def _prologue_plain(active, R: int, device):
+    """Plain version of G5's prologue: K3's entry t, ``BIG`` for a live
+    ray and ``-BIG`` for one that ``active`` (None: every ray live) marks
+    dead."""
+    t0 = torch.full((R,), BIG, dtype=torch.float32, device=device)
+    return t0 if active is None else torch.where(active, t0, -BIG)
+
+
+def _epilogue_plain(t, slot, u, v, remap) -> Nearest:
+    """Plain version of G5's epilogue: K3's (t, slot, u, v) resolved, t =
+    ``BIG``, u = v = 0 on a miss, ``tri = remap[slot]`` with the slot
+    clamped into the table, as a JAX gather clamps."""
+    did_hit = (t < BIG) & (t > -BIG)
+    return Nearest(t=torch.where(did_hit, t, BIG),
+                   tri=remap[slot.clamp(0, remap.shape[0] - 1).long()],
+                   u=torch.where(did_hit, u, 0.0),
+                   v=torch.where(did_hit, v, 0.0))
+
+
+def _prologue_cuda(active, R: int, device):
+    if active is not None:
+        _kernels.require(active, "active", torch.bool, device, R)
+    t0 = torch.empty(R, dtype=torch.float32, device=device)
+    _kernels.launch("oglrt_wide_prologue", "wide_epilogue", device,
+                    None if active is None else active.data_ptr(),
+                    t0.data_ptr(), R)
+    return t0
+
+
+def _epilogue_cuda(t, slot, u, v, remap) -> Nearest:
+    dev = t.device
+    R = t.shape[0]
+    req = _kernels.require
+    for name, x, dtype in (("t", t, torch.float32), ("slot", slot, torch.int32),
+                           ("u", u, torch.float32), ("v", v, torch.float32)):
+        req(x, name, dtype, dev, R)
+    req(remap, "remap", torch.int32, dev)
+    if remap.dim() != 1 or remap.shape[0] == 0:
+        raise ValueError(f"remap must be (N,) with N > 0, got "
+                         f"{tuple(remap.shape)}")
+    out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)))
+    _kernels.launch("oglrt_wide_epilogue", "wide_epilogue", dev,
+                    t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
+                    remap.data_ptr(), remap.shape[0],
+                    *(x.data_ptr() for x in out[:4]), R)
+    return out
+
+
+def wide_prologue(active, R: int, device):
+    """K3's entry t for ``R`` rays on ``device`` (G5's first entry point):
+    on a CUDA device one launch of ``csrc/wide_epilogue.cu``, else
+    :func:`_prologue_plain`."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _prologue_cuda(active, R, device)
+    return _prologue_plain(active, R, device)
+
+
+def wide_epilogue(t, slot, u, v, remap) -> Nearest:
+    """K3's output resolved into a :class:`Nearest` without a slot (G5's
+    second entry point): on CUDA tensors one launch of
+    ``csrc/wide_epilogue.cu``, else :func:`_epilogue_plain`."""
+    args = (t, slot, u, v, remap)
+    return _epilogue_cuda(*args) if t.is_cuda else _epilogue_plain(*args)
+
+
 def raycast_pallas(scene, o3, d3, active=None, max_leaf_tris: int = 16
                    ) -> Nearest:
     """Nearest hit per ray over ``scene``'s wide-BVH tables.
@@ -263,17 +332,11 @@ def raycast_pallas(scene, o3, d3, active=None, max_leaf_tris: int = 16
     ``o3``/``d3`` are 3-tuples of (R,) float32 columns and ``active`` an
     optional (R,) bool mask whose False rays report ``t = BIG``;
     ``max_leaf_tris`` must cover the scene's largest leaf.  The result has
-    no slot: the shading rows are gathered by ``tri``."""
+    no slot: the shading rows are gathered by ``tri``.  The entry t and
+    the resolution of K3's output are G5's two launches."""
     o3 = tuple(x.contiguous() for x in o3)
     d3 = tuple(x.contiguous() for x in d3)
-    R = o3[0].shape[0]
-    t0 = torch.full((R,), BIG, dtype=torch.float32, device=o3[0].device)
-    if active is not None:
-        t0 = torch.where(active, t0, -BIG)
+    t0 = wide_prologue(active, o3[0].shape[0], o3[0].device)
     leaf_octets = -(-max_leaf_tris // TRIS_PER_OCTET)
     t, slot, u, v = traverse_wide(scene, o3, d3, t0, leaf_octets)
-    did_hit = (t < BIG) & (t > -BIG)
-    return Nearest(t=torch.where(did_hit, t, BIG),
-                   tri=scene.pl_remap[slot.long()],
-                   u=torch.where(did_hit, u, 0.0),
-                   v=torch.where(did_hit, v, 0.0))
+    return wide_epilogue(t, slot, u, v, scene.pl_remap)

@@ -19,13 +19,15 @@ from __future__ import annotations
 
 import torch
 
-from opengl_raytracer_torch.ops import _kernels
+from opengl_raytracer_torch.ops import _kernels, step_block
 from opengl_raytracer_torch.ops.integrator import scatter_soa
 from opengl_raytracer_torch.ops.intersect import finalize_hit_soa
 
 
 def _shade_plain(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
-                 sky_color, emission_scale, lambertian):
+                 block):
+    v = step_block.values(block)
+    sky_color, emission_scale, lambertian = v.sky, v.em_scale, v.lambertian
     hit = finalize_hit_soa(table, index, o3, d3, nearest)
     seed_h, new_dir = scatter_soa(seed, hit.normal, d3, hit.roughness,
                                   lambertian)
@@ -49,7 +51,7 @@ def _shade_plain(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
 
 
 def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
-                sky_color, emission_scale, lambertian):
+                block):
     dev = seed.device
     R = seed.shape[0]
     req = _kernels.require
@@ -60,6 +62,7 @@ def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
     req(alive, "alive", torch.bool, dev, R)
     req(seed, "seed", torch.int64, dev, R)
     req(table, "table", torch.float32, dev)
+    req(block, "block", torch.int32, dev, step_block.WORDS)
     if table.dim() != 2 or table.shape[1] != 24 or table.shape[0] == 0:
         raise ValueError(f"table must be (S, 24) with S > 0, got "
                          f"{tuple(table.shape)}")
@@ -70,9 +73,7 @@ def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
         "oglrt_shade", "shade", dev,
         table.data_ptr(), table.shape[0], index.data_ptr(),
         *(x.data_ptr() for x in cols),
-        alive.data_ptr(), seed.data_ptr(),
-        *(float(c) for c in sky_color), float(emission_scale),
-        int(bool(lambertian)),
+        alive.data_ptr(), seed.data_ptr(), block.data_ptr(),
         *(out[k].data_ptr() for k in range(12)),
         alive_out.data_ptr(), seed_out.data_ptr(), R)
     o, d, rc, inc = (tuple(out[3 * g + a] for a in range(3))
@@ -81,16 +82,16 @@ def _shade_cuda(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
 
 
 def shade_update(table, index, nearest, o3, d3, rc3, inc3, alive, seed,
-                 sky_color, emission_scale, lambertian):
+                 block):
     """Fused finalize + scatter + state update for one bounce.
 
     ``table`` is the (S, 24) float32 shading table and ``index`` the (R,)
     int32 column that picks each ray's row, clamped into the table.  vec3
     state is 3-tuples of contiguous (R,) float32 columns; ``alive`` is
     (R,) bool, ``seed`` (R,) int64 uint32 states, ``nearest`` the
-    traversal's :class:`Nearest`.  ``sky_color`` is 3 floats,
-    ``emission_scale`` a float and ``lambertian`` a bool.  Returns
-    (o3', d3', rc3', inc3', alive', seed')."""
-    args = (table, index, nearest, o3, d3, rc3, inc3, alive, seed, sky_color,
-            emission_scale, lambertian)
+    traversal's :class:`Nearest`.  The sky colour, the emission scale and
+    ``lambertian`` are the step block's (``ops/step_block.py``), which the
+    kernel reads when it runs.  Returns (o3', d3', rc3', inc3', alive',
+    seed')."""
+    args = (table, index, nearest, o3, d3, rc3, inc3, alive, seed, block)
     return _shade_cuda(*args) if seed.is_cuda else _shade_plain(*args)

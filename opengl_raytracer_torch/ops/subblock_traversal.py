@@ -29,6 +29,7 @@ import torch
 
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
+from opengl_raytracer_torch.ops.pallas_traversal import wide_prologue
 from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, K1_NODE_WORDS,
                                               K1_OCTET_FLOATS, ORD0)
 
@@ -271,17 +272,14 @@ def raycast_subblock(scene, o3, d3, active=None):
     """Nearest hit per ray over every sub-block part of ``scene``.
 
     ``o3``/``d3`` are 3-tuples of (R,) float32 columns; ``active`` an
-    optional (R,) bool mask whose False rays report ``t = BIG``."""
+    optional (R,) bool mask whose False rays report ``t = BIG``.  The
+    first part's entry t is K3's (G5's prologue, one launch on the
+    card)."""
     if scene.p2_node_rows.shape[0] == 0:
         raise ValueError("scene has no sub-block tables (exceeded caps?)")
     o3 = tuple(x.contiguous() for x in o3)
     d3 = tuple(x.contiguous() for x in d3)
-    R = o3[0].shape[0]
-    dev = o3[0].device
-    if active is None:
-        t0 = torch.full((R,), BIG, dtype=torch.float32, device=dev)
-    else:
-        t0 = torch.where(active, BIG, -BIG).to(torch.float32)
+    t0 = wide_prologue(active, o3[0].shape[0], o3[0].device)  # G5's
     near = None
     slot_base = 0
     parts = scene.parts

@@ -7,8 +7,12 @@ one node index through the DFS-preorder-with-miss-links layout
 current nearest hit is opened: a leaf's triangles are tested and the walk
 goes on to the node's miss link, an internal node steps to its first
 child.  A missed node jumps to its miss link.  It is plain torch, as the
-JAX version is XLA code outside any kernel: one step per loop iteration
-over the rays still walking, with one host check per step.
+JAX version is XLA code outside any kernel.  On CUDA rays it is one
+launch of ``csrc/bvh_walk.cu`` (G7), one thread walking one ray to its
+end, so a tile step's CUDA graph holds it; on CPU rays it runs
+:func:`_walk_plain`, one step per loop iteration over the rays still
+walking, with one host check per step.  The two agree bit for bit on the
+card.
 
 The JAX package's packet traversal (``raycast_packet``) is not ported: its
 ``[P, 128]`` shared node pointer answers XLA on the TPU.  The renderer
@@ -19,15 +23,16 @@ from __future__ import annotations
 
 import torch
 
+from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import (BIG, Nearest, init_nearest,
                                                   mt_single, slab_test)
 
 
-def raycast_bvh(scene, o3, d3, active=None, max_leaf_tris: int = 4) -> Nearest:
-    """Nearest hit per ray by the stackless walk.  ``o3``/``d3`` are
-    3-tuples of (R,) columns, ``active`` an optional (R,) bool mask whose
-    False rays report ``t = BIG``; ``max_leaf_tris`` must cover the
-    scene's largest leaf."""
+def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
+                counts: bool = False):
+    """Plain torch version of the walk kernel.  With ``counts``, also a
+    (2, R) int32 tensor of each ray's loop steps (node visits) and
+    triangle tests, the work the kernel does for the same ray."""
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
@@ -37,12 +42,15 @@ def raycast_bvh(scene, o3, d3, active=None, max_leaf_tris: int = 4) -> Nearest:
     if active is not None:
         t = torch.where(active, t, -BIG)  # dead rays open no node
     node = torch.zeros(R, dtype=torch.int64, device=origin.device)
+    work = torch.zeros((2, R), dtype=torch.int32, device=origin.device)
 
     while True:
         rays = torch.nonzero(node < N).squeeze(1)
         if rays.numel() == 0:
             break
         nidx = node[rays]
+        if counts:
+            work[0, rays] += 1
         o, d, bt = origin[rays], direction[rays], t[rays]
         t_near = slab_test(o, inv_dir[rays], scene.node_min[nidx],
                            scene.node_max[nidx])
@@ -55,6 +63,8 @@ def raycast_bvh(scene, o3, d3, active=None, max_leaf_tris: int = 4) -> Nearest:
         leaf = torch.nonzero(box_hit & is_leaf).squeeze(1)
         if leaf.numel():
             lr = rays[leaf]
+            if counts:
+                work[1, lr] += count[leaf].clamp_max(max_leaf_tris)
             o_l = o[leaf].unbind(1)
             d_l = d[leaf].unbind(1)
             first, cnt = scene.node_first[nidx[leaf]], count[leaf]
@@ -76,4 +86,45 @@ def raycast_bvh(scene, o3, d3, active=None, max_leaf_tris: int = 4) -> Nearest:
                                  scene.node_miss[nidx].long())
     if active is not None:
         t = torch.where(active, t, BIG)
-    return Nearest(t=t, tri=tri, u=u, v=v)
+    near = Nearest(t=t, tri=tri, u=u, v=v)
+    return (near, work) if counts else near
+
+
+def _walk_cuda(scene, o3, d3, active=None, max_leaf_tris: int = 4):
+    dev = o3[0].device
+    R = o3[0].shape[0]
+    req = _kernels.require
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o3, *d3)):
+        req(x, name, torch.float32, dev, R)
+    if active is not None:
+        req(active, "active", torch.bool, dev, R)
+    N = scene.node_miss.shape[0]
+    for name in ("node_min", "node_max"):
+        req(getattr(scene, name), name, torch.float32, dev, N * 3)
+    for name in ("node_miss", "node_first", "node_count"):
+        req(getattr(scene, name), name, torch.int32, dev, N)
+    T = scene.v0.shape[0]
+    for name in ("v0", "e1", "e2", "face"):
+        req(getattr(scene, name), name, torch.float32, dev, T * 3)
+    out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)))
+    _kernels.launch(
+        "oglrt_bvh_walk", "bvh_walk", dev, *(x.data_ptr() for x in (*o3, *d3)),
+        None if active is None else active.data_ptr(),
+        *(getattr(scene, k).data_ptr() for k in (
+            "node_min", "node_max", "node_miss", "node_first", "node_count")),
+        N, *(getattr(scene, k).data_ptr() for k in ("v0", "e1", "e2", "face")),
+        int(max_leaf_tris), *(x.data_ptr() for x in out[:4]), R)
+    return out
+
+
+def raycast_bvh(scene, o3, d3, active=None, max_leaf_tris: int = 4) -> Nearest:
+    """Nearest hit per ray by the stackless walk.  ``o3``/``d3`` are
+    3-tuples of (R,) columns, ``active`` an optional (R,) bool mask whose
+    False rays report ``t = BIG``; ``max_leaf_tris`` must cover the
+    scene's largest leaf.  CUDA rays: one launch of ``csrc/bvh_walk.cu``
+    (G7); CPU rays: :func:`_walk_plain`."""
+    o3 = tuple(x.contiguous() for x in o3)
+    d3 = tuple(x.contiguous() for x in d3)
+    args = (scene, o3, d3, active, max_leaf_tris)
+    return _walk_cuda(*args) if o3[0].is_cuda else _walk_plain(*args)

@@ -21,16 +21,19 @@ Design, and where it departs from the JAX module:
 * One process drives every device, as the JAX package's single controller
   does; there is no ``torch.distributed``.  The CLI stays one process.
   Each (dp, sp) shard is the port's ``render_flat`` on its own device, with
-  its slice of the band's pixels and its frame number, issued one after
-  another from the calling thread.  Kernel launches return at once, so
-  shards on distinct cards overlap on the devices, but the host enqueues
-  them in turn (about 700 launches a shard at 1080p).
+  its slice of the band's rows and its frame number in its own step block
+  (``ops/step_block.py``), issued one after another from the calling
+  thread.  On cards each shard's body is one CUDA graph, captured at its
+  first step (``step_graph.py``; the JAX package jits its
+  ``shard_map``ped step, ``sharding.py:119-126``), so a shard costs the
+  host one block write and one replay; shards on distinct cards overlap
+  on the devices.
 * ``accum`` lives on the mesh's first device (the home device), not
   row-sharded over dp (the JAX ``P("dp")``).  The shards' colors are
   copied there, summed in sp index order and folded into ``accum`` in
-  place, as ``renderer._tile_step`` folds a band.  A 1080p ``accum`` is
-  25 MB; keeping it in one place makes ``image()``, ``restore_state`` and
-  checkpoints plain copies.
+  place (G6, ``ops/fold.py``), eagerly: a handful of launches a step.  A
+  1080p ``accum`` is 25 MB; keeping it in one place makes ``image()``,
+  ``restore_state`` and checkpoints plain copies.
 * The scene is uploaded once per distinct device, so a mesh that repeats
   one card holds one copy of the tables.
 * ``"auto"`` resolves with the port's ``resolve_traversal``, as the
@@ -52,13 +55,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from opengl_raytracer_torch import step_graph
 from opengl_raytracer_torch.models.scene import Scene, SceneData
+from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.ops.camera import Camera, make_camera
+from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
-from opengl_raytracer_torch.renderer import (RenderState, band_pixels,
-                                             band_window, effective_max_leaf,
-                                             fold_band, make_raycast_fn,
-                                             render_flat, resolve_traversal)
+from opengl_raytracer_torch.renderer import (RenderState, advance,
+                                             band_window, check_accum,
+                                             effective_max_leaf,
+                                             make_raycast_fn, render_flat,
+                                             resolve_traversal, step_words)
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 
@@ -118,36 +125,76 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None,
     return Mesh(grid.reshape(dp, sp))
 
 
-def sharded_tile_step(scenes: dict, raycasts: dict, camera: Camera,
-                      accum: torch.Tensor, frame_count: int, tile_x: int,
-                      tile_y: int, sky_brightness, jitter_amount, lambertian,
-                      *, config: RenderConfig, traversal: str,
-                      mesh: Mesh) -> None:
-    """One mesh step: render one tile band, rows split over ``dp`` and
-    frame numbers over ``sp``, and fold it into ``accum`` (on its own
-    device) in place.
+class _Shard:
+    """One (dp, sp) shard of a mesh: its device, its copy of the scene and
+    its traversal, its step block, and the rows of the band it renders.
+    On a card its body is captured once, into a memory pool shared with
+    the other shards of its device, and replayed every step."""
 
-    ``scenes`` and ``raycasts`` map each mesh device to its copy of the
-    scene and its traversal.  The band's clamp and remainder mask are
-    ``_tile_step``'s (``renderer.band_window`` and ``fold_band``), so the
+    def __init__(self, scene, raycast_fn, config: RenderConfig,
+                 traversal: str, rows: int, pool):
+        self.scene, self.raycast_fn = scene, raycast_fn
+        self.config, self.traversal, self.rows = config, traversal, rows
+        self.device = scene.device
+        self.block = step_block.new(self.device)
+        self.pool = pool
+        self.graph = None
+
+    def body(self):
+        tw = self.config.tile_w
+        return render_flat(self.scene, self.config, self.block,
+                           tw * self.rows, tw, 1, self.raycast_fn,
+                           self.traversal)
+
+    def run(self, words, eager: bool = False):
+        """Write the shard's block and render its rows -> 3 color columns
+        (in the graph's pool when replayed: read them before the next
+        replay)."""
+        graphed = self.device.type == "cuda" and not eager
+        if graphed and self.graph is None:
+            self.graph = step_graph.capture(self.body, self.device,
+                                            pool=self.pool)
+        step_block.write(self.block, words)
+        return self.graph.replay() if graphed else self.body()
+
+
+def sharded_tile_step(shards, home_block, state: RenderState, camera: Camera,
+                      sky_brightness, jitter_amount, lambertian, *,
+                      config: RenderConfig, mesh: Mesh,
+                      eager: bool = False) -> None:
+    """One mesh step: render one tile band, rows split over ``dp`` and
+    frame numbers over ``sp``, and fold it into ``state.accum`` (on its
+    own device) in place.
+
+    ``shards`` is the (dp, sp) grid of :class:`_Shard`; shard (i, s)
+    renders rows ``i * tile_h / dp ..`` of the band at frame number
+    ``frame_count + s``, each value in its own step block.  The colors
+    are copied to the home device, summed in sp index order and folded
+    (G6, weight sp) at the window of ``home_block``: the band's clamp and
+    remainder mask are ``_tile_step``'s (``renderer.band_window``), so the
     image equals the sequential renderer's."""
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    tw, rows = config.tile_w, config.tile_h // dp
+    rows = config.tile_h // dp
+    accum = state.accum
     home = accum.device
-    window = band_window(config, tile_x, tile_y)
-    col0, py0 = window[0], window[1]
+    col0, py0, _, _ = band_window(config, state.tile_x, state.tile_y)
     slices = []
     for i in range(dp):
         total = None
         for s in range(sp):
-            dev = mesh.devices[i, s]
-            px, py = band_pixels(col0, py0 + i * rows, tw, rows, dev)
-            colors = render_flat(scenes[dev], config, camera, frame_count + s,
-                                 sky_brightness, jitter_amount, lambertian,
-                                 px, py, raycasts[dev], traversal).to(home)
-            total = colors if total is None else total + colors
+            words = step_block.pack(state.frame_count + s,
+                                    (col0, py0 + i * rows, 0, 0, 0), camera,
+                                    sky_brightness, jitter_amount, lambertian)
+            colors = tuple(c.to(home) for c in shards[i][s].run(words, eager))
+            total = colors if total is None else tuple(
+                a + b for a, b in zip(total, colors))
         slices.append(total)
-    fold_band(accum, torch.cat(slices), config, window, frame_count, sp)
+    colors = slices[0] if dp == 1 else tuple(
+        torch.cat([sl[a] for sl in slices]) for a in range(3))
+    step_block.write(home_block, step_words(
+        config, state.frame_count, state.tile_x, state.tile_y, camera,
+        sky_brightness, jitter_amount, lambertian, accum))
+    fold_band(accum, colors, home_block, config.tile_w, config.tile_h, 1, sp)
 
 
 def _scene_on(scene, device: torch.device) -> SceneData:
@@ -195,8 +242,15 @@ class ShardedRenderer:
         self.scene = self.scenes[self.home]
         self.traversal = resolve_traversal(self.scene, config.traversal)
         leaf = effective_max_leaf(self.scene)
-        self._raycasts = {dev: make_raycast_fn(data, self.traversal, leaf)
-                          for dev, data in self.scenes.items()}
+        raycasts = {dev: make_raycast_fn(data, self.traversal, leaf)
+                    for dev, data in self.scenes.items()}
+        pools = {dev: torch.cuda.graph_pool_handle()
+                 if dev.type == "cuda" else None for dev in self.scenes}
+        self._shards = [[_Shard(self.scenes[dev], raycasts[dev], config,
+                                self.traversal, config.tile_h // dp,
+                                pools[dev])
+                         for dev in row] for row in mesh.devices]
+        self._home_block = step_block.new(self.home)
         self.frames_per_step = mesh.shape["sp"]
 
     def init_state(self) -> RenderState:
@@ -222,25 +276,32 @@ class ShardedRenderer:
              jitter_amount: float | None = None,
              lambertian: bool | None = None) -> RenderState:
         """One tile band across the mesh + tile cursor advance;
-        ``state.accum`` is updated in place and carried into the result."""
+        ``state.accum`` is updated in place and carried into the result.
+        On cards each shard is one block write and one graph replay
+        (captured at its first step); the sum and the fold run on the home
+        device."""
+        return self._step(state, camera, sky_brightness, jitter_amount,
+                          lambertian, eager=False)
+
+    def _step_eager(self, state: RenderState, camera: Camera,
+                    sky_brightness=None, jitter_amount=None,
+                    lambertian=None) -> RenderState:
+        """:meth:`step` with every shard's body run eagerly: the yardstick
+        the replays are held to (chip_smoke.py, the CUDA tests)."""
+        return self._step(state, camera, sky_brightness, jitter_amount,
+                          lambertian, eager=True)
+
+    def _step(self, state, camera, sky_brightness, jitter_amount,
+              lambertian, eager: bool) -> RenderState:
         cfg = self.config
+        check_accum(state.accum, self.home, cfg)
         sharded_tile_step(
-            self.scenes, self._raycasts, camera, state.accum,
-            state.frame_count, state.tile_x, state.tile_y,
+            self._shards, self._home_block, state, camera,
             cfg.sky_brightness if sky_brightness is None else sky_brightness,
             cfg.jitter_amount if jitter_amount is None else jitter_amount,
             cfg.lambertian if lambertian is None else lambertian,
-            config=cfg, traversal=self.traversal, mesh=self.mesh)
-        tile_x, tile_y, frames = state.tile_x + 1, state.tile_y, state.frame_count
-        if tile_x >= cfg.num_tiles_x:
-            tile_x = 0
-            tile_y += 1
-            if tile_y >= cfg.num_tiles_y:
-                tile_y = 0
-                frames += self.frames_per_step
-        return RenderState(accum=state.accum, frame_count=frames,
-                           tile_x=tile_x, tile_y=tile_y,
-                           total_frames=state.total_frames + 1)
+            config=cfg, mesh=self.mesh, eager=eager)
+        return advance(cfg, state, self.frames_per_step)
 
     def render(self, camera: Camera | None = None, frames: int = 1,
                state: RenderState | None = None) -> RenderState:

@@ -9,7 +9,15 @@ The port of ``opengl_raytracer_tpu/renderer.py``:
   curr) / (frameNumber + F)`` (fragment.glsl:409-414);
 * one ``(W/tiles) x (H/tiles)`` band renders per step, and the frame
   counter advances after a full sweep (main.py:409-418).  Remainder tiles
-  clamp the band into the frame and mask the merge.
+  clamp the band into the frame and mask the merge (G6, ``ops/fold.py``).
+
+Every value of a step that changes from step to step (frame number, tile
+window, camera, sky, jitter, ``lambertian``, ``accum``'s address) is
+written into the renderer's step block (``ops/step_block.py``) before the
+step, and the step's kernels read it there.  So on a card the step's body
+is captured once as a CUDA graph and replayed every step
+(``step_graph.py``), the counterpart of the JAX package's
+``jax.jit(_tile_step)``.
 
 ``accum`` is updated IN PLACE by every step, the analogue of the JAX
 package's buffer donation (its ``jax.jit(..., donate_argnums=(2,))``): a
@@ -24,16 +32,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from opengl_raytracer_torch import step_graph
 from opengl_raytracer_torch.models.scene import Scene, SceneData
+from opengl_raytracer_torch.ops import pallas_traversal as wide
+from opengl_raytracer_torch.ops import step_block
+from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.camera import Camera, make_camera
+from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.ops.front import ray_front
 from opengl_raytracer_torch.ops.integrator import trace
 from opengl_raytracer_torch.ops.intersect import raycast_brute
-from opengl_raytracer_torch.ops.pallas_traversal import raycast_pallas
-from opengl_raytracer_torch.ops.subblock_traversal import raycast_subblock
 from opengl_raytracer_torch.ops.traversal import raycast_bvh
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
-from opengl_raytracer_torch.utils.config import SKY_COLOR, RenderConfig
+from opengl_raytracer_torch.utils.config import RenderConfig
 
 _PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
 _DEFAULT_CHUNK = 2 * 1024 * 1024
@@ -66,11 +77,11 @@ def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
         return lambda o3, d3, active=None: raycast_bvh(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
     if traversal in ("pallas", "packet"):
-        return lambda o3, d3, active=None: raycast_pallas(
+        return lambda o3, d3, active=None: wide.raycast_pallas(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
     if traversal == "pallas2":
-        return lambda o3, d3, active=None: raycast_subblock(scene, o3, d3,
-                                                            active)
+        return lambda o3, d3, active=None: sbt.raycast_subblock(scene, o3, d3,
+                                                                active)
     raise ValueError(f"unknown traversal {traversal!r}")
 
 
@@ -124,54 +135,42 @@ def state_from_numpy(accum, frame_count: int, tile_x: int, tile_y: int,
                        total_frames=int(total_frames))
 
 
-def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
-                  frame_number, sky_brightness: float, jitter_amount: float,
-                  lambertian: bool, px, py, raycast_fn,
+def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
+                  n: int, n_rays: int, n_band: int, tw: int, raycast_fn,
                   reorder: bool = False):
-    """Trace a flat batch of pixels; px/py int (R,) tensors, py in GL
-    convention (0 = bottom row); ``frame_number`` an int or an (R,)
-    tensor.  Returns (R, 3) linear color."""
-    # seed, 3 warm-ups, angle-linear ray, 2 jitter draws (G1)
-    origin, d, seed = ray_front(px, py, frame_number, camera, config.width,
-                                config.height, config.ray_aspect,
-                                jitter_amount)
-    sky = tuple(float(c) for c in
-                np.asarray(SKY_COLOR, np.float32) * np.float32(sky_brightness))
-    color, _ = trace(scene, raycast_fn, origin, d, seed, sky,
+    """Trace rays ``base .. base + n - 1`` of a step of ``n_rays`` rays
+    over a band of ``n_band`` pixels, ``tw`` a row, at the window, frame
+    number, camera, sky, jitter and ``lambertian`` of the step ``block``.
+    Returns their linear color as a 3-tuple of (n,) columns."""
+    # pixel, frame, seed, 3 warm-ups, angle-linear ray, 2 jitter draws (G1)
+    origin, d, seed = ray_front(block, base, n, n_rays, n_band, tw,
+                                config.width, config.height, config.ray_aspect)
+    color, _ = trace(scene, raycast_fn, origin, d, seed, block,
                      n_bounces=config.n_bounces,
-                     rays_per_pixel=config.rays_per_pixel,
-                     lambertian=bool(lambertian), reorder=reorder)
+                     rays_per_pixel=config.rays_per_pixel, reorder=reorder)
     return color
 
 
-def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
-                frame_count, sky_brightness, jitter_amount, lambertian,
-                px, py, raycast_fn, traversal: str):
-    """Chunked render of a flat pixel list -> (R, 3) colors.  Chunks of up
-    to 2M rays for the kernels' traversals and 128K for "brute" and "bvh"
-    (or ``config.ray_chunk``) bound the per-ray state."""
-    R = px.shape[0]
+def render_flat(scene: SceneData, config: RenderConfig, block, n_band: int,
+                tw: int, n_frames: int, raycast_fn, traversal: str):
+    """Chunked render of a step's ``n_frames`` copies of a band of
+    ``n_band`` pixels (``tw`` a row) -> 3 (R,) color columns, R = n_frames
+    * n_band.  Chunks of up to 2M rays for the kernels' traversals and 128K
+    for "brute" and "bvh" (or ``config.ray_chunk``) bound the per-ray
+    state; the last one is padded to whole packets.  One chunk's columns
+    are the restore's own; several are concatenated."""
+    R = n_frames * n_band
     default = (_SMALL_CHUNK if traversal in ("brute", "bvh")
                else _DEFAULT_CHUNK)
     chunk = min(config.ray_chunk or min(R, default), R)
     chunk = -(-chunk // _PACKET) * _PACKET
     n_chunks = -(-R // chunk)
-    pad = n_chunks * chunk - R
-    frame_is_tensor = isinstance(frame_count, torch.Tensor)
-    if pad:
-        px = torch.cat([px, px.new_zeros(pad)])
-        py = torch.cat([py, py.new_zeros(pad)])
-        if frame_is_tensor:
-            frame_count = torch.cat([frame_count, frame_count.new_zeros(pad)])
-    colors = []
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        frame_c = frame_count[sl] if frame_is_tensor else frame_count
-        colors.append(render_pixels(
-            scene, config, camera, frame_c, sky_brightness, jitter_amount,
-            lambertian, px[sl], py[sl], raycast_fn,
-            reorder=traversal in _REORDER))
-    return torch.cat(colors)[:R]
+    colors = [render_pixels(scene, config, block, c * chunk, chunk, R, n_band,
+                            tw, raycast_fn, reorder=traversal in _REORDER)
+              for c in range(n_chunks)]
+    if n_chunks == 1:
+        return tuple(x[:R] for x in colors[0])
+    return tuple(torch.cat([c[a] for c in colors])[:R] for a in range(3))
 
 
 def band_window(config: RenderConfig, tile_x: int, tile_y: int):
@@ -185,66 +184,58 @@ def band_window(config: RenderConfig, tile_x: int, tile_y: int):
     return col0, py0, tile_x * tw - col0, tile_y * th - py0
 
 
-def band_pixels(col0: int, py0: int, tw: int, rows: int, device):
-    """Row-major (px, py) int64 (rows * tw,) of ``rows`` band rows from GL
-    row ``py0``, columns ``col0 .. col0 + tw - 1``."""
-    cols = torch.arange(tw, dtype=torch.int64, device=device)
-    ys = torch.arange(rows, dtype=torch.int64, device=device)
-    return ((col0 + cols)[None, :].expand(rows, tw).reshape(-1),
-            (py0 + ys)[:, None].expand(rows, tw).reshape(-1))
+def step_words(config: RenderConfig, frame_count: int, tile_x: int,
+               tile_y: int, camera: Camera, sky_brightness, jitter_amount,
+               lambertian, accum: torch.Tensor | None = None):
+    """The step block's words (``step_block.pack``) of one tile step: the
+    tile's band window, the frame number and the per-step values, and the
+    address of ``accum`` that G6 folds into."""
+    col0, py0, dx0, dy0 = band_window(config, tile_x, tile_y)
+    row0 = config.height - py0 - config.tile_h
+    return step_block.pack(frame_count, (col0, py0, dx0, dy0, row0), camera,
+                           sky_brightness, jitter_amount, lambertian,
+                           0 if accum is None else accum.data_ptr())
 
 
-def fold_band(accum: torch.Tensor, colors: torch.Tensor, config: RenderConfig,
-              window, frame_count: int, weight: int) -> None:
-    """Fold a band's (th * tw, 3) color sum, row-major from its bottom GL
-    row, into ``accum`` in place: ``(prev * fc + colors) / (fc + weight)``
-    where the window's mask is set."""
-    col0, py0, dx0, dy0 = window
-    tw, th = config.tile_w, config.tile_h
-    dev = accum.device
-    # GL py ascends bottom-up; accum rows descend top-down.
-    tile_img = colors.reshape(th, tw, 3).flip(0)
-    row0 = config.height - py0 - th
-    valid = ((torch.arange(tw, device=dev)[None, :] >= dx0)
-             & (torch.arange(th, device=dev)[:, None] >= dy0))
-    mask_img = valid.flip(0)[:, :, None]
-
-    prev = accum[row0:row0 + th, col0:col0 + tw]
-    fc = float(frame_count)
-    merged = torch.where(mask_img, (prev * fc + tile_img) / (fc + weight),
-                         prev)
-    prev.copy_(merged)
-
-
-def _tile_step(scene: SceneData, camera: Camera, accum: torch.Tensor,
-               frame_count: int, tile_x: int, tile_y: int,
-               sky_brightness, jitter_amount, lambertian, *,
+def _tile_step(scene: SceneData, block, accum: torch.Tensor, *,
                config: RenderConfig, raycast_fn, traversal: str) -> None:
-    """Render one tile and fold it into ``accum`` in place."""
-    dev = accum.device
-    window = band_window(config, tile_x, tile_y)
-    px, py = band_pixels(window[0], window[1], config.tile_w, config.tile_h,
-                         dev)
+    """Render one tile and fold it into ``accum`` in place, every value of
+    the step read from its ``block``.
 
-    # Frame batching (F > 1): replicate the tile's rays F times, seed copy
-    # s with frame number frame_count + s, and fold the SUM into the
-    # running mean with weight F.
+    Frame batching (F > 1): the tile's rays run F times, copy s at frame
+    number frame_count + s (G1), and their SUM folds into the running mean
+    with weight F (G6)."""
     F = config.frames_per_step
-    n_band = px.shape[0]
-    if F > 1:
-        px = px.repeat(F)
-        py = py.repeat(F)
-        frames = frame_count + torch.arange(
-            F, dtype=torch.int64, device=dev).repeat_interleave(n_band)
-    else:
-        frames = frame_count
-
-    colors = render_flat(scene, config, camera, frames, sky_brightness,
-                         jitter_amount, lambertian, px, py, raycast_fn,
+    tw, th = config.tile_w, config.tile_h
+    colors = render_flat(scene, config, block, tw * th, tw, F, raycast_fn,
                          traversal)
-    if F > 1:
-        colors = colors.reshape(F, n_band, 3).sum(dim=0)
-    fold_band(accum, colors, config, window, frame_count, F)
+    fold_band(accum, colors, block, tw, th, F, F)
+
+
+def check_accum(accum: torch.Tensor, device, config: RenderConfig) -> None:
+    """A step folds into ``accum`` in place, on the card by its address:
+    it must be a contiguous (H, W, 3) float32 tensor on ``device``."""
+    shape = (config.height, config.width, 3)
+    if (accum.device != device or accum.dtype != torch.float32
+            or tuple(accum.shape) != shape or not accum.is_contiguous()):
+        raise ValueError(f"accum must be a contiguous {shape} float32 tensor "
+                         f"on {device}, got {tuple(accum.shape)} "
+                         f"{accum.dtype} on {accum.device}")
+
+
+def advance(config: RenderConfig, state: RenderState,
+            frames_per_sweep: int) -> RenderState:
+    """The tile cursor after a step (main.py:409-418): the frame count
+    advances by ``frames_per_sweep`` after the last tile."""
+    tile_x, tile_y, frames = state.tile_x + 1, state.tile_y, state.frame_count
+    if tile_x >= config.num_tiles_x:
+        tile_x = 0
+        tile_y += 1
+        if tile_y >= config.num_tiles_y:
+            tile_y = 0
+            frames += frames_per_sweep
+    return RenderState(accum=state.accum, frame_count=frames, tile_x=tile_x,
+                       tile_y=tile_y, total_frames=state.total_frames + 1)
 
 
 class Renderer:
@@ -276,6 +267,8 @@ class Renderer:
         self.traversal = resolve_traversal(scene_data, config.traversal)
         self._raycast = make_raycast_fn(scene_data, self.traversal,
                                         effective_max_leaf(scene_data))
+        self._block = step_block.new(self.device)
+        self._graph = None
 
     def init_state(self) -> RenderState:
         accum = torch.zeros((self.config.height, self.config.width, 3),
@@ -293,26 +286,67 @@ class Renderer:
              jitter_amount: float | None = None,
              lambertian: bool | None = None) -> RenderState:
         """One tile draw + tile cursor advance (main.py:375-418).
-        ``state.accum`` is updated in place and carried into the result."""
+        ``state.accum`` is updated in place and carried into the result.
+
+        On a card the step is one write of the step block and one replay
+        of the step's CUDA graph, captured at the first step
+        (``step_graph.py``); a capture that fails raises.  On the CPU the
+        body runs eagerly."""
+        return self._step(state, camera, sky_brightness, jitter_amount,
+                          lambertian, eager=False)
+
+    def _step_eager(self, state: RenderState, camera: Camera,
+                    sky_brightness=None, jitter_amount=None,
+                    lambertian=None) -> RenderState:
+        """:meth:`step` with the body run eagerly, launch by launch: the
+        yardstick its replay is held to (chip_smoke.py, the CUDA tests)."""
+        return self._step(state, camera, sky_brightness, jitter_amount,
+                          lambertian, eager=True)
+
+    def _step(self, state, camera, sky_brightness, jitter_amount, lambertian,
+              eager: bool) -> RenderState:
+        graphed = self.device.type == "cuda" and not eager
+        if graphed and self._graph is None:
+            self._graph = self._capture()
+        self._write_block(state, camera, sky_brightness, jitter_amount,
+                          lambertian)
+        if graphed:
+            self._graph.replay()
+        else:
+            self._body(state.accum)
+        return advance(self.config, state, self.config.frames_per_step)
+
+    def _body(self, accum: torch.Tensor) -> None:
+        _tile_step(self.scene, self._block, accum, config=self.config,
+                   raycast_fn=self._raycast, traversal=self.traversal)
+
+    def _write_block(self, state: RenderState, camera: Camera,
+                     sky_brightness, jitter_amount, lambertian) -> None:
         cfg = self.config
-        _tile_step(
-            self.scene, camera, state.accum, state.frame_count,
-            state.tile_x, state.tile_y,
+        check_accum(state.accum, self.device, cfg)
+        step_block.write(self._block, step_words(
+            cfg, state.frame_count, state.tile_x, state.tile_y, camera,
             cfg.sky_brightness if sky_brightness is None else sky_brightness,
             cfg.jitter_amount if jitter_amount is None else jitter_amount,
             cfg.lambertian if lambertian is None else lambertian,
-            config=cfg, raycast_fn=self._raycast, traversal=self.traversal)
+            state.accum))
 
-        tile_x, tile_y, frames = state.tile_x + 1, state.tile_y, state.frame_count
-        if tile_x >= cfg.num_tiles_x:
-            tile_x = 0
-            tile_y += 1
-            if tile_y >= cfg.num_tiles_y:
-                tile_y = 0
-                frames += cfg.frames_per_step
-        return RenderState(accum=state.accum, frame_count=frames,
-                           tile_x=tile_x, tile_y=tile_y,
-                           total_frames=state.total_frames + 1)
+    def _capture(self):
+        """The step's graph.  Its warm-up step folds into a scratch buffer
+        (the block names it), never into a caller's ``accum``."""
+        cfg = self.config
+        scratch = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                              device=self.device)
+
+        def warmup():
+            step_block.write(self._block, step_words(
+                cfg, 0, 0, 0, make_camera(DEFAULT_CAM_POS, DEFAULT_CAM_DIR),
+                cfg.sky_brightness, cfg.jitter_amount, cfg.lambertian,
+                scratch))
+            self._body(scratch)
+
+        return step_graph.capture(lambda: self._body(scratch), self.device,
+                                  warmup)
 
     def render(self, camera: Camera | None = None, frames: int = 1,
                state: RenderState | None = None,

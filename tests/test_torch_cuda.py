@@ -9,10 +9,15 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1, K3, the probes and the glue kernels G1-G4 (ray
-front, int32 sort keys, reorder and restore, K1's part epilogue) are held
-to that, the shade floats to ``rtol=1e-5, atol=1e-6`` as the CPU tests
-against the JAX package do, with seeds and alive flags exact.
+agree bit for bit; K1, K3, the probes and the glue kernels G1-G7 (ray
+front, int32 sort keys, reorder and restore, K1's part epilogue, K3's
+prologue and epilogue, the band fold, the "bvh" walk) and the step
+block's write are held to that, the shade floats to ``rtol=1e-5,
+atol=1e-6`` as the CPU tests against the JAX package do, with seeds and
+alive flags exact.  The compiled step: replayed CUDA graphs equal the
+eager body bit for bit (every traversal name, remainder tiles,
+frames_per_step 2 with rays_per_pixel 2, a (2, 2) mesh of the one card),
+through camera moves, resets, lambertian toggles and sky changes.
 """
 
 import numpy as np
@@ -330,7 +335,7 @@ def test_shade_kernel_matches_plain(cuda, lambertian):
             col3(g.uniform(0, 1, (3, R)).astype(f32)),
             dev(g.uniform(size=R) < 0.8),
             dev(g.integers(0, 2**32, R, dtype=np.uint64).astype(np.int64)),
-            (0.1, 0.6, 0.92), 2.0 if lambertian else 1.0, lambertian)
+            _block(cuda, lambertian=lambertian, sky=0.7))
     before = _kernels.launch_counts["shade"]
     got = shade.shade_update(*args)
     assert _kernels.launch_counts["shade"] == before + 1
@@ -441,33 +446,40 @@ def test_app_on_card_matches_cpu(cuda, tmp_path):
 
 # ------------------------------------------- the glue kernels (G1-G4)
 
-def _front_inputs(case, cuda, n=70_001):
-    """(px, py, frame) on the card: a 1080p frame's pixels with its
-    corners, at a frame number near 2^32 (an int, or per-ray numbers that
-    wrap past it), or pixel coordinates whose products with 1973 and 9277
-    wrap mod 2^32."""
-    g = np.random.default_rng(11)
-    px, py = g.integers(0, 1920, n), g.integers(0, 1080, n)
-    px[:4], py[:4] = [0, 1919, 0, 1919], [0, 0, 1079, 1079]
-    if case == "frame_int":
-        frame = 2**32 - 1
-    elif case == "frame_tensor_wrap":
-        frame = torch.from_numpy(2**32 - 2 + np.arange(n) % 4).to(cuda)
-    else:
-        px, py = g.integers(0, 2**31 - 1, n), g.integers(0, 2**31 - 1, n)
-        frame = torch.from_numpy(g.integers(0, 2**40, n)).to(cuda)
-    return torch.from_numpy(px).to(cuda), torch.from_numpy(py).to(cuda), frame
+def _block(device, frame=0, window=(0, 0, 0, 0, 0), lambertian=True,
+           sky=1.0, jitter=0.05, accum=None):
+    """A step block on ``device`` with these values."""
+    from opengl_raytracer_torch.ops import step_block
+
+    block = step_block.new(device)
+    step_block.write(block, step_block.pack(
+        frame, window, make_camera([-33.7, 14.8, -21.1], (65.0, -25.4)), sky,
+        jitter, lambertian, 0 if accum is None else accum.data_ptr()))
+    return block
+
+
+# (frame, col0, py0, frames_per_step, band rows, width, height, base): a
+# 1080p band at a frame number near 2^32; four frames a step that wrap
+# past it, with a chunk that ends in padding; pixel coordinates whose
+# products with 1973 and 9277 wrap mod 2^32 at a frame past 2^40
+FRONT_CASES = {
+    "frame_int": (2**32 - 1, 0, 1080 - 37, 1, 37, 1920, 1080, 0),
+    "frame_tensor_wrap": (2**32 - 2, 0, 500, 4, 10, 1920, 1080, 6900),
+    "wide_pixels": (2**40 + 3, 2**31 - 1921, 2**31 - 12, 1, 10, 2**31 - 1,
+                    2**31 - 1, 0),
+}
 
 
 @pytest.mark.parametrize("aspect", [None, 1.25])
-@pytest.mark.parametrize("case", ["frame_int", "frame_tensor_wrap",
-                                  "wide_pixels"])
+@pytest.mark.parametrize("case", sorted(FRONT_CASES))
 def test_ray_front_kernel_matches_plain(cuda, case, aspect):
     from opengl_raytracer_torch.ops import front
 
-    px, py, frame = _front_inputs(case, cuda)
-    args = (px, py, frame, make_camera([-33.7, 14.8, -21.1], (65.0, -25.4)),
-            1920, 1080, aspect, 0.05)
+    frame, col0, py0, F, rows, width, height, base = FRONT_CASES[case]
+    block = _block(cuda, frame, (col0, py0, 0, 0, 0))
+    n_band = 1920 * rows
+    args = (block, base, 70_001, F * n_band, n_band, 1920, width, height,
+            aspect)
     before = _kernels.launch_counts["ray_front"]
     o3, d3, seed = front.ray_front(*args)
     assert _kernels.launch_counts["ray_front"] == before + 1
@@ -613,8 +625,7 @@ def test_glue_wrappers_reject_bad_input(cuda):
     from opengl_raytracer_torch.ops import front, morton, permute
 
     R = 256
-    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
-    px = torch.arange(R, device=cuda)
+    block = _block(cuda)
     o3, d3, t0 = _rays(R, cuda)
     lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
     keys = torch.zeros(R, dtype=torch.int32, device=cuda)
@@ -622,14 +633,12 @@ def test_glue_wrappers_reject_bad_input(cuda):
     slot = torch.zeros(R, dtype=torch.int32, device=cuda)
     remap = torch.zeros(8, dtype=torch.int32, device=cuda)
     bad = [
-        (lambda: front.ray_front(px.int(), px, 0, cam, 16, 16, None, 0.05),
-         "dtype"),
-        (lambda: front.ray_front(px, px.cpu(), 0, cam, 16, 16, None, 0.05),
-         "is on"),
-        (lambda: front.ray_front(px, px[:-1], 0, cam, 16, 16, None, 0.05),
+        (lambda: front.ray_front(block.long(), 0, R, R, R, 16, 16, 16,
+                                 None), "dtype"),
+        (lambda: front.ray_front(block[:-1], 0, R, R, R, 16, 16, 16, None),
          "elements"),
-        (lambda: front.ray_front(px, px, px.int(), cam, 16, 16, None, 0.05),
-         "dtype"),
+        (lambda: front.ray_front(block, 0, R, R, R - 1, 16, 16, 16, None),
+         "band"),
         (lambda: morton.sort_keys((o3[0].double(), *o3[1:]), d3, lo, hi),
          "dtype"),
         (lambda: morton.sort_keys(o3, d3, lo, hi, keys[:-1].bool()),
@@ -657,3 +666,237 @@ def test_glue_wrappers_reject_bad_input(cuda):
         with pytest.raises(ValueError, match=match):
             call()
     assert _kernels.launch_counts == before
+
+
+# ------------------------------------- the compiled step (G5, G6, graphs)
+
+def test_step_block_write_matches_plain(cuda):
+    """The block's write launch leaves the words a copy leaves."""
+    from opengl_raytracer_torch.ops import step_block
+
+    words = step_block.pack(2**33 + 5, (1, 2, 3, 4, 5),
+                            make_camera([1.0, 2.0, 3.0], (10.0, 20.0)), 0.5,
+                            0.25, False, accum=123456789)
+    got, ref = step_block.new(cuda), step_block.new(cuda)
+    before = _kernels.launch_counts["step_block"]
+    step_block.write(got, words)
+    assert _kernels.launch_counts["step_block"] == before + 1
+    step_block.write_plain(ref, words)
+    assert torch.equal(got, ref)
+    assert step_block.values(got).frame == 2**33 + 5
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_wide_epilogue_kernels_match_plain(cuda, masked):
+    """G5's prologue and epilogue against their plain versions, on K3's own
+    output for random rays with dead ones."""
+    data = Scene(_objects(), max_leaf_tris=16).send(cuda)
+    o3, d3, t0 = _rays(5001, cuda, seed=21)
+    active = (t0 > -BIG) if masked else None
+    before = _kernels.launch_counts["wide_epilogue"]
+    got_t0 = wide.wide_prologue(active, 5001, cuda)
+    assert torch.equal(got_t0, wide._prologue_plain(active, 5001, cuda))
+    k3 = wide.traverse_wide(data, o3, d3, got_t0,
+                            -(-effective_max_leaf(data) // 8))
+    got = wide.wide_epilogue(*k3, data.pl_remap)
+    assert _kernels.launch_counts["wide_epilogue"] == before + 2
+    ref = wide._epilogue_plain(*k3, data.pl_remap)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((got.t < BIG).sum()) > 1000
+
+
+@pytest.mark.parametrize("frame,F,tile", [(0, 1, 1), (2**24 + 1, 2, 3),
+                                          (2**32 - 2, 2, 3)])
+def test_band_fold_kernel_matches_plain(cuda, frame, F, tile):
+    """G6 against its plain version bit for bit, every tile of a sweep of
+    a 24x20 frame (remainder tiles at tile_size 3), into the buffer the
+    block names."""
+    from opengl_raytracer_torch.ops import fold, step_block
+    from opengl_raytracer_torch.renderer import step_words
+
+    cfg = RenderConfig(width=24, height=20, tile_size=tile,
+                       frames_per_step=F)
+    g = np.random.default_rng(22)
+    start = torch.from_numpy(g.uniform(0, 2, (20, 24, 3))
+                             .astype(np.float32)).to(cuda)
+    got, ref = start.clone(), start.clone()
+    tw, th = cfg.tile_w, cfg.tile_h
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    bk, bp = step_block.new(cuda), step_block.new(cuda)
+    before = _kernels.launch_counts["band_fold"]
+    for ty in range(cfg.num_tiles_y):
+        for tx in range(cfg.num_tiles_x):
+            cols = tuple(torch.from_numpy(g.uniform(0, 3, F * tw * th + 7)
+                                          .astype(np.float32)).to(cuda)
+                         for _ in range(3))
+            step_block.write(bk, step_words(cfg, frame, tx, ty, cam, 1.0, 0.0,
+                                            True, got))
+            step_block.write(bp, step_words(cfg, frame, tx, ty, cam, 1.0, 0.0,
+                                            True, ref))
+            fold.fold_band(got, cols, bk, tw, th, F, F)
+            fold.fold_plain(ref, cols, bp, tw, th, F, F)
+    tiles = cfg.num_tiles_x * cfg.num_tiles_y
+    assert _kernels.launch_counts["band_fold"] == before + tiles
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert not torch.equal(got, start)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_bvh_walk_kernel_matches_plain(cuda, masked):
+    """G7, the "bvh" walk, against its plain version bit for bit, with
+    axis-parallel rays, rays in face planes of the scene's box (NaN slab
+    values) and, masked, dead rays."""
+    from opengl_raytracer_torch.ops import traversal
+
+    data = Scene(_objects(), max_leaf_tris=4).send(cuda)
+    o3, d3, t0 = _rays(3001, cuda, seed=23)
+    _face_plane_rays(data, o3, d3, t0)
+    active = (t0 > -BIG) if masked else None
+    leaf = effective_max_leaf(data)
+    before = _kernels.launch_counts["bvh_walk"]
+    got = traversal.raycast_bvh(data, o3, d3, active, leaf)
+    assert _kernels.launch_counts["bvh_walk"] == before + 1
+    ref = traversal._walk_plain(data, o3, d3, active, leaf)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((got.t < BIG).sum()) > 1000
+
+
+def _scene_small():
+    soup, _, light = _objects()  # no enclosing box: misses see the sky
+    return Scene([soup, light], max_leaf_tris=16)
+
+
+# Each step of the script: (camera, sky, lambertian, reset before it)
+_CAMS = ([0.0, 0.0, 4.4], (180.0, 0.0)), ([0.5, -0.3, 4.0], (175.0, 6.0))
+
+
+def _script(n_tiles):
+    steps = []
+    for k in range(2 * n_tiles + 3):
+        cam = _CAMS[1] if k >= n_tiles + 1 else _CAMS[0]  # a camera move
+        sky = 0.6 if k % 3 == 2 else 1.0  # a sky change
+        lam = k % 2 == 0  # lambertian toggles
+        reset = k == n_tiles + 1  # the App resets when the camera moves
+        steps.append((make_camera(*cam), sky, lam, reset))
+    return steps
+
+
+def _replay_vs_eager(graphed, eager, n_tiles, check_graph=True):
+    """Run the same script of steps through ``graphed.step`` (replays) and
+    ``eager._step_eager``, holding ``accum`` bit for bit after each."""
+    sa, sb = graphed.init_state(), eager.init_state()
+    for camera, sky, lam, reset in _script(n_tiles):
+        if reset:
+            old = sa.accum
+            sa, sb = graphed.reset(sa), eager.reset(sb)
+            assert sa.accum.data_ptr() != old.data_ptr()
+        sa = graphed.step(sa, camera, sky_brightness=sky, lambertian=lam)
+        sb = eager._step_eager(sb, camera, sky_brightness=sky,
+                               lambertian=lam)
+        assert torch.equal(sa.accum.view(torch.int32),
+                           sb.accum.view(torch.int32))
+        assert (sa.frame_count, sa.tile_x, sa.tile_y) == (
+            sb.frame_count, sb.tile_x, sb.tile_y)
+    assert float(sa.accum.mean()) > 0.01
+    return sa
+
+
+@pytest.mark.parametrize("traversal", ["auto", "brute", "bvh", "packet",
+                                       "pallas", "pallas2"])
+@pytest.mark.parametrize("cfg", [dict(tile_size=2), dict(tile_size=3),
+                                 dict(frames_per_step=2, rays_per_pixel=2)])
+def test_graph_replay_equals_eager_body(cuda, traversal, cfg):
+    """Replayed steps equal the eager body bit for bit through a camera
+    move, a reset (a new accum: the block carries its address), lambertian
+    toggles and sky changes, for every traversal name; one graph serves
+    every tile, remainder tiles (24x16 at tile_size 3) included."""
+    scene = _scene_small()
+    config = RenderConfig(width=24, height=16, bounces=2,
+                          traversal=traversal, **cfg)
+    graphed = Renderer(scene, config, device=cuda)
+    eager = Renderer(scene, config, device=cuda)
+    n_tiles = config.num_tiles_x * config.num_tiles_y
+    _replay_vs_eager(graphed, eager, n_tiles)
+    assert graphed._graph is not None and eager._graph is None
+
+
+def test_graph_counts_replays_and_keeps_the_overflow_counters(cuda):
+    """The counters created before capture are the ones the replays add
+    to (a captured allocation would reset them on every replay); each
+    replay adds the launches its capture made, and set-up adds none."""
+    scene = _scene_small()
+    config = RenderConfig(width=24, height=16, bounces=2)
+    r = Renderer(scene, config, device=cuda)
+    assert r.traversal == "pallas2"
+    ovs = [sbt.overflow_tensor(cuda), wide.overflow_tensor(cuda)]
+    for ov in ovs:
+        ov.fill_(5)
+    _kernels.reset_counts()
+    state = r.step(r.init_state(), make_camera(*_CAMS[0]))
+    counts = dict(_kernels.launch_counts)
+    n = config.n_bounces
+    parts = len(r.scene.parts)
+    assert counts["subblock_traversal"] == parts * n and counts["shade"] == n
+    assert counts["ray_front"] == counts["band_fold"] == 1
+    assert counts["step_block"] == 1 and counts["restore"] == 1
+    assert counts["wide_epilogue"] == n and counts["wide_traversal"] == 0
+    for _ in range(3):
+        state = r.step(state, make_camera(*_CAMS[0]))
+    assert _kernels.launch_counts == {k: 4 * v for k, v in counts.items()}
+    torch.cuda.synchronize()
+    for ov in ovs:
+        assert int(ov.item()) == 5
+    assert [sbt.overflow_tensor(cuda), wide.overflow_tensor(cuda)] == ovs
+
+
+def test_graph_follows_new_buffers(cuda):
+    """A checkpoint's state (``state_from_numpy``) and a restored copy
+    are new buffers; the one graph folds into each."""
+    from opengl_raytracer_torch.renderer import state_from_numpy
+
+    scene = _scene_small()
+    config = RenderConfig(width=24, height=16, bounces=2, tile_size=2)
+    graphed = Renderer(scene, config, device=cuda)
+    eager = Renderer(scene, config, device=cuda)
+    cam = make_camera(*_CAMS[0])
+    sa = graphed.render(cam, frames=1)
+    graph = graphed._graph
+    g = np.random.default_rng(5).uniform(0, 1, (16, 24, 3))
+    sa = state_from_numpy(g, 1, 1, 0, 5, cuda)
+    sb = state_from_numpy(g, 1, 1, 0, 5, cuda)
+    for _ in range(5):
+        sa, sb = graphed.step(sa, cam), eager._step_eager(sb, cam)
+    assert graphed._graph is graph
+    assert torch.equal(sa.accum, sb.accum)
+
+
+def test_sharded_graph_replay_equals_eager(cuda):
+    """A (2, 2) mesh of the one card: each shard's replay and the home
+    fold equal the eager body bit for bit through the same script, and a
+    shard is one graph."""
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+
+    scene = _scene_small()
+    cfg = RenderConfig(width=24, height=16, bounces=2, tile_size=2)
+    mesh = make_mesh(devices=[cuda] * 4, dp=2, sp=2)
+    graphed, eager = ShardedRenderer(scene, cfg, mesh), \
+        ShardedRenderer(scene, cfg, mesh)
+    _replay_vs_eager(graphed, eager, cfg.num_tiles_x * cfg.num_tiles_y)
+    graphs = [sh.graph for row in graphed._shards for sh in row]
+    assert all(g is not None for g in graphs) and len(set(graphs)) == 4
+    assert all(sh.graph is None for row in eager._shards for sh in row)
+
+
+def test_failed_capture_raises(cuda):
+    """A body that syncs with the host cannot be captured: capture raises
+    and leaves the launch counts as they were."""
+    from opengl_raytracer_torch import step_graph
+
+    x = torch.ones(4, device=cuda)
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(RuntimeError):
+        step_graph.capture(lambda: float(x.sum()), cuda, warmup=lambda: None)
+    assert _kernels.launch_counts == before
+    torch.cuda.synchronize()

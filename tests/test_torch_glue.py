@@ -2,13 +2,15 @@
 JAX package, on the CPU, and against the torch code they were split out
 of.
 
-* G1, the ray front (``ops/front.py``): what the port's ``render_pixels``
-  hands to ``trace`` against the JAX ``render_pixels``' hand-off, with
-  frame numbers near 2^32 (an int and per-ray tensors that wrap), the
-  frame's corner pixels and pixel coordinates whose products with 1973
-  and 9277 wrap.  Seeds and origins exact; directions within 1e-6 (two
-  float32 programs of the same formulas), as tests/test_torch_rng_camera.py
-  holds them.
+* G1, the ray front (``ops/front.py``): its math for given pixels
+  (``pixel_front``) against the JAX ``render_pixels``' hand-off to
+  ``trace``, with frame numbers near 2^32 (an int and per-ray tensors that
+  wrap), the frame's corner pixels and pixel coordinates whose products
+  with 1973 and 9277 wrap.  Seeds and origins exact; directions within
+  1e-6 (two float32 programs of the same formulas), as
+  tests/test_torch_rng_camera.py holds them.  Each step ray's pixel and
+  frame number, derived from its index and the step block, are the pixel
+  lists the renderer built before.
 * G2, the int32 sort keys (``ops/morton.py``): the JAX uint32 keys minus
   2^31, bit for bit, on live, dead and out-of-box rays; a stable argsort
   of them is the stable argsort of the uint32 keys.
@@ -38,11 +40,11 @@ from opengl_raytracer_tpu.ops.subblock_traversal import (
     raycast_subblock as j_subblock)
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
-import opengl_raytracer_torch.renderer as trenderer
-from opengl_raytracer_torch.ops import morton, permute
+from opengl_raytracer_torch.ops import front, morton, permute, step_block
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.camera import make_camera
-from opengl_raytracer_torch.ops.front import ray_front, ray_front_plain
+from opengl_raytracer_torch.ops.front import (pixel_front, ray_front,
+                                              ray_front_plain)
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
 from opengl_raytracer_torch.utils.config import RenderConfig
 from test_torch_traversal import _check, _jax_scene, _rays, _run_port
@@ -73,47 +75,81 @@ def _front_pixels(case, g):
 @pytest.mark.parametrize("case", ["frame_int", "frame_tensor_wrap",
                                   "wide_pixels"])
 def test_front_plain_matches_jax_render_pixels(case, monkeypatch):
-    """What each render_pixels hands to trace (renderer.py:162-199)."""
+    """The front's math for given pixels (``pixel_front``) against what the
+    JAX render_pixels hands to trace (renderer.py:162-199)."""
     seen = {}
 
-    def capture(key, zeros, stack):
-        def fake_trace(scene, raycast_fn, origin, d, seed, sky, **kw):
-            seen[key] = (stack(origin), stack(d), seed)
-            return zeros((d[0].shape[0], 3)), seed
-        return fake_trace
+    def fake_trace(scene, raycast_fn, origin, d, seed, sky, **kw):
+        seen["jax"] = (jnp.stack(origin), jnp.stack(d), seed)
+        return jnp.zeros((d[0].shape[0], 3)), seed
 
-    monkeypatch.setattr(jrenderer, "trace",
-                        capture("jax", jnp.zeros, lambda c: jnp.stack(c)))
-    monkeypatch.setattr(trenderer, "trace",
-                        capture("torch", torch.zeros, lambda c: torch.stack(c)))
+    monkeypatch.setattr(jrenderer, "trace", fake_trace)
     px, py, frame, j_frame = _front_pixels(case, np.random.default_rng(7))
     j_frame = j_frame if np.ndim(j_frame) == 0 else jnp.asarray(j_frame)
     jrenderer.render_pixels(None, JRenderConfig(width=W, height=H),
                             j_make_camera(CAM_POS, CAM_DIR), j_frame, 0.8,
                             0.05, True, jnp.asarray(px.astype(np.int32)),
                             jnp.asarray(py.astype(np.int32)), None)
-    trenderer.render_pixels(None, RenderConfig(width=W, height=H),
-                            make_camera(CAM_POS, CAM_DIR), frame, 0.8, 0.05,
-                            True, torch.from_numpy(px), torch.from_numpy(py),
-                            None)
+    o3, d3, ts = pixel_front(torch.from_numpy(px), torch.from_numpy(py),
+                             frame, make_camera(CAM_POS, CAM_DIR), W, H, None,
+                             0.05)
     jo, jd, js = seen["jax"]
-    to, td, ts = seen["torch"]
+    to, td = torch.stack(o3), torch.stack(d3)
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())
     np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts.numpy())
     assert ts.dtype == torch.int64 and (ts >= 0).all() and (ts < 2**32).all()
 
 
+def _front_block(frame, col0, py0, jitter=0.05):
+    block = step_block.new("cpu")
+    step_block.write(block, step_block.pack(
+        frame, (col0, py0, 0, 0, 0), make_camera(CAM_POS, CAM_DIR), 0.8,
+        jitter, True))
+    return block
+
+
 def test_front_runs_plain_on_cpu_tensors():
-    """On CPU tensors the wrapper is the plain version, bit for bit."""
-    g = np.random.default_rng(8)
-    px, py, frame, _ = _front_pixels("frame_tensor_wrap", g)
-    args = (torch.from_numpy(px), torch.from_numpy(py), frame,
-            make_camera(CAM_POS, CAM_DIR), W, H, 1.25, 0.05)
-    for a, b in zip(ray_front(*args), ray_front_plain(*args)):
-        for x, y in zip(a if isinstance(a, tuple) else (a,),
-                        b if isinstance(b, tuple) else (b,)):
-            assert torch.equal(x, y)
+    """On a CPU block the wrapper is the plain version, bit for bit: the
+    pixels and frame numbers it derives, then ``pixel_front``."""
+    tw, rows, F = 40, 7, 4  # frames_per_step = 4 from 2^32 - 2
+    block = _front_block(2**32 - 2, 100, 60, jitter=0.3)
+    n_band = tw * rows
+    args = (block, 128, 640, F * n_band, n_band, tw, W, H, 1.25)
+    got, ref = ray_front(*args), ray_front_plain(*args)
+    px, py, frames = front.band_pixels(100, 60, 2**32 - 2, 128, 640,
+                                       F * n_band, n_band, tw, "cpu")
+    want = pixel_front(px, py, frames, make_camera(CAM_POS, CAM_DIR), W, H,
+                       1.25, 0.3)
+    for a, b, c in zip(got, ref, want):
+        for x, y, z in zip(a if isinstance(a, tuple) else (a,),
+                           b if isinstance(b, tuple) else (b,),
+                           c if isinstance(c, tuple) else (c,)):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("F,n,tw,rows", [(1, 1024, 64, 16), (3, 640, 24, 9),
+                                         (2, 300, 30, 5)])
+def test_band_pixels_are_the_former_pixel_lists(F, n, tw, rows):
+    """Each step ray's pixel and frame number, derived from its index, as
+    the renderer listed them before the step block (``band_pixels`` of
+    the band, repeated F times, frames ``frame + arange(F)`` repeated per
+    band pixel, chunks of ``n`` rays padded with pixel (0, 0))."""
+    col0, py0, frame = 17, 33, 2**32 - 1
+    cols = torch.arange(tw, dtype=torch.int64)
+    ys = torch.arange(rows, dtype=torch.int64)
+    px = (col0 + cols)[None, :].expand(rows, tw).reshape(-1).repeat(F)
+    py = (py0 + ys)[:, None].expand(rows, tw).reshape(-1).repeat(F)
+    frames = frame + torch.arange(F).repeat_interleave(tw * rows)
+    R = F * tw * rows
+    for base in range(0, R, n):
+        got = front.band_pixels(col0, py0, frame, base, n, R, tw * rows, tw,
+                                "cpu")
+        real = min(n, R - base)
+        for g, w in zip(got, (px, py, frames)):
+            assert torch.equal(g[:real], w[base:base + real])
+        assert (got[0][real:] == 0).all() and (got[1][real:] == 0).all()
+        assert (got[2][real:] == frame).all()
 
 
 # -------------------------------------------------------------- G2 keys

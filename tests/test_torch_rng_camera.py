@@ -19,7 +19,7 @@ from opengl_raytracer_tpu.ops.camera import ray_dirs_soa as j_ray_dirs_soa
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
 import opengl_raytracer_torch.renderer as trenderer
-from opengl_raytracer_torch.ops import rng
+from opengl_raytracer_torch.ops import rng, step_block
 from opengl_raytracer_torch.ops.camera import make_camera, pixel_uv, ray_dirs_soa
 from opengl_raytracer_torch.utils.config import RenderConfig
 
@@ -103,26 +103,31 @@ def test_render_pixels_front(monkeypatch):
     (renderer.py:162-199): capture what each render_pixels hands to trace."""
     seen = {}
 
-    def capture(key, zeros, stack):
+    def capture(key, zeros, stack, sky_of):
         def fake_trace(scene, raycast_fn, origin, d, seed, sky, **kw):
-            seen[key] = (stack(origin), stack(d), seed, sky)
+            seen[key] = (stack(origin), stack(d), seed, sky_of(sky))
             return zeros((d[0].shape[0], 3)), seed
         return fake_trace
 
     monkeypatch.setattr(jrenderer, "trace",
-                        capture("jax", jnp.zeros, lambda c: jnp.stack(c)))
+                        capture("jax", jnp.zeros, lambda c: jnp.stack(c),
+                                lambda sky: sky))
     monkeypatch.setattr(trenderer, "trace",
-                        capture("torch", torch.zeros, lambda c: torch.stack(c)))
+                        capture("torch", torch.zeros, lambda c: torch.stack(c),
+                                lambda block: step_block.values(block).sky))
     W, H = 64, 36
     px = np.tile(np.arange(W, dtype=np.int32), H)
     py = np.repeat(np.arange(H, dtype=np.int32), W)
     jrenderer.render_pixels(None, JRenderConfig(width=W, height=H),
                             j_make_camera(CAM_POS, CAM_DIR), 11, 0.8, 0.05,
                             True, jnp.asarray(px), jnp.asarray(py), None)
-    trenderer.render_pixels(None, RenderConfig(width=W, height=H),
-                            make_camera(CAM_POS, CAM_DIR), 11, 0.8, 0.05,
-                            True, torch.from_numpy(px), torch.from_numpy(py),
-                            None)
+    # the port's front derives the same pixels, the whole frame as one band
+    # from (0, 0), from the step block's window
+    block = step_block.new("cpu")
+    step_block.write(block, step_block.pack(
+        11, (0, 0, 0, 0, 0), make_camera(CAM_POS, CAM_DIR), 0.8, 0.05, True))
+    trenderer.render_pixels(None, RenderConfig(width=W, height=H), block, 0,
+                            W * H, W * H, W * H, W, None)
     jo, jd, js, jsky = seen["jax"]
     to, td, ts, tsky = seen["torch"]
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())

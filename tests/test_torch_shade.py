@@ -28,7 +28,9 @@ from opengl_raytracer_tpu.ops.intersect import Nearest as JNearest
 from opengl_raytracer_tpu.ops.intersect import finalize_hit_soa as j_finalize
 from opengl_raytracer_tpu.ops.shade import shade_update as j_shade_update
 
-from opengl_raytracer_torch import scene_from_numpy
+from opengl_raytracer_torch import make_camera, scene_from_numpy
+from opengl_raytracer_torch.ops import step_block
+from opengl_raytracer_torch.utils.config import SKY_COLOR
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest, shading_table
 from opengl_raytracer_torch.ops.shade import shade_update
 
@@ -74,7 +76,7 @@ def _inputs(n_rows, seed=3):
 def test_shade_plain_matches_jax_kernel(scenes, lambertian):
     jdata, tdata = scenes
     x = _inputs(tdata.sh_slot.shape[0])
-    sky = np.asarray([0.3, 0.4, 0.9], np.float32) * np.float32(0.8)
+    sky = np.asarray(SKY_COLOR, np.float32) * np.float32(0.8)
     em_scale = 2.0 if lambertian else 1.0
 
     jn = JNearest(t=jnp.asarray(x["t"]), tri=jnp.zeros(R, jnp.int32),
@@ -94,12 +96,18 @@ def test_shade_plain_matches_jax_kernel(scenes, lambertian):
 
 
 def _port_shade(tdata, tn, x, sky, em_scale, lambertian):
+    """The port's shade with the sky colour ``SKY_COLOR * 0.8`` and the
+    emission scale of ``lambertian`` in a step block."""
     table, index = shading_table(tdata, tn)
     tcol3 = lambda k: tuple(torch.from_numpy(c) for c in x[k])  # noqa: E731
+    block = step_block.new("cpu")
+    step_block.write(block, step_block.pack(
+        0, (0,) * 5, make_camera([0, 0, 0], [0, 0]), 0.8, 0.0, lambertian))
+    v = step_block.values(block)
+    assert v.sky == tuple(float(c) for c in sky) and v.em_scale == em_scale
     return shade_update(table, index, tn, tcol3("o"), tcol3("d"),
                         tcol3("rc"), tcol3("inc"), torch.from_numpy(x["alive"]),
-                        torch.from_numpy(x["seed"].astype(np.int64)),
-                        tuple(float(c) for c in sky), em_scale, lambertian)
+                        torch.from_numpy(x["seed"].astype(np.int64)), block)
 
 
 def _assert_shade_equal(ref, got, x):
@@ -143,7 +151,7 @@ def test_shade_plain_on_triangle_table_matches_jax_unfused(scenes, lambertian):
     jdata, tdata = scenes
     x = _inputs(tdata.sh_abc.shape[0], seed=5)
     tri = x.pop("slot")
-    sky = np.asarray([0.3, 0.4, 0.9], np.float32) * np.float32(0.8)
+    sky = np.asarray(SKY_COLOR, np.float32) * np.float32(0.8)
     em_scale = 2.0 if lambertian else 1.0
 
     jn = JNearest(t=jnp.asarray(x["t"]), tri=jnp.asarray(tri),

@@ -27,7 +27,8 @@ from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
 from opengl_raytracer_torch import Rect, RenderConfig, Renderer, Scene
 from opengl_raytracer_torch import make_camera
-from opengl_raytracer_torch.ops import _kernels, front, morton, permute, shade
+from opengl_raytracer_torch.ops import (_kernels, fold, front, morton,
+                                        permute, shade, step_block)
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
@@ -299,10 +300,22 @@ def _launch(kernel, device, odd_one=None):
     o3 = tuple(t(f"o{a}", R) for a in "xyz")
     d3 = tuple(t(f"d{a}", R) for a in "xyz")
     i64, i32 = torch.int64, torch.int32
+    block = t("block", step_block.WORDS, i32)
     if kernel == "ray_front":
-        return front._ray_front_cuda(t("px", R, i64), t("py", R, i64),
-                                     t("frames", R, i64), make_camera(*CAM),
-                                     16, 16, None, 0.05)
+        return front._ray_front_cuda(block, 0, R, R, R, 16, 16, 16, None)
+    if kernel == "step_block":
+        return step_block._write_cuda(block, np.zeros(step_block.WORDS,
+                                                      np.int32))
+    if kernel == "band_fold":
+        colors = (t("c0", R), t("c1", R), t("c2", R))
+        return fold._fold_cuda(t("accum", (16, 16, 3)), colors, block, 16,
+                               16, 1, 1)
+    if kernel == "wide_prologue":
+        return wide._prologue_cuda(t("active", R, torch.bool), R,
+                                   torch.device(device))
+    if kernel == "wide_epilogue":
+        return wide._epilogue_cuda(t("t", R), t("slot", R, i32), t("u", R),
+                                   t("v", R), t("remap", 8, i32))
     if kernel == "sort_keys":
         return morton._sort_keys_cuda(o3, d3, np.zeros(3, np.float32),
                                       np.ones(3, np.float32),
@@ -325,7 +338,7 @@ def _launch(kernel, device, odd_one=None):
         return shade._shade_cuda(
             t("table", (4, 24)), t("index", R, torch.int32), near, o3, d3,
             o3, d3, t("alive", R, torch.bool), t("seed", R, torch.int64),
-            (0.1, 0.6, 0.9), 2.0, True)
+            block)
     t0 = t("t0", R).fill_(BIG)
     overflow = t("overflow", 1, torch.int32)
     if kernel == "subblock_traversal":
@@ -344,10 +357,16 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
                   "sort_keys": "oglrt_sort_keys",
                   "reorder": "oglrt_reorder",
                   "restore": "oglrt_restore",
-                  "subblock_epilogue": "oglrt_subblock_epilogue"}
+                  "subblock_epilogue": "oglrt_subblock_epilogue",
+                  "wide_prologue": "oglrt_wide_prologue",
+                  "wide_epilogue": "oglrt_wide_epilogue",
+                  "band_fold": "oglrt_band_fold",
+                  "step_block": "oglrt_write_block"}
 # kernels a call of the symbol launches, where it is not one: the reorder's
 # index pass and gather
 KERNELS_A_CALL = {"reorder": 2}
+# the counter of a symbol named otherwise: G5's two entry points share one
+COUNTER = {"wide_prologue": "wide_epilogue"}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -356,23 +375,28 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     before = dict(_kernels.launch_counts)
     _launch(kernel, device)
     assert fake_card == [(KERNEL_SYMBOLS[kernel], torch.device(device))]
-    assert (_kernels.launch_counts[kernel]
-            == before[kernel] + KERNELS_A_CALL.get(kernel, 1))
+    counter = COUNTER.get(kernel, kernel)
+    assert (_kernels.launch_counts[counter]
+            == before[counter] + KERNELS_A_CALL.get(kernel, 1))
     assert torch.cuda.current_device() == "outside the guard"
 
 
 @pytest.mark.parametrize("kernel,odd_one", [
     ("subblock_traversal", "node_rows"), ("subblock_traversal", "dz"),
-    ("shade", "alive"), ("shade", "table"),
+    ("shade", "alive"), ("shade", "table"), ("shade", "block"),
     ("wide_traversal", "oy"), ("wide_traversal", "pl_tri_tiles"),
-    ("ray_front", "py"), ("ray_front", "frames"), ("sort_keys", "dz"),
+    ("sort_keys", "dz"),
     ("sort_keys", "alive"), ("reorder", "perm"), ("reorder", "oz"),
     ("restore", "seed"), ("subblock_epilogue", "remap"),
-    ("subblock_epilogue", "slot"), ("subblock_epilogue", "active")])
+    ("subblock_epilogue", "slot"), ("subblock_epilogue", "active"),
+    ("wide_prologue", "active"), ("wide_epilogue", "slot"),
+    ("wide_epilogue", "remap"), ("band_fold", "accum"),
+    ("band_fold", "c1")])
 def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
     """Each wrapper takes its device from one tensor (``t0``, ``seed``,
-    ``px``, ``ox``, ``keys``, ``orig`` or K1's ``t``) and refuses any other
-    tensor that lies elsewhere, before launching."""
+    ``ox``, ``keys``, ``orig``, K1's or K3's ``t``, or the step block) or
+    its device argument and refuses any other tensor that lies elsewhere,
+    before launching.  G1 and the block's write take no other tensor."""
     before = dict(_kernels.launch_counts)
     with pytest.raises(ValueError, match="is on meta, expected cpu"):
         _launch(kernel, "cpu", odd_one)
