@@ -46,8 +46,18 @@ Phases; each raises on failure, and the script then exits non-zero:
    reorder is the identity), and (b) the four pre-reorder states and the
    restore input of one 1080p "auto" frame, captured by wrapping
    ``permute.reorder`` and ``permute.restore`` during the frame (every
-   live ray's light must be +0.0 in bits there); it prints each set's live
-   share, ms, plain ms, library ms (``torch.index_select`` of a stacked
+   live ray's light must be +0.0 in bits there); with seed
+   reconstruction (the index pass rebuilds a live ray's seed, the gather
+   skips its seed row; the main path's reorder at 1 spp) on those four
+   states and on the eight of one frames_per_step-2 step from frame
+   2^32 + 3 (two chunks, the second padded), byte for byte against the
+   plain version and against the carried-seed reorder (it prints the live
+   padding rays checked), and on the frame's four states against
+   ``permute.cu`` built with 32-bit index math
+   (``-DOGLRT_RECON_INDEX=uint32_t``; the port's index pass uses 64-bit),
+   byte for byte and timed in turns; it prints each set's live share, ms (the
+   frame's states: with reconstruction, in turns with the carried-seed
+   reorder), plain ms, library ms (``torch.index_select`` of a stacked
    (12, R) buffer, ``index_copy_`` of the (3, R) light), the bytes bound
    at the live share beside the earlier 141-byte yardstick, and the
    scattered 32-byte sectors and the GB/s they imply (the reorder's ms
@@ -115,7 +125,11 @@ Phases; each raises on failure, and the script then exits non-zero:
    lambertian toggle, a sky change and a camera move with a reset; the
    host time of ``Renderer.step`` (no device sync inside it) eager and
    replayed, on an idle card and back to back, ms/frame of both, the
-   launches a frame and the peak device memory.  (It runs after phase 4c, while the big scene is loaded.)
+   launches a frame and the peak device memory; every eager reorder must
+   reconstruct the seed.  Then one 1080p standin-31k "auto" frame with
+   seed reconstruction against the same frame with the seed carried
+   (``render_pixels``'s ``_seed_recon`` off), both replayed, bit for bit.
+   (It runs after phase 4c, while the big scene is loaded.)
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
    may differ), and the 96x54 card-vs-CPU check.
@@ -156,7 +170,8 @@ Phases; each raises on failure, and the script then exits non-zero:
    "auto" frames of phase 5's scene and of phase 4c's (the replays'
    kernels if the profiler sees inside a graph, else the eager body's;
    it says which): device ms and launches per frame by kernel group (K1,
-   K3, K2, G1-G6 each, the block write, sorts, gathers and scatters,
+   K3, K2, G1-G6 each, G3's reorder as its index pass and its gather,
+   the block write, sorts, gathers and scatters,
    other torch kernels, copies), and the device's busy share and
    idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
    launches for the rest of the process.
@@ -497,6 +512,26 @@ def ptxas_entries(log: str, unit: str, kernel: str) -> list:
     return out
 
 
+RECON32_FLAG = "-DOGLRT_RECON_INDEX=uint32_t"
+_recon32 = {}  # "lib": the 32-bit build of permute.cu, "log": nvcc's output
+
+
+def build_recon32() -> None:
+    """Compile ``csrc/permute.cu`` with 32-bit seed-reconstruction index
+    math (``RECON32_FLAG``) into its own library under ``build/``: the
+    alternative that phase 3c times against the port's 64-bit index pass.
+    Its reorder takes the port's arguments."""
+    import ctypes
+
+    from opengl_raytracer_torch.ops import _kernels
+
+    path = os.path.join(_kernels.BUILD_DIR, "liboglrt_permute_recon32.so")
+    _recon32["log"] = _kernels.compile_library(
+        path, [(os.path.join(REPO, "opengl_raytracer_torch", "csrc",
+                             "permute.cu"), [RECON32_FLAG])])
+    _recon32["lib"] = ctypes.CDLL(path)
+
+
 def build_phase() -> None:
     import threading
 
@@ -509,21 +544,24 @@ def build_phase() -> None:
     errors = []
     probes = (k1_probe, k3_probe, k2_probe)
 
-    def build_probe(mod):  # each probe library, beside the kernels' build
+    def build_probe(build):  # each probe library, beside the kernels'
         try:
-            mod.lib()
+            build()
         except Exception as e:  # re-raised below, in this thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build_probe, args=(m,))
-               for m in probes]
+    threads = [threading.Thread(target=build_probe, args=(b,))
+               for b in (*(m.lib for m in probes), build_recon32)]
     for th in threads:
         th.start()
-    _kernels.lib()
+    main = _kernels.lib()
     for th in threads:
         th.join()
     if errors:
         raise errors[0]
+    reorder32 = _recon32["lib"].oglrt_reorder
+    reorder32.restype = main.oglrt_reorder.restype
+    reorder32.argtypes = main.oglrt_reorder.argtypes
     sec = time.perf_counter() - t0
     say("build", seconds=f"{sec:.2f}",
         lib=os.path.relpath(_kernels.LIB_PATH, REPO),
@@ -532,7 +570,8 @@ def build_phase() -> None:
                             for m in probes),
         sources=",".join(os.path.relpath(s, REPO) for s in _kernels.sources()),
         flags="'" + " ".join(_kernels.NVCC_FLAGS) + "'")
-    log = _kernels.build_log + "".join(m.build_log for m in probes)
+    log = (_kernels.build_log + "".join(m.build_log for m in probes)
+           + _recon32["log"])
     for line in log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("== ")):
@@ -546,6 +585,10 @@ def build_phase() -> None:
                     or props["stack"] >= 64):
                 raise RuntimeError(f"{tag.upper()} spills or keeps a stack "
                                    f"frame of 64 bytes or more: {props}")
+    for tag, log in (("index_pass_i64", _kernels.build_log),
+                     ("index_pass_u32", _recon32["log"])):
+        for props in ptxas_entries(log, "permute.cu", "reorder_index_kernel"):
+            say("ptxas", **{tag: props})
 
 
 def make_scene(n_lat: int, n_lon: int, device):
@@ -911,20 +954,25 @@ G3_UNFOLDED_REORDER_BYTES_PER_RAY = 8 + 4 + 48 + 8 + 8 + 48 + 8 + 8 + 1
 G3_UNFOLDED_RESTORE_BYTES_PER_RAY = 8 + 12 + 8 + 12 + 8
 
 
-def g3_reorder_work(alive, return_seed: bool) -> tuple[int, int]:
+def g3_reorder_work(alive, return_seed: bool,
+                    recon: bool = False) -> tuple[int, int]:
     """(bytes, scattered 32-byte sectors) of one reorder whose sorted rays
     are live where ``alive``: every ray reads its int64 index, sorted key
     and int32 original index, and writes 12 columns, a seed, an index and a
-    flag; a live ray reads 9 columns and its seed, a dead ray 3 columns
-    (and its seed with ``return_seed``).  Each read by the permuted index
-    is one scattered sector: 11 for a live ray, 4 (5) for a dead one."""
+    flag; a live ray reads 9 columns and its seed (not with ``recon``,
+    which reads the 128-byte step block once instead), a dead ray 3
+    columns (and its seed with ``return_seed``).  Each read by the permuted
+    index is one scattered sector: 11 for a live ray (10 with ``recon``),
+    4 (5) for a dead one."""
     n = alive.numel()
     live = int(alive.sum())
     dead = n - live
     seed = 8 if return_seed else 0
-    n_bytes = (n * (8 + 4 + 4 + 48 + 8 + 4 + 1) + live * (36 + 8)
-               + dead * (12 + seed))
-    return n_bytes, live * 11 + dead * (4 + (1 if return_seed else 0))
+    n_bytes = (n * (8 + 4 + 4 + 48 + 8 + 4 + 1)
+               + live * (36 + (0 if recon else 8)) + dead * (12 + seed)
+               + (128 if recon else 0))
+    return n_bytes, live * (10 if recon else 11) + dead * (
+        4 + (1 if return_seed else 0))
 
 
 def g3_restore_work(n: int, with_seed: bool) -> tuple[int, int]:
@@ -1071,8 +1119,11 @@ def glue_phase(data, camera, sets, seed: int):
     states = [("random", (keys_f[perm_r], perm_r, *groups, seeds, orig)),
               ("sorted", (*torch.sort(keys_f, stable=True), *groups, seeds,
                           orig))]
-    frame, restore_in = frame_states(data, camera)
-    states += [(f"frame_b{k + 1}", st) for k, st in enumerate(frame)]
+    frame, restores = frame_states(data, camera)
+    restore_in = restores[0]
+    states += [(f"frame_b{k + 1}", st) for k, (st, _, _) in enumerate(frame)]
+    recons = {f"frame_b{k + 1}": (rc, dr)
+              for k, (_, rc, dr) in enumerate(frame)}
     errs = [0.0, 0.0]
     for name, st in states:
         for k, e in enumerate(_g3_check(name, st)):
@@ -1086,17 +1137,20 @@ def glue_phase(data, camera, sets, seed: int):
     errs[1] = max(errs[1], _assert_equal(
         "G3 restore frame", permute.restore(*restore_in),
         permute.restore_plain(*restore_in), bits=True))
-    rows = {name: _g3_times(name, st) for name, st in states}
+    errs[0] = max(errs[0], _g3_recon_check(data, camera, frame))
+    rows = {name: _g3_times(name, st, recons.get(name))
+            for name, st in states}
     frame_rows = [rows[name] for name, _ in states[2:]]
     reorder_ms, plain_ms, library_ms, n_bytes, extra = _g3_mean(frame_rows)
+    extra.update(_g3_index_widths(frame))
     extra.update({f"{k}_{tag}_perm": rows[tag][k] for tag in ("random",
                                                              "sorted")
                   for k in ("ms", "library_ms")})
     out["reorder"] = _glue_row("reorder", errs[0], reorder_ms, plain_ms,
                                n_bytes, 0, set="frame_b1-4 (mean)",
-                               return_seed=False, library_ms=library_ms,
-                               **extra)
-    extras["reorder"] = dict(library_ms=library_ms, **extra)
+                               return_seed=False, seed_recon=True,
+                               library_ms=library_ms, **extra)
+    extras["reorder"] = dict(library_ms=library_ms, seed_recon=True, **extra)
     restore_row = _g3_restore_times(*restore_in)
     out["restore"] = _glue_row("restore", errs[1], *restore_row[:2],
                                restore_row[3], 0, set="frame",
@@ -1300,13 +1354,16 @@ def _block_rows(dev, camera):
     return row, dict(library_ms=lib)
 
 
-def frame_states(data, camera):
-    """The four pre-reorder states of one 1920x1080 "auto" frame (K1),
-    each as the integrator hands it to ``permute.reorder`` (sorted keys,
-    permutation, the four column groups, seed, original index), and the
-    restore's input (incoming light, seed, original index), captured by
-    wrapping the two entry points during the frame."""
+def frame_states(data, camera, frames_per_step: int = 1, frame: int = 0):
+    """The pre-reorder states of one 1920x1080 "auto" step (K1) of
+    ``frames_per_step`` frames from frame number ``frame``, four a chunk:
+    each (state, recon, draws), the state as the integrator hands it to
+    ``permute.reorder`` (sorted keys, permutation, the four column groups,
+    seed, original index) with its seed-reconstruction descriptor and
+    draws; and each chunk's restore input (incoming light, seed, original
+    index), captured by wrapping the two entry points during the step."""
     from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch import renderer as rmod
     from opengl_raytracer_torch.ops import permute
 
     def clone(x):
@@ -1320,7 +1377,10 @@ def frame_states(data, camera):
     def rec_reorder(*args):
         if args[8]:
             raise RuntimeError("the 1 spp frame reorders with return_seed")
-        states.append(clone(args[:8]))
+        if args[9] is None:
+            raise RuntimeError("the 1 spp frame reorders without seed "
+                               "reconstruction")
+        states.append((clone(args[:8]), args[9], args[10]))
         return reorder(*args)
 
     def rec_restore(*args):
@@ -1328,18 +1388,109 @@ def frame_states(data, camera):
         return restore(*args)
 
     r = Renderer(data, RenderConfig(width=WIDTH, height=HEIGHT,
-                                    bounces=BOUNCES), device=DEVICE)
+                                    bounces=BOUNCES,
+                                    frames_per_step=frames_per_step),
+                 device=DEVICE)
+    state = r.init_state()
+    state.frame_count = frame
     permute.reorder, permute.restore = rec_reorder, rec_restore
     try:
-        eager_render(r, camera)
+        eager_render(r, camera, frames_per_step, state)
     finally:
         permute.reorder, permute.restore = reorder, restore
     torch.cuda.synchronize()
-    if (r.traversal != "pallas2" or len(states) != r.config.n_bounces - 1
-            or len(restores) != 1 or restores[0][1] is not None):
+    chunks = -(-N_RAYS * frames_per_step // rmod._DEFAULT_CHUNK)
+    if (r.traversal != "pallas2"
+            or len(states) != (r.config.n_bounces - 1) * chunks
+            or len(restores) != chunks
+            or any(x[1] is not None for x in restores)):
         raise RuntimeError(f"captured {len(states)} reorders and "
                            f"{len(restores)} restores of {r.traversal}")
-    return states, restores[0]
+    return states, restores
+
+
+def _g3_recon_check(data, camera, main_frame) -> float:
+    """G3 with seed reconstruction, on a frame's own states: the main
+    path's 1080p frame (``main_frame``, from :func:`frame_states`) and one
+    step of frames_per_step 2 from frame number 2^32 + 3 (two chunks, the
+    second padded past the step's 4,147,200 rays; frame numbers past 2^32).
+    At each state (bounces 1-4 of each chunk) the reorder with
+    reconstruction equals its plain version and the carried-seed reorder
+    byte for byte: every live ray's rebuilt seed is its carried one,
+    padding rays included (all of them are pixel (0, 0), so they live or
+    die together; the count of live ones checked is printed).  Returns the
+    max |d| (0.0)."""
+    from opengl_raytracer_torch.ops import permute
+
+    fps2, _ = frame_states(data, camera, frames_per_step=2, frame=2**32 + 3)
+    err, live_padding = 0.0, 0
+    for tag, states in (("frame", main_frame), ("fps2", fps2)):
+        for k, (st, recon, draws) in enumerate(states):
+            name = f"G3 recon {tag} chunk {recon.base} draws {draws}"
+            got = permute.reorder(*st, False, recon, draws)
+            err = max(err, _assert_equal(
+                name, got, permute.reorder_plain(*st, False, recon, draws),
+                bits=True))
+            err = max(err, _assert_equal(f"{name} vs carried", got,
+                                         permute.reorder(*st, False),
+                                         bits=True))
+            padded = int((got[4] & (recon.base + got[6] >= recon.n_rays))
+                         .sum())
+            live_padding += padded
+            say("glue", kernel="reorder", recon_set=tag, chunk=recon.base,
+                n_rays=recon.n_rays, draws=draws,
+                first_frame=2**32 + 3 if tag == "fps2" else 0,
+                live=int(got[4].sum()), live_padding=padded,
+                tolerance="byte for byte (kernel, plain, carried seed)")
+    say("glue", kernel="reorder", recon_states=len(main_frame) + len(fps2),
+        live_padding_rays_checked=live_padding)
+    return err
+
+
+def _g3_index_widths(frame, turns: int = 2, iters: int = 20) -> dict:
+    """The reorder with seed reconstruction as the port builds it (64-bit
+    index math in its index pass) against ``build_recon32``'s build (32-bit,
+    exact here: a 1080p step's indices are below 2^32), on the 1080p
+    frame's four pre-reorder states (``frame``, from :func:`frame_states`):
+    the two equal byte for byte; then ``turns`` rounds of i64, u32, u32,
+    i64, each run the mean ms of ``iters`` calls (both launches) summed
+    over the four states.  The gathers are the same code, so the
+    difference is the index pass's.  Returns the runs, their means and
+    whether the 32-bit build wins by more than the larger spread."""
+    import functools
+
+    from opengl_raytracer_torch.ops import _kernels, permute
+
+    def on_u32(fn):
+        def call():
+            saved, _kernels._lib = _kernels._lib, _recon32["lib"]
+            try:
+                return fn()
+            finally:
+                _kernels._lib = saved
+        return call
+
+    calls = {"i64": [], "u32": []}
+    for st, recon, draws in frame:
+        fn = functools.partial(permute.reorder, *st, False, recon, draws)
+        calls["i64"].append(fn)
+        calls["u32"].append(on_u32(fn))
+        _assert_equal(f"G3 recon u32 build draws {draws}", calls["u32"][-1](),
+                      fn(), bits=True)
+    runs = {"i64": [], "u32": []}
+    for _ in range(turns):
+        for width in ("i64", "u32", "u32", "i64"):
+            runs[width].append(sum(cuda_ms(f, iters) for f in calls[width]))
+    mean = {w: sum(r) / len(r) for w, r in runs.items()}
+    spread = max(max(r) - min(r) for r in runs.values())
+    out = dict(recon_i64_ms_frame_runs=runs["i64"],
+               recon_u32_ms_frame_runs=runs["u32"],
+               recon_i64_ms_frame=mean["i64"], recon_u32_ms_frame=mean["u32"],
+               recon_width_spread_ms=spread,
+               u32_wins_beyond_spread=mean["i64"] - mean["u32"] > spread)
+    say("glue", kernel="reorder", check="index width", states=len(frame),
+        tolerance="byte for byte (u32 build vs i64)", **out)
+    return out
 
 
 def _g3_check(name, st) -> tuple[float, float]:
@@ -1374,30 +1525,37 @@ def _g3_live_light(name, st) -> None:
             raise RuntimeError(f"G3 {name}: {bad} live rays carry light")
 
 
-def _g3_times(name, st) -> dict:
-    """The reorder (return_seed off, as the 1 spp frame runs it) and the
-    restore of its output on state ``st``: ms of the kernel, of its plain
-    version and of the one PyTorch call (``torch.index_select`` of a
-    pre-stacked (12, R) buffer by the int64 permutation; ``index_copy_``
-    of a (3, R) light buffer by an int64 copy of the index); bytes, bound
-    and scattered sectors at the state's live share.  The reorder's ms
-    covers both its launches."""
+def _g3_times(name, st, recon=None) -> dict:
+    """The reorder (return_seed off, as the 1 spp frame runs it; with
+    ``recon`` = (descriptor, draws), with seed reconstruction, as the main
+    path runs it) and the restore of its output on state ``st``: ms of the
+    kernel, in turns with the carried-seed reorder's, of its plain version
+    and of the one PyTorch call (``torch.index_select`` of a pre-stacked
+    (12, R) buffer by the int64 permutation; ``index_copy_`` of a (3, R)
+    light buffer by an int64 copy of the index); bytes, bound and scattered
+    sectors at the state's live share.  The reorder's ms covers both its
+    launches."""
     from opengl_raytracer_torch.ops import permute
     from opengl_raytracer_torch.ops.morton import DEAD_KEY32
 
     keys_s, perm = st[:2]
     alive = keys_s != DEAD_KEY32
     stacked = torch.stack([c for grp in st[2:6] for c in grp])
-    ms, plain_ms = time_pair(lambda: permute.reorder(*st, False),
-                             lambda: permute.reorder_plain(*st, False), 20, 3)
+    rc = () if recon is None else recon
+    ms, carried_ms = time_pair(lambda: permute.reorder(*st, False, *rc),
+                               lambda: permute.reorder(*st, False), 20, 20)
+    plain_ms = min(cuda_ms(lambda: permute.reorder_plain(*st, False, *rc), 3)
+                   for _ in range(2))
     lib = min(cuda_ms(lambda: torch.index_select(stacked, 1, perm), 20)
               for _ in range(2))
-    n_bytes, sectors = g3_reorder_work(alive, False)
+    n_bytes, sectors = g3_reorder_work(alive, False, recon is not None)
     bound, _ = bound_ms(n_bytes, 0)
     old_bound, _ = bound_ms(N_RAYS * G3_UNFOLDED_REORDER_BYTES_PER_RAY, 0)
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, n_bytes=n_bytes,
-               live=float(alive.float().mean()), sectors=sectors)
+               live=float(alive.float().mean()), sectors=sectors,
+               carried_ms=carried_ms)
     say("glue", kernel="reorder", set=name, rays=N_RAYS,
+        seed_recon=recon is not None, carried_seed_ms=carried_ms,
         live_share=row["live"], ms=ms, plain_ms=plain_ms, library_ms=lib,
         mbytes=round(n_bytes / 1e6, 3), bound_ms=bound,
         share_of_bound=bound / ms, unfolded_mbytes=round(
@@ -1448,6 +1606,8 @@ def _g3_mean(rows):
 
     extra = dict(live_shares=[r["live"] for r in rows],
                  ms_segments=[r["ms"] for r in rows],
+                 carried_seed_ms=mean("carried_ms"),
+                 carried_seed_ms_segments=[r["carried_ms"] for r in rows],
                  library_ms_segments=[r["library_ms"] for r in rows],
                  scattered_msectors=round(mean("sectors") / 1e6, 3),
                  sector_gbps=mean("sectors") * 32 / mean("ms") / 1e6,
@@ -1748,6 +1908,7 @@ def graph_phase(cases, camera):
                                f" on {name}, not {expect}")
         sa, sb = graphed.init_state(), eager.init_state()
         host_g, host_e = [], []
+        recon_calls = _spy_reorder()
         for k, (cam, sky, lam, reset) in enumerate(script):
             if reset:
                 sa, sb = graphed.reset(sa), eager.reset(sb)
@@ -1771,6 +1932,10 @@ def graph_phase(cases, camera):
                                    f"differs from the eager body, max |d| "
                                    f"{diff}")
         peak = torch.cuda.max_memory_allocated() / 1e9
+        recon_calls = recon_calls()
+        if not recon_calls or not all(recon_calls):
+            raise RuntimeError(f"{name} {traversal}: the eager steps "
+                               f"reordered without seed reconstruction")
         _kernels.reset_counts()
         ms_g, busy_g, sa = _timed_steps(graphed.step, sa, camera)
         counts = dict(_kernels.launch_counts)
@@ -1785,6 +1950,7 @@ def graph_phase(cases, camera):
         ms_e, busy_e, sb = _timed_steps(eager._step_eager, sb, camera)
         say("graph", scene=name, traversal=traversal,
             resolved=graphed.traversal, frames_vs_eager=len(script),
+            seed_recon_reorders=len(recon_calls),
             max_abs_err=0.0, tolerance="exact (accum bit for bit)",
             host_ms_step_eager_idle=round(float(np.median(host_e)), 4),
             host_ms_step_replay_idle=round(float(np.median(host_g)), 4),
@@ -1798,6 +1964,68 @@ def graph_phase(cases, camera):
                                 for k, v in counts.items() if v},
             card=repr(card_line()))
         del graphed, eager, sa, sb
+    name, data, traversal, _ = cases[0]
+    _recon_frame_check(name, data, traversal, camera)
+
+
+def _spy_reorder():
+    """Wrap ``permute.reorder`` until the returned function is called,
+    which unwraps it and returns, for each call made meanwhile, whether it
+    reconstructed the seed (a descriptor was passed)."""
+    from opengl_raytracer_torch.ops import permute
+
+    reorder, seen = permute.reorder, []
+
+    def spy(*args):
+        seen.append(args[9] is not None)
+        return reorder(*args)
+
+    permute.reorder = spy
+
+    def done():
+        permute.reorder = reorder
+        return seen
+
+    return done
+
+
+def _recon_frame_check(name, data, traversal, camera) -> None:
+    """One 1080p frame of ``traversal`` with seed reconstruction (the main
+    path) against the same frame with the seed carried through every
+    reorder (``render_pixels``'s ``_seed_recon`` off), each a replayed
+    graph: accum bit for bit."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    import opengl_raytracer_torch.renderer as rmod
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                       traversal=traversal)
+    images, render_pixels = [], rmod.render_pixels
+    for recon in (True, False):
+        r = Renderer(data, cfg, device=DEVICE)
+        seen = _spy_reorder()
+        if not recon:
+            rmod.render_pixels = lambda *a, **k: render_pixels(
+                *a, **k, _seed_recon=False)
+        try:
+            state = r.render(camera, frames=1)  # captures, then replays
+        finally:
+            rmod.render_pixels = render_pixels
+            seen = seen()
+        if not seen or set(seen) != {recon}:
+            raise RuntimeError(f"seed_recon={recon}: the capture's "
+                               f"reorders ran with {set(seen)}")
+        images.append(state.accum)
+    torch.cuda.synchronize()
+    if not torch.equal(images[0].view(torch.int32),
+                       images[1].view(torch.int32)):
+        diff = float((images[0] - images[1]).abs().max())
+        raise RuntimeError(f"{name} {traversal}: the frame with seed "
+                           f"reconstruction differs from the carried-seed "
+                           f"frame, max |d| {diff}")
+    say("graph", scene=name, traversal=traversal, check="seed_recon",
+        frames=1, max_abs_err=0.0,
+        tolerance="exact (accum bit for bit, recon vs carried seed)",
+        mean=float(images[0].mean()))
 
 
 def _timed_steps(step, state, camera):
@@ -1823,8 +2051,8 @@ def _kernel_group(name: str) -> str:
                         ("G6 band fold", ("band_fold",)),
                         ("block write", ("write_block",)),
                         ("G2 sort keys", ("coherence_key_kernel",)),
-                        ("G3 reorder", ("reorder_kernel",
-                                        "reorder_index_kernel")),
+                        ("G3 reorder index pass", ("reorder_index_kernel",)),
+                        ("G3 reorder gather", ("reorder_kernel",)),
                         ("G3 restore", ("restore_kernel",)),
                         ("G4 K1 epilogue", ("part_epilogue_kernel",)),
                         ("K3", ("wide_traverse",)), ("K1", ("traverse",)),

@@ -21,7 +21,10 @@ measured on the card:
   (4, 1) of the one card repeated;
 * device ms and launches a frame by kernel group (``chip_smoke.py``'s
   phase-11 groups: G3 reorder and restore, the sort, K1, ...) over
-  PROFILED more "auto" frames of standin-31k under ``torch.profiler``.
+  PROFILED more "auto" frames of standin-31k and of standin-1.96m under
+  ``torch.profiler``, and the G3 reorder's in-frame ms (every group whose
+  name starts with "G3 reorder": one group in trees before the reorder's
+  index pass and gather were profiled apart, two after).
 
 Both trees are driven through the same calls: ``Renderer`` and
 ``chip_smoke.py``'s scene and ray helpers, and K3 through its wrapper,
@@ -57,12 +60,11 @@ def k3_launch(wide, data, o3, d3, t0, leaf_octets):
                                       d3, t0, leaf_octets, stack)
 
 
-def frame_ms(torch, data, camera, traversal, cs=None):
+def frame_ms(torch, data, camera, traversal):
     """(ms/frame over FRAMES 1080p frames after one warm-up, the median
     host time of one ``Renderer.step`` (a frame at tile_size 1) issued
-    back to back, the traversal the name resolved to, and with
-    ``cs`` (the tree's chip_smoke) {group: [device ms, launches] a frame}
-    over PROFILED more frames)."""
+    back to back, the traversal the name resolved to, the renderer and
+    its state)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
 
     r = Renderer(data, RenderConfig(width=1920, height=1080, bounces=4,
@@ -79,17 +81,22 @@ def frame_ms(torch, data, camera, traversal, cs=None):
         state = r.step(state, camera)
         host.append((time.perf_counter() - h0) * 1000.0)
     torch.cuda.synchronize()
+    return ms, sorted(host)[len(host) // 2], r.traversal, r, state
+
+
+def frame_groups(torch, cs, r, state, camera):
+    """{group: [device ms, launches] a frame} over PROFILED more frames of
+    renderer ``r``, by ``cs`` (the tree's chip_smoke) kernel groups."""
     groups = {}
-    if cs is not None:
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            r.render(camera, frames=PROFILED, state=state)
-            torch.cuda.synchronize()
-        for name, a, b in cs._device_events(prof):
-            g = groups.setdefault(cs._kernel_group(name), [0.0, 0])
-            g[0] += (b - a) / 1e3 / PROFILED
-            g[1] += 1 / PROFILED
-    return ms, sorted(host)[len(host) // 2], r.traversal, groups
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render(camera, frames=PROFILED, state=state)
+        torch.cuda.synchronize()
+    for name, a, b in cs._device_events(prof):
+        g = groups.setdefault(cs._kernel_group(name), [0.0, 0])
+        g[0] += (b - a) / 1e3 / PROFILED
+        g[1] += 1 / PROFILED
+    return groups
 
 
 def mesh_ms(torch, data, camera, dp, sp):
@@ -136,6 +143,7 @@ def main(argv=None) -> int:
     out = dict(tree=tree, card=cs.card_line(), torch=torch.__version__)
     # the profiled frames last: the profiler slows the host's launches
     # for the rest of the process
+    profiled = []
     for tag, cells, names in (("1.96m", (700, 1400), ("auto",)),
                               ("31k", (83, 166), ("pallas", "auto"))):
         scene, data = cs.make_scene(*cells, "cuda")
@@ -152,16 +160,20 @@ def main(argv=None) -> int:
                 out[f"mesh_{dp}x{sp}_{tag}_ms_per_frame"] = mesh_ms(
                     torch, data, camera, dp, sp)
         for name in names:
-            profile = cs if (tag, name) == ("31k", "auto") else None
-            ms, host, resolved, groups = frame_ms(torch, data, camera, name,
-                                                  profile)
+            ms, host, resolved, r, state = frame_ms(torch, data, camera, name)
             out[f"{name}_{tag}_ms_per_frame"] = ms
             out[f"{name}_{tag}_host_ms_per_step"] = host
             out[f"{name}_{tag}_resolved"] = resolved
-            if groups:
-                out[f"{name}_{tag}_groups"] = groups
+            if name == "auto":
+                profiled.append((f"{name}_{tag}", r, state))
+            del r, state
         del data
         torch.cuda.empty_cache()
+    for key, r, state in profiled:
+        groups = frame_groups(torch, cs, r, state, camera)
+        out[f"{key}_groups"] = groups
+        out[f"{key}_reorder_ms_per_frame"] = sum(
+            ms for g, (ms, _) in groups.items() if g.startswith("G3 reorder"))
     print(json.dumps(out), flush=True)
     return 0
 

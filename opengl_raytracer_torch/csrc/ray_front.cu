@@ -15,7 +15,9 @@
 // of the band, row-major from its bottom GL row: px = col0 + j mod tw, py =
 // py0 + j / tw, at frame number frame + g / n_band (frames_per_step copies
 // of the band follow each other).  Rays at or past n_rays pad the last
-// chunk: pixel (0, 0) at the step's frame.  The window, the frame number,
+// chunk: pixel (0, 0) at the step's frame.  The rule and the pixel seed are
+// step_block.cuh's ray_pixel_seed, which G3's index pass shares to rebuild
+// a live ray's seed (permute.cu).  The window, the frame number,
 // the camera and the jitter are read from the step block
 // (step_block.cuh), so a captured step replays with new values.
 //
@@ -71,20 +73,13 @@ ray_front_kernel(const StepBlock* __restrict__ blk, Front c,
                  long long n) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const long long g = c.base + i;
-    long long x = 0, y = 0, frame = blk->frame;
-    if (g < c.n_rays) {
-        const long long j = g % c.n_band;
-        x = blk->col0 + j % c.tw;
-        y = blk->py0 + j / c.tw;
-        frame += g / c.n_band;
-    }
+    long long x, y;
+    uint32_t s = ray_pixel_seed<long long>(blk, c.base + i, c.n_rays,
+                                           c.n_band, c.tw, x, y);
     const float* pos = blk->cam;
     const float* right = blk->cam + 3;
     const float* up = blk->cam + 6;
     const float* forward = blk->cam + 9;
-    uint32_t s = ((uint32_t)x * 1973u) ^ ((uint32_t)y * 9277u)
-                 ^ ((uint32_t)frame * 1664525u);
 #pragma unroll
     for (int k = 0; k < 3; ++k) s = s * 747796405u + 2891336453u;
 

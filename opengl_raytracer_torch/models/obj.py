@@ -20,8 +20,8 @@ loadObject.pyx:3-131):
 
 Output is a single ``(N, 8) float32`` array of ``[px,py,pz, nx,ny,nz, u,v]``
 rows, three rows per triangle (object.py:29-33).  :func:`load_obj_py` is the
-Python version; the C++ one (``opengl_raytracer_tpu/native/objparser.cpp``,
-bound by ``native/loader.py``) is preferred by :func:`load_obj`.
+Python version; the C++ one (``native/objparser.cpp``, a copy of the JAX
+package's, bound by ``native/loader.py``) is preferred by :func:`load_obj`.
 """
 
 from __future__ import annotations

@@ -133,6 +133,14 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     )
 
 
+def torch_device(d) -> torch.device:
+    """``d`` as a torch.device; a bare "cuda" names the current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class Scene:
     """Flatten scene objects and compile the device tables.
 
@@ -220,6 +228,7 @@ class Scene:
         if verbose:
             self._print_stats()
         self._fields: dict | None = None
+        self._uploads: dict[torch.device, SceneData] = {}
 
     def _print_stats(self) -> None:
         """Scene stats, as the reference prints them after its upload
@@ -354,5 +363,19 @@ class Scene:
 
     def send(self, device) -> SceneData:
         """Compile (once) and upload the scene to ``device`` (the
-        reference's ``Scene.send`` SSBO upload, scene.py:145-236)."""
-        return scene_from_numpy(self.fields(), device)
+        reference's ``Scene.send`` SSBO upload, scene.py:145-236).  Each
+        device's upload is kept and handed out again, as the JAX package's
+        ``send`` keeps its one (``models/scene.py:223-224``), until
+        :meth:`clearMemory`.  A bare "cuda" names the current card."""
+        device = torch_device(device)
+        data = self._uploads.get(device)
+        if data is None:
+            data = self._uploads[device] = scene_from_numpy(self.fields(),
+                                                            device)
+        return data
+
+    def clearMemory(self) -> None:  # noqa: N802 (the reference's name)
+        """Drop every device's upload (the reference's ``clearMemory``,
+        scene.py:423): its tensors are freed once no renderer holds
+        them; the next :meth:`send` uploads again."""
+        self._uploads.clear()

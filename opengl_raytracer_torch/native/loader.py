@@ -1,11 +1,11 @@
 """Loader for the native (C++) OBJ parser and BVH builder.
 
-Their sources are ``opengl_raytracer_tpu/native/objparser.cpp`` and
-``opengl_raytracer_tpu/native/bvh.cpp`` in the same repository.  They are
-compiled from those paths, never imported: the JAX package's Python modules
-import JAX, which this package does not use.  The library goes into
-``build/native/`` at the repository root with the same g++ flags the JAX
-package uses, so both packages parse and build identically.  When no
+Their sources are ``objparser.cpp`` and ``bvh.cpp`` beside this module:
+byte-for-byte copies of ``opengl_raytracer_tpu/native/``'s, so that this
+package builds without the JAX package and both parse and build
+identically.  They compile with the JAX package's g++ flags into
+``build/native/`` at the repository root (built into a temporary file and
+renamed, so a process never loads a half-written library).  When no
 compiler is available, ``models/obj.py`` and ``ops/bvh.py`` fall back to
 their Python versions.
 """
@@ -21,7 +21,7 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SOURCES = [os.path.join(_REPO, "opengl_raytracer_tpu", "native", s)
+_SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)), s)
             for s in ("objparser.cpp", "bvh.cpp")]
 _BUILD_DIR = os.path.join(_REPO, "build", "native")
 _LIB_PATH = os.path.join(_BUILD_DIR, "liboglrt_native.so")

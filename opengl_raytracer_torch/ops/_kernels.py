@@ -147,8 +147,9 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             so = ctypes.CDLL(build())
-            p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                ctypes.c_longlong, ctypes.c_float)
+            p, i32, i64, f32, u32 = (ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_float,
+                                     ctypes.c_uint32)
             so.oglrt_subblock_traverse.restype = i32
             so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
             so.oglrt_shade.restype = i32
@@ -161,7 +162,8 @@ def lib() -> ctypes.CDLL:
             # the glue kernels: (block, base, n_rays, n_band, tw, 6
             # floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
             # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
-            # outputs, return_seed, n); (orig, 3 columns, seed or null, 2
+            # outputs, return_seed, block or null, base, n_rays, n_band, tw,
+            # the LCG advance (a, c), n); (orig, 3 columns, seed or null, 2
             # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
             # earlier columns, active, last, 6 outputs, n); (active or
             # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
@@ -173,7 +175,8 @@ def lib() -> ctypes.CDLL:
             so.oglrt_sort_keys.restype = i32
             so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
             so.oglrt_reorder.restype = i32
-            so.oglrt_reorder.argtypes = [p] * 10 + [i32, i64, p]
+            so.oglrt_reorder.argtypes = ([p] * 10 + [i32, p, i64, i64, i64,
+                                                     i32, u32, u32, i64, p])
             so.oglrt_restore.restype = i32
             so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
             so.oglrt_subblock_epilogue.restype = i32

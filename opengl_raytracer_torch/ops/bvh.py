@@ -157,3 +157,38 @@ def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         perm=np.concatenate(perm_chunks),
         depth=int(max(node_depth)),
     )
+
+
+def validate_bvh(bvh: BVH, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                 max_leaf_tris: int) -> None:
+    """The builder's checker (``opengl_raytracer_tpu/ops/bvh.py:184``);
+    raises AssertionError when an invariant fails: every triangle lies in
+    exactly one leaf, every leaf's box holds its triangles (to 1e-4), leaf
+    sizes lie in [1, max_leaf_tris], miss links point forward and no
+    further than the end, and an internal node's first child (i + 1, DFS
+    preorder) exists."""
+    N = bvh.num_nodes
+    T = v0.shape[0]
+    assert sorted(bvh.perm.tolist()) == list(range(T)), \
+        "perm is not a permutation"
+
+    leaves = bvh.node_count > 0
+    counts = bvh.node_count[leaves]
+    assert counts.min() >= 1 and counts.max() <= max_leaf_tris
+
+    covered = np.zeros(T, dtype=bool)
+    for i in np.nonzero(leaves)[0]:
+        first, cnt = int(bvh.node_first[i]), int(bvh.node_count[i])
+        tris = bvh.perm[first:first + cnt]
+        assert not covered[tris].any(), "triangle in two leaves"
+        covered[tris] = True
+        for arr in (v0, v1, v2):
+            pts = arr[tris]
+            assert (pts >= bvh.node_min[i] - 1e-4).all()
+            assert (pts <= bvh.node_max[i] + 1e-4).all()
+    assert covered.all(), "triangle missing from all leaves"
+
+    idxs = np.arange(N, dtype=np.int32)
+    assert (bvh.node_miss > idxs).all() and (bvh.node_miss <= N).all()
+    internal = ~leaves
+    assert ((idxs + 1)[internal] < N).all()

@@ -69,6 +69,17 @@ def angle_linear_constants(width: int, height: int,
             float(np.float32(fov)))
 
 
+def ray_dirs(camera: Camera, u: torch.Tensor, v: torch.Tensor, width: int,
+             height: int, fov: float = math.radians(90.0),
+             aspect: float | None = None) -> torch.Tensor:
+    """The (R, 3) form of :func:`ray_dirs_soa`
+    (``opengl_raytracer_tpu/ops/camera.py:65``).  The reference computes
+    ``aspect`` from the display size (main.py:137); None means the render
+    aspect, width / height."""
+    return torch.stack(ray_dirs_soa(camera, u, v, width, height, fov=fov,
+                                    aspect=aspect), dim=-1)
+
+
 def ray_dirs_soa(camera: Camera, u: torch.Tensor, v: torch.Tensor,
                  width: int, height: int,
                  fov: float = math.radians(90.0),

@@ -26,6 +26,8 @@ from opengl_raytracer_torch.ops import _kernels, rng, step_block
 from opengl_raytracer_torch.ops.camera import (Camera, angle_linear_constants,
                                                pixel_uv, ray_dirs_soa)
 
+FRONT_DRAWS = 5  # LCG steps from the pixel seed: 3 warm-ups, 2 jitter draws
+
 
 def pixel_front(px, py, frame_number, camera: Camera, width: int,
                 height: int, aspect, jitter_amount: float):
@@ -57,13 +59,15 @@ def pixel_front(px, py, frame_number, camera: Camera, width: int,
 
 
 def band_pixels(col0: int, py0: int, frame: int, base: int, n: int,
-                n_rays: int, n_band: int, tw: int, device):
+                n_rays: int, n_band: int, tw: int, device, index=None):
     """(px, py, frame numbers) int64 (n,) of rays ``base .. base + n - 1``
     of a step: ray ``g`` is pixel ``j = g mod n_band`` of the band whose
     bottom-left pixel is (col0, py0), ``tw`` a row (px = col0 + j mod tw,
     py = py0 + j // tw), at frame ``frame + g // n_band``; rays at or past
-    ``n_rays`` pad a chunk as pixel (0, 0) at ``frame``."""
-    g = torch.arange(base, base + n, dtype=torch.int64, device=device)
+    ``n_rays`` pad a chunk as pixel (0, 0) at ``frame``.  ``index`` (an
+    (n,) int tensor) names the rays ``base + index`` instead."""
+    g = (torch.arange(base, base + n, dtype=torch.int64, device=device)
+         if index is None else base + index.to(torch.int64))
     valid = g < n_rays
     j = g % n_band
     px = torch.where(valid, col0 + j % tw, 0)

@@ -14,10 +14,12 @@ The shader's path logic (fragment.glsl:220-366), as in
   the JAX sort's folds do, ``opengl_raytracer_tpu/ops/integrator.py:226-268``),
   and at the end the light is scattered back to pixel order by each ray's
   int32 original index (``permute.restore``; the seed too only with
-  ``return_seed``, JAX ``:345-353``).  Each segment, the traversal finds
-  the nearest hits and the fused shade kernel (K2) updates the path
-  state.  Terminated paths carry an ``alive`` mask; dead rays keep their
-  frozen light;
+  ``return_seed``, JAX ``:345-353``).  At one sample a pixel the
+  reorder rebuilds a live ray's seed from its original index instead of
+  moving it (``seed_recon``, as the JAX integrator's, ``:237-249``).
+  Each segment, the traversal finds the nearest hits and the fused shade
+  kernel (K2) updates the path state.  Terminated paths carry an
+  ``alive`` mask; dead rays keep their frozen light;
 * ``trace`` — ``rays_per_pixel`` independent paths averaged, the RNG state
   carried sequentially across samples (fragment.glsl:352-366).
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import permute, rng
+from opengl_raytracer_torch.ops.front import FRONT_DRAWS
 from opengl_raytracer_torch.ops.intersect import TINY, shading_table
 from opengl_raytracer_torch.ops.morton import sort_keys
 
@@ -78,7 +81,8 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
 
 
 def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
-             reorder: bool = False, return_seed: bool = True):
+             reorder: bool = False, return_seed: bool = True,
+             seed_recon=None):
     """One path per ray: returns (incoming light 3x(R,), final seed), both
     in the input ray order.
 
@@ -90,7 +94,17 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
     JAX renderer's ``reorder``, ``renderer.py:276``).  ``return_seed=False``
     (single-sample callers, as in the JAX ``raytrace``, ``:134-137``) lets
     the reorder drop a dead ray's seed and the restore the seed column;
-    with ``reorder`` the seed returned is then None."""
+    with ``reorder`` the seed returned is then None.
+
+    ``seed_recon`` (a ``permute.SeedRecon`` of how ``seed0`` was made;
+    used only with ``reorder``; the reorder refuses it with
+    ``return_seed``) lets each reorder
+    rebuild a live ray's seed from its original index instead of moving
+    it: a live ray before segment ``i`` has drawn the front's draws and
+    exactly 3 at each earlier segment (K2 draws 3 for every ray and keeps
+    them only where the ray was alive and hit, and only a hit keeps a ray
+    alive), so its state is a closed-form LCG advance of its pixel seed
+    (``ops/permute.py``)."""
     from opengl_raytracer_torch.ops.shade import shade_update
 
     R = o3[0].shape[0]
@@ -113,9 +127,11 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
             # alive is re-derived from the sorted keys (G2 keys, G3 gather).
             keys_s, perm = torch.sort(
                 sort_keys(origin, direction, lo, hi, alive), stable=True)
+            draws = FRONT_DRAWS + 3 * i
             origin, direction, ray_color, incoming, alive, seed, orig = (
                 permute.reorder(keys_s, perm, origin, direction, ray_color,
-                                incoming, seed, orig, return_seed))
+                                incoming, seed, orig, return_seed,
+                                seed_recon, draws))
 
         nearest = raycast_fn(origin, direction, alive)
         table, index = shading_table(scene, nearest)
@@ -130,22 +146,25 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
 
 
 def trace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
-          rays_per_pixel: int, reorder: bool = False):
+          rays_per_pixel: int, reorder: bool = False, seed_recon=None):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
     Returns (color, new seed), the color a 3-tuple of (R,) columns: the
     restore's own at one sample.
 
     With one sample the per-pixel seed dies here (each frame reseeds from
     the pixel and the frame number), so the restore drops it and ``seed0``
-    stands in for it, as in the JAX ``trace`` (:381-386)."""
+    stands in for it, as in the JAX ``trace`` (:381-386); ``seed_recon``
+    (:func:`raytrace`) is passed on only then: later samples chain the
+    seed, which the reorder carries (JAX ``renderer.py:166``)."""
     colors = []
     seed = seed0
+    one = rays_per_pixel == 1
     for _ in range(rays_per_pixel):
         color, seed = raytrace(scene, raycast_fn, o3, d3, seed, block,
-                               n_bounces, reorder,
-                               return_seed=rays_per_pixel > 1)
+                               n_bounces, reorder, return_seed=not one,
+                               seed_recon=seed_recon if one else None)
         colors.append(color)
-    if rays_per_pixel == 1:
+    if one:
         return colors[0], seed0 if seed is None else seed
     return tuple(torch.stack([c[a] for c in colors]).mean(dim=0)
                  for a in range(3)), seed

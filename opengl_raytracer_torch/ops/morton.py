@@ -35,6 +35,13 @@ def _spread3(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def morton3d(q: torch.Tensor) -> torch.Tensor:
+    """Interleave (..., 3) integer coordinates (the low 10 bits of each):
+    bit i of axis a lands at bit 3i + a, a uint32 value in int64."""
+    return (_spread3(q[..., 0]) | (_spread3(q[..., 1]) << 1)
+            | (_spread3(q[..., 2]) << 2))
+
+
 def _quantize(x: torch.Tensor, hi: float) -> torch.Tensor:
     return x.clamp(0.0, hi).to(torch.int64)
 
@@ -60,6 +67,13 @@ def ray_sort_keys_soa(o3, d3, lo, hi, alive=None) -> torch.Tensor:
     if alive is not None:
         key = torch.where(alive, key, DEAD_KEY)
     return key
+
+
+def ray_sort_keys(origin, direction, lo, hi, alive=None) -> torch.Tensor:
+    """:func:`ray_sort_keys_soa` of (R, 3) origins and directions."""
+    return ray_sort_keys_soa(tuple(origin[..., a] for a in range(3)),
+                             tuple(direction[..., a] for a in range(3)),
+                             lo, hi, alive)
 
 
 def sort_keys_i32_plain(o3, d3, lo, hi, alive=None) -> torch.Tensor:

@@ -76,3 +76,12 @@ def advance_n(state: torch.Tensor, n: int) -> torch.Tensor:
     """State after ``n`` draws, without producing the values."""
     a_n, c_n = advance_constants(n)
     return (_mul32(state, a_n) + c_n) & MASK32
+
+
+def random_vec3(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Three sequential draws -> (new state, (..., 3) float32 values), in
+    the component order of ``diffuse`` (fragment.glsl:221)."""
+    state, r0 = random_value(state)
+    state, r1 = random_value(state)
+    state, r2 = random_value(state)
+    return state, torch.stack([r0, r1, r2], dim=-1)

@@ -507,3 +507,33 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
             if n_parts >= max_parts:
                 raise
             n_parts *= 2
+
+
+def validate_subblock(tables: SubblockTables) -> None:
+    """The sub-block tables' checker
+    (``opengl_raytracer_tpu/ops/wide2.py:394``, whose triangle count
+    argument goes unused, so the port takes none); raises AssertionError
+    when an octet is reachable twice from the root through the packed
+    push orders (octant 0's lanes), or a triangle (face != 0; padding
+    triangles are zero) appears twice across the reachable octets."""
+    seen_oct = []
+    stack = [0]
+    rows = tables.node_rows
+    while stack:
+        w = stack.pop()
+        for p in rows[w, ORD0:ORD0 + 8].astype(np.int64):
+            p = int(p)
+            if p == EMPTY_PACKED * 8:
+                continue
+            ent = p >> 3
+            if ent >= 0:
+                stack.append(ent)
+            else:
+                seen_oct.append(-ent - 1)
+    assert len(seen_oct) == len(set(seen_oct)), "duplicate octet reachability"
+    tri_seen = sorted(
+        int(tables.remap[q * 8 + j])
+        for q in seen_oct
+        for j in range(8)
+        if np.any(tables.tri_rows[q, j * 16 + 9:j * 16 + 12]))
+    assert len(tri_seen) == len(set(tri_seen)), "triangle appears twice"

@@ -41,9 +41,12 @@ Design, and where it departs from the JAX module:
   sub-block tables.  The JAX module picks ``"packet"`` for those off a TPU
   (``sharding.py:174-185``).
 * The JAX step passes ``render_flat`` a seed-reconstruction descriptor
-  (``sharding.py:108-112``); the port's integrator carries each ray's
-  seed through its gathers instead, so per-ray results do not depend on
-  which shard holds the ray, and no descriptor is needed.
+  (``sharding.py:108-112``).  The port's is each shard's own:
+  ``render_pixels`` builds it from the arguments it hands G1 (the
+  chunk's base, the shard's rays, band and row width) and the shard's
+  step block, whose window starts at the shard's first row and whose
+  frame number is the shard's, so a shard rebuilds its rays' seeds as
+  its G1 made them.
 
 Devices: by default every CUDA card, ``cuda:0 .. cuda:{n-1}``.  A mesh of
 CPU devices, or one that repeats a card, is made only by naming its
@@ -56,15 +59,15 @@ import numpy as np
 import torch
 
 from opengl_raytracer_torch import step_graph
-from opengl_raytracer_torch.models.scene import Scene, SceneData
+from opengl_raytracer_torch.models.scene import Scene, SceneData, torch_device
 from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.ops.camera import Camera, make_camera
 from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.renderer import (RenderState, advance,
                                              band_window, check_accum,
-                                             effective_max_leaf,
                                              make_raycast_fn, render_flat,
+                                             resolve_leaf_bound,
                                              resolve_traversal, step_words)
 from opengl_raytracer_torch.utils.config import RenderConfig
 
@@ -82,14 +85,6 @@ class Mesh:
         self.shape = {"dp": devices.shape[0], "sp": devices.shape[1]}
 
 
-def _device(d) -> torch.device:
-    """``d`` as a torch.device; a bare "cuda" names the current card."""
-    d = torch.device(d)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
 def make_mesh(n_devices: int | None = None, dp: int | None = None,
               sp: int | None = None, devices=None) -> Mesh:
     """Build a (dp, sp) device mesh over the first ``n_devices`` of
@@ -100,7 +95,7 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None,
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-    devices = [_device(d) for d in devices]
+    devices = [torch_device(d) for d in devices]
     platform = devices[0].type if devices else "cuda"
     if n_devices is not None:
         if n_devices > len(devices):
@@ -241,7 +236,7 @@ class ShardedRenderer:
                        for dev in dict.fromkeys(mesh.devices.flat)}
         self.scene = self.scenes[self.home]
         self.traversal = resolve_traversal(self.scene, config.traversal)
-        leaf = effective_max_leaf(self.scene)
+        leaf = resolve_leaf_bound(self.scene)
         raycasts = {dev: make_raycast_fn(data, self.traversal, leaf)
                     for dev, data in self.scenes.items()}
         pools = {dev: torch.cuda.graph_pool_handle()

@@ -42,6 +42,7 @@ from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.ops.front import ray_front
 from opengl_raytracer_torch.ops.integrator import trace
 from opengl_raytracer_torch.ops.intersect import raycast_brute
+from opengl_raytracer_torch.ops.permute import SeedRecon
 from opengl_raytracer_torch.ops.traversal import raycast_bvh
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.utils.config import RenderConfig
@@ -63,6 +64,17 @@ def effective_max_leaf(scene: SceneData) -> int:
     kernel's octet table."""
     count = scene.node_count
     return int(count.max()) if count.numel() else 1
+
+
+def resolve_leaf_bound(scene: SceneData) -> int:
+    """The leaf bound the traversals of ``scene`` take: the scene's own,
+    :func:`effective_max_leaf`, whatever bound it was built with.  The JAX
+    package's ``resolve_leaf_bound`` (``opengl_raytracer_tpu/renderer.py:
+    69-77``) writes it into its config's ``max_leaf_tris``; the port's
+    ``RenderConfig`` has no such field (the build bound is ``Scene``'s
+    argument), so the renderers pass the bound itself to
+    ``make_raycast_fn``."""
+    return effective_max_leaf(scene)
 
 
 def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
@@ -137,17 +149,26 @@ def state_from_numpy(accum, frame_count: int, tile_x: int, tile_y: int,
 
 def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
                   n: int, n_rays: int, n_band: int, tw: int, raycast_fn,
-                  reorder: bool = False):
+                  reorder: bool = False, _seed_recon: bool = True):
     """Trace rays ``base .. base + n - 1`` of a step of ``n_rays`` rays
     over a band of ``n_band`` pixels, ``tw`` a row, at the window, frame
     number, camera, sky, jitter and ``lambertian`` of the step ``block``.
-    Returns their linear color as a 3-tuple of (n,) columns."""
+    Returns their linear color as a 3-tuple of (n,) columns.
+
+    The reorders are given how G1 seeded each ray (``permute.SeedRecon``,
+    the JAX package's ``recon``, ``renderer.py:165-179``), so at one sample
+    a pixel (``integrator.trace`` decides) they rebuild each live ray's
+    seed from its index instead of moving it; the image is the same bit
+    for bit.  ``_seed_recon=False`` moves it, for the tests that hold the
+    two equal."""
     # pixel, frame, seed, 3 warm-ups, angle-linear ray, 2 jitter draws (G1)
     origin, d, seed = ray_front(block, base, n, n_rays, n_band, tw,
                                 config.width, config.height, config.ray_aspect)
+    recon = SeedRecon(block, base, n_rays, n_band, tw) if _seed_recon else None
     color, _ = trace(scene, raycast_fn, origin, d, seed, block,
                      n_bounces=config.n_bounces,
-                     rays_per_pixel=config.rays_per_pixel, reorder=reorder)
+                     rays_per_pixel=config.rays_per_pixel, reorder=reorder,
+                     seed_recon=recon)
     return color
 
 
@@ -266,7 +287,7 @@ class Renderer:
 
         self.traversal = resolve_traversal(scene_data, config.traversal)
         self._raycast = make_raycast_fn(scene_data, self.traversal,
-                                        effective_max_leaf(scene_data))
+                                        resolve_leaf_bound(scene_data))
         self._block = step_block.new(self.device)
         self._graph = None
 

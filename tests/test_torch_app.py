@@ -39,6 +39,7 @@ from opengl_raytracer_torch.utils.image import (load_png, rmse, save_png,
                                                 to_uint8)
 from opengl_raytracer_torch.utils.profiling import FrameStats, trace
 from test_torch_obj import write_latlong_obj
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 CKPT_KEYS = ("accum", "frame_count", "tile_x", "tile_y", "total_frames",
              "cam_pos", "cam_dir", "has_camera")

@@ -33,6 +33,7 @@ from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
 from opengl_raytracer_torch.renderer import effective_max_leaf
 from opengl_raytracer_torch.utils.image import rmse
+from torch_states import recon_states
 
 pytestmark = pytest.mark.cuda
 
@@ -583,6 +584,35 @@ def test_permute_kernels_match_plain(cuda):
         assert torch.equal(inc[a].view(torch.int32),
                            groups[3][a].view(torch.int32))
     assert torch.equal(seed_back, seed)
+
+
+@pytest.mark.parametrize("frame", [2**32 - 2, 2**33 + 5])
+def test_reorder_index_pass_recon_matches_plain(cuda, frame):
+    """The reorder with seed reconstruction (the index pass computes a
+    live ray's seed, the gather runs without its seed row) against
+    ``reorder_plain`` with it, byte for byte, on a step's own states at
+    bounces 1-4 with frames_per_step 2, padding rays and frame numbers
+    past 2^32; its outputs equal the carried-seed reorder's; two launches
+    a call.  Then a step past 2^32 rays (the index math's 64 bits)."""
+    from opengl_raytracer_torch.ops import permute
+
+    def same(a, b):
+        for x, y in zip(a, b):
+            if isinstance(x, tuple):
+                same(x, y)
+            else:
+                assert x.dtype == y.dtype
+                assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+    for name, st, recon, draws in recon_states(cuda, frame):
+        before = _kernels.launch_counts["reorder"]
+        got = permute.reorder(*st, False, recon, draws)
+        assert _kernels.launch_counts["reorder"] == before + 2, name
+        same(got, permute.reorder_plain(*st, False, recon, draws))
+        same(got, permute.reorder(*st, False))
+    wide_recon = recon._replace(base=2**32 + 100, n_rays=2**33)
+    same(permute.reorder(*st, False, wide_recon, draws),
+         permute.reorder_plain(*st, False, wide_recon, draws))
 
 
 @pytest.mark.parametrize("masked", [True, False])

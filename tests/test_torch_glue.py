@@ -48,6 +48,8 @@ from opengl_raytracer_torch.ops.front import (pixel_front, ray_front,
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
 from opengl_raytracer_torch.utils.config import RenderConfig
 from test_torch_traversal import _check, _jax_scene, _rays, _run_port
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
+from torch_states import recon_states
 
 CAM_POS, CAM_DIR = (-33.7, 14.8, -21.1), (65.0, -25.4)
 W, H = 1920, 1080
@@ -372,7 +374,7 @@ def test_live_rays_carry_no_light_after_each_bounce(monkeypatch):
         return out
 
     def check_reorder(keys_s, perm, origin, direction, ray_color, incoming,
-                      seed, orig, return_seed):
+                      seed, orig, *rest):
         live = torch.empty_like(keys_s, dtype=torch.bool)
         live[perm] = keys_s != morton.DEAD_KEY32
         assert 0 < int(live.sum()) < live.numel()
@@ -380,7 +382,7 @@ def test_live_rays_carry_no_light_after_each_bounce(monkeypatch):
             assert (_bits(incoming[a])[live] == 0).all()
         seen["reorder"] += 1
         return reorder(keys_s, perm, origin, direction, ray_color, incoming,
-                       seed, orig, return_seed)
+                       seed, orig, *rest)
 
     monkeypatch.setattr(shade, "shade_update", check_shade)
     monkeypatch.setattr(permute, "reorder", check_reorder)
@@ -453,3 +455,30 @@ def test_split_epilogue_equals_the_inline_loop(masked, monkeypatch):
     want = _raycast_inline(tdata, o3, d3, active)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("frame", [2**32 - 2, 7])
+def test_reorder_plain_recon_equals_carried_seed(frame):
+    """Seed reconstruction in the reorder's plain version: on a step's own
+    states from ``ray_front_plain`` at bounces 1-4 (frames_per_step 2,
+    padding rays past the step's rays, frame numbers at 2^32 - 2 and 7),
+    every live ray's rebuilt seed equals its carried one, so all outputs
+    equal the carried-seed reorder's byte for byte."""
+    n_padded_live = 0
+    for name, st, recon, draws in recon_states("cpu", frame):
+        ref = permute.reorder_plain(*st, False)
+        got = permute.reorder_plain(*st, False, recon, draws)
+        for a, b in zip(_flat(got), _flat(ref)):
+            assert a.dtype == b.dtype
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+        alive, seed = got[4], got[5]
+        assert (seed[~alive] == 0).all()
+        n_padded_live += int((alive & (recon.base + got[6] >= recon.n_rays))
+                             .sum())
+    assert n_padded_live > 0  # padding rays were rebuilt too
+
+
+def test_reorder_recon_needs_return_seed_off():
+    name, st, recon, draws = recon_states("cpu", 3)[0]
+    with pytest.raises(ValueError, match="return_seed"):
+        permute.reorder(*st, True, recon, draws)

@@ -38,6 +38,7 @@ from opengl_raytracer_torch.renderer import (RenderState, _tile_step,
                                              band_window, step_words)
 from test_torch_render import _objects
 from test_torch_traversal import _jax_scene, _rays
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 CAM = ([0.0, 0.0, 4.0], [180.0, 0.0])
 

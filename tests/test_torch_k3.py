@@ -39,6 +39,7 @@ from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_PACKED, pack_k3,
 from opengl_raytracer_torch.probes import k2 as k2_probe
 from opengl_raytracer_torch.probes import k3 as k3_probe
 from opengl_raytracer_torch.renderer import effective_max_leaf
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 
 def _bits(x):

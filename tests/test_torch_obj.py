@@ -29,7 +29,8 @@ from opengl_raytracer_torch.models.obj import load_obj, load_obj_py
 from opengl_raytracer_torch.native import loader
 from opengl_raytracer_torch.ops import bvh as bvh_mod
 from opengl_raytracer_torch.utils.config import RenderConfig
-from test_torch_scene import _assert_bit_equal, _assert_scene_equal
+from test_torch_scene import (_assert_bit_equal, _assert_scene_equal,
+                              jax_native)  # noqa: F401 (autouse)
 
 
 def write_latlong_obj(path, n_lat, n_lon, radius=1.0, normals=False):
@@ -234,7 +235,22 @@ def test_default_scene_tables_bit_equal_to_jax(tmp_path, monkeypatch):
     assert scene.total_triangles == 200 + 144 + 84
     assert obj_mod.last_parser == "native"
     assert bvh_mod.last_builder == "native"
+    assert jloader._lib is not None  # the JAX side ran native too
     _assert_scene_equal(jdata, scene.send("cpu"))
+
+
+@pytest.mark.parametrize("name", ["objparser.cpp", "bvh.cpp"])
+def test_native_sources_are_the_jax_packages(name):
+    """The port builds its native library from its own copies of the JAX
+    package's C++ sources, byte for byte the same."""
+    with open(os.path.join(os.path.dirname(loader.__file__), name), "rb") as f:
+        ours = f.read()
+    with open(os.path.join(os.path.dirname(jloader.__file__), name),
+              "rb") as f:
+        theirs = f.read()
+    assert ours == theirs
+    assert os.path.join(os.path.dirname(loader.__file__), name) \
+        in loader._SOURCES
 
 
 def test_default_and_baseline_configs_match_jax():

@@ -23,6 +23,7 @@ from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 from opengl_raytracer_torch import (Rect, RenderConfig, Renderer, Scene,
                                     Triangles, make_camera)
 from opengl_raytracer_torch.utils.image import rmse
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 CAM = (np.array([0, 0, 4.0], np.float32), (180.0, 0.0))
 
@@ -157,3 +158,60 @@ def test_unpartitioned_scene_runs_brute_force():
     for traversal in ("bvh", "packet", "pallas", "pallas2"):
         with pytest.raises(ValueError, match="over 1024 triangles"):
             _resolved(flat, traversal)
+
+
+def _recon_frame(scene, monkeypatch, recon: bool, frame_count=0, **cfg):
+    """A 24x20 frame of the port (3 bounces, 2 frames), its reorders with
+    (``recon``) or without seed reconstruction (``render_pixels``'s
+    ``_seed_recon``); asserts which ran."""
+    import opengl_raytracer_torch.renderer as rmod
+    from opengl_raytracer_torch.ops import permute
+
+    seen = []
+    reorder, render_pixels = permute.reorder, rmod.render_pixels
+
+    def spy(*args):
+        seen.append(args[9] is not None)
+        return reorder(*args)
+
+    monkeypatch.setattr(permute, "reorder", spy)
+    monkeypatch.setattr(rmod, "render_pixels", lambda *a, **k: render_pixels(
+        *a, **k, _seed_recon=recon))
+    r = Renderer(scene, RenderConfig(width=24, height=20, bounces=3, **cfg),
+                 device="cpu")
+    state = r.init_state()
+    state.frame_count = frame_count
+    img = r.image(r.render(make_camera(*CAM), frames=2, state=state))
+    monkeypatch.undo()
+    assert seen and set(seen) == {recon}
+    return img
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(),
+    dict(frames_per_step=2, ray_chunk=256, frame_count=2**32 - 2),
+    dict(tile_size=7, traversal="pallas"),
+], ids=["whole", "fps2_chunks_wrap", "remainder_tiles_k3"])
+def test_seed_recon_frame_bit_identical(scene, monkeypatch, cfg):
+    """A frame whose reorders rebuild the seed equals the same frame with
+    the seed carried, bit for bit (the JAX package's
+    tests/test_render.py:288-307): chunks with bases past 0 and padding
+    rays (24x20 is not a whole number of 128-ray packets), frames_per_step
+    2 at frame numbers that wrap past 2^32, remainder tiles."""
+    cfg = dict(cfg)
+    frame_count = cfg.pop("frame_count", 0)
+    a = _recon_frame(scene, monkeypatch, True, frame_count, **cfg)
+    b = _recon_frame(scene, monkeypatch, False, frame_count, **cfg)
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert (a > 0).mean() > 0.5  # lit (the mean over 2^32 frames is tiny)
+
+
+def test_seed_recon_frame_matches_jax(scene, monkeypatch):
+    """The same 24x20 frame with seed reconstruction against the JAX
+    Renderer's, whose "pallas2" step reconstructs the seed too (no 8x16
+    block order there), at this module's tolerance."""
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)),
+                   JRenderConfig(width=24, height=20, bounces=3,
+                                 traversal="pallas2"))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=2))
+    _assert_matches(ref, _recon_frame(scene, monkeypatch, True))

@@ -15,12 +15,14 @@ import opengl_raytracer_tpu.renderer as jrenderer
 from opengl_raytracer_tpu.ops import rng as jrng
 from opengl_raytracer_tpu.ops.camera import make_camera as j_make_camera
 from opengl_raytracer_tpu.ops.camera import pixel_uv as j_pixel_uv
+from opengl_raytracer_tpu.ops.camera import ray_dirs as j_ray_dirs
 from opengl_raytracer_tpu.ops.camera import ray_dirs_soa as j_ray_dirs_soa
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
 import opengl_raytracer_torch.renderer as trenderer
 from opengl_raytracer_torch.ops import rng, step_block
-from opengl_raytracer_torch.ops.camera import make_camera, pixel_uv, ray_dirs_soa
+from opengl_raytracer_torch.ops.camera import (make_camera, pixel_uv, ray_dirs,
+                                               ray_dirs_soa)
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 CAM_POS, CAM_DIR = (-33.7, 14.8, -21.1), (65.0, -25.4)
@@ -134,3 +136,46 @@ def test_render_pixels_front(monkeypatch):
     np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts.numpy())
     np.testing.assert_array_equal(np.asarray(jsky), np.float32(tsky))
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 2, 3, 4])
+def test_advance_constants_are_the_frames_draws(bounce):
+    """Seed reconstruction's (a_n, c_n) before bounce segment ``bounce`` of
+    a 5-segment frame: three warm-ups, two jitter draws and 3 draws a
+    segment lived through, one after another, give the same states."""
+    s = _states(seed=30 + bounce)
+    t = rng.warmup(torch.from_numpy(s.astype(np.int64)), 3)
+    for _ in range(2 + 3 * bounce):
+        t, _ = rng.random_value(t)
+    a, c = rng.advance_constants(5 + 3 * bounce)
+    assert (a, c) == tuple(int(x) for x in jrng.advance_constants(
+        5 + 3 * bounce))
+    assert 0 <= a < 2**32 and 0 <= c < 2**32
+    np.testing.assert_array_equal(
+        (s.astype(np.uint64) * np.uint64(a) + np.uint64(c))
+        .astype(np.uint32).astype(np.int64), t.numpy())
+
+
+def test_random_vec3_matches_jax():
+    """States bit for bit, values to float32 rounding (here exact)."""
+    s = _states(seed=3).reshape(64, 64)
+    js, jv = jrng.random_vec3(jnp.asarray(s))
+    ts, tv = rng.random_vec3(torch.from_numpy(s.astype(np.int64)))
+    np.testing.assert_array_equal(np.asarray(js).astype(np.int64), ts.numpy())
+    assert tv.shape == (64, 64, 3) and tv.dtype == torch.float32
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0,
+                               atol=np.float32(2**-23))
+
+
+@pytest.mark.parametrize("aspect", [None, 1.25])
+def test_ray_dirs_matches_jax(aspect):
+    """The (R, 3) form of the angle-linear rays, within 1e-6."""
+    g = np.random.default_rng(4)
+    u, v = g.uniform(size=(2, 3000)).astype(np.float32)
+    jcam = j_make_camera(CAM_POS, CAM_DIR)
+    ref = np.asarray(j_ray_dirs(jcam, jnp.asarray(u), jnp.asarray(v), 64, 48,
+                                aspect=aspect))
+    got = ray_dirs(make_camera(CAM_POS, CAM_DIR), torch.from_numpy(u),
+                   torch.from_numpy(v), 64, 48, aspect=aspect)
+    assert got.shape == (3000, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)

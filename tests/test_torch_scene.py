@@ -5,7 +5,16 @@ objects (the per-triangle arrays, the binary BVH, the wide-BVH tiles, the
 octet-aligned triangle tiles, the sub-block parts and both shading
 tables), so every table must be BIT-equal (compared as raw 32-bit
 patterns); the Morton/octant sort keys must be bit-equal too.
+
+Every port test module that builds a JAX scene imports :func:`jax_native`
+from here, which makes the JAX package's native library load first
+(:func:`wait_for_jax_native`).
 """
+
+import fcntl
+import os
+import shutil
+import time
 
 import numpy as np
 import pytest
@@ -14,6 +23,7 @@ import torch
 import jax.numpy as jnp
 
 import opengl_raytracer_tpu.ops.wide2 as jwide2
+from opengl_raytracer_tpu.native import loader as jnative
 from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
 from opengl_raytracer_tpu.models.trisoup import Triangles as JTriangles
@@ -23,6 +33,71 @@ import opengl_raytracer_torch.models.scene as tscene_mod
 from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
 from opengl_raytracer_torch.ops.morton import ray_sort_keys_soa
 from opengl_raytracer_torch.ops.wide_bvh import collapse_wide, validate_wide
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_LOCK = os.path.join(_REPO, "build", "jax_native.lock")
+NATIVE_WAIT_S = 120.0  # the JAX native build's own g++ timeout
+
+
+def _settled(path, quiet_s=1.0):
+    """Wait until ``path``, if it exists, has not been written for
+    ``quiet_s`` seconds: a linker still writing it keeps moving its
+    mtime."""
+    while os.path.exists(path):
+        age = time.time() - os.path.getmtime(path)
+        if age >= quiet_s:
+            return
+        time.sleep(quiet_s - age)
+
+
+def wait_for_jax_native():
+    """The JAX package's native library, loaded in this process; fails the
+    test if it will not load where g++ exists.
+
+    The JAX loader (``opengl_raytracer_tpu/native/loader.py``) has g++
+    write straight to its library file and latches its first failure.
+    Under pytest-xdist, a worker that loads the file while another process
+    is still writing it gets an ``OSError`` and keeps the JAX package's
+    Python parser and BVH builder for good, and every later comparison of
+    that worker against the port's native tables fails.  So, while the
+    library is not loaded, this clears the latch and loads again, until it
+    loads or ``NATIVE_WAIT_S`` pass, holding an ``fcntl`` lock on a file
+    under ``build/`` so port workers never compile on top of each other.
+    Without g++ both packages run their Python versions and there is
+    nothing to wait for: it returns None."""
+    if jnative._lib is not None:
+        return jnative._lib
+    if shutil.which("g++") is None:
+        return None
+    os.makedirs(os.path.dirname(NATIVE_LOCK), exist_ok=True)
+    with open(NATIVE_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            deadline = time.monotonic() + NATIVE_WAIT_S
+            while True:
+                _settled(jnative._LIB_PATH)
+                jnative._tried = False
+                lib = jnative.get_lib()
+                if lib is not None:
+                    return lib
+                if time.monotonic() > deadline:
+                    pytest.fail(f"the JAX package's native library "
+                                f"{jnative._LIB_PATH} did not load within "
+                                f"{NATIVE_WAIT_S:.0f} s although g++ is on "
+                                f"the PATH: its tables would come from the "
+                                f"Python builders")
+                time.sleep(0.25)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    """Load the JAX package's native library before a module's first JAX
+    scene, OBJ load or BVH build (:func:`wait_for_jax_native`); a module
+    takes this fixture by importing it."""
+    wait_for_jax_native()
 
 
 def _objects(rect_cls, tri_cls, n_tris):
@@ -155,3 +230,135 @@ def test_morton_keys_bit_exact(R):
                             lo, hi, torch.from_numpy(alive)).numpy()
     np.testing.assert_array_equal(ref.astype(np.int64), got)
     assert (got[~alive] == 0xFFFFFFFF).all() and (got[alive] < 0xFFFFFFFF).all()
+
+
+def test_wait_for_jax_native_reloads_a_latched_failure(monkeypatch):
+    """A worker whose JAX loader latched a failed load (``_lib`` None,
+    ``_tried`` True) gets the library back from the helper."""
+    if shutil.which("g++") is None:
+        pytest.fail("g++ is needed to build the JAX package's native library")
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert jnative.get_lib() is None  # latched: the loader never retries
+    lib = wait_for_jax_native()
+    assert lib is not None and jnative._lib is lib
+    assert os.path.exists(NATIVE_LOCK)
+    # the JAX side now builds its BVH natively: the port's tables equal it
+    objs = _objects(JRect, JTriangles, 300)
+    _assert_scene_equal(JScene(objs).send(),
+                        Scene(_objects(Rect, Triangles, 300)).send("cpu"))
+
+
+def test_morton3d_and_ray_sort_keys_match_jax():
+    """``morton3d`` on (..., 3) coordinates past 10 bits (the low 10 count)
+    and the (R, 3) ``ray_sort_keys``, uint32 bit for bit."""
+    from opengl_raytracer_tpu.ops.morton import morton3d as j_morton3d
+    from opengl_raytracer_tpu.ops.morton import ray_sort_keys as j_rkeys
+    from opengl_raytracer_torch.ops.morton import morton3d, ray_sort_keys
+
+    g = np.random.default_rng(9)
+    q = g.integers(0, 4096, (7, 300, 3)).astype(np.uint32)
+    ref = np.asarray(j_morton3d(jnp.asarray(q))).astype(np.int64)
+    np.testing.assert_array_equal(
+        ref, morton3d(torch.from_numpy(q.astype(np.int64))).numpy())
+    lo = np.asarray([-4.0, -2.5, -3.0], np.float32)
+    hi = np.asarray([5.0, 3.5, 2.0], np.float32)
+    o = g.uniform(-6, 6, (2000, 3)).astype(np.float32)
+    d = g.normal(size=(2000, 3)).astype(np.float32)
+    alive = g.uniform(size=2000) < 0.7
+    ref = np.asarray(j_rkeys(jnp.asarray(o), jnp.asarray(d), jnp.asarray(lo),
+                             jnp.asarray(hi), jnp.asarray(alive)))
+    got = ray_sort_keys(torch.from_numpy(o), torch.from_numpy(d), lo, hi,
+                        torch.from_numpy(alive))
+    np.testing.assert_array_equal(ref.astype(np.int64), got.numpy())
+
+
+def test_validate_bvh_passes_and_fails_as_jax():
+    """The port's builder checker on the port's own BVH (native and NumPy
+    builders) passes, as the JAX checker does; a leaf that loses its
+    triangle fails both."""
+    from opengl_raytracer_tpu.ops.bvh import validate_bvh as j_validate
+    from opengl_raytracer_torch.ops.bvh import build_bvh, validate_bvh
+
+    scene = Scene(_objects(Rect, Triangles, 300), max_leaf_tris=16)
+    tris = (scene.v0, scene.v1, scene.v2)
+    for native in (True, False):
+        bvh = build_bvh(*tris, 16, prefer_native=native)
+        for check in (validate_bvh, j_validate):
+            check(bvh, *tris, 16)
+    leaf = int(np.nonzero(bvh.node_count > 0)[0][0])
+    perm = bvh.perm.copy()
+    perm[bvh.node_first[leaf]] = perm[(bvh.node_first[leaf] + 1) % len(perm)]
+    for check in (validate_bvh, j_validate):
+        with pytest.raises(AssertionError):
+            check(bvh._replace(perm=perm), *tris, 16)
+        with pytest.raises(AssertionError):  # a leaf bound too small
+            check(bvh, *tris, 1)
+
+
+def test_validate_subblock_passes_and_fails_as_jax(monkeypatch):
+    """The sub-block tables' checker on every part of the port's own
+    tables (a scene split into several parts) passes, as the JAX checker
+    does; an octet pushed twice fails both."""
+    from opengl_raytracer_tpu.ops.wide2 import validate_subblock as j_validate
+    from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, ORD0,
+                                                  SubblockTables,
+                                                  validate_subblock)
+
+    orig = tscene_mod.build_subblock_parts
+    monkeypatch.setattr(tscene_mod, "build_subblock_parts",
+                        lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
+    scene = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16)
+    parts = scene.send("cpu").parts
+    assert len(parts) > 1
+    for nr, tr, rm in parts:
+        tables = SubblockTables(nr.numpy(), tr.numpy(), rm.numpy(), 0, 0, 0)
+        validate_subblock(tables)
+        j_validate(tables, scene.total_triangles)
+    # the root pushes its first entry twice: its octets are reached twice
+    rows = tables.node_rows.copy()
+    lanes = rows[0, ORD0:ORD0 + 8]
+    full = [k for k, p in enumerate(lanes) if p != EMPTY_PACKED * 8]
+    empty = [k for k in range(8) if k not in full]
+    rows[0, ORD0 + (empty or full)[-1]] = lanes[full[0]]
+    bad = tables._replace(node_rows=rows)
+    with pytest.raises(AssertionError):
+        validate_subblock(bad)
+    with pytest.raises(AssertionError):
+        j_validate(bad, scene.total_triangles)
+
+
+def test_send_keeps_one_upload_a_device_until_clear_memory():
+    """``send`` hands out the same upload for a device, as the JAX
+    ``send`` keeps its one; ``clearMemory`` drops it (the reference's
+    scene.py:423) and the next ``send`` uploads equal tables again."""
+    jscene = JScene(_objects(JRect, JTriangles, 300))
+    scene = Scene(_objects(Rect, Triangles, 300))
+    jdata, data = jscene.send(), scene.send("cpu")
+    assert jscene.send() is jdata
+    assert scene.send("cpu") is data
+    assert scene.send(torch.device("cpu")) is data
+    jscene.clearMemory()
+    scene.clearMemory()
+    again = scene.send("cpu")
+    assert again is not data
+    _assert_scene_equal(jscene.send(), again)
+
+
+@pytest.mark.parametrize("leaf", [4, 16, 32, "no_bvh"])
+def test_resolve_leaf_bound_matches_jax(leaf):
+    """The scene's own largest leaf, whatever bound is asked for, as the
+    JAX ``resolve_leaf_bound`` writes it into its config."""
+    from opengl_raytracer_tpu.renderer import resolve_leaf_bound as j_resolve
+    from opengl_raytracer_tpu.utils.config import RenderConfig as JConfig
+    from opengl_raytracer_torch.renderer import resolve_leaf_bound
+
+    kw = (dict(build_bvh=False) if leaf == "no_bvh"
+          else dict(max_leaf_tris=leaf))
+    jdata = JScene(_objects(JRect, JTriangles, 300), **kw).send()
+    data = Scene(_objects(Rect, Triangles, 300), **kw).send("cpu")
+    for asked in (1, 64):
+        ref = j_resolve(jdata, JConfig(max_leaf_tris=asked)).max_leaf_tris
+        assert resolve_leaf_bound(data) == ref
+    if leaf != "no_bvh":
+        assert ref <= leaf

@@ -33,6 +33,7 @@ from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.utils.config import SKY_COLOR
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest, shading_table
 from opengl_raytracer_torch.ops.shade import shade_update
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 R = 1024
 

@@ -36,6 +36,7 @@ from opengl_raytracer_torch.parallel import Mesh, ShardedRenderer, make_mesh
 from opengl_raytracer_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
 from opengl_raytracer_torch.utils.image import rmse
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 CAM = ([0.0, 0.0, 4.0], [180.0, 0.0])
 

@@ -56,6 +56,7 @@ from opengl_raytracer_torch.ops.subblock_traversal import (overflow_tensor,
                                                            raycast_subblock)
 from opengl_raytracer_torch.ops.traversal import raycast_bvh
 from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, pack_k1, unpack_k1
+from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 
 def _fields(data):

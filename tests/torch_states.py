@@ -1,0 +1,65 @@
+"""Shared states for the port's seed-reconstruction tests: the CPU tests
+of G3's plain version (tests/test_torch_glue.py) and the CUDA tests of
+its kernel (tests/test_torch_cuda.py) build them alike.  Imports torch
+and the port only, as the CUDA tests run where JAX is absent."""
+
+import numpy as np
+import torch
+
+from opengl_raytracer_torch.ops.camera import make_camera
+
+
+def recon_states(device, frame, F=2, tw=20, rows=12, chunk=256, W=64, H=48,
+                 seed=21):
+    """Pre-reorder states of a step's own rays at bounces 1-4, for seed
+    reconstruction: F copies of a ``tw`` x ``rows`` band of a W x H frame
+    from frame number ``frame``, in chunks of ``chunk`` rays (the last
+    padded past the step's rays).  Each chunk's seeds come from the ray
+    front's plain version; before bounce i a live ray holds its seed after
+    3i more draws and a dead one junk, ~40% of the rays are dead (padding
+    rays too: some stay live) and every ray sits at a random position
+    (``orig`` a permutation).  Returns [(name, state, recon, draws)], the
+    state ``permute.reorder``'s first 8 arguments.
+
+    The carried seeds come from ``rng.advance_n``, the closed form the
+    reconstruction itself uses, so these states hold G1's pixel rule and
+    its 5 draws, not the 3 draws a bounce makes: those are proven by
+    ``test_seed_recon_frame_bit_identical`` (tests/test_torch_render.py: a
+    frame with the seed rebuilt against one that carries it) and
+    ``test_advance_constants_are_the_frames_draws``
+    (tests/test_torch_rng_camera.py)."""
+    from opengl_raytracer_torch.ops import front, morton, permute, rng
+    from opengl_raytracer_torch.ops import step_block
+
+    g = np.random.default_rng(seed)
+    camera = make_camera((0.5, 1.0, 4.0), (170.0, -5.0))
+    block = step_block.new(device)
+    step_block.write(block, step_block.pack(frame, (8, 6, 0, 0, 0), camera,
+                                            1.0, 0.4, True))
+    n_band = tw * rows
+    n_rays = F * n_band
+    out = []
+    for base in range(0, n_rays, chunk):
+        _, _, seed0 = front.ray_front_plain(block, base, chunk, n_rays,
+                                            n_band, tw, W, H, None)
+        recon = permute.SeedRecon(block, base, n_rays, n_band, tw)
+        for i in range(1, 5):
+            orig = torch.from_numpy(g.permutation(chunk).astype(np.int32)
+                                    ).to(device)
+            live = torch.from_numpy(g.uniform(size=chunk) < 0.6).to(device)
+            keys = torch.from_numpy(g.integers(-2**31, 2**31 - 1, chunk)
+                                    .astype(np.int32)).to(device)
+            keys = torch.where(live, keys, morton.DEAD_KEY32)
+            junk = torch.from_numpy(g.integers(0, 2**32, chunk)).to(device)
+            seed = torch.where(live, rng.advance_n(seed0[orig.long()], 3 * i),
+                               junk)
+            cols = [torch.from_numpy(g.normal(size=chunk).astype(np.float32))
+                    .to(device) for _ in range(12)]
+            for c in cols[9:]:  # a live ray carries no light
+                c[live] = 0.0
+            groups = tuple(tuple(cols[3 * k:3 * k + 3]) for k in range(4))
+            keys_s, perm = torch.sort(keys, stable=True)
+            out.append((f"base{base}_b{i}",
+                        (keys_s, perm, *groups, seed, orig), recon,
+                        front.FRONT_DRAWS + 3 * i))
+    return out
