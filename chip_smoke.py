@@ -130,6 +130,20 @@ Phases; each raises on failure, and the script then exits non-zero:
    seed reconstruction against the same frame with the seed carried
    (``render_pixels``'s ``_seed_recon`` off), both replayed, bit for bit.
    (It runs after phase 4c, while the big scene is loaded.)
+5c. cadence: the reorder cadence ``RenderConfig.sort_every`` on
+   standin-31k "auto" (K1), standin-31k "pallas" (K3) and standin-1.96m
+   "auto" (K3), 1080p, 4 bounces: two replayed frames at sort_every 1, 2,
+   3 and 4, accum bit for bit against sort_every 1, each with its
+   cadence's launches (reorders before segment i >= 1 where (i - 1) %
+   sort_every == 0: 4, 2, 2 and 1 a frame); a replay at cadence 2 against
+   the eager body, bit for bit; K1 (or K3) on segment 2 of a cadence-2
+   frame (the first segment whose rays are one sort stale, the dead among
+   the live) bit for bit against its plain version, beside the sorted
+   segments 1 and 2 of a cadence-1 frame, with the node visits, octets and
+   busy-lane shares of each, its ms and (K1) its profile build's stage
+   cycles; then cadences 1, 2, 4, 1, 2, 4 timed in turns, 8 replayed
+   frames a run, with the launches of each run checked and the path's
+   peak device memory (its four renderers' graphs).
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
    may differ), and the 96x54 card-vs-CPU check.
@@ -175,6 +189,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    other torch kernels, copies), and the device's busy share and
    idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
    launches for the rest of the process.
+11c. cadence_profile: phase 11's group split for phase 5c's three paths
+   at cadences 1, 2 and 4 (4 replayed frames each), with the traversal's
+   ms by bounce segment, each named primary, sorted or stale (a profile
+   that missed a traversal launch is taken again, up to 3 times).
 
 Each phase prints its seconds; every render path must launch no probe
 kernel.  The line before the last is a JSON object with each kernel's
@@ -277,6 +295,11 @@ KERNELS = {
 GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue",
         "wide_epilogue", "band_fold", "step_block", "bvh_walk")
 GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
+# phase 5c: the reorder cadences (RenderConfig.sort_every) held to cadence
+# 1 bit for bit, and those timed in turns (each twice, CADENCE_FRAMES a run)
+CADENCES = (1, 2, 3, 4)
+CADENCE_TURNS = (1, 2, 4)
+CADENCE_FRAMES = 8
 
 
 def say(phase: str, **kv) -> None:
@@ -406,21 +429,29 @@ def check_count(counts: dict, name: str, expected: int) -> None:
                            f"main path, expected {expected}")
 
 
+def sorts_a_raytrace(n_bounces: int, sort_every: int = 1) -> int:
+    """The reorders of one raytrace at cadence ``sort_every``: before
+    segment i >= 1 where (i - 1) % sort_every == 0."""
+    return sum(1 for i in range(1, n_bounces) if (i - 1) % sort_every == 0)
+
+
 def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                parts: int = 0, steps: int | None = None,
-               blocks: int | None = None) -> None:
+               blocks: int | None = None, sort_every: int = 1) -> None:
     """The glue kernels' launches in ``renders`` chunk renders of
     ``traversal`` over ``steps`` tile steps (default: one a render): one
-    ray front a render; with the reorder (the kernels' traversals)
-    n_bounces - 1 key launches and reorder calls, each call two launches
-    (index pass and gather), and one restore; after K1, one epilogue per
+    ray front a render; with the reorder (the kernels' traversals) at
+    cadence ``sort_every``, ``sorts_a_raytrace`` key launches and reorder
+    calls, each call two launches (index pass and gather), and one
+    restore; after K1, one epilogue per
     part and bounce segment; G5's entry t before each K1 or K3 segment and
     its epilogue after each K3 one; one fold a step; and ``blocks`` block
     writes (default: one a step; on a mesh, one a shard and the home
     block's)."""
     steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
-    sorts = (n_bounces - 1) * renders if reorder else 0
+    sorts = sorts_a_raytrace(n_bounces, sort_every) * renders if reorder \
+        else 0
     check_count(counts, "ray_front", renders)
     check_count(counts, "sort_keys", sorts)
     check_count(counts, "reorder", 2 * sorts)
@@ -782,16 +813,18 @@ def eager_render(r, camera, frames: int = 1, state=None):
 
 
 def frame_segments(scene, camera, traversal: str = "auto",
-                   expect: str = "pallas2"):
+                   expect: str = "pallas2", sort_every: int = 1):
     """The five bounce segments of one 1920x1080 frame of ``traversal``
-    (which must resolve to ``expect``), each as ``raytrace`` hands it to
-    the traversal (after the reorder sort): (o3, d3, t0) with t0 = BIG for
-    a live ray and -BIG for a dead one, the entry the first part gets."""
+    (which must resolve to ``expect``) at reorder cadence ``sort_every``,
+    each as ``raytrace`` hands it to the traversal (after the reorder sort,
+    where one ran): (o3, d3, t0) with t0 = BIG for a live ray and -BIG for
+    a dead one, the entry the first part gets."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops.intersect import BIG
 
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bounces=BOUNCES, traversal=traversal),
+                                     bounces=BOUNCES, traversal=traversal,
+                                     sort_every=sort_every),
                  device=DEVICE)
     if r.traversal != expect:
         raise RuntimeError(f"{traversal} resolved to {r.traversal}, not "
@@ -1851,6 +1884,7 @@ def main_path_phase(scene, camera, out_dir):
     returns (launch counts, image, ms/frame)."""
     from opengl_raytracer_torch.ops import _kernels
 
+    torch.cuda.reset_peak_memory_stats()  # this phase's and phase 6's peak
     r, img, counts, ms = render_1080p(scene, camera, "auto")
     if r.traversal != "pallas2":
         raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
@@ -1939,14 +1973,7 @@ def graph_phase(cases, camera):
         _kernels.reset_counts()
         ms_g, busy_g, sa = _timed_steps(graphed.step, sa, camera)
         counts = dict(_kernels.launch_counts)
-        check_probes(counts)
-        n, parts = cfg.n_bounces, len(data.parts)
-        k1 = graphed.traversal == "pallas2"
-        check_count(counts, "subblock_traversal",
-                    parts * n * TIMED_FRAMES if k1 else 0)
-        check_count(counts, "wide_traversal", 0 if k1 else n * TIMED_FRAMES)
-        check_count(counts, "shade", n * TIMED_FRAMES)
-        check_glue(counts, graphed.traversal, n, TIMED_FRAMES, parts)
+        _check_path_counts(counts, graphed, TIMED_FRAMES)
         ms_e, busy_e, sb = _timed_steps(eager._step_eager, sb, camera)
         say("graph", scene=name, traversal=traversal,
             resolved=graphed.traversal, frames_vs_eager=len(script),
@@ -2043,6 +2070,254 @@ def _timed_steps(step, state, camera):
     return (time.perf_counter() - t0) * 1000.0 / TIMED_FRAMES, host, state
 
 
+def _cadence_config(traversal: str, sort_every: int):
+    from opengl_raytracer_torch import RenderConfig
+
+    return RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                        traversal=traversal, sort_every=sort_every)
+
+
+def _check_path_counts(counts, r, frames: int) -> None:
+    """A 1080p path's launches in ``frames`` frames of Renderer ``r``: its
+    traversal's (K1 parts x segments or K3 a segment), K2 a segment, the
+    glue at ``r``'s cadence, and no probe."""
+    check_probes(counts)
+    n, parts = r.config.n_bounces, len(r.scene.parts)
+    k1 = r.traversal == "pallas2"
+    check_count(counts, "subblock_traversal", parts * n * frames if k1 else 0)
+    check_count(counts, "wide_traversal", 0 if k1 else n * frames)
+    check_count(counts, "shade", n * frames)
+    check_glue(counts, r.traversal, n, frames, parts if k1 else 0,
+               sort_every=r.config.sort_every)
+
+
+def _equal_accum(what: str, a, b) -> None:
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        diff = float((a - b).abs().max())
+        raise RuntimeError(f"{what}: accum differs, max |d| {diff}")
+
+
+def cadence_phase(cases, camera):
+    """Phase 5c: the reorder cadence (``RenderConfig.sort_every``).  For
+    each (name, scene data, traversal name, the traversal it must resolve
+    to) of ``cases``: two replayed 1080p frames at each of CADENCES, accum
+    bit for bit against cadence 1, each with its cadence's launches; a
+    replay at cadence 2 against the eager body; the traversal kernel (K1
+    or K3) on segment 2 of a cadence-2 frame, the first one sort stale,
+    bit for bit against its plain version, beside the sorted segments 1
+    and 2 of a cadence-1 frame (its work, busy lanes and ms; K1's stage
+    cycles from its profile build); then CADENCE_TURNS timed in turns,
+    twice, CADENCE_FRAMES replayed frames a run, with the launches a
+    frame."""
+    from opengl_raytracer_torch import Renderer
+    from opengl_raytracer_torch.ops import _kernels
+
+    for name, data, traversal, expect in cases:
+        renderers, ref = {}, None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in CADENCES:
+            r = Renderer(data, _cadence_config(traversal, k), device=DEVICE)
+            if r.traversal != expect:
+                raise RuntimeError(f"{traversal} resolved to {r.traversal} "
+                                   f"on {name}, not {expect}")
+            _kernels.reset_counts()
+            state = r.render(camera, frames=2)  # captures, then replays
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launch_counts)
+            _check_path_counts(counts, r, 2)
+            ref = state.accum if ref is None else ref
+            _equal_accum(f"{name} {traversal} sort_every={k} against 1",
+                         state.accum, ref)
+            say("cadence", scene=name, traversal=traversal, resolved=expect,
+                sort_every=k, frames=2, max_abs_err=0.0,
+                tolerance="exact (accum bit for bit against sort_every=1)",
+                launches_per_frame={c: v / 2 for c, v in counts.items()
+                                    if v})
+            if k in CADENCE_TURNS:
+                renderers[k] = (r, state)
+        eager = Renderer(data, _cadence_config(traversal, 2), device=DEVICE)
+        _equal_accum(f"{name} {traversal} sort_every=2 replay against eager",
+                     renderers[2][1].accum,
+                     eager_render(eager, camera, frames=2).accum)
+        say("cadence", scene=name, traversal=traversal, sort_every=2,
+            check="replay vs eager", frames=2, max_abs_err=0.0)
+        del eager, ref
+        _stale_segments(name, data, traversal, expect, camera)
+        _cadence_turns(name, traversal, renderers, camera)
+        del renderers
+
+
+def _stale_segments(name, data, traversal, expect, camera) -> None:
+    """The traversal kernel on segment 2 of a cadence-2 frame (its rays in
+    the order of the reorder before segment 1, the dead among the live)
+    and on the sorted segments 1 and 2 of a cadence-1 frame."""
+    sorted_ = frame_segments(data, camera, traversal, expect)
+    stale = frame_segments(data, camera, traversal, expect, sort_every=2)
+    sets = [("sorted_b1", *sorted_[1]), ("sorted_b2", *sorted_[2]),
+            ("stale_b2", *stale[2])]
+    del sorted_, stale
+    if expect == "pallas2":
+        _k1_on_sets(name, data, sets)
+    else:
+        _k3_on_sets(name, data, sets)
+
+
+def _k1_on_sets(name, data, sets) -> None:
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.probes import k1 as k1_probe
+
+    if len(data.parts) != 1:
+        raise RuntimeError(f"{name}: {len(data.parts)} sub-block parts")
+    rows, k1 = data.parts[0][:2], data.k1_parts[0]
+    ov = sbt.overflow_tensor(data.device)
+    for set_name, o3, d3, t0 in sets:
+        ov.zero_()
+        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
+        *plain, dropped, counts = sbt._traverse_plain(*rows, o3, d3, t0,
+                                                      counts=True)
+        if int(ov.item()) or int(dropped):
+            raise RuntimeError(f"K1 stack overflow on {name} {set_name}")
+        for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
+            if not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().max()
+                raise RuntimeError(f"K1 {field} differs from the plain "
+                                   f"version on {name} {set_name}: max |d| "
+                                   f"{diff}")
+        hits, stages = k1_probe.profile(k1, o3, d3, t0)
+        if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
+            raise RuntimeError(f"K1 profile build differs from the kernel "
+                               f"on {name} {set_name}")
+        w = k1_probe.work(counts, t0)
+        ms = cuda_ms(lambda: sbt.traverse_part(data, 0, o3, d3, t0), 10)
+        rep = k1_probe.stage_report(stages)
+        say("cadence", scene=name, kernel="K1", set=set_name, rays=w["rays"],
+            live=w["live"], max_abs_err=0.0, tolerance="exact", ms=ms,
+            visits_per_ray=round(w["visits_per_ray"], 3),
+            octets_per_ray=round(w["octets_per_ray"], 3),
+            steps_per_ray=round(w["steps_per_ray"], 3),
+            lanes_steps=round(w["lanes_steps"], 4),
+            lanes_visits=round(w["lanes_visits"], 4),
+            lanes_octets=round(w["lanes_octets"], 4),
+            cycles_share={s: round(rep[s]["share"], 3)
+                          for s in k1_probe.STAGES},
+            gcycles=round(sum(rep[s]["cycles"] for s in k1_probe.STAGES)
+                          / 1e9, 3))
+
+
+def _k3_on_sets(name, data, sets) -> None:
+    from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.probes import k3 as k3_probe
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+    stack = wide.stack_size(data.pw_max_stack)
+    ov = wide.overflow_tensor(data.device)
+    for set_name, o3, d3, t0 in sets:
+        ov.zero_()
+        kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+        *plain, dropped, counts = wide._traverse_plain(
+            data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, leaf_octets, stack,
+            counts=True)
+        if int(ov.item()) or int(dropped):
+            raise RuntimeError(f"K3 overflow on {name} {set_name}")
+        for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
+            if not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().max()
+                raise RuntimeError(f"K3 {field} differs from the plain "
+                                   f"version on {name} {set_name}: max |d| "
+                                   f"{diff}")
+        w = k3_probe.work(counts, t0, leaf_octets)
+        ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0,
+                                                leaf_octets), 10)
+        say("cadence", scene=name, kernel="K3", set=set_name, rays=w["rays"],
+            live=w["live"], max_abs_err=0.0, tolerance="exact", ms=ms,
+            visits_per_ray=round(w["visits_per_ray"], 3),
+            octets_per_ray=round(w["octets_per_ray"], 3),
+            lanes_steps=round(w["lanes_steps"], 4),
+            lanes_visits=round(w["lanes_visits"], 4),
+            lanes_leaves=round(w["lanes_leaves"], 4))
+
+
+def _cadence_turns(name, traversal, renderers, camera) -> None:
+    """CADENCE_TURNS in turns, twice: CADENCE_FRAMES replayed frames a run,
+    timed between device syncs, their launches read just after."""
+    from opengl_raytracer_torch.ops import _kernels
+
+    runs = {k: [] for k in CADENCE_TURNS}
+    for k in CADENCE_TURNS * 2:
+        r, state = renderers[k]
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        state = r.render(camera, frames=CADENCE_FRAMES, state=state)
+        torch.cuda.synchronize()
+        runs[k].append((time.perf_counter() - t0) * 1000.0 / CADENCE_FRAMES)
+        counts = dict(_kernels.launch_counts)
+        _check_path_counts(counts, r, CADENCE_FRAMES)
+        renderers[k] = (r, state)
+    for k in CADENCE_TURNS:
+        say("cadence", scene=name, traversal=traversal, sort_every=k,
+            frames=CADENCE_FRAMES, ms_per_frame_runs=runs[k],
+            ms_per_frame=min(runs[k]),
+            sorts_a_frame=sorts_a_raytrace(BOUNCES + 1, k),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=repr(card_line()))
+
+
+PROFILE_TRIES = 3  # the profiler now and then misses a few launches
+
+
+def cadence_profile_phase(cases, camera) -> None:
+    """Phase 11c: phase 11's group split of replayed frames at each of
+    CADENCE_TURNS for phase 5c's ``cases``, with the traversal's ms by
+    segment: primary (segment 0), sorted (a reorder just before it) or
+    stale.  A profile that missed a traversal launch is taken again, up to
+    PROFILE_TRIES times."""
+    from opengl_raytracer_torch import Renderer
+
+    for name, data, traversal, _ in cases:
+        for k in CADENCE_TURNS:
+            r = Renderer(data, _cadence_config(traversal, k), device=DEVICE)
+            state = r.render(camera, frames=2)  # warm-up
+            torch.cuda.synchronize()
+            n, f = r.config.n_bounces, PROFILED_FRAMES
+            per = len(r.scene.parts) if r.traversal == "pallas2" else 1
+            for tries in range(1, PROFILE_TRIES + 1):
+                source, events, _ = _profiled_events(r, camera, state)
+                trav = [e for e in events
+                        if _kernel_group(e[0]) in ("K1", "K3")]
+                if len(trav) == per * n * f:
+                    break
+            else:
+                raise RuntimeError(f"{name} sort_every={k}: the profiler saw "
+                                   f"{len(trav)} traversal launches in {f} "
+                                   f"frames, expected {per * n * f}")
+            seg_ms = [0.0] * n
+            for j, (_, t0, t1) in enumerate(trav):
+                seg_ms[j // per % n] += (t1 - t0) / 1e3 / f
+            kind = ["primary"] + ["sorted" if (i - 1) % k == 0 else "stale"
+                                  for i in range(1, n)]
+            groups = {}
+            for kname, t0, t1 in events:
+                g = groups.setdefault(_kernel_group(kname), [0.0, 0])
+                g[0] += (t1 - t0) / 1e3 / f
+                g[1] += 1 / f
+            said = {g: [round(v[0], 4), v[1]] for g, v in sorted(
+                groups.items(), key=lambda kv: -kv[1][0])}
+            mean = {c: float(np.mean([m for m, x in zip(seg_ms, kind)
+                                      if x == c]))
+                    for c in set(kind)}
+            say("cadence_profile", scene=name, traversal=r.traversal,
+                sort_every=k, profiled=source, frames=f, tries=tries,
+                traversal_ms_by_segment=[round(m, 4) for m in seg_ms],
+                segments=kind, traversal_ms_a_segment={
+                    c: round(m, 4) for c, m in mean.items()},
+                device_ms_per_frame=round(sum(v[0] for v in groups.values()),
+                                          4),
+                groups_ms_and_launches_per_frame=said)
+
+
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for group, keys in (("G1 ray front", ("ray_front_kernel",)),
@@ -2093,16 +2368,12 @@ def partial_eager(r):
                                                       state)
 
 
-def _profile_frames(name, scene, camera, main_ms):
-    from opengl_raytracer_torch import RenderConfig, Renderer
-
-    r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bounces=BOUNCES), device=DEVICE)
-    state = r.render(camera, frames=2)  # warm-up
-    torch.cuda.synchronize()
+def _profiled_events(r, camera, state):
+    """PROFILED_FRAMES frames of Renderer ``r`` under torch.profiler (card
+    activity only): (what was profiled, the card's events in time order,
+    wall ms).  The replays' kernels, if the profiler sees inside a graph;
+    else the eager body's, which launches the same kernels one by one."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    # the replays' kernels, if the profiler sees inside a graph; else the
-    # eager body's, which launches the same kernels one by one
     for source, frames in (("replay", r.render), ("eager body",
                                                   partial_eager(r))):
         with torch.profiler.profile(activities=acts) as prof:
@@ -2115,6 +2386,17 @@ def _profile_frames(name, scene, camera, main_ms):
             break
     if not events:
         raise RuntimeError("the profiler saw no work on the card")
+    return source, events, wall_ms
+
+
+def _profile_frames(name, scene, camera, main_ms):
+    from opengl_raytracer_torch import RenderConfig, Renderer
+
+    r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
+                                     bounces=BOUNCES), device=DEVICE)
+    state = r.render(camera, frames=2)  # warm-up
+    torch.cuda.synchronize()
+    source, events, wall_ms = _profiled_events(r, camera, state)
     groups = {}
     busy, end = 0.0, float("-inf")
     for kname, t0, t1 in events:
@@ -2747,6 +3029,10 @@ def main(argv=None) -> int:
           [("standin-31k", data, "auto", "pallas2"),
            ("standin-1.96m", big, "auto", "pallas"),
            ("standin-31k", data, "pallas", "pallas")], camera)
+    cadences = [("standin-31k", data, "auto", "pallas2"),
+                ("standin-31k", data, "pallas", "pallas"),
+                ("standin-1.96m", big, "auto", "pallas")]
+    timed("cadence", cadence_phase, cadences, camera)
     timed("k2probe", k2probe_phase, args.seed, k2[1])
     counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
                                       args.out)
@@ -2760,6 +3046,7 @@ def main(argv=None) -> int:
     timed("profile", frame_profile_phase,
           [("standin-31k", scene, main_ms), ("standin-1.96m", big, big_ms)],
           camera)
+    timed("cadence_profile", cadence_profile_phase, cadences, camera)
 
     for mod in ("jax", "opengl_raytracer_tpu"):
         if mod in sys.modules:

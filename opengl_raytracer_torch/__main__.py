@@ -134,7 +134,8 @@ def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
         width=args.width, height=args.height, bounces=args.bounces,
         rays_per_pixel=args.spp, jitter_amount=args.jitter,
         lambertian=not args.no_lambertian, sky_brightness=args.sky,
-        tile_size=args.tiles, traversal=args.traversal,
+        tile_size=args.tiles, max_leaf_tris=args.leaf,
+        traversal=args.traversal,
     )
     kind = torch.device(args.device).type
     devices = None if kind == "cuda" else [torch.device(kind)] * args.devices

@@ -90,13 +90,15 @@ class App:
             lambertian=lambertian,
             sky_brightness=skyIllumination,
             tile_size=tileSize,
+            **({"max_leaf_tris": max_leaf_tris} if max_leaf_tris else {}),
             **({"traversal": traversal} if traversal else {}),
         )
 
-        # Default scene = the reference's Cornell-box variant (main.py:19-111);
-        # the leaf bound is the scene's (the renderer reads it from there).
+        # Default scene = the reference's Cornell-box variant (main.py:19-111).
+        # The BVH is built with the config's leaf bound; the renderer's
+        # traversals take the scene's own (renderer.resolve_leaf_bound).
         self.scene = scene if scene is not None else Scene(
-            default_objects(dragon), max_leaf_tris=max_leaf_tris or 32,
+            default_objects(dragon), max_leaf_tris=self.config.max_leaf_tris,
             verbose=True,
         )
         self.renderer = Renderer(self.scene, self.config, device=self.device)

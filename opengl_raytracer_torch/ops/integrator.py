@@ -6,10 +6,12 @@ The shader's path logic (fragment.glsl:220-366), as in
 * ``scatter_soa`` — ``diffuse()`` (fragment.glsl:220-232), ``reflect`` and
   ``lerp()`` (fragment.glsl:234-240);
 * ``raytrace`` — the bounce loop (fragment.glsl:309-350).  With
-  ``reorder`` (the wide-BVH kernels' traversals), before every bounce
-  segment but the first, rays are reordered by a Morton/octant coherence
-  key (int32 keys, ``morton.sort_keys``; a stable ``torch.sort``, which
-  returns the sorted keys with the permutation; one gather,
+  ``reorder`` (the wide-BVH kernels' traversals), before bounce segment
+  ``i`` where ``i >= 1`` and ``(i - 1) % sort_every == 0`` (every segment
+  but the first at the default cadence 1), rays are reordered by a
+  Morton/octant coherence key (int32 keys, ``morton.sort_keys``; a
+  stable ``torch.sort``, which returns the sorted keys with the
+  permutation; one gather,
   ``permute.reorder``, that moves only the columns a ray still needs, as
   the JAX sort's folds do, ``opengl_raytracer_tpu/ops/integrator.py:226-268``),
   and at the end the light is scattered back to pixel order by each ray's
@@ -81,8 +83,8 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
 
 
 def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
-             reorder: bool = False, return_seed: bool = True,
-             seed_recon=None):
+             reorder: bool = False, sort_every: int = 1,
+             return_seed: bool = True, seed_recon=None):
     """One path per ray: returns (incoming light 3x(R,), final seed), both
     in the input ray order.
 
@@ -90,8 +92,14 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
     rows are picked by ``intersect.shading_table``; the shade kernel reads
     the sky colour and ``lambertian`` from the step ``block``
     (``ops/step_block.py``).  ``reorder`` sorts the
-    rays by coherence key before every bounce segment but the first (the
-    JAX renderer's ``reorder``, ``renderer.py:276``).  ``return_seed=False``
+    rays by coherence key before bounce segment ``i >= 1`` where ``(i - 1)
+    % sort_every == 0`` (the JAX renderer's ``reorder`` and the JAX
+    ``raytrace``'s cadence, ``integrator.py:209``): every segment but the
+    first at ``sort_every=1``.  A skipped segment traverses the rays in
+    the order of the last reorder, one sort stale, the dead among the
+    live; every kernel takes ``alive`` per ray, and the reorder and
+    restore are permutations carrying all per-ray state, so the light is
+    the same at any cadence.  ``return_seed=False``
     (single-sample callers, as in the JAX ``raytrace``, ``:134-137``) lets
     the reorder drop a dead ray's seed and the restore the seed column;
     with ``reorder`` the seed returned is then None.
@@ -104,7 +112,8 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
     exactly 3 at each earlier segment (K2 draws 3 for every ray and keeps
     them only where the ray was alive and hit, and only a hit keeps a ray
     alive), so its state is a closed-form LCG advance of its pixel seed
-    (``ops/permute.py``)."""
+    (``ops/permute.py``).  A skipped reorder changes nothing there: K2
+    draws 3 for every ray at every segment, sorted or not."""
     from opengl_raytracer_torch.ops.shade import shade_update
 
     R = o3[0].shape[0]
@@ -121,10 +130,11 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
     orig = torch.arange(R, dtype=torch.int32, device=dev)
 
     for i in range(int(n_bounces)):
-        if reorder and i > 0:
+        if reorder and i > 0 and (i - 1) % sort_every == 0:
             # Primary rays arrive screen-coherent; bounce rays are sorted.
             # Dead rays hold the sentinel key and sort to the tail, and
             # alive is re-derived from the sorted keys (G2 keys, G3 gather).
+            # On a skipped segment K2's columns go straight on.
             keys_s, perm = torch.sort(
                 sort_keys(origin, direction, lo, hi, alive), stable=True)
             draws = FRONT_DRAWS + 3 * i
@@ -146,7 +156,8 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
 
 
 def trace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
-          rays_per_pixel: int, reorder: bool = False, seed_recon=None):
+          rays_per_pixel: int, reorder: bool = False, sort_every: int = 1,
+          seed_recon=None):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
     Returns (color, new seed), the color a 3-tuple of (R,) columns: the
     restore's own at one sample.
@@ -161,7 +172,8 @@ def trace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
     one = rays_per_pixel == 1
     for _ in range(rays_per_pixel):
         color, seed = raytrace(scene, raycast_fn, o3, d3, seed, block,
-                               n_bounces, reorder, return_seed=not one,
+                               n_bounces, reorder, sort_every,
+                               return_seed=not one,
                                seed_recon=seed_recon if one else None)
         colors.append(color)
     if one:

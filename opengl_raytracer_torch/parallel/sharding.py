@@ -229,15 +229,17 @@ class ShardedRenderer:
             raise ValueError(
                 f"dp={dp} must divide the tile band height {config.tile_h} "
                 f"(tile_size={config.tile_size})")
-        self.config = config
         self.mesh = mesh
         self.home = mesh.devices[0, 0]
         self.scenes = {dev: _scene_on(scene, dev)
                        for dev in dict.fromkeys(mesh.devices.flat)}
         self.scene = self.scenes[self.home]
+        # the scene's own leaf bound, as the Renderer keeps it (JAX
+        # sharding.py:157); each shard's graph holds the config's cadence
+        self.config = config = resolve_leaf_bound(self.scene, config)
         self.traversal = resolve_traversal(self.scene, config.traversal)
-        leaf = resolve_leaf_bound(self.scene)
-        raycasts = {dev: make_raycast_fn(data, self.traversal, leaf)
+        raycasts = {dev: make_raycast_fn(data, self.traversal,
+                                         config.max_leaf_tris)
                     for dev, data in self.scenes.items()}
         pools = {dev: torch.cuda.graph_pool_handle()
                  if dev.type == "cuda" else None for dev in self.scenes}

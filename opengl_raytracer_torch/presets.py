@@ -8,9 +8,7 @@ area light.  The dragon asset defaults to ``stanford_minidragon``; pass
 ``dragon="stanford_mediumdragon"`` or any OBJ path when that asset is
 available (``models/mesh.py:resolve_obj_path``).
 
-``baseline_configs`` mirrors BASELINE.json's five benchmark configs.  This
-package's ``RenderConfig`` has no ``max_leaf_tris``: the BVH leaf bound is
-the ``Scene``'s, and the renderer reads it from the scene's own tables.
+``baseline_configs`` mirrors BASELINE.json's five benchmark configs.
 """
 
 from __future__ import annotations

@@ -66,15 +66,17 @@ def effective_max_leaf(scene: SceneData) -> int:
     return int(count.max()) if count.numel() else 1
 
 
-def resolve_leaf_bound(scene: SceneData) -> int:
-    """The leaf bound the traversals of ``scene`` take: the scene's own,
-    :func:`effective_max_leaf`, whatever bound it was built with.  The JAX
-    package's ``resolve_leaf_bound`` (``opengl_raytracer_tpu/renderer.py:
-    69-77``) writes it into its config's ``max_leaf_tris``; the port's
-    ``RenderConfig`` has no such field (the build bound is ``Scene``'s
-    argument), so the renderers pass the bound itself to
-    ``make_raycast_fn``."""
-    return effective_max_leaf(scene)
+def resolve_leaf_bound(scene: SceneData, config: RenderConfig) -> RenderConfig:
+    """``config`` with ``max_leaf_tris`` set to the leaf bound the
+    traversals of ``scene`` take: the scene's own,
+    :func:`effective_max_leaf`, whatever bound the config or the build
+    asked for (the JAX package's ``resolve_leaf_bound``,
+    ``opengl_raytracer_tpu/renderer.py:69-76``).  The renderers keep the
+    config it returns and hand its bound to ``make_raycast_fn``."""
+    eff = effective_max_leaf(scene)
+    if eff != config.max_leaf_tris:
+        config = dataclasses.replace(config, max_leaf_tris=eff)
+    return config
 
 
 def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
@@ -153,7 +155,8 @@ def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
     """Trace rays ``base .. base + n - 1`` of a step of ``n_rays`` rays
     over a band of ``n_band`` pixels, ``tw`` a row, at the window, frame
     number, camera, sky, jitter and ``lambertian`` of the step ``block``.
-    Returns their linear color as a 3-tuple of (n,) columns.
+    Returns their linear color as a 3-tuple of (n,) columns.  With
+    ``reorder`` the rays are sorted at ``config.sort_every``'s cadence.
 
     The reorders are given how G1 seeded each ray (``permute.SeedRecon``,
     the JAX package's ``recon``, ``renderer.py:165-179``), so at one sample
@@ -168,7 +171,7 @@ def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
     color, _ = trace(scene, raycast_fn, origin, d, seed, block,
                      n_bounces=config.n_bounces,
                      rays_per_pixel=config.rays_per_pixel, reorder=reorder,
-                     seed_recon=recon)
+                     sort_every=config.sort_every, seed_recon=recon)
     return color
 
 
@@ -265,7 +268,10 @@ class Renderer:
     ``device`` names where the scene tables, the rays and ``accum`` live;
     CUDA devices run the hand-written kernels, the CPU their plain
     versions.  ``traversal`` is the name the config's one resolved to
-    (:func:`resolve_traversal`)."""
+    (:func:`resolve_traversal`); ``config`` is the one given with the
+    scene's own leaf bound (:func:`resolve_leaf_bound`).  The reorder
+    cadence ``config.sort_every`` is fixed for a renderer, so its graph is
+    captured with it."""
 
     def __init__(self, scene, config: RenderConfig = RenderConfig(), *,
                  device):
@@ -278,7 +284,7 @@ class Renderer:
             raise ValueError(f"scene lives on {scene_data.device}, renderer "
                              f"on {self.device}")
         self.scene = scene_data
-        self.config = config
+        self.config = config = resolve_leaf_bound(scene_data, config)
 
         if config.tile_w < 1 or config.tile_h < 1:
             raise ValueError(
@@ -287,7 +293,7 @@ class Renderer:
 
         self.traversal = resolve_traversal(scene_data, config.traversal)
         self._raycast = make_raycast_fn(scene_data, self.traversal,
-                                        resolve_leaf_bound(scene_data))
+                                        config.max_leaf_tris)
         self._block = step_block.new(self.device)
         self._graph = None
 

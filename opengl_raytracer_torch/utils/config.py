@@ -35,6 +35,9 @@ class RenderConfig:
         parameter divides the window, main.py:125-126). 1 = whole frame
         per step.  Need not divide the frame exactly — remainder tiles
         are masked like the reference's modulo gating.
+    max_leaf_tris: BVH leaf size passed to the builder.  The traversal
+        leaf-loop bound is always derived from the scene's actual BVH
+        (renderer.resolve_leaf_bound), not from this value.
     traversal: "auto" | "brute" | "bvh" | "packet" | "pallas" | "pallas2",
         the names of the JAX package.  "brute" sweeps every triangle,
         "bvh" walks the binary BVH per ray, "pallas" and "packet" both run
@@ -46,6 +49,10 @@ class RenderConfig:
         whole frame at once, up to 2M rays per chunk.
     aspect: display aspect ratio for ray generation (reference main.py:137
         uses sw/sh — the DISPLAY size); 0 = use width/height.
+    sort_every: reorder-sort cadence in bounces (1 = sort before every
+        bounce segment, 2 = every other, ...).  A pure perf knob: the
+        sort + final restore are permutations carrying per-ray RNG state,
+        so the image is bit-identical at any cadence.
     frames_per_step: progressive frames converged per tile step (F>1
         batches F frames' sample streams into one render; per-sample RNG
         streams are the per-frame streams, so the image matches F
@@ -60,9 +67,11 @@ class RenderConfig:
     lambertian: bool = True
     sky_brightness: float = 1.0
     tile_size: int = 1
+    max_leaf_tris: int = 32
     traversal: str = "auto"
     ray_chunk: int = 0
     aspect: float = 0.0
+    sort_every: int = 1
     frames_per_step: int = 1
 
     @property

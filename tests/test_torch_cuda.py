@@ -16,8 +16,10 @@ block's write are held to that, the shade floats to ``rtol=1e-5,
 atol=1e-6`` as the CPU tests against the JAX package do, with seeds and
 alive flags exact.  The compiled step: replayed CUDA graphs equal the
 eager body bit for bit (every traversal name, remainder tiles,
-frames_per_step 2 with rays_per_pixel 2, a (2, 2) mesh of the one card),
-through camera moves, resets, lambertian toggles and sky changes.
+frames_per_step 2 with rays_per_pixel 2, a (2, 2) mesh of the one card,
+the reorder cadence ``sort_every=2``), through camera moves, resets,
+lambertian toggles and sky changes; frames at cadences 1, 2 and 4 are
+equal bit for bit.
 """
 
 import numpy as np
@@ -850,6 +852,42 @@ def test_graph_replay_equals_eager_body(cuda, traversal, cfg):
     n_tiles = config.num_tiles_x * config.num_tiles_y
     _replay_vs_eager(graphed, eager, n_tiles)
     assert graphed._graph is not None and eager._graph is None
+
+
+@pytest.mark.parametrize("traversal", ["pallas2", "pallas"])
+def test_graph_replay_equals_eager_at_cadence_two(cuda, traversal):
+    """At sort_every=2 (4 bounces: reorders before segments 1 and 3, the
+    kernels on one-sort-stale rays at 2 and 4) replayed steps equal the
+    eager body bit for bit through the script."""
+    scene = _scene_small()
+    config = RenderConfig(width=24, height=16, bounces=4, tile_size=2,
+                          traversal=traversal, sort_every=2)
+    graphed = Renderer(scene, config, device=cuda)
+    eager = Renderer(scene, config, device=cuda)
+    _replay_vs_eager(graphed, eager, config.num_tiles_x * config.num_tiles_y)
+
+
+@pytest.mark.parametrize("traversal", ["pallas2", "pallas"])
+def test_cadence_frames_equal_on_card(cuda, traversal):
+    """Two frames at sort_every 1, 2 and 4 (4 bounces) are equal bit for
+    bit with the kernels, each with its cadence's reorders a frame (4, 2
+    and 1: G2, two reorder launches each) and one restore."""
+    scene = _scene_small()
+    cam = make_camera(*_CAMS[0])
+    ref = None
+    for k, sorts in ((1, 4), (2, 2), (4, 1)):
+        r = Renderer(scene, RenderConfig(width=24, height=16, bounces=4,
+                                         traversal=traversal, sort_every=k),
+                     device=cuda)
+        _kernels.reset_counts()
+        accum = r.render(cam, frames=2).accum
+        counts = dict(_kernels.launch_counts)
+        assert counts["sort_keys"] == 2 * sorts
+        assert counts["reorder"] == 2 * 2 * sorts
+        assert counts["restore"] == 2 and counts["shade"] == 2 * 5
+        ref = accum if ref is None else ref
+        assert torch.equal(accum.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.mean()) > 0.01
 
 
 def test_graph_counts_replays_and_keeps_the_overflow_counters(cuda):

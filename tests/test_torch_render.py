@@ -113,6 +113,29 @@ def test_renderer_matches_jax(scene, traversal):
     _assert_matches(ref, _render(scene, frames=1, traversal=traversal))
 
 
+@pytest.mark.parametrize("cfg,frames", [
+    (dict(width=24, bounces=4, lambertian=False), 2),
+    (dict(aspect=1.25, sky_brightness=0.3, jitter_amount=0.01, tile_size=5),
+     2),
+    (dict(traversal="brute", rays_per_pixel=3), 1),
+    (dict(traversal="pallas", frames_per_step=3, tile_size=2), 3),
+], ids=["hemisphere_4_bounces", "aspect_sky_jitter_tiles",
+        "brute_three_samples", "pallas_frames_per_step_3"])
+def test_frame_matches_jax_configs(scene, cfg, frames):
+    """Frames of four configurations against the JAX Renderer, at this
+    module's tolerance: the hemisphere scatter over 5 segments at 24x16;
+    a display aspect, a dim sky, a wide jitter and remainder tiles; brute
+    force at 3 samples a pixel (the seed chains across samples); K3's plain
+    version at 3 frames a step over 2x2 tiles.  "auto" runs "pallas2" in
+    the port and the XLA packet walk in the JAX package off a TPU: per-ray
+    results agree but for exact-t ties."""
+    cfg = dict(dict(width=16, height=16, bounces=2), **cfg)
+    jr = JRenderer(JScene(_objects(JRect, JTriangles)), JRenderConfig(**cfg))
+    ref = jr.image(jr.render(camera=j_make_camera(*CAM), frames=frames))
+    r = Renderer(scene, RenderConfig(**cfg), device="cpu")
+    _assert_matches(ref, r.image(r.render(make_camera(*CAM), frames=frames)))
+
+
 def _resolved(scene, traversal="auto"):
     return Renderer(scene, RenderConfig(width=16, height=16,
                                         traversal=traversal),

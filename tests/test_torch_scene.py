@@ -347,18 +347,24 @@ def test_send_keeps_one_upload_a_device_until_clear_memory():
 
 @pytest.mark.parametrize("leaf", [4, 16, 32, "no_bvh"])
 def test_resolve_leaf_bound_matches_jax(leaf):
-    """The scene's own largest leaf, whatever bound is asked for, as the
-    JAX ``resolve_leaf_bound`` writes it into its config."""
+    """The config with the scene's own largest leaf, whatever bound is
+    asked for, as the JAX ``resolve_leaf_bound`` returns it, field for
+    field."""
+    import dataclasses
+
     from opengl_raytracer_tpu.renderer import resolve_leaf_bound as j_resolve
     from opengl_raytracer_tpu.utils.config import RenderConfig as JConfig
     from opengl_raytracer_torch.renderer import resolve_leaf_bound
+    from opengl_raytracer_torch.utils.config import RenderConfig
 
     kw = (dict(build_bvh=False) if leaf == "no_bvh"
           else dict(max_leaf_tris=leaf))
     jdata = JScene(_objects(JRect, JTriangles, 300), **kw).send()
     data = Scene(_objects(Rect, Triangles, 300), **kw).send("cpu")
     for asked in (1, 64):
-        ref = j_resolve(jdata, JConfig(max_leaf_tris=asked)).max_leaf_tris
-        assert resolve_leaf_bound(data) == ref
+        cfg = dict(max_leaf_tris=asked, sort_every=2, width=64)
+        ref = j_resolve(jdata, JConfig(**cfg))
+        got = resolve_leaf_bound(data, RenderConfig(**cfg))
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     if leaf != "no_bvh":
-        assert ref <= leaf
+        assert ref.max_leaf_tris <= leaf
