@@ -70,9 +70,14 @@ Phases; each raises on failure, and the script then exits non-zero:
    2^32 - 2 and on three tiles of tile_size 7 (remainders on both axes)
    with frames_per_step 2, into the buffer the step block names; and the
    step block's write (``csrc/step_block.cu``) against a copy of the same
-   words; G7, the "bvh" walk (``csrc/bvh_walk.cu``), on phase 3's kind of
-   rays over the 84-triangle box of phase 7.  Each prints ms per launch,
-   the plain version's, its bound and the share.
+   words; G7, the "bvh" walk (``csrc/bvh_walk.cu``, over the scene's node
+   and triangle records), on phase 3's kind of rays over the 84-triangle
+   box of phase 7 and over standin-31k, with a live ray's node visits,
+   triangle tests and candidates; G8, the brute-force sweep
+   (``csrc/brute_sweep.cu``), on the same kind of rays over the box, with
+   the pairs and candidates a live ray and the time of the matmul sweep it
+   replaced (``matmul_sweep``, kept here only as that yardstick).  Each
+   prints ms per launch, the plain version's, its bound and the share.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
    the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
@@ -149,8 +154,12 @@ Phases; each raises on failure, and the script then exits non-zero:
    may differ), and the 96x54 card-vs-CPU check.
 7. small paths: the reference's 84-triangle box without its meshes, at
    96x54 with 4 bounces, on the card and on the CPU, for "auto" (which
-   resolves to brute force), "bvh" (G7) and "packet" (K3), each step a
-   graph replay.
+   resolves to brute force, G8), "bvh" (G7) and "packet" (K3), each step a
+   graph replay; then 1920x1080 / 4 bounces, 1 warm-up and 8 timed
+   replayed frames each, of the box under "auto" (G8 5 a frame) and "bvh"
+   (G7 5 a frame) and of standin-31k under "bvh": ms/frame and the
+   launches (K2 5 a frame, G1, G6 and the block write 1, no G2, G3, K1 or
+   K3).
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
    triangles, 4 sub-block parts), 1 warm-up and 4 1080p frames, each
    timed alone (its own device sync).
@@ -181,14 +190,15 @@ Phases; each raises on failure, and the script then exits non-zero:
    frame of a (2, 2) mesh on the card must agree with the same mesh of
    the CPU.
 11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
-   "auto" frames of phase 5's scene and of phase 4c's (the replays'
-   kernels if the profiler sees inside a graph, else the eager body's;
-   it says which): device ms and launches per frame by kernel group (K1,
-   K3, K2, G1-G6 each, G3's reorder as its index pass and its gather,
-   the block write, sorts, gathers and scatters,
-   other torch kernels, copies), and the device's busy share and
-   idle share of phase 5's and phase 4c's unprofiled ms/frame.  It runs last: the profiler slows the host's
-   launches for the rest of the process.
+   frames of phase 5's scene and of phase 4c's under "auto", of phase 7's
+   box under "auto" and of standin-31k under "bvh" (the replays' kernels
+   if the profiler sees inside a graph, else the eager body's; it says
+   which): device ms and launches per frame by kernel group (K1, K3, K2,
+   G1-G8 each, G3's reorder as its index pass and its gather, the block
+   write, sorts, gathers and scatters, other torch kernels, copies), and
+   the device's busy share and idle share of each path's unprofiled
+   ms/frame.  It runs last: the profiler slows the host's launches for
+   the rest of the process.
 11c. cadence_profile: phase 11's group split for phase 5c's three paths
    at cadences 1, 2 and 4 (4 replayed frames each), with the traversal's
    ms by bounce segment, each named primary, sorted or stale (a profile
@@ -197,7 +207,8 @@ Phases; each raises on failure, and the script then exits non-zero:
 Each phase prints its seconds; every render path must launch no probe
 kernel.  The line before the last is a JSON object with each kernel's
 launches in the 1080p path that runs it (phase 5 for K1, K2, G1-G6 and
-the block write, phase 6 for K3, and K3's and G5's in phase 4c), its
+the block write, phase 6 for K3, and K3's and G5's in phase 4c, phase
+7's box frames for G7 and G8), its
 largest disagreement with its
 plain version, both times at 2,073,600 rays, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and the fp32 operations this run's
@@ -211,7 +222,9 @@ its ms covers both).  The last line is
 ``index_copy_`` the restore's light scatter, and the block write's one
 ``copy_`` of the words from a host tensor.  No single PyTorch call
 computes the other kernels (``library_ms`` null): each writes several
-outputs of mixed types, or (G6) selects, multiplies, adds and divides.  The script imports nothing of JAX.
+outputs of mixed types, or (G6) selects, multiplies, adds and divides;
+G8's row gives the matmul sweep it replaced, many PyTorch calls, as
+``matmul_sweep_ms``.  The script imports nothing of JAX.
 ``--out DIR`` also writes the phase-5 1080p image, downsampled 4x, as
 ``DIR/smoke_1080p.npy``.
 """
@@ -287,13 +300,17 @@ KERNELS = {
     "step_block": dict(
         source="opengl_raytracer_torch/csrc/step_block.cu",
         replaces="opengl_raytracer_tpu/renderer.py:495"),
-    # the "bvh" traversal's walk (G7), an XLA while loop in the JAX package
+    # the small-scene traversals: the "bvh" walk (G7), an XLA while loop in
+    # the JAX package, and the brute-force sweep (G8), XLA matmuls there
     "bvh_walk": dict(
         source="opengl_raytracer_torch/csrc/bvh_walk.cu",
         replaces="opengl_raytracer_tpu/ops/traversal.py:56"),
+    "brute_sweep": dict(
+        source="opengl_raytracer_torch/csrc/brute_sweep.cu",
+        replaces="opengl_raytracer_tpu/ops/intersect.py:120"),
 }
 GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue",
-        "wide_epilogue", "band_fold", "step_block", "bvh_walk")
+        "wide_epilogue", "band_fold", "step_block", "bvh_walk", "brute_sweep")
 GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
 # phase 5c: the reorder cadences (RenderConfig.sort_every) held to cadence
 # 1 bit for bit, and those timed in turns (each twice, CADENCE_FRAMES a run)
@@ -464,6 +481,8 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     check_count(counts, "step_block", steps if blocks is None else blocks)
     check_count(counts, "bvh_walk",
                 n_bounces * renders if traversal == "bvh" else 0)
+    check_count(counts, "brute_sweep",
+                n_bounces * renders if traversal == "brute" else 0)
 
 
 def check_probes(counts: dict) -> None:
@@ -616,6 +635,10 @@ def build_phase() -> None:
                     or props["stack"] >= 64):
                 raise RuntimeError(f"{tag.upper()} spills or keeps a stack "
                                    f"frame of 64 bytes or more: {props}")
+    for tag, unit, kernel in (("g7", "bvh_walk.cu", "bvh_walk_kernel"),
+                              ("g8", "brute_sweep.cu", "brute_sweep_kernel")):
+        for props in ptxas_entries(_kernels.build_log, unit, kernel):
+            say("ptxas", **{tag: props})
     for tag, log in (("index_pass_i64", _kernels.build_log),
                      ("index_pass_u32", _recon32["log"])):
         for props in ptxas_entries(log, "permute.cu", "reorder_index_kernel"):
@@ -971,11 +994,26 @@ G5_BYTES_PER_RAY = 5 + 16 + 16
 G5_OPS_PER_RAY = 8
 G6_BYTES_PER_PIXEL = 12 + 12 + 12
 G6_OPS_PER_PIXEL = 9
-# G7 (csrc/bvh_walk.cu): per node visit 6 sub, 6 mul, 10 min/max and 4
-# compares; per triangle test the full Moller-Trumbore of K1's plain
-# version (det 5, 1/det 1, r 3, t 7, p 9, u 7, v 6, the tests 7)
+# G7 (csrc/bvh_walk.cu): per node visit of a live ray 6 sub, 6 mul, 10
+# min/max and 4 compares; per triangle test its t side (det 5, 1/det 1, r
+# 3, t 7, the t tests 4) and per candidate (a test whose t would win) p 9,
+# u 7, v 6 and the barycentric tests 4.  The earlier yardstick, printed
+# beside it as bound_ms_full_tests, priced every visit, a dead ray's miss
+# links too, and a full test of 45 at every test.  Bytes: 7 ray columns in, t, tri, u, v out, the node and
+# triangle records once.
 G7_OPS_PER_VISIT = 26
-G7_OPS_PER_TEST = 45
+G7_OPS_PER_TEST = 20
+G7_OPS_PER_CANDIDATE = 26
+G7_OPS_PER_TEST_FULL = 45
+RAY_IN_OUT_BYTES = 29 + 16
+# G8 (csrc/brute_sweep.cu): per live ray o x d, 9; per (live ray,
+# triangle) pair det 5, the |det| test 2, 1/det 1, o.face 5, t 2, the t
+# tests 2; per candidate (a pair whose t would win) the four dot products
+# 20, 2 sub, 2 mul and the barycentric tests 4.  Bytes: the ray columns as
+# G7's and the 48-byte triangle records once.
+G8_OPS_PER_RAY = 9
+G8_OPS_PER_PAIR = 17
+G8_OPS_PER_CANDIDATE = 28
 G2_BYTES_PER_RAY = 29
 G2_OPS_PER_RAY = 90
 G4_OPS_PER_RAY = 12
@@ -1219,7 +1257,8 @@ def glue_phase(data, camera, sets, seed: int):
     out["wide_epilogue"] = _g5_rows(data, sets)
     out["band_fold"], extras["band_fold"] = _g6_rows(dev, camera, seed)
     out["step_block"], extras["step_block"] = _block_rows(dev, camera)
-    out["bvh_walk"] = _g7_rows(camera, seed)
+    out["bvh_walk"], extras["bvh_walk"] = _g7_rows(camera, seed, data)
+    out["brute_sweep"], extras["brute_sweep"] = _g8_rows(camera, seed)
     launched = {k: v - before[k] for k, v in _kernels_counts().items()}
     if any(launched[k] == 0 for k in out):
         raise RuntimeError(f"glue kernels launched {launched}")
@@ -1330,39 +1369,175 @@ def _g6_rows(dev, camera, seed):
                      set="1080p band, 1 frame"), {}
 
 
-def _g7_rows(camera, seed):
-    """G7, the "bvh" walk, against its plain version bit for bit on phase
-    3's kind of rays (half primary, half random in the box, a tenth dead)
-    over the 84-triangle demo box; its bound from the plain version's
-    counts (node visits and triangle tests)."""
+def demo_box(device):
+    """The reference's default scene without its two meshes: 7 boxes, 84
+    triangles (88 padded), which "auto" renders by brute force."""
     from opengl_raytracer_torch import Scene
+
+    box = Scene(standin_objects(83, 166)[2:])
+    if box.total_triangles != 84:
+        raise RuntimeError(f"the demo box has {box.total_triangles} "
+                           f"triangles, expected 84")
+    return box, box.send(device)
+
+
+def _g7_set(name, scene, camera, seed):
+    """G7 against its plain version bit for bit on phase 3's kind of rays
+    (half primary, half random in the scene, a tenth dead) over
+    ``scene``; its times, counts and bound."""
     from opengl_raytracer_torch.ops import traversal
     from opengl_raytracer_torch.ops.intersect import BIG
     from opengl_raytracer_torch.renderer import effective_max_leaf
 
-    box = Scene(standin_objects(83, 166)[2:]).send(DEVICE)
-    leaf = effective_max_leaf(box)
-    o3, d3, t0 = k1_rays(box, camera, seed, box.device)
+    leaf = effective_max_leaf(scene)
+    o3, d3, t0 = k1_rays(scene, camera, seed, scene.device)
     active = t0 > -BIG
-    got = traversal.raycast_bvh(box, o3, d3, active, leaf)
-    ref, work = traversal._walk_plain(box, o3, d3, active, leaf, counts=True)
-    err = _assert_equal("G7", tuple(got[:4]), tuple(ref[:4]))
+    got = traversal.raycast_bvh(scene, o3, d3, active, leaf)
+    ref, work = traversal._walk_plain(scene, o3, d3, active, leaf,
+                                      counts=True)
+    err = _assert_equal(f"G7 {name}", tuple(got[:4]), tuple(ref[:4]))
     hit = int((got.t < BIG).sum())
     if hit < N_RAYS // 4:
-        raise RuntimeError(f"G7: only {hit} of {N_RAYS} rays hit")
+        raise RuntimeError(f"G7 {name}: only {hit} of {N_RAYS} rays hit")
     ms, plain_ms = time_pair(
-        lambda: traversal.raycast_bvh(box, o3, d3, active, leaf),
-        lambda: traversal._walk_plain(box, o3, d3, active, leaf), 10, 1)
-    visits, tests = (int(w.long().sum()) for w in work)
-    tables = sum(getattr(box, k).numel() * 4 for k in (
-        "node_min", "node_max", "node_miss", "node_first", "node_count", "v0",
-        "e1", "e2", "face"))
-    return _glue_row("bvh_walk", err, ms, plain_ms,
-                     N_RAYS * (29 + 16) + tables,
-                     visits * G7_OPS_PER_VISIT + tests * G7_OPS_PER_TEST,
-                     set="random rays, 84-triangle box", hit=hit,
-                     visits_per_ray=visits / N_RAYS,
-                     tests_per_ray=tests / N_RAYS)
+        lambda: traversal.raycast_bvh(scene, o3, d3, active, leaf),
+        lambda: traversal._walk_plain(scene, o3, d3, active, leaf), 10, 1)
+    live = int(active.sum())
+    all_visits = int(work[0].long().sum())
+    visits, tests, cands = (int(w[active].long().sum()) for w in work)
+    records = (traversal.node_records(scene), traversal.tri_records(scene))
+    n_bytes = N_RAYS * RAY_IN_OUT_BYTES + sum(
+        x.numel() * x.element_size() for x in records)
+    ops = (visits * G7_OPS_PER_VISIT + tests * G7_OPS_PER_TEST
+           + cands * G7_OPS_PER_CANDIDATE)
+    old_bound = bound_ms(n_bytes, all_visits * G7_OPS_PER_VISIT
+                         + tests * G7_OPS_PER_TEST_FULL)[0]
+    return dict(set=name, err=err, ms=ms, plain_ms=plain_ms, n_bytes=n_bytes,
+                ops=ops, hit=hit, visits_per_live_ray=visits / live,
+                tests_per_live_ray=tests / live,
+                candidates_per_live_ray=cands / live,
+                node_record_bytes=records[0].shape[1] * 4,
+                bound_ms_full_tests=old_bound)
+
+
+def _g7_rows(camera, seed, data):
+    """G7, the "bvh" walk, on phase 3's kind of rays over the 84-triangle
+    demo box (its row) and over standin-31k ``data`` (more keys of the
+    row); its bound from the plain version's counts (a live ray's node
+    visits, triangle tests and candidates)."""
+    _, box = demo_box(DEVICE)
+    rows = [_g7_set("random rays, 84-triangle box", box, camera, seed),
+            _g7_set("random rays, standin-31k", data, camera, seed)]
+    for r in rows:
+        b, by = bound_ms(r["n_bytes"], r["ops"])
+        say("glue", kernel="bvh_walk", rays=N_RAYS,
+            **{k: v for k, v in r.items() if k not in ("err", "n_bytes",
+                                                       "ops")},
+            mbytes=round(r["n_bytes"] / 1e6, 3), gop=r["ops"] / 1e9,
+            bound_ms=b, bound_by=by, share_of_bound=b / r["ms"],
+            max_abs_err=r["err"], tolerance="exact")
+    box_row, big = rows
+    extra = {f"standin31k_{k}": big[k] for k in (
+        "ms", "plain_ms", "visits_per_live_ray", "tests_per_live_ray",
+        "candidates_per_live_ray")}
+    extra["standin31k_bound_ms"] = bound_ms(big["n_bytes"], big["ops"])[0]
+    extra.update({k: box_row[k] for k in (
+        "visits_per_live_ray", "tests_per_live_ray",
+        "candidates_per_live_ray", "bound_ms_full_tests")})
+    row = (max(r["err"] for r in rows), box_row["ms"], box_row["plain_ms"],
+           bound_ms(box_row["n_bytes"], box_row["ops"]))
+    return row, dict(set=box_row["set"], **extra)
+
+
+def matmul_sweep(scene, o3, d3, active=None, tri_chunk: int = 2048):
+    """The port's brute force before its sweep kernel (the JAX package's
+    matmul form: ``torch.matmul`` in full float32 over chunks of 2048
+    triangles), kept here only as the yardstick G8 replaced; the port does
+    not call it."""
+    from opengl_raytracer_torch.ops.intersect import BIG, EPS, init_nearest
+
+    origin = torch.stack(tuple(o3), dim=1)
+    direction = torch.stack(tuple(d3), dim=1)
+    R = origin.shape[0]
+    near = init_nearest(R, origin.device)
+    T = scene.v0.shape[0]
+    C = min(tri_chunk, T)
+    cross_od = torch.linalg.cross(origin, direction)
+    t_best, tri, u_best, v_best = near.t, near.tri, near.u, near.v
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for base in range(0, T, C):
+            v0, e1, e2, face = (x[base:base + C] for x in
+                                (scene.v0, scene.e1, scene.e2, scene.face))
+            d0 = (v0 * face).sum(dim=1)
+            q1 = torch.linalg.cross(e1, v0)
+            q2 = torch.linalg.cross(e2, v0)
+            det = direction @ face.T
+            inv_det = 1.0 / det
+            t = (d0[None, :] - origin @ face.T) * inv_det
+            u = -(cross_od @ e2.T - direction @ q2.T) * inv_det
+            v = (cross_od @ e1.T - direction @ q1.T) * inv_det
+            valid = ((det.abs() >= EPS) & (t > EPS) & (u >= 0.0)
+                     & (v >= 0.0) & ((u + v) <= 1.0))
+            ts = torch.where(valid, t, BIG)
+            arg = torch.argmin(ts, dim=1, keepdim=True)
+            bt = ts.gather(1, arg)[:, 0]
+            better = bt < t_best
+            t_best = torch.where(better, bt, t_best)
+            tri = torch.where(better, (arg[:, 0] + base).to(torch.int32), tri)
+            u_best = torch.where(better, u.gather(1, arg)[:, 0], u_best)
+            v_best = torch.where(better, v.gather(1, arg)[:, 0], v_best)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if active is not None:
+        t_best = torch.where(active, t_best, BIG)
+        any_active = active.any()
+        tri, u_best, v_best = (torch.where(any_active, x, y) for x, y in (
+            (tri, near.tri), (u_best, near.u), (v_best, near.v)))
+    return t_best, tri, u_best, v_best
+
+
+def _g8_rows(camera, seed):
+    """G8, the brute-force sweep, against its plain version bit for bit on
+    phase 3's kind of rays over the 84-triangle demo box; its bound from
+    the plain version's counts (live pairs and candidates), and the time
+    of the matmul sweep it replaced on the same rays (the port's brute
+    force before G8)."""
+    from opengl_raytracer_torch.ops import intersect
+    from opengl_raytracer_torch.ops.intersect import BIG
+
+    _, box = demo_box(DEVICE)
+    o3, d3, t0 = k1_rays(box, camera, seed, box.device)
+    active = t0 > -BIG
+    got = intersect.raycast_brute(box, o3, d3, active)
+    ref, work = intersect._sweep_plain(box, o3, d3, active, counts=True)
+    err = _assert_equal("G8", tuple(got[:4]), tuple(ref[:4]))
+    hit = int((got.t < BIG).sum())
+    if hit < N_RAYS // 4:
+        raise RuntimeError(f"G8: only {hit} of {N_RAYS} rays hit")
+    old = matmul_sweep(box, o3, d3, active)
+    hits_agree = float(((old[0] < BIG) == (got.t < BIG)).float().mean())
+    del ref, old
+    ms, plain_ms = time_pair(
+        lambda: intersect.raycast_brute(box, o3, d3, active),
+        lambda: intersect._sweep_plain(box, o3, d3, active), 10, 2)
+    matmul_ms = min(cuda_ms(lambda: matmul_sweep(box, o3, d3, active), 2)
+                    for _ in range(2))
+    live = int(active.sum())
+    pairs, cands = (int(w.sum()) for w in work)
+    ops = (live * G8_OPS_PER_RAY + pairs * G8_OPS_PER_PAIR
+           + cands * G8_OPS_PER_CANDIDATE)
+    n_bytes = (N_RAYS * RAY_IN_OUT_BYTES
+               + intersect.tri_records(box).numel() * 4)
+    extra = dict(set="random rays, 84-triangle box", triangles=box.num_tris,
+                 pairs_per_live_ray=pairs / live,
+                 candidates_per_live_ray=cands / live,
+                 matmul_sweep_ms=matmul_ms,
+                 matmul_sweep_hit_set_agreement=hits_agree)
+    row = _glue_row("brute_sweep", err, ms, plain_ms, n_bytes, ops, hit=hit,
+                    gop=ops / 1e9, **extra)
+    return row, extra
 
 
 def _block_rows(dev, camera):
@@ -2330,6 +2505,8 @@ def _kernel_group(name: str) -> str:
                         ("G3 reorder gather", ("reorder_kernel",)),
                         ("G3 restore", ("restore_kernel",)),
                         ("G4 K1 epilogue", ("part_epilogue_kernel",)),
+                        ("G7 bvh walk", ("bvh_walk",)),
+                        ("G8 brute sweep", ("brute_sweep",)),
                         ("K3", ("wide_traverse",)), ("K1", ("traverse",)),
                         ("K2", ("shade_kernel",)), ("sort", ("radix", "sort")),
                         ("copy", ("memcpy", "memset")),
@@ -2353,13 +2530,16 @@ def _device_events(prof):
     return out
 
 
+TRAVERSAL_GROUPS = ("K1", "K3", "G7 bvh walk", "G8 brute sweep")
+
+
 def frame_profile_phase(scenes, camera):
-    """torch.profiler over PROFILED_FRAMES 1080p "auto" frames of each of
-    ``scenes`` ((name, scene, unprofiled ms/frame of its phase)): device ms
-    and launches per frame by kernel group, and the device's busy share
-    and idle share of the unprofiled ms/frame."""
-    for name, scene, main_ms in scenes:
-        _profile_frames(name, scene, camera, main_ms)
+    """torch.profiler over PROFILED_FRAMES 1080p frames of each of
+    ``scenes`` ((name, scene, unprofiled ms/frame of its phase, traversal
+    name)): device ms and launches per frame by kernel group, and the
+    device's busy share and idle share of the unprofiled ms/frame."""
+    for name, scene, main_ms, traversal in scenes:
+        _profile_frames(name, scene, camera, main_ms, traversal)
 
 
 def partial_eager(r):
@@ -2382,18 +2562,19 @@ def _profiled_events(r, camera, state):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
         events = sorted(_device_events(prof), key=lambda e: e[1])
-        if any(_kernel_group(e[0]) in ("K1", "K3") for e in events):
+        if any(_kernel_group(e[0]) in TRAVERSAL_GROUPS for e in events):
             break
     if not events:
         raise RuntimeError("the profiler saw no work on the card")
     return source, events, wall_ms
 
 
-def _profile_frames(name, scene, camera, main_ms):
+def _profile_frames(name, scene, camera, main_ms, traversal="auto"):
     from opengl_raytracer_torch import RenderConfig, Renderer
 
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT,
-                                     bounces=BOUNCES), device=DEVICE)
+                                     bounces=BOUNCES, traversal=traversal),
+                 device=DEVICE)
     state = r.render(camera, frames=2)  # warm-up
     torch.cuda.synchronize()
     source, events, wall_ms = _profiled_events(r, camera, state)
@@ -2407,6 +2588,11 @@ def _profile_frames(name, scene, camera, main_ms):
         end = max(end, t1)
     f = PROFILED_FRAMES
     busy_ms = busy / 1e3 / f
+    unsorted = {"sort", "G2 sort keys", "G3 reorder index pass",
+                "G3 reorder gather", "G3 restore"} & set(groups)
+    if r.traversal in ("brute", "bvh") and unsorted:
+        raise RuntimeError(f"{name} {r.traversal} ran {sorted(unsorted)}: "
+                           f"the path does not reorder")
     say("profile", scene=name, traversal=r.traversal, frames=f,
         profiled=source, profiled_wall_ms_per_frame=wall_ms / f,
         unprofiled_ms_per_frame=main_ms, device_busy_ms_per_frame=busy_ms,
@@ -2500,32 +2686,59 @@ def k2probe_phase(seed: int, k2_ms: float):
         tolerance="exact", card=repr(card_line()))
 
 
-def small_paths_phase(camera):
-    """The reference's box without its meshes (84 triangles) on the card
-    and the CPU: "auto" (brute force), "bvh" and "packet" (K3)."""
-    from opengl_raytracer_torch import Scene
-
+def small_paths_phase(scene, camera):
+    """The small-scene traversals.  The reference's box without its meshes
+    (84 triangles) on the card and the CPU at 96x54: "auto" (which
+    resolves to brute force, G8), "bvh" (G7) and "packet" (K3).  Then
+    1080p frames, each step a graph replay: the box under "auto" and
+    "bvh", and standin-31k ``scene`` under "bvh" (G7 at a real tree
+    depth), each 1 warm-up and TIMED_FRAMES timed frames with the launches
+    checked (G8 or G7, K2 5 a frame, G1 and G6 1, no G2, G3, K1 or K3).
+    Returns ({counter: launches} of G8 and G7 in the box's 1080p frames,
+    {(scene, traversal): ms/frame})."""
     from opengl_raytracer_torch import RenderConfig
 
-    box = Scene(standin_objects(83, 166)[2:])
-    if box.total_triangles != 84:
-        raise RuntimeError(f"the demo box has {box.total_triangles} "
-                           f"triangles, expected 84")
-    walks = 0
+    box, _ = demo_box(DEVICE)
+    n = RenderConfig(bounces=BOUNCES).n_bounces
     for traversal, expect in (("auto", "brute"), ("bvh", "bvh"),
                               ("packet", "packet")):
         got, counts = card_vs_cpu(box, camera, traversal)
         if got != expect:
             raise RuntimeError(f"{traversal} resolved to {got}, not {expect}")
-        k3, g7 = counts["wide_traversal"], counts["bvh_walk"]
-        if (k3 > 0) != (traversal == "packet") or (g7 > 0) != (got == "bvh"):
-            raise RuntimeError(f"{traversal}: {k3} K3 and {g7} G7 launches")
-        n = RenderConfig(bounces=BOUNCES).n_bounces
+        k3 = counts["wide_traversal"]
+        if (k3 > 0) != (traversal == "packet"):
+            raise RuntimeError(f"{traversal}: {k3} K3 launches")
         check_glue(counts, got, n, 1)
-        walks += g7
         say("small", traversal=traversal, resolved=got, k3_launches=k3,
-            k2_launches=counts["shade"], g7_launches=g7)
-    return walks
+            k2_launches=counts["shade"], g7_launches=counts["bvh_walk"],
+            g8_launches=counts["brute_sweep"])
+    launches, frame_ms = {}, {}
+    frames = 1 + TIMED_FRAMES
+    for name, sc, traversal, expect in (
+            ("box", box, "auto", "brute"), ("box", box, "bvh", "bvh"),
+            ("standin-31k", scene, "bvh", "bvh")):
+        r, img, counts, ms = render_1080p(sc, camera, traversal)
+        if r.traversal != expect:
+            raise RuntimeError(f"{name} {traversal} resolved to "
+                               f"{r.traversal}, not {expect}")
+        for k in ("subblock_traversal", "wide_traversal"):
+            check_count(counts, k, 0)
+        check_count(counts, "shade", n * frames)
+        check_glue(counts, r.traversal, n, frames)
+        counter = "brute_sweep" if expect == "brute" else "bvh_walk"
+        if name == "box":
+            launches[counter] = counts[counter]
+        frame_ms[name, traversal] = ms
+        say("small", scene=name, triangles=r.scene.num_tris,
+            traversal=traversal, resolved=r.traversal, width=WIDTH,
+            height=HEIGHT, bounces=BOUNCES, frames=frames,
+            ms_per_frame=ms, fps=1000.0 / ms,
+            **{f"{k}_launches": counts[k] for k in (
+                "brute_sweep", "bvh_walk", "shade", "ray_front",
+                "band_fold", "sort_keys", "reorder", "restore")},
+            mean=float(img.mean()), card=repr(card_line()))
+        del r
+    return launches, frame_ms
 
 
 def multipart_phase(camera):
@@ -3039,12 +3252,17 @@ def main(argv=None) -> int:
     pallas_counts = timed("pallas", wide_path_phase, scene, camera,
                           main_img)
     counts["wide_traversal"] = pallas_counts["wide_traversal"]
-    counts["bvh_walk"] = timed("small", small_paths_phase, camera)
+    small_launches, small_ms = timed("small", small_paths_phase, scene,
+                                     camera)
+    counts.update(small_launches)
     timed("multipart", multipart_phase, camera)
     straight8 = timed("cli", cli_phase)
     timed("sharded", sharded_phase, scene, camera, straight8)
     timed("profile", frame_profile_phase,
-          [("standin-31k", scene, main_ms), ("standin-1.96m", big, big_ms)],
+          [("standin-31k", scene, main_ms, "auto"),
+           ("standin-1.96m", big, big_ms, "auto"),
+           ("box", demo_box(DEVICE)[0], small_ms["box", "auto"], "auto"),
+           ("standin-31k", scene, small_ms["standin-31k", "bvh"], "bvh")],
           camera)
     timed("cadence_profile", cadence_profile_phase, cadences, camera)
 

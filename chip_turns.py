@@ -12,9 +12,11 @@ measured on the card:
   after a warm-up, the better of two such runs, on ``chip_smoke.py``'s
   phase-4 random rays (2,073,600) of standin-31k and of standin-1.96m;
 * ms/frame at 1920x1080 and 4 bounces, 1 sample a pixel: standin-31k
-  under "pallas" and "auto", standin-1.96m under "auto" (1 warm-up frame,
-  then FRAMES frames timed together on the host clock between device
-  syncs), and the traversal each name resolved to;
+  under "pallas", "auto" and "bvh", standin-1.96m under "auto", and the
+  reference's 84-triangle box without its meshes under "auto" (brute
+  force) and "bvh" (1 warm-up frame, then FRAMES frames timed together on
+  the host clock between device syncs), and the traversal each name
+  resolved to;
 * the host's time to enqueue one step (a frame), with no device sync
   inside it: the median of FRAMES steps issued back to back;
 * ms per converged frame of standin-31k over (dp, sp) meshes (2, 1) and
@@ -144,8 +146,18 @@ def main(argv=None) -> int:
     # the profiled frames last: the profiler slows the host's launches
     # for the rest of the process
     profiled = []
+    from opengl_raytracer_torch import Scene
+
+    box = Scene(cs.standin_objects(83, 166)[2:]).send("cuda")
+    for name in ("auto", "bvh"):
+        ms, host, resolved, r, state = frame_ms(torch, box, camera, name)
+        out[f"{name}_box_ms_per_frame"] = ms
+        out[f"{name}_box_host_ms_per_step"] = host
+        out[f"{name}_box_resolved"] = resolved
+        del r, state
+    del box
     for tag, cells, names in (("1.96m", (700, 1400), ("auto",)),
-                              ("31k", (83, 166), ("pallas", "auto"))):
+                              ("31k", (83, 166), ("pallas", "auto", "bvh"))):
         scene, data = cs.make_scene(*cells, "cuda")
         out[f"triangles_{tag}"] = scene.total_triangles
         del scene

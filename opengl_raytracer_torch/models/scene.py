@@ -78,6 +78,11 @@ class SceneData(NamedTuple):
     sh_slot: torch.Tensor  # (S, 24) f32
     root_min: np.ndarray  # (3,) f32 scene AABB (the main BVH's node 0)
     root_max: np.ndarray  # (3,) f32
+    # The small-scene traversals' records, packed from the tables above at
+    # their first use and kept here: "tris" (T, 12) f32
+    # (ops/intersect.tri_records; G7, G8), "nodes" (N, 8 or 12) i32
+    # (ops/traversal.node_records; G7).
+    records: dict
 
     @property
     def parts(self) -> tuple:
@@ -130,6 +135,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         k3=(up(k3[0], np.int32), up(k3[1], np.float32)),
         root_min=node_min[0].copy(),
         root_max=node_max[0].copy(),
+        records={},
     )
 
 

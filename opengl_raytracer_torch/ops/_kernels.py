@@ -39,14 +39,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4),
 # "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
 # "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
-# traversal); and the probes' kernels (opengl_raytracer_torch/probes/), which no path of
-# the renderer launches: "k1_profile" and "k3_profile" count the profile
-# builds of K1 and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's
-# row-fetch sums
+# traversal), "brute_sweep" (G8, the "brute" traversal); and the probes'
+# kernels (opengl_raytracer_torch/probes/), which no path of the renderer
+# launches: "k1_profile" and "k3_profile" count the profile builds of K1
+# and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
 launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
                  "ray_front": 0, "sort_keys": 0, "reorder": 0, "restore": 0,
                  "subblock_epilogue": 0, "wide_epilogue": 0, "band_fold": 0,
-                 "step_block": 0, "bvh_walk": 0,
+                 "step_block": 0, "bvh_walk": 0, "brute_sweep": 0,
                  "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
                  "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
@@ -193,11 +193,15 @@ def lib() -> ctypes.CDLL:
                                                       i32, p])
             so.oglrt_write_block.restype = i32
             so.oglrt_write_block.argtypes = [p, p, p]
-            # (6 ray columns, active or null, 5 node tables, n_nodes, 4
-            # triangle tables, max_leaf, 4 outputs, n)
+            # (6 ray columns, active or null, node records, wide, n_nodes,
+            # triangle records, max_leaf, 4 outputs, n); (6 ray columns,
+            # active or null, triangle records, n_tris, 4 outputs, n)
             so.oglrt_bvh_walk.restype = i32
-            so.oglrt_bvh_walk.argtypes = ([p] * 12 + [i32] + [p] * 4 + [i32]
+            so.oglrt_bvh_walk.argtypes = ([p] * 8 + [i32, i32, p, i32]
                                           + [p] * 4 + [i64, p])
+            so.oglrt_brute_sweep.restype = i32
+            so.oglrt_brute_sweep.argtypes = ([p] * 8 + [i32] + [p] * 4
+                                             + [i64, p])
             _lib = so
         return _lib
 

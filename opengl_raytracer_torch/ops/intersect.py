@@ -5,10 +5,13 @@
   parallel/self-hit rejection, on per-ray gathered triangles.  It is the
   triangle test of the traversals' plain versions.
 * :func:`slab_test` — the slab AABB test (fragment.glsl:181-204).
-* :func:`raycast_brute` — every ray against every triangle, in the JAX
-  package's matmul form (``opengl_raytracer_tpu/ops/intersect.py:120-205``):
-  ``torch.matmul`` in full float32, chunks of 2048 triangles, the lowest
-  index winning a tie within a chunk and a strict ``<`` across chunks.
+* :func:`raycast_brute` — every ray against every triangle (the JAX
+  package's ``raycast_brute``, ``opengl_raytracer_tpu/ops/intersect.py:
+  120-205``): on the card one launch of the sweep kernel G8
+  (``csrc/brute_sweep.cu``) over the triangle records
+  (:func:`tri_records`), on the CPU its plain version :func:`_sweep_plain`,
+  the JAX package's plane-determinant formulas in chunks of 2048
+  triangles; the lowest index wins a tie.
 * :func:`finalize_hit_soa` — the nearest-hit record resolved into the
   shader's Hit fields (fragment.glsl:146-176); with the integrator's
   scatter and state update it forms the shade kernel's plain version.
@@ -18,11 +21,12 @@ Vec3 quantities travel as 3-tuples of (R,) columns, as in the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from opengl_raytracer_torch.ops import _kernels
 
 EPS = float(np.float32(1e-6))
 BIG = float(np.float32(1e30))
@@ -87,70 +91,141 @@ def slab_test(origin, inv_dir, box_min, box_max):
     return torch.where(hit, near.clamp_min(0.0), -1.0)
 
 
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """Float32 matmuls on the card in full float32, never TF32: TF32 keeps
-    about three decimal digits, which corrupts the barycentric accept and
-    reject decisions (``opengl_raytracer_tpu/ops/intersect.py:152-155``)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+def _dot3(a, b):
+    """``a . b`` for 3-tuples of broadcastable columns, one torch ``mul`` or
+    ``add`` a step in the kernels' order ``(a0 b0 + a1 b1) + a2 b2``: no
+    library call that a CUDA build could contract into an FMA."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def raycast_brute(scene, o3, d3, active=None, tri_chunk: int = 2048) -> Nearest:
-    """Nearest hit by a dense sweep over all triangles.
+def _cross3(a, b):
+    """``a x b`` for 3-tuples of columns, each component ``a_i b_j - a_j
+    b_i`` as two ``mul`` and one ``sub``."""
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
 
-    Matmul form: per triangle chunk, every per-(ray, triangle) quantity is
-    an ``(R, 3) @ (3, C)`` product:
+
+def pack_tri_records(v0, e1, e2, face) -> torch.Tensor:
+    """The (T, 12) float32 triangle records G7 and G8 read: v0, e1, e2 and
+    face a row, 48 bytes, three 16-byte loads."""
+    return torch.cat((v0, e1, e2, face), dim=1).contiguous()
+
+
+def unpack_tri_records(rec: torch.Tensor) -> tuple:
+    """(v0, e1, e2, face), each (T, 3), from :func:`pack_tri_records`'s
+    records, bit for bit."""
+    return tuple(rec[:, 3 * k:3 * k + 3].contiguous() for k in range(4))
+
+
+def tri_records(scene) -> torch.Tensor:
+    """``scene``'s triangle records, packed at the first call and kept in
+    ``scene.records`` (not at upload: a scene that never runs brute force
+    or the "bvh" walk carries none)."""
+    rec = scene.records.get("tris")
+    if rec is None:
+        rec = scene.records["tris"] = pack_tri_records(
+            scene.v0, scene.e1, scene.e2, scene.face)
+    return rec
+
+
+def _sweep_plain(scene, o3, d3, active=None, tri_chunk: int = 2048,
+                 counts: bool = False):
+    """Plain torch version of the sweep kernel (G8): the JAX package's
+    plane-determinant formulas over (R, C) arrays, C = ``tri_chunk``
+    triangles at a time,
 
         det = d . face
         t   = (v0.face - o.face) / det
         u   = -((o x d).e2 - d.(e2 x v0)) / det
         v   =  ((o x d).e1 - d.(e1 x v0)) / det
 
-    ``o3``/``d3`` are 3-tuples of (R,) columns and ``active`` an optional
-    (R,) bool mask whose False rays report ``t = BIG``.  A batch with no
-    active ray reports ``init_nearest``'s misses; the choice is made on the
-    device (no host sync), so a captured step can run the sweep."""
-    origin = torch.stack(tuple(o3), dim=1)
-    direction = torch.stack(tuple(d3), dim=1)
-    R = origin.shape[0]
-    near = init_nearest(R, origin.device)
+    each product written out as torch ``mul``/``add``/``sub`` in the
+    kernel's order, so the card computes the same bits.  The lowest index
+    wins a tie within a chunk (``argmin``) and a strict ``<`` across
+    chunks: the kernel's sequential strict ``<``.  A dead ray reports
+    ``init_nearest``'s miss.  With ``counts``, also a (2, R) int64 tensor
+    of each ray's pair tests and candidates (pairs with ``|det| >= EPS``
+    and ``EPS < t <`` the nearest valid t before it, whose u and v the
+    kernel computes)."""
+    o = tuple(x[:, None] for x in o3)
+    d = tuple(x[:, None] for x in d3)
+    R = o3[0].shape[0]
+    dev = o3[0].device
+    near = init_nearest(R, dev)
+    t_best, tri, u_best, v_best, _ = near
+    work = torch.zeros((2, R), dtype=torch.int64, device=dev) if counts \
+        else None
+    cod = _cross3(o, d)
     T = scene.v0.shape[0]
-    C = min(tri_chunk, T)
-    cross_od = torch.linalg.cross(origin, direction)
-    t_best, tri, u_best, v_best = near.t, near.tri, near.u, near.v
-    with _full_fp32_matmul():
-        for base in range(0, T, C):
-            v0, e1, e2, face = (x[base:base + C] for x in
-                                (scene.v0, scene.e1, scene.e2, scene.face))
-            d0 = (v0 * face).sum(dim=1)
-            q1 = torch.linalg.cross(e1, v0)
-            q2 = torch.linalg.cross(e2, v0)
-            det = direction @ face.T
-            inv_det = 1.0 / det
-            t = (d0[None, :] - origin @ face.T) * inv_det
-            u = -(cross_od @ e2.T - direction @ q2.T) * inv_det
-            v = (cross_od @ e1.T - direction @ q1.T) * inv_det
-            valid = ((det.abs() >= EPS) & (t > EPS) & (u >= 0.0) & (v >= 0.0)
-                     & ((u + v) <= 1.0))
-            ts = torch.where(valid, t, BIG)
-            arg = torch.argmin(ts, dim=1, keepdim=True)  # lowest index wins
-            bt = ts.gather(1, arg)[:, 0]
-            better = bt < t_best  # strict <, fragment.glsl:275
-            t_best = torch.where(better, bt, t_best)
-            tri = torch.where(better, (arg[:, 0] + base).to(torch.int32), tri)
-            u_best = torch.where(better, u.gather(1, arg)[:, 0], u_best)
-            v_best = torch.where(better, v.gather(1, arg)[:, 0], v_best)
+    for base in range(0, T, min(tri_chunk, T)):
+        v0, e1, e2, face = (tuple(x[base:base + tri_chunk, a][None, :]
+                                  for a in range(3)) for x in
+                            (scene.v0, scene.e1, scene.e2, scene.face))
+        d0 = _dot3(v0, face)
+        q1 = _cross3(e1, v0)
+        q2 = _cross3(e2, v0)
+        det = _dot3(d, face)
+        inv_det = 1.0 / det
+        t = (d0 - _dot3(o, face)) * inv_det
+        u = -(_dot3(cod, e2) - _dot3(d, q2)) * inv_det
+        v = (_dot3(cod, e1) - _dot3(d, q1)) * inv_det
+        near_t = (det.abs() >= EPS) & (t > EPS)
+        valid = near_t & (u >= 0.0) & (v >= 0.0) & ((u + v) <= 1.0)
+        ts = torch.where(valid, t, BIG)
+        if counts:
+            before = torch.cat((t_best[:, None], ts[:, :-1]), 1).cummin(1)[0]
+            work[0] += t.shape[1]
+            work[1] += (near_t & (t < before)).sum(1)
+        arg = torch.argmin(ts, dim=1, keepdim=True)  # lowest index wins
+        bt = ts.gather(1, arg)[:, 0]
+        better = bt < t_best  # strict <, fragment.glsl:275
+        t_best = torch.where(better, bt, t_best)
+        tri = torch.where(better, (arg[:, 0] + base).to(torch.int32), tri)
+        u_best = torch.where(better, u.gather(1, arg)[:, 0], u_best)
+        v_best = torch.where(better, v.gather(1, arg)[:, 0], v_best)
+    out = Nearest(t=t_best, tri=tri, u=u_best, v=v_best)
     if active is not None:
-        t_best = torch.where(active, t_best, BIG)
-        any_active = active.any()
-        tri, u_best, v_best = (torch.where(any_active, x, y) for x, y in (
-            (tri, near.tri), (u_best, near.u), (v_best, near.v)))
-    return Nearest(t=t_best, tri=tri, u=u_best, v=v_best)
+        out = Nearest(*(torch.where(active, x, y)
+                        for x, y in zip(out[:4], near[:4])))
+    if not counts:
+        return out
+    return out, work if active is None else torch.where(active, work, 0)
+
+
+def _sweep_cuda(scene, o3, d3, active=None) -> Nearest:
+    dev = o3[0].device
+    R = o3[0].shape[0]
+    req = _kernels.require
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz"), (*o3, *d3)):
+        req(x, name, torch.float32, dev, R)
+    if active is not None:
+        req(active, "active", torch.bool, dev, R)
+    T = scene.v0.shape[0]
+    tris = tri_records(scene)
+    req(tris, "triangle records", torch.float32, dev, T * 12)
+    out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)))
+    _kernels.launch(
+        "oglrt_brute_sweep", "brute_sweep", dev,
+        *(x.data_ptr() for x in (*o3, *d3)),
+        None if active is None else active.data_ptr(), tris.data_ptr(), T,
+        *(x.data_ptr() for x in out[:4]), R)
+    return out
+
+
+def raycast_brute(scene, o3, d3, active=None) -> Nearest:
+    """Nearest hit by a dense sweep over all triangles.  ``o3``/``d3`` are
+    3-tuples of (R,) columns and ``active`` an optional (R,) bool mask
+    whose False rays report a miss (``init_nearest``'s).  CUDA rays: one
+    launch of ``csrc/brute_sweep.cu`` (G8) over the scene's triangle
+    records; CPU rays: :func:`_sweep_plain`.  The two agree bit for bit on
+    the card."""
+    o3 = tuple(x.contiguous() for x in o3)
+    d3 = tuple(x.contiguous() for x in d3)
+    if o3[0].is_cuda:
+        return _sweep_cuda(scene, o3, d3, active)
+    return _sweep_plain(scene, o3, d3, active)
 
 
 class HitSoA(NamedTuple):

@@ -6,13 +6,14 @@ one node index through the DFS-preorder-with-miss-links layout
 (ops/bvh.py).  A node whose box the ray enters no farther than its
 current nearest hit is opened: a leaf's triangles are tested and the walk
 goes on to the node's miss link, an internal node steps to its first
-child.  A missed node jumps to its miss link.  It is plain torch, as the
-JAX version is XLA code outside any kernel.  On CUDA rays it is one
-launch of ``csrc/bvh_walk.cu`` (G7), one thread walking one ray to its
-end, so a tile step's CUDA graph holds it; on CPU rays it runs
-:func:`_walk_plain`, one step per loop iteration over the rays still
-walking, with one host check per step.  The two agree bit for bit on the
-card.
+child.  A missed node jumps to its miss link.  The JAX version is XLA
+code outside any kernel.  On CUDA rays the walk is one launch of
+``csrc/bvh_walk.cu`` (G7), one thread walking one ray to its end over the
+scene's node and triangle records (:func:`node_records`,
+``intersect.tri_records``), so a tile step's CUDA graph holds it; on CPU
+rays it runs :func:`_walk_plain`, one step per loop iteration over the
+rays still walking, with one host check per step.  The two agree bit for
+bit on the card.
 
 The JAX package's packet traversal (``raycast_packet``) is not ported: its
 ``[P, 128]`` shared node pointer answers XLA on the TPU.  The renderer
@@ -24,15 +25,18 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import _kernels
-from opengl_raytracer_torch.ops.intersect import (BIG, Nearest, init_nearest,
-                                                  mt_single, slab_test)
+from opengl_raytracer_torch.ops.intersect import (BIG, EPS, Nearest, _dot3,
+                                                  init_nearest, mt_single,
+                                                  slab_test, tri_records)
 
 
 def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
                 counts: bool = False):
     """Plain torch version of the walk kernel.  With ``counts``, also a
-    (2, R) int32 tensor of each ray's loop steps (node visits) and
-    triangle tests, the work the kernel does for the same ray."""
+    (3, R) int32 tensor of each ray's loop steps (node visits), triangle
+    tests, and candidates (tests with ``|det| >= EPS`` and ``EPS < t <``
+    the nearest hit, whose u and v the kernel computes): the work the
+    kernel does for a live ray."""
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
@@ -42,7 +46,7 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
     if active is not None:
         t = torch.where(active, t, -BIG)  # dead rays open no node
     node = torch.zeros(R, dtype=torch.int64, device=origin.device)
-    work = torch.zeros((2, R), dtype=torch.int32, device=origin.device)
+    work = torch.zeros((3, R), dtype=torch.int32, device=origin.device)
 
     while True:
         rays = torch.nonzero(node < N).squeeze(1)
@@ -72,9 +76,13 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
             for k in range(max_leaf_tris):
                 ok = k < cnt
                 idx = torch.where(ok, first + k, 0).long()
+                face = scene.face[idx].unbind(1)
                 valid, tk, uk, vk = mt_single(
                     o_l, d_l, scene.v0[idx].unbind(1), scene.e1[idx].unbind(1),
-                    scene.e2[idx].unbind(1), scene.face[idx].unbind(1))
+                    scene.e2[idx].unbind(1), face)
+                if counts:
+                    work[2, lr] += (ok & (_dot3(d_l, face).abs() >= EPS)
+                                    & (tk > EPS) & (tk < bt_l)).int()
                 upd = ok & valid & (tk < bt_l)  # strict <, fragment.glsl:275
                 bt_l = torch.where(upd, tk, bt_l)
                 tri_l = torch.where(upd, idx.to(torch.int32), tri_l)
@@ -90,6 +98,66 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
     return (near, work) if counts else near
 
 
+# A node record's last word packs first + 1 (a first of -1 fits) in its
+# low 21 bits and count in its high 11, as csrc/bvh_walk.cu decodes it; a
+# scene whose values do not fit gets 48-byte records with both words whole.
+_FIRST_BITS = 21
+_COUNT_BITS = 11
+
+
+def pack_node_records(node_min, node_max, node_miss, node_first,
+                      node_count) -> torch.Tensor:
+    """The binary BVH as the node records G7 reads, int32 words (floats by
+    their bits): (N, 8), 32 bytes a node, ``min.xyz, miss, max.xyz,
+    (first + 1) | count << 21``, or (N, 12), 48 bytes, ``min.xyz, miss,
+    max.xyz, first, count, 0, 0, 0`` when a first or a count does not fit
+    its bits.  Read with 16-byte loads; :func:`unpack_node_records` is the
+    inverse."""
+    lo = node_min.contiguous().view(torch.int32)
+    hi = node_max.contiguous().view(torch.int32)
+    miss = node_miss[:, None]
+    first1 = node_first.long() + 1
+    count = node_count.long()
+    fits = node_miss.numel() == 0 or bool(
+        (first1.min() >= 0) & (first1.max() < 1 << _FIRST_BITS)
+        & (count.min() >= 0) & (count.max() < 1 << _COUNT_BITS))
+    if fits:
+        word = first1 | (count << _FIRST_BITS)
+        word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+        tail = (word.to(torch.int32)[:, None],)
+    else:
+        tail = (node_first[:, None], node_count[:, None],
+                node_count.new_zeros((node_count.shape[0], 3)))
+    return torch.cat((lo, miss, hi, *tail), dim=1).contiguous()
+
+
+def unpack_node_records(rec: torch.Tensor) -> tuple:
+    """(node_min, node_max, node_miss, node_first, node_count) from
+    :func:`pack_node_records`'s records, bit for bit."""
+    node_min = rec[:, 0:3].contiguous().view(torch.float32)
+    node_max = rec[:, 4:7].contiguous().view(torch.float32)
+    miss = rec[:, 3].contiguous()
+    if rec.shape[1] == 12:
+        return node_min, node_max, miss, rec[:, 7].contiguous(), \
+            rec[:, 8].contiguous()
+    word = rec[:, 7].long() & 0xFFFFFFFF
+    first = ((word & ((1 << _FIRST_BITS) - 1)) - 1).to(torch.int32)
+    return node_min, node_max, miss, first, \
+        (word >> _FIRST_BITS).to(torch.int32)
+
+
+def node_records(scene) -> torch.Tensor:
+    """``scene``'s node records, packed at the first call and kept in
+    ``scene.records`` (not at upload: a scene that never runs the "bvh"
+    walk carries none)."""
+    rec = scene.records.get("nodes")
+    if rec is None:
+        rec = scene.records["nodes"] = pack_node_records(
+            scene.node_min, scene.node_max, scene.node_miss,
+            scene.node_first, scene.node_count)
+    return rec
+
+
 def _walk_cuda(scene, o3, d3, active=None, max_leaf_tris: int = 4):
     dev = o3[0].device
     R = o3[0].shape[0]
@@ -99,22 +167,19 @@ def _walk_cuda(scene, o3, d3, active=None, max_leaf_tris: int = 4):
     if active is not None:
         req(active, "active", torch.bool, dev, R)
     N = scene.node_miss.shape[0]
-    for name in ("node_min", "node_max"):
-        req(getattr(scene, name), name, torch.float32, dev, N * 3)
-    for name in ("node_miss", "node_first", "node_count"):
-        req(getattr(scene, name), name, torch.int32, dev, N)
-    T = scene.v0.shape[0]
-    for name in ("v0", "e1", "e2", "face"):
-        req(getattr(scene, name), name, torch.float32, dev, T * 3)
+    nodes, tris = node_records(scene), tri_records(scene)
+    if nodes.shape[1] not in (8, 12):
+        raise ValueError(f"node records of {nodes.shape[1]} words")
+    req(nodes, "node records", torch.int32, dev, N * nodes.shape[1])
+    req(tris, "triangle records", torch.float32, dev,
+        scene.v0.shape[0] * 12)
     out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32)))
     _kernels.launch(
         "oglrt_bvh_walk", "bvh_walk", dev, *(x.data_ptr() for x in (*o3, *d3)),
-        None if active is None else active.data_ptr(),
-        *(getattr(scene, k).data_ptr() for k in (
-            "node_min", "node_max", "node_miss", "node_first", "node_count")),
-        N, *(getattr(scene, k).data_ptr() for k in ("v0", "e1", "e2", "face")),
-        int(max_leaf_tris), *(x.data_ptr() for x in out[:4]), R)
+        None if active is None else active.data_ptr(), nodes.data_ptr(),
+        int(nodes.shape[1] == 12), N, tris.data_ptr(), int(max_leaf_tris),
+        *(x.data_ptr() for x in out[:4]), R)
     return out
 
 

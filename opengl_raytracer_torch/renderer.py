@@ -41,16 +41,18 @@ from opengl_raytracer_torch.ops.camera import Camera, make_camera
 from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.ops.front import ray_front
 from opengl_raytracer_torch.ops.integrator import trace
-from opengl_raytracer_torch.ops.intersect import raycast_brute
+from opengl_raytracer_torch.ops.intersect import raycast_brute, tri_records
 from opengl_raytracer_torch.ops.permute import SeedRecon
-from opengl_raytracer_torch.ops.traversal import raycast_bvh
+from opengl_raytracer_torch.ops.traversal import node_records, raycast_bvh
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 _PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
 _DEFAULT_CHUNK = 2 * 1024 * 1024
-# brute force's (R, 2048) intermediates and the BVH walk's per-ray state
-# bound their chunks, as in the JAX package (renderer.py:239-241)
+# on the CPU, the plain versions of brute force ((R, 2048) intermediates)
+# and of the BVH walk (per-ray loop state) bound their chunks, as in the
+# JAX package (renderer.py:239-241); their kernels keep a ray's state in
+# registers and take the default chunk
 _SMALL_CHUNK = 128 * 1024
 _BRUTE_MAX_TRIS = 128  # "auto" picks brute force up to this many triangles
 _MAX_LEAF = 1024  # larger leaves (build_bvh=False) only by brute force
@@ -84,10 +86,15 @@ def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
     traversal: "brute" (dense sweep), "bvh" (per-ray stackless walk),
     "pallas" and "packet" (both the wide-BVH kernel, K3) or "pallas2" (the
     sub-block kernel, K1).  ``max_leaf_tris`` must cover the scene's
-    largest leaf (:func:`effective_max_leaf`)."""
+    largest leaf (:func:`effective_max_leaf`).  "brute" and "bvh" pack the
+    scene's records here, once a scene (``SceneData.records``), so no step
+    packs them."""
     if traversal == "brute":
+        tri_records(scene)
         return lambda o3, d3, active=None: raycast_brute(scene, o3, d3, active)
     if traversal == "bvh":
+        tri_records(scene)
+        node_records(scene)
         return lambda o3, d3, active=None: raycast_bvh(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
     if traversal in ("pallas", "packet"):
@@ -175,19 +182,28 @@ def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
     return color
 
 
+def ray_chunk(config: RenderConfig, n_rays: int, traversal: str,
+              on_card: bool) -> int:
+    """The rays a chunk of a step of ``n_rays``: ``config.ray_chunk`` if
+    set, else up to 2M, or 128K for the plain versions of "brute" and
+    "bvh" on the CPU; rounded up to whole packets.  Neither of those two
+    reorders and a ray's seed comes from its index, so their frames do not
+    depend on the chunk."""
+    default = (_SMALL_CHUNK if traversal in ("brute", "bvh") and not on_card
+               else _DEFAULT_CHUNK)
+    chunk = min(config.ray_chunk or min(n_rays, default), n_rays)
+    return -(-chunk // _PACKET) * _PACKET
+
+
 def render_flat(scene: SceneData, config: RenderConfig, block, n_band: int,
                 tw: int, n_frames: int, raycast_fn, traversal: str):
     """Chunked render of a step's ``n_frames`` copies of a band of
     ``n_band`` pixels (``tw`` a row) -> 3 (R,) color columns, R = n_frames
-    * n_band.  Chunks of up to 2M rays for the kernels' traversals and 128K
-    for "brute" and "bvh" (or ``config.ray_chunk``) bound the per-ray
-    state; the last one is padded to whole packets.  One chunk's columns
-    are the restore's own; several are concatenated."""
+    * n_band, in chunks of :func:`ray_chunk` rays, the last one padded to
+    whole packets.  One chunk's columns are the restore's own; several are
+    concatenated."""
     R = n_frames * n_band
-    default = (_SMALL_CHUNK if traversal in ("brute", "bvh")
-               else _DEFAULT_CHUNK)
-    chunk = min(config.ray_chunk or min(R, default), R)
-    chunk = -(-chunk // _PACKET) * _PACKET
+    chunk = ray_chunk(config, R, traversal, block.is_cuda)
     n_chunks = -(-R // chunk)
     colors = [render_pixels(scene, config, block, c * chunk, chunk, R, n_band,
                             tw, raycast_fn, reorder=traversal in _REORDER)

@@ -9,10 +9,10 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1, K3, the probes and the glue kernels G1-G7 (ray
+agree bit for bit; K1, K3, the probes and the glue kernels G1-G8 (ray
 front, int32 sort keys, reorder and restore, K1's part epilogue, K3's
-prologue and epilogue, the band fold, the "bvh" walk) and the step
-block's write are held to that, the shade floats to ``rtol=1e-5,
+prologue and epilogue, the band fold, the "bvh" walk, the brute-force
+sweep) and the step block's write are held to that, the shade floats to ``rtol=1e-5,
 atol=1e-6`` as the CPU tests against the JAX package do, with seeds and
 alive flags exact.  The compiled step: replayed CUDA graphs equal the
 eager body bit for bit (every traversal name, remainder tiles,
@@ -35,7 +35,7 @@ from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
 from opengl_raytracer_torch.renderer import effective_max_leaf
 from opengl_raytracer_torch.utils.image import rmse
-from torch_states import recon_states
+from torch_states import box_objects, recon_states
 
 pytestmark = pytest.mark.cuda
 
@@ -785,6 +785,78 @@ def test_bvh_walk_kernel_matches_plain(cuda, masked):
     o3, d3, t0 = _rays(3001, cuda, seed=23)
     _face_plane_rays(data, o3, d3, t0)
     active = (t0 > -BIG) if masked else None
+    leaf = effective_max_leaf(data)
+    before = _kernels.launch_counts["bvh_walk"]
+    got = traversal.raycast_bvh(data, o3, d3, active, leaf)
+    assert _kernels.launch_counts["bvh_walk"] == before + 1
+    ref = traversal._walk_plain(data, o3, d3, active, leaf)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((got.t < BIG).sum()) > 1000
+
+
+def _edge_rays(data, o3, d3, first, n, seed):
+    """Rays ``first .. first + n - 1`` aimed at the midpoint of a random
+    triangle's first edge, which the quad's other triangle shares: hits
+    on u = 0 or v = 0 and ties at equal t."""
+    g = np.random.default_rng(seed)
+    k = torch.from_numpy(g.integers(0, data.num_tris, n)).to(data.device)
+    target = data.v0[k] + 0.5 * data.e1[k]
+    o = torch.stack([x[first:first + n] for x in o3], dim=1)
+    d = target - o
+    d = d / d.norm(dim=1, keepdim=True)
+    for a in range(3):
+        d3[a][first:first + n] = d[:, a]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("kind", ["box", "soup"])
+def test_brute_sweep_kernel_matches_plain(cuda, kind, masked):
+    """G8, the brute-force sweep, against its plain version bit for bit:
+    the box's 84 triangles (one partial tile) with rays aimed at shared
+    quad edges (ties), the soup's 400-odd (two tiles), axis-parallel rays,
+    rays in face planes of the scene's box and, masked, dead rays; an
+    all-dead batch misses everywhere."""
+    from opengl_raytracer_torch.ops import intersect
+
+    data = (Scene(box_objects()) if kind == "box"
+            else Scene(_objects(), max_leaf_tris=16)).send(cuda)
+    assert (data.num_tris <= 256) == (kind == "box")
+    o3, d3, t0 = _rays(3001, cuda, seed=29)
+    _face_plane_rays(data, o3, d3, t0)
+    _edge_rays(data, o3, d3, 6, 200, seed=30)
+    active = (t0 > -BIG) if masked else None
+    before = _kernels.launch_counts["brute_sweep"]
+    got = intersect.raycast_brute(data, o3, d3, active)
+    assert _kernels.launch_counts["brute_sweep"] == before + 1
+    ref = intersect._sweep_plain(data, o3, d3, active)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((got.t < BIG).sum()) > 1000
+    none = intersect.raycast_brute(data, o3, d3,
+                                   torch.zeros_like(t0, dtype=torch.bool))
+    assert _kernels.launch_counts["brute_sweep"] == before + 2
+    assert (none.t == BIG).all() and not none.tri.any()
+
+
+def test_bvh_walk_kernel_reads_wide_node_records(cuda):
+    """G7 over 48-byte node records (first and count whole, the form a
+    scene takes when they do not fit the 32-byte record's bits) equals its
+    plain version bit for bit; the records give the tables back."""
+    from opengl_raytracer_torch.ops import traversal
+
+    data = Scene(_objects(), max_leaf_tris=4).send(cuda)
+    narrow = traversal.node_records(data)
+    assert narrow.shape[1] == 8
+    wide_rec = torch.cat((narrow[:, :7], data.node_first[:, None],
+                          data.node_count[:, None],
+                          torch.zeros_like(narrow[:, :3])), 1).contiguous()
+    for a, b in zip(traversal.unpack_node_records(wide_rec),
+                    traversal.unpack_node_records(narrow)):
+        assert torch.equal(a, b)
+    data.records["nodes"] = wide_rec
+    o3, d3, t0 = _rays(3001, cuda, seed=31)
+    active = t0 > -BIG
     leaf = effective_max_leaf(data)
     before = _kernels.launch_counts["bvh_walk"]
     got = traversal.raycast_bvh(data, o3, d3, active, leaf)

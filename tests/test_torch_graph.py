@@ -246,8 +246,8 @@ def test_tile_step_folds_the_accum_it_is_given(scene):
 
 def test_bvh_walk_counts_its_work():
     """The plain walk's counts (the chip's bound for G7): one visit a loop
-    step of a live ray, the triangles of each entered leaf; a dead ray
-    follows the miss links and tests nothing."""
+    step of a live ray, the triangles of each entered leaf, the candidates
+    among them; a dead ray follows the miss links and tests nothing."""
     from opengl_raytracer_torch.ops import traversal
 
     _, tdata = _jax_scene(300)
@@ -263,13 +263,17 @@ def test_bvh_walk_counts_its_work():
         assert torch.equal(a, b)
     assert (work[0] > 0).all() and (work[1][~active] == 0).all()
     assert int(work[1][active].sum()) > 400
+    # a candidate (a test whose t would win) is a test; every hit's winner
+    # was one
+    assert (work[2] <= work[1]).all() and (work[2][near.t < BIG] >= 1).all()
 
 
 # ---------------------------------------------------------------- brute
 
 def test_brute_without_active_rays_reports_misses():
-    """The early exit is a device-side select: no active ray gives
-    init_nearest's misses, and one active ray the sweep's hits."""
+    """A dead ray skips the sweep and reports init_nearest's miss, as the
+    sweep kernel does: no active ray gives misses everywhere, and one
+    active ray the sweep's hit for that ray and misses for the rest."""
     _, tdata = _jax_scene(300)
     o, d = _rays(256, seed=3)
     o3 = tuple(torch.from_numpy(x.copy()) for x in o)
@@ -281,5 +285,9 @@ def test_brute_without_active_rays_reports_misses():
     one = torch.zeros(256, dtype=torch.bool)
     one[5] = True
     some = raycast_brute(tdata, o3, d3, one)
-    assert torch.equal(some.t[5], everyone.t[5])
-    assert torch.equal(some.tri, everyone.tri)
+    assert everyone.t[5] < BIG
+    for a, b in zip(some[:4], everyone[:4]):
+        assert torch.equal(a[5], b[5])
+    assert torch.equal(some.t[~one], none.t[~one])
+    for a in some[1:4]:
+        assert not a[~one].any()

@@ -12,6 +12,7 @@ bit-identical.
 """
 
 import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -27,8 +28,9 @@ from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
 from opengl_raytracer_torch import Rect, RenderConfig, Renderer, Scene
 from opengl_raytracer_torch import make_camera
-from opengl_raytracer_torch.ops import (_kernels, fold, front, morton,
-                                        permute, shade, step_block)
+from opengl_raytracer_torch.ops import (_kernels, fold, front, intersect,
+                                        morton, permute, shade, step_block,
+                                        traversal)
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
@@ -340,6 +342,16 @@ def _launch(kernel, device, odd_one=None):
             t("table", (4, 24)), t("index", R, torch.int32), near, o3, d3,
             o3, d3, t("alive", R, torch.bool), t("seed", R, torch.int64),
             block)
+    if kernel in ("brute_sweep", "bvh_walk"):
+        # the records as the first use packs them (intersect.tri_records,
+        # traversal.node_records)
+        scene = types.SimpleNamespace(
+            v0=t("v0", (8, 3)), node_miss=t("node_miss", 3, torch.int32),
+            records={"tris": t("tris", (8, 12)),
+                     "nodes": t("nodes", (3, 8), torch.int32)})
+        if kernel == "brute_sweep":
+            return intersect._sweep_cuda(scene, o3, d3)
+        return traversal._walk_cuda(scene, o3, d3, None, 4)
     t0 = t("t0", R).fill_(BIG)
     overflow = t("overflow", 1, torch.int32)
     if kernel == "subblock_traversal":
@@ -362,7 +374,9 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
                   "wide_prologue": "oglrt_wide_prologue",
                   "wide_epilogue": "oglrt_wide_epilogue",
                   "band_fold": "oglrt_band_fold",
-                  "step_block": "oglrt_write_block"}
+                  "step_block": "oglrt_write_block",
+                  "brute_sweep": "oglrt_brute_sweep",
+                  "bvh_walk": "oglrt_bvh_walk"}
 # kernels a call of the symbol launches, where it is not one: the reorder's
 # index pass and gather
 KERNELS_A_CALL = {"reorder": 2}
@@ -392,7 +406,8 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     ("subblock_epilogue", "slot"), ("subblock_epilogue", "active"),
     ("wide_prologue", "active"), ("wide_epilogue", "slot"),
     ("wide_epilogue", "remap"), ("band_fold", "accum"),
-    ("band_fold", "c1")])
+    ("band_fold", "c1"), ("brute_sweep", "tris"), ("bvh_walk", "nodes"),
+    ("bvh_walk", "tris")])
 def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
     """Each wrapper takes its device from one tensor (``t0``, ``seed``,
     ``ox``, ``keys``, ``orig``, K1's or K3's ``t``, or the step block) or

@@ -6,9 +6,10 @@
 * K3's plain torch version (``raycast_pallas``) against the JAX
   ``raycast_pallas`` in interpret mode, with axis-parallel rays whose
   origins lie on slab planes;
-* ``raycast_brute`` against the JAX ``raycast_brute`` and against the
-  scalar oracle of tests/oracle.py, and ``raycast_bvh`` against the JAX
-  ``raycast_bvh``;
+* ``raycast_brute`` (the sweep's plain version, ``_sweep_plain``) against
+  the JAX ``raycast_brute`` and against the scalar oracle of
+  tests/oracle.py, and ``raycast_bvh`` against the JAX ``raycast_bvh``;
+  the records G7 and G8 read give the tables back bit for bit;
 * K1's Hopper tables (``SceneData.k1_parts``, ops/wide2.pack_k1): they
   decode back to the ``p2_*`` rows bit for bit, the JAX scene's carry
   over to the same tables as the port's own, and a scalar NumPy walk over
@@ -51,12 +52,16 @@ from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
 from opengl_raytracer_torch.models import scene as scene_mod
 from opengl_raytracer_torch.ops import pallas_traversal
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
-from opengl_raytracer_torch.ops.intersect import BIG, raycast_brute
+from opengl_raytracer_torch.ops.intersect import (BIG, _sweep_plain,
+                                                  raycast_brute, tri_records,
+                                                  unpack_tri_records)
 from opengl_raytracer_torch.ops.subblock_traversal import (overflow_tensor,
                                                            raycast_subblock)
-from opengl_raytracer_torch.ops.traversal import raycast_bvh
+from opengl_raytracer_torch.ops.traversal import (node_records, raycast_bvh,
+                                                  unpack_node_records)
 from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, pack_k1, unpack_k1
 from test_torch_scene import jax_native  # noqa: F401 (autouse)
+from torch_states import box_objects
 
 
 def _fields(data):
@@ -290,6 +295,114 @@ def test_bvh_matches_jax_bvh():
     got = raycast_bvh(tdata, _cols(o), _cols(d), torch.from_numpy(active),
                       max_leaf_tris=_leaf(jdata))
     assert _check(jdata, ref, got, o, d, active) == 0
+
+
+@pytest.mark.parametrize("tri_chunk", [2048, 1024])
+def test_sweep_plain_matches_jax_brute(tri_chunk):
+    """The sweep kernel's plain version (written-out mul/add/sub, no
+    matmul) against the JAX matmul sweep over 3 and 5 triangle chunks,
+    with an active mask; a dead ray reports init_nearest's miss, an
+    all-dead batch misses everywhere; its counts: every live pair tested,
+    a candidate (whose u and v the kernel computes) at least every winner
+    and at most every pair."""
+    jdata, tdata = _jax_scene(5000)
+    T = tdata.num_tris
+    assert -(-T // tri_chunk) >= 3
+    R = 512
+    o, d = _rays(R, seed=11)
+    active = np.random.default_rng(12).uniform(size=R) < 0.8
+    ref = j_brute(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
+                  jnp.asarray(active))
+    got, work = _sweep_plain(tdata, _cols(o), _cols(d),
+                             torch.from_numpy(active), tri_chunk, counts=True)
+    _check(jdata, ref, got, o, d, active)
+    dead = torch.from_numpy(~active)
+    assert not got.tri[dead].any() and not got.u[dead].any()
+    assert not got.v[dead].any()
+    live = torch.from_numpy(active)
+    assert (work[0][live] == T).all() and not work[:, dead].any()
+    hit = got.t < BIG
+    assert (work[1][hit] >= 1).all() and (work[1] <= work[0]).all()
+    same = _sweep_plain(tdata, _cols(o), _cols(d), torch.from_numpy(active),
+                        2048)
+    for a, b in zip(got[:4], same[:4]):
+        assert torch.equal(a, b)  # the chunk does not change the result
+    none = _sweep_plain(tdata, _cols(o), _cols(d), torch.zeros(R, dtype=bool),
+                        tri_chunk)
+    assert (none.t == BIG).all() and not none.tri.any()
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind,width", [("box", 8), ("soup", 8),
+                                        ("no_bvh", 12)])
+def test_records_round_trip(kind, width):
+    """G7's node records and the triangle records of G7 and G8 give the
+    scene's tables back bit for bit: the box, a triangle soup, and a
+    build_bvh=False scene, whose one leaf of 2,112 triangles does not fit
+    the 32-byte record's 11-bit count and takes the 48-byte one."""
+    g = np.random.default_rng(3)
+    objs = {"box": box_objects,
+            "soup": lambda: [Triangles(g.uniform(-3, 3, (500, 3, 3))
+                                       .astype(np.float32))],
+            "no_bvh": lambda: [Triangles(g.uniform(-3, 3, (2100, 3, 3))
+                                         .astype(np.float32)),
+                               Rect([1, 1, 1], [0, 0, 0], [0, 0, 0],
+                                    [1, 1, 1])]}[kind]()
+    scene = Scene(objs, build_bvh=kind != "no_bvh")
+    data = scene.send("cpu")
+    if kind == "box":
+        assert scene.total_triangles == 84
+    assert not data.records
+    nodes, tris = node_records(data), tri_records(data)
+    assert node_records(data) is nodes and tri_records(data) is tris
+    assert nodes.dtype == torch.int32 and nodes.shape == (
+        data.node_miss.shape[0], width)
+    assert tris.shape == (data.num_tris, 12)
+    names = ("node_min", "node_max", "node_miss", "node_first", "node_count")
+    for name, x in zip(names, unpack_node_records(nodes)):
+        ref = getattr(data, name)
+        assert x.dtype == ref.dtype and x.shape == ref.shape, name
+        assert torch.equal(_bits(x), _bits(ref)), name
+    for name, x in zip(("v0", "e1", "e2", "face"), unpack_tri_records(tris)):
+        assert torch.equal(_bits(x), _bits(getattr(data, name))), name
+
+
+@pytest.mark.parametrize("traversal", ["brute", "bvh"])
+def test_small_scene_frames_do_not_depend_on_the_chunk(traversal,
+                                                       monkeypatch):
+    """On the card "brute" and "bvh" take the kernels' 2M-ray chunk, so a
+    1080p step is one chunk; on the CPU their plain versions take 128K.  A
+    frame of the box is bit-equal in one chunk of all its rays and in the
+    CPU's small chunks (the 128K bound cut to 512 here, so a small frame
+    spans four, the last one padded): neither path reorders, and a ray's
+    seed comes from its index."""
+    from opengl_raytracer_torch import RenderConfig, Renderer, make_camera
+    from opengl_raytracer_torch import renderer
+
+    hd = 1920 * 1080
+    cfg = RenderConfig(traversal=traversal)
+    assert renderer.ray_chunk(cfg, hd, traversal, True) == hd
+    assert renderer.ray_chunk(cfg, hd, traversal, False) == 128 * 1024
+    assert renderer.ray_chunk(cfg, hd, "pallas2", False) == hd
+    assert renderer.ray_chunk(RenderConfig(ray_chunk=1000), hd, traversal,
+                              True) == 1024
+
+    W, H = 48, 40  # R = 1,920 = 3 x 512 + 384
+    images = []
+    for chunk in (W * H, None):
+        monkeypatch.setattr(renderer, "_SMALL_CHUNK", 512)
+        r = Renderer(Scene(box_objects()), RenderConfig(
+            width=W, height=H, bounces=4, traversal=traversal,
+            ray_chunk=chunk), device="cpu")
+        assert r.traversal == traversal
+        cam = make_camera(np.array([0, 0, 20], np.float32), (180.0, 0.0))
+        images.append(r.image(r.render(cam, frames=1)))
+    assert float(images[0].mean()) > 0.01
+    np.testing.assert_array_equal(images[0].view(np.int32),
+                                  images[1].view(np.int32))
 
 
 def test_k3_face_plane_rays_follow_per_ray_slab_test():

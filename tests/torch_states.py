@@ -1,12 +1,37 @@
-"""Shared states for the port's seed-reconstruction tests: the CPU tests
-of G3's plain version (tests/test_torch_glue.py) and the CUDA tests of
-its kernel (tests/test_torch_cuda.py) build them alike.  Imports torch
-and the port only, as the CUDA tests run where JAX is absent."""
+"""Inputs shared by the port's CPU tests and the CUDA tests of its
+kernels (tests/test_torch_cuda.py), which build them alike: the states of
+the seed-reconstruction tests (G3's plain version in
+tests/test_torch_glue.py) and the reference's box (the small-scene
+traversals in tests/test_torch_traversal.py).  Imports torch and the port
+only, as the CUDA tests run where JAX is absent."""
 
 import numpy as np
 import torch
 
+from opengl_raytracer_torch import Rect
 from opengl_raytracer_torch.ops.camera import make_camera
+
+
+def box_objects():
+    """The reference's default scene without its two meshes
+    (opengl_raytracer_tpu/presets.py:25-46): 7 boxes, 84 triangles, which
+    "auto" renders by brute force."""
+    return [
+        Rect([8, 5, 0.1], [0, 0, 30], [0, 0, 0], [1, 0.25, 0.3],
+             roughness=1, scale=10),
+        Rect([8, 5, 0.1], [0, 0, -30], [0, 0, 0], [0.3, 0.25, 1],
+             roughness=1, scale=10),
+        Rect([8, 6, 0.1], [0, -25, 0], [90, 0, 0], [0.25, 1, 0.3],
+             roughness=1, scale=10),
+        Rect([6, 8, 0.1], [25, 0, 0], [0, 90, 0], [0.9, 0.9, 0.9],
+             roughness=0, scale=10),
+        Rect([8, 6, 0.1], [0, 25, 0], [90, 0, 0], [1, 1, 1],
+             roughness=1, scale=10),
+        Rect([5, 5, 0.25], [0, 23.9, 0], [-90, 0, 0], [0, 0, 0],
+             [1, 1, 1], 1.5, scale=5),
+        Rect([6, 8, 0.1], [-35, 0, 0], [0, 90, 0], [0.9, 0.9, 0.9],
+             roughness=1, scale=10),
+    ]
 
 
 def recon_states(device, frame, F=2, tw=20, rows=12, chunk=256, W=64, H=48,
