@@ -35,7 +35,9 @@ Phases; each raises on failure, and the script then exits non-zero:
    (``csrc/ray_front.cu``, each ray's pixel and frame number from its
    index and the step block's window), on a quarter of the 1080p frame's
    rows with frames_per_step = 4 from frame 2^32 - 2 (the frame numbers
-   wrap), and on the whole frame at frame 2^32 - 1; G2, the int32 sort keys
+   wrap), and on the whole frame at frame 2^32 - 1, also in the "packet"
+   traversal's 8x16 block order at frames_per_step 1 and 2; G2, the int32
+   sort keys
    (``csrc/sort_keys.cu``), on phase 3's ray sets and on its random rays
    with out-of-box origins, NaN and +-inf in their columns (and the
    stable argsort of the int32 keys equals that of the uint32 keys, each
@@ -68,7 +70,8 @@ Phases; each raises on failure, and the script then exits non-zero:
    on K3's own output for phase 3's sets; G6, the band fold
    (``csrc/band_fold.cu``), on the whole 1080p frame as one band at frame
    2^32 - 2 and on three tiles of tile_size 7 (remainders on both axes)
-   with frames_per_step 2, into the buffer the step block names; and the
+   with frames_per_step 2, into the buffer the step block names, and on
+   the whole frame in 8x16 block order at frames_per_step 1 and 2; and the
    step block's write (``csrc/step_block.cu``) against a copy of the same
    words; G7, the "bvh" walk (``csrc/bvh_walk.cu``, over the scene's node
    and triangle records), on phase 3's kind of rays over the 84-triangle
@@ -76,8 +79,17 @@ Phases; each raises on failure, and the script then exits non-zero:
    triangle tests and candidates; G8, the brute-force sweep
    (``csrc/brute_sweep.cu``), on the same kind of rays over the box, with
    the pairs and candidates a live ray and the time of the matmul sweep it
-   replaced (``matmul_sweep``, kept here only as that yardstick).  Each
-   prints ms per launch, the plain version's, its bound and the share.
+   replaced (``matmul_sweep``, kept here only as that yardstick); G9, the
+   packet walk (``csrc/packet_walk.cu``, over G7's records), on the same
+   kind of rays over the box and over standin-31k and on the five bounce
+   segments of one 1080p "packet" frame of standin-31k (captured after
+   the reorder as phase 3 captures K1's), with a packet's node visits and
+   slot tests against the union of what its live rays visit and test
+   alone (the per-ray walk stepped in ``_packet_union``), and the waste:
+   the lanes' visits and tests over the live rays' own.  Each prints ms
+   per launch, the plain version's, its bound and the share; G9's bound
+   is the live rays' own per-ray work, priced as G7's is, with the lanes'
+   (``lane_bound_ms``) beside it.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
    the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
@@ -154,12 +166,20 @@ Phases; each raises on failure, and the script then exits non-zero:
    may differ), and the 96x54 card-vs-CPU check.
 7. small paths: the reference's 84-triangle box without its meshes, at
    96x54 with 4 bounces, on the card and on the CPU, for "auto" (which
-   resolves to brute force, G8), "bvh" (G7) and "packet" (K3), each step a
+   resolves to brute force, G8), "bvh" (G7) and "packet" (G9 5 a frame, no
+   K3 or G5), each step a
    graph replay; then 1920x1080 / 4 bounces, 1 warm-up and 8 timed
    replayed frames each, of the box under "auto" (G8 5 a frame) and "bvh"
    (G7 5 a frame) and of standin-31k under "bvh": ms/frame and the
    launches (K2 5 a frame, G1, G6 and the block write 1, no G2, G3, K1 or
    K3).
+7b. packet: ``traversal="packet"`` (G9 + K2, the rays in 8x16 pixel
+   blocks) at 1920x1080 / 4 bounces on standin-31k and on standin-1.96m,
+   1 warm-up and 8 timed replayed frames each: ms/frame, G9 and K2 5 a
+   frame, the reorder's glue, no K1, K3 or G5; standin-31k's image
+   against phase 5's (rmse <= 1e-3); two replayed frames against the
+   eager body bit for bit; 96x54 (not blocked) and 96x48 (blocked) frames
+   on the card and the CPU.
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
    triangles, 4 sub-block parts), 1 warm-up and 4 1080p frames, each
    timed alone (its own device sync).
@@ -191,12 +211,13 @@ Phases; each raises on failure, and the script then exits non-zero:
    the CPU.
 11. profile: ``torch.profiler`` (card activity only) over 4 more 1080p
    frames of phase 5's scene and of phase 4c's under "auto", of phase 7's
-   box under "auto" and of standin-31k under "bvh" (the replays' kernels
-   if the profiler sees inside a graph, else the eager body's; it says
-   which): device ms and launches per frame by kernel group (K1, K3, K2,
-   G1-G8 each, G3's reorder as its index pass and its gather, the block
-   write, sorts, gathers and scatters, other torch kernels, copies), and
-   the device's busy share and idle share of each path's unprofiled
+   box under "auto" and of standin-31k under "bvh" and "packet" (the
+   replays' kernels if the profiler sees inside a graph, else the eager
+   body's; it says which): device ms and launches per frame by kernel
+   group (K1, K3, K2, G1-G9 each, G3's reorder as its index pass and its
+   gather, the block write, sorts, gathers and scatters, other torch
+   kernels, copies), and the device's busy share and idle share of each
+   path's unprofiled
    ms/frame.  It runs last: the profiler slows the host's launches for
    the rest of the process.
 11c. cadence_profile: phase 11's group split for phase 5c's three paths
@@ -208,7 +229,7 @@ Each phase prints its seconds; every render path must launch no probe
 kernel.  The line before the last is a JSON object with each kernel's
 launches in the 1080p path that runs it (phase 5 for K1, K2, G1-G6 and
 the block write, phase 6 for K3, and K3's and G5's in phase 4c, phase
-7's box frames for G7 and G8), its
+7's box frames for G7 and G8, phase 7b's standin-31k frames for G9), its
 largest disagreement with its
 plain version, both times at 2,073,600 rays, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and the fp32 operations this run's
@@ -308,9 +329,15 @@ KERNELS = {
     "brute_sweep": dict(
         source="opengl_raytracer_torch/csrc/brute_sweep.cu",
         replaces="opengl_raytracer_tpu/ops/intersect.py:120"),
+    # the "packet" traversal (G9), an XLA while loop over [P, 128] arrays
+    # in the JAX package
+    "packet_walk": dict(
+        source="opengl_raytracer_torch/csrc/packet_walk.cu",
+        replaces="opengl_raytracer_tpu/ops/traversal.py:121"),
 }
 GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue",
-        "wide_epilogue", "band_fold", "step_block", "bvh_walk", "brute_sweep")
+        "wide_epilogue", "band_fold", "step_block", "bvh_walk", "brute_sweep",
+        "packet_walk")
 GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
 # phase 5c: the reorder cadences (RenderConfig.sort_every) held to cadence
 # 1 bit for bit, and those timed in turns (each twice, CADENCE_FRAMES a run)
@@ -462,9 +489,9 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     calls, each call two launches (index pass and gather), and one
     restore; after K1, one epilogue per
     part and bounce segment; G5's entry t before each K1 or K3 segment and
-    its epilogue after each K3 one; one fold a step; and ``blocks`` block
-    writes (default: one a step; on a mesh, one a shard and the home
-    block's)."""
+    its epilogue after each K3 one; G7, G8 or G9 a segment of "bvh",
+    "brute" or "packet"; one fold a step; and ``blocks`` block writes
+    (default: one a step; on a mesh, one a shard and the home block's)."""
     steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
     sorts = sorts_a_raytrace(n_bounces, sort_every) * renders if reorder \
@@ -475,7 +502,7 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     check_count(counts, "restore", renders if reorder else 0)
     check_count(counts, "subblock_epilogue",
                 parts * n_bounces * renders if traversal == "pallas2" else 0)
-    g5 = {"pallas2": 1, "pallas": 2, "packet": 2}.get(traversal, 0)
+    g5 = {"pallas2": 1, "pallas": 2}.get(traversal, 0)
     check_count(counts, "wide_epilogue", g5 * n_bounces * renders)
     check_count(counts, "band_fold", steps)
     check_count(counts, "step_block", steps if blocks is None else blocks)
@@ -483,6 +510,8 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                 n_bounces * renders if traversal == "bvh" else 0)
     check_count(counts, "brute_sweep",
                 n_bounces * renders if traversal == "brute" else 0)
+    check_count(counts, "packet_walk",
+                n_bounces * renders if traversal == "packet" else 0)
 
 
 def check_probes(counts: dict) -> None:
@@ -636,7 +665,8 @@ def build_phase() -> None:
                 raise RuntimeError(f"{tag.upper()} spills or keeps a stack "
                                    f"frame of 64 bytes or more: {props}")
     for tag, unit, kernel in (("g7", "bvh_walk.cu", "bvh_walk_kernel"),
-                              ("g8", "brute_sweep.cu", "brute_sweep_kernel")):
+                              ("g8", "brute_sweep.cu", "brute_sweep_kernel"),
+                              ("g9", "packet_walk.cu", "packet_walk_kernel")):
         for props in ptxas_entries(_kernels.build_log, unit, kernel):
             say("ptxas", **{tag: props})
     for tag, log in (("index_pass_i64", _kernels.build_log),
@@ -1097,9 +1127,11 @@ def _assert_equal(name, got, ref, bits: bool = False) -> float:
                 for a, b in zip(g, r) if a.numel()), default=0.0)
 
 
-def glue_phase(data, camera, sets, seed: int):
-    """G1-G4 against their plain versions on the card at 2,073,600 rays,
+def glue_phase(data, camera, sets, seed: int, packet_segments):
+    """G1-G9 against their plain versions on the card at 2,073,600 rays,
     bit for bit; their ms per launch, the plain versions' and the bound.
+    ``packet_segments``: the five bounce segments of a 1080p "packet"
+    frame of standin-31k, for G9.
     Returns ({counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))},
     {counter: more keys of its row in the kernels line})."""
     from opengl_raytracer_torch.ops import front, morton, permute
@@ -1121,13 +1153,27 @@ def glue_phase(data, camera, sets, seed: int):
         args = (*args, WIDTH, HEIGHT, None)
         err = max(err, _assert_equal("G1", front.ray_front(*args),
                                      front.ray_front_plain(*args)))
+    # and in the "packet" traversal's 8x16 block order: the whole frame,
+    # once and as frames_per_step 2
+    err_blocks = 0.0
+    for F in (2, 1):
+        args = (whole, 0, F * N_RAYS, F * N_RAYS, N_RAYS, WIDTH, WIDTH,
+                HEIGHT, None, True)
+        err_blocks = max(err_blocks, _assert_equal(
+            f"G1 blocks F={F}", front.ray_front(*args),
+            front.ray_front_plain(*args)))
+    ms_blocks = min(cuda_ms(lambda: front.ray_front(*args), 20)
+                    for _ in range(2))
     args = (*g1[0], WIDTH, HEIGHT, None)
     ms, plain_ms = time_pair(lambda: front.ray_front(*args),
                              lambda: front.ray_front_plain(*args), 20, 3)
-    out["ray_front"] = _glue_row("ray_front", err, ms, plain_ms,
-                                 N_RAYS * G1_BYTES_PER_RAY,
+    extras["ray_front"] = dict(blocks_max_abs_err=err_blocks,
+                               blocks_ms=ms_blocks)
+    out["ray_front"] = _glue_row("ray_front", max(err, err_blocks), ms,
+                                 plain_ms, N_RAYS * G1_BYTES_PER_RAY,
                                  N_RAYS * G1_OPS_PER_RAY, frames_per_step=4,
-                                 first_frame=2**32 - 2)
+                                 first_frame=2**32 - 2,
+                                 **extras["ray_front"])
 
     # G2: phase 3's ray sets; the random one also with out-of-box
     # origins, NaN and +-inf in its columns
@@ -1259,6 +1305,8 @@ def glue_phase(data, camera, sets, seed: int):
     out["step_block"], extras["step_block"] = _block_rows(dev, camera)
     out["bvh_walk"], extras["bvh_walk"] = _g7_rows(camera, seed, data)
     out["brute_sweep"], extras["brute_sweep"] = _g8_rows(camera, seed)
+    out["packet_walk"], extras["packet_walk"] = _g9_rows(camera, seed, data,
+                                                         packet_segments)
     launched = {k: v - before[k] for k, v in _kernels_counts().items()}
     if any(launched[k] == 0 for k in out):
         raise RuntimeError(f"glue kernels launched {launched}")
@@ -1321,9 +1369,11 @@ def _g5_rows(data, sets):
 
 def _g6_rows(dev, camera, seed):
     """G6, the band fold, against its plain version bit for bit: the whole
-    1080p frame as one band (the main path's) at frame 2^32 - 2, and three
+    1080p frame as one band (the main path's) at frame 2^32 - 2, three
     tiles of tile_size 7 (remainders along both axes) with
-    frames_per_step 2 at frame 2^24 + 1; timed on the whole frame."""
+    frames_per_step 2 at frame 2^24 + 1, and the whole frame in the
+    "packet" traversal's 8x16 block order at frames_per_step 1 and 2;
+    timed on the whole frame, row-major and in blocks."""
     from opengl_raytracer_torch import RenderConfig
     from opengl_raytracer_torch.ops import fold, step_block
     from opengl_raytracer_torch.renderer import step_words
@@ -1352,6 +1402,24 @@ def _g6_rows(dev, camera, seed):
             fold.fold_plain(ref, cols, bp, tw, th, F, F)
         err = max(err, _assert_equal(f"G6 tile_size={cfg.tile_size}", got,
                                      ref, bits=True))
+    # the "packet" traversal's 8x16 block order: the whole 1080p frame at
+    # frames_per_step 1 and 2
+    err_blocks = 0.0
+    for F in (1, 2):
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, frames_per_step=F,
+                           traversal="packet")
+        got, ref = start.clone(), start.clone()
+        cols = tuple(torch.from_numpy(g.uniform(0, 3, F * N_RAYS)
+                                      .astype(np.float32)).to(dev)
+                     for _ in range(3))
+        bk, bp = step_block.new(dev), step_block.new(dev)
+        for b, acc in ((bk, got), (bp, ref)):
+            step_block.write_plain(b, step_words(cfg, 2**32 - 2, 0, 0, camera,
+                                                 1.0, 0.0, True, acc))
+        fold.fold_band(got, cols, bk, WIDTH, HEIGHT, F, F, blocks=True)
+        fold.fold_plain(ref, cols, bp, WIDTH, HEIGHT, F, F, blocks=True)
+        err_blocks = max(err_blocks, _assert_equal(
+            f"G6 blocks F={F}", got, ref, bits=True))
     cfg = cases[0][0]
     cols = tuple(torch.rand(N_RAYS, device=dev) for _ in range(3))
     acc_k, acc_p = start.clone(), start.clone()
@@ -1364,9 +1432,13 @@ def _g6_rows(dev, camera, seed):
         lambda: fold.fold_band(acc_k, cols, blocks[0], WIDTH, HEIGHT, 1, 1),
         lambda: fold.fold_plain(acc_p, cols, blocks[1], WIDTH, HEIGHT, 1, 1),
         20, 3)
-    return _glue_row("band_fold", err, ms, plain_ms,
+    ms_blocks = min(cuda_ms(lambda: fold.fold_band(
+        acc_k, cols, blocks[0], WIDTH, HEIGHT, 1, 1, blocks=True), 20)
+        for _ in range(2))
+    extra = dict(blocks_max_abs_err=err_blocks, blocks_ms=ms_blocks)
+    return _glue_row("band_fold", max(err, err_blocks), ms, plain_ms,
                      N_RAYS * G6_BYTES_PER_PIXEL, N_RAYS * G6_OPS_PER_PIXEL,
-                     set="1080p band, 1 frame"), {}
+                     set="1080p band, 1 frame", **extra), extra
 
 
 def demo_box(device):
@@ -1537,6 +1609,180 @@ def _g8_rows(camera, seed):
                  matmul_sweep_hit_set_agreement=hits_agree)
     row = _glue_row("brute_sweep", err, ms, plain_ms, n_bytes, ops, hit=hit,
                     gop=ops / 1e9, **extra)
+    return row, extra
+
+
+def _packet_union(scene, o3, d3, active, leaf):
+    """What the live rays' own per-ray walks do, and what a packet's live
+    rays need between them.  The per-ray walk is stepped here as
+    ``traversal._walk_plain`` steps it, recording the node each live ray
+    visits at each step and whether it opens a leaf there, and is held to
+    ``_walk_plain``: the same nearest t and node visits for every live
+    ray.  Returns, summed over the live rays, ``_walk_plain``'s counts of
+    their own node visits, triangle tests and candidates (the work G7's
+    row prices), and, summed over the 128-ray packets, the nodes that at
+    least one of a packet's live rays visits and the leaf slots of the
+    leaves at least one of them opens."""
+    from opengl_raytracer_torch.ops import traversal
+    from opengl_raytracer_torch.ops.intersect import BIG, mt_single, slab_test
+
+    ref, work = traversal._walk_plain(scene, o3, d3, active, leaf,
+                                      counts=True)
+    origin = torch.stack(tuple(o3), dim=1)
+    direction = torch.stack(tuple(d3), dim=1)
+    inv = 1.0 / direction
+    R = origin.shape[0]
+    N = scene.node_miss.shape[0]
+    t = torch.full((R,), BIG, dtype=torch.float32, device=origin.device)
+    node = torch.where(active, 0, N).long()  # dead rays walk nothing
+    visits = torch.zeros(R, dtype=torch.int32, device=origin.device)
+    keys, leaves = [], []
+    while True:
+        rays = torch.nonzero(node < N).squeeze(1)
+        if rays.numel() == 0:
+            break
+        nidx = node[rays]
+        visits[rays] += 1
+        t_near = slab_test(origin[rays], inv[rays], scene.node_min[nidx],
+                           scene.node_max[nidx])
+        box_hit = (t_near >= 0.0) & (t_near <= t[rays])
+        is_leaf = scene.node_count[nidx] > 0
+        key = rays // traversal.PACKET * N + nidx
+        keys.append(key)
+        opens = box_hit & is_leaf
+        leaves.append(key[opens])
+        lr, ln = rays[opens], nidx[opens]
+        o_l, d_l = origin[lr].unbind(1), direction[lr].unbind(1)
+        for k in range(leaf if lr.numel() else 0):
+            ok = k < scene.node_count[ln]
+            idx = torch.where(ok, scene.node_first[ln] + k, 0).long()
+            valid, tk, _, _ = mt_single(o_l, d_l, *(
+                tab[idx].unbind(1)
+                for tab in (scene.v0, scene.e1, scene.e2, scene.face)))
+            bt = t[lr]
+            t[lr] = torch.where(ok & valid & (tk < bt), tk, bt)
+        node[rays] = torch.where(box_hit & ~is_leaf, nidx + 1,
+                                 scene.node_miss[nidx].long())
+    if not (torch.equal(t[active], ref.t[active])
+            and torch.equal(visits[active], work[0][active])):
+        raise RuntimeError("the stepped per-ray walk is not _walk_plain's")
+    union_visits = int(torch.unique(torch.cat(keys)).numel())
+    opened = torch.unique(torch.cat(leaves)) % N
+    union_slots = int(scene.node_count[opened].clamp_max(leaf).long().sum())
+    own = tuple(int(w[active].long().sum()) for w in work)
+    return (*own, union_visits, union_slots)
+
+
+def _g9_set(name, scene, o3, d3, t0, plain: bool):
+    """G9 against its plain version bit for bit on the rays (o3, d3) with
+    entry t0 (-BIG: dead) over ``scene``; its ms (and with ``plain`` the
+    plain version's), the plain version's counts (a packet's node visits
+    and slot tests, candidates), the union of what each packet's live rays
+    do alone (:func:`_packet_union`), the waste (the lanes' visits and
+    tests over the live rays' own), the operations of the bound (``ops``:
+    the live rays' own visits, tests and candidates, priced as G7's row
+    prices them, the work the answer needs) and the lanes' (``lane_ops``:
+    each live ray at each of its packet's visits and slot tests, with
+    the packet walk's candidates)."""
+    from opengl_raytracer_torch.ops import traversal
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    leaf = effective_max_leaf(scene)
+    active = t0 > -BIG
+    R = o3[0].shape[0]
+
+    def kernel():
+        return traversal.raycast_packet(scene, o3, d3, active, leaf)
+
+    got = kernel()
+    ref, work = traversal._packet_plain(scene, o3, d3, active, leaf,
+                                        counts=True)
+    err = _assert_equal(f"G9 {name}", tuple(got[:4]), tuple(ref[:4]))
+    hit = int((got.t < BIG).sum())
+    del ref
+    ms = min(cuda_ms(kernel, 5) for _ in range(2))
+    plain_ms = cuda_ms(lambda: traversal._packet_plain(
+        scene, o3, d3, active, leaf), 1) if plain else None
+    live_p = active.view(-1, traversal.PACKET).long().sum(1)
+    live, packets = int(live_p.sum()), int((live_p > 0).sum())
+    lane_visits = int((work.visits.long() * live_p).sum())
+    lane_slots = int((work.slots.long() * live_p).sum())
+    cands = int(work.candidates.long().sum())
+    own_visits, own_tests, own_cands, union_visits, union_slots = (
+        _packet_union(scene, o3, d3, active, leaf))
+    records = (traversal.node_records(scene), traversal.tri_records(scene))
+    n_bytes = R * RAY_IN_OUT_BYTES + sum(
+        x.numel() * x.element_size() for x in records)
+    ops = (own_visits * G7_OPS_PER_VISIT + own_tests * G7_OPS_PER_TEST
+           + own_cands * G7_OPS_PER_CANDIDATE)
+    lane_ops = (lane_visits * G7_OPS_PER_VISIT + lane_slots * G7_OPS_PER_TEST
+                + cands * G7_OPS_PER_CANDIDATE)
+    return dict(
+        set=name, err=err, ms=ms, plain_ms=plain_ms, n_bytes=n_bytes,
+        ops=ops, lane_ops=lane_ops, hit=hit, live_rays=live,
+        live_packets=packets,
+        visits_per_packet=int(work.visits.long().sum()) / packets,
+        union_visits_per_packet=union_visits / packets,
+        slots_per_packet=int(work.slots.long().sum()) / packets,
+        union_slots_per_packet=union_slots / packets,
+        own_visits_per_live_ray=own_visits / live,
+        own_tests_per_live_ray=own_tests / live,
+        own_candidates_per_live_ray=own_cands / live,
+        waste_visits=lane_visits / own_visits,
+        waste_tests=lane_slots / own_tests,
+        candidates_per_live_ray=cands / live)
+
+
+def _g9_rows(camera, seed, data, segments):
+    """G9, the packet walk, on phase 3's kind of rays over the 84-triangle
+    demo box and over standin-31k ``data`` (its row: ms, plain ms, bound)
+    and on the five bounce segments of one 1080p "packet" frame of
+    standin-31k (``segments``, after the reorder; more keys of the row);
+    the bound from the work the answer needs, the live rays' own per-ray
+    walks priced as G7's row prices them (the same function on the same
+    rays), and beside it ``lane_bound_ms``, each live ray priced at each
+    of its packet's node visits and slot tests (what the packet walk
+    does)."""
+    _, box = demo_box(DEVICE)
+    sets = [("random rays, 84-triangle box", box,
+             *k1_rays(box, camera, seed, box.device), True),
+            ("random rays, standin-31k", data,
+             *k1_rays(data, camera, seed, data.device), True)]
+    sets += [(f"standin-31k packet frame segment {i}", data, *seg, False)
+             for i, seg in enumerate(segments)]
+    rows = []
+    for name, *args in sets:
+        r = _g9_set(name, *args)
+        b, by = bound_ms(r["n_bytes"], r["ops"])
+        r["bound"] = (b, by)
+        r["lane_bound_ms"] = bound_ms(r["n_bytes"], r["lane_ops"])[0]
+        say("glue", kernel="packet_walk", rays=N_RAYS,
+            **{k: v for k, v in r.items() if k not in (
+                "err", "n_bytes", "ops", "lane_ops", "bound")},
+            mbytes=round(r["n_bytes"] / 1e6, 3), gop=r["ops"] / 1e9,
+            lane_gop=r["lane_ops"] / 1e9, bound_ms=b, bound_by=by,
+            share_of_bound=b / r["ms"],
+            lane_share_of_bound=r["lane_bound_ms"] / r["ms"],
+            max_abs_err=r["err"], tolerance="exact")
+        rows.append(r)
+    box_row, big, segs = rows[0], rows[1], rows[2:]
+    keys = ("visits_per_packet", "union_visits_per_packet",
+            "slots_per_packet", "union_slots_per_packet",
+            "own_visits_per_live_ray", "waste_visits", "waste_tests")
+    extra = dict(set=big["set"], lane_bound_ms=big["lane_bound_ms"],
+                 **{k: big[k] for k in keys})
+    extra.update({f"box_{k}": box_row[k] for k in ("ms", "plain_ms",
+                                                   "lane_bound_ms", *keys)})
+    extra["box_bound_ms"] = box_row["bound"][0]
+    extra["frame_segments_ms"] = [r["ms"] for r in segs]
+    extra["frame_ms"] = sum(r["ms"] for r in segs)
+    extra["frame_bound_ms"] = sum(r["bound"][0] for r in segs)
+    extra["frame_lane_bound_ms"] = sum(r["lane_bound_ms"] for r in segs)
+    for k in keys:
+        extra[f"frame_segments_{k}"] = [r[k] for r in segs]
+    row = (max(r["err"] for r in rows), big["ms"], big["plain_ms"],
+           big["bound"])
     return row, extra
 
 
@@ -2024,15 +2270,16 @@ def render_1080p(scene, camera, traversal: str, frames: int = TIMED_FRAMES):
     return r, img, counts, sec * 1000.0 / frames
 
 
-def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
-    """A 96x54 frame of ``traversal`` on the card and on the CPU (the plain
-    versions), which must agree; returns (the traversal it resolved to, the
-    card run's launch counts)."""
+def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4,
+                size=SMALL):
+    """A 96x54 (``size``) frame of ``traversal`` on the card and on the CPU
+    (the plain versions), which must agree; returns (the traversal it
+    resolved to, the card run's launch counts)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.utils.image import rmse
 
-    cfg = RenderConfig(width=SMALL[0], height=SMALL[1], bounces=BOUNCES,
+    cfg = RenderConfig(width=size[0], height=size[1], bounces=BOUNCES,
                        traversal=traversal)
     imgs, resolved, counts = [], [], {}
     for device in (DEVICE, "cpu"):
@@ -2045,11 +2292,11 @@ def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4):
     err = rmse(imgs[0], imgs[1])
     if not (np.isfinite(imgs[0]).all() and float(imgs[0].mean()) > 0.01
             and err < limit):
-        raise RuntimeError(f"{traversal} {SMALL[0]}x{SMALL[1]} frame: card vs "
+        raise RuntimeError(f"{traversal} {size[0]}x{size[1]} frame: card vs "
                            f"CPU rmse {err} (limit {limit}), mean "
                            f"{imgs[0].mean()}")
     say("reference", traversal=traversal, resolved=resolved[0],
-        width=SMALL[0], height=SMALL[1], rmse_card_vs_cpu=err, limit=limit,
+        width=size[0], height=size[1], rmse_card_vs_cpu=err, limit=limit,
         max_abs=float(np.abs(imgs[0] - imgs[1]).max()))
     return resolved[0], counts
 
@@ -2507,6 +2754,7 @@ def _kernel_group(name: str) -> str:
                         ("G4 K1 epilogue", ("part_epilogue_kernel",)),
                         ("G7 bvh walk", ("bvh_walk",)),
                         ("G8 brute sweep", ("brute_sweep",)),
+                        ("G9 packet walk", ("packet_walk",)),
                         ("K3", ("wide_traverse",)), ("K1", ("traverse",)),
                         ("K2", ("shade_kernel",)), ("sort", ("radix", "sort")),
                         ("copy", ("memcpy", "memset")),
@@ -2530,7 +2778,8 @@ def _device_events(prof):
     return out
 
 
-TRAVERSAL_GROUPS = ("K1", "K3", "G7 bvh walk", "G8 brute sweep")
+TRAVERSAL_GROUPS = ("K1", "K3", "G7 bvh walk", "G8 brute sweep",
+                    "G9 packet walk")
 
 
 def frame_profile_phase(scenes, camera):
@@ -2689,7 +2938,7 @@ def k2probe_phase(seed: int, k2_ms: float):
 def small_paths_phase(scene, camera):
     """The small-scene traversals.  The reference's box without its meshes
     (84 triangles) on the card and the CPU at 96x54: "auto" (which
-    resolves to brute force, G8), "bvh" (G7) and "packet" (K3).  Then
+    resolves to brute force, G8), "bvh" (G7) and "packet" (G9).  Then
     1080p frames, each step a graph replay: the box under "auto" and
     "bvh", and standin-31k ``scene`` under "bvh" (G7 at a real tree
     depth), each 1 warm-up and TIMED_FRAMES timed frames with the launches
@@ -2705,13 +2954,15 @@ def small_paths_phase(scene, camera):
         got, counts = card_vs_cpu(box, camera, traversal)
         if got != expect:
             raise RuntimeError(f"{traversal} resolved to {got}, not {expect}")
-        k3 = counts["wide_traversal"]
-        if (k3 > 0) != (traversal == "packet"):
-            raise RuntimeError(f"{traversal}: {k3} K3 launches")
+        for k in ("subblock_traversal", "wide_traversal"):
+            check_count(counts, k, 0)
         check_glue(counts, got, n, 1)
-        say("small", traversal=traversal, resolved=got, k3_launches=k3,
+        say("small", traversal=traversal, resolved=got,
+            k3_launches=counts["wide_traversal"],
             k2_launches=counts["shade"], g7_launches=counts["bvh_walk"],
-            g8_launches=counts["brute_sweep"])
+            g8_launches=counts["brute_sweep"],
+            g9_launches=counts["packet_walk"],
+            g5_launches=counts["wide_epilogue"])
     launches, frame_ms = {}, {}
     frames = 1 + TIMED_FRAMES
     for name, sc, traversal, expect in (
@@ -2739,6 +2990,69 @@ def small_paths_phase(scene, camera):
             mean=float(img.mean()), card=repr(card_line()))
         del r
     return launches, frame_ms
+
+
+def packet_phase(scene, big, camera, main_img):
+    """Phase 7b: the "packet" traversal (G9) at 1920x1080 / 4 bounces,
+    its rays in 8x16 blocks (1080 and 1920 are whole blocks): 1 warm-up
+    and TIMED_FRAMES timed replayed frames of standin-31k ``scene`` and of
+    standin-1.96m ``big``, each with G9 and K2 5 a frame, the reorder's
+    glue, no K1, K3 or G5; the standin-31k image against "auto"'s
+    (``main_img``: the same seeds, so only exact-t ties and rays in box
+    face planes may differ); two replayed frames against the eager body,
+    bit for bit; and frames on the card and the CPU at 96x54 (not
+    blocked: 54 rows) and 96x48 (blocked).  Returns (standin-31k's launch
+    counts, {scene: ms/frame})."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.renderer import packet_blocks
+    from opengl_raytracer_torch.utils.image import rmse
+
+    frames = 1 + TIMED_FRAMES
+    out_counts, frame_ms = None, {}
+    for name, sc in (("standin-31k", scene), ("standin-1.96m", big)):
+        r, img, counts, ms = render_1080p(sc, camera, "packet")
+        if r.traversal != "packet" or not packet_blocks(r.config, "packet"):
+            raise RuntimeError(f"{name} packet: {r.traversal}, blocks "
+                               f"{packet_blocks(r.config, 'packet')}")
+        n = r.config.n_bounces
+        for k in ("subblock_traversal", "wide_traversal"):
+            check_count(counts, k, 0)
+        check_count(counts, "shade", n * frames)
+        check_glue(counts, "packet", n, frames)
+        extra = {}
+        if out_counts is None:
+            out_counts = counts
+            extra = dict(rmse_vs_auto=rmse(img, main_img), limit=1e-3)
+            if extra["rmse_vs_auto"] > 1e-3:
+                raise RuntimeError(f"packet 1080p image vs auto's: {extra}")
+        frame_ms[name] = ms
+        say("packet", scene=name, triangles=r.scene.num_tris, width=WIDTH,
+            height=HEIGHT, bounces=BOUNCES, frames=frames, ms_per_frame=ms,
+            fps=1000.0 / ms, **{f"{k}_launches": counts[k] for k in (
+                "packet_walk", "shade", "wide_traversal",
+                "subblock_traversal", "wide_epilogue", "ray_front",
+                "sort_keys", "reorder", "restore", "band_fold")},
+            mean=float(img.mean()), **extra, card=repr(card_line()))
+        del r
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
+                       traversal="packet")
+    graphed = Renderer(scene, cfg, device=DEVICE)
+    eager = Renderer(scene, cfg, device=DEVICE)
+    sa, sb = graphed.init_state(), eager.init_state()
+    for k in range(2):
+        sa = graphed.step(sa, camera)
+        sb = eager._step_eager(sb, camera)
+        torch.cuda.synchronize()
+        if not torch.equal(sa.accum.view(torch.int32),
+                           sb.accum.view(torch.int32)):
+            raise RuntimeError(f"packet: replayed frame {k} differs from "
+                               f"the eager body")
+    say("packet", scene="standin-31k", check="replay vs eager", frames=2,
+        max_abs_err=0.0, tolerance="exact (accum bit for bit)")
+    del graphed, eager, sa, sb
+    for size in (SMALL, (96, 48)):
+        card_vs_cpu(scene, camera, "packet", size=size)
+    return out_counts, frame_ms
 
 
 def multipart_phase(camera):
@@ -3219,9 +3533,11 @@ def main(argv=None) -> int:
     *k1, frame_ms, sets = timed("k1", k1_phase, data, camera, segments,
                                 args.seed, data.device)
     timed("k1prof", k1prof_phase, data, sets)
+    packet_segments = timed("segments", frame_segments, data, camera,
+                            "packet", "packet")
     glue, glue_extra = timed("glue", glue_phase, data, camera, sets,
-                             args.seed)
-    del sets, segments
+                             args.seed, packet_segments)
+    del sets, segments, packet_segments
     big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
     if (big_scene.total_triangles != BIG_TRIANGLES
             or big.p2_node_rows.shape[0] != 0):
@@ -3255,6 +3571,9 @@ def main(argv=None) -> int:
     small_launches, small_ms = timed("small", small_paths_phase, scene,
                                      camera)
     counts.update(small_launches)
+    packet_counts, packet_ms = timed("packet", packet_phase, scene, big,
+                                     camera, main_img)
+    counts["packet_walk"] = packet_counts["packet_walk"]
     timed("multipart", multipart_phase, camera)
     straight8 = timed("cli", cli_phase)
     timed("sharded", sharded_phase, scene, camera, straight8)
@@ -3262,7 +3581,8 @@ def main(argv=None) -> int:
           [("standin-31k", scene, main_ms, "auto"),
            ("standin-1.96m", big, big_ms, "auto"),
            ("box", demo_box(DEVICE)[0], small_ms["box", "auto"], "auto"),
-           ("standin-31k", scene, small_ms["standin-31k", "bvh"], "bvh")],
+           ("standin-31k", scene, small_ms["standin-31k", "bvh"], "bvh"),
+           ("standin-31k", scene, packet_ms["standin-31k"], "packet")],
           camera)
     timed("cadence_profile", cadence_profile_phase, cadences, camera)
 

@@ -12,8 +12,9 @@ measured on the card:
   after a warm-up, the better of two such runs, on ``chip_smoke.py``'s
   phase-4 random rays (2,073,600) of standin-31k and of standin-1.96m;
 * ms/frame at 1920x1080 and 4 bounces, 1 sample a pixel: standin-31k
-  under "pallas", "auto" and "bvh", standin-1.96m under "auto", and the
-  reference's 84-triangle box without its meshes under "auto" (brute
+  under "pallas", "auto", "bvh" and "packet", standin-1.96m under "auto"
+  and "packet" (a tree before the packet walk ran K3 for "packet"), and
+  the reference's 84-triangle box without its meshes under "auto" (brute
   force) and "bvh" (1 warm-up frame, then FRAMES frames timed together on
   the host clock between device syncs), and the traversal each name
   resolved to;
@@ -156,8 +157,9 @@ def main(argv=None) -> int:
         out[f"{name}_box_resolved"] = resolved
         del r, state
     del box
-    for tag, cells, names in (("1.96m", (700, 1400), ("auto",)),
-                              ("31k", (83, 166), ("pallas", "auto", "bvh"))):
+    for tag, cells, names in (("1.96m", (700, 1400), ("auto", "packet")),
+                              ("31k", (83, 166), ("pallas", "auto", "bvh",
+                                                  "packet"))):
         scene, data = cs.make_scene(*cells, "cuda")
         out[f"triangles_{tag}"] = scene.total_triangles
         del scene

@@ -9,9 +9,9 @@ the repository as its reference.  This package imports ``torch`` and
 every traversal of the JAX package: the
 sub-block BVH traversal kernel (K1, ``csrc/subblock_traversal.cu``, the
 main path), the wide-BVH traversal kernel (K3, ``csrc/wide_traversal.cu``),
-brute force and the per-ray BVH walk (torch ops), each followed by the
-fused shade kernel (K2, ``csrc/shade.cu``).  On CPU tensors each kernel's
-plain torch version runs instead.
+brute force (G8), the per-ray BVH walk (G7) and the 128-ray packet walk
+(G9), each followed by the fused shade kernel (K2, ``csrc/shade.cu``).  On
+CPU tensors each kernel's plain torch version runs instead.
 """
 
 from opengl_raytracer_torch.models.mesh import Mesh

@@ -10,6 +10,13 @@
 // the running mean (prev * fc + sum) / (fc + weight) with fc the frame
 // count as float32, written in place into accum.
 //
+// One thread a band pixel, row-major from the bottom GL row; its colour is
+// that of ray j of each band copy: j is the pixel's own row-major index or,
+// with blocks (the "packet" traversal's 8x16 pixel blocks), its position in
+// the order G1 gave the rays (step_block.cuh:block_pos; the JAX step's
+// inverse of to_blocks, renderer.py:369-374).  accum is read and written
+// in the row-major path's order either way.
+//
 // The window (col0, row0, dx0, dy0), the frame count and accum's address
 // are read from the step block (step_block.cuh), so a captured step folds
 // each tile of each frame into whatever buffer the block names.
@@ -30,6 +37,7 @@
 
 namespace {
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(256)
 band_fold_kernel(const StepBlock* __restrict__ blk, const float* __restrict__ c0,
                  const float* __restrict__ c1, const float* __restrict__ c2,
@@ -40,6 +48,7 @@ band_fold_kernel(const StepBlock* __restrict__ blk, const float* __restrict__ c0
     const int x = (int)(i % tw);
     const int y = (int)(i / tw);  // GL row of the band, from its bottom
     if (x < blk->dx0 || y < blk->dy0) return;  // the remainder tile's mask
+    const long long j = kBlocks ? block_pos(x, y, tw) : i;  // its ray
     float* accum = reinterpret_cast<float*>(blk->accum);
     const long long p =
         ((long long)(blk->row0 + th - 1 - y) * width + blk->col0 + x) * 3;
@@ -48,9 +57,9 @@ band_fold_kernel(const StepBlock* __restrict__ blk, const float* __restrict__ c0
     const float* cols[3] = {c0, c1, c2};
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        float s = cols[a][i];
+        float s = cols[a][j];
         for (int f = 1; f < n_frames; ++f)
-            s = __fadd_rn(s, cols[a][(long long)f * n_band + i]);
+            s = __fadd_rn(s, cols[a][(long long)f * n_band + j]);
         accum[p + a] = __fdiv_rn(__fadd_rn(__fmul_rn(accum[p + a], fc), s), den);
     }
 }
@@ -59,16 +68,25 @@ band_fold_kernel(const StepBlock* __restrict__ blk, const float* __restrict__ c0
 
 // colors: three float32 columns of n_frames * n_band rays each (a step's
 // frame copies of the band one after another, row-major from the bottom
-// row); accum: the block's, (height, width, 3) float32.
+// row, or in 8x16 blocks when blocks is 1); accum: the block's, (height,
+// width, 3) float32.
 extern "C" int oglrt_band_fold(const void* blk, const float* c0,
                                const float* c1, const float* c2,
                                long long n_band, int tw, int th, int n_frames,
-                               float weight, int width, void* stream) {
+                               float weight, int width, int blocks,
+                               void* stream) {
     if (n_band > 0) {
         const long long grid = (n_band + 255) / 256;
-        band_fold_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
-            (const StepBlock*)blk, c0, c1, c2, n_band, tw, th, n_frames,
-            weight, width);
+        if (blocks)
+            band_fold_kernel<true><<<(unsigned)grid, 256, 0,
+                                     (cudaStream_t)stream>>>(
+                (const StepBlock*)blk, c0, c1, c2, n_band, tw, th, n_frames,
+                weight, width);
+        else
+            band_fold_kernel<false><<<(unsigned)grid, 256, 0,
+                                      (cudaStream_t)stream>>>(
+                (const StepBlock*)blk, c0, c1, c2, n_band, tw, th, n_frames,
+                weight, width);
     }
     return (int)cudaGetLastError();
 }

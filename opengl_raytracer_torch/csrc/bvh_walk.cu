@@ -18,12 +18,11 @@
 // node steps to its first child (node + 1), a missed node to its miss link.
 // A dead ray (active false) enters nothing and reports t = BIG.
 //
-// Bit for bit against the plain version ON THE CARD: every float operation
-// is a round-to-nearest intrinsic in torch's order (1 / d is torch's
-// reciprocal, an IEEE division), and the winner among equal t is the first
-// tested, as the plain version's strict < keeps it.  Each ray visits and
-// tests in the layout's miss-link preorder, so the winner at an exact-t tie
-// is the plain version's.
+// Bit for bit against the plain version ON THE CARD: the records, their
+// loads and the float operations are bvh_walk.cuh's, shared with G9, and
+// the winner among equal t is the first tested, as the plain version's
+// strict < keeps it.  Each ray visits and tests in the layout's miss-link
+// preorder, so the winner at an exact-t tie is the plain version's.
 //
 // What bounds it on the card: operations (some 25 a node visit, 46 a full
 // triangle test) against a 28-byte ray in and 16 bytes out; the tables are
@@ -42,35 +41,12 @@
 // - a triangle's u and v are computed only where t would win (|det| >= EPS
 //   and EPS < t < the nearest hit), which decides the same accepts.
 
-#include <cuda_runtime.h>
+#include "bvh_walk.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr float kEps = 1e-6f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
-                                      float b1, float b2) {
-    return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
-}
-
-struct Rays {
-    const float* o[3];
-    const float* d[3];
-    const bool* active;  // may be null
-};
-
-struct Out {
-    float* t;
-    int* tri;
-    float* u;
-    float* v;
-};
 
 // kWide: 48-byte node records (first and count whole), else 32-byte ones.
 template <bool kWide>
@@ -99,68 +75,18 @@ bvh_walk_kernel(Rays r, const int4* __restrict__ nodes, int n_nodes,
     int leaf_first = 0, leaf_m = 0;  // a held leaf: leaf_m > 0
     while (__any_sync(kFull, node < n_nodes || leaf_m > 0)) {
         if (leaf_m == 0 && node < n_nodes) {
-            const int4* rec = nodes + (long long)node * (kWide ? 3 : 2);
-            const int4 a = __ldg(rec), b = __ldg(rec + 1);
-            const float lo[3] = {__int_as_float(a.x), __int_as_float(a.y),
-                                 __int_as_float(a.z)};
-            const float hi[3] = {__int_as_float(b.x), __int_as_float(b.y),
-                                 __int_as_float(b.z)};
-            int first, count;
-            if (kWide) {
-                const int4 c = __ldg(rec + 2);
-                first = b.w;
-                count = c.x;
-            } else {
-                first = (b.w & ((1 << 21) - 1)) - 1;
-                count = (int)((unsigned)b.w >> 21);
+            const Node nd = load_node<kWide>(nodes, node);
+            const bool entered = enters(nd, o, inv, bt);
+            if (entered && nd.count > 0) {
+                leaf_first = nd.first;
+                leaf_m = nd.count < max_leaf ? nd.count : max_leaf;
             }
-            bool nan = false;
-            float near = 0.0f, far = 0.0f;
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                const float l = mul(sub(lo[k], o[k]), inv[k]);
-                const float h = mul(sub(hi[k], o[k]), inv[k]);
-                nan |= (l != l) || (h != h);
-                const float mn = fminf(l, h), mx = fmaxf(l, h);
-                near = k == 0 ? mn : fmaxf(near, mn);
-                far = k == 0 ? mx : fminf(far, mx);
-            }
-            const bool hit = !nan && far >= near && far >= 0.0f;
-            const bool entered = hit && fmaxf(near, 0.0f) <= bt;
-            if (entered && count > 0) {
-                leaf_first = first;
-                leaf_m = count < max_leaf ? count : max_leaf;
-            }
-            node = (entered && count <= 0) ? node + 1 : a.w;
+            node = (entered && nd.count <= 0) ? node + 1 : nd.miss;
         }
         // Test the held leaves once every lane holds one or is done.
         if (__all_sync(kFull, leaf_m > 0 || node >= n_nodes)) {
-            for (int k = 0; k < leaf_m; ++k) {
-                const float4* q = tris + (long long)(leaf_first + k) * 3;
-                const float4 x = __ldg(q), y = __ldg(q + 1), z = __ldg(q + 2);
-                // v0 = x.xyz, e1 = (x.w, y.x, y.y), e2 = (y.z, y.w, z.x),
-                // face = z.yzw
-                const float det = dot3(d[0], d[1], d[2], z.y, z.z, z.w);
-                const float inv_det = __fdiv_rn(1.0f, det);
-                const float rx = sub(o[0], x.x), ry = sub(o[1], x.y),
-                            rz = sub(o[2], x.z);
-                const float t = mul(-dot3(rx, ry, rz, z.y, z.z, z.w), inv_det);
-                if (fabsf(det) >= kEps && t > kEps && t < bt) {
-                    const float px = sub(mul(ry, d[2]), mul(rz, d[1]));
-                    const float py = sub(mul(rz, d[0]), mul(rx, d[2]));
-                    const float pz = sub(mul(rx, d[1]), mul(ry, d[0]));
-                    const float u = mul(-dot3(y.z, y.w, z.x, px, py, pz),
-                                        inv_det);
-                    const float v = mul(dot3(x.w, y.x, y.y, px, py, pz),
-                                        inv_det);
-                    if (u >= 0.0f && v >= 0.0f && add(u, v) <= 1.0f) {
-                        bt = t;  // strict <, fragment.glsl:275
-                        btri = leaf_first + k;
-                        bu = u;
-                        bv = v;
-                    }
-                }
-            }
+            for (int k = 0; k < leaf_m; ++k)
+                test_triangle(tris, leaf_first + k, o, d, bt, btri, bu, bv);
             leaf_m = 0;
         }
     }

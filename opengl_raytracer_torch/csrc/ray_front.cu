@@ -14,12 +14,15 @@
 // Ray g of a step (g = base + i in this chunk) is pixel j = g mod n_band
 // of the band, row-major from its bottom GL row: px = col0 + j mod tw, py =
 // py0 + j / tw, at frame number frame + g / n_band (frames_per_step copies
-// of the band follow each other).  Rays at or past n_rays pad the last
-// chunk: pixel (0, 0) at the step's frame.  The rule and the pixel seed are
-// step_block.cuh's ray_pixel_seed, which G3's index pass shares to rebuild
-// a live ray's seed (permute.cu).  The window, the frame number,
-// the camera and the jitter are read from the step block
-// (step_block.cuh), so a captured step replays with new values.
+// of the band follow each other).  With blocks (the "packet" traversal on
+// a band whose rows are a multiple of 8 and tw of 16), pixel j is taken in
+// 8x16 blocks instead, each block a 128-ray packet (step_block.cuh:
+// band_xy; the JAX renderer's to_blocks, renderer.py:322-336).  Rays at
+// or past n_rays pad the last chunk: pixel (0, 0) at the step's frame.
+// The rule and the pixel seed are step_block.cuh's ray_pixel_seed, which
+// G3's index pass shares to rebuild a live ray's seed (permute.cu).  The
+// window, the frame number, the camera and the jitter are read from the
+// step block (step_block.cuh), so a captured step replays with new values.
 //
 // Bit for bit against the plain version ON THE CARD: seeds are exact
 // uint32 math (the int64 frame number is taken mod 2^32, so frame numbers
@@ -67,6 +70,7 @@ struct Front {
     int tw;
 };
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(256)
 ray_front_kernel(const StepBlock* __restrict__ blk, Front c,
                  float* __restrict__ out, long long* __restrict__ seed_out,
@@ -74,8 +78,8 @@ ray_front_kernel(const StepBlock* __restrict__ blk, Front c,
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     long long x, y;
-    uint32_t s = ray_pixel_seed<long long>(blk, c.base + i, c.n_rays,
-                                           c.n_band, c.tw, x, y);
+    uint32_t s = ray_pixel_seed<long long, kBlocks>(
+        blk, c.base + i, c.n_rays, c.n_band, c.tw, x, y);
     const float* pos = blk->cam;
     const float* right = blk->cam + 3;
     const float* up = blk->cam + 6;
@@ -113,13 +117,15 @@ ray_front_kernel(const StepBlock* __restrict__ blk, Front c,
 }  // namespace
 
 // out: (6, n) float32, rows ox oy oz dx dy dz, for rays base .. base + n - 1
-// of a step of n_rays rays over a band of n_band pixels, tw a row.
+// of a step of n_rays rays over a band of n_band pixels, tw a row, in 8x16
+// blocks when blocks is 1.
 extern "C" int oglrt_ray_front(const void* blk, long long base,
                                long long n_rays, long long n_band, int tw,
-                               float dir_start_x, float dir_start_y,
-                               float x_step, float y_step, float inv_w,
-                               float inv_h, float* out, long long* seed_out,
-                               long long n, void* stream) {
+                               int blocks, float dir_start_x,
+                               float dir_start_y, float x_step, float y_step,
+                               float inv_w, float inv_h, float* out,
+                               long long* seed_out, long long n,
+                               void* stream) {
     if (n > 0) {
         Front c;
         c.dir_start_x = dir_start_x;
@@ -134,8 +140,14 @@ extern "C" int oglrt_ray_front(const void* blk, long long base,
         c.tw = tw;
         const int block = 256;
         const long long grid = (n + block - 1) / block;
-        ray_front_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-            (const StepBlock*)blk, c, out, seed_out, n);
+        if (blocks)
+            ray_front_kernel<true><<<(unsigned)grid, block, 0,
+                                     (cudaStream_t)stream>>>(
+                (const StepBlock*)blk, c, out, seed_out, n);
+        else
+            ray_front_kernel<false><<<(unsigned)grid, block, 0,
+                                      (cudaStream_t)stream>>>(
+                (const StepBlock*)blk, c, out, seed_out, n);
     }
     return (int)cudaGetLastError();
 }

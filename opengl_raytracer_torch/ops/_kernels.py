@@ -39,16 +39,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4),
 # "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
 # "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
-# traversal), "brute_sweep" (G8, the "brute" traversal); and the probes'
-# kernels (opengl_raytracer_torch/probes/), which no path of the renderer
-# launches: "k1_profile" and "k3_profile" count the profile builds of K1
-# and K3, "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
+# traversal), "brute_sweep" (G8, the "brute" traversal), "packet_walk"
+# (G9, the "packet" traversal); and the probes' kernels
+# (opengl_raytracer_torch/probes/), which no path of the renderer launches:
+# "k1_profile" and "k3_profile" count the profile builds of K1 and K3,
+# "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
 launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
                  "ray_front": 0, "sort_keys": 0, "reorder": 0, "restore": 0,
                  "subblock_epilogue": 0, "wide_epilogue": 0, "band_fold": 0,
                  "step_block": 0, "bvh_walk": 0, "brute_sweep": 0,
-                 "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
-                 "k2_probe": 0}
+                 "packet_walk": 0, "k1_profile": 0, "k3_profile": 0,
+                 "k3_fetch": 0, "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
 
 _lock = threading.Lock()
@@ -159,8 +160,8 @@ def lib() -> ctypes.CDLL:
             so.oglrt_wide_traverse.restype = i32
             so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
                                                + [p] * 5 + [i64, p])
-            # the glue kernels: (block, base, n_rays, n_band, tw, 6
-            # floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
+            # the glue kernels: (block, base, n_rays, n_band, tw, blocks,
+            # 6 floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
             # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
             # outputs, return_seed, block or null, base, n_rays, n_band, tw,
             # the LCG advance (a, c), n); (orig, 3 columns, seed or null, 2
@@ -168,9 +169,9 @@ def lib() -> ctypes.CDLL:
             # earlier columns, active, last, 6 outputs, n); (active or
             # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
             # (block, 3 colour columns, n_band, tw, th, n_frames, weight,
-            # width); (block, host words)
+            # width, blocks); (block, host words)
             so.oglrt_ray_front.restype = i32
-            so.oglrt_ray_front.argtypes = ([p, i64, i64, i64, i32]
+            so.oglrt_ray_front.argtypes = ([p, i64, i64, i64, i32, i32]
                                            + [f32] * 6 + [p, p, i64, p])
             so.oglrt_sort_keys.restype = i32
             so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
@@ -190,15 +191,17 @@ def lib() -> ctypes.CDLL:
                                                + [i64, p])
             so.oglrt_band_fold.restype = i32
             so.oglrt_band_fold.argtypes = ([p] * 4 + [i64, i32, i32, i32, f32,
-                                                      i32, p])
+                                                      i32, i32, p])
             so.oglrt_write_block.restype = i32
             so.oglrt_write_block.argtypes = [p, p, p]
-            # (6 ray columns, active or null, node records, wide, n_nodes,
-            # triangle records, max_leaf, 4 outputs, n); (6 ray columns,
-            # active or null, triangle records, n_tris, 4 outputs, n)
-            so.oglrt_bvh_walk.restype = i32
-            so.oglrt_bvh_walk.argtypes = ([p] * 8 + [i32, i32, p, i32]
-                                          + [p] * 4 + [i64, p])
+            # G7 and G9: (6 ray columns, active or null, node records,
+            # wide, n_nodes, triangle records, max_leaf, 4 outputs, n);
+            # G8: (6 ray columns, active or null, triangle records, n_tris,
+            # 4 outputs, n)
+            for walk in (so.oglrt_bvh_walk, so.oglrt_packet_walk):
+                walk.restype = i32
+                walk.argtypes = ([p] * 8 + [i32, i32, p, i32] + [p] * 4
+                                 + [i64, p])
             so.oglrt_brute_sweep.restype = i32
             so.oglrt_brute_sweep.argtypes = ([p] * 8 + [i32] + [p] * 4
                                              + [i64, p])

@@ -7,8 +7,12 @@ the sum of the step's ``n_frames`` colour sets (``frames_per_step``
 copies of the band, added one after another), flipped from GL rows to
 ``accum``'s top-row-first rows, then ``(prev * fc + sum) / (fc +
 weight)`` wherever the remainder tile's mask is set, with ``fc`` the frame
-count as float32.  The window, the frame count and, on the card, ``accum``'s
-address come from the step block (``ops/step_block.py``).
+count as float32.  The colours of each band copy are the band's pixels
+row-major from its bottom GL row or, for the ``"packet"`` traversal, in
+the 8x16 blocks G1 gave the rays (``front.band_xy``; the JAX step's
+inverse of ``to_blocks``, ``renderer.py:369-374``).  The window, the
+frame count and, on the card, ``accum``'s address come from the step
+block (``ops/step_block.py``).
 
 On a CUDA block it is one launch of ``csrc/band_fold.cu``, which folds
 into the buffer whose address the block holds (``step_block.pack``'s
@@ -25,14 +29,22 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import _kernels, step_block
+from opengl_raytracer_torch.ops.front import BLOCK_H, BLOCK_W, check_band
 
 
 def fold_plain(accum, colors, block, tw: int, th: int, n_frames: int,
-               weight: int) -> None:
+               weight: int, blocks: bool = False) -> None:
     """Plain torch version of the fold (see the module docstring)."""
     v = step_block.values(block)
     n_band = tw * th
-    cols = [c[:n_frames * n_band].reshape(n_frames, th, tw) for c in colors]
+    if blocks:
+        cols = [c[:n_frames * n_band].reshape(
+            n_frames, th // BLOCK_H, tw // BLOCK_W, BLOCK_H, BLOCK_W)
+            .permute(0, 1, 3, 2, 4).reshape(n_frames, th, tw)
+            for c in colors]
+    else:
+        cols = [c[:n_frames * n_band].reshape(n_frames, th, tw)
+                for c in colors]
     total = [c[0] for c in cols]
     for f in range(1, n_frames):
         total = [total[a] + cols[a][f] for a in range(3)]
@@ -48,7 +60,7 @@ def fold_plain(accum, colors, block, tw: int, th: int, n_frames: int,
 
 
 def _fold_cuda(accum, colors, block, tw: int, th: int, n_frames: int,
-               weight: int) -> None:
+               weight: int, blocks: bool = False) -> None:
     dev = block.device
     req = _kernels.require
     req(block, "block", torch.int32, dev, step_block.WORDS)
@@ -65,18 +77,19 @@ def _fold_cuda(accum, colors, block, tw: int, th: int, n_frames: int,
                              f"{tuple(c.shape)}")
     _kernels.launch("oglrt_band_fold", "band_fold", dev, block.data_ptr(),
                     *(c.data_ptr() for c in colors), tw * th, tw, th,
-                    n_frames, float(weight), accum.shape[1])
+                    n_frames, float(weight), accum.shape[1], int(blocks))
 
 
 def fold_band(accum, colors, block, tw: int, th: int, n_frames: int,
-              weight: int) -> None:
+              weight: int, blocks: bool = False) -> None:
     """Fold ``colors`` (3 float32 columns of ``n_frames`` x ``tw * th``
-    rays, each copy of the band row-major from its bottom GL row) into
-    ``accum`` ((H, W, 3) float32, top row first) in place, with running
-    mean weight ``weight``, at the window and frame count of ``block``.
-    On the card the kernel folds into the buffer at the block's ``accum``
-    address, which must be ``accum``'s."""
+    rays, each copy of the band row-major from its bottom GL row, or with
+    ``blocks`` in 8x16 pixel blocks) into ``accum`` ((H, W, 3) float32, top
+    row first) in place, with running mean weight ``weight``, at the window
+    and frame count of ``block``.  On the card the kernel folds into the
+    buffer at the block's ``accum`` address, which must be ``accum``'s."""
     if n_frames < 1 or tw < 1 or th < 1:
         raise ValueError(f"a {th} x {tw} band of {n_frames} frames")
-    args = (accum, colors, block, tw, th, n_frames, weight)
+    check_band(tw * th, tw, blocks)
+    args = (accum, colors, block, tw, th, n_frames, weight, blocks)
     return _fold_cuda(*args) if block.is_cuda else fold_plain(*args)

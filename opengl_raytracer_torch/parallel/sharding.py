@@ -39,7 +39,9 @@ Design, and where it departs from the JAX module:
 * ``"auto"`` resolves with the port's ``resolve_traversal``, as the
   port's ``Renderer`` does: ``"pallas2"`` (K1 + K2) on scenes with
   sub-block tables.  The JAX module picks ``"packet"`` for those off a TPU
-  (``sharding.py:174-185``).
+  (``sharding.py:174-185``).  Under an explicit ``"packet"`` a shard runs
+  the packet walk (G9) over its rows in row-major order, as the JAX
+  mesh's bands are not blocked (its step has no 8x16 pixel order).
 * The JAX step passes ``render_flat`` a seed-reconstruction descriptor
   (``sharding.py:108-112``).  The port's is each shard's own:
   ``render_pixels`` builds it from the arguments it hands G1 (the

@@ -39,15 +39,15 @@ from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.camera import Camera, make_camera
 from opengl_raytracer_torch.ops.fold import fold_band
-from opengl_raytracer_torch.ops.front import ray_front
+from opengl_raytracer_torch.ops.front import BLOCK_H, BLOCK_W, ray_front
 from opengl_raytracer_torch.ops.integrator import trace
 from opengl_raytracer_torch.ops.intersect import raycast_brute, tri_records
 from opengl_raytracer_torch.ops.permute import SeedRecon
-from opengl_raytracer_torch.ops.traversal import node_records, raycast_bvh
+from opengl_raytracer_torch.ops.traversal import (PACKET, node_records,
+                                                  raycast_bvh, raycast_packet)
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.utils.config import RenderConfig
 
-_PACKET = 128  # chunks round up to whole 128-ray packets, as in the JAX package
 _DEFAULT_CHUNK = 2 * 1024 * 1024
 # on the CPU, the plain versions of brute force ((R, 2048) intermediates)
 # and of the BVH walk (per-ray loop state) bound their chunks, as in the
@@ -83,21 +83,23 @@ def resolve_leaf_bound(scene: SceneData, config: RenderConfig) -> RenderConfig:
 
 def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
     """Bind ``raycast(o3, d3, active) -> Nearest`` for the chosen
-    traversal: "brute" (dense sweep), "bvh" (per-ray stackless walk),
-    "pallas" and "packet" (both the wide-BVH kernel, K3) or "pallas2" (the
-    sub-block kernel, K1).  ``max_leaf_tris`` must cover the scene's
-    largest leaf (:func:`effective_max_leaf`).  "brute" and "bvh" pack the
+    traversal: "brute" (dense sweep, G8), "bvh" (per-ray stackless walk,
+    G7), "packet" (the 128-ray packet walk, G9), "pallas" (the wide-BVH
+    kernel, K3) or "pallas2" (the sub-block kernel, K1).
+    ``max_leaf_tris`` must cover the scene's largest leaf
+    (:func:`effective_max_leaf`).  "brute", "bvh" and "packet" pack the
     scene's records here, once a scene (``SceneData.records``), so no step
     packs them."""
     if traversal == "brute":
         tri_records(scene)
         return lambda o3, d3, active=None: raycast_brute(scene, o3, d3, active)
-    if traversal == "bvh":
+    if traversal in ("bvh", "packet"):
         tri_records(scene)
         node_records(scene)
-        return lambda o3, d3, active=None: raycast_bvh(
+        walk = raycast_bvh if traversal == "bvh" else raycast_packet
+        return lambda o3, d3, active=None: walk(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
-    if traversal in ("pallas", "packet"):
+    if traversal == "pallas":
         return lambda o3, d3, active=None: wide.raycast_pallas(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
     if traversal == "pallas2":
@@ -113,10 +115,11 @@ def resolve_traversal(scene: SceneData, traversal: str) -> str:
     for scenes of at most 128 (padded) triangles, else the sub-block
     kernel "pallas2" when the scene has its tables, else the wide-BVH
     kernel "pallas".  The JAX package's 13 MB bound between "pallas" and
-    "packet" is the TPU's VMEM budget for the wide kernel's tables; it does
-    not apply on the card, where both names run K3.  Last, a scene with a
-    leaf over 1024 triangles (``Scene(build_bvh=False)``) runs by brute
-    force under "auto" and is refused by every other traversal."""
+    "packet" is the TPU's VMEM budget for the wide kernel's tables, and its
+    "auto" runs "packet" off a TPU; neither applies on the card, where
+    "auto" never picks "packet".  Last, a scene with a leaf over 1024
+    triangles (``Scene(build_bvh=False)``) runs by brute force under
+    "auto" and is refused by every other traversal."""
     resolved = traversal
     if traversal == "auto":
         if scene.num_tris <= _BRUTE_MAX_TRIS:
@@ -158,23 +161,28 @@ def state_from_numpy(accum, frame_count: int, tile_x: int, tile_y: int,
 
 def render_pixels(scene: SceneData, config: RenderConfig, block, base: int,
                   n: int, n_rays: int, n_band: int, tw: int, raycast_fn,
-                  reorder: bool = False, _seed_recon: bool = True):
+                  reorder: bool = False, blocks: bool = False,
+                  _seed_recon: bool = True):
     """Trace rays ``base .. base + n - 1`` of a step of ``n_rays`` rays
-    over a band of ``n_band`` pixels, ``tw`` a row, at the window, frame
-    number, camera, sky, jitter and ``lambertian`` of the step ``block``.
-    Returns their linear color as a 3-tuple of (n,) columns.  With
-    ``reorder`` the rays are sorted at ``config.sort_every``'s cadence.
+    over a band of ``n_band`` pixels, ``tw`` a row (with ``blocks``, taken
+    in 8x16 pixel blocks), at the window, frame number, camera, sky,
+    jitter and ``lambertian`` of the step ``block``.  Returns their linear
+    color as a 3-tuple of (n,) columns.  With ``reorder`` the rays are
+    sorted at ``config.sort_every``'s cadence.
 
     The reorders are given how G1 seeded each ray (``permute.SeedRecon``,
     the JAX package's ``recon``, ``renderer.py:165-179``), so at one sample
     a pixel (``integrator.trace`` decides) they rebuild each live ray's
     seed from its index instead of moving it; the image is the same bit
-    for bit.  ``_seed_recon=False`` moves it, for the tests that hold the
-    two equal."""
+    for bit.  In block order they move it, as the JAX step turns ``recon``
+    off for blocks (``renderer.py:357-362``); ``_seed_recon=False`` moves
+    it too, for the tests that hold the two equal."""
     # pixel, frame, seed, 3 warm-ups, angle-linear ray, 2 jitter draws (G1)
     origin, d, seed = ray_front(block, base, n, n_rays, n_band, tw,
-                                config.width, config.height, config.ray_aspect)
-    recon = SeedRecon(block, base, n_rays, n_band, tw) if _seed_recon else None
+                                config.width, config.height, config.ray_aspect,
+                                blocks)
+    recon = (SeedRecon(block, base, n_rays, n_band, tw)
+             if _seed_recon and not blocks else None)
     color, _ = trace(scene, raycast_fn, origin, d, seed, block,
                      n_bounces=config.n_bounces,
                      rays_per_pixel=config.rays_per_pixel, reorder=reorder,
@@ -192,25 +200,36 @@ def ray_chunk(config: RenderConfig, n_rays: int, traversal: str,
     default = (_SMALL_CHUNK if traversal in ("brute", "bvh") and not on_card
                else _DEFAULT_CHUNK)
     chunk = min(config.ray_chunk or min(n_rays, default), n_rays)
-    return -(-chunk // _PACKET) * _PACKET
+    return -(-chunk // PACKET) * PACKET  # whole packets
 
 
 def render_flat(scene: SceneData, config: RenderConfig, block, n_band: int,
-                tw: int, n_frames: int, raycast_fn, traversal: str):
+                tw: int, n_frames: int, raycast_fn, traversal: str,
+                blocks: bool = False):
     """Chunked render of a step's ``n_frames`` copies of a band of
-    ``n_band`` pixels (``tw`` a row) -> 3 (R,) color columns, R = n_frames
-    * n_band, in chunks of :func:`ray_chunk` rays, the last one padded to
-    whole packets.  One chunk's columns are the restore's own; several are
+    ``n_band`` pixels (``tw`` a row; with ``blocks``, each copy in 8x16
+    pixel blocks) -> 3 (R,) color columns, R = n_frames * n_band, in
+    chunks of :func:`ray_chunk` rays, the last one padded to whole
+    packets.  One chunk's columns are the restore's own; several are
     concatenated."""
     R = n_frames * n_band
     chunk = ray_chunk(config, R, traversal, block.is_cuda)
     n_chunks = -(-R // chunk)
     colors = [render_pixels(scene, config, block, c * chunk, chunk, R, n_band,
-                            tw, raycast_fn, reorder=traversal in _REORDER)
+                            tw, raycast_fn, reorder=traversal in _REORDER,
+                            blocks=blocks)
               for c in range(n_chunks)]
     if n_chunks == 1:
         return tuple(x[:R] for x in colors[0])
     return tuple(torch.cat([c[a] for c in colors])[:R] for a in range(3))
+
+
+def packet_blocks(config: RenderConfig, traversal: str) -> bool:
+    """Whether a tile step takes its band's pixels in 8x16 blocks, each a
+    128-ray packet: under "packet" when the tile's rows are a multiple of
+    8 and its columns of 16, as the JAX step (``renderer.py:322-336``)."""
+    return (traversal == "packet" and config.tile_h % BLOCK_H == 0
+            and config.tile_w % BLOCK_W == 0)
 
 
 def band_window(config: RenderConfig, tile_x: int, tile_y: int):
@@ -244,12 +263,14 @@ def _tile_step(scene: SceneData, block, accum: torch.Tensor, *,
 
     Frame batching (F > 1): the tile's rays run F times, copy s at frame
     number frame_count + s (G1), and their SUM folds into the running mean
-    with weight F (G6)."""
+    with weight F (G6).  Under "packet" each copy's rays may be taken in
+    8x16 pixel blocks (:func:`packet_blocks`)."""
     F = config.frames_per_step
     tw, th = config.tile_w, config.tile_h
+    blocks = packet_blocks(config, traversal)
     colors = render_flat(scene, config, block, tw * th, tw, F, raycast_fn,
-                         traversal)
-    fold_band(accum, colors, block, tw, th, F, F)
+                         traversal, blocks)
+    fold_band(accum, colors, block, tw, th, F, F, blocks)
 
 
 def check_accum(accum: torch.Tensor, device, config: RenderConfig) -> None:

@@ -40,8 +40,10 @@ class RenderConfig:
         (renderer.resolve_leaf_bound), not from this value.
     traversal: "auto" | "brute" | "bvh" | "packet" | "pallas" | "pallas2",
         the names of the JAX package.  "brute" sweeps every triangle,
-        "bvh" walks the binary BVH per ray, "pallas" and "packet" both run
-        the wide-BVH kernel (K3) and "pallas2" the sub-block kernel (K1).
+        "bvh" walks the binary BVH per ray, "packet" walks it a 128-ray
+        packet at a time (8x16 pixel blocks where the tile allows), "pallas"
+        runs the wide-BVH kernel (K3) and "pallas2" the sub-block kernel
+        (K1).
         "auto" picks brute force for scenes of up to 128 triangles, else
         "pallas2" when the scene has sub-block tables, else "pallas"
         (renderer.resolve_traversal).

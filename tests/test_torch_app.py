@@ -329,8 +329,10 @@ def _ball_flags(tmp_path):
     ("2x2", ["--devices", "4", "--dp", "2", "--sp", "2"])])
 def test_cli_sharded_matches_jax_main(tmp_path, capsys, mesh, flags):
     """The sharded CLI on CPU meshes against the JAX CLI given the same
-    flags on its virtual CPU devices; "packet" in both, because the JAX
-    mesh's "auto" picks "packet" off a TPU and the port's "pallas2"."""
+    flags on its virtual CPU devices; "packet" in both (the packet walk
+    over each shard's rows in row-major order, as the JAX mesh's bands
+    are not blocked), because the JAX mesh's "auto" picks "packet" off a
+    TPU and the port's "pallas2"."""
     flags = _ball_flags(tmp_path) + flags
     assert j_main(flags + ["--out", str(tmp_path / "j.png")]) == 0
     capsys.readouterr()

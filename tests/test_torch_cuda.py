@@ -9,10 +9,11 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1, K3, the probes and the glue kernels G1-G8 (ray
+agree bit for bit; K1, K3, the probes and the glue kernels G1-G9 (ray
 front, int32 sort keys, reorder and restore, K1's part epilogue, K3's
 prologue and epilogue, the band fold, the "bvh" walk, the brute-force
-sweep) and the step block's write are held to that, the shade floats to ``rtol=1e-5,
+sweep, the packet walk; G1 and G6 also in the packet traversal's 8x16
+block order) and the step block's write are held to that, the shade floats to ``rtol=1e-5,
 atol=1e-6`` as the CPU tests against the JAX package do, with seeds and
 alive flags exact.  The compiled step: replayed CUDA graphs equal the
 eager body bit for bit (every traversal name, remainder tiles,
@@ -839,6 +840,18 @@ def test_brute_sweep_kernel_matches_plain(cuda, kind, masked):
     assert (none.t == BIG).all() and not none.tri.any()
 
 
+def _wide_node_records(data):
+    """``data``'s node records in the 48-byte form (first and count
+    whole), which a scene takes when they do not fit the 32-byte record's
+    bits."""
+    from opengl_raytracer_torch.ops import traversal
+
+    narrow = traversal.node_records(data)
+    return torch.cat((narrow[:, :7], data.node_first[:, None],
+                      data.node_count[:, None],
+                      torch.zeros_like(narrow[:, :3])), 1).contiguous()
+
+
 def test_bvh_walk_kernel_reads_wide_node_records(cuda):
     """G7 over 48-byte node records (first and count whole, the form a
     scene takes when they do not fit the 32-byte record's bits) equals its
@@ -848,9 +861,7 @@ def test_bvh_walk_kernel_reads_wide_node_records(cuda):
     data = Scene(_objects(), max_leaf_tris=4).send(cuda)
     narrow = traversal.node_records(data)
     assert narrow.shape[1] == 8
-    wide_rec = torch.cat((narrow[:, :7], data.node_first[:, None],
-                          data.node_count[:, None],
-                          torch.zeros_like(narrow[:, :3])), 1).contiguous()
+    wide_rec = _wide_node_records(data)
     for a, b in zip(traversal.unpack_node_records(wide_rec),
                     traversal.unpack_node_records(narrow)):
         assert torch.equal(a, b)
@@ -865,6 +876,102 @@ def test_bvh_walk_kernel_reads_wide_node_records(cuda):
     for a, b in zip(got[:4], ref[:4]):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int((got.t < BIG).sum()) > 1000
+
+
+@pytest.mark.parametrize("records", ["narrow", "wide"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_packet_walk_kernel_matches_plain(cuda, masked, records):
+    """G9, the packet walk, against its plain version bit for bit: axis-
+    parallel rays, rays in face planes of the scene's box (NaN slab
+    values), rays aimed at shared quad edges (ties) and, masked, dead
+    rays and a packet whose rays are all dead; over 32- and 48-byte node
+    records.  An all-dead batch misses everywhere."""
+    from opengl_raytracer_torch.ops import traversal
+
+    data = Scene(_objects(), max_leaf_tris=4).send(cuda)
+    if records == "wide":
+        data.records["nodes"] = _wide_node_records(data)
+    o3, d3, t0 = _rays(3072, cuda, seed=37)
+    _face_plane_rays(data, o3, d3, t0)
+    _edge_rays(data, o3, d3, 6, 200, seed=38)
+    t0[256:384] = -BIG  # packet 2: no live ray
+    active = (t0 > -BIG) if masked else None
+    leaf = effective_max_leaf(data)
+    before = _kernels.launch_counts["packet_walk"]
+    got = traversal.raycast_packet(data, o3, d3, active, leaf)
+    assert _kernels.launch_counts["packet_walk"] == before + 1
+    ref = traversal._packet_plain(data, o3, d3, active, leaf)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((got.t < BIG).sum()) > 1000
+    if masked:
+        assert (got.t[256:384] == BIG).all() and not got.tri[256:384].any()
+    none = traversal.raycast_packet(data, o3, d3,
+                                    torch.zeros_like(t0, dtype=torch.bool),
+                                    leaf)
+    assert _kernels.launch_counts["packet_walk"] == before + 2
+    assert (none.t == BIG).all() and not none.tri.any()
+    with pytest.raises(ValueError, match="multiple of packet"):
+        traversal.raycast_packet(data, tuple(x[:200] for x in o3),
+                                 tuple(x[:200] for x in d3), None, leaf)
+
+
+@pytest.mark.parametrize("F,base", [(1, 0), (2, 6900)])
+def test_ray_front_kernel_blocks_match_plain(cuda, F, base):
+    """G1 in the packet traversal's 8x16 block order against its plain
+    version bit for bit: a 16-row band of a 1080p frame at a frame number
+    past 2^32, ``F`` copies of it, a chunk that ends in padding rays; a
+    chunk from ray 0 holds the row-major chunk's rays permuted."""
+    from opengl_raytracer_torch.ops import front
+
+    block = _block(cuda, 2**32 - 1, (0, 1080 - 16, 0, 0, 0))
+    n_band = 1920 * 16
+    args = (block, base, 70_001, F * n_band, n_band, 1920, 1920, 1080, None)
+    before = _kernels.launch_counts["ray_front"]
+    o3, d3, seed = front.ray_front(*args, blocks=True)
+    assert _kernels.launch_counts["ray_front"] == before + 1
+    ro3, rd3, rseed = front.ray_front_plain(*args, blocks=True)
+    for a, b in zip((*o3, *d3, seed), (*ro3, *rd3, rseed)):
+        assert a.is_contiguous() and a.dtype == b.dtype and torch.equal(a, b)
+    rows = front.ray_front(*args)[2]
+    assert not torch.equal(seed, rows)
+    if base == 0:  # the whole band and padding: the same rays permuted
+        assert torch.equal(seed.sort()[0], rows.sort()[0])
+
+
+@pytest.mark.parametrize("F", [1, 2])
+def test_band_fold_kernel_blocks_match_plain(cuda, F):
+    """G6 in 8x16 block order against its plain version bit for bit,
+    every tile of a 64x48 frame at tile_size 2 (32x24 tiles, whole
+    blocks), ``F`` frames a step, into the buffer the block names."""
+    from opengl_raytracer_torch.ops import fold, step_block
+    from opengl_raytracer_torch.renderer import packet_blocks, step_words
+
+    cfg = RenderConfig(width=64, height=48, tile_size=2, frames_per_step=F,
+                       traversal="packet")
+    assert packet_blocks(cfg, "packet")
+    g = np.random.default_rng(23)
+    start = torch.from_numpy(g.uniform(0, 2, (48, 64, 3))
+                             .astype(np.float32)).to(cuda)
+    got, ref = start.clone(), start.clone()
+    tw, th = cfg.tile_w, cfg.tile_h
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    bk, bp = step_block.new(cuda), step_block.new(cuda)
+    before = _kernels.launch_counts["band_fold"]
+    for ty in range(cfg.num_tiles_y):
+        for tx in range(cfg.num_tiles_x):
+            cols = tuple(torch.from_numpy(g.uniform(0, 3, F * tw * th)
+                                          .astype(np.float32)).to(cuda)
+                         for _ in range(3))
+            step_block.write(bk, step_words(cfg, 2**24 + 1, tx, ty, cam, 1.0,
+                                            0.0, True, got))
+            step_block.write(bp, step_words(cfg, 2**24 + 1, tx, ty, cam, 1.0,
+                                            0.0, True, ref))
+            fold.fold_band(got, cols, bk, tw, th, F, F, blocks=True)
+            fold.fold_plain(ref, cols, bp, tw, th, F, F, blocks=True)
+    assert _kernels.launch_counts["band_fold"] == before + 4
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert not torch.equal(got, start)
 
 
 def _scene_small():
@@ -924,6 +1031,23 @@ def test_graph_replay_equals_eager_body(cuda, traversal, cfg):
     n_tiles = config.num_tiles_x * config.num_tiles_y
     _replay_vs_eager(graphed, eager, n_tiles)
     assert graphed._graph is not None and eager._graph is None
+
+
+@pytest.mark.parametrize("cfg", [dict(width=32, height=16),
+                                 dict(width=64, height=32, tile_size=2,
+                                      frames_per_step=2)])
+def test_graph_replay_equals_eager_packet_blocks(cuda, cfg):
+    """"packet" with the band's rays in 8x16 blocks (G1, G9, G6 in block
+    order, the seed carried through the reorders): replayed steps equal
+    the eager body bit for bit through the script."""
+    from opengl_raytracer_torch.renderer import packet_blocks
+
+    config = RenderConfig(bounces=2, traversal="packet", **cfg)
+    assert packet_blocks(config, "packet")
+    graphed = Renderer(_scene_small(), config, device=cuda)
+    eager = Renderer(_scene_small(), config, device=cuda)
+    _replay_vs_eager(graphed, eager, config.num_tiles_x * config.num_tiles_y)
+    assert graphed._graph is not None
 
 
 @pytest.mark.parametrize("traversal", ["pallas2", "pallas"])

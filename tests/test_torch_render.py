@@ -103,9 +103,9 @@ def test_frames_per_step_matches_sequential(scene):
 @pytest.mark.parametrize("traversal", ["brute", "bvh", "packet", "pallas"])
 def test_renderer_matches_jax(scene, traversal):
     """One frame of each other traversal against the JAX Renderer's:
-    "packet" runs the wide-BVH kernel's plain version here and the XLA
-    packet traversal there, "pallas" the JAX wide kernel in interpret
-    mode."""
+    "packet" runs the packet walk's plain version here (the rays in 8x16
+    blocks, as there) and the XLA packet traversal there, "pallas" the
+    JAX wide kernel in interpret mode."""
     jr = JRenderer(JScene(_objects(JRect, JTriangles)),
                    JRenderConfig(width=16, height=16, bounces=2,
                                  traversal=traversal))

@@ -342,7 +342,7 @@ def _launch(kernel, device, odd_one=None):
             t("table", (4, 24)), t("index", R, torch.int32), near, o3, d3,
             o3, d3, t("alive", R, torch.bool), t("seed", R, torch.int64),
             block)
-    if kernel in ("brute_sweep", "bvh_walk"):
+    if kernel in ("brute_sweep", "bvh_walk", "packet_walk"):
         # the records as the first use packs them (intersect.tri_records,
         # traversal.node_records)
         scene = types.SimpleNamespace(
@@ -351,6 +351,8 @@ def _launch(kernel, device, odd_one=None):
                      "nodes": t("nodes", (3, 8), torch.int32)})
         if kernel == "brute_sweep":
             return intersect._sweep_cuda(scene, o3, d3)
+        if kernel == "packet_walk":
+            return traversal._packet_cuda(scene, o3, d3, None, 4)
         return traversal._walk_cuda(scene, o3, d3, None, 4)
     t0 = t("t0", R).fill_(BIG)
     overflow = t("overflow", 1, torch.int32)
@@ -376,7 +378,8 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
                   "band_fold": "oglrt_band_fold",
                   "step_block": "oglrt_write_block",
                   "brute_sweep": "oglrt_brute_sweep",
-                  "bvh_walk": "oglrt_bvh_walk"}
+                  "bvh_walk": "oglrt_bvh_walk",
+                  "packet_walk": "oglrt_packet_walk"}
 # kernels a call of the symbol launches, where it is not one: the reorder's
 # index pass and gather
 KERNELS_A_CALL = {"reorder": 2}
@@ -407,7 +410,7 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     ("wide_prologue", "active"), ("wide_epilogue", "slot"),
     ("wide_epilogue", "remap"), ("band_fold", "accum"),
     ("band_fold", "c1"), ("brute_sweep", "tris"), ("bvh_walk", "nodes"),
-    ("bvh_walk", "tris")])
+    ("bvh_walk", "tris"), ("packet_walk", "nodes"), ("packet_walk", "oz")])
 def test_wrapper_refuses_tensors_on_two_devices(fake_card, kernel, odd_one):
     """Each wrapper takes its device from one tensor (``t0``, ``seed``,
     ``ox``, ``keys``, ``orig``, K1's or K3's ``t``, or the step block) or
