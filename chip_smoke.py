@@ -80,7 +80,8 @@ Phases; each raises on failure, and the script then exits non-zero:
    (``csrc/brute_sweep.cu``), on the same kind of rays over the box, with
    the pairs and candidates a live ray and the time of the matmul sweep it
    replaced (``matmul_sweep``, kept here only as that yardstick); G9, the
-   packet walk (``csrc/packet_walk.cu``, over G7's records), on the same
+   packet walk (``csrc/packet_walk.cu``, a block a packet over G7's
+   records, each opened leaf staged in shared memory), on the same
    kind of rays over the box and over standin-31k and on the five bounce
    segments of one 1080p "packet" frame of standin-31k (captured after
    the reorder as phase 3 captures K1's), with a packet's node visits and

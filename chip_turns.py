@@ -20,14 +20,20 @@ measured on the card:
   resolved to;
 * the host's time to enqueue one step (a frame), with no device sync
   inside it: the median of FRAMES steps issued back to back;
+* G9 (the packet walk) per launch, in ms (the better of two means of 5
+  launches), on ``chip_smoke.py``'s phase-3c random rays of standin-31k
+  and on the five bounce segments of one 1080p "packet" frame of it, and
+  G8 (the brute-force sweep) per launch (the better of two means of 10)
+  on the same kind of random rays over the box;
 * ms per converged frame of standin-31k over (dp, sp) meshes (2, 1) and
   (4, 1) of the one card repeated;
 * device ms and launches a frame by kernel group (``chip_smoke.py``'s
   phase-11 groups: G3 reorder and restore, the sort, K1, ...) over
-  PROFILED more "auto" frames of standin-31k and of standin-1.96m under
-  ``torch.profiler``, and the G3 reorder's in-frame ms (every group whose
-  name starts with "G3 reorder": one group in trees before the reorder's
-  index pass and gather were profiled apart, two after).
+  PROFILED more "auto" frames of standin-31k, of standin-1.96m and of the
+  box, and "packet" frames of standin-31k, under ``torch.profiler``, G8's
+  and G9's in-frame ms a launch, and the G3 reorder's in-frame ms (every
+  group whose name starts with "G3 reorder": one group in trees before
+  the reorder's index pass and gather were profiled apart, two after).
 
 Both trees are driven through the same calls: ``Renderer`` and
 ``chip_smoke.py``'s scene and ray helpers, and K3 through its wrapper,
@@ -102,6 +108,39 @@ def frame_groups(torch, cs, r, state, camera):
     return groups
 
 
+def best_ms(cs, fn, iters):
+    """The better of two means of ``iters`` calls of ``fn``, in ms."""
+    return min(cs.cuda_ms(fn, iters) for _ in range(2))
+
+
+def g9_launch_ms(cs, data, camera, seed):
+    """G9's ms a launch on phase 3c's random rays of ``data`` and on the
+    five bounce segments of one 1080p "packet" frame of it."""
+    from opengl_raytracer_torch.ops import traversal
+    from opengl_raytracer_torch.ops.intersect import BIG
+    from opengl_raytracer_torch.renderer import effective_max_leaf
+
+    leaf = effective_max_leaf(data)
+    out = []
+    for o3, d3, t0 in (cs.k1_rays(data, camera, seed, "cuda"),
+                       *cs.frame_segments(data, camera, "packet", "packet")):
+        active = t0 > -BIG
+        out.append(best_ms(cs, lambda: traversal.raycast_packet(
+            data, o3, d3, active, leaf), 5))
+    return out
+
+
+def g8_launch_ms(cs, box, camera, seed):
+    """G8's ms a launch on phase 3c's random rays over ``box``."""
+    from opengl_raytracer_torch.ops import intersect
+    from opengl_raytracer_torch.ops.intersect import BIG
+
+    o3, d3, t0 = cs.k1_rays(box, camera, seed, "cuda")
+    active = t0 > -BIG
+    return best_ms(cs, lambda: intersect.raycast_brute(box, o3, d3, active),
+                   10)
+
+
 def mesh_ms(torch, data, camera, dp, sp):
     """ms per converged 1080p frame of a (dp, sp) mesh of the one card
     repeated (1 warm-up sweep, then SWEEPS sweeps of sp frames each, timed
@@ -150,11 +189,14 @@ def main(argv=None) -> int:
     from opengl_raytracer_torch import Scene
 
     box = Scene(cs.standin_objects(83, 166)[2:]).send("cuda")
+    out["g8_random_box_ms"] = g8_launch_ms(cs, box, camera, args.seed)
     for name in ("auto", "bvh"):
         ms, host, resolved, r, state = frame_ms(torch, box, camera, name)
         out[f"{name}_box_ms_per_frame"] = ms
         out[f"{name}_box_host_ms_per_step"] = host
         out[f"{name}_box_resolved"] = resolved
+        if name == "auto":
+            profiled.append((f"{name}_box", r, state))
         del r, state
     del box
     for tag, cells, names in (("1.96m", (700, 1400), ("auto", "packet")),
@@ -166,10 +208,12 @@ def main(argv=None) -> int:
         o3, d3, t0 = cs.k1_rays(data, camera, args.seed, "cuda")
         leaf_octets = -(-effective_max_leaf(data) // 8)
         fn = k3_launch(wide, data, o3, d3, t0, leaf_octets)
-        out[f"k3_random_{tag}_ms"] = min(cs.cuda_ms(fn, 10)
-                                         for _ in range(2))
+        out[f"k3_random_{tag}_ms"] = best_ms(cs, fn, 10)
         del o3, d3, t0
         if tag == "31k":
+            g9 = g9_launch_ms(cs, data, camera, args.seed)
+            out["g9_random_31k_ms"] = g9[0]
+            out["g9_packet_segments_31k_ms"] = g9[1:]
             for dp, sp in MESHES:
                 out[f"mesh_{dp}x{sp}_{tag}_ms_per_frame"] = mesh_ms(
                     torch, data, camera, dp, sp)
@@ -178,7 +222,7 @@ def main(argv=None) -> int:
             out[f"{name}_{tag}_ms_per_frame"] = ms
             out[f"{name}_{tag}_host_ms_per_step"] = host
             out[f"{name}_{tag}_resolved"] = resolved
-            if name == "auto":
+            if name == "auto" or (name, tag) == ("packet", "31k"):
                 profiled.append((f"{name}_{tag}", r, state))
             del r, state
         del data
@@ -188,6 +232,9 @@ def main(argv=None) -> int:
         out[f"{key}_groups"] = groups
         out[f"{key}_reorder_ms_per_frame"] = sum(
             ms for g, (ms, _) in groups.items() if g.startswith("G3 reorder"))
+        for g, tag in (("G8 brute sweep", "g8"), ("G9 packet walk", "g9")):
+            if g in groups:
+                out[f"{key}_{tag}_in_frame_ms"] = groups[g][0] / groups[g][1]
     print(json.dumps(out), flush=True)
     return 0
 

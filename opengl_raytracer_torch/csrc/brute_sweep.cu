@@ -35,35 +35,18 @@
 // - u and v are computed only where t would win (|det| >= EPS and EPS < t
 //   < the nearest hit), which decides the same accepts;
 // - a block whose rays are all dead skips the sweep.
+// Two rays a thread (one staged-triangle load and loop step for both),
+// and the sign test before the division that G7 runs (bvh_walk.cuh:
+// ahead), both measured slower on the H100 (PERF.md, section 6): a pair's
+// work is its arithmetic, which neither reduces, two rays a thread cost
+// registers and so warps, and a warp skips a division only where none of
+// its 32 rays needs it.
 
-#include <cuda_runtime.h>
+#include "bvh_walk.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr float kEps = 1e-6f;
 constexpr int kThreads = 256;  // rays a block, triangles a tile
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
-                                      float b1, float b2) {
-    return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
-}
-
-struct Rays {
-    const float* o[3];
-    const float* d[3];
-    const bool* active;  // may be null
-};
-
-struct Out {
-    float* t;
-    int* tri;
-    float* u;
-    float* v;
-};
 
 // A staged triangle, 64 bytes: (face.xyz, d0), (e1.xyz, e2.x),
 // (e2.yz, q1.xy), (q1.z, q2.xyz).

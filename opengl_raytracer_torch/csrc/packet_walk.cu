@@ -6,7 +6,7 @@
 // _packet_plain) steps every packet still walking once a loop iteration
 // and asks the host after each whether one is left, a sync that a CUDA
 // graph cannot hold; here one 128-thread block walks one packet to its
-// end, one ray a thread, so the step's graph can hold the traversal.
+// end, so the step's graph can hold the traversal.
 //
 // The walk, as the JAX package's: rays g = 128 p .. 128 p + 127 form
 // packet p and share ONE node pointer over the binary BVH in DFS preorder
@@ -34,15 +34,27 @@
 // What bounds it on the card: operations (some 26 a node and a live ray,
 // 20 a triangle test's t side and a live ray, 26 more a candidate) against
 // a 28-byte ray in and 16 bytes out; the records are read through L1 and
-// L2.  What the design does about it:
+// L2.  The walk is a chain of dependent steps a packet (load a node, test
+// it, decide, go on), so its time is the chain's latency as much as its
+// issue.  What the design does about it:
+// - one ray a thread, a 128-thread block a packet: a visit's slab tests
+//   run on the block's four warps at once (four schedulers), and the open
+//   decision is one __syncthreads_or.  One warp a packet at four rays a
+//   lane runs each visit's and each slot test's four rays on one
+//   scheduler, and measured slower on the H100 (PERF.md, section 6);
+// - an opened leaf's triangle records are staged into shared memory, a
+//   record a thread (three 16-byte loads), so each warp reads them there
+//   instead of waiting on L1 or L2 once a triangle; the next visit's
+//   barrier orders the block's reads of one leaf before the next leaf's
+//   writes, so staging adds one barrier a leaf;
 // - the node pointer is uniform across the block, so a visit's control
-//   flow has no divergence: every lane loads the same record (one
-//   broadcast 16-byte load a warp) and runs the same slab test, and a leaf
-//   is tested by every lane at once;
-// - its price is the nodes that only some of its rays need: the packet's
-//   visits times its live rays over their own visits (the waste that
-//   chip_smoke.py prints) is what the uniform control flow costs;
-// - u and v are computed only where t would win, as in G7.
+//   flow has no divergence; its price is the nodes that only some of its
+//   rays need: the packet's visits times its live rays over their own
+//   visits (the waste that chip_smoke.py prints);
+// - the IEEE division of a triangle test runs whatever the sign of t
+//   (bvh_walk.cuh:hit_test<false>): the sign test G7 runs measured slower
+//   here, where a warp's 32 rays rarely all skip it (PERF.md, section 6);
+//   u and v are computed only where t would win.
 
 #include "bvh_walk.cuh"
 
@@ -54,6 +66,7 @@ template <bool kWide>
 __global__ void __launch_bounds__(kPacket)
 packet_walk_kernel(Rays r, const int4* __restrict__ nodes, int n_nodes,
                    const float4* __restrict__ tris, int max_leaf, Out out) {
+    __shared__ Tri leaf[kPacket];  // an opened leaf's records
     const long long i = (long long)blockIdx.x * kPacket + threadIdx.x;
     float o[3], d[3], inv[3];
 #pragma unroll
@@ -72,8 +85,17 @@ packet_walk_kernel(Rays r, const int4* __restrict__ nodes, int n_nodes,
         const bool open = __syncthreads_or(enters(nd, o, inv, bt));
         if (open && nd.count > 0) {
             const int m = nd.count < max_leaf ? nd.count : max_leaf;
-            for (int k = 0; k < m; ++k)
-                test_triangle(tris, nd.first + k, o, d, bt, btri, bu, bv);
+            for (int b = 0; b < m; b += kPacket) {
+                if (b > 0) __syncthreads();  // the last chunk is read
+                const int c = m - b < kPacket ? m - b : kPacket;
+                if ((int)threadIdx.x < c)
+                    leaf[threadIdx.x] =
+                        load_tri(tris, nd.first + b + threadIdx.x);
+                __syncthreads();
+                for (int k = 0; k < c; ++k)
+                    hit_test<false>(leaf[k], nd.first + b + k, o, d, bt,
+                                    btri, bu, bv);
+            }
             node = nd.miss;
         } else {
             node = open ? node + 1 : nd.miss;

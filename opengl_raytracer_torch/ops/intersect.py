@@ -76,6 +76,18 @@ def mt_single(o3, d3, v0, e1, e2, face):
     return valid, t, u, v
 
 
+def divides(num, det):
+    """Where a kernel with the sign test (G7, ``csrc/bvh_walk.cu``) runs
+    the IEEE division of ``t = num * (1 / det)``: ``|det| >= EPS`` and
+    ``num * det > 0`` (``csrc/bvh_walk.cuh:ahead``), the pairs whose t can
+    pass ``t > EPS``.  With ``|det| >= EPS``, ``1 / det`` is nonzero with
+    ``det``'s sign, so where ``num`` is +-0, NaN or of the other sign, t
+    is +-0, negative or NaN, and where the product of same-signed values
+    rounds to +0, ``|t| < 2^-149 / det^2 < 1e-32``: a pair this gives
+    False is one :func:`mt_single` (and the sweep) rejects."""
+    return (det.abs() >= EPS) & (num * det > 0.0)
+
+
 def slab_test(origin, inv_dir, box_min, box_max):
     """Slab AABB test (fragment.glsl:181-204) over (..., 3) tensors.
 

@@ -23,13 +23,14 @@ opened when any live ray of the packet enters it ahead of its own nearest
 hit, an opened leaf is tested by every ray of the packet, and each ray
 accepts only hits nearer than its own.  On CUDA rays it is one launch of
 ``csrc/packet_walk.cu`` (G9), a 128-thread block a packet, over the same
-records as G7; on CPU rays it runs :func:`_packet_plain`, one step of
-every packet still walking per loop iteration.  The two agree bit for bit
-on the card.  A ray's nearest t is the per-ray walk's wherever its own
-slab tests are conservative (the winning triangle may differ at an
-exact-t tie); a ray in a box's face plane, whose slab test is NaN, opens
-nothing itself but tests the leaves its packet opens, so it may hit where
-the per-ray walk misses, as in the JAX package.
+records as G7, each opened leaf staged in shared memory; on CPU rays it
+runs :func:`_packet_plain`, one step of every packet still walking per
+loop iteration.  The two agree bit for bit on the card.  A ray's
+nearest t is the per-ray walk's wherever its own slab tests are
+conservative (the winning triangle may differ at an exact-t tie); a ray
+in a box's face plane, whose slab test is NaN, opens nothing itself but
+tests the leaves its packet opens, so it may hit where the per-ray walk
+misses, as in the JAX package.
 """
 
 from __future__ import annotations

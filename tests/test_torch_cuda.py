@@ -916,6 +916,191 @@ def test_packet_walk_kernel_matches_plain(cuda, masked, records):
                                  tuple(x[:200] for x in d3), None, leaf)
 
 
+@pytest.mark.parametrize("records", ["narrow", "wide"])
+def test_packet_walk_kernel_warps_match_plain(cuda, records):
+    """G9, a 128-thread block a packet, bit for bit against its plain
+    version: in packet 1 + k every ray of warp k (rays 128 p + 32 k ..
+    + 31) is dead (k = 0..3), yet the warp takes part in every vote and
+    stages its share of each leaf; packet 5 has one live ray, packet 6 one
+    live ray in a face plane of the scene's box (a NaN slab value: it
+    opens nothing, so its packet walks nothing), packet 7 none; rays in
+    face planes and at shared quad edges (exact-t ties) in packet 0 and
+    random rays from packet 8 on (11 packets); over 32- and 48-byte node
+    records."""
+    from opengl_raytracer_torch.ops import traversal
+
+    data = Scene(_objects(), max_leaf_tris=4).send(cuda)
+    if records == "wide":
+        data.records["nodes"] = _wide_node_records(data)
+    R = 11 * 128
+    o3, d3, t0 = _rays(R, cuda, seed=41)
+    _face_plane_rays(data, o3, d3, t0)
+    _edge_rays(data, o3, d3, 6, 100, seed=42)
+    t0[128:1024] = BIG
+    for k in range(4):  # packet 1 + k: warp k dead
+        first = 128 * (1 + k) + 32 * k
+        t0[first:first + 32] = -BIG
+    t0[640:768] = -BIG
+    t0[640 + 77] = BIG  # packet 5: one live ray
+    t0[768:896] = -BIG
+    for a in range(3):  # packet 6: one live ray, in a face plane
+        o3[a][768 + 40] = o3[a][4]
+        d3[a][768 + 40] = d3[a][4]
+    t0[768 + 40] = BIG
+    t0[896:1024] = -BIG  # packet 7: none
+    active = t0 > -BIG
+    leaf = effective_max_leaf(data)
+    before = _kernels.launch_counts["packet_walk"]
+    got = traversal.raycast_packet(data, o3, d3, active, leaf)
+    assert _kernels.launch_counts["packet_walk"] == before + 1
+    ref = traversal._packet_plain(data, o3, d3, active, leaf)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got.t[~active] == BIG).all() and not got.tri[~active].any()
+    assert float(got.t[640 + 77]) < BIG and float(got.t[768 + 40]) == BIG
+    for k in range(4):
+        p = slice(128 * (1 + k), 128 * (2 + k))
+        assert int((got.t[p] < BIG).sum()) > 48
+
+
+@pytest.mark.parametrize("build", ["unbuilt", "two_large_leaves"])
+def test_packet_walk_kernel_stages_large_leaves(cuda, build):
+    """G9 bit for bit against its plain version where a leaf holds more
+    triangles than the block has threads, so it is staged 128 records at a
+    time with a barrier before each later chunk and a partial last chunk:
+    one leaf of 324 triangles (``build_bvh=False``), and two SAH leaves of
+    306 and 318 under ``max_leaf_tris=512`` (a packet stages one, then the
+    other).  Dead rays, a packet with no live ray (2), one with one live
+    ray (3), one with a dead warp (4), rays in face planes and at shared
+    quad edges."""
+    from opengl_raytracer_torch.ops import traversal
+
+    kw = (dict(build_bvh=False) if build == "unbuilt"
+          else dict(max_leaf_tris=512))
+    data = Scene(_objects(300 if build == "unbuilt" else 600),
+                 **kw).send(cuda)
+    counts = data.node_count[data.node_count > 0]
+    assert len(counts) == (1 if build == "unbuilt" else 2)
+    assert (counts > 256).all() and (counts % 128 > 0).all()
+    R = 8 * 128
+    o3, d3, t0 = _rays(R, cuda, seed=47)
+    _face_plane_rays(data, o3, d3, t0)
+    _edge_rays(data, o3, d3, 6, 100, seed=48)
+    t0[256:384] = -BIG  # packet 2: no live ray
+    t0[384:512] = -BIG
+    t0[384 + 99] = BIG  # packet 3: one live ray
+    t0[512 + 32:512 + 64] = -BIG  # packet 4: its second warp dead
+    active = t0 > -BIG
+    leaf = effective_max_leaf(data)
+    before = _kernels.launch_counts["packet_walk"]
+    got = traversal.raycast_packet(data, o3, d3, active, leaf)
+    assert _kernels.launch_counts["packet_walk"] == before + 1
+    ref, work = traversal._packet_plain(data, o3, d3, active, leaf,
+                                        counts=True)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got.t[~active] == BIG).all() and not got.tri[~active].any()
+    assert float(got.t[384 + 99]) < BIG
+    assert int(work.slots.max()) == int(counts.sum())  # every leaf staged
+    assert int((got.t < BIG).sum()) > 600
+
+
+def _det_edge_scene(cuda):
+    """The demo box and one flat triangle inside it, v0 (-1, -1, 0.5), e1
+    (2, 0, 0), e2 (0, 2, 0): face (0, 0, 4), so a ray along z with
+    direction (0, 0, s) has det = 4 s exactly."""
+    tri = np.array([[[-1, -1, 0.5], [1, -1, 0.5], [-1, 1, 0.5]]],
+                   np.float32)
+    return Scene([*box_objects(), Triangles(tri, color=(0.5, 0.5, 0.5),
+                                            roughness=1.0)]).send(cuda)
+
+
+def _det_edge_rays(R, cuda, seed):
+    """R rays (R a multiple of 128) along z at the flat triangle from
+    below (z -0.5) and above (z 1.5), inside it or beside it, with det =
+    +-EPS, one float below and above it, and +-2 EPS: t = 4 (0.5 - z) /
+    det, some 4e6; a tenth dead."""
+    g = np.random.default_rng(seed)
+    eps = np.float32(1e-6)
+    dets = np.array([eps, np.nextafter(eps, np.float32(0)),
+                     np.nextafter(eps, np.float32(1)), 2 * eps], np.float32)
+    det = dets[np.arange(R) % 4] * np.where(np.arange(R) // 4 % 2, -1, 1)
+    o = np.zeros((3, R), np.float32)
+    o[0] = np.where(g.uniform(size=R) < 0.8, -0.5, 1.5)  # inside, beside
+    o[1] = -0.5
+    o[2] = np.where(np.arange(R) // 8 % 2, 1.5, -0.5)
+    d = np.zeros((3, R), np.float32)
+    d[2] = det / np.float32(4)  # exact: a power of two
+    t0 = np.where(g.uniform(size=R) < 0.1, -BIG, BIG).astype(np.float32)
+    return (tuple(torch.from_numpy(o[a].copy()).to(cuda) for a in range(3)),
+            tuple(torch.from_numpy(d[a].copy()).to(cuda) for a in range(3)),
+            torch.from_numpy(t0).to(cuda))
+
+
+@pytest.mark.parametrize("kernel", ["bvh_walk", "brute_sweep",
+                                    "packet_walk"])
+def test_walk_kernels_at_the_det_edge(cuda, kernel):
+    """G7, G8 and G9 (G7 tests the sign of t before its division, G8 and
+    G9 divide wherever |det| >= EPS) against their plain versions bit for
+    bit on rays
+    whose det is +-EPS, one float either side of it and +-2 EPS, ahead of
+    the triangle and behind it: exactly the live rays with |det| >= EPS
+    that head for it from within its outline hit it (t 2e6-4e6)."""
+    from opengl_raytracer_torch.ops import intersect, traversal
+
+    data = _det_edge_scene(cuda)
+    o3, d3, t0 = _det_edge_rays(1024, cuda, seed=43)
+    active = t0 > -BIG
+    leaf = effective_max_leaf(data)
+    run, plain = {
+        "bvh_walk": (traversal.raycast_bvh, traversal._walk_plain),
+        "brute_sweep": (intersect.raycast_brute, intersect._sweep_plain),
+        "packet_walk": (traversal.raycast_packet,
+                        traversal._packet_plain)}[kernel]
+    args = (data, o3, d3, active) + (() if kernel == "brute_sweep"
+                                     else (leaf,))
+    before = _kernels.launch_counts[kernel]
+    got = run(*args)
+    assert _kernels.launch_counts[kernel] == before + 1
+    ref = plain(*args)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # the flat triangle is hit at 2e6-4e6, the box's far walls past 6e7
+    flat = (got.t > 1e6) & (got.t < 1e7)
+    can = ((d3[2] * (0.5 - o3[2]) > 0) & (d3[2].abs() * 4 >= 1e-6)
+           & (o3[0] < 1) & active)
+    assert int(flat.sum()) > 100 and torch.equal(flat, can)
+
+
+def test_brute_sweep_kernel_blocks_and_tiles(cuda):
+    """G8, a block of 256 rays, bit for bit against its plain version:
+    2,999 rays (the last block partly past the end), 300-odd triangles
+    (two tiles of 256), two blocks whose rays are all dead (they skip the
+    sweep), blocks dead in one half only, rays in face planes and at
+    shared quad edges."""
+    from opengl_raytracer_torch.ops import intersect
+
+    data = Scene(_objects(300), max_leaf_tris=16).send(cuda)
+    assert 256 < data.num_tris <= 512
+    R = 2999
+    o3, d3, t0 = _rays(R, cuda, seed=44)
+    _face_plane_rays(data, o3, d3, t0)
+    _edge_rays(data, o3, d3, 6, 200, seed=45)
+    t0[512:1024] = -BIG  # blocks 2 and 3: no live ray
+    t0[1024:1152] = -BIG  # block 4: its first half dead
+    t0[2048 + 128:2304] = -BIG  # block 8: its second half dead
+    active = t0 > -BIG
+    before = _kernels.launch_counts["brute_sweep"]
+    got = intersect.raycast_brute(data, o3, d3, active)
+    assert _kernels.launch_counts["brute_sweep"] == before + 1
+    ref = intersect._sweep_plain(data, o3, d3, active)
+    for a, b in zip(got[:4], ref[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got.t[~active] == BIG).all() and not got.tri[~active].any()
+    assert not got.u[~active].any() and not got.v[~active].any()
+    assert int((got.t[2560:] < BIG).sum()) > 200
+
+
 @pytest.mark.parametrize("F,base", [(1, 0), (2, 6900)])
 def test_ray_front_kernel_blocks_match_plain(cuda, F, base):
     """G1 in the packet traversal's 8x16 block order against its plain

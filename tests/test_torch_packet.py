@@ -24,6 +24,8 @@ different triangle only where the port's is hit at the reference's t)
 and of ``tests/test_torch_render.py:_assert_matches``.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
 from opengl_raytracer_tpu.models.trisoup import Triangles as JTriangles
 from opengl_raytracer_tpu.ops.camera import make_camera as j_make_camera
+from opengl_raytracer_tpu.ops.intersect import mt_single as j_mt
 from opengl_raytracer_tpu.ops.traversal import raycast_packet as j_packet
 from opengl_raytracer_tpu.renderer import Renderer as JRenderer
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
@@ -51,13 +54,13 @@ from test_torch_scene import jax_native  # noqa: F401 (autouse)
 from test_torch_traversal import _check, _fields, _rays
 
 
-def _scene(n_tris, leaf):
+def _scene(n_tris, leaf, build_bvh=True):
     rng = np.random.default_rng(3)
     tris = rng.uniform(-3, 3, (n_tris, 3, 3)).astype(np.float32)
     objs = [JTriangles(tris, color=(0.5, 0.5, 0.5), roughness=1.0),
             # a box around the soup: shared quad edges give exact-t ties
             JRect([10, 10, 10], [0, 0, 0], [0, 0, 0], [0.8, 0.8, 0.8])]
-    data = JScene(objs, max_leaf_tris=leaf).send()
+    data = JScene(objs, max_leaf_tris=leaf, build_bvh=build_bvh).send()
     return data, scene_from_numpy(_fields(data), "cpu")
 
 
@@ -203,6 +206,63 @@ def test_packet_counts_match_scalar_walk():
     same[8:12] = False
     assert torch.equal(walk[same], near.t[same])
     assert (walk[8:12] == BIG).all() and (near.t[8:12] < BIG).all()
+
+
+@pytest.mark.parametrize("n_tris,leaf,build_bvh",
+                         [(300, 32, False), (600, 512, True)],
+                         ids=["unbuilt", "two_large_leaves"])
+def test_packet_large_leaves(n_tris, leaf, build_bvh):
+    """Leaves of more triangles than a packet has rays (G9 stages such a
+    leaf's records 128 at a time, the last chunk partial): one leaf of all
+    312 triangles (``build_bvh=False``), and two SAH leaves of 305 and 307
+    under ``max_leaf_tris=512``; dead rays and a packet with none.  The
+    plain version's work equals the scalar NumPy walk's and its hits the
+    per-ray walk's (but for the face-plane rays 8-11); over the one leaf,
+    which every live ray's packet opens, its hits are the JAX package's
+    ``mt_single`` over all triangles in order with a strict <, the JAX
+    packet walk's arithmetic.  (That walk unrolls a leaf's slots, too many
+    here to compile on the CPU in a test's time.)"""
+    jdata, tdata = _scene(n_tris, leaf, build_bvh)
+    counts = tdata.node_count[tdata.node_count > 0]
+    assert len(counts) == (1 if not build_bvh else 2)
+    assert (counts > 2 * PACKET).all() and (counts % PACKET > 0).all()
+    R = 8 * PACKET
+    o, d, active = _odd_rays(jdata, R, seed=7)
+    act = torch.from_numpy(active)
+    max_leaf = int(counts.max())
+    near, work = _packet_plain(tdata, _cols(o), _cols(d), act, max_leaf,
+                               counts=True)
+    got = raycast_packet(tdata, _cols(o), _cols(d), act, max_leaf)
+    for x, y in zip(near[:4], got[:4]):
+        assert torch.equal(x, y)
+    assert (got.t[~act] == BIG).all() and not got.tri[~act].any()
+    nodes = [x.numpy() for x in (tdata.node_min, tdata.node_max,
+                                 tdata.node_miss, tdata.node_first,
+                                 tdata.node_count)]
+    tris = [x.numpy() for x in (tdata.v0, tdata.e1, tdata.e2, tdata.face)]
+    for p in range(R // PACKET):
+        s = slice(p * PACKET, (p + 1) * PACKET)
+        visits, slots, cands = _scalar_packet(nodes, tris, o[:, s], d[:, s],
+                                              active[s], max_leaf)
+        assert int(work.visits[p]) == visits
+        assert int(work.slots[p]) == slots
+        np.testing.assert_array_equal(work.candidates[s].numpy(), cands)
+    assert int(work.slots[2]) == 0
+    assert int(work.slots.max()) == int(counts.sum())  # every leaf opened
+    walk = _walk_plain(tdata, _cols(o), _cols(d), act, max_leaf).t
+    same = torch.ones(R, dtype=torch.bool)
+    same[8:12] = False
+    assert torch.equal(walk[same], got.t[same])
+    if not build_bvh:
+        ok, t, u, v = j_mt(*(jnp.asarray(x.T)[:, None] for x in (o, d)),
+                           *(jnp.asarray(x)[None] for x in (
+                               jdata.v0, jdata.e1, jdata.e2, jdata.face)))
+        ts = jnp.where(ok & jnp.asarray(active)[:, None], t, BIG)
+        arg = jnp.argmin(ts, axis=1)  # the first of equal t wins
+        ref = SimpleNamespace(t=ts.min(1), tri=arg,
+                              u=jnp.take_along_axis(u, arg[:, None], 1)[:, 0],
+                              v=jnp.take_along_axis(v, arg[:, None], 1)[:, 0])
+        assert _check(jdata, ref, got, o, d, active) == 0
 
 
 def test_packet_refuses_partial_packets():
