@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--seed N] [--out DIR] [--cards N]
 
 With ``--cards N`` (N > 1, a machine with N cards) it runs only phase 10's
-meshes, each shard on a card of its own (``cuda:0 ..``), with the peer
-copy of a shard's colours into the home card; the rest of this text is
-the run without it, which needs one card.
+meshes, each shard on a card of its own (``cuda:0 ..``), with the copies a
+step makes between cards (the sp sums' and the slices' owners') timed; the
+rest of this text is the run without it, which needs one card.
 
 Phases; each raises on failure, and the script then exits non-zero:
 
@@ -73,10 +73,11 @@ Phases; each raises on failure, and the script then exits non-zero:
    with frames_per_step 2, into the buffer the step block names, and on
    the whole frame in 8x16 block order at frames_per_step 1 and 2; and the
    step block's write (``csrc/step_block.cu``) against a copy of the same
-   words; G7, the "bvh" walk (``csrc/bvh_walk.cu``, over the scene's node
-   and triangle records), on phase 3's kind of rays over the 84-triangle
-   box of phase 7 and over standin-31k, with a live ray's node visits,
-   triangle tests and candidates; G8, the brute-force sweep
+   words, timed in turns with a ``copy_`` from pinned host memory (the
+   library call); G7, the "bvh" walk (``csrc/bvh_walk.cu``, over the
+   scene's node and triangle records), on phase 3's kind of rays over the
+   84-triangle box of phase 7 and over standin-31k, with a live ray's
+   node visits, triangle tests and candidates; G8, the brute-force sweep
    (``csrc/brute_sweep.cu``), on the same kind of rays over the box, with
    the pairs and candidates a live ray and the time of the matmul sweep it
    replaced (``matmul_sweep``, kept here only as that yardstick); G9, the
@@ -200,10 +201,15 @@ Phases; each raises on failure, and the script then exits non-zero:
    bounces over meshes of the card repeated, (dp, sp) in ``MESHES``: one
    sweep of sp frames each, "auto" resolving to "pallas2" with parts x 5
    x dp x sp K1 launches, 5 x dp x sp K2 and no K3, held against a
-   sequential ``Renderer`` at sp frames (rmse <= 1e-6); then timed, with
-   each shard's host time a step (its block write and graph replay) and
-   each step's (the shards, the peer copies, the sum and the fold on the
-   home device).  On one card the shards run one after
+   sequential ``Renderer`` at sp frames (rmse <= 1e-6), its ``accum``
+   dp slices of (1080/dp, 1920, 3), slice j on the mesh's devices[j, 0],
+   and one fold and one block write a slice the band reaches (dp a step:
+   the band is the whole frame); then timed, with each shard's host time a
+   step (its block write and graph replay) and each step's (the shards,
+   the sp sums, the copies and the folds), and the bytes a step copied
+   between distinct devices (0 on one card) beside what it would copy on
+   distinct cards and what it copied when ``accum`` lived on one card.
+   On one card the shards run one after
    another, so this is the cost of splitting a frame, not a scaling
    number.  The CLI's ``main`` with ``--dp 1 --sp 1`` runs phase 9's
    two calls on the OBJ-loaded default scene: the resumed checkpoint must
@@ -482,7 +488,8 @@ def sorts_a_raytrace(n_bounces: int, sort_every: int = 1) -> int:
 
 def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                parts: int = 0, steps: int | None = None,
-               blocks: int | None = None, sort_every: int = 1) -> None:
+               blocks: int | None = None, sort_every: int = 1,
+               folds: int | None = None) -> None:
     """The glue kernels' launches in ``renders`` chunk renders of
     ``traversal`` over ``steps`` tile steps (default: one a render): one
     ray front a render; with the reorder (the kernels' traversals) at
@@ -491,8 +498,9 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     restore; after K1, one epilogue per
     part and bounce segment; G5's entry t before each K1 or K3 segment and
     its epilogue after each K3 one; G7, G8 or G9 a segment of "bvh",
-    "brute" or "packet"; one fold a step; and ``blocks`` block writes
-    (default: one a step; on a mesh, one a shard and the home block's)."""
+    "brute" or "packet"; ``folds`` folds (default: one a step; on a mesh,
+    one a slice that a dp row's piece reaches); and ``blocks`` block writes
+    (default: one a step; on a mesh, one a shard and one a fold)."""
     steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
     sorts = sorts_a_raytrace(n_bounces, sort_every) * renders if reorder \
@@ -505,7 +513,7 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                 parts * n_bounces * renders if traversal == "pallas2" else 0)
     g5 = {"pallas2": 1, "pallas": 2}.get(traversal, 0)
     check_count(counts, "wide_epilogue", g5 * n_bounces * renders)
-    check_count(counts, "band_fold", steps)
+    check_count(counts, "band_fold", steps if folds is None else folds)
     check_count(counts, "step_block", steps if blocks is None else blocks)
     check_count(counts, "bvh_walk",
                 n_bounces * renders if traversal == "bvh" else 0)
@@ -1789,8 +1797,9 @@ def _g9_rows(camera, seed, data, segments):
 
 def _block_rows(dev, camera):
     """The step block's write against its plain version (a copy of the
-    same words), bit for bit; its time beside the plain version's and one
-    ``copy_`` from a host tensor (the library call)."""
+    same words), bit for bit; its time beside the plain version's and,
+    timed the same way in turns, one ``copy_`` from a pinned host tensor
+    (the library call; a pageable one beside it)."""
     from opengl_raytracer_torch.ops import step_block
 
     words = step_block.pack(2**32 + 9, (1, 2, 3, 4, 5), camera, 0.7, 0.05,
@@ -1800,13 +1809,21 @@ def _block_rows(dev, camera):
     step_block.write_plain(ref, words)
     err = _assert_equal("step block", got, ref)
     host = torch.from_numpy(words)
+    pinned = host.pin_memory()
     ms, plain_ms = time_pair(lambda: step_block.write(got, words),
                              lambda: step_block.write_plain(ref, words),
                              50, 50)
-    lib = min(cuda_ms(lambda: ref.copy_(host), 50) for _ in range(2))
+    ms_turn, lib = time_pair(lambda: step_block.write(got, words),
+                             lambda: ref.copy_(pinned, non_blocking=True),
+                             50, 50)
+    torch.cuda.synchronize()
+    _assert_equal("pinned copy", ref, got)
+    pageable = min(cuda_ms(lambda: ref.copy_(host), 50) for _ in range(2))
     row = _glue_row("step_block", err, ms, plain_ms, 2 * step_block.WORDS * 4,
-                    0, library_ms=lib)
-    return row, dict(library_ms=lib)
+                    0, library_ms=lib, ms_beside_library=ms_turn,
+                    pageable_copy_ms=pageable)
+    return row, dict(library_ms=lib, ms_beside_library=ms_turn,
+                     pageable_copy_ms=pageable)
 
 
 def frame_states(data, camera, frames_per_step: int = 1, frame: int = 0):
@@ -3258,12 +3275,41 @@ def cli_phase():
                 os.environ["OGLRT_MODELS_PATH"] = saved_env
 
 
+def _home_card_bytes(devices, rows: int, tw: int) -> int:
+    """The bytes a mesh step copied when ``accum`` lived on
+    ``devices[0, 0]``: each shard's colours, ``rows`` band rows, to it."""
+    home = devices[0, 0]
+    return int(sum(d != home for d in devices.flat)) * rows * tw * 12
+
+
+def _sp_copy_bytes(devices, rows: int, tw: int) -> int:
+    """The bytes a mesh step of a band that is the whole frame copies:
+    each dp row's sp shards on another device than the row's first send it
+    their ``rows`` band rows; each dp row's piece is its own slice."""
+    return int(sum(d != row[0] for row in devices for d in row[1:])) \
+        * rows * tw * 12
+
+
+def _check_slices(sr, cfg, dp: int) -> None:
+    """The state's ``accum`` is dp slices of (H/dp, W, 3) float32, slice j
+    on the mesh's devices[j, 0]."""
+    from opengl_raytracer_torch.parallel import RowShardedAccum
+
+    accum = sr.init_state().accum
+    shape = (cfg.height // dp, cfg.width, 3)
+    got = [(tuple(s.shape), s.dtype, s.device) for s in accum.slices]
+    want = [(shape, torch.float32, dev) for dev in sr.mesh.devices[:, 0]]
+    if not isinstance(accum, RowShardedAccum) or got != want:
+        raise RuntimeError(f"mesh {dp}x{sr.mesh.shape['sp']}: accum slices "
+                           f"{got}, expected {want}")
+
+
 def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
     """Phase 10's meshes of the one card repeated (``cards`` 1) or of
     cards ``cuda:0 ..`` (``cards`` 4: each shard on a card of its own),
     each one sweep of sp frames against the sequential Renderer at sp
-    frames, then timed; on real cards also the peer copy of a shard's
-    colours into the home card."""
+    frames, its slices and its copies checked, then timed; on real cards
+    also the copies a step makes between cards."""
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
@@ -3302,6 +3348,7 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
             raise RuntimeError(f"mesh {dp}x{sp}: auto resolved to "
                                f"{sr.traversal}, scene on {list(sr.scenes)}")
         parts = len(sr.scene.parts)
+        _check_slices(sr, cfg, dp)
         _kernels.reset_counts()
         state = sr.render(camera, frames=sp)
         torch.cuda.synchronize()
@@ -3311,8 +3358,20 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
                     parts * cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
         check_count(counts, "wide_traversal", 0)
+        # the band is the whole frame: dp row i's piece is slice i, one
+        # fold and one block write a slice
         check_glue(counts, sr.traversal, cfg.n_bounces, dp * sp, parts,
-                   steps=1, blocks=dp * sp + 1)
+                   steps=1, blocks=dp * sp + dp, folds=dp)
+        # ... so a step copies only each dp row's sp shards to its first
+        # device
+        rows, tw = cfg.tile_h // dp, cfg.tile_w
+        distinct = np.arange(dp * sp).reshape(dp, sp)
+        expected = _sp_copy_bytes(mesh.devices, rows, tw)
+        home_rule = _home_card_bytes(mesh.devices, rows, tw)
+        if sr.moved_bytes != expected or expected > home_rule:
+            raise RuntimeError(f"mesh {dp}x{sp}: a step copied "
+                               f"{sr.moved_bytes} B, expected {expected}, "
+                               f"{home_rule} with accum on one card")
         img = sr.image(state)
         err = rmse(img, seq_at[sp])
         if not np.isfinite(img).all() or err > 1e-6:
@@ -3320,6 +3379,7 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
                                f"{sp} frames: rmse {err} (limit 1e-6)")
         enqueue.clear()
         host = []
+        moved = sr.moved_bytes
         sharding._Shard.run = timed_run
         try:
             torch.cuda.synchronize()
@@ -3332,10 +3392,15 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
             sec = time.perf_counter() - t0
         finally:
             sharding._Shard.run = plain_run
+        moved = (sr.moved_bytes - moved) // SHARD_SWEEPS
         if cards > 1 and dp * sp > 1:
-            _peer_copy(sr, dp, sp, card)
+            _peer_copy(sr, state, camera, dp, sp, card)
         say("sharded", mesh=f"{dp}x{sp}", cards=len(set(devices)),
-            traversal=sr.traversal,
+            traversal=sr.traversal, bytes_moved_a_step=moved,
+            bytes_a_step_on_distinct_cards=_sp_copy_bytes(distinct, rows, tw),
+            home_card_bytes_a_step=home_rule,
+            home_card_bytes_on_distinct_cards=_home_card_bytes(distinct, rows,
+                                                               tw),
             k1_launches=counts["subblock_traversal"],
             k2_launches=counts["shade"], k3_launches=counts["wide_traversal"],
             rmse_vs_sequential=err, limit=1e-6,
@@ -3351,25 +3416,41 @@ def _sync_all() -> None:
         torch.cuda.synchronize(k)
 
 
-def _peer_copy(sr, dp: int, sp: int, card: str) -> None:
-    """The copy of the last shard's colours (three columns of its band
-    rows) into the home card, as a mesh step makes it: ms a copy on the
-    host clock between syncs of every card, and the rate."""
-    shard = sr._shards[dp - 1][sp - 1]
-    cols = shard.graph.output
-    home = sr.home
+def _peer_copy(sr, state, camera, dp: int, sp: int, card: str) -> None:
+    """The copies one mesh step makes between cards (a dp row's sp shards
+    to its sp=0 card, and a run of rows to the card of the slice that
+    holds it), recorded in one more step, then all made again: ms a step's
+    copies on the host clock between syncs of every card, and the rate."""
+    from opengl_raytracer_torch.parallel import sharding
+
+    sent = []
+    plain_send = sharding._send
+
+    def recording_send(cols, device):
+        if cols[0].device != device:
+            sent.append((cols, device))
+        return plain_send(cols, device)
+
+    sharding._send = recording_send
+    try:
+        sr.step(state, camera)
+    finally:
+        sharding._send = plain_send
+    n_bytes = sum(c.numel() * c.element_size() for cols, _ in sent
+                  for c in cols)
     iters = 20
     _sync_all()
     t0 = time.perf_counter()
     for _ in range(iters):
-        for c in cols:
-            c.to(home)
+        for cols, device in sent:
+            for c in cols:
+                c.to(device)
     _sync_all()
     ms = (time.perf_counter() - t0) * 1000.0 / iters
-    n_bytes = sum(c.numel() * c.element_size() for c in cols)
-    say("sharded", mesh=f"{dp}x{sp}", peer_copy_from=str(shard.device),
-        to=str(home), mbytes=n_bytes / 1e6, copy_ms=ms,
-        gbps=n_bytes / ms / 1e6, card=repr(card))
+    say("sharded", mesh=f"{dp}x{sp}", copies_a_step=len(sent),
+        routes=sorted({f"{cols[0].device}->{dev}" for cols, dev in sent}),
+        mbytes=n_bytes / 1e6, copy_ms=ms,
+        gbps=n_bytes / ms / 1e6 if n_bytes else None, card=repr(card))
 
 
 def cards_phase(cards: int) -> None:

@@ -25,8 +25,9 @@ measured on the card:
   and on the five bounce segments of one 1080p "packet" frame of it, and
   G8 (the brute-force sweep) per launch (the better of two means of 10)
   on the same kind of random rays over the box;
-* ms per converged frame of standin-31k over (dp, sp) meshes (2, 1) and
-  (4, 1) of the one card repeated;
+* ms per converged frame of standin-31k over (dp, sp) meshes (2, 1),
+  (2, 2) and (4, 1) of the one card repeated, and the host's time to
+  enqueue one step of it (the median of SWEEPS steps back to back);
 * device ms and launches a frame by kernel group (``chip_smoke.py``'s
   phase-11 groups: G3 reorder and restore, the sort, K1, ...) over
   PROFILED more "auto" frames of standin-31k, of standin-1.96m and of the
@@ -56,7 +57,7 @@ import time
 FRAMES = 8
 PROFILED = 4
 SWEEPS = 4  # timed sweeps of a mesh
-MESHES = ((2, 1), (4, 1))
+MESHES = ((2, 1), (2, 2), (4, 1))
 
 
 def k3_launch(wide, data, o3, d3, t0, leaf_octets):
@@ -142,9 +143,10 @@ def g8_launch_ms(cs, box, camera, seed):
 
 
 def mesh_ms(torch, data, camera, dp, sp):
-    """ms per converged 1080p frame of a (dp, sp) mesh of the one card
-    repeated (1 warm-up sweep, then SWEEPS sweeps of sp frames each, timed
-    together between device syncs)."""
+    """(ms per converged 1080p frame, host ms a step) of a (dp, sp) mesh of
+    the one card repeated: 1 warm-up sweep, then SWEEPS sweeps of sp
+    frames each, one step each, timed together between device syncs; the
+    host's time is the median step's enqueue."""
     from opengl_raytracer_torch import RenderConfig
     from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
 
@@ -152,11 +154,16 @@ def mesh_ms(torch, data, camera, dp, sp):
                                             bounces=4),
                          make_mesh(devices=["cuda"] * (dp * sp), dp=dp, sp=sp))
     state = sr.render(camera, frames=sp)
+    host = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sr.render(camera, frames=sp * SWEEPS, state=state)
+    for _ in range(SWEEPS):
+        h0 = time.perf_counter()
+        state = sr.step(state, camera)
+        host.append((time.perf_counter() - h0) * 1000.0)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1000.0 / (sp * SWEEPS)
+    return ((time.perf_counter() - t0) * 1000.0 / (sp * SWEEPS),
+            sorted(host)[len(host) // 2])
 
 
 def main(argv=None) -> int:
@@ -215,7 +222,8 @@ def main(argv=None) -> int:
             out["g9_random_31k_ms"] = g9[0]
             out["g9_packet_segments_31k_ms"] = g9[1:]
             for dp, sp in MESHES:
-                out[f"mesh_{dp}x{sp}_{tag}_ms_per_frame"] = mesh_ms(
+                (out[f"mesh_{dp}x{sp}_{tag}_ms_per_frame"],
+                 out[f"mesh_{dp}x{sp}_{tag}_host_ms_per_step"]) = mesh_ms(
                     torch, data, camera, dp, sp)
         for name in names:
             ms, host, resolved, r, state = frame_ms(torch, data, camera, name)

@@ -80,6 +80,22 @@ def _fold_cuda(accum, colors, block, tw: int, th: int, n_frames: int,
                     n_frames, float(weight), accum.shape[1], int(blocks))
 
 
+def check_target(accum, words, tw: int, th: int) -> None:
+    """Host check of a block's ``words`` (``step_block.pack``) before they
+    are written for a fold of a ``th`` x ``tw`` band into ``accum``: the
+    address is ``accum``'s and the window (col0, row0) lies inside it.  A
+    CUDA fold writes at the block's address, which :func:`fold_band` sees
+    only on the device."""
+    address, col0, row0 = step_block.target(words)
+    if address != accum.data_ptr():
+        raise ValueError(f"the block folds into {address:#x}, not into "
+                         f"accum at {accum.data_ptr():#x}")
+    if (row0 < 0 or col0 < 0 or row0 + th > accum.shape[0]
+            or col0 + tw > accum.shape[1]):
+        raise ValueError(f"a {th} x {tw} band at row {row0}, column {col0} "
+                         f"leaves accum {tuple(accum.shape)}")
+
+
 def fold_band(accum, colors, block, tw: int, th: int, n_frames: int,
               weight: int, blocks: bool = False) -> None:
     """Fold ``colors`` (3 float32 columns of ``n_frames`` x ``tw * th``

@@ -4,7 +4,8 @@ The shader's path logic (fragment.glsl:220-366), as in
 ``opengl_raytracer_tpu/ops/integrator.py``:
 
 * ``scatter_soa`` — ``diffuse()`` (fragment.glsl:220-232), ``reflect`` and
-  ``lerp()`` (fragment.glsl:234-240);
+  ``lerp()`` (fragment.glsl:234-240); ``scatter`` is its AoS form (the
+  JAX package's compatibility surface, off the main path);
 * ``raytrace`` — the bounce loop (fragment.glsl:309-350).  With
   ``reorder`` (the wide-BVH kernels' traversals), before bounce segment
   ``i`` where ``i >= 1`` and ``(i - 1) % sort_every == 0`` (every segment
@@ -80,6 +81,16 @@ def scatter_soa(seed, n3, d3, roughness, lambertian: bool):
     out = tuple(g0[a] * (1.0 - t) + g1[a] * t for a in range(3))
     o_len = _norm3(*out).clamp_min(TINY)
     return seed, tuple(out[a] / o_len for a in range(3))
+
+
+def scatter(seed, normal, ray_dir, roughness, lambertian: bool):
+    """AoS wrapper over :func:`scatter_soa` (the JAX package's
+    ``scatter``): (R, 3) normal and direction in, (new_seed, (R, 3))
+    out."""
+    seed, d = scatter_soa(seed, tuple(normal[..., a] for a in range(3)),
+                          tuple(ray_dir[..., a] for a in range(3)),
+                          roughness, lambertian)
+    return seed, torch.stack(d, -1)
 
 
 def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,

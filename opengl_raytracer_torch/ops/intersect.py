@@ -14,7 +14,9 @@
   triangles; the lowest index wins a tie.
 * :func:`finalize_hit_soa` — the nearest-hit record resolved into the
   shader's Hit fields (fragment.glsl:146-176); with the integrator's
-  scatter and state update it forms the shade kernel's plain version.
+  scatter and state update it forms the shade kernel's plain version;
+  :class:`Hit` and :func:`finalize_hit` are its AoS form (the JAX
+  package's compatibility surface; the main path does not call them).
 
 Vec3 quantities travel as 3-tuples of (R,) columns, as in the JAX package.
 """
@@ -240,6 +242,21 @@ def raycast_brute(scene, o3, d3, active=None) -> Nearest:
     return _sweep_plain(scene, o3, d3, active)
 
 
+class Hit(NamedTuple):
+    """Per-ray nearest-hit record (the shader's ``Hit`` struct,
+    fragment.glsl:68-81) with vec3 fields as (R, 3) tensors: the JAX
+    package's ``Hit``."""
+
+    did_hit: torch.Tensor  # (R,) bool
+    t: torch.Tensor  # (R,) float32
+    point: torch.Tensor  # (R, 3)
+    normal: torch.Tensor  # (R, 3)
+    color: torch.Tensor  # (R, 3)
+    emission: torch.Tensor  # (R,)
+    emission_color: torch.Tensor  # (R, 3)
+    roughness: torch.Tensor  # (R,)
+
+
 class HitSoA(NamedTuple):
     """SoA nearest-hit record (the shader's ``Hit`` struct,
     fragment.glsl:68-81): vec3 fields are 3-tuples of (R,) columns."""
@@ -308,3 +325,17 @@ def finalize_hit_soa(table, index, o3, d3, nearest: Nearest) -> HitSoA:
         emission_color=(abc[19], abc[20], abc[21]),
         roughness=abc[7],
     )
+
+
+def finalize_hit(scene, origin, direction, nearest: Nearest) -> Hit:
+    """AoS wrapper over :func:`finalize_hit_soa` (the JAX package's
+    ``finalize_hit``): ``origin`` and ``direction`` are (R, 3), the
+    materials those of :func:`shading_table`."""
+    h = finalize_hit_soa(*shading_table(scene, nearest),
+                         tuple(origin[..., a] for a in range(3)),
+                         tuple(direction[..., a] for a in range(3)), nearest)
+    return Hit(did_hit=h.did_hit, t=h.t, point=torch.stack(h.point, -1),
+               normal=torch.stack(h.normal, -1),
+               color=torch.stack(h.color, -1), emission=h.emission,
+               emission_color=torch.stack(h.emission_color, -1),
+               roughness=h.roughness)

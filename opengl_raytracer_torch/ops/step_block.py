@@ -122,6 +122,12 @@ def values(block: torch.Tensor) -> StepValues:
                       em_scale=float(f[15]), jitter=float(f[16]))
 
 
+def target(words: np.ndarray) -> tuple:
+    """(accum's address, col0, row0) of a block's words: where G6 folds."""
+    w = np.asarray(words, np.int32)
+    return int(w[2:4].view(np.int64)[0]), int(w[4]), int(w[8])
+
+
 def frame_tensor(block: torch.Tensor) -> torch.Tensor:
     """The frame number as a (1,) int64 view of the block."""
     return block[0:2].view(torch.int64)

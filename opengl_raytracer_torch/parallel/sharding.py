@@ -4,7 +4,8 @@ The port of ``opengl_raytracer_tpu/parallel/sharding.py``, with its two
 mesh axes:
 
 * ``dp`` (pixel parallel): the rays of the current tile band are split
-  into dp contiguous slices of whole band rows, one per dp index;
+  into dp contiguous pieces of whole band rows, one per dp index, and the
+  accumulation buffer into dp slices of whole image rows;
 * ``sp`` (sample parallel): the device at sp index ``s`` renders frame
   number ``frame_count + s``, and the sp results are summed (the JAX
   package's ``psum``).  The per-pixel RNG stream depends only on (x, y,
@@ -21,19 +22,24 @@ Design, and where it departs from the JAX module:
 * One process drives every device, as the JAX package's single controller
   does; there is no ``torch.distributed``.  The CLI stays one process.
   Each (dp, sp) shard is the port's ``render_flat`` on its own device, with
-  its slice of the band's rows and its frame number in its own step block
+  its piece of the band's rows and its frame number in its own step block
   (``ops/step_block.py``), issued one after another from the calling
-  thread.  On cards each shard's body is one CUDA graph, captured at its
-  first step (``step_graph.py``; the JAX package jits its
-  ``shard_map``ped step, ``sharding.py:119-126``), so a shard costs the
-  host one block write and one replay; shards on distinct cards overlap
-  on the devices.
-* ``accum`` lives on the mesh's first device (the home device), not
-  row-sharded over dp (the JAX ``P("dp")``).  The shards' colors are
-  copied there, summed in sp index order and folded into ``accum`` in
-  place (G6, ``ops/fold.py``), eagerly: a handful of launches a step.  A
-  1080p ``accum`` is 25 MB; keeping it in one place makes ``image()``,
-  ``restore_state`` and checkpoints plain copies.
+  thread, every shard before any copy.  On cards each shard's body is one
+  CUDA graph, captured at its first step (``step_graph.py``; the JAX
+  package jits its ``shard_map``ped step, ``sharding.py:119-126``), so a
+  shard costs the host one block write and one replay; shards on distinct
+  cards overlap on the devices.
+* ``accum`` is a :class:`RowShardedAccum`: slice j holds image rows
+  ``j * H/dp ..`` on ``devices[j, 0]``, the JAX ``P("dp")``
+  (``sharding.py:195``).  The JAX array is replicated over sp; the port
+  keeps one copy a dp row, on its sp=0 device.  Where GSPMD reshards the
+  band into the slices (``sharding.py:129-138``), the port routes it by
+  hand (:func:`plan_step`): each dp row sums its shards' colours on its
+  sp=0 device in sp index order, each run of its rows goes to the slice
+  that holds them, and G6 (``ops/fold.py``) folds it there, eagerly, with
+  the slice's own step block.  Dp row i renders the rows of slice i when
+  the band is the whole frame (``tile_size=1``), so such a step copies
+  nothing between dp rows.
 * The scene is uploaded once per distinct device, so a mesh that repeats
   one card holds one copy of the tables.
 * ``"auto"`` resolves with the port's ``resolve_traversal``, as the
@@ -57,6 +63,8 @@ devices in :func:`make_mesh`'s ``devices``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -64,13 +72,12 @@ from opengl_raytracer_torch import step_graph
 from opengl_raytracer_torch.models.scene import Scene, SceneData, torch_device
 from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.ops.camera import Camera, make_camera
-from opengl_raytracer_torch.ops.fold import fold_band
+from opengl_raytracer_torch.ops.fold import check_target, fold_band
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.renderer import (RenderState, advance,
-                                             band_window, check_accum,
-                                             make_raycast_fn, render_flat,
-                                             resolve_leaf_bound,
-                                             resolve_traversal, step_words)
+                                             band_window, make_raycast_fn,
+                                             render_flat, resolve_leaf_bound,
+                                             resolve_traversal)
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 
@@ -122,6 +129,94 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None,
     return Mesh(grid.reshape(dp, sp))
 
 
+class RowShardedAccum:
+    """A mesh's accumulation buffer, the (H, W, 3) float32 frame (top row
+    first) as dp row slices: ``slices[j]`` is a contiguous (H/dp, W, 3)
+    tensor of image rows ``j * H/dp .. (j+1) * H/dp - 1`` on the mesh's
+    ``devices[j, 0]``.  ``cpu()`` gathers the frame into a new host tensor
+    (checkpoints save ``state.accum.cpu().numpy()``)."""
+
+    def __init__(self, slices):
+        self.slices = tuple(slices)
+
+    @classmethod
+    def zeros(cls, devices, height: int, width: int) -> "RowShardedAccum":
+        """Zeroed slices of a ``height`` x ``width`` frame, one on each of
+        ``devices``."""
+        rows = height // len(devices)
+        return cls(torch.zeros((rows, width, 3), dtype=torch.float32,
+                               device=dev) for dev in devices)
+
+    @classmethod
+    def scatter(cls, frame: torch.Tensor, devices) -> "RowShardedAccum":
+        """New slices holding a copy of ``frame`` (H, W, 3), one on each of
+        ``devices``."""
+        rows = frame.shape[0] // len(devices)
+        return cls(frame[j * rows:(j + 1) * rows].to(dev, torch.float32,
+                                                     copy=True).contiguous()
+                   for j, dev in enumerate(devices))
+
+    def cpu(self) -> torch.Tensor:
+        return torch.cat([s.cpu() for s in self.slices])
+
+
+class Part(NamedTuple):
+    """A run of band rows that one dp row renders and one slice folds:
+    rays ``lo * tw .. hi * tw`` of dp row ``row``'s shards (row-major from
+    the bottom GL row of its piece), folded into slice ``owner`` with their
+    top row at row ``row0`` of the slice."""
+
+    row: int
+    lo: int
+    hi: int
+    owner: int
+    row0: int
+
+
+def plan_step(config: RenderConfig, dp: int, tile_x: int, tile_y: int):
+    """How a step of tile (tile_x, tile_y) is split over dp rows: returns
+    ``(starts, parts)``.
+
+    The band's ``tile_h`` rows fall into dp pieces of ``tile_h / dp`` rows.
+    Dp row i renders the i-th piece from the top, from GL row ``starts[i]``
+    of the band, so that with the band the whole frame (``tile_size=1``)
+    piece i is slice i.  The rows of a piece that the remainder band's
+    mask leaves out (GL rows below ``dy0``) are neither copied nor folded;
+    the rest is cut where it crosses a slice boundary into :class:`Part` s.
+    A slice is at least as tall as a piece, so some piece lies wholly in
+    its own dp row's slice: on distinct devices a step copies at most what
+    it copied when ``accum`` lived on one device, every shard's colours
+    but one piece's."""
+    th = config.tile_h
+    rows, slice_rows = th // dp, config.height // dp
+    _, py0, _, dy0 = band_window(config, tile_x, tile_y)
+    row0 = config.height - py0 - th  # the band's top image row
+    starts, parts = [], []
+    for i in range(dp):
+        start = (dp - 1 - i) * rows
+        starts.append(start)
+        # image rows top .. end - 1 are the piece's GL rows rows - 1 down
+        # to the lowest at or above dy0
+        top = row0 + i * rows
+        end = top + rows - min(max(dy0 - start, 0), rows)
+        a = top
+        while a < end:
+            j = a // slice_rows
+            b = min(end, (j + 1) * slice_rows)
+            parts.append(Part(i, top + rows - b, top + rows - a, j,
+                              a - j * slice_rows))
+            a = b
+    return starts, parts
+
+
+def _send(cols, device):
+    """``cols`` on ``device``, and the bytes that copied between devices."""
+    if cols[0].device == device:
+        return cols, 0
+    return (tuple(c.to(device) for c in cols),
+            sum(c.numel() * c.element_size() for c in cols))
+
+
 class _Shard:
     """One (dp, sp) shard of a mesh: its device, its copy of the scene and
     its traversal, its step block, and the rows of the band it renders.
@@ -155,43 +250,56 @@ class _Shard:
         return self.graph.replay() if graphed else self.body()
 
 
-def sharded_tile_step(shards, home_block, state: RenderState, camera: Camera,
-                      sky_brightness, jitter_amount, lambertian, *,
-                      config: RenderConfig, mesh: Mesh,
-                      eager: bool = False) -> None:
+def sharded_tile_step(shards, blocks, accum: RowShardedAccum, plan,
+                      state: RenderState, camera: Camera, sky_brightness,
+                      jitter_amount, lambertian, *, config: RenderConfig,
+                      mesh: Mesh, eager: bool = False) -> int:
     """One mesh step: render one tile band, rows split over ``dp`` and
-    frame numbers over ``sp``, and fold it into ``state.accum`` (on its
-    own device) in place.
+    frame numbers over ``sp``, and fold it into ``accum``'s slices in
+    place.  Returns the bytes it copied between distinct devices.
 
-    ``shards`` is the (dp, sp) grid of :class:`_Shard`; shard (i, s)
-    renders rows ``i * tile_h / dp ..`` of the band at frame number
-    ``frame_count + s``, each value in its own step block.  The colors
-    are copied to the home device, summed in sp index order and folded
-    (G6, weight sp) at the window of ``home_block``: the band's clamp and
-    remainder mask are ``_tile_step``'s (``renderer.band_window``), so the
-    image equals the sequential renderer's."""
+    ``shards`` is the (dp, sp) grid of :class:`_Shard` and ``blocks`` the
+    slices' step blocks; ``plan`` is :func:`plan_step`'s for the state's
+    tile.  Shard (i, s) renders its piece at frame number
+    ``frame_count + s``, each value in its own step block.  Dp row i sums
+    its shards' colours on its sp=0 device in sp index order (out of
+    place: a graph's outputs stay as its replay left them), and each part
+    folds on its owner (G6, weight sp) at its window in the slice: the
+    band's columns and their remainder mask are ``_tile_step``'s
+    (``renderer.band_window``), so the image equals the sequential
+    renderer's."""
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
-    rows = config.tile_h // dp
-    accum = state.accum
-    home = accum.device
-    col0, py0, _, _ = band_window(config, state.tile_x, state.tile_y)
-    slices = []
-    for i in range(dp):
+    tw, rows = config.tile_w, config.tile_h // dp
+    starts, parts = plan
+    col0, py0, dx0, _ = band_window(config, state.tile_x, state.tile_y)
+    values = (camera, sky_brightness, jitter_amount, lambertian)
+    colors = [[shards[i][s].run(step_block.pack(
+        state.frame_count + s, (col0, py0 + starts[i], 0, 0, 0), *values),
+        eager) for s in range(sp)] for i in range(dp)]
+    moved, sums = 0, {}
+    for i in sorted({p.row for p in parts}):
+        lo = min(p.lo for p in parts if p.row == i)
         total = None
         for s in range(sp):
-            words = step_block.pack(state.frame_count + s,
-                                    (col0, py0 + i * rows, 0, 0, 0), camera,
-                                    sky_brightness, jitter_amount, lambertian)
-            colors = tuple(c.to(home) for c in shards[i][s].run(words, eager))
-            total = colors if total is None else tuple(
-                a + b for a, b in zip(total, colors))
-        slices.append(total)
-    colors = slices[0] if dp == 1 else tuple(
-        torch.cat([sl[a] for sl in slices]) for a in range(3))
-    step_block.write(home_block, step_words(
-        config, state.frame_count, state.tile_x, state.tile_y, camera,
-        sky_brightness, jitter_amount, lambertian, accum))
-    fold_band(accum, colors, home_block, config.tile_w, config.tile_h, 1, sp)
+            cols, n = _send(tuple(c[lo * tw:rows * tw] for c in colors[i][s]),
+                            mesh.devices[i, 0])
+            moved += n
+            total = cols if total is None else tuple(
+                a + b for a, b in zip(total, cols))
+        sums[i] = lo, total
+    for p in parts:
+        lo, total = sums[p.row]
+        cols, n = _send(tuple(c[(p.lo - lo) * tw:(p.hi - lo) * tw]
+                              for c in total), mesh.devices[p.owner, 0])
+        moved += n
+        target, block, th = accum.slices[p.owner], blocks[p.owner], p.hi - p.lo
+        words = step_block.pack(
+            state.frame_count, (col0, py0 + starts[p.row] + p.lo, dx0, 0,
+                                p.row0), *values, target.data_ptr())
+        check_target(target, words, tw, th)
+        step_block.write(block, words)
+        fold_band(target, cols, block, tw, th, 1, sp)
+    return moved
 
 
 def _scene_on(scene, device: torch.device) -> SceneData:
@@ -210,10 +318,12 @@ class ShardedRenderer:
 
     Each ``step`` renders one tile band and advances the accumulation by
     ``sp`` frames (``frames_per_step``); a full tile sweep therefore
-    converges ``sp`` frames.  ``accum`` lives on ``home`` (the mesh's first
-    device) and is updated in place by every step; ``RenderState``
-    round-trips through ``utils.checkpoint``, and :meth:`restore_state`
-    moves a loaded state's ``accum`` home."""
+    converges ``sp`` frames.  A state's ``accum`` is a
+    :class:`RowShardedAccum` over ``owners`` (``devices[:, 0]``), updated
+    in place by every step; ``RenderState`` round-trips through
+    ``utils.checkpoint``, and :meth:`restore_state` scatters a loaded
+    state's ``accum`` into new slices.  ``moved_bytes`` counts the bytes
+    the steps copied between distinct devices."""
 
     def __init__(self, scene, config: RenderConfig, mesh: Mesh):
         if config.frames_per_step != 1:
@@ -233,6 +343,7 @@ class ShardedRenderer:
                 f"(tile_size={config.tile_size})")
         self.mesh = mesh
         self.home = mesh.devices[0, 0]
+        self.owners = list(mesh.devices[:, 0])
         self.scenes = {dev: _scene_on(scene, dev)
                        for dev in dict.fromkeys(mesh.devices.flat)}
         self.scene = self.scenes[self.home]
@@ -249,26 +360,30 @@ class ShardedRenderer:
                                 self.traversal, config.tile_h // dp,
                                 pools[dev])
                          for dev in row] for row in mesh.devices]
-        self._home_block = step_block.new(self.home)
+        self._blocks = [step_block.new(dev) for dev in self.owners]
+        self._plans = {}
         self.frames_per_step = mesh.shape["sp"]
+        self.moved_bytes = 0
 
     def init_state(self) -> RenderState:
-        cfg = self.config
-        return RenderState(accum=torch.zeros(
-            (cfg.height, cfg.width, 3), dtype=torch.float32, device=self.home))
+        return RenderState(accum=RowShardedAccum.zeros(
+            self.owners, self.config.height, self.config.width))
 
     def restore_state(self, state: RenderState) -> RenderState:
-        """A copy of a (checkpoint-loaded) state with its ``accum`` on the
-        home device, ready to step."""
+        """A copy of a (checkpoint-loaded) state with its ``accum`` in new
+        slices on the owners, ready to step."""
+        accum = state.accum
+        if isinstance(accum, RowShardedAccum):
+            accum = accum.cpu()
         return RenderState(
-            accum=state.accum.to(self.home, torch.float32, copy=True),
+            accum=RowShardedAccum.scatter(accum, self.owners),
             frame_count=state.frame_count, tile_x=state.tile_x,
             tile_y=state.tile_y, total_frames=state.total_frames)
 
     def reset(self, state: RenderState) -> RenderState:
-        """Zeroed counters and a NEW zeroed ``accum`` (a copy or view of the
-        old one that a caller holds is left as it was)."""
-        return RenderState(accum=torch.zeros_like(state.accum))
+        """Zeroed counters and NEW zeroed slices (a copy of the old ones
+        that a caller holds is left as it was)."""
+        return self.init_state()
 
     def step(self, state: RenderState, camera: Camera,
              sky_brightness: float | None = None,
@@ -277,8 +392,8 @@ class ShardedRenderer:
         """One tile band across the mesh + tile cursor advance;
         ``state.accum`` is updated in place and carried into the result.
         On cards each shard is one block write and one graph replay
-        (captured at its first step); the sum and the fold run on the home
-        device."""
+        (captured at its first step); the sums, copies and folds run on
+        the dp rows' and the owners' devices."""
         return self._step(state, camera, sky_brightness, jitter_amount,
                           lambertian, eager=False)
 
@@ -290,12 +405,33 @@ class ShardedRenderer:
         return self._step(state, camera, sky_brightness, jitter_amount,
                           lambertian, eager=True)
 
+    def _check_accum(self, accum) -> None:
+        """A step folds into each slice in place, on a card by its address:
+        slice j must be a contiguous (H/dp, W, 3) float32 tensor on
+        ``owners[j]``."""
+        cfg = self.config
+        shape = (cfg.height // len(self.owners), cfg.width, 3)
+        ok = (isinstance(accum, RowShardedAccum)
+              and len(accum.slices) == len(self.owners)
+              and all(s.device == dev and s.dtype == torch.float32
+                      and tuple(s.shape) == shape and s.is_contiguous()
+                      for s, dev in zip(accum.slices, self.owners)))
+        if not ok:
+            raise ValueError(
+                f"accum must be a RowShardedAccum of contiguous {shape} "
+                f"float32 slices on {[str(d) for d in self.owners]} "
+                f"(restore_state places a loaded state)")
+
     def _step(self, state, camera, sky_brightness, jitter_amount,
               lambertian, eager: bool) -> RenderState:
         cfg = self.config
-        check_accum(state.accum, self.home, cfg)
-        sharded_tile_step(
-            self._shards, self._home_block, state, camera,
+        self._check_accum(state.accum)
+        tile = (state.tile_x, state.tile_y)
+        if tile not in self._plans:
+            self._plans[tile] = plan_step(cfg, len(self.owners), *tile)
+        self.moved_bytes += sharded_tile_step(
+            self._shards, self._blocks, state.accum, self._plans[tile],
+            state, camera,
             cfg.sky_brightness if sky_brightness is None else sky_brightness,
             cfg.jitter_amount if jitter_amount is None else jitter_amount,
             cfg.lambertian if lambertian is None else lambertian,
@@ -322,5 +458,5 @@ class ShardedRenderer:
     @staticmethod
     def image(state: RenderState) -> np.ndarray:
         """A copy of the accumulated frame as (H, W, 3) float32, top row
-        first."""
-        return state.accum.to("cpu", copy=True).numpy()
+        first: the slices gathered."""
+        return state.accum.cpu().numpy()

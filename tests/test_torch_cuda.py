@@ -1179,23 +1179,33 @@ def _script(n_tiles):
     return steps
 
 
+def _buffers(accum):
+    """``accum``'s tensors: a mesh's slices, or the one buffer."""
+    return getattr(accum, "slices", (accum,))
+
+
 def _replay_vs_eager(graphed, eager, n_tiles, check_graph=True):
     """Run the same script of steps through ``graphed.step`` (replays) and
-    ``eager._step_eager``, holding ``accum`` bit for bit after each."""
+    ``eager._step_eager``, holding ``accum`` (on a mesh, each slice) bit
+    for bit after each."""
     sa, sb = graphed.init_state(), eager.init_state()
     for camera, sky, lam, reset in _script(n_tiles):
         if reset:
-            old = sa.accum
+            old = _buffers(sa.accum)
             sa, sb = graphed.reset(sa), eager.reset(sb)
-            assert sa.accum.data_ptr() != old.data_ptr()
+            assert all(a.data_ptr() != b.data_ptr()
+                       for a, b in zip(_buffers(sa.accum), old))
         sa = graphed.step(sa, camera, sky_brightness=sky, lambertian=lam)
         sb = eager._step_eager(sb, camera, sky_brightness=sky,
                                lambertian=lam)
-        assert torch.equal(sa.accum.view(torch.int32),
-                           sb.accum.view(torch.int32))
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(_buffers(sa.accum), _buffers(sb.accum),
+                                   strict=True))
         assert (sa.frame_count, sa.tile_x, sa.tile_y) == (
             sb.frame_count, sb.tile_x, sb.tile_y)
-    assert float(sa.accum.mean()) > 0.01
+    bufs = _buffers(sa.accum)
+    assert sum(float(a.sum()) for a in bufs) / sum(a.numel()
+                                                   for a in bufs) > 0.01
     return sa
 
 
@@ -1322,8 +1332,8 @@ def test_graph_follows_new_buffers(cuda):
 
 
 def test_sharded_graph_replay_equals_eager(cuda):
-    """A (2, 2) mesh of the one card: each shard's replay and the home
-    fold equal the eager body bit for bit through the same script, and a
+    """A (2, 2) mesh of the one card: each shard's replay and the owners'
+    folds equal the eager body bit for bit through the same script, and a
     shard is one graph."""
     from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
 
@@ -1336,6 +1346,30 @@ def test_sharded_graph_replay_equals_eager(cuda):
     graphs = [sh.graph for row in graphed._shards for sh in row]
     assert all(g is not None for g in graphs) and len(set(graphs)) == 4
     assert all(sh.graph is None for row in eager._shards for sh in row)
+
+
+@pytest.mark.parametrize("dp,tile_size", [(4, 1), (4, 5), (2, 3)])
+def test_sharded_slices_match_sequential_on_card(cuda, dp, tile_size):
+    """An sp = 1 mesh of the one card folds each band piece into its
+    owner's slice by the address in the slice's block: equal to the
+    sequential renderer on the card bit for bit.  At 24x24 and dp 4 the
+    slices have 6 rows: tile_size 1 gives each dp row its slice, tile_size
+    5 a remainder band and pieces of one row; at dp 2 tile_size 3 cuts
+    pieces of 4 rows across slices of 12."""
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+
+    scene = _scene_small()
+    cfg = RenderConfig(width=24, height=24, bounces=2, tile_size=tile_size)
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    sr = ShardedRenderer(scene, cfg, make_mesh(devices=[cuda] * dp, dp=dp,
+                                               sp=1))
+    r = Renderer(scene, cfg, device=cuda)
+    before = _kernels.launch_counts["band_fold"]
+    got = sr.image(sr.render(cam, frames=2))
+    parts = sum(len(sr._plans[t][1]) for t in sr._plans)
+    assert _kernels.launch_counts["band_fold"] - before == 2 * parts
+    np.testing.assert_array_equal(got, r.image(r.render(cam, frames=2)))
+    assert got.mean() > 0.01 and sr.moved_bytes == 0
 
 
 def test_failed_capture_raises(cuda):

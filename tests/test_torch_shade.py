@@ -6,7 +6,10 @@ tables the wrapper takes:
 * ``(sh_abc, tri)`` against the JAX integrator's unfused path
   (``opengl_raytracer_tpu/ops/integrator.py:281-311``: ``finalize_hit_soa``
   gathering ``sh_abc[tri]``, ``scatter_soa`` and the state update), which
-  the brute, BVH and wide-BVH traversals run.
+  the brute, BVH and wide-BVH traversals run;
+
+and the AoS wrappers ``finalize_hit`` (``Hit``) and ``scatter`` against
+the JAX package's.
 
 Same NumPy inputs on both sides: a scene's material tables, and random
 hits (slots or triangles, t with misses mixed in, barycentrics), ray
@@ -23,15 +26,19 @@ import jax.numpy as jnp
 
 from opengl_raytracer_tpu.models.rect import Rect as JRect
 from opengl_raytracer_tpu.models.scene import Scene as JScene
+from opengl_raytracer_tpu.ops.integrator import scatter as j_scatter
 from opengl_raytracer_tpu.ops.integrator import scatter_soa as j_scatter_soa
 from opengl_raytracer_tpu.ops.intersect import Nearest as JNearest
+from opengl_raytracer_tpu.ops.intersect import finalize_hit as j_finalize_aos
 from opengl_raytracer_tpu.ops.intersect import finalize_hit_soa as j_finalize
 from opengl_raytracer_tpu.ops.shade import shade_update as j_shade_update
 
 from opengl_raytracer_torch import make_camera, scene_from_numpy
 from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.utils.config import SKY_COLOR
-from opengl_raytracer_torch.ops.intersect import BIG, Nearest, shading_table
+from opengl_raytracer_torch.ops.integrator import scatter
+from opengl_raytracer_torch.ops.intersect import (BIG, Hit, Nearest,
+                                                  finalize_hit, shading_table)
 from opengl_raytracer_torch.ops.shade import shade_update
 from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
@@ -168,3 +175,57 @@ def test_shade_plain_on_triangle_table_matches_jax_unfused(scenes, lambertian):
     assert shading_table(tdata, tn)[0] is tdata.sh_abc
     got = _port_shade(tdata, tn, x, sky, em_scale, lambertian)
     _assert_shade_equal(ref, got, x)
+
+
+@pytest.mark.parametrize("slots", [True, False])
+def test_finalize_hit_aos_matches_jax(scenes, slots):
+    """``finalize_hit`` with (R, 3) origins and directions, shading by
+    slot (sub-block traversal) or by triangle, against the JAX
+    ``finalize_hit``: ``Hit``'s fields, their shapes, did_hit exact."""
+    jdata, tdata = scenes
+    x = _inputs(tdata.sh_slot.shape[0] if slots else tdata.sh_abc.shape[0],
+                seed=7)
+    idx = x["slot"]
+    kw = dict(slot=idx) if slots else {}
+    jn = JNearest(t=jnp.asarray(x["t"]), tri=jnp.asarray(idx),
+                  u=jnp.asarray(x["u"]), v=jnp.asarray(x["v"]),
+                  **{k: jnp.asarray(v) for k, v in kw.items()})
+    tn = Nearest(t=torch.from_numpy(x["t"]), tri=torch.from_numpy(idx),
+                 u=torch.from_numpy(x["u"]), v=torch.from_numpy(x["v"]),
+                 **{k: torch.from_numpy(v) for k, v in kw.items()})
+    o, d = x["o"].T.copy(), x["d"].T.copy()
+    ref = j_finalize_aos(jdata, jnp.asarray(o), jnp.asarray(d), jn)
+    got = finalize_hit(tdata, torch.from_numpy(o), torch.from_numpy(d), tn)
+    assert isinstance(got, Hit) and got._fields == ref._fields
+    np.testing.assert_array_equal(np.asarray(ref.did_hit), got.did_hit.numpy())
+    for name in Hit._fields:
+        r, g = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(r, g, rtol=1e-5, atol=1e-6, err_msg=name)
+    assert got.did_hit.any() and not got.did_hit.all()
+
+
+@pytest.mark.parametrize("lambertian", [True, False])
+def test_scatter_aos_matches_jax(lambertian):
+    """``scatter`` on (R, 3) normals and directions and uint32 seeds over
+    the full range, against the JAX ``scatter``: seed exact, direction
+    within the shade tolerance."""
+    g = np.random.default_rng(11)
+    n = g.normal(size=(R, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    d = g.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    n, d = n.astype(np.float32), d.astype(np.float32)
+    rough = g.uniform(0, 1, R).astype(np.float32)
+    rough[:16] = (0, 1) * 8  # mirror and diffuse ends
+    seed = g.integers(0, 2**32, R, dtype=np.uint64).astype(np.uint32)
+    jseed, jdir = j_scatter(jnp.asarray(seed), jnp.asarray(n),
+                            jnp.asarray(d), jnp.asarray(rough), lambertian)
+    tseed, tdir = scatter(torch.from_numpy(seed.astype(np.int64)),
+                          torch.from_numpy(n), torch.from_numpy(d),
+                          torch.from_numpy(rough), lambertian)
+    np.testing.assert_array_equal(np.asarray(jseed).astype(np.int64),
+                                  tseed.numpy())
+    assert tdir.shape == (R, 3)
+    np.testing.assert_allclose(np.asarray(jdir), tdir.numpy(), rtol=1e-5,
+                               atol=1e-6)

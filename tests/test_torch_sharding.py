@@ -23,6 +23,7 @@ from opengl_raytracer_tpu.models.scene import Scene as JScene
 from opengl_raytracer_tpu.ops.camera import make_camera as j_make_camera
 from opengl_raytracer_tpu.parallel.sharding import ShardedRenderer as JSharded
 from opengl_raytracer_tpu.parallel.sharding import make_mesh as j_make_mesh
+from opengl_raytracer_tpu.utils.checkpoint import load_checkpoint as j_load
 from opengl_raytracer_tpu.utils.checkpoint import save_checkpoint as j_save
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
@@ -34,7 +35,10 @@ from opengl_raytracer_torch.ops import (_kernels, fold, front, intersect,
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
-from opengl_raytracer_torch.parallel import Mesh, ShardedRenderer, make_mesh
+from opengl_raytracer_torch.parallel import (Mesh, RowShardedAccum,
+                                             ShardedRenderer, make_mesh)
+from opengl_raytracer_torch.parallel.sharding import plan_step
+from opengl_raytracer_torch.renderer import RenderState, band_window
 from opengl_raytracer_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
 from opengl_raytracer_torch.utils.image import rmse
@@ -154,23 +158,219 @@ def test_scene_sent_once_per_distinct_device(scene):
 
 
 def test_state_buffers_are_owned(scene):
-    """``accum`` changes in place with every step: ``image`` and
-    ``restore_state`` copy, ``reset`` allocates a new buffer."""
+    """``accum``'s slices change in place with every step: ``image`` and
+    ``restore_state`` copy, ``reset`` allocates new slices."""
     sr = ShardedRenderer(scene, RenderConfig(width=16, height=16, bounces=1),
-                         cpu_mesh(1, 2))
+                         cpu_mesh(2, 2))
     state = sr.render(make_camera(*CAM), frames=2)
     img = sr.image(state)
     restored = sr.restore_state(state)
-    assert restored.accum.data_ptr() != state.accum.data_ptr()
+    pairs = list(zip(restored.accum.slices, state.accum.slices))
+    assert len(pairs) == 2
+    assert all(a.data_ptr() != b.data_ptr() for a, b in pairs)
     assert restored.frame_count == 2
     fresh = sr.reset(state)
-    assert fresh.frame_count == 0 and not fresh.accum.any()
+    assert fresh.frame_count == 0
+    assert not any(s.any() for s in fresh.accum.slices)
+    assert not {s.data_ptr() for s in fresh.accum.slices} & {
+        s.data_ptr() for s in state.accum.slices}
     sr.step(state, make_camera(*CAM))
     np.testing.assert_array_equal(sr.image(restored), img)
     assert not np.array_equal(sr.image(state), img)
 
 
+# ----------------------------------------------- the row-sharded accum
+
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2), (4, 1), (8, 1)]
+
+
+def _slices_hold(accum, mesh, frame):
+    """``accum`` is dp contiguous float32 slices, slice j on
+    ``mesh.devices[j, 0]`` holding rows j * H/dp .. of ``frame``."""
+    dp = mesh.shape["dp"]
+    rows = frame.shape[0] // dp
+    assert isinstance(accum, RowShardedAccum) and len(accum.slices) == dp
+    for j, s in enumerate(accum.slices):
+        assert s.device == mesh.devices[j, 0] and s.dtype == torch.float32
+        assert tuple(s.shape) == (rows,) + frame.shape[1:]
+        assert s.is_contiguous()
+        np.testing.assert_array_equal(s.numpy(),
+                                      frame[j * rows:(j + 1) * rows])
+
+
+@pytest.mark.parametrize("dp,sp", MESH_SHAPES)
+def test_accum_slices_on_the_dp_rows(scene, dp, sp):
+    """``init_state``, a step, ``reset`` and ``restore_state`` keep ``accum``
+    as dp slices of (H/dp, W, 3), slice j on ``devices[j, 0]``, the JAX
+    ``P("dp")``; ``image`` gathers them top row first."""
+    mesh = cpu_mesh(dp, sp)
+    sr = ShardedRenderer(scene, RenderConfig(width=12, height=16, bounces=1),
+                         mesh)
+    assert sr.owners == list(mesh.devices[:, 0])
+    state = sr.init_state()
+    _slices_hold(state.accum, mesh, np.zeros((16, 12, 3), np.float32))
+    slices = state.accum.slices
+    state = sr.step(state, make_camera(*CAM))
+    assert state.accum.slices == slices  # folded in place
+    img = sr.image(state)
+    assert img.shape == (16, 12, 3) and img.mean() > 0.01
+    _slices_hold(state.accum, mesh, img)
+    _slices_hold(sr.restore_state(state).accum, mesh, img)
+    _slices_hold(sr.reset(state).accum, mesh, np.zeros_like(img))
+
+
+def test_slices_follow_their_devices():
+    """Slice j is made on the j-th device given; a scatter copies."""
+    devs = [torch.device("cpu"), torch.device("meta")] * 2
+    acc = RowShardedAccum.zeros(devs, 8, 3)
+    assert [s.device for s in acc.slices] == devs
+    assert all(tuple(s.shape) == (2, 3, 3) for s in acc.slices)
+    frame = torch.arange(72, dtype=torch.float32).reshape(8, 3, 3)
+    acc = RowShardedAccum.scatter(frame, [torch.device("cpu")] * 4)
+    assert torch.equal(acc.cpu(), frame)
+    assert all(s.data_ptr() != frame.data_ptr() for s in acc.slices)
+    frame.zero_()
+    assert acc.cpu().sum() == 71 * 72 / 2
+
+
+def test_step_refuses_an_accum_it_does_not_own(scene):
+    sr = ShardedRenderer(scene, RenderConfig(width=12, height=16, bounces=1),
+                         cpu_mesh(2, 1))
+    full = torch.zeros((16, 12, 3))
+    for accum in (full, RowShardedAccum([full[:8], full[8:].to("meta")]),
+                  RowShardedAccum([full[:8].clone()] * 3),
+                  RowShardedAccum([full[:8].double(), full[8:]]),
+                  RowShardedAccum([full[:8, ::2], full[8:]]),
+                  RowShardedAccum([torch.zeros((12, 8, 3)).transpose(0, 1),
+                                   full[8:]])):
+        with pytest.raises(ValueError, match="restore_state places"):
+            sr.step(RenderState(accum=accum), make_camera(*CAM))
+
+
+def test_fold_target_is_checked_on_the_host():
+    """The block's address and window are held to the slice before a
+    fold's block is written."""
+    s = torch.zeros((4, 6, 3))
+    cam = make_camera(*CAM)
+    ok = step_block.pack(0, (2, 0, 0, 0, 1), cam, 1, 0, True, s.data_ptr())
+    fold.check_target(s, ok, 4, 3)
+    with pytest.raises(ValueError, match="not into accum"):
+        fold.check_target(torch.zeros((4, 6, 3)), ok, 4, 3)
+    with pytest.raises(ValueError, match="leaves accum"):
+        fold.check_target(s, ok, 4, 4)
+    with pytest.raises(ValueError, match="leaves accum"):
+        fold.check_target(s, ok, 5, 3)
+
+
+def _copied_bytes(parts, devices, tw):
+    """The bytes a step of ``parts`` copies between distinct devices of the
+    (dp, sp) grid ``devices``, as ``sharded_tile_step`` routes them: each
+    part's rows from every sp shard of its dp row to the row's sp=0
+    device, and their sum from there to the owner's."""
+    n = 0
+    for p in parts:
+        src = devices[p.row, 0]
+        copies = sum(d != src for d in devices[p.row, 1:])
+        copies += devices[p.owner, 0] != src
+        n += int(copies) * (p.hi - p.lo) * tw * 12
+    return n
+
+
+def _home_card_bytes(devices, rows, tw):
+    """The bytes a step copied when ``accum`` lived on ``devices[0, 0]``:
+    each shard's colours, ``rows`` band rows, to it."""
+    home = devices[0, 0]
+    return int(sum(d != home for d in devices.flat)) * rows * tw * 12
+
+
+def _check_plan(cfg, dp, tx, ty, starts, parts):
+    """Every band row the remainder mask keeps is folded exactly once, at
+    its own image row, by the dp row that renders it; no other row."""
+    tw, th, H = cfg.tile_w, cfg.tile_h, cfg.height
+    rows, slice_rows = th // dp, H // dp
+    col0, py0, dx0, dy0 = band_window(cfg, tx, ty)
+    assert sorted(starts) == [k * rows for k in range(dp)]
+    folded = []
+    for p in parts:
+        assert 0 <= p.lo < p.hi <= rows
+        assert 0 <= p.row0 and p.row0 + p.hi - p.lo <= slice_rows
+        for y in range(p.lo, p.hi):  # a GL row of dp row p.row's piece
+            image_row = p.owner * slice_rows + p.row0 + (p.hi - 1 - y)
+            band_row = starts[p.row] + y
+            assert image_row == H - py0 - 1 - band_row
+            folded.append(band_row)
+    assert sorted(folded) == list(range(dy0, th))
+
+
+@pytest.mark.parametrize("dp,sp", MESH_SHAPES)
+def test_moved_bytes_within_the_home_card_rule(dp, sp):
+    """Over every tile of frames whose heights dp divides, at tile sizes
+    1, 2, 3 and 5 (remainder bands included): the plan folds each kept
+    band row once, at its row; on distinct devices it copies at most what
+    a step copied when ``accum`` lived on the first device, and with the
+    band the whole frame only the sp copies: none on (2, 1) or (4, 1).  A
+    mesh of one device copies nothing, as the renderer counts."""
+    distinct = np.arange(dp * sp).reshape(dp, sp)
+    one = np.zeros((dp, sp), int)
+    cases = 0
+    for height in range(dp, 49, dp):
+        for tile_size in (1, 2, 3, 5):
+            cfg = RenderConfig(width=10, height=height, tile_size=tile_size)
+            if cfg.tile_h < 1 or cfg.tile_h % dp:
+                continue
+            rows = cfg.tile_h // dp
+            for ty in range(cfg.num_tiles_y):
+                for tx in range(cfg.num_tiles_x):
+                    starts, parts = plan_step(cfg, dp, tx, ty)
+                    _check_plan(cfg, dp, tx, ty, starts, parts)
+                    moved = _copied_bytes(parts, distinct, cfg.tile_w)
+                    assert moved <= _home_card_bytes(distinct, rows,
+                                                     cfg.tile_w)
+                    if tile_size == 1:
+                        assert moved == (sp - 1) * height * cfg.tile_w * 12
+                    assert _copied_bytes(parts, one, cfg.tile_w) == 0
+                    cases += 1
+    assert cases > 20
+
+
+@pytest.mark.parametrize("dp,w,h,tile_size", [
+    (2, 16, 16, 1), (4, 16, 16, 1), (8, 16, 16, 1), (2, 16, 20, 3),
+    (4, 15, 24, 3), (4, 10, 24, 5)])
+def test_sp1_matches_sequential_bit_for_bit(scene, dp, w, h, tile_size):
+    """With sp = 1 each pixel folds the same colour with the same
+    arithmetic as the sequential renderer's: the images are equal.
+    (2, 16, 20, 3) and (4, 10, 24, 5) have remainder bands, and the latter
+    pieces of one row that land in slices of six."""
+    cfg = dict(width=w, height=h, bounces=2, traversal="bvh",
+               tile_size=tile_size)
+    sr, got = sharded(scene, dp, 1, 2, **cfg)
+    np.testing.assert_array_equal(got, sequential(scene, 2, **cfg))
+    assert sr.moved_bytes == 0  # one device
+
+
 # --------------------------------------------------------- checkpoints
+
+@pytest.mark.parametrize("dp,sp", [(2, 1), (4, 1), (2, 2)])
+def test_checkpoint_gathers_and_scatters_the_slices(scene, tmp_path, dp, sp):
+    """A saved mesh state holds the gathered frame in the JAX package's
+    format (its loader reads it back) and ``restore_state`` puts each
+    slice's rows back on its owner."""
+    cfg = RenderConfig(width=12, height=16, bounces=1, tile_size=2)
+    mesh = cpu_mesh(dp, sp)
+    sr = ShardedRenderer(scene, cfg, mesh)
+    state = sr.step(sr.render(make_camera(*CAM), frames=sp),
+                    make_camera(*CAM))
+    img = sr.image(state)
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(path, state, cam_pos=CAM[0], cam_dir=CAM[1])
+    jstate, jpos, _ = j_load(path)
+    np.testing.assert_array_equal(np.asarray(jstate.accum), img)
+    assert (jstate.frame_count, jstate.tile_x, jstate.total_frames) == (
+        sp, 1, 5)
+    np.testing.assert_array_equal(jpos, CAM[0])
+    loaded = load_checkpoint(path, "cpu")[0]
+    _slices_hold(sr.restore_state(loaded).accum, mesh, img)
+
 
 def test_sharded_checkpoint_resume(scene, tmp_path):
     """A render interrupted half way and resumed from disk is
