@@ -2,9 +2,9 @@
 
 The reference has no CLI: its knobs are hard-coded in the ``__main__``
 block (reference: main.py:447-470).  Here the same knobs (and a few more)
-are flags, those of the JAX package plus ``--device``; the default
-invocation renders the reference's default scene headlessly on the CUDA
-card and writes a PNG.
+are flags, those of the JAX package plus ``--device`` and ``--trace``; the
+default invocation renders the reference's default scene headlessly on the
+CUDA card and writes a PNG.
 
     python -m opengl_raytracer_torch --width 1920 --height 1080 --bounces 4 \\
         --out render.png
@@ -13,6 +13,7 @@ card and writes a PNG.
     python -m opengl_raytracer_torch --interactive      # pygame window
     python -m opengl_raytracer_torch --devices 4 --dp 2 --sp 2  # 4 cards
     python -m opengl_raytracer_torch --device cpu --devices 2 --frames 2
+    python -m opengl_raytracer_torch --frames 8 --trace trace_dir
 
 Assets named by the default scene (``stanford_minidragon``, ``sphere``)
 are searched along ``OGLRT_MODELS_PATH`` (``models/mesh.py``).
@@ -78,6 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "hand-written kernels) or 'cpu' (their plain "
                         "versions); with --devices/--dp/--sp only its "
                         "type counts")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="profile the headless run (torch.profiler) and "
+                        "write DIR/trace.json, a Chrome trace holding the "
+                        "program's spans (scene build, steps, syncs)")
     return p
 
 
@@ -181,7 +186,19 @@ def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.trace is None:
+        return _main(args)
+    if args.interactive:
+        raise SystemExit("--trace is headless-only")
+    from opengl_raytracer_torch.utils.profiling import trace
 
+    with trace(args.trace):
+        code = _main(args)
+    print(f"Wrote {os.path.join(args.trace, 'trace.json')}")
+    return code
+
+
+def _main(args) -> int:
     import numpy as np
 
     from opengl_raytracer_torch.app import App

@@ -22,7 +22,6 @@ traversals and shading read:
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -32,6 +31,7 @@ from opengl_raytracer_torch.ops import bvh as bvh_mod
 from opengl_raytracer_torch.ops.wide2 import build_subblock_parts, pack_k1
 from opengl_raytracer_torch.ops.wide_bvh import (TRIS_PER_OCTET, collapse_wide,
                                                  pack_k3, wide_max_stack)
+from opengl_raytracer_torch.utils import profiling
 
 
 class SceneData(NamedTuple):
@@ -112,8 +112,16 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     (node_rows, tri_rows, remap)), ``sh_abc`` and ``sh_slot``; other keys
     are ignored.  Each part's K1 tables (``k1_parts``) are packed here from
     its ``p2_*`` rows (ops/wide2.pack_k1), and K3's (``k3``) from the wide
-    tiles (ops/wide_bvh.pack_k3)."""
+    tiles (ops/wide_bvh.pack_k3).  Span ``scene.upload``, ended once the
+    device's copies have finished."""
+    with profiling.Span("scene.upload"):
+        data = _scene_from_numpy(fields, device)
+        if data.device.type == "cuda":
+            torch.cuda.synchronize(data.device)
+    return data
 
+
+def _scene_from_numpy(fields: dict, device) -> SceneData:
     def up(a, dtype):  # np.array copies: the sources may be read-only views
         return torch.from_numpy(np.array(a, dtype)).to(device)
 
@@ -223,13 +231,13 @@ class Scene:
         if build_bvh:
             if verbose:
                 print("\nSlicing bounding boxes...")
-            t_build = time.time()
-            self.bvh = bvh_mod.build_bvh(self.v0, self.v1, self.v2,
-                                         max_leaf_tris, method=bvh_method,
-                                         progress=verbose)
+            with profiling.Span("scene.bvh") as span:
+                self.bvh = bvh_mod.build_bvh(self.v0, self.v1, self.v2,
+                                             max_leaf_tris, method=bvh_method,
+                                             progress=verbose)
+                span.args = {"builder": bvh_mod.last_builder}
             if verbose:
-                print(f"Time taken: {round(time.time() - t_build, 2)} "
-                      f"seconds")
+                print(f"Time taken: {round(span.seconds, 2)} seconds")
         self.total_boxes = self.bvh.num_nodes if self.bvh is not None else 0
         if verbose:
             self._print_stats()
@@ -253,9 +261,13 @@ class Scene:
 
     def fields(self, pad_to: int = 8) -> dict:
         """The compiled tables as NumPy arrays (see scene_from_numpy);
-        computed once."""
-        if self._fields is not None:
-            return self._fields
+        computed once, under the span ``scene.fields``."""
+        if self._fields is None:
+            with profiling.Span("scene.fields"):
+                self._fields = self._compile(pad_to)
+        return self._fields
+
+    def _compile(self, pad_to: int) -> dict:
         T = self.total_triangles
         perm = (self.bvh.perm if self.bvh is not None
                 else np.arange(T, dtype=np.int64))
@@ -327,10 +339,13 @@ class Scene:
 
         # Sub-block tables: a separate leaf<=8 build over the FINAL
         # (permuted) triangles; remap lands directly in that index space.
-        try:
-            parts = build_subblock_parts(v0[:T], v1[:T], v2[:T], tri16[:T])
-        except ValueError:
-            parts = ()  # over the builder's caps: no sub-block tables
+        with profiling.Span("scene.subblock", {"refused": False}) as span:
+            try:
+                parts = build_subblock_parts(v0[:T], v1[:T], v2[:T],
+                                             tri16[:T])
+            except ValueError:
+                parts = ()  # over the builder's caps: no sub-block tables
+                span.args["refused"] = True
         if parts:
             p2 = (parts[0].node_rows, parts[0].tri_rows, parts[0].remap)
         else:
@@ -353,7 +368,7 @@ class Scene:
         else:
             sh_slot = np.zeros((0, 24), np.float32)
 
-        self._fields = dict(
+        return dict(
             v0=v0, e1=e1, e2=e2, face=face,
             node_min=binary.node_min, node_max=binary.node_max,
             node_miss=binary.node_miss, node_first=binary.node_first,
@@ -365,7 +380,6 @@ class Scene:
                            for p in parts[1:]),
             sh_abc=sh_abc, sh_slot=sh_slot,
         )
-        return self._fields
 
     def send(self, device) -> SceneData:
         """Compile (once) and upload the scene to ``device`` (the

@@ -19,6 +19,8 @@ import threading
 
 import numpy as np
 
+from opengl_raytracer_torch.utils import profiling
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)), s)
@@ -33,7 +35,8 @@ _tried = False
 
 def _build() -> bool:
     """Compile ``_SOURCES`` into ``_LIB_PATH`` unless the library is newer
-    than every source; False when a source is missing or g++ fails."""
+    than every source (span ``native.build``); False when a source is
+    missing or g++ fails."""
     if not all(os.path.exists(s) for s in _SOURCES):
         return False
     if (os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
@@ -44,7 +47,8 @@ def _build() -> bool:
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
            *_SOURCES, "-o", tmp]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        with profiling.Span("native.build"):
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.SubprocessError, OSError):
         return False
     os.replace(tmp, _LIB_PATH)  # atomic: concurrent builders never see half

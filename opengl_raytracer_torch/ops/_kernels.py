@@ -28,6 +28,8 @@ import threading
 
 import torch
 
+from opengl_raytracer_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -82,7 +84,13 @@ def compile_library(lib_path: str, units: list) -> str:
     -c`` each, all started together, and link them into ``lib_path``;
     returns nvcc's output, each unit's under a line ``== <file> <flags>``,
     and keeps it beside the library (:func:`saved_log`).  Raises when nvcc
-    fails."""
+    fails.  Span ``kernels.build``."""
+    with profiling.Span("kernels.build",
+                        {"library": os.path.basename(lib_path)}):
+        return _compile_library(lib_path, units)
+
+
+def _compile_library(lib_path: str, units: list) -> str:
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
@@ -143,70 +151,76 @@ def build() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The kernel library, built and loaded at first use."""
+    """The kernel library, built and loaded at first use (span
+    ``kernels.load``)."""
     global _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(build())
-            p, i32, i64, f32, u32 = (ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_float,
-                                     ctypes.c_uint32)
-            so.oglrt_subblock_traverse.restype = i32
-            so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
-            so.oglrt_shade.restype = i32
-            # (table, n_rows, 18 inputs, the step block, 14 outputs, n)
-            so.oglrt_shade.argtypes = [p, i32] + [p] * 33 + [i64, p]
-            # (..., nodes, octets, n_octets, leaf_octets, groups, ...)
-            so.oglrt_wide_traverse.restype = i32
-            so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
-                                               + [p] * 5 + [i64, p])
-            # the glue kernels: (block, base, n_rays, n_band, tw, blocks,
-            # 6 floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
-            # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
-            # outputs, return_seed, block or null, base, n_rays, n_band, tw,
-            # the LCG advance (a, c), n); (orig, 3 columns, seed or null, 2
-            # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
-            # earlier columns, active, last, 6 outputs, n); (active or
-            # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
-            # (block, 3 colour columns, n_band, tw, th, n_frames, weight,
-            # width, blocks); (block, host words)
-            so.oglrt_ray_front.restype = i32
-            so.oglrt_ray_front.argtypes = ([p, i64, i64, i64, i32, i32]
-                                           + [f32] * 6 + [p, p, i64, p])
-            so.oglrt_sort_keys.restype = i32
-            so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
-            so.oglrt_reorder.restype = i32
-            so.oglrt_reorder.argtypes = ([p] * 10 + [i32, p, i64, i64, i64,
-                                                     i32, u32, u32, i64, p])
-            so.oglrt_restore.restype = i32
-            so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
-            so.oglrt_subblock_epilogue.restype = i32
-            so.oglrt_subblock_epilogue.argtypes = ([p] * 5 + [i32, i32]
-                                                   + [p] * 6 + [i32]
-                                                   + [p] * 6 + [i64, p])
-            so.oglrt_wide_prologue.restype = i32
-            so.oglrt_wide_prologue.argtypes = [p, p, i64, p]
-            so.oglrt_wide_epilogue.restype = i32
-            so.oglrt_wide_epilogue.argtypes = ([p] * 5 + [i32] + [p] * 4
-                                               + [i64, p])
-            so.oglrt_band_fold.restype = i32
-            so.oglrt_band_fold.argtypes = ([p] * 4 + [i64, i32, i32, i32, f32,
-                                                      i32, i32, p])
-            so.oglrt_write_block.restype = i32
-            so.oglrt_write_block.argtypes = [p, p, p]
-            # G7 and G9: (6 ray columns, active or null, node records,
-            # wide, n_nodes, triangle records, max_leaf, 4 outputs, n);
-            # G8: (6 ray columns, active or null, triangle records, n_tris,
-            # 4 outputs, n)
-            for walk in (so.oglrt_bvh_walk, so.oglrt_packet_walk):
-                walk.restype = i32
-                walk.argtypes = ([p] * 8 + [i32, i32, p, i32] + [p] * 4
-                                 + [i64, p])
-            so.oglrt_brute_sweep.restype = i32
-            so.oglrt_brute_sweep.argtypes = ([p] * 8 + [i32] + [p] * 4
-                                             + [i64, p])
-            _lib = so
+            with profiling.Span("kernels.load"):
+                _lib = _load()
         return _lib
+
+
+def _load() -> ctypes.CDLL:
+    so = ctypes.CDLL(build())
+    p, i32, i64, f32, u32 = (ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_float,
+                             ctypes.c_uint32)
+    so.oglrt_subblock_traverse.restype = i32
+    so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
+    so.oglrt_shade.restype = i32
+    # (table, n_rows, 18 inputs, the step block, 14 outputs, n)
+    so.oglrt_shade.argtypes = [p, i32] + [p] * 33 + [i64, p]
+    # (..., nodes, octets, n_octets, leaf_octets, groups, ...)
+    so.oglrt_wide_traverse.restype = i32
+    so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
+                                       + [p] * 5 + [i64, p])
+    # the glue kernels: (block, base, n_rays, n_band, tw, blocks,
+    # 6 floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
+    # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
+    # outputs, return_seed, block or null, base, n_rays, n_band, tw,
+    # the LCG advance (a, c), n); (orig, 3 columns, seed or null, 2
+    # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
+    # earlier columns, active, last, 6 outputs, n); (active or
+    # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
+    # (block, 3 colour columns, n_band, tw, th, n_frames, weight,
+    # width, blocks); (block, host words)
+    so.oglrt_ray_front.restype = i32
+    so.oglrt_ray_front.argtypes = ([p, i64, i64, i64, i32, i32]
+                                   + [f32] * 6 + [p, p, i64, p])
+    so.oglrt_sort_keys.restype = i32
+    so.oglrt_sort_keys.argtypes = [p] * 10 + [i64, p]
+    so.oglrt_reorder.restype = i32
+    so.oglrt_reorder.argtypes = ([p] * 10 + [i32, p, i64, i64, i64,
+                                             i32, u32, u32, i64, p])
+    so.oglrt_restore.restype = i32
+    so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
+    so.oglrt_subblock_epilogue.restype = i32
+    so.oglrt_subblock_epilogue.argtypes = ([p] * 5 + [i32, i32]
+                                           + [p] * 6 + [i32]
+                                           + [p] * 6 + [i64, p])
+    so.oglrt_wide_prologue.restype = i32
+    so.oglrt_wide_prologue.argtypes = [p, p, i64, p]
+    so.oglrt_wide_epilogue.restype = i32
+    so.oglrt_wide_epilogue.argtypes = ([p] * 5 + [i32] + [p] * 4
+                                       + [i64, p])
+    so.oglrt_band_fold.restype = i32
+    so.oglrt_band_fold.argtypes = ([p] * 4 + [i64, i32, i32, i32, f32,
+                                              i32, i32, p])
+    so.oglrt_write_block.restype = i32
+    so.oglrt_write_block.argtypes = [p, p, p]
+    # G7 and G9: (6 ray columns, active or null, node records,
+    # wide, n_nodes, triangle records, max_leaf, 4 outputs, n);
+    # G8: (6 ray columns, active or null, triangle records, n_tris,
+    # 4 outputs, n)
+    for walk in (so.oglrt_bvh_walk, so.oglrt_packet_walk):
+        walk.restype = i32
+        walk.argtypes = ([p] * 8 + [i32, i32, p, i32] + [p] * 4
+                         + [i64, p])
+    so.oglrt_brute_sweep.restype = i32
+    so.oglrt_brute_sweep.argtypes = ([p] * 8 + [i32] + [p] * 4
+                                     + [i64, p])
+    return so
 
 
 def check(err: int, name: str) -> None:

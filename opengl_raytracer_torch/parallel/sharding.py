@@ -78,6 +78,7 @@ from opengl_raytracer_torch.renderer import (RenderState, advance,
                                              band_window, make_raycast_fn,
                                              render_flat, resolve_leaf_bound,
                                              resolve_traversal)
+from opengl_raytracer_torch.utils import profiling
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 
@@ -224,9 +225,10 @@ class _Shard:
     the other shards of its device, and replayed every step."""
 
     def __init__(self, scene, raycast_fn, config: RenderConfig,
-                 traversal: str, rows: int, pool):
+                 traversal: str, rows: int, pool, index: int):
         self.scene, self.raycast_fn = scene, raycast_fn
         self.config, self.traversal, self.rows = config, traversal, rows
+        self.index = index  # dp row * sp + sp index, in profiling's spans
         self.device = scene.device
         self.block = step_block.new(self.device)
         self.pool = pool
@@ -238,16 +240,24 @@ class _Shard:
                            tw * self.rows, tw, 1, self.raycast_fn,
                            self.traversal)
 
-    def run(self, words, eager: bool = False):
-        """Write the shard's block and render its rows -> 3 color columns
-        (in the graph's pool when replayed: read them before the next
-        replay)."""
+    def run(self, frame_count: int, window: tuple, values: tuple,
+            eager: bool = False):
+        """Write the shard's block (``step_block.pack(frame_count, window,
+        *values)``) and render its rows -> 3 color columns (in the graph's
+        pool when replayed: read them before the next replay)."""
         graphed = self.device.type == "cuda" and not eager
         if graphed and self.graph is None:
-            self.graph = step_graph.capture(self.body, self.device,
-                                            pool=self.pool)
-        step_block.write(self.block, words)
-        return self.graph.replay() if graphed else self.body()
+            with profiling.Span("step.capture", {"shard": self.index}):
+                self.graph = step_graph.capture(self.body, self.device,
+                                                pool=self.pool)
+        with profiling.per_step("step.block", shard=self.index):
+            step_block.write(self.block, step_block.pack(frame_count, window,
+                                                         *values))
+        if graphed:
+            with profiling.per_step("step.replay", shard=self.index):
+                return self.graph.replay()
+        with profiling.per_step("step.body", shard=self.index):
+            return self.body()
 
 
 def sharded_tile_step(shards, blocks, accum: RowShardedAccum, plan,
@@ -273,9 +283,9 @@ def sharded_tile_step(shards, blocks, accum: RowShardedAccum, plan,
     starts, parts = plan
     col0, py0, dx0, _ = band_window(config, state.tile_x, state.tile_y)
     values = (camera, sky_brightness, jitter_amount, lambertian)
-    colors = [[shards[i][s].run(step_block.pack(
-        state.frame_count + s, (col0, py0 + starts[i], 0, 0, 0), *values),
-        eager) for s in range(sp)] for i in range(dp)]
+    colors = [[shards[i][s].run(state.frame_count + s,
+                                (col0, py0 + starts[i], 0, 0, 0), values,
+                                eager) for s in range(sp)] for i in range(dp)]
     moved, sums = 0, {}
     for i in sorted({p.row for p in parts}):
         lo = min(p.lo for p in parts if p.row == i)
@@ -356,14 +366,17 @@ class ShardedRenderer:
                     for dev, data in self.scenes.items()}
         pools = {dev: torch.cuda.graph_pool_handle()
                  if dev.type == "cuda" else None for dev in self.scenes}
+        sp = mesh.shape["sp"]
         self._shards = [[_Shard(self.scenes[dev], raycasts[dev], config,
                                 self.traversal, config.tile_h // dp,
-                                pools[dev])
-                         for dev in row] for row in mesh.devices]
+                                pools[dev], i * sp + s)
+                         for s, dev in enumerate(row)]
+                        for i, row in enumerate(mesh.devices)]
         self._blocks = [step_block.new(dev) for dev in self.owners]
         self._plans = {}
-        self.frames_per_step = mesh.shape["sp"]
+        self.frames_per_step = sp
         self.moved_bytes = 0
+        self._steps = 0  # the step sequence number of profiling's spans
 
     def init_state(self) -> RenderState:
         return RenderState(accum=RowShardedAccum.zeros(
@@ -425,6 +438,8 @@ class ShardedRenderer:
     def _step(self, state, camera, sky_brightness, jitter_amount,
               lambertian, eager: bool) -> RenderState:
         cfg = self.config
+        self._steps += 1
+        profiling.set_step(self._steps)
         self._check_accum(state.accum)
         tile = (state.tile_x, state.tile_y)
         if tile not in self._plans:

@@ -46,6 +46,7 @@ from opengl_raytracer_torch.ops.permute import SeedRecon
 from opengl_raytracer_torch.ops.traversal import (PACKET, node_records,
                                                   raycast_bvh, raycast_packet)
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
+from opengl_raytracer_torch.utils import profiling
 from opengl_raytracer_torch.utils.config import RenderConfig
 
 _DEFAULT_CHUNK = 2 * 1024 * 1024
@@ -333,6 +334,7 @@ class Renderer:
                                         config.max_leaf_tris)
         self._block = step_block.new(self.device)
         self._graph = None
+        self._steps = 0  # the step sequence number of profiling's spans
 
     def init_state(self) -> RenderState:
         accum = torch.zeros((self.config.height, self.config.width, 3),
@@ -370,14 +372,20 @@ class Renderer:
     def _step(self, state, camera, sky_brightness, jitter_amount, lambertian,
               eager: bool) -> RenderState:
         graphed = self.device.type == "cuda" and not eager
+        self._steps += 1
+        profiling.set_step(self._steps)
         if graphed and self._graph is None:
-            self._graph = self._capture()
-        self._write_block(state, camera, sky_brightness, jitter_amount,
-                          lambertian)
+            with profiling.Span("step.capture"):
+                self._graph = self._capture()
+        with profiling.per_step("step.block"):
+            self._write_block(state, camera, sky_brightness, jitter_amount,
+                              lambertian)
         if graphed:
-            self._graph.replay()
+            with profiling.per_step("step.replay"):
+                self._graph.replay()
         else:
-            self._body(state.accum)
+            with profiling.per_step("step.body"):
+                self._body(state.accum)
         return advance(self.config, state, self.config.frames_per_step)
 
     def _body(self, accum: torch.Tensor) -> None:

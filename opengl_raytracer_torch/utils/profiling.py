@@ -2,60 +2,180 @@
 ``opengl_raytracer_tpu/utils/profiling.py``).
 
 The reference's only instrumentation is wall-clock prints (BVH build time
-scene.py:139-143, per-frame fps in the caption main.py:405-407).  Here: a
-timer that fences on the device before it reads the clock (torch returns
-before a CUDA card finishes), and a wrapper around ``torch.profiler`` that
-writes a Chrome trace.
+scene.py:139-143, per-frame fps in the caption main.py:405-407).  Here:
+
+* spans, kept by the program in memory where its work happens, and read
+  with :func:`spans`.  A span has a name, a start and an end in
+  ``time.time_ns()`` (the clock of ``torch.profiler``'s events, so a span
+  lies beside the card's kernels of a trace), its parent (the span open on
+  the same thread when it began) and the renderer's step it belongs to
+  (:func:`set_step`).  Spans of a run's set-up (``scene.*``,
+  ``step.capture``, ``kernels.load``, ``kernels.build``,
+  ``native.build``) are always recorded; per-step spans (``step.block``,
+  ``step.replay`` or ``step.body``, ``sync.wait``, ``sync.read``) only
+  while :func:`tracing`, and otherwise cost one flag test.  The program
+  opens no ``record_function`` or NVTX range: the profiler copies such a
+  range onto the card's timeline, where a reader of device events would
+  count it as a kernel;
+* :func:`device_sync`, which fences on the card before reading back (torch
+  returns before a CUDA card finishes);
+* :func:`trace`, a ``torch.profiler`` block that writes a Chrome trace
+  with the program's spans of the block on a track of their own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import tempfile
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_enabled = False
+_step: int | None = None
+_spans: list = []
+_local = threading.local()  # .stack: the thread's open spans
+
+
+class Span:
+    """One span: ``name``, ``start_ns`` and ``end_ns`` (``time.time_ns``),
+    ``parent`` (a Span or None), ``step`` and ``args`` (a dict or None).
+    Used as a context manager: it begins on entry and is recorded on
+    exit."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "step", "args")
+
+    def __init__(self, name: str, args: dict | None = None):
+        self.name, self.args = name, args
+        self.start_ns = self.end_ns = 0
+        self.parent = self.step = None
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        self.step = _step
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.time_ns()
+        _local.stack.remove(self)
+        _spans.append(self)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class _Off:
+    """The per-step span while tracing is off: records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+def enable(on: bool = True) -> None:
+    """Record per-step spans even with no profiler running."""
+    global _enabled
+    _enabled = on
+
+
+def tracing() -> bool:
+    """True while per-step spans are recorded: after ``enable(True)``, or
+    while a ``torch.profiler`` runs."""
+    return _enabled or _autograd_profiler._is_profiler_enabled
+
+
+def set_step(step: int | None) -> None:
+    """The step that spans begun from now on belong to (a renderer's step
+    sequence number)."""
+    global _step
+    _step = step
+
+
+def per_step(name: str, **args):
+    """A per-step span to use with ``with``: a :class:`Span` while
+    :func:`tracing`, else a stand-in that records nothing."""
+    return Span(name, args or None) if tracing() else _OFF
+
+
+def spans() -> list[Span]:
+    """The recorded spans, in the order they ended."""
+    return list(_spans)
+
+
+def clear() -> None:
+    _spans.clear()
 
 
 def device_sync(x: torch.Tensor) -> float:
     """Wait for everything queued on ``x``'s card (when it is a CUDA
     tensor), then read back a scalar: the sum of ``x``'s first four
-    values."""
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    return float(x.reshape(-1)[:4].sum())
+    values.  Spans ``sync.wait`` and ``sync.read``."""
+    with per_step("sync.wait"):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+    with per_step("sync.read"):
+        return float(x.reshape(-1)[:4].sum())
 
 
-@contextlib.contextmanager
-def timer(label: str = "", sync_on=None, results: dict | None = None):
-    """Wall-clock a block; if sync_on is given, fences on it before reading
-    the clock."""
-    t0 = time.time()
-    yield
-    if sync_on is not None:
-        device_sync(sync_on)
-    dt = time.time() - t0
-    if results is not None:
-        results[label] = dt
-    if label:
-        print(f"[timer] {label}: {dt * 1000:.1f} ms")
+def _export_spans(path: str, since_ns: int) -> None:
+    """Add the spans begun at or after ``since_ns`` to the Chrome trace at
+    ``path``, as complete events on a track of their own, on the file's
+    time base (``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), 0
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+               "args": {"name": "program spans"}}]
+    for s in _spans:
+        if s.start_ns >= since_ns:
+            events.append({
+                "ph": "X", "cat": "program_span", "name": s.name,
+                "pid": pid, "tid": tid, "ts": (s.start_ns - base) / 1e3,
+                "dur": (s.end_ns - s.start_ns) / 1e3,
+                "args": {"step": s.step,
+                         "parent": s.parent.name if s.parent else None,
+                         **(s.args or {})}})
+    doc.setdefault("traceEvents", []).extend(events)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
     """``torch.profiler`` over the block (CPU activity, plus CUDA activity
-    when a card is present); writes ``trace.json``, a Chrome trace, into
-    ``log_dir`` (default ``oglrt-trace`` in the temporary directory) and
-    yields the directory."""
+    when a card is present); writes ``trace.json``, a Chrome trace that
+    also holds the program's spans of the block, into ``log_dir``
+    (default ``oglrt-trace`` in the temporary directory) and yields the
+    directory."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "oglrt-trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    since = time.time_ns()
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _export_spans(path, since)
 
 
 class FrameStats:

@@ -279,14 +279,14 @@ def _actions(parser):
 
 def test_cli_parser_matches_jax():
     ref, got = _actions(j_build_parser()), _actions(build_parser())
-    assert set(got) - set(ref) == {"device"}
+    assert set(got) - set(ref) == {"device", "trace"}
     assert set(ref) <= set(got)
     for dest, a in ref.items():
         b = got[dest]
         assert (b.option_strings, b.default, b.choices, b.nargs, b.type,
                 b.const) == (a.option_strings, a.default, a.choices,
                              a.nargs, a.type, a.const), dest
-    assert got["device"].default == "cuda"
+    assert got["device"].default == "cuda" and got["trace"].default is None
 
 
 def test_cli_main_matches_jax_main(tmp_path):
