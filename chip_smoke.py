@@ -100,16 +100,18 @@ Phases; each raises on failure, and the script then exits non-zero:
    the 1,964,180-triangle scene of phase 4c.  On each, t, slot, u and v
    must equal the plain version's bit for bit, with no overflow; the
    script prints ms per launch, the plain version's per-ray counts (node
-   visits, leaf entries, octets, barycentric tests), the busy-lane share,
+   visits, leaf entries, octets and triangles tested, each leaf's own;
+   barycentric tests), the busy-lane share,
    and the operations both at a full triangle test per slot (the earlier
    yardstick) and as the kernel does them (t first), the bound and the
    share.
 4b. k3prof: the profile build of K3 (``probes/k3.py``, the same source
    compiled with ``-DOGLRT_K3_PROFILE``) on the primary rays and the
    sorted first-bounce rays (segments 0 and 1) of both scenes: its hits
-   must equal the kernel's and its visit, leaf, octet and candidate counts
-   the plain version's; it prints cycles per stage and the share of tested
-   octets that hold the entered leaf's own triangles.  Then its octet
+   must equal the kernel's and its visit, leaf, octet, triangle and
+   candidate counts the plain version's; it prints cycles per stage, the
+   octets and triangles tested per leaf entry and the share of them that
+   are the entered leaf's own (1: no over-read).  Then its octet
    fetch reads octets 0, 1, 7, 8, 9, 100, 101, 555 and the last through
    K3's own loads, which must equal the triangle tiles' slices bit for
    bit, on both scenes.  It prints the ms of a profile launch and of the
@@ -736,15 +738,16 @@ K2_BYTES_PER_RAY = 130
 K2_OPS_PER_RAY = 180
 # K3's operations (csrc/wide_traversal.cu), from its plain version's counts
 # (probes/k3.work): per ray 3 reciprocals; per node visit 8 slab tests of 26
-# (K1's 25 and the clamp of near at 0); per octet, as the kernel tests a
-# triangle (t first), K1's 8 x 20, and per candidate K1's 26.  Before the
-# t-first test the octet was priced at 8 full tests of 47 (K1's 46 and the
-# octet's argmin), printed beside it as the earlier yardstick.
+# (K1's 25 and the clamp of near at 0); per triangle tested (each leaf's
+# own), as the kernel tests it (t first), K1's 20, and per candidate K1's
+# 26.  Before the t-first test a triangle was priced at a full test of 47
+# (K1's 46 and the octet's argmin), printed beside it as the earlier
+# yardstick.
 K3_OPS_PER_RAY = 3
 K3_OPS_PER_NODE = 8 * 26
-K3_OPS_PER_OCTET = K1_OPS_PER_OCTET
+K3_OPS_PER_SLOT = K1_OPS_PER_OCTET // 8
 K3_OPS_PER_CANDIDATE = K1_OPS_PER_CANDIDATE
-K3_OPS_PER_OCTET_FULL = 8 * 47
+K3_OPS_PER_SLOT_FULL = 47
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1343,9 +1346,7 @@ def _g5_rows(data, sets):
     rays); timed as one bounce's pair of launches on the random set."""
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.ops.intersect import BIG
-    from opengl_raytracer_torch.renderer import effective_max_leaf
 
-    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
     remap, dev, err = data.pl_remap, data.device, 0.0
     for name, o3, d3, t0 in sets:
         active = t0 > -BIG
@@ -1353,13 +1354,13 @@ def _g5_rows(data, sets):
         err = max(err, _assert_equal(f"G5 prologue {name}", got_t0,
                                      wide._prologue_plain(active, N_RAYS,
                                                           dev)))
-        k3 = wide.traverse_wide(data, o3, d3, got_t0, leaf_octets)
+        k3 = wide.traverse_wide(data, o3, d3, got_t0)
         err = max(err, _assert_equal(
             f"G5 epilogue {name}", tuple(wide.wide_epilogue(*k3, remap)[:4]),
             tuple(wide._epilogue_plain(*k3, remap)[:4])))
     _, o3, d3, t0 = sets[0]
     active = t0 > -BIG
-    k3 = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+    k3 = wide.traverse_wide(data, o3, d3, t0)
 
     def kernel():
         wide.wide_prologue(active, N_RAYS, dev)
@@ -2102,10 +2103,10 @@ def k3_bound(w: dict, data) -> tuple:
     test per slot (the earlier yardstick); its bytes over the scene's
     Hopper tables; and the bound the first gives."""
     ops = (w["live"] * K3_OPS_PER_RAY + w["visits"] * K3_OPS_PER_NODE
-           + w["octets"] * K3_OPS_PER_OCTET
+           + w["slots"] * K3_OPS_PER_SLOT
            + w["candidates"] * K3_OPS_PER_CANDIDATE)
     ops_full = (w["live"] * K3_OPS_PER_RAY + w["visits"] * K3_OPS_PER_NODE
-                + w["octets"] * K3_OPS_PER_OCTET_FULL)
+                + w["slots"] * K3_OPS_PER_SLOT_FULL)
     n_bytes = (w["rays"] * TRAVERSAL_BYTES_PER_RAY
                + sum(x.numel() * x.element_size() for x in data.k3))
     return (ops, ops_full, n_bytes, *bound_ms(n_bytes, ops))
@@ -2119,12 +2120,11 @@ def k3_phase(scenes, camera, seed: int):
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.ops.intersect import BIG
     from opengl_raytracer_torch.probes import k3 as k3_probe
-    from opengl_raytracer_torch.renderer import effective_max_leaf
 
     out = None
     for scene_name, data, segments in scenes:
         device = data.device
-        leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+        leaf_counts = wide.scene_leaf_counts(data)
         stack = wide.stack_size(data.pw_max_stack)
         column = wide.group_column(data.pw_max_stack)
         sets = [("random", *k1_rays(data, camera, seed, device))]
@@ -2132,10 +2132,10 @@ def k3_phase(scenes, camera, seed: int):
         ov = wide.overflow_tensor(device)
         frame_ms = 0.0
         for name, o3, d3, t0 in sets:
-            tiles = (data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
-                     leaf_octets, stack)
+            tiles = (data.pw_tiles, data.pl_tri_tiles, leaf_counts, o3, d3,
+                     t0, stack)
             ov.zero_()
-            kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+            kernel = wide.traverse_wide(data, o3, d3, t0)
             *plain, dropped, counts = wide._traverse_plain(*tiles,
                                                            counts=True)
             overflow = int(ov.item())
@@ -2153,16 +2153,16 @@ def k3_phase(scenes, camera, seed: int):
             hit = int(((t_k < BIG) & (t_k > -BIG)).sum())
             if name == "random" and hit < N_RAYS // 4:
                 raise RuntimeError(f"K3: only {hit} of {N_RAYS} rays hit")
-            w = k3_probe.work(counts, t0, leaf_octets)
+            w = k3_probe.work(counts, t0)
             ops, ops_full, n_bytes, bound, by = k3_bound(w, data)
-            ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0,
-                                                    leaf_octets), 10)
+            ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0), 10)
             say("k3", scene=scene_name, set=name, rays=w["rays"],
                 live=w["live"], hit=hit, max_abs_err=0.0, tri_ties=0,
-                overflow=overflow, leaf_octets=leaf_octets, groups=column,
+                overflow=overflow, groups=column,
                 ms=ms, visits_per_ray=round(w["visits_per_ray"], 3),
                 leaves_per_ray=round(w["leaves_per_ray"], 3),
                 octets_per_ray=round(w["octets_per_ray"], 3),
+                slots_per_ray=round(w["slots_per_ray"], 3),
                 candidates_per_ray=round(w["candidates_per_ray"], 3),
                 lanes_steps=round(w["lanes_steps"], 4),
                 lanes_visits=round(w["lanes_visits"], 4),
@@ -2177,7 +2177,7 @@ def k3_phase(scenes, camera, seed: int):
                 frame_ms += ms
             elif out is None:
                 ms, plain_ms = time_pair(
-                    lambda: wide.traverse_wide(data, o3, d3, t0, leaf_octets),
+                    lambda: wide.traverse_wide(data, o3, d3, t0),
                     lambda: wide._traverse_plain(*tiles), 5, 1)
                 out = (0.0, ms, plain_ms, (bound, by))
                 say("k3", scene=scene_name, set=name, ms=ms,
@@ -2191,38 +2191,39 @@ def k3_phase(scenes, camera, seed: int):
 def k3prof_phase(scenes):
     """The K3 profile build on the primary rays and the sorted first-bounce
     rays (segments 0 and 1) of each scene: its hits against the kernel's,
-    its counts against the plain version's, its stages, the over-read's
-    share of own octets; then the octet fetch against the tiles."""
+    its counts against the plain version's, its stages, the octets and
+    triangles tested per leaf entry and the share of them that are the
+    entered leaf's own; then the octet fetch against the tiles."""
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.probes import k3 as k3_probe
-    from opengl_raytracer_torch.renderer import effective_max_leaf
 
     before = dict(_kernels.launch_counts)
     runs, iters = 0, 3
     for scene_name, data, segments in scenes:
-        leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+        leaf_counts = wide.scene_leaf_counts(data)
         stack = wide.stack_size(data.pw_max_stack)
         for name, (o3, d3, t0) in (("primary", segments[0]),
                                    ("bounce1_sorted", segments[1])):
-            hits, stages, hist = k3_probe.profile(data, o3, d3, t0,
-                                                  leaf_octets)
+            hits, stages, hist = k3_probe.profile(data, o3, d3, t0)
             runs += 1
-            kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+            kernel = wide.traverse_wide(data, o3, d3, t0)
             if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
                 raise RuntimeError(f"K3 profile build differs from the "
                                    f"kernel on {scene_name} {name}")
             counts = wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles,
-                                          o3, d3, t0, leaf_octets, stack,
+                                          leaf_counts, o3, d3, t0, stack,
                                           counts=True)[5].long()
-            share = k3_probe.own_share(data, leaf_octets, hist)
+            share = k3_probe.own_share(data, hist, stages)
             expect = dict(visits=int(counts[0].sum()),
                           leaves=int(counts[1].sum()),
-                          candidates=int(counts[2].sum()))
-            expect["octets"] = expect["leaves"] * leaf_octets
+                          candidates=int(counts[2].sum()),
+                          octets=int(counts[3].sum()),
+                          slots=int(counts[4].sum()))
             got = {k: stages[k] for k in expect}
             if got != expect or share["entries"] != expect["leaves"] \
-                    or share["octets"] != stages["octets"]:
+                    or share["own_share"] != 1.0 \
+                    or share["own_slot_share"] != 1.0:
                 raise RuntimeError(f"K3 profile counts {got}, leaf entries "
                                    f"{share}, on {scene_name} {name}; plain "
                                    f"{expect}")
@@ -2235,13 +2236,16 @@ def k3prof_phase(scenes):
                 expands_per_leaf=round(expect["visits"]
                                        / max(expect["leaves"], 1), 3),
                 own_octet_share=round(share["own_share"], 4),
+                own_slot_share=round(share["own_slot_share"], 4),
+                octets_per_entry=round(share["octets_per_entry"], 4),
+                slots_per_entry=round(share["slots_per_entry"], 4),
                 key="share/cycles-per-event[/per-16B-load-or-triangle]")
             if name == "primary":
                 say("k3prof", scene=scene_name, set=name,
                     profile_ms=cuda_ms(lambda: k3_probe.profile(
-                        data, o3, d3, t0, leaf_octets), iters),
+                        data, o3, d3, t0), iters),
                     kernel_ms=cuda_ms(lambda: wide.traverse_wide(
-                        data, o3, d3, t0, leaf_octets), iters))
+                        data, o3, d3, t0), iters))
                 runs += iters + 1
         idx = [0, 1, 7, 8, 9, 100, 101, 555, data.k3[1].shape[0] - 1]
         idx = [q for q in idx if q < data.k3[1].shape[0]]
@@ -2648,16 +2652,15 @@ def _k1_on_sets(name, data, sets) -> None:
 def _k3_on_sets(name, data, sets) -> None:
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.probes import k3 as k3_probe
-    from opengl_raytracer_torch.renderer import effective_max_leaf
 
-    leaf_octets = -(-effective_max_leaf(data) // wide.TRIS_PER_OCTET)
+    leaf_counts = wide.scene_leaf_counts(data)
     stack = wide.stack_size(data.pw_max_stack)
     ov = wide.overflow_tensor(data.device)
     for set_name, o3, d3, t0 in sets:
         ov.zero_()
-        kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+        kernel = wide.traverse_wide(data, o3, d3, t0)
         *plain, dropped, counts = wide._traverse_plain(
-            data.pw_tiles, data.pl_tri_tiles, o3, d3, t0, leaf_octets, stack,
+            data.pw_tiles, data.pl_tri_tiles, leaf_counts, o3, d3, t0, stack,
             counts=True)
         if int(ov.item()) or int(dropped):
             raise RuntimeError(f"K3 overflow on {name} {set_name}")
@@ -2667,9 +2670,8 @@ def _k3_on_sets(name, data, sets) -> None:
                 raise RuntimeError(f"K3 {field} differs from the plain "
                                    f"version on {name} {set_name}: max |d| "
                                    f"{diff}")
-        w = k3_probe.work(counts, t0, leaf_octets)
-        ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0,
-                                                leaf_octets), 10)
+        w = k3_probe.work(counts, t0)
+        ms = cuda_ms(lambda: wide.traverse_wide(data, o3, d3, t0), 10)
         say("cadence", scene=name, kernel="K3", set=set_name, rays=w["rays"],
             live=w["live"], max_abs_err=0.0, tolerance="exact", ms=ms,
             visits_per_ray=round(w["visits_per_ray"], 3),

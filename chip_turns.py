@@ -62,8 +62,10 @@ MESHES = ((2, 1), (2, 2), (4, 1))
 
 def k3_launch(wide, data, o3, d3, t0, leaf_octets):
     """A call of the tree's K3 wrapper on these rays."""
-    first = next(iter(inspect.signature(wide.traverse_wide).parameters))
-    if first == "scene":
+    params = list(inspect.signature(wide.traverse_wide).parameters)
+    if params == ["scene", "o3", "d3", "t0"]:  # each leaf's own triangles
+        return lambda: wide.traverse_wide(data, o3, d3, t0)
+    if params[0] == "scene":
         return lambda: wide.traverse_wide(data, o3, d3, t0, leaf_octets)
     stack = wide.stack_size(data.pw_max_stack)  # the wrapper before K3's
     return lambda: wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3,

@@ -12,10 +12,10 @@
 // themselves), so the two packages can be compared ray by ray:
 //   nodes[w]  (64 words, 256 B): the 8 child boxes as structure of arrays
 //     lo.x[8] lo.y[8] lo.z[8] hi.x[8] hi.y[8] hi.z[8] (f32), the 8 child
-//     entries (i32: >= 0 a wide node, -q-1 the leaf starting at octet q,
-//     EMPTY_PACKED none), and per octant one word: the near-first slot
-//     order, 3 bits a rank, under the mask of the non-empty slots (bits
-//     24-31);
+//     entries (i32: >= 0 a wide node, -(q << 10 | (n - 1)) - 1 the leaf of
+//     n triangles starting at octet q, EMPTY_PACKED none), and per octant
+//     one word: the near-first slot order, 3 bits a rank, under the mask
+//     of the non-empty slots (bits 24-31);
 //   octets[q] (96 floats, 384 B): triangle j's v0, face, e1, e2 at 12j.
 //
 // What bounds it on this card.  Not bytes: a launch moves 44 B a ray, and
@@ -25,8 +25,8 @@
 // too (some thousands of operations a ray, a bound of about a tenth of a
 // millisecond a 2M-ray launch).  What the walk pays for is the latency of
 // the loads it chains (entry -> node -> child -> octet), and, above all,
-// the leaf side: a leaf tests a fixed ceil(max_leaf / 8) octets, four at a
-// max leaf of 32, where the sub-block kernel (K1) tests one.  The design:
+// the leaf side: a leaf of up to 32 triangles tests up to four octets,
+// where the sub-block kernel (K1) tests one.  The design:
 //   * a stack of node groups, one 32-bit entry per open node: the node
 //     and the mask of its children still to visit, by near-first rank in
 //     this ray's octant.  A visit pushes at most one group, so at most
@@ -50,8 +50,11 @@
 //     once: an atomic at the push itself, though never executed, made the
 //     walk much slower;
 //   * a two-phase loop (Aila and Laine's while-while, HPG 2009): nodes
-//     until the next entry is a leaf, then that leaf's octets until the
-//     next entry is a node, so a warp's lanes run like bodies together;
+//     until the next entry is a leaf, then leaves until the next entry is
+//     a node, so a warp's lanes run like bodies together.  A leaf tests
+//     its own n triangles, slots 8q .. 8q + n - 1, one after another: the
+//     count rides in the entry the visit already loaded, so it costs no
+//     load of its own;
 //   * a triangle's test stops at |det| < EPS or at a t that cannot be
 //     accepted (t <= EPS or t >= best_t), before its edges are loaded.
 //
@@ -71,9 +74,13 @@
 //   * empty child slots hold finite swapped boxes that pass the slab test;
 //     only their EMPTY_PACKED entry keeps them closed (:160-166), here
 //     through the order word's mask, packed from the entries;
-//   * a leaf tests a fixed `leaf_octets` octets from its first one, reading
-//     into neighbouring leaves' real triangles (:182-184), and stops at the
-//     table's end; the count comes from the scene's own node_count;
+//   * the Pallas kernel tests a fixed ceil(max_leaf / 8) octets from a
+//     leaf's first one, reading into neighbouring leaves' real triangles
+//     (:182-184), because its tiles hold only the first octet.  Here a leaf
+//     tests exactly its own triangles, counted from the scene's node_count.
+//     That leaves the nearest hit as it is: every triangle a ray can hit is
+//     tested in its own leaf, whose box holds the hit point; only the slot
+//     that wins an exact t tie between two triangles can differ;
 //   * within an octet the Pallas kernel takes the least t, the lowest slot
 //     among equal t, and across octets a strict < (:216-223).  That is one
 //     sequential strict < over the octet's slots in increasing order,
@@ -98,8 +105,9 @@
 // Built with -DOGLRT_K3_PROFILE (opengl_raytracer_torch/probes/k3.py), the
 // same source exports instead `oglrt_wide_traverse_profile`: the same walk
 // with clock64() sums per stage (group pop, node fetch, slab tests, group
-// push, octet fetch, triangle tests) and event counts, reduced per warp,
-// and each leaf entry counted by its first octet; and
+// push, octet fetch, triangle tests) and event counts (per leaf entry its
+// octets, ceil(n / 8), and its n triangles tested), reduced per warp, and
+// each leaf entry counted by its first octet; and
 // `oglrt_k3_octet_fetch`, which reads chosen octets through this file's
 // own triangle loads and writes them back in the TPU tiles' lane order.
 
@@ -110,6 +118,7 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kDone = INT_MIN;
+constexpr int kCountBits = 10;  // a leaf entry: first octet, count - 1
 constexpr float kBig = 1e30f;
 constexpr float kEps = 1e-6f;
 
@@ -136,7 +145,7 @@ __device__ __forceinline__ float4 load_tri_edges(const float4* __restrict__ ob,
 #ifdef OGLRT_K3_PROFILE
 enum { kPop, kNodeFetch, kSlab, kPush, kOctetFetch, kTriangles, kStages };
 enum { kVisits, kLeaves, kOctets, kCandidates, kGroupPushes, kGroupPops,
-       kSmemPushes, kSmemPops, kCounts };
+       kSmemPushes, kSmemPops, kSlots, kCounts };
 struct Prof {
     unsigned long long cyc[kStages];
     unsigned long long cnt[kCounts];
@@ -148,6 +157,7 @@ struct Prof {
 #define PROF_T(name) const long long name = clock64()
 #define PROF_ADD(stage, t) prof.cyc[stage] += (unsigned long long)(clock64() - (t))
 #define PROF_CNT(c) ++prof.cnt[c]
+#define PROF_CNTN(c, k) prof.cnt[c] += (unsigned long long)(k)
 #define PROF_SINK(x) prof.sink ^= (x)
 #define PROF_LEAF(first) atomicAdd(prof.leaf_hist + (first), 1)
 #else
@@ -156,6 +166,7 @@ struct Prof {
 #define PROF_T(name)
 #define PROF_ADD(stage, t)
 #define PROF_CNT(c)
+#define PROF_CNTN(c, k)
 #define PROF_SINK(x)
 #define PROF_LEAF(first)
 #endif
@@ -227,8 +238,8 @@ __device__ __forceinline__ void trace_ray(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ t0, const int4* __restrict__ nodes,
-    const float4* __restrict__ octets, int n_octets, int leaf_octets,
-    unsigned* col, float* __restrict__ t_out, int* __restrict__ slot_out,
+    const float4* __restrict__ octets, unsigned* col,
+    float* __restrict__ t_out, int* __restrict__ slot_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ overflow PROF_PARAM) {
     float bt = t0[i];
@@ -316,47 +327,48 @@ __device__ __forceinline__ void trace_ray(
                 }
             }
             if (cur == kDone) break;
-            do {  // leaf phase: cur = -q-1, the leaf's first octet q
-                const int first = -cur - 1;
+            do {  // leaf phase: cur = -(q << 10 | (n - 1)) - 1
+                const int e = -cur - 1;
+                const int n = (e & ((1 << kCountBits) - 1)) + 1;
+                const int base = (e >> kCountBits) * 8;  // slot of triangle 0
+                const float4* ob = octets + (size_t)base * 3;
                 PROF_CNT(kLeaves);
-                PROF_LEAF(first);
-                for (int k = 0; k < leaf_octets; ++k) {
-                    const int q = first + k;
-                    if (q >= n_octets) break;
-                    const float4* ob = octets + (size_t)q * 24;
-                    PROF_CNT(kOctets);
-#pragma unroll 2
-                    for (int j = 0; j < 8; ++j) {
-                        PROF_T(tl);
-                        float4 a, b;  // v0.xyz, face.x; face.yz, e1.xy
-                        load_tri_t(ob, j, a, b);
-                        PROF_SINK(__float_as_uint(a.x) ^ __float_as_uint(b.x));
-                        PROF_ADD(kOctetFetch, tl);
-                        PROF_T(tt);
-                        const float det = dot3(d0, d1, d2, a.w, b.x, b.y);
-                        if (fabsf(det) >= kEps) {
-                            const float inv_det = __fdiv_rn(1.0f, det);
-                            const float rx = sub(o0, a.x), ry = sub(o1, a.y),
-                                        rz = sub(o2, a.z);
-                            const float t = mul(-dot3(rx, ry, rz, a.w, b.x, b.y), inv_det);
-                            if (t > kEps && t < bt) {  // strict <, fragment.glsl:275
-                                const float4 c = load_tri_edges(ob, j);  // e1.z, e2.xyz
-                                PROF_CNT(kCandidates);
-                                const float px = sub(mul(ry, d2), mul(rz, d1));
-                                const float py = sub(mul(rz, d0), mul(rx, d2));
-                                const float pz = sub(mul(rx, d1), mul(ry, d0));
-                                const float u = mul(-dot3(c.y, c.z, c.w, px, py, pz), inv_det);
-                                const float v = mul(dot3(b.z, b.w, c.x, px, py, pz), inv_det);
-                                if (u >= 0.0f && v >= 0.0f && add(u, v) <= 1.0f) {
-                                    bt = t;
-                                    bslot = q * 8 + j;
-                                    bu = u;
-                                    bv = v;
-                                }
+                PROF_CNTN(kOctets, (n + 7) >> 3);
+                PROF_CNTN(kSlots, n);
+                PROF_LEAF(base >> 3);
+                // not unrolled: unrolled 2x and 4x, this loop of n steps ran
+                // slower on the H100
+#pragma unroll 1
+                for (int j = 0; j < n; ++j) {
+                    PROF_T(tl);
+                    float4 a, b;  // v0.xyz, face.x; face.yz, e1.xy
+                    load_tri_t(ob, j, a, b);
+                    PROF_SINK(__float_as_uint(a.x) ^ __float_as_uint(b.x));
+                    PROF_ADD(kOctetFetch, tl);
+                    PROF_T(tt);
+                    const float det = dot3(d0, d1, d2, a.w, b.x, b.y);
+                    if (fabsf(det) >= kEps) {
+                        const float inv_det = __fdiv_rn(1.0f, det);
+                        const float rx = sub(o0, a.x), ry = sub(o1, a.y),
+                                    rz = sub(o2, a.z);
+                        const float t = mul(-dot3(rx, ry, rz, a.w, b.x, b.y), inv_det);
+                        if (t > kEps && t < bt) {  // strict <, fragment.glsl:275
+                            const float4 c = load_tri_edges(ob, j);  // e1.z, e2.xyz
+                            PROF_CNT(kCandidates);
+                            const float px = sub(mul(ry, d2), mul(rz, d1));
+                            const float py = sub(mul(rz, d0), mul(rx, d2));
+                            const float pz = sub(mul(rx, d1), mul(ry, d0));
+                            const float u = mul(-dot3(c.y, c.z, c.w, px, py, pz), inv_det);
+                            const float v = mul(dot3(b.z, b.w, c.x, px, py, pz), inv_det);
+                            if (u >= 0.0f && v >= 0.0f && add(u, v) <= 1.0f) {
+                                bt = t;
+                                bslot = base + j;
+                                bu = u;
+                                bv = v;
                             }
                         }
-                        PROF_ADD(kTriangles, tt);
                     }
+                    PROF_ADD(kTriangles, tt);
                 }
                 cur = g.pop(nodes, oct PROF_PASS);
             } while (cur < 0 && cur != kDone);
@@ -378,30 +390,28 @@ wide_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                      const float* __restrict__ oz, const float* __restrict__ dx,
                      const float* __restrict__ dy, const float* __restrict__ dz,
                      const float* __restrict__ t0, const int4* __restrict__ nodes,
-                     const float4* __restrict__ octets, int n_octets,
-                     int leaf_octets, float* __restrict__ t_out,
-                     int* __restrict__ slot_out, float* __restrict__ u_out,
-                     float* __restrict__ v_out, int* __restrict__ overflow,
-                     long long n) {
+                     const float4* __restrict__ octets,
+                     float* __restrict__ t_out, int* __restrict__ slot_out,
+                     float* __restrict__ u_out, float* __restrict__ v_out,
+                     int* __restrict__ overflow, long long n) {
     __shared__ unsigned stack[kCol * kBlock];
     const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
     if (i < n)
-        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                        leaf_octets, stack + threadIdx.x, t_out, slot_out,
-                        u_out, v_out, overflow);
+        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets,
+                        stack + threadIdx.x, t_out, slot_out, u_out, v_out,
+                        overflow);
 }
 
 template <int kCol>
 void launch(const float* ox, const float* oy, const float* oz, const float* dx,
             const float* dy, const float* dz, const float* t0, const void* nodes,
-            const void* octets, long long n_octets, int leaf_octets,
-            float* t_out, int* slot_out, float* u_out, float* v_out,
-            int* overflow, long long n, cudaStream_t stream) {
+            const void* octets, float* t_out, int* slot_out, float* u_out,
+            float* v_out, int* overflow, long long n, cudaStream_t stream) {
     const long long grid = (n + kBlock - 1) / kBlock;
     wide_traverse_kernel<kCol><<<(unsigned)grid, kBlock, 0, stream>>>(
         ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
-        static_cast<const float4*>(octets), (int)n_octets, leaf_octets, t_out,
-        slot_out, u_out, v_out, overflow, n);
+        static_cast<const float4*>(octets), t_out, slot_out, u_out, v_out,
+        overflow, n);
 }
 
 }  // namespace
@@ -409,17 +419,16 @@ void launch(const float* ox, const float* oy, const float* oz, const float* dx,
 extern "C" int oglrt_wide_traverse(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const float* t0, const void* nodes,
-    const void* octets, long long n_octets, int leaf_octets, int groups,
-    float* t_out, int* slot_out, float* u_out, float* v_out, int* overflow,
-    long long n, void* stream) {
+    const void* octets, int groups, float* t_out, int* slot_out, float* u_out,
+    float* v_out, int* overflow, long long n, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     if (groups == 16) {
-        launch<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                   leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
+        launch<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, t_out, slot_out,
+                   u_out, v_out, overflow, n, s);
     } else if (groups == 71) {
-        launch<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                   leaf_octets, t_out, slot_out, u_out, v_out, overflow, n, s);
+        launch<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, t_out, slot_out,
+                   u_out, v_out, overflow, n, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }
@@ -441,19 +450,19 @@ wide_traverse_profile_kernel(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ t0, const int4* __restrict__ nodes,
-    const float4* __restrict__ octets, int n_octets, int leaf_octets,
-    float* __restrict__ t_out, int* __restrict__ slot_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ overflow, unsigned long long* __restrict__ prof_out,
-    int* __restrict__ leaf_hist, unsigned* __restrict__ sink, long long n) {
+    const float4* __restrict__ octets, float* __restrict__ t_out,
+    int* __restrict__ slot_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ overflow,
+    unsigned long long* __restrict__ prof_out, int* __restrict__ leaf_hist,
+    unsigned* __restrict__ sink, long long n) {
     __shared__ unsigned stack[kCol * kBlock];
     const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
     Prof prof = {};
     prof.leaf_hist = leaf_hist;
     if (i < n)
-        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                        leaf_octets, stack + threadIdx.x, t_out, slot_out,
-                        u_out, v_out, overflow, prof);
+        trace_ray<kCol>(i, ox, oy, oz, dx, dy, dz, t0, nodes, octets,
+                        stack + threadIdx.x, t_out, slot_out, u_out, v_out,
+                        overflow, prof);
     // every lane of the warp reaches here: sum the warp's counters, then one
     // atomic per counter per warp
 #pragma unroll
@@ -488,15 +497,14 @@ template <int kCol>
 void launch_profile(const float* ox, const float* oy, const float* oz,
                     const float* dx, const float* dy, const float* dz,
                     const float* t0, const void* nodes, const void* octets,
-                    long long n_octets, int leaf_octets, float* t_out,
-                    int* slot_out, float* u_out, float* v_out, int* overflow,
-                    unsigned long long* prof, int* leaf_hist, unsigned* sink,
-                    long long n, cudaStream_t stream) {
+                    float* t_out, int* slot_out, float* u_out, float* v_out,
+                    int* overflow, unsigned long long* prof, int* leaf_hist,
+                    unsigned* sink, long long n, cudaStream_t stream) {
     const long long grid = (n + kBlock - 1) / kBlock;
     wide_traverse_profile_kernel<kCol><<<(unsigned)grid, kBlock, 0, stream>>>(
         ox, oy, oz, dx, dy, dz, t0, static_cast<const int4*>(nodes),
-        static_cast<const float4*>(octets), (int)n_octets, leaf_octets, t_out,
-        slot_out, u_out, v_out, overflow, prof, leaf_hist, sink, n);
+        static_cast<const float4*>(octets), t_out, slot_out, u_out, v_out,
+        overflow, prof, leaf_hist, sink, n);
 }
 
 }  // namespace
@@ -504,20 +512,19 @@ void launch_profile(const float* ox, const float* oy, const float* oz,
 extern "C" int oglrt_wide_traverse_profile(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const float* t0, const void* nodes,
-    const void* octets, long long n_octets, int leaf_octets, int groups,
-    float* t_out, int* slot_out, float* u_out, float* v_out, int* overflow,
-    unsigned long long* prof, int* leaf_hist, unsigned* sink, long long n,
-    void* stream) {
+    const void* octets, int groups, float* t_out, int* slot_out, float* u_out,
+    float* v_out, int* overflow, unsigned long long* prof, int* leaf_hist,
+    unsigned* sink, long long n, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     if (groups == 16) {
-        launch_profile<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                           leaf_octets, t_out, slot_out, u_out, v_out,
-                           overflow, prof, leaf_hist, sink, n, s);
+        launch_profile<16>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, t_out,
+                           slot_out, u_out, v_out, overflow, prof,
+                           leaf_hist, sink, n, s);
     } else if (groups == 71) {
-        launch_profile<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, n_octets,
-                           leaf_octets, t_out, slot_out, u_out, v_out,
-                           overflow, prof, leaf_hist, sink, n, s);
+        launch_profile<71>(ox, oy, oz, dx, dy, dz, t0, nodes, octets, t_out,
+                           slot_out, u_out, v_out, overflow, prof,
+                           leaf_hist, sink, n, s);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -29,7 +29,8 @@ import torch
 
 from opengl_raytracer_torch.ops import bvh as bvh_mod
 from opengl_raytracer_torch.ops.wide2 import build_subblock_parts, pack_k1
-from opengl_raytracer_torch.ops.wide_bvh import (TRIS_PER_OCTET, collapse_wide,
+from opengl_raytracer_torch.ops.wide_bvh import (MAX_LEAF_COUNT,
+                                                 TRIS_PER_OCTET, collapse_wide,
                                                  pack_k3, wide_max_stack)
 from opengl_raytracer_torch.utils import profiling
 
@@ -131,7 +132,13 @@ def _scene_from_numpy(fields: dict, device) -> SceneData:
             *((n, t) for n, t, _ in fields["p2_extra"])]
     k1 = [pack_k1(np.asarray(n, np.float32), np.asarray(t, np.float32))
           for n, t in rows]
-    k3 = pack_k3(fields["pw_tiles"], fields["pl_tri_tiles"])
+    node_count = np.asarray(fields["node_count"])
+    if node_count.max() > MAX_LEAF_COUNT:
+        # K3's leaf entry cannot hold the leaf, and no path runs K3 on it
+        # (renderer.resolve_traversal): empty tables, which K3 refuses
+        k3 = (np.zeros((0, 64), np.int32), np.zeros((0, 96), np.float32))
+    else:
+        k3 = pack_k3(fields["pw_tiles"], fields["pl_tri_tiles"], node_count)
     return SceneData(
         **{k: up(fields[k], np.float32) for k in _F32},
         **{k: up(fields[k], np.int32) for k in _I32},
@@ -311,8 +318,9 @@ class Scene:
 
         # Octet-aligned triangle table of the wide-BVH kernel
         # (scene.py:264-301): each leaf's triangles copied to an 8-aligned
-        # slot range, with the slack of one leaf's octets so a fixed-octet
-        # leaf read cannot run off the table, in whole 64-triangle tiles;
+        # slot range, with the slack of one leaf's octets so the JAX
+        # kernel's fixed-octet leaf read cannot run off the table (K3 reads
+        # each leaf's own triangles only), in whole 64-triangle tiles;
         # slot s = g*64 + k*8 + j -> tile g, row j, lanes [k*16, k*16+16).
         tpr = TRIS_PER_OCTET
         leaf_octets_pad = -(-self.max_leaf_tris // tpr)

@@ -171,10 +171,9 @@ def _load() -> ctypes.CDLL:
     so.oglrt_shade.restype = i32
     # (table, n_rows, 18 inputs, the step block, 14 outputs, n)
     so.oglrt_shade.argtypes = [p, i32] + [p] * 33 + [i64, p]
-    # (..., nodes, octets, n_octets, leaf_octets, groups, ...)
+    # (..., nodes, octets, groups, ...)
     so.oglrt_wide_traverse.restype = i32
-    so.oglrt_wide_traverse.argtypes = ([p] * 9 + [i64, i32, i32]
-                                       + [p] * 5 + [i64, p])
+    so.oglrt_wide_traverse.argtypes = [p] * 9 + [i32] + [p] * 5 + [i64, p]
     # the glue kernels: (block, base, n_rays, n_band, tw, blocks,
     # 6 floats, out, seed_out, n); (6 columns, alive, lo, inv_ext,
     # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4

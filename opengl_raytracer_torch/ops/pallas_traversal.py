@@ -23,12 +23,20 @@ Both versions keep the JAX kernel's semantics (its lines cited):
 * ordered children pushed far-first, each gated by the EMPTY_PACKED
   sentinel only (empty slots' swapped boxes pass the slab test), decoded
   as ``packed >> 3`` and ``packed & 7`` (:153-176);
-* a leaf entry names its first octet, and a fixed ``leaf_octets`` octets
-  are tested from it, over-reading into neighbouring leaves' triangles as
-  the JAX kernel does (:179-184); within an octet the least ``t`` wins,
-  the lowest slot among equal ``t``, and across octets a strict ``<``
-  (:216-223).  The kernel tests an octet's triangles one after another
-  with a strict ``<`` from the running best, which picks the same winner.
+* within an octet the least ``t`` wins, the lowest slot among equal
+  ``t``, and across octets a strict ``<`` (:216-223).  The kernel tests a
+  leaf's triangles one after another with a strict ``<`` from the running
+  best, which picks the same winner.
+
+Both test exactly each leaf's own triangles: the kernel's leaf entry holds
+the leaf's count (ops/wide_bvh.pack_k3), and the plain version reads it
+per first octet from the scene's ``node_count``
+(:func:`scene_leaf_counts`).  The JAX kernel's tiles name only a leaf's
+first octet, so it tests a fixed ``ceil(max_leaf / 8)`` octets from it,
+over-reading into neighbouring leaves' triangles (:179-184).  That changes
+no nearest hit: every triangle a ray can hit is tested in its own leaf,
+whose box holds the hit point; only the slot that wins an exact ``t`` tie
+can differ.
 
 They visit the same nodes in the same order, so they agree ray by ray,
 bit for bit.  The push order comes from each ray's own direction octant;
@@ -51,7 +59,7 @@ import torch
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
 from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_PACKED, ORD_LANE0,
-                                                 TRIS_PER_OCTET, wide_depth)
+                                                 leaf_counts, wide_depth)
 from opengl_raytracer_torch.ops.wide2 import K1_NODE_WORDS, K1_OCTET_FLOATS
 
 TILE = 8 * 128  # floats per (8, 128) tile
@@ -93,15 +101,27 @@ def group_column(max_stack: int) -> int:
                      f"more than the kernel's {GROUPS[-1]}")
 
 
-def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
+def scene_leaf_counts(scene) -> torch.Tensor:
+    """(Q,) int32 on the scene's device: per octet of its triangle tiles,
+    the count of the leaf that starts there, 0 where none starts
+    (ops/wide_bvh.leaf_counts of its ``node_count``)."""
+    n_octets = scene.pl_tri_tiles.shape[0] * 8
+    counts = leaf_counts(scene.node_count.cpu().numpy(), n_octets)
+    return torch.from_numpy(counts.astype("int32")).to(
+        scene.pl_tri_tiles.device)
+
+
+def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
                     stack: int, counts: bool = False):
-    """Plain torch version of the kernel.  Returns (t, slot, u, v,
-    dropped_pushes); t is ``t0`` where nothing improved it.  With
-    ``counts``, also a (3, R) int32 tensor of each ray's node visits, leaf
-    entries (each tests ``leaf_octets`` octets, fewer at the table's end)
-    and triangles whose ``t`` beat the best hit at their test (``|det| >=
-    EPS``, ``EPS < t < best_t``, the best taken in the kernel's order, slot
-    by slot: those whose edges the kernel loads)."""
+    """Plain torch version of the kernel.  ``leaf_count`` (Q,) holds, at
+    each leaf's first octet, the leaf's triangle count
+    (:func:`scene_leaf_counts`); a leaf entry tests exactly those
+    triangles.  Returns (t, slot, u, v, dropped_pushes); t is ``t0`` where
+    nothing improved it.  With ``counts``, also a (5, R) int32 tensor of
+    each ray's node visits, leaf entries, triangles whose ``t`` beat the
+    best hit at their test (``|det| >= EPS``, ``EPS < t < best_t``, the
+    best taken in the kernel's order, slot by slot: those whose edges the
+    kernel loads), octets and triangles tested."""
     dev = t0.device
     R = t0.shape[0]
     bt = t0.clone()
@@ -115,13 +135,14 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     pw = pw_tiles.reshape(-1)
     tri = tri_tiles.reshape(-1)
     n_octets = tri_tiles.shape[0] * 8
+    leaf_count = leaf_count.long()
     rows = torch.arange(8, device=dev) * 128  # child / triangle rows
     lanes6 = torch.arange(6, device=dev)
     lanes12 = torch.arange(12, device=dev)
     stk = torch.zeros((R, stack), dtype=torch.int32, device=dev)
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    work = torch.zeros((3, R), dtype=torch.int32, device=dev)
+    work = torch.zeros((5, R), dtype=torch.int32, device=dev)
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -166,30 +187,36 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
         rays = act[~is_node]
         if rays.numel():
             first = -ent[~is_node] - 1
+            n = leaf_count[first]  # the leaf's own triangles
+            if counts:
+                work[3, rays] += ((n + 7) >> 3).to(torch.int32)
+                work[4, rays] += n.to(torch.int32)
             o_r = tuple(x[rays][:, None] for x in o3)
             d_r = tuple(x[rays][:, None] for x in d3)
             bt_r, sl_r, bu_r, bv_r = bt[rays], slot[rays], bu[rays], bv[rays]
-            for k in range(leaf_octets):
+            slots = torch.arange(8, device=dev)
+            for k in range(-(-int(n.max()) // 8)):
                 q = first + k
-                inside = q < n_octets  # the table's slack makes this hold
+                own = slots[None, :] < (n - 8 * k)[:, None]  # (n, j)
                 qc = q.clamp_max(n_octets - 1)
                 base = (qc >> 3) * TILE + (qc & 7) * GROUP
                 c = tri[base[:, None, None] + rows[None, :, None]
                         + lanes12[None, None, :]].unbind(2)  # 12 x (n, j)
                 valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
                                            c[9:12])
+                valid = valid & own
                 if counts:
                     det = d_r[0] * c[9] + d_r[1] * c[10] + d_r[2] * c[11]
-                    beat = (det.abs() >= EPS) & (t > EPS)
+                    beat = own & (det.abs() >= EPS) & (t > EPS)
                     run = bt_r
                     for j in range(8):  # the kernel's running best
-                        cand = inside & beat[:, j] & (t[:, j] < run)
+                        cand = beat[:, j] & (t[:, j] < run)
                         work[2, rays] += cand.to(torch.int32)
                         run = torch.where(cand & valid[:, j], t[:, j], run)
                 tc = torch.where(valid, t, BIG)
                 j = torch.argmin(tc, dim=1, keepdim=True)  # lowest slot on ties
                 tm = tc.gather(1, j)[:, 0]
-                better = inside & (tm < bt_r)  # strict <, fragment.glsl:275
+                better = tm < bt_r  # strict <, fragment.glsl:275
                 bt_r = torch.where(better, tm, bt_r)
                 sl_r = torch.where(better, (q * 8 + j[:, 0]).to(torch.int32),
                                    sl_r)
@@ -201,8 +228,7 @@ def _traverse_plain(pw_tiles, tri_tiles, o3, d3, t0, leaf_octets: int,
     return bt, slot, bu, bv, dropped
 
 
-def _traverse_cuda(nodes, octets, o3, d3, t0, leaf_octets: int,
-                   groups: int, overflow):
+def _traverse_cuda(nodes, octets, o3, d3, t0, groups: int, overflow):
     dev = t0.device
     R = t0.shape[0]
     req = _kernels.require
@@ -223,37 +249,34 @@ def _traverse_cuda(nodes, octets, o3, d3, t0, leaf_octets: int,
         raise ValueError("k3 tables must be 16-byte aligned (16-byte loads)")
     if groups not in GROUPS:
         raise ValueError(f"group column {groups} is not one of {GROUPS}")
-    if leaf_octets < 1:
-        raise ValueError(f"leaf_octets {leaf_octets} must be at least 1")
     t = torch.empty(R, dtype=torch.float32, device=dev)
     slot = torch.empty(R, dtype=torch.int32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
     _kernels.launch(
         "oglrt_wide_traverse", "wide_traversal", dev,
-        *(x.data_ptr() for x in (*o3, *d3, t0, nodes, octets)),
-        octets.shape[0], int(leaf_octets), int(groups),
+        *(x.data_ptr() for x in (*o3, *d3, t0, nodes, octets)), int(groups),
         *(x.data_ptr() for x in (t, slot, u, v, overflow)), R)
     return t, slot, u, v
 
 
-def traverse_wide(scene, o3, d3, t0, leaf_octets: int):
+def traverse_wide(scene, o3, d3, t0):
     """Nearest hit over ``scene``'s wide BVH -> (t, slot, u, v).
 
     ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
     ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray, which comes
-    out unchanged).  ``leaf_octets`` octets are tested per leaf entry.
+    out unchanged).  Each leaf entry tests that leaf's own triangles.
     CUDA tensors launch the kernel over the scene's Hopper tables
     (``scene.k3``) with the group column its depth needs; CPU tensors run
     the plain version over its tiles.  Dropped pushes add to
     :func:`overflow_tensor`."""
     overflow = overflow_tensor(t0.device)
     if t0.is_cuda:
-        return _traverse_cuda(*scene.k3, o3, d3, t0, leaf_octets,
+        return _traverse_cuda(*scene.k3, o3, d3, t0,
                               group_column(scene.pw_max_stack), overflow)
     t, slot, u, v, dropped = _traverse_plain(
-        scene.pw_tiles, scene.pl_tri_tiles, o3, d3, t0, leaf_octets,
-        stack_size(scene.pw_max_stack))
+        scene.pw_tiles, scene.pl_tri_tiles, scene_leaf_counts(scene), o3, d3,
+        t0, stack_size(scene.pw_max_stack))
     overflow += dropped.to(torch.int32)
     return t, slot, u, v
 
@@ -325,18 +348,15 @@ def wide_epilogue(t, slot, u, v, remap) -> Nearest:
     return _epilogue_cuda(*args) if t.is_cuda else _epilogue_plain(*args)
 
 
-def raycast_pallas(scene, o3, d3, active=None, max_leaf_tris: int = 16
-                   ) -> Nearest:
+def raycast_pallas(scene, o3, d3, active=None) -> Nearest:
     """Nearest hit per ray over ``scene``'s wide-BVH tables.
 
     ``o3``/``d3`` are 3-tuples of (R,) float32 columns and ``active`` an
-    optional (R,) bool mask whose False rays report ``t = BIG``;
-    ``max_leaf_tris`` must cover the scene's largest leaf.  The result has
-    no slot: the shading rows are gathered by ``tri``.  The entry t and
-    the resolution of K3's output are G5's two launches."""
+    optional (R,) bool mask whose False rays report ``t = BIG``.  The
+    result has no slot: the shading rows are gathered by ``tri``.  The
+    entry t and the resolution of K3's output are G5's two launches."""
     o3 = tuple(x.contiguous() for x in o3)
     d3 = tuple(x.contiguous() for x in d3)
     t0 = wide_prologue(active, o3[0].shape[0], o3[0].device)
-    leaf_octets = -(-max_leaf_tris // TRIS_PER_OCTET)
-    t, slot, u, v = traverse_wide(scene, o3, d3, t0, leaf_octets)
+    t, slot, u, v = traverse_wide(scene, o3, d3, t0)
     return wide_epilogue(t, slot, u, v, scene.pl_remap)

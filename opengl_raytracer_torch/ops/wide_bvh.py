@@ -24,8 +24,9 @@ layout of K1's tables (ops/wide2.py):
 
 * ``nodes (W, 64) i32`` — wide node w, 256 bytes: the 8 child boxes as
   structure of arrays (words ``[0, 48)``: ``lo.x[8] ... hi.z[8]``), the 8
-  child entries (words ``[48, 56)``: ``>= 0`` a wide node, ``-q-1`` the
-  leaf starting at octet q, EMPTY_PACKED an empty slot), and per octant
+  child entries (words ``[48, 56)``: ``>= 0`` a wide node,
+  ``-(q << 10 | (n - 1)) - 1`` the leaf of n triangles starting at octet
+  q (:func:`encode_k3_leaf`), EMPTY_PACKED an empty slot), and per octant
   the near-first slot order, 3 bits a rank (word ``56 + o``, bits
   ``[0, 24)``: the tile's far-first push lanes reversed; bits ``[24, 32)``
   the mask of the non-empty slots, the same in every octant's word, so a
@@ -36,6 +37,12 @@ layout of K1's tables (ops/wide2.py):
   triangle j's [v0, face, e1, e2] at ``[12j, 12j+12)``, so the first two
   16-byte loads of a triangle give its ``t``; 48 bytes a slot against the
   tiles' 64.
+
+A tile entry names only a leaf's first octet, so the JAX kernel tests a
+fixed ``ceil(max_leaf / 8)`` octets at every leaf, reading into the next
+leaves' triangles.  K3's entry also holds the leaf's own triangle count,
+taken from the scene's ``node_count`` (:func:`leaf_counts`), and K3 tests
+exactly that leaf's triangles.
 """
 
 from __future__ import annotations
@@ -72,15 +79,46 @@ ORD_LANE0 = 6
 PACK_LIMIT = 1 << 21
 EMPTY_PACKED = -(1 << 20)  # decoded entry sentinel for empty slots
 MAX_STACK = 512  # the JAX kernel's stack; deeper trees are rejected
+# K3's leaf entry: the first octet above LEAF_COUNT_BITS bits of count - 1.
+LEAF_COUNT_BITS = 10
+MAX_LEAF_COUNT = 1 << LEAF_COUNT_BITS
 
 
 def encode_leaf(first_octet: int, count: int) -> int:
-    # Only the octet start is encoded: leaf padding slots are degenerate
-    # triangles the epsilon test rejects, and the traversal's fixed-octet
-    # over-read past a short leaf tests neighbouring REAL triangles, which
-    # is harmless for a nearest-hit query.
+    # The tiles' entry, as the JAX package encodes it: only the octet
+    # start.  Leaf padding slots are degenerate triangles the epsilon test
+    # rejects, and the JAX kernel's fixed-octet over-read past a short leaf
+    # tests neighbouring REAL triangles, which is harmless for a nearest-hit
+    # query.  K3's own entry adds the count (encode_k3_leaf).
     del count
     return -first_octet - 1
+
+
+def encode_k3_leaf(first_octet, count):
+    """K3's leaf entry (scalars or int64 arrays): ``-(first_octet << 10 |
+    (count - 1)) - 1``, negative like the tiles' entry."""
+    return -((first_octet << LEAF_COUNT_BITS) | (count - 1)) - 1
+
+
+def decode_k3_leaf(entry):
+    """(first octet, count) of K3's leaf entry (scalars or int64 arrays)."""
+    e = -entry - 1
+    return e >> LEAF_COUNT_BITS, (e & (MAX_LEAF_COUNT - 1)) + 1
+
+
+def leaf_counts(node_count: np.ndarray, n_octets: int) -> np.ndarray:
+    """Per octet q (Q,) int64: the triangle count of the leaf that starts at
+    q, 0 where none starts.  Leaves lie in the binary BVH's preorder, each
+    from an octet boundary, in ``models/scene.py``'s triangle tiles."""
+    counts = np.asarray(node_count).astype(np.int64)
+    counts = counts[counts > 0]
+    first = np.concatenate(([0], np.cumsum(-(-counts // TRIS_PER_OCTET))))
+    if first[-1] > n_octets:
+        raise ValueError(f"the leaves need {first[-1]} octets, the table "
+                         f"holds {n_octets}")
+    out = np.zeros(n_octets, np.int64)
+    out[first[:-1]] = counts
+    return out
 
 
 def stack_bound(max_depth: int) -> int:
@@ -227,13 +265,16 @@ def _padding_group() -> np.ndarray:
     return g
 
 
-def pack_k3(pw_tiles: np.ndarray, pl_tri_tiles: np.ndarray
-            ) -> tuple[np.ndarray, np.ndarray]:
+def pack_k3(pw_tiles: np.ndarray, pl_tri_tiles: np.ndarray,
+            node_count: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """K3's Hopper layout of the wide tiles -> (nodes (W, 64) i32, octets
-    (Q, 96) f32); see the module docstring.  Raises ValueError on tiles the
-    layout cannot give back bit for bit: pad lanes that are not 0, padding
-    groups between nodes, order lanes that are not a per-octant permutation
-    of one set of child entries."""
+    (Q, 96) f32); see the module docstring.  Each leaf entry gets its
+    leaf's triangle count from ``node_count``, the binary BVH's.  Raises
+    ValueError on tiles the layout cannot give back bit for bit: pad lanes
+    that are not 0, padding groups between nodes, order lanes that are not
+    a per-octant permutation of one set of child entries; and on a leaf
+    entry it cannot encode: no leaf starts at its octet, the octet is not
+    under ``PACK_LIMIT - 1`` or the count is over ``MAX_LEAF_COUNT``."""
     groups = np.ascontiguousarray(
         np.asarray(pw_tiles, np.float32).reshape(-1, 8, 8, 16)
         .transpose(0, 2, 1, 3)).reshape(-1, 8, 16)  # [w, row, lane]
@@ -256,19 +297,45 @@ def pack_k3(pw_tiles: np.ndarray, pl_tri_tiles: np.ndarray
     if tris.view(np.int32)[:, :, 12:].any():
         raise ValueError("pl_tri_tiles pad lanes 12-15 are not 0")
     nodes = pack_nodes(rows)
-    full = nodes[:, 48:56] != EMPTY_PACKED
+    entries = nodes[:, 48:56].astype(np.int64)
+    full = entries != EMPTY_PACKED
     mask = (full.astype(np.int64) << np.arange(8)).sum(axis=1)
     words = nodes[:, 56:64].astype(np.int64) | (mask[:, None] << 24)
     nodes[:, 56:64] = words.astype(np.uint32).view(np.int32)
+    leaf = full & (entries < 0)
+    first = -entries[leaf] - 1
+    last = int(first.max(initial=-1))
+    if last >= PACK_LIMIT - 1:
+        raise ValueError(f"leaf octet {last} does not fit K3's leaf entry "
+                         f"(under {PACK_LIMIT - 1})")
+    counts = leaf_counts(node_count, tris.shape[0])
+    if last >= counts.shape[0]:
+        raise ValueError("a leaf entry starts past the octet table")
+    n = counts[first]
+    if (n == 0).any():
+        raise ValueError("a leaf entry starts at an octet no leaf starts at")
+    if (n > MAX_LEAF_COUNT).any():
+        raise ValueError(f"a leaf of {int(n.max())} triangles does not fit "
+                         f"K3's leaf entry (at most {MAX_LEAF_COUNT})")
+    entries[leaf] = encode_k3_leaf(first, n)
+    nodes[:, 48:56] = entries.astype(np.int32)
     return nodes, pack_octets(tris)
 
 
 def unpack_k3(nodes: np.ndarray, octets: np.ndarray
               ) -> tuple[np.ndarray, np.ndarray]:
-    """The (pw_tiles, pl_tri_tiles) that :func:`pack_k3` packed."""
+    """The (pw_tiles, pl_tri_tiles) that :func:`pack_k3` packed: the leaf
+    entries back to the tiles' first octets, the slot mask dropped."""
     W = nodes.shape[0]
     Wp = -(-W // 8) * 8
-    rows = unpack_nodes(nodes)
+    word = nodes[:, 56:64].astype(np.int64) & 0xFFFFFFFF
+    full = ((word[:, :1] >> (24 + np.arange(8))) & 1).astype(bool)
+    entries = nodes[:, 48:56].astype(np.int64)
+    leaf = full & (entries < 0)
+    entries[leaf] = -decode_k3_leaf(entries[leaf])[0] - 1
+    tiles_nodes = nodes.copy()
+    tiles_nodes[:, 48:56] = entries
+    rows = unpack_nodes(tiles_nodes)
     groups = np.repeat(_padding_group()[None], Wp, axis=0)
     groups[:W, :, 0:6] = rows[:, :48].reshape(W, 8, 6)
     groups[:W, :, ORD_LANE0:ORD_LANE0 + 8] = rows[:, 48:112].reshape(

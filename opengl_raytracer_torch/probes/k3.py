@@ -10,10 +10,11 @@ measured the JAX package's K3 (``ops/pallas_traversal.py``):
   the same source compiled with ``-DOGLRT_K3_PROFILE``, whose
   ``clock64()`` sums give the cycles of each stage (group pop, node fetch,
   slab tests, group push, octet fetch, triangle tests) and whose counts
-  give visits, leaf entries, octets and candidate triangles
-  (:func:`stage_report`); it also counts each leaf entry by its first
-  octet, from which :func:`own_share` prices the leaf over-read: the share
-  of tested octets that hold the entered leaf's own triangles;
+  give visits, leaf entries, octets, triangles tested and candidate
+  triangles (:func:`stage_report`); it also counts each leaf entry by its
+  first octet, from which :func:`own_share` checks that K3 reads no octet
+  past the entered leaf's own (an over-read, as the JAX kernel's fixed
+  ``ceil(max_leaf / 8)`` octets a leaf, would read under 1);
 * ``onehot_test.py`` (``kern``: one octet of the triangle tiles selected on
   the hardware and checked against the host's tile): :func:`octet_fetch`
   reads chosen octets through the kernel's own triangle loads and gives
@@ -22,9 +23,9 @@ measured the JAX package's K3 (``ops/pallas_traversal.py``):
 
 :func:`work` sums the per-ray counts of the plain version
 (``_traverse_plain(..., counts=True)``): node visits, leaf entries, octets
-and triangles that go on to the barycentric test, and the share of its
-lanes a warp keeps busy.  ``chip_smoke.py`` turns them into operations and
-K3's bound.
+and triangles tested, triangles that go on to the barycentric test, and
+the share of its lanes a warp keeps busy.  ``chip_smoke.py`` turns them
+into operations and K3's bound.
 
 The profile build is a library of its own (``PROFILE_LIB``), with launch
 counts of its own, ``_kernels.launch_counts["k3_profile"]`` and
@@ -32,8 +33,8 @@ counts of its own, ``_kernels.launch_counts["k3_profile"]`` and
 card, ``chip_smoke.py`` runs it (its ``k3prof`` phase); from Python::
 
     from opengl_raytracer_torch.probes import k3
-    hits, stages, hist = k3.profile(scene, o3, d3, t0, leaf_octets)
-    print(k3.stage_report(stages), k3.own_share(scene, leaf_octets, hist))
+    hits, stages, hist = k3.profile(scene, o3, d3, t0)
+    print(k3.stage_report(stages), k3.own_share(scene, hist, stages))
 """
 
 from __future__ import annotations
@@ -48,11 +49,12 @@ import torch
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops.intersect import BIG
+from opengl_raytracer_torch.ops.wide_bvh import leaf_counts
 from opengl_raytracer_torch.probes.k1 import lane_share
 
 STAGES = ("pop", "node_fetch", "slab", "push", "octet_fetch", "triangles")
 EVENTS = ("visits", "leaves", "octets", "candidates", "group_pushes",
-          "group_pops", "smem_pushes", "smem_pops")
+          "group_pops", "smem_pushes", "smem_pops", "slots")
 PROFILE_LIB = os.path.join(_kernels.BUILD_DIR, "liboglrt_k3_profile.so")
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "wide_traversal.cu")
@@ -62,22 +64,23 @@ _lock = threading.Lock()
 _lib = None
 
 
-def work(counts: torch.Tensor, t0: torch.Tensor, leaf_octets: int) -> dict:
+def work(counts: torch.Tensor, t0: torch.Tensor) -> dict:
     """What one launch over these rays costs K3, from the plain version's
-    (3, R) per-ray counts: visits, leaf entries, octets (``leaf_octets`` a
-    leaf: a scene's slack keeps every leaf's read inside its table), loop
-    steps (visits and leaves) and barycentric tests, in all and per live
-    ray, and the active-lane share of steps, visits and leaves."""
+    (5, R) per-ray counts: visits, leaf entries, octets and triangles
+    tested (each leaf's own), loop steps (visits and leaves) and
+    barycentric tests, in all and per live ray, and the active-lane share
+    of steps, visits and leaves."""
     R = t0.numel()
     live = int((t0 > -BIG).sum())
-    visits, leaves, cands = (int(c.sum()) for c in counts.long())
+    visits, leaves, cands, octets, slots = (int(c.sum())
+                                            for c in counts.long())
     steps = counts[0].long() + counts[1].long()
     per = max(live, 1)
     return dict(rays=R, live=live, visits=visits, leaves=leaves,
-                octets=leaves * leaf_octets, steps=visits + leaves,
+                octets=octets, slots=slots, steps=visits + leaves,
                 candidates=cands, visits_per_ray=visits / per,
-                leaves_per_ray=leaves / per,
-                octets_per_ray=leaves * leaf_octets / per,
+                leaves_per_ray=leaves / per, octets_per_ray=octets / per,
+                slots_per_ray=slots / per,
                 candidates_per_ray=cands / per,
                 lanes_steps=lane_share(steps),
                 lanes_visits=lane_share(counts[0]),
@@ -106,14 +109,14 @@ def lib() -> ctypes.CDLL:
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             so.oglrt_wide_traverse_profile.restype = i32
             so.oglrt_wide_traverse_profile.argtypes = (
-                [p] * 9 + [i64, i32, i32] + [p] * 8 + [i64, p])
+                [p] * 9 + [i32] + [p] * 8 + [i64, p])
             so.oglrt_k3_octet_fetch.restype = i32
             so.oglrt_k3_octet_fetch.argtypes = [p, p, i32, p, p]
             _lib = so
         return _lib
 
 
-def profile(scene, o3, d3, t0, leaf_octets: int):
+def profile(scene, o3, d3, t0):
     """One launch of the profile build over ``scene.k3`` -> ((t, slot, u,
     v), {stage or event name: int}, leaf entries per first octet (Q,)
     int32).  Its hits are the kernel's; its cycles are summed over every
@@ -141,7 +144,6 @@ def profile(scene, o3, d3, t0, leaf_octets: int):
     _kernels.launch(
         "oglrt_wide_traverse_profile", "k3_profile", dev,
         *(x.data_ptr() for x in (*o3, *d3, t0, nodes, octets)),
-        octets.shape[0], int(leaf_octets),
         wide.group_column(scene.pw_max_stack),
         *(x.data_ptr() for x in (t, slot, u, v, overflow, prof, hist, sink)),
         R, library=lib())
@@ -152,13 +154,13 @@ def profile(scene, o3, d3, t0, leaf_octets: int):
 def stage_report(stages: dict) -> dict:
     """Cycles of each stage in all (summed over threads), as a share of
     the stages' sum, and per event: per pop, per visit, per push, per
-    octet, per 16-byte load of a fetch (15 a node; 16 an octet, the two of
-    each triangle that give its t), per triangle.  The third load of a
-    triangle (its edges, one per candidate) falls in the triangle stage."""
+    triangle tested, per 16-byte load of a fetch (15 a node; 2 a triangle,
+    the two that give its t).  The third load of a triangle (its edges, one
+    per candidate) falls in the triangle stage."""
     total = sum(stages[s] for s in STAGES) or 1
     per = dict(pop=("group_pops", 1), node_fetch=("visits", 15),
                slab=("visits", 1), push=("group_pushes", 1),
-               octet_fetch=("octets", 16), triangles=("octets", 8))
+               octet_fetch=("slots", 2), triangles=("slots", 1))
     out = {}
     for s in STAGES:
         ev, loads = per[s]
@@ -171,33 +173,26 @@ def stage_report(stages: dict) -> dict:
     return out
 
 
-def leaf_octet_table(node_count: np.ndarray, n_octets: int, leaf_octets: int):
-    """Per octet q (Q,): the leaf starting there's own octets (its
-    triangles, ceil(count / 8); 0 where no leaf starts) and the octets a
-    leaf entry at q tests (``leaf_octets``, fewer at the table's end), in
-    the octet-aligned order of ``models/scene.py``'s triangle tiles."""
-    counts = node_count[node_count > 0].astype(np.int64)
-    own = -(-counts // 8)
-    first = np.concatenate(([0], np.cumsum(own)))[:-1]
-    own_q = np.zeros(n_octets, np.int64)
-    own_q[first] = own
-    tested = np.minimum(leaf_octets, n_octets - np.arange(n_octets))
-    return own_q, tested
-
-
-def own_share(scene, leaf_octets: int, hist: torch.Tensor) -> dict:
-    """The over-read's price from the profile's leaf entries per first
-    octet: entries, octets tested, and the share of them that hold the
-    entered leaf's own triangles (the rest are neighbours' octets)."""
+def own_share(scene, hist: torch.Tensor, stages: dict) -> dict:
+    """What the leaf side read, from the profile's leaf entries per first
+    octet and its counts of octets and triangles tested (``stages``):
+    entries, octets and triangles tested in all and per entry, and the
+    share of them that are the entered leaves' own (1 when no leaf reads a
+    neighbour's triangles)."""
     h = hist.cpu().numpy().astype(np.int64)
-    own_q, tested = leaf_octet_table(scene.node_count.cpu().numpy(),
-                                     h.shape[0], leaf_octets)
-    if (h[own_q == 0] != 0).any():
+    count_q = leaf_counts(scene.node_count.cpu().numpy(), h.shape[0])
+    if (h[count_q == 0] != 0).any():
         raise RuntimeError("a leaf entry starts at an octet no leaf starts at")
-    n_tested = int((h * tested).sum())
-    return dict(entries=int(h.sum()), octets=n_tested,
-                own_octets=int((h * own_q).sum()),
-                own_share=float((h * own_q).sum()) / max(n_tested, 1))
+    entries = int(h.sum())
+    octets, slots = int(stages["octets"]), int(stages["slots"])
+    own_octets = int((h * -(-count_q // 8)).sum())
+    own_slots = int((h * count_q).sum())
+    n = max(entries, 1)
+    return dict(entries=entries, octets=octets, slots=slots,
+                own_octets=own_octets, own_slots=own_slots,
+                own_share=own_octets / max(octets, 1),
+                own_slot_share=own_slots / max(slots, 1),
+                octets_per_entry=octets / n, slots_per_entry=slots / n)
 
 
 def octet_fetch(scene, octets_idx) -> torch.Tensor:

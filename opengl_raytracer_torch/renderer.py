@@ -102,7 +102,7 @@ def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
     if traversal == "pallas":
         return lambda o3, d3, active=None: wide.raycast_pallas(
-            scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
+            scene, o3, d3, active)
     if traversal == "pallas2":
         return lambda o3, d3, active=None: sbt.raycast_subblock(scene, o3, d3,
                                                                 active)

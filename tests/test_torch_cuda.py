@@ -155,9 +155,8 @@ def _face_plane_rays(data, o3, d3, t0):
 
 
 def _k3_plain(data, o3, d3, t0, counts=False):
-    leaf_octets = -(-effective_max_leaf(data) // 8)
-    return wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles, o3, d3, t0,
-                                leaf_octets,
+    return wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles,
+                                wide.scene_leaf_counts(data), o3, d3, t0,
                                 wide.stack_size(data.pw_max_stack),
                                 counts=counts)
 
@@ -170,11 +169,10 @@ def test_wide_kernel_matches_plain(cuda):
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     o3, d3, t0 = _rays(3000, cuda)
     _face_plane_rays(data, o3, d3, t0)
-    leaf_octets = -(-effective_max_leaf(data) // 8)
     ov = wide.overflow_tensor(cuda)
     ov.zero_()
     before = _kernels.launch_counts["wide_traversal"]
-    tk, sk, uk, vk = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+    tk, sk, uk, vk = wide.traverse_wide(data, o3, d3, t0)
     assert _kernels.launch_counts["wide_traversal"] == before + 1
     tp, sp, up, vp, dropped = _k3_plain(data, o3, d3, t0)
     torch.cuda.synchronize()
@@ -190,18 +188,17 @@ def test_wide_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("leaf", [8, 32])
 def test_wide_kernel_both_columns_match_plain(cuda, leaf):
     """Both compiled group columns (16 and 71) give the plain version's
-    hits, with a later part's entry t, at one and four octets a leaf."""
+    hits, with a later part's entry t, at leaves of up to one and up to
+    four octets."""
     data = Scene(_objects(1500), max_leaf_tris=leaf).send(cuda)
     o3, d3, t0 = _rays(4096, cuda, seed=7)
     t0 = torch.where(torch.arange(4096, device=cuda) % 3 == 0,
                      torch.full_like(t0, 3.0), t0)
-    leaf_octets = -(-effective_max_leaf(data) // 8)
     ref = _k3_plain(data, o3, d3, t0)[:4]
     ov = wide.overflow_tensor(cuda)
     for groups in wide.GROUPS:
         ov.zero_()
-        got = wide._traverse_cuda(*data.k3, o3, d3, t0, leaf_octets, groups,
-                                  ov)
+        got = wide._traverse_cuda(*data.k3, o3, d3, t0, groups, ov)
         assert int(ov.item()) == 0
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
@@ -209,16 +206,16 @@ def test_wide_kernel_both_columns_match_plain(cuda, leaf):
 
 def test_k3_profile_matches_kernel(cuda):
     """The K3 profile build (probes/k3.py) finds the kernel's hits, counts
-    the plain version's visits, leaves and candidates, counts each leaf
-    entry by its first octet, and counts its launches apart."""
+    the plain version's visits, leaves, candidates, octets and triangles
+    tested, counts each leaf entry by its first octet, reads only the
+    entered leaves' own octets, and counts its launches apart."""
     from opengl_raytracer_torch.probes import k3 as k3_probe
 
     data = Scene(_objects(), max_leaf_tris=32).send(cuda)
     o3, d3, t0 = _rays(3000, cuda, seed=6)
-    leaf_octets = -(-effective_max_leaf(data) // 8)
-    kernel = wide.traverse_wide(data, o3, d3, t0, leaf_octets)
+    kernel = wide.traverse_wide(data, o3, d3, t0)
     before = dict(_kernels.launch_counts)
-    hits, stages, hist = k3_probe.profile(data, o3, d3, t0, leaf_octets)
+    hits, stages, hist = k3_probe.profile(data, o3, d3, t0)
     assert _kernels.launch_counts["k3_profile"] == before["k3_profile"] + 1
     assert (_kernels.launch_counts["wide_traversal"]
             == before["wide_traversal"])
@@ -228,10 +225,11 @@ def test_k3_profile_matches_kernel(cuda):
     assert stages["visits"] == int(counts[0].sum())
     assert stages["leaves"] == int(counts[1].sum())
     assert stages["candidates"] == int(counts[2].sum())
-    share = k3_probe.own_share(data, leaf_octets, hist)
+    assert stages["octets"] == int(counts[3].sum())
+    assert stages["slots"] == int(counts[4].sum())
+    share = k3_probe.own_share(data, hist, stages)
     assert share["entries"] == stages["leaves"]
-    assert share["octets"] == stages["octets"]
-    assert 0.0 < share["own_share"] <= 1.0
+    assert share["own_share"] == share["own_slot_share"] == 1.0
     assert all(stages[s] > 0 for s in k3_probe.STAGES)
 
 
@@ -286,9 +284,7 @@ def test_k3_wrapper_rejects_bad_tables(cuda):
            ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
     for k3, match in bad:
         with pytest.raises(ValueError, match=match):
-            wide.traverse_wide(data._replace(k3=k3), o3, d3, t0, 2)
-    with pytest.raises(ValueError, match="leaf_octets"):
-        wide.traverse_wide(data, o3, d3, t0, 0)
+            wide.traverse_wide(data._replace(k3=k3), o3, d3, t0)
     assert _kernels.launch_counts["wide_traversal"] == before
 
 
@@ -361,7 +357,7 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         sbt.traverse_part(data, 0, (strided, *o3[1:]), d3, t0)
     with pytest.raises(ValueError, match="group column"):
-        wide._traverse_cuda(*data.k3, o3, d3, t0, 2, 100,
+        wide._traverse_cuda(*data.k3, o3, d3, t0, 100,
                             wide.overflow_tensor(cuda))
 
 
@@ -729,8 +725,7 @@ def test_wide_epilogue_kernels_match_plain(cuda, masked):
     before = _kernels.launch_counts["wide_epilogue"]
     got_t0 = wide.wide_prologue(active, 5001, cuda)
     assert torch.equal(got_t0, wide._prologue_plain(active, 5001, cuda))
-    k3 = wide.traverse_wide(data, o3, d3, got_t0,
-                            -(-effective_max_leaf(data) // 8))
+    k3 = wide.traverse_wide(data, o3, d3, got_t0)
     got = wide.wide_epilogue(*k3, data.pl_remap)
     assert _kernels.launch_counts["wide_epilogue"] == before + 2
     ref = wide._epilogue_plain(*k3, data.pl_remap)

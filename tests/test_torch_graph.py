@@ -66,14 +66,13 @@ def test_block_words_round_trip(frame):
 
 # ---------------------------------------------------------- G5 epilogue
 
-def _raycast_pallas_inline(scene, o3, d3, active, max_leaf_tris):
+def _raycast_pallas_inline(scene, o3, d3, active):
     """raycast_pallas before its prologue and epilogue were split out."""
     R = o3[0].shape[0]
     t0 = torch.full((R,), BIG, dtype=torch.float32)
     if active is not None:
         t0 = torch.where(active, t0, -BIG)
-    t, slot, u, v = wide.traverse_wide(scene, o3, d3, t0,
-                                       -(-max_leaf_tris // 8))
+    t, slot, u, v = wide.traverse_wide(scene, o3, d3, t0)
     did_hit = (t < BIG) & (t > -BIG)
     return Nearest(t=torch.where(did_hit, t, BIG),
                    tri=scene.pl_remap[slot.long()],
@@ -84,15 +83,14 @@ def _raycast_pallas_inline(scene, o3, d3, active, max_leaf_tris):
 @pytest.mark.parametrize("masked", [True, False])
 def test_wide_epilogue_equals_the_inline_code(masked):
     jdata, tdata = _jax_scene(600)
-    leaf = int(np.asarray(jdata.node_count).max())
     R = 900
     o, d = _rays(R, seed=8)
     o3 = tuple(torch.from_numpy(x.copy()) for x in o)
     d3 = tuple(torch.from_numpy(x.copy()) for x in d)
     active = (torch.from_numpy(np.random.default_rng(9).uniform(size=R)
                                < 0.7) if masked else None)
-    got = wide.raycast_pallas(tdata, o3, d3, active, max_leaf_tris=leaf)
-    want = _raycast_pallas_inline(tdata, o3, d3, active, leaf)
+    got = wide.raycast_pallas(tdata, o3, d3, active)
+    want = _raycast_pallas_inline(tdata, o3, d3, active)
     assert got.slot is None
     for a, b in zip(got[:4], want[:4]):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -561,8 +561,8 @@ def _launch(kernel, device, odd_one=None):
                                   t("tri_rows", (2, 96)), o3, d3, t0,
                                   overflow)
     return wide._traverse_cuda(t("pw_tiles", (2, 64), torch.int32),
-                               t("pl_tri_tiles", (2, 96)), o3, d3, t0, 1,
-                               16, overflow)
+                               t("pl_tri_tiles", (2, 96)), o3, d3, t0, 16,
+                               overflow)
 
 
 KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",

@@ -237,8 +237,7 @@ def test_k3_plain_matches_jax_pallas(leaf):
     ov = pallas_traversal.overflow_tensor("cpu")
     ov.zero_()
     got = pallas_traversal.raycast_pallas(
-        tdata, _cols(o), _cols(d), torch.from_numpy(active),
-        max_leaf_tris=_leaf(jdata))
+        tdata, _cols(o), _cols(d), torch.from_numpy(active))
     assert int(ov.item()) == 0 and got.slot is None
     _check(jdata, ref, got, o, d, active)
 
@@ -420,8 +419,7 @@ def test_k3_face_plane_rays_follow_per_ray_slab_test():
                            [0.0, lo0[1] + np.float32(1e-3), lo0[2] - 1.0]],
                           np.float32).T
     d[:, :2] = np.asarray([[0.0, 0.0, 1.0]] * 2, np.float32).T
-    got = pallas_traversal.raycast_pallas(tdata, _cols(o), _cols(d),
-                                          max_leaf_tris=_leaf(jdata))
+    got = pallas_traversal.raycast_pallas(tdata, _cols(o), _cols(d))
     ref = j_bvh(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
                 max_leaf_tris=_leaf(jdata))
     assert float(got.t[0]) == BIG and float(ref.t[0]) == BIG
