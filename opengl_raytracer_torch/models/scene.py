@@ -350,7 +350,7 @@ class Scene:
         with profiling.Span("scene.subblock", {"refused": False}) as span:
             try:
                 parts = build_subblock_parts(v0[:T], v1[:T], v2[:T],
-                                             tri16[:T])
+                                             tri16[:T], stats=span.args)
             except ValueError:
                 parts = ()  # over the builder's caps: no sub-block tables
                 span.args["refused"] = True

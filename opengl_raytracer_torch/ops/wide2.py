@@ -453,7 +453,9 @@ needs no such bound)."""
 def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
                          tri16: np.ndarray, method: str = "sah",
                          budget_bytes: int = TABLE_BUDGET_BYTES,
-                         max_parts: int = 16) -> tuple[SubblockTables, ...]:
+                         max_parts: int = 16,
+                         stats: dict | None = None
+                         ) -> tuple[SubblockTables, ...]:
     """Partitioned sub-block tables for scenes whose tables exceed
     ``budget_bytes``.
 
@@ -463,7 +465,14 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     SAME global triangle index space (remap is rebased), so the traversal
     can chain parts with cross-part ``best_t`` pruning and a strict-``<``
     host combine.
+
+    ``stats``, when given, is filled with what the build did: ``parts``
+    (the parts returned; 0 when it raises), ``rounds`` (the splits tried,
+    the first included) and ``largest_part_bytes`` (node rows plus octet
+    rows of the largest part; when it raises, of the part over budget).
     """
+    stats = {} if stats is None else stats
+    stats.update(parts=0, rounds=0, largest_part_bytes=0)
     T = v0.shape[0]
     est_bytes = ((T // 8 + 1) + (T // 4 + 1)) * 512  # tri rows + node rows, rough
     n_parts = 1
@@ -471,6 +480,7 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         n_parts *= 2
 
     while True:
+        stats["rounds"] += 1
         # spatial partition: recursive median split on centroids
         centroids = (v0 + v1 + v2) / 3.0
         parts_idx = [np.arange(T, dtype=np.int64)]
@@ -499,9 +509,13 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
                                    method=method)
                 nbytes = t.node_rows.nbytes + t.tri_rows.nbytes
                 if nbytes > budget_bytes:
+                    stats["largest_part_bytes"] = nbytes
                     raise ValueError(f"part tables {nbytes} over budget")
                 tables.append(t._replace(
                     remap=idx[t.remap].astype(np.int32)))
+            stats["parts"] = len(tables)
+            stats["largest_part_bytes"] = max(
+                t.node_rows.nbytes + t.tri_rows.nbytes for t in tables)
             return tuple(tables)
         except ValueError:
             if n_parts >= max_parts:

@@ -309,6 +309,30 @@ def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
     assert (got.t.cpu()[~active] == BIG).all()
 
 
+def test_sixteen_part_chain_matches_plain(cuda, monkeypatch):
+    """K1's chain at its cap of 16 parts (``test_torch_parts.py``'s small
+    Cornell scene under its small budget) on the card against the same
+    chain's plain version on the CPU: the nearest hits bit for bit."""
+    from test_torch_parts import _rays as cornell_rays
+    from test_torch_parts import cornell, small_budget
+
+    small_budget(monkeypatch)
+    _, scene, on_card, _, _ = cornell(cuda)
+    on_cpu = scene.send("cpu")
+    assert len(on_card.parts) == 16
+    o3, d3, active = cornell_rays(16384)
+    before = dict(_kernels.launch_counts)
+    got = sbt.raycast_subblock(on_card, tuple(x.to(cuda) for x in o3),
+                               tuple(x.to(cuda) for x in d3), active.to(cuda))
+    ref = sbt.raycast_subblock(on_cpu, o3, d3, active)
+    assert {k: _kernels.launch_counts[k] - before[k] for k in
+            ("subblock_traversal", "subblock_epilogue")} == {
+                "subblock_traversal": 16, "subblock_epilogue": 16}
+    assert (ref.t < BIG).sum() > active.sum() * 0.9
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("lambertian", [True, False])
 def test_shade_kernel_matches_plain(cuda, lambertian):
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)

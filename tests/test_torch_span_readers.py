@@ -148,14 +148,130 @@ def test_scene_readers_take_the_last_build(monkeypatch):
 
 @pytest.mark.parametrize("name", [*SCENE, *IDLE])
 def test_metric_entry_matches_its_file(name):
-    """Each new metric's entry names both cells, and its file the entry's
+    """Each metric's entry names the three cells, and its file the entry's
     source, unit, layer and moved metric."""
     entry = next(m for m in harness.benchmark()["per_layer"]
                  if m["name"] == name)
     mod = harness.load_module("metrics", name)
     assert entry["workloads"] == ["minidragon-converge",
-                                  "asiandragon-converge"]
+                                  "asiandragon-converge", "buddha-converge"]
     assert (mod.SOURCE, mod.UNIT, mod.LAYER, mod.MOVES) == (
         entry["source"], entry["unit"], entry["layer"], entry["moves"])
     assert entry["layer"] == ("Scene authoring" if name in SCENE
                               else "Device")
+
+
+# K1's part chain (the two k1chain.* metrics, and k1.device_ms over the
+# whole chain): device events of kernels named as the card's trace names
+# them
+CHAIN = ("k1chain.later_parts_ms", "k1chain.g4_ms")
+PROLOGUE = "void (anonymous namespace)::wide_prologue_kernel(bool const*)"
+K1 = "void (anonymous namespace)::traverse_kernel(float const*)"
+G4 = "void (anonymous namespace)::part_epilogue_kernel(float const*)"
+K2 = "void (anonymous namespace)::shade_kernel(float const*)"
+
+
+def _chain_run(monkeypatch, parts=16, segments=3, frames=2, drop=None,
+               **args):
+    """A window of ``segments`` bounce segments over ``parts`` parts: each
+    a 1-us prologue, then per part a K1 launch of (part + 1) us and a 2-us
+    G4, then a 5-us K2; ``drop`` = (segment, part) leaves that K1 launch
+    out.  The scene's span, before the window, has ``args`` (``parts``
+    unless given)."""
+    events, t = [], 10.0
+    for s in range(segments):
+        events.append((PROLOGUE, LO + t, LO + t + 1))
+        t += 1
+        for p in range(parts):
+            if (s, p) != drop:
+                events.append((K1, LO + t, LO + t + p + 1))
+            t += p + 1
+            events.append((G4, LO + t, LO + t + 2))
+            t += 2
+        events.append((K2, LO + t, LO + t + 5))
+        t += 5
+    args = {"refused": False, "parts": parts, **args}
+    scene = _span("scene.subblock", -2e6, -1e6, **args)
+    run = _run([scene], monkeypatch, frames=frames, window=(0, t + 10))
+    run.device_events = events
+    return run
+
+
+def test_chain_readers_split_sixteen_parts(monkeypatch):
+    run = _chain_run(monkeypatch)
+    k1 = 3 * sum(range(1, 17))  # us, three segments
+    got = {m: _read(m, run) for m in (*CHAIN, "k1.device_ms")}
+    assert got == pytest.approx({
+        "k1.device_ms": (k1 + 3 * 16 * 2 + 3) / 1e3 / 2,
+        "k1chain.later_parts_ms": (k1 - 3) / 1e3 / 2,
+        "k1chain.g4_ms": 3 * 16 * 2 / 1e3 / 2}, rel=1e-9)
+    got = harness.read_metrics(harness.benchmark(), "buddha-converge", True,
+                               run)
+    assert {*CHAIN, "k1.device_ms"} <= set(got)
+    for cell in ("minidragon-converge", "asiandragon-converge"):
+        assert not set(CHAIN) & set(harness.read_metrics(
+            harness.benchmark(), cell, True, run))
+
+
+@pytest.mark.parametrize("cut", [(40.0, 300.0), (11.5, 430.5),
+                                 (25.0, 190.5), (0.0, 157.0)])
+def test_chain_reader_takes_segments_cut_by_the_window(monkeypatch, cut):
+    """The trace's device clock may lie off the host's by more than the
+    time from the window's opening to its first prologue: the window's
+    edges then cut its first and last segments.  The launches before the
+    first prologue are the last parts of theirs, and those of the last
+    segment the first parts; launches that start outside the window are
+    left out, as ``k1.device_ms`` leaves them out."""
+    run = _chain_run(monkeypatch)
+    lo, hi = run.traced = (LO + cut[0], LO + cut[1])
+    k1 = [(a, b) for n, a, b in run.device_events if n == K1]
+    want = sum(min(b, hi) - a for i, (a, b) in enumerate(k1)
+               if lo <= a < hi and i % 16 != 0)
+    assert _read("k1chain.later_parts_ms", run) == pytest.approx(
+        want / 1e3 / 2, rel=1e-12)
+
+
+def test_chain_reader_refuses_a_segment_missing_a_launch(monkeypatch):
+    run = _chain_run(monkeypatch, drop=(1, 7))
+    assert _read("k1chain.later_parts_ms", run) is None
+    assert _read("k1.device_ms", run) is not None
+    assert _read("k1chain.g4_ms", run) is not None
+
+
+def test_chain_reader_needs_the_parts_arg(monkeypatch):
+    """A program that does not report its parts (an older tree) gives no
+    split; the device trace alone still gives K1's and G4's time."""
+    run = _chain_run(monkeypatch)
+    monkeypatch.setattr(profiling, "spans", lambda: [
+        _span("scene.subblock", -2e6, -1e6, refused=False)])
+    assert _read("k1chain.later_parts_ms", run) is None
+    assert _read("k1chain.g4_ms", run) == pytest.approx(0.096 / 2)
+    monkeypatch.setattr(profiling, "spans", lambda: [])
+    assert _read("k1chain.later_parts_ms", run) is None
+    monkeypatch.delattr(profiling, "spans")
+    assert _read("k1chain.later_parts_ms", run) is None
+
+
+def test_chain_reader_of_one_part(monkeypatch):
+    run = _chain_run(monkeypatch, parts=1)
+    assert _read("k1chain.later_parts_ms", run) is None
+    assert _read("k1.device_ms", run) == pytest.approx(
+        (3 * 1 + 3 * 2 + 3) / 1e3 / 2)
+    assert _read("k1chain.g4_ms", run) == pytest.approx(3 * 2 / 1e3 / 2)
+
+
+def test_chain_readers_without_a_trace(monkeypatch):
+    run = _chain_run(monkeypatch)
+    run.traced = None
+    assert all(_read(m, run) is None for m in CHAIN)
+
+
+@pytest.mark.parametrize("name", CHAIN)
+def test_chain_entry_matches_its_file(name):
+    entry = next(m for m in harness.benchmark()["per_layer"]
+                 if m["name"] == name)
+    mod = harness.load_module("metrics", name)
+    assert entry["workloads"] == ["buddha-converge"]
+    assert (mod.SOURCE, mod.UNIT, mod.LAYER, mod.MOVES) == (
+        entry["source"], entry["unit"], entry["layer"], entry["moves"])
+    assert (entry["layer"], entry["better"]) == ("K1 part chain", "lower")

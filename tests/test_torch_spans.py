@@ -157,7 +157,7 @@ def test_the_program_opens_no_profiler_range():
 
 def test_scene_records_its_four_parts(capsys):
     scene = Scene(_objects(), verbose=True)
-    scene.fields()
+    fields = scene.fields()
     scene.fields()  # computed once: no second span
     scene.send("cpu")
     scene.send("cpu")  # kept: no second upload
@@ -166,7 +166,10 @@ def test_scene_records_its_four_parts(capsys):
                                          "scene.fields", "scene.upload"]
     assert got["scene.bvh"].args["builder"] in ("native", "numpy")
     assert got["scene.subblock"].parent is got["scene.fields"]
-    assert got["scene.subblock"].args == {"refused": False}
+    assert got["scene.subblock"].args == {
+        "refused": False, "parts": 1, "rounds": 1,
+        "largest_part_bytes": (fields["p2_node_rows"].nbytes
+                               + fields["p2_tri_rows"].nbytes)}
     assert all(got[n].parent is None for n in
                ("scene.bvh", "scene.fields", "scene.upload"))
     bvh_s = round(got["scene.bvh"].seconds, 2)
