@@ -185,8 +185,9 @@ Phases; each raises on failure, and the script then exits non-zero:
    eager body bit for bit; 96x54 (not blocked) and 96x48 (blocked) frames
    on the card and the CPU.
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
-   triangles, 4 sub-block parts), 1 warm-up and 4 1080p frames, each
-   timed alone (its own device sync).
+   triangles, 4 sub-block parts at the JAX package's 7.5 MB budget; the
+   card's keeps it in one), 1 warm-up and 4 1080p frames, each timed
+   alone (its own device sync).
 9. cli: the user's entry point.  Phase 5's two spheres are written as OBJ
    files (``stanford_minidragon/dragon.obj``, bare ``v``/``f``;
    ``sphere/sphere.obj``, ``v//n`` with normals) under
@@ -3077,9 +3078,16 @@ def packet_phase(scene, big, camera, main_img):
 
 def multipart_phase(camera):
     from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.models import scene as scene_mod
     from opengl_raytracer_torch.ops import _kernels
 
-    scene, data = make_scene(150, 300, DEVICE)
+    orig = scene_mod.build_subblock_parts  # split at its defaults
+    scene_mod.build_subblock_parts = lambda *a, **k: orig(
+        *a, stats=k.get("stats"))
+    try:
+        scene, data = make_scene(150, 300, DEVICE)
+    finally:
+        scene_mod.build_subblock_parts = orig
     parts = len(data.parts)
     if parts != 4:
         raise RuntimeError(f"multi-part scene split into {parts} parts, "

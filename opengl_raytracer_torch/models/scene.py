@@ -3,7 +3,10 @@
 Flattening, the per-object material broadcast, the BVH permutation and
 every table follow ``opengl_raytracer_tpu/models/scene.py`` line for line
 (reference: scene.py:9-236), so both packages build bit-identical tables
-from the same objects.  :meth:`Scene.send` uploads what this package's
+from the same objects, but for the sub-block parts: they are split at the
+card's budget (``ops/wide2.CARD_TABLE_BUDGET_BYTES``, at most
+``CARD_MAX_PARTS``), so a scene the JAX package splits may take fewer
+parts here.  :meth:`Scene.send` uploads what this package's
 traversals and shading read:
 
 * the per-triangle arrays ``v0/e1/e2/face`` and the binary BVH
@@ -28,7 +31,9 @@ import numpy as np
 import torch
 
 from opengl_raytracer_torch.ops import bvh as bvh_mod
-from opengl_raytracer_torch.ops.wide2 import build_subblock_parts, pack_k1
+from opengl_raytracer_torch.ops.wide2 import (CARD_MAX_PARTS,
+                                              CARD_TABLE_BUDGET_BYTES,
+                                              build_subblock_parts, pack_k1)
 from opengl_raytracer_torch.ops.wide_bvh import (MAX_LEAF_COUNT,
                                                  TRIS_PER_OCTET, collapse_wide,
                                                  pack_k3, wide_max_stack)
@@ -347,10 +352,13 @@ class Scene:
 
         # Sub-block tables: a separate leaf<=8 build over the FINAL
         # (permuted) triangles; remap lands directly in that index space.
+        # Split at the card's budget, not the JAX package's on-chip one.
         with profiling.Span("scene.subblock", {"refused": False}) as span:
             try:
-                parts = build_subblock_parts(v0[:T], v1[:T], v2[:T],
-                                             tri16[:T], stats=span.args)
+                parts = build_subblock_parts(
+                    v0[:T], v1[:T], v2[:T], tri16[:T],
+                    budget_bytes=CARD_TABLE_BUDGET_BYTES,
+                    max_parts=CARD_MAX_PARTS, stats=span.args)
             except ValueError:
                 parts = ()  # over the builder's caps: no sub-block tables
                 span.args["refused"] = True

@@ -445,9 +445,42 @@ def unpack_nodes(nodes: np.ndarray) -> np.ndarray:
 
 TABLE_BUDGET_BYTES = 7_864_320  # 7.5 MB
 """Per-part sub-block table budget.  It is the JAX kernel's on-chip memory
-budget; the port keeps it so that both packages split a scene into the
-same parts (the CUDA kernel reads its tables from device memory and
-needs no such bound)."""
+budget; :func:`build_subblock_parts` keeps it, and the JAX package's cap
+of 16 parts, as its defaults, so that at them both packages split a scene
+into the same parts."""
+
+CARD_TABLE_BUDGET_BYTES = 4 * TABLE_BUDGET_BYTES  # 30 MB
+"""The per-part budget ``Scene`` builds at.  The CUDA kernel reads its
+tables from device memory, so nothing bounds a part but the index caps
+(``MAX_OCTETS``, ``MAX_WIDE_NODES``); at 30 MB a part fits the H100's
+50 MB L2 with room for the rays' state."""
+
+CARD_MAX_PARTS = 4
+"""The part cap ``Scene`` builds at: with :data:`CARD_TABLE_BUDGET_BYTES`
+the whole tables stay under the JAX split's 16 x 7.5 MB."""
+
+
+def _part_sizes(T: int, n_parts: int) -> list[int]:
+    """The triangle counts of :func:`build_subblock_parts`' split of ``T``
+    triangles into ``n_parts``, in part order: its median halving depends
+    on the counts alone."""
+    sizes = [T]
+    while len(sizes) < n_parts:
+        nxt = []
+        for n in sizes:
+            nxt += [n] if n < 16 else [n // 2, n - n // 2]
+        if len(nxt) == len(sizes):
+            break
+        sizes = nxt
+    return sizes
+
+
+def _least_part_bytes(n: int) -> int:
+    """A lower bound of the node and octet rows :func:`build_subblock`
+    makes of ``n`` triangles: ceil(n / 8) octets (an octet holds 8) and a
+    root node, each table padded as it pads them."""
+    octets = -(-n // LEAF_TRIS)
+    return (max(-(-octets // 8) * 8, 8) + 8) * 512
 
 
 def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
@@ -466,13 +499,21 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     can chain parts with cross-part ``best_t`` pruning and a strict-``<``
     host combine.
 
+    A split is refused before anything is built where a part's least
+    bytes (:func:`_least_part_bytes`) are over budget or its least octets
+    reach ``MAX_OCTETS``: the built part would raise as well, so the
+    result, tables or raise, is the JAX package's at any budget.
+
     ``stats``, when given, is filled with what the build did: ``parts``
     (the parts returned; 0 when it raises), ``rounds`` (the splits tried,
-    the first included) and ``largest_part_bytes`` (node rows plus octet
-    rows of the largest part; when it raises, of the part over budget).
+    the first included), ``largest_part_bytes`` (node rows plus octet
+    rows of the largest part; when it raises, of the part over budget, or
+    its least bytes where the bound refused it), ``budget_bytes`` and
+    ``max_parts``.
     """
     stats = {} if stats is None else stats
-    stats.update(parts=0, rounds=0, largest_part_bytes=0)
+    stats.update(parts=0, rounds=0, largest_part_bytes=0,
+                 budget_bytes=budget_bytes, max_parts=max_parts)
     T = v0.shape[0]
     est_bytes = ((T // 8 + 1) + (T // 4 + 1)) * 512  # tri rows + node rows, rough
     n_parts = 1
@@ -481,26 +522,32 @@ def build_subblock_parts(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
     while True:
         stats["rounds"] += 1
-        # spatial partition: recursive median split on centroids
-        centroids = (v0 + v1 + v2) / 3.0
-        parts_idx = [np.arange(T, dtype=np.int64)]
-        while len(parts_idx) < n_parts:
-            nxt = []
-            for idx in parts_idx:
-                if len(idx) < 16:
-                    nxt.append(idx)
-                    continue
-                c = centroids[idx]
-                axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-                order = np.argsort(c[:, axis], kind="stable")
-                half = len(idx) // 2
-                nxt.append(idx[order[:half]])
-                nxt.append(idx[order[half:]])
-            if len(nxt) == len(parts_idx):
-                break  # every part < 16 tris: splitting can make no progress
-            parts_idx = nxt
-
         try:
+            for n in _part_sizes(T, n_parts):
+                least = _least_part_bytes(n)
+                if least > budget_bytes or -(-n // LEAF_TRIS) >= MAX_OCTETS:
+                    stats["largest_part_bytes"] = least
+                    raise ValueError(f"a part of {n} triangles takes at "
+                                     f"least {least} bytes")
+            # spatial partition: recursive median split on centroids
+            centroids = (v0 + v1 + v2) / 3.0
+            parts_idx = [np.arange(T, dtype=np.int64)]
+            while len(parts_idx) < n_parts:
+                nxt = []
+                for idx in parts_idx:
+                    if len(idx) < 16:
+                        nxt.append(idx)
+                        continue
+                    c = centroids[idx]
+                    axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+                    order = np.argsort(c[:, axis], kind="stable")
+                    half = len(idx) // 2
+                    nxt.append(idx[order[:half]])
+                    nxt.append(idx[order[half:]])
+                if len(nxt) == len(parts_idx):
+                    break  # every part < 16 tris: splitting can make no progress
+                parts_idx = nxt
+
             tables = []
             for idx in parts_idx:
                 if len(idx) == 0:

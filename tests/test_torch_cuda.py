@@ -309,17 +309,19 @@ def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
     assert (got.t.cpu()[~active] == BIG).all()
 
 
-def test_sixteen_part_chain_matches_plain(cuda, monkeypatch):
-    """K1's chain at its cap of 16 parts (``test_torch_parts.py``'s small
-    Cornell scene under its small budget) on the card against the same
-    chain's plain version on the CPU: the nearest hits bit for bit."""
+@pytest.mark.parametrize("n_parts", [4, 16])
+def test_sixteen_part_chain_matches_plain(cuda, monkeypatch, n_parts):
+    """K1's chain at the JAX split's cap of 16 parts and at the card's cap
+    of 4 (``test_torch_parts.py``'s small Cornell scene under its small
+    budgets) on the card against the same chain's plain version on the
+    CPU: the nearest hits bit for bit."""
     from test_torch_parts import _rays as cornell_rays
-    from test_torch_parts import cornell, small_budget
+    from test_torch_parts import SPLITS, cornell, small_budget
 
-    small_budget(monkeypatch)
+    small_budget(monkeypatch, *SPLITS[n_parts])
     _, scene, on_card, _, _ = cornell(cuda)
     on_cpu = scene.send("cpu")
-    assert len(on_card.parts) == 16
+    assert len(on_card.parts) == n_parts
     o3, d3, active = cornell_rays(16384)
     before = dict(_kernels.launch_counts)
     got = sbt.raycast_subblock(on_card, tuple(x.to(cuda) for x in o3),
@@ -327,7 +329,7 @@ def test_sixteen_part_chain_matches_plain(cuda, monkeypatch):
     ref = sbt.raycast_subblock(on_cpu, o3, d3, active)
     assert {k: _kernels.launch_counts[k] - before[k] for k in
             ("subblock_traversal", "subblock_epilogue")} == {
-                "subblock_traversal": 16, "subblock_epilogue": 16}
+                "subblock_traversal": n_parts, "subblock_epilogue": n_parts}
     assert (ref.t < BIG).sum() > active.sum() * 0.9
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)

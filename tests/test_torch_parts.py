@@ -1,13 +1,15 @@
-"""K1's part chain at its cap of 16 parts, on the CPU (plain versions).
+"""K1's part chain at the JAX split's cap of 16 parts and at the card's
+cap of 4, on the CPU (plain versions).
 
 A small Cornell scene of the benchmark's stand-ins (``rtbench/scenes.py``:
 bumpy sphere, mirror ball, the seven boxes) has its sub-block tables split
-into 16 parts by a small table budget, as the Happy Buddha's 1,087,716
-triangles are split by the real one.  The port's ``Renderer`` renders it
-and is held against the benchmark's plain reference
-(``rtbench/reference/pathtrace.py``) under the ``buddha-converge`` cell's
-limit; the 16-part chain's nearest hits are held against the same scene
-in one part; the ``scene.subblock`` span reports the parts built.
+into 16 parts by a small table budget, or into 4 by four times that budget
+and the card's cap, as the Happy Buddha's 1,087,716 triangles are split
+by the real ones.  The port's ``Renderer`` renders it and is held against
+the benchmark's plain reference (``rtbench/reference/pathtrace.py``) under
+the ``buddha-converge`` cell's limit; the chain's nearest hits are held
+against the same scene in one part; ``Scene`` builds at the card's budget
+and the ``scene.subblock`` span reports the parts built and the split.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_parts.py -q
 """
@@ -18,6 +20,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,24 +29,31 @@ sys.path.insert(0, ROOT)
 from opengl_raytracer_torch import RenderConfig, Renderer, make_camera  # noqa: E402
 from opengl_raytracer_torch.models import scene as scene_mod  # noqa: E402
 from opengl_raytracer_torch.ops import subblock_traversal as sbt  # noqa: E402
+from opengl_raytracer_torch.ops import wide2  # noqa: E402
 from opengl_raytracer_torch.ops.intersect import BIG, mt_single  # noqa: E402
 from opengl_raytracer_torch.renderer import resolve_traversal  # noqa: E402
 from opengl_raytracer_torch.utils import profiling  # noqa: E402
 from rtbench import compare, harness, scenes, trace  # noqa: E402
 
-# 2,452 triangles: the default budget keeps them in one part, this one
-# splits them into 16 at the first round
+# 2,448 triangles: the default budget keeps them in one part, this one
+# splits them into 16 at the first round, and four times it with a cap of
+# 4 parts (the card's budget to the JAX one, and the card's cap) into 4
 BUDGET = 16 * 1024
+SPLITS = {16: (BUDGET, 16), 4: (4 * BUDGET, wide2.CARD_MAX_PARTS)}
 RECIPE = {"dragon_cells": [24, 48], "dragon_triangles": 2300,
           "ball_cells": [4, 8]}
 
 
-def small_budget(monkeypatch, budget: int = BUDGET) -> None:
-    """Build every scene's sub-block tables under ``budget`` bytes a
-    part."""
+def small_budget(monkeypatch, budget: int = BUDGET,
+                 max_parts: int = 16) -> None:
+    """Build every scene's sub-block tables under ``budget`` bytes and
+    ``max_parts`` parts, in place of the card's budget and cap that
+    ``Scene`` passes."""
     orig = scene_mod.build_subblock_parts
     monkeypatch.setattr(scene_mod, "build_subblock_parts",
-                        lambda *a, **k: orig(*a, **k, budget_bytes=budget))
+                        lambda *a, **k: orig(*a, **{
+                            **k, "budget_bytes": budget,
+                            "max_parts": max_parts}))
 
 
 def cornell(device="cpu"):
@@ -102,14 +112,15 @@ def _rays(R, seed=3):
     return cols(o), cols(d.astype(np.float32)), active
 
 
-def test_sixteen_parts_hit_as_one(monkeypatch):
-    """The chain over 16 parts against the same scene in one part: t bit
-    for bit, the triangle the same but where two triangles tie at that
-    exact t."""
+@pytest.mark.parametrize("n_parts", sorted(SPLITS))
+def test_sixteen_parts_hit_as_one(monkeypatch, n_parts):
+    """The chain over 16 parts, and over 4, against the same scene in one
+    part: t bit for bit, the triangle the same but where two triangles
+    tie at that exact t."""
     one = cornell()[2]
-    small_budget(monkeypatch)
+    small_budget(monkeypatch, *SPLITS[n_parts])
     sixteen = cornell()[2]
-    assert (len(one.parts), len(sixteen.parts)) == (1, 16)
+    assert (len(one.parts), len(sixteen.parts)) == (1, n_parts)
     for a in ("v0", "e1", "e2", "face"):  # one triangle order
         assert torch.equal(getattr(one, a), getattr(sixteen, a))
 
@@ -148,6 +159,7 @@ def test_subblock_span_reports_the_parts(monkeypatch):
         (fields["p2_node_rows"], fields["p2_tri_rows"]),
         *((n, q) for n, q, _ in fields["p2_extra"])])
     assert args["largest_part_bytes"] == largest <= BUDGET
+    assert (args["budget_bytes"], args["max_parts"]) == (BUDGET, 16)
 
 
 def test_subblock_span_reports_a_refused_build(monkeypatch):
@@ -158,5 +170,68 @@ def test_subblock_span_reports_a_refused_build(monkeypatch):
     args = _subblock_span().args
     assert args["refused"] is True and args["parts"] == 0
     assert args["rounds"] >= 1 and args["largest_part_bytes"] > 2048
+    assert (args["budget_bytes"], args["max_parts"]) == (2048, 16)
     assert data.p2_node_rows.shape[0] == 0
     assert resolve_traversal(data, "auto") == "pallas"
+
+
+def test_scene_splits_at_the_cards_budget(monkeypatch):
+    """``Scene.fields`` builds its sub-block tables at the card's budget
+    and part cap, and its span reports them.  minidragon-converge's scene
+    fits one part under that budget and under the JAX package's, so its
+    tables are the JAX split's bit for bit."""
+    calls = []
+    orig = scene_mod.build_subblock_parts
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(scene_mod, "build_subblock_parts", recorded)
+    config = harness.load_json(os.path.join(harness.HERE, "configs",
+                                             "cornell-minidragon.json"))
+    data = harness.build_scene(config, trace.Spans(False), "cpu")[2]
+    (args, kw), = calls
+    assert (kw["budget_bytes"], kw["max_parts"]) == (
+        wide2.CARD_TABLE_BUDGET_BYTES, wide2.CARD_MAX_PARTS) == (
+        31_457_280, 4)
+    span = _subblock_span().args
+    assert (span["parts"], span["budget_bytes"], span["max_parts"]) == (
+        1, 31_457_280, 4)
+    assert args[0].shape[0] == 27_542
+    jax_split = wide2.build_subblock_parts(*args)  # the JAX defaults
+    assert len(jax_split) == len(data.parts) == 1
+    for got, ref in zip(data.parts[0], jax_split[0]):
+        assert np.array_equal(np.asarray(got).view(np.uint32),
+                              np.asarray(ref).view(np.uint32))
+
+
+def test_refusal_builds_no_part(monkeypatch):
+    """A split whose parts cannot fit is refused before any part is
+    built: the Asian Dragon's 7,223,097 triangles at the card's budget
+    (4 parts of 1.8M triangles, each at least 115 MB of octet rows), on
+    inputs that hold no memory, and the small scene's 4 parts of 612
+    under 16 KB; the span reports the least bytes of the first part."""
+    built = []
+    orig = wide2.build_subblock
+    monkeypatch.setattr(wide2, "build_subblock",
+                        lambda *a, **k: built.append(1) or orig(*a, **k))
+    T = 7_223_097
+    tri = np.broadcast_to(np.zeros(3, np.float32), (T, 3))
+    stats = {}
+    with pytest.raises(ValueError):
+        wide2.build_subblock_parts(
+            tri, tri, tri, np.broadcast_to(np.zeros(16, np.float32), (T, 16)),
+            budget_bytes=wide2.CARD_TABLE_BUDGET_BYTES,
+            max_parts=wide2.CARD_MAX_PARTS, stats=stats)
+    assert stats == dict(parts=0, rounds=1,
+                         largest_part_bytes=(225_728 + 8) * 512,
+                         budget_bytes=31_457_280, max_parts=4)
+
+    small_budget(monkeypatch, BUDGET, wide2.CARD_MAX_PARTS)
+    data = cornell()[2]
+    args = _subblock_span().args
+    assert args["refused"] is True and data.p2_node_rows.shape[0] == 0
+    assert (args["rounds"], args["largest_part_bytes"]) == (
+        1, (80 + 8) * 512)
+    assert not built

@@ -12,6 +12,7 @@ from here, which makes the JAX package's native library load first
 """
 
 import fcntl
+import functools
 import os
 import shutil
 import time
@@ -30,6 +31,7 @@ from opengl_raytracer_tpu.models.trisoup import Triangles as JTriangles
 from opengl_raytracer_tpu.ops.morton import ray_sort_keys_soa as j_keys
 
 import opengl_raytracer_torch.models.scene as tscene_mod
+import opengl_raytracer_torch.ops.wide2 as twide2
 from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
 from opengl_raytracer_torch.ops.morton import ray_sort_keys_soa
 from opengl_raytracer_torch.ops.wide_bvh import collapse_wide, validate_wide
@@ -174,6 +176,80 @@ def test_multi_part_tables_bit_equal(monkeypatch):
     tdata = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16).send("cpu")
     assert len(tdata.p2_extra) >= 1
     _assert_scene_equal(jdata, tdata)
+
+
+@functools.lru_cache(maxsize=None)
+def _subblock_inputs(name):
+    """The (v0, v1, v2, tri16) the port's ``Scene`` hands the sub-block
+    part builder: the small Cornell scene of ``test_torch_parts.py``
+    (2,448 triangles) or this module's random soup (1,200 triangles and
+    two rects)."""
+    from test_torch_parts import cornell
+
+    got = []
+    orig = tscene_mod.build_subblock_parts
+    tscene_mod.build_subblock_parts = lambda *a, **k: (
+        got.append(a) or orig(*a, **k))
+    try:
+        if name == "cornell":
+            cornell()
+        else:
+            Scene(_objects(Rect, Triangles, 1200)).fields()
+    finally:
+        tscene_mod.build_subblock_parts = orig
+    return got[0]
+
+
+KB = 1024
+# (scene, budget, part cap, MAX_OCTETS, what the split gives)
+PART_SPLITS = [
+    ("cornell", 16 * KB, 16, None, 16),
+    ("cornell", 64 * KB, 4, None, 4),
+    ("cornell", 1 << 20, 4, None, 1),
+    ("cornell", jwide2.TABLE_BUDGET_BYTES, 16, None, 1),
+    ("cornell", 48 * KB, 4, None, "refused"),  # the built part, 56 KB
+    ("cornell", 40 * KB, 4, None, "refused"),  # the least bytes, 44 KB
+    ("cornell", 2 * KB, 16, None, "refused"),
+    ("cornell", 1 << 20, 16, 64, 8),  # rounds 1-3 refused by the octets
+    ("cornell", 1 << 20, 4, 64, "refused"),
+    ("soup", 32 * KB, 16, None, 16),
+    ("soup", 64 * KB, 4, None, 4),
+    ("soup", 16 * KB, 4, None, "refused"),
+]
+
+
+@pytest.mark.parametrize("name,budget,max_parts,max_octets,expect",
+                         PART_SPLITS)
+def test_part_split_matches_the_jax_split(monkeypatch, name, budget,
+                                          max_parts, max_octets, expect):
+    """At any budget and part cap the port's ``build_subblock_parts``
+    returns the JAX package's tables bit for bit, and raises where it
+    raises, although it refuses a split on a part's least bytes or octets
+    before building it; ``max_octets`` lowers both packages' octet cap."""
+    if max_octets is not None:
+        monkeypatch.setattr(twide2, "MAX_OCTETS", max_octets)
+        monkeypatch.setattr(jwide2, "MAX_OCTETS", max_octets)
+    args = _subblock_inputs(name)
+    kw = dict(budget_bytes=budget, max_parts=max_parts)
+    if expect == "refused":
+        with pytest.raises(ValueError):
+            jwide2.build_subblock_parts(*args, **kw)
+        with pytest.raises(ValueError):
+            twide2.build_subblock_parts(*args, **kw)
+        return
+    ref = jwide2.build_subblock_parts(*args, **kw)
+    stats = {}
+    got = twide2.build_subblock_parts(*args, **kw, stats=stats)
+    assert len(got) == len(ref) == stats["parts"] == expect
+    if max_octets is not None:
+        assert stats["rounds"] == 4
+    for k, (g, r) in enumerate(zip(got, ref)):
+        for field in g._fields:
+            if isinstance(getattr(r, field), np.ndarray):
+                _assert_bit_equal(getattr(r, field), getattr(g, field),
+                                  f"part {k} {field}")
+            else:
+                assert getattr(g, field) == getattr(r, field), (k, field)
 
 
 @pytest.mark.parametrize("leaf", [8, 16, 32, "no_bvh"])

@@ -169,7 +169,8 @@ def test_scene_records_its_four_parts(capsys):
     assert got["scene.subblock"].args == {
         "refused": False, "parts": 1, "rounds": 1,
         "largest_part_bytes": (fields["p2_node_rows"].nbytes
-                               + fields["p2_tri_rows"].nbytes)}
+                               + fields["p2_tri_rows"].nbytes),
+        "budget_bytes": 31_457_280, "max_parts": 4}
     assert all(got[n].parent is None for n in
                ("scene.bvh", "scene.fields", "scene.upload"))
     bvh_s = round(got["scene.bvh"].seconds, 2)
