@@ -94,7 +94,7 @@ Phases; each raises on failure, and the script then exits non-zero:
    (``lane_bound_ms``) beside it.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
-   the TPU tiles) on four ray sets: (a) phase 3's 2,073,600 random rays;
+   the same tables) on four ray sets: (a) phase 3's 2,073,600 random rays;
    (b) the five bounce segments of one 1080p "pallas" frame of the
    stand-in scene, captured as phase 3's are; (c) and (d) the same two on
    the 1,964,180-triangle scene of phase 4c.  On each, t, slot, u and v
@@ -113,9 +113,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    octets and triangles tested per leaf entry and the share of them that
    are the entered leaf's own (1: no over-read).  Then its octet
    fetch reads octets 0, 1, 7, 8, 9, 100, 101, 555 and the last through
-   K3's own loads, which must equal the triangle tiles' slices bit for
-   bit, on both scenes.  It prints the ms of a profile launch and of the
-   kernel on the primary rays, and of the fetch.
+   K3's own loads, which must equal ``unpack_octets`` of the same rows
+   (the triangle tiles' slices) bit for bit, on both scenes.  It prints
+   the ms of a profile launch and of the kernel on the primary rays, and
+   of the fetch.
 4c. big: the reference's default scene with a 700 x 1400-cell bumpy
    sphere, 1,964,180 triangles: past the sub-block builder's caps, so
    "auto" must resolve to "pallas" (K3 + K2).  Host build and upload
@@ -703,10 +704,8 @@ def make_scene(n_lat: int, n_lon: int, device):
         torch.cuda.synchronize()
     t3 = time.perf_counter()
     say("scene", triangles=scene.total_triangles,
-        parts=len(data.parts) if data.p2_node_rows.shape[0] else 0,
-        table_bytes=sum(n.nbytes + t.nbytes for n, t, _ in data.parts),
-        k1_table_bytes=sum(n.nbytes + o.nbytes for n, o in data.k1_parts),
-        k3_tile_bytes=data.pw_tiles.nbytes + data.pl_tri_tiles.nbytes,
+        parts=len(data.k1_parts),
+        k1_table_bytes=sum(n.nbytes + o.nbytes for n, o, _ in data.k1_parts),
         k3_table_bytes=sum(x.nbytes for x in data.k3),
         pw_max_stack=data.pw_max_stack, sh_slot_bytes=data.sh_slot.nbytes,
         bvh_builder=bvh.last_builder, bvh_s=f"{t1 - t0:.2f}",
@@ -920,7 +919,7 @@ def k1_phase(data, camera, segments, seed: int, device):
     from opengl_raytracer_torch.ops.intersect import BIG
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    rows = data.parts[0][:2]
+    k1 = data.k1_parts[0][:2]
     sets = [("random", *k1_rays(data, camera, seed, device))]
     sets += [(f"frame_b{i}", *seg) for i, seg in enumerate(segments)]
     ov = sbt.overflow_tensor(device)
@@ -928,7 +927,7 @@ def k1_phase(data, camera, segments, seed: int, device):
     for name, o3, d3, t0 in sets:
         ov.zero_()
         kernel = sbt.traverse_part(data, 0, o3, d3, t0)
-        *plain, dropped, counts = sbt._traverse_plain(*rows, o3, d3, t0,
+        *plain, dropped, counts = sbt._traverse_plain(*k1, o3, d3, t0,
                                                       counts=True)
         overflow = int(ov.item())
         if overflow or int(dropped):
@@ -943,7 +942,7 @@ def k1_phase(data, camera, segments, seed: int, device):
         t_k = kernel[0]
         hit = int(((t_k < BIG) & (t_k > -BIG)).sum())
         w = k1_probe.work(counts, t0)
-        ops, n_bytes, bound, by = k1_bound(w, data.k1_parts[0])
+        ops, n_bytes, bound, by = k1_bound(w, k1)
         if name == "random" and hit < N_RAYS // 4:
             raise RuntimeError(f"K1: only {hit} of {N_RAYS} rays hit")
         ms = cuda_ms(lambda: sbt.traverse_part(data, 0, o3, d3, t0), 10)
@@ -961,7 +960,7 @@ def k1_phase(data, camera, segments, seed: int, device):
             share_of_bound=round(bound / ms, 4))
         if name == "random":
             plain_ms = min(cuda_ms(lambda: sbt._traverse_plain(
-                *rows, o3, d3, t0), 1) for _ in range(2))
+                *k1, o3, d3, t0), 1) for _ in range(2))
             out = (ms, plain_ms, (bound, by))
         else:
             frame_ms += ms
@@ -978,7 +977,7 @@ def k1prof_phase(data, sets):
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    rows, k1 = data.parts[0][:2], data.k1_parts[0]
+    k1 = data.k1_parts[0]
     frame = dict.fromkeys(k1_probe.STAGES + k1_probe.EVENTS, 0)
     before = dict(_kernels.launch_counts)
     for name, o3, d3, t0 in sets:
@@ -987,7 +986,7 @@ def k1prof_phase(data, sets):
         if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
             raise RuntimeError(f"K1 profile build differs from the kernel "
                                f"on {name}")
-        counts = sbt._traverse_plain(*rows, o3, d3, t0, counts=True)[5]
+        counts = sbt._traverse_plain(*k1[:2], o3, d3, t0, counts=True)[5]
         for ev, row in (("visits", 0), ("octets", 1), ("edge_loads", 3)):
             if stages[ev] != int(counts[row].long().sum()):
                 raise RuntimeError(f"K1 profile {ev} {stages[ev]} on {name}, "
@@ -1290,7 +1289,7 @@ def glue_phase(data, camera, sets, seed: int, packet_segments):
     # G4: K1's own output on phase 3's sets, as the first and only part
     # (the main path's) and as a later, not last part against the previous
     # set's result
-    remap = data.parts[0][2]
+    remap = data.k1_parts[0][2]
     near, err = None, 0.0
     for name, o3, d3, t0 in sets:
         k1 = sbt.traverse_part(data, 0, o3, d3, t0)
@@ -1488,7 +1487,7 @@ def _g7_set(name, scene, camera, seed):
     live = int(active.sum())
     all_visits = int(work[0].long().sum())
     visits, tests, cands = (int(w[active].long().sum()) for w in work)
-    records = (traversal.node_records(scene), traversal.tri_records(scene))
+    records = (scene.node_records, scene.tri_records)
     n_bytes = N_RAYS * RAY_IN_OUT_BYTES + sum(
         x.numel() * x.element_size() for x in records)
     ops = (visits * G7_OPS_PER_VISIT + tests * G7_OPS_PER_TEST
@@ -1537,13 +1536,15 @@ def matmul_sweep(scene, o3, d3, active=None, tri_chunk: int = 2048):
     matmul form: ``torch.matmul`` in full float32 over chunks of 2048
     triangles), kept here only as the yardstick G8 replaced; the port does
     not call it."""
-    from opengl_raytracer_torch.ops.intersect import BIG, EPS, init_nearest
+    from opengl_raytracer_torch.ops.intersect import (BIG, EPS, init_nearest,
+                                                      unpack_tri_records)
 
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
     near = init_nearest(R, origin.device)
-    T = scene.v0.shape[0]
+    cols = unpack_tri_records(scene.tri_records)
+    T = scene.num_tris
     C = min(tri_chunk, T)
     cross_od = torch.linalg.cross(origin, direction)
     t_best, tri, u_best, v_best = near.t, near.tri, near.u, near.v
@@ -1551,8 +1552,7 @@ def matmul_sweep(scene, o3, d3, active=None, tri_chunk: int = 2048):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for base in range(0, T, C):
-            v0, e1, e2, face = (x[base:base + C] for x in
-                                (scene.v0, scene.e1, scene.e2, scene.face))
+            v0, e1, e2, face = (x[base:base + C] for x in cols)
             d0 = (v0 * face).sum(dim=1)
             q1 = torch.linalg.cross(e1, v0)
             q2 = torch.linalg.cross(e2, v0)
@@ -1612,7 +1612,7 @@ def _g8_rows(camera, seed):
     ops = (live * G8_OPS_PER_RAY + pairs * G8_OPS_PER_PAIR
            + cands * G8_OPS_PER_CANDIDATE)
     n_bytes = (N_RAYS * RAY_IN_OUT_BYTES
-               + intersect.tri_records(box).numel() * 4)
+               + box.tri_records.numel() * 4)
     extra = dict(set="random rays, 84-triangle box", triangles=box.num_tris,
                  pairs_per_live_ray=pairs / live,
                  candidates_per_live_ray=cands / live,
@@ -1635,15 +1635,20 @@ def _packet_union(scene, o3, d3, active, leaf):
     least one of a packet's live rays visits and the leaf slots of the
     leaves at least one of them opens."""
     from opengl_raytracer_torch.ops import traversal
-    from opengl_raytracer_torch.ops.intersect import BIG, mt_single, slab_test
+    from opengl_raytracer_torch.ops.intersect import (BIG, mt_single,
+                                                      slab_test,
+                                                      unpack_tri_records)
 
     ref, work = traversal._walk_plain(scene, o3, d3, active, leaf,
                                       counts=True)
+    node_min, node_max, node_miss, node_first, node_count = (
+        traversal.unpack_node_records(scene.node_records))
+    tris = unpack_tri_records(scene.tri_records)
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     inv = 1.0 / direction
     R = origin.shape[0]
-    N = scene.node_miss.shape[0]
+    N = node_miss.shape[0]
     t = torch.full((R,), BIG, dtype=torch.float32, device=origin.device)
     node = torch.where(active, 0, N).long()  # dead rays walk nothing
     visits = torch.zeros(R, dtype=torch.int32, device=origin.device)
@@ -1654,10 +1659,10 @@ def _packet_union(scene, o3, d3, active, leaf):
             break
         nidx = node[rays]
         visits[rays] += 1
-        t_near = slab_test(origin[rays], inv[rays], scene.node_min[nidx],
-                           scene.node_max[nidx])
+        t_near = slab_test(origin[rays], inv[rays], node_min[nidx],
+                           node_max[nidx])
         box_hit = (t_near >= 0.0) & (t_near <= t[rays])
-        is_leaf = scene.node_count[nidx] > 0
+        is_leaf = node_count[nidx] > 0
         key = rays // traversal.PACKET * N + nidx
         keys.append(key)
         opens = box_hit & is_leaf
@@ -1665,21 +1670,20 @@ def _packet_union(scene, o3, d3, active, leaf):
         lr, ln = rays[opens], nidx[opens]
         o_l, d_l = origin[lr].unbind(1), direction[lr].unbind(1)
         for k in range(leaf if lr.numel() else 0):
-            ok = k < scene.node_count[ln]
-            idx = torch.where(ok, scene.node_first[ln] + k, 0).long()
+            ok = k < node_count[ln]
+            idx = torch.where(ok, node_first[ln] + k, 0).long()
             valid, tk, _, _ = mt_single(o_l, d_l, *(
-                tab[idx].unbind(1)
-                for tab in (scene.v0, scene.e1, scene.e2, scene.face)))
+                tab[idx].unbind(1) for tab in tris))
             bt = t[lr]
             t[lr] = torch.where(ok & valid & (tk < bt), tk, bt)
         node[rays] = torch.where(box_hit & ~is_leaf, nidx + 1,
-                                 scene.node_miss[nidx].long())
+                                 node_miss[nidx].long())
     if not (torch.equal(t[active], ref.t[active])
             and torch.equal(visits[active], work[0][active])):
         raise RuntimeError("the stepped per-ray walk is not _walk_plain's")
     union_visits = int(torch.unique(torch.cat(keys)).numel())
     opened = torch.unique(torch.cat(leaves)) % N
-    union_slots = int(scene.node_count[opened].clamp_max(leaf).long().sum())
+    union_slots = int(node_count[opened].clamp_max(leaf).long().sum())
     own = tuple(int(w[active].long().sum()) for w in work)
     return (*own, union_visits, union_slots)
 
@@ -1722,7 +1726,7 @@ def _g9_set(name, scene, o3, d3, t0, plain: bool):
     cands = int(work.candidates.long().sum())
     own_visits, own_tests, own_cands, union_visits, union_slots = (
         _packet_union(scene, o3, d3, active, leaf))
-    records = (traversal.node_records(scene), traversal.tri_records(scene))
+    records = (scene.node_records, scene.tri_records)
     n_bytes = R * RAY_IN_OUT_BYTES + sum(
         x.numel() * x.element_size() for x in records)
     ops = (own_visits * G7_OPS_PER_VISIT + own_tests * G7_OPS_PER_TEST
@@ -2125,7 +2129,6 @@ def k3_phase(scenes, camera, seed: int):
     out = None
     for scene_name, data, segments in scenes:
         device = data.device
-        leaf_counts = wide.scene_leaf_counts(data)
         stack = wide.stack_size(data.pw_max_stack)
         column = wide.group_column(data.pw_max_stack)
         sets = [("random", *k1_rays(data, camera, seed, device))]
@@ -2133,11 +2136,10 @@ def k3_phase(scenes, camera, seed: int):
         ov = wide.overflow_tensor(device)
         frame_ms = 0.0
         for name, o3, d3, t0 in sets:
-            tiles = (data.pw_tiles, data.pl_tri_tiles, leaf_counts, o3, d3,
-                     t0, stack)
+            tables = (*data.k3, o3, d3, t0, stack)
             ov.zero_()
             kernel = wide.traverse_wide(data, o3, d3, t0)
-            *plain, dropped, counts = wide._traverse_plain(*tiles,
+            *plain, dropped, counts = wide._traverse_plain(*tables,
                                                            counts=True)
             overflow = int(ov.item())
             if overflow or int(dropped):
@@ -2179,7 +2181,7 @@ def k3_phase(scenes, camera, seed: int):
             elif out is None:
                 ms, plain_ms = time_pair(
                     lambda: wide.traverse_wide(data, o3, d3, t0),
-                    lambda: wide._traverse_plain(*tiles), 5, 1)
+                    lambda: wide._traverse_plain(*tables), 5, 1)
                 out = (0.0, ms, plain_ms, (bound, by))
                 say("k3", scene=scene_name, set=name, ms=ms,
                     plain_ms=plain_ms)
@@ -2194,15 +2196,16 @@ def k3prof_phase(scenes):
     rays (segments 0 and 1) of each scene: its hits against the kernel's,
     its counts against the plain version's, its stages, the octets and
     triangles tested per leaf entry and the share of them that are the
-    entered leaf's own; then the octet fetch against the tiles."""
+    entered leaf's own; then the octet fetch against ``unpack_octets`` of
+    the same rows of ``data.k3`` (the tiles' octets)."""
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.ops import pallas_traversal as wide
+    from opengl_raytracer_torch.ops.wide2 import unpack_octets
     from opengl_raytracer_torch.probes import k3 as k3_probe
 
     before = dict(_kernels.launch_counts)
     runs, iters = 0, 3
     for scene_name, data, segments in scenes:
-        leaf_counts = wide.scene_leaf_counts(data)
         stack = wide.stack_size(data.pw_max_stack)
         for name, (o3, d3, t0) in (("primary", segments[0]),
                                    ("bounce1_sorted", segments[1])):
@@ -2212,8 +2215,7 @@ def k3prof_phase(scenes):
             if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
                 raise RuntimeError(f"K3 profile build differs from the "
                                    f"kernel on {scene_name} {name}")
-            counts = wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles,
-                                          leaf_counts, o3, d3, t0, stack,
+            counts = wide._traverse_plain(*data.k3, o3, d3, t0, stack,
                                           counts=True)[5].long()
             share = k3_probe.own_share(data, hist, stages)
             expect = dict(visits=int(counts[0].sum()),
@@ -2251,9 +2253,10 @@ def k3prof_phase(scenes):
         idx = [0, 1, 7, 8, 9, 100, 101, 555, data.k3[1].shape[0] - 1]
         idx = [q for q in idx if q < data.k3[1].shape[0]]
         got = k3_probe.octet_fetch(data, idx)
-        want = k3_probe.tile_octets(data.pl_tri_tiles, idx)
+        want = torch.from_numpy(unpack_octets(
+            data.k3[1][idx].cpu().numpy())).to(got.device)
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise RuntimeError(f"K3 octet fetch differs from the tiles on "
+            raise RuntimeError(f"K3 octet fetch differs from its rows on "
                                f"{scene_name}")
         say("k3prof", scene=scene_name, octet_fetch=idx, bits="equal",
             fetch_ms=cuda_ms(lambda: k3_probe.octet_fetch(data, idx), iters))
@@ -2333,7 +2336,7 @@ def main_path_phase(scene, camera, out_dir):
     r, img, counts, ms = render_1080p(scene, camera, "auto")
     if r.traversal != "pallas2":
         raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
-    parts = len(r.scene.parts)
+    parts = len(r.scene.k1_parts)
     frames = 1 + TIMED_FRAMES
     check_count(counts, "subblock_traversal",
                 parts * r.config.n_bounces * frames)
@@ -2527,7 +2530,7 @@ def _check_path_counts(counts, r, frames: int) -> None:
     traversal's (K1 parts x segments or K3 a segment), K2 a segment, the
     glue at ``r``'s cadence, and no probe."""
     check_probes(counts)
-    n, parts = r.config.n_bounces, len(r.scene.parts)
+    n, parts = r.config.n_bounces, len(r.scene.k1_parts)
     k1 = r.traversal == "pallas2"
     check_count(counts, "subblock_traversal", parts * n * frames if k1 else 0)
     check_count(counts, "wide_traversal", 0 if k1 else n * frames)
@@ -2612,14 +2615,14 @@ def _k1_on_sets(name, data, sets) -> None:
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    if len(data.parts) != 1:
-        raise RuntimeError(f"{name}: {len(data.parts)} sub-block parts")
-    rows, k1 = data.parts[0][:2], data.k1_parts[0]
+    if len(data.k1_parts) != 1:
+        raise RuntimeError(f"{name}: {len(data.k1_parts)} sub-block parts")
+    k1 = data.k1_parts[0]
     ov = sbt.overflow_tensor(data.device)
     for set_name, o3, d3, t0 in sets:
         ov.zero_()
         kernel = sbt.traverse_part(data, 0, o3, d3, t0)
-        *plain, dropped, counts = sbt._traverse_plain(*rows, o3, d3, t0,
+        *plain, dropped, counts = sbt._traverse_plain(*k1[:2], o3, d3, t0,
                                                       counts=True)
         if int(ov.item()) or int(dropped):
             raise RuntimeError(f"K1 stack overflow on {name} {set_name}")
@@ -2654,15 +2657,13 @@ def _k3_on_sets(name, data, sets) -> None:
     from opengl_raytracer_torch.ops import pallas_traversal as wide
     from opengl_raytracer_torch.probes import k3 as k3_probe
 
-    leaf_counts = wide.scene_leaf_counts(data)
     stack = wide.stack_size(data.pw_max_stack)
     ov = wide.overflow_tensor(data.device)
     for set_name, o3, d3, t0 in sets:
         ov.zero_()
         kernel = wide.traverse_wide(data, o3, d3, t0)
         *plain, dropped, counts = wide._traverse_plain(
-            data.pw_tiles, data.pl_tri_tiles, leaf_counts, o3, d3, t0, stack,
-            counts=True)
+            *data.k3, o3, d3, t0, stack, counts=True)
         if int(ov.item()) or int(dropped):
             raise RuntimeError(f"K3 overflow on {name} {set_name}")
         for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
@@ -2725,7 +2726,7 @@ def cadence_profile_phase(cases, camera) -> None:
             state = r.render(camera, frames=2)  # warm-up
             torch.cuda.synchronize()
             n, f = r.config.n_bounces, PROFILED_FRAMES
-            per = len(r.scene.parts) if r.traversal == "pallas2" else 1
+            per = len(r.scene.k1_parts) if r.traversal == "pallas2" else 1
             for tries in range(1, PROFILE_TRIES + 1):
                 source, events, _ = _profiled_events(r, camera, state)
                 trav = [e for e in events
@@ -3088,7 +3089,7 @@ def multipart_phase(camera):
         scene, data = make_scene(150, 300, DEVICE)
     finally:
         scene_mod.build_subblock_parts = orig
-    parts = len(data.parts)
+    parts = len(data.k1_parts)
     if parts != 4:
         raise RuntimeError(f"multi-part scene split into {parts} parts, "
                            f"expected 4")
@@ -3182,16 +3183,17 @@ def cli_phase():
             data = scene.send(DEVICE)
             tables_s = time.perf_counter() - t0
             if (scene.total_triangles != 27556 + 4096 + 84
-                    or len(data.parts) != 1):
+                    or len(data.k1_parts) != 1):
                 raise RuntimeError(
                     f"OBJ-loaded default scene: {scene.total_triangles} "
-                    f"triangles in {len(data.parts)} parts, expected 31736 "
+                    f"triangles in {len(data.k1_parts)} parts, expected 31736 "
                     f"in 1")
             if obj.last_parser != "native" or bvh.last_builder != "native":
                 raise RuntimeError(f"parser {obj.last_parser}, BVH builder "
                                    f"{bvh.last_builder}: expected native")
-            say("cli", triangles=scene.total_triangles, parts=len(data.parts),
-                parser=obj.last_parser, bvh_builder=bvh.last_builder,
+            say("cli", triangles=scene.total_triangles,
+                parts=len(data.k1_parts), parser=obj.last_parser,
+                bvh_builder=bvh.last_builder,
                 obj_parse_s=f"{parse_s:.3f}",
                 default_scene_s=f"{scene_s:.3f}",
                 tables_upload_s=f"{tables_s:.3f}")
@@ -3229,7 +3231,7 @@ def cli_phase():
                 if a.state.frame_count != 4 * call:
                     raise RuntimeError(f"CLI call {call} ended at frame "
                                        f"{a.state.frame_count}")
-                parts = len(a.renderer.scene.parts)
+                parts = len(a.renderer.scene.k1_parts)
                 n = a.config.n_bounces
                 check_count(counts, "subblock_traversal", parts * n * 4)
                 check_count(counts, "shade", n * 4)
@@ -3357,7 +3359,7 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
         if sr.traversal != "pallas2" or len(sr.scenes) != len(set(devices)):
             raise RuntimeError(f"mesh {dp}x{sp}: auto resolved to "
                                f"{sr.traversal}, scene on {list(sr.scenes)}")
-        parts = len(sr.scene.parts)
+        parts = len(sr.scene.k1_parts)
         _check_slices(sr, cfg, dp)
         _kernels.reset_counts()
         state = sr.render(camera, frames=sp)
@@ -3528,7 +3530,7 @@ def _sharded_cli(straight8) -> None:
                 if r.traversal != "pallas2" or r.home.type != kind:
                     raise RuntimeError(f"sharded CLI: {r.traversal} on "
                                        f"{r.home}")
-                n, parts = r.config.n_bounces, len(r.scene.parts)
+                n, parts = r.config.n_bounces, len(r.scene.k1_parts)
                 check_count(counts, "subblock_traversal", parts * n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
@@ -3618,7 +3620,7 @@ def main(argv=None) -> int:
         return 0
     camera = make_camera(CAM_POS, CAM_DIR)
     scene, data = make_scene(83, 166, DEVICE)
-    if scene.total_triangles != 31736 or len(data.parts) != 1:
+    if scene.total_triangles != 31736 or len(data.k1_parts) != 1:
         raise RuntimeError("the stand-in scene changed size")
     k2 = timed("k2", k2_phase, data, args.seed, data.device)
     segments = timed("segments", frame_segments, scene, camera)
@@ -3632,10 +3634,10 @@ def main(argv=None) -> int:
     del sets, segments, packet_segments
     big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
     if (big_scene.total_triangles != BIG_TRIANGLES
-            or big.p2_node_rows.shape[0] != 0):
+            or len(big.k1_parts) != 0):
         raise RuntimeError(f"the big scene has {big_scene.total_triangles} "
-                           f"triangles and {big.p2_node_rows.shape[0]} "
-                           f"sub-block rows, expected {BIG_TRIANGLES} and 0")
+                           f"triangles and {len(big.k1_parts)} sub-block "
+                           f"parts, expected {BIG_TRIANGLES} and 0")
     k3_scenes = [
         ("standin-31k", data, timed("segments", frame_segments, data, camera,
                                     "pallas", "pallas")),

@@ -38,7 +38,7 @@ measured on the card:
 
 Both trees are driven through the same calls: ``Renderer`` and
 ``chip_smoke.py``'s scene and ray helpers, and K3 through its wrapper,
-``traverse_wide``, in whichever signature the tree has.  To compare a
+``traverse_wide(scene, o3, d3, t0)``.  To compare a
 parent with a change, unpack each with ``git archive`` into a directory
 that ``.gitignore`` lists and run this script on them in turns (parent,
 change, change, parent) in one call on one card.  The card's name and
@@ -48,7 +48,6 @@ power limit are in the output.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
 import sys
@@ -58,18 +57,6 @@ FRAMES = 8
 PROFILED = 4
 SWEEPS = 4  # timed sweeps of a mesh
 MESHES = ((2, 1), (2, 2), (4, 1))
-
-
-def k3_launch(wide, data, o3, d3, t0, leaf_octets):
-    """A call of the tree's K3 wrapper on these rays."""
-    params = list(inspect.signature(wide.traverse_wide).parameters)
-    if params == ["scene", "o3", "d3", "t0"]:  # each leaf's own triangles
-        return lambda: wide.traverse_wide(data, o3, d3, t0)
-    if params[0] == "scene":
-        return lambda: wide.traverse_wide(data, o3, d3, t0, leaf_octets)
-    stack = wide.stack_size(data.pw_max_stack)  # the wrapper before K3's
-    return lambda: wide.traverse_wide(data.pw_tiles, data.pl_tri_tiles, o3,
-                                      d3, t0, leaf_octets, stack)
 
 
 def frame_ms(torch, data, camera, traversal):
@@ -188,7 +175,6 @@ def main(argv=None) -> int:
         raise RuntimeError(f"chip_smoke.py came from {cs.__file__}")
     from opengl_raytracer_torch import make_camera
     from opengl_raytracer_torch.ops import pallas_traversal as wide
-    from opengl_raytracer_torch.renderer import effective_max_leaf
 
     camera = make_camera(cs.CAM_POS, cs.CAM_DIR)
     out = dict(tree=tree, card=cs.card_line(), torch=torch.__version__)
@@ -215,9 +201,8 @@ def main(argv=None) -> int:
         out[f"triangles_{tag}"] = scene.total_triangles
         del scene
         o3, d3, t0 = cs.k1_rays(data, camera, args.seed, "cuda")
-        leaf_octets = -(-effective_max_leaf(data) // 8)
-        fn = k3_launch(wide, data, o3, d3, t0, leaf_octets)
-        out[f"k3_random_{tag}_ms"] = best_ms(cs, fn, 10)
+        out[f"k3_random_{tag}_ms"] = best_ms(
+            cs, lambda: wide.traverse_wide(data, o3, d3, t0), 10)
         del o3, d3, t0
         if tag == "31k":
             g9 = g9_launch_ms(cs, data, camera, args.seed)

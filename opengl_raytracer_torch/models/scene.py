@@ -6,19 +6,19 @@ every table follow ``opengl_raytracer_tpu/models/scene.py`` line for line
 from the same objects, but for the sub-block parts: they are split at the
 card's budget (``ops/wide2.CARD_TABLE_BUDGET_BYTES``, at most
 ``CARD_MAX_PARTS``), so a scene the JAX package splits may take fewer
-parts here.  :meth:`Scene.send` uploads what this package's
-traversals and shading read:
+parts here.  :meth:`Scene.fields` gives those tables in the JAX package's
+layout, the TPU's; they are the builder's output, the packers' input and
+what the tests compare with the JAX package.  :meth:`Scene.send` packs
+each table once into the layout its kernel reads, and uploads that copy
+only; on every device the kernel and its plain version read it:
 
-* the per-triangle arrays ``v0/e1/e2/face`` and the binary BVH
-  ``node_*`` (brute force, ops/intersect.py, and the per-ray BVH walk,
-  ops/traversal.py);
-* the octet-aligned triangle tiles ``pl_tri_tiles``/``pl_remap`` and the
-  8-wide node tiles ``pw_tiles``/``pw_entry`` (the wide-BVH kernel K3's
-  plain version, ops/pallas_traversal.py and ops/wide_bvh.py), and the
-  same tree in the layout the K3 kernel reads (``k3``,
-  ops/wide_bvh.pack_k3);
-* the sub-block parts (ops/wide2.py), and the same tables in the layout
-  the K1 kernel reads (``k1_parts``, ops/wide2.pack_k1);
+* the triangle records ``tri_records`` (brute force, ops/intersect.py;
+  the BVH walks, ops/traversal.py) and the binary BVH's node records
+  ``node_records`` (the BVH walks);
+* K3's wide BVH and triangle octets (``k3``, ops/wide_bvh.pack_k3) and
+  the aligned slot -> triangle map ``pl_remap`` (ops/pallas_traversal.py);
+* per sub-block part, K1's nodes, octets and slot -> triangle map
+  (``k1_parts``, ops/wide2.pack_k1; ops/subblock_traversal.py);
 * the shading rows, in triangle order (``sh_abc``) and in sub-block slot
   order (``sh_slot``).
 """
@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from opengl_raytracer_torch.ops import bvh as bvh_mod
+from opengl_raytracer_torch.ops.intersect import pack_tri_records
+from opengl_raytracer_torch.ops.traversal import pack_node_records
 from opengl_raytracer_torch.ops.wide2 import (CARD_MAX_PARTS,
                                               CARD_TABLE_BUDGET_BYTES,
                                               build_subblock_parts, pack_k1)
@@ -41,41 +43,30 @@ from opengl_raytracer_torch.utils import profiling
 
 
 class SceneData(NamedTuple):
-    """Device-resident scene.
+    """Device-resident scene: each table once, in the layout its kernel
+    reads.
 
-    Triangle arrays are in BVH-permuted order, padded to a multiple of 8
-    with degenerate triangles the intersector rejects.  The tables are in
-    device memory; the root bounds are small host arrays the sort keys
-    read as scalars."""
+    Triangles are in BVH-permuted order, padded to a multiple of 8 with
+    degenerate triangles the intersector rejects.  The tables are in
+    device memory; the root bounds and the scalars are on the host."""
 
-    v0: torch.Tensor  # (T, 3) f32 first vertex
-    e1: torch.Tensor  # (T, 3) f32 v1 - v0
-    e2: torch.Tensor  # (T, 3) f32 v2 - v0
-    face: torch.Tensor  # (T, 3) f32 cross(e1, e2)
-    # Binary BVH in DFS preorder with miss links (ops/bvh.py).
-    node_min: torch.Tensor  # (N, 3) f32
-    node_max: torch.Tensor  # (N, 3) f32
-    node_miss: torch.Tensor  # (N,) i32
-    node_first: torch.Tensor  # (N,) i32
-    node_count: torch.Tensor  # (N,) i32, 0 for internal nodes
-    # Wide-BVH kernel tables (ops/wide_bvh.py, ops/pallas_traversal.py).
-    pw_tiles: torch.Tensor  # (W/8, 8, 128) f32 wide-node children
-    pw_entry: torch.Tensor  # (W, 8) i32 child entries in slot order
-    pl_tri_tiles: torch.Tensor  # (G, 8, 128) f32 triangle octets
+    # (T, 12) f32: v0, e1, e2, face a triangle (ops/intersect.py; G7-G9).
+    tri_records: torch.Tensor
+    # (N, 8 or 12) i32: the binary BVH in DFS preorder with miss links
+    # (ops/bvh.py), a record a node (ops/traversal.py; G7, G9).
+    node_records: torch.Tensor
+    # Per sub-block part, in part order: (nodes (Wp, 64) i32, octets
+    # (Qp, 96) f32, remap (Qp*8,) i32 slot -> triangle), the layout K1
+    # reads (ops/wide2.pack_k1); () when the scene exceeds the builder's
+    # caps.
+    k1_parts: tuple
+    # (nodes (W, 64) i32, octets (G*8, 96) f32): the wide BVH in the
+    # layout K3 reads (ops/wide_bvh.pack_k3); (0, 64) and (0, 96) when a
+    # leaf is over MAX_LEAF_COUNT, and K3 refuses the scene.
+    k3: tuple
     pl_remap: torch.Tensor  # (G*64,) i32 aligned slot -> triangle
     pw_max_stack: int  # per-ray stack bound of the wide tree
-    # Sub-block kernel tables (ops/wide2.py); (0, 128) when the scene
-    # exceeds the builder's caps.
-    p2_node_rows: torch.Tensor  # (Wp, 128) f32: wide nodes, one per row
-    p2_tri_rows: torch.Tensor  # (Qp, 128) f32: leaf octets, one per row
-    p2_remap: torch.Tensor  # (Qp*8,) i32: slot -> triangle (scene order)
-    p2_extra: tuple  # further parts' (node_rows, tri_rows, remap)
-    # Per part, in the order of ``parts``: (nodes (Wp, 64) i32, octets
-    # (Qp, 96) f32), the Hopper layout the K1 kernel reads.
-    k1_parts: tuple
-    # (nodes (W, 64) i32, octets (G*8, 96) f32): the wide tiles in the
-    # Hopper layout the K3 kernel reads (ops/wide_bvh.pack_k3).
-    k3: tuple
+    max_leaf: int  # the binary BVH's largest leaf
     # Shading row per triangle: [n0.xyz, n1.xyz, emission, roughness,
     # n2.xyz, face.xyz, 0, 0, color.xyz, emission_color.xyz, 0, 0].
     sh_abc: torch.Tensor  # (T, 24) f32
@@ -84,30 +75,14 @@ class SceneData(NamedTuple):
     sh_slot: torch.Tensor  # (S, 24) f32
     root_min: np.ndarray  # (3,) f32 scene AABB (the main BVH's node 0)
     root_max: np.ndarray  # (3,) f32
-    # The small-scene traversals' records, packed from the tables above at
-    # their first use and kept here: "tris" (T, 12) f32
-    # (ops/intersect.tri_records; G7, G8), "nodes" (N, 8 or 12) i32
-    # (ops/traversal.node_records; G7).
-    records: dict
-
-    @property
-    def parts(self) -> tuple:
-        return ((self.p2_node_rows, self.p2_tri_rows, self.p2_remap),
-                *self.p2_extra)
 
     @property
     def num_tris(self) -> int:
-        return self.v0.shape[0]
+        return self.tri_records.shape[0]
 
     @property
     def device(self) -> torch.device:
         return self.sh_abc.device
-
-
-_F32 = ("v0", "e1", "e2", "face", "node_min", "node_max", "pw_tiles",
-        "pl_tri_tiles", "p2_node_rows", "p2_tri_rows", "sh_abc", "sh_slot")
-_I32 = ("node_miss", "node_first", "node_count", "pw_entry", "pl_remap",
-        "p2_remap")
 
 
 def scene_from_numpy(fields: dict, device) -> SceneData:
@@ -116,9 +91,10 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     ``node_*`` BVH arrays, ``pw_tiles``, ``pw_entry``, ``pl_tri_tiles``,
     ``pl_remap``, the ``p2_*`` sub-block tables (``p2_extra`` a sequence of
     (node_rows, tri_rows, remap)), ``sh_abc`` and ``sh_slot``; other keys
-    are ignored.  Each part's K1 tables (``k1_parts``) are packed here from
-    its ``p2_*`` rows (ops/wide2.pack_k1), and K3's (``k3``) from the wide
-    tiles (ops/wide_bvh.pack_k3).  Span ``scene.upload``, ended once the
+    are ignored.  Each table is packed here into its kernel's layout and
+    only that copy is uploaded: the records (intersect.pack_tri_records,
+    traversal.pack_node_records), each part's K1 tables (wide2.pack_k1)
+    and K3's (wide_bvh.pack_k3).  Span ``scene.upload``, ended once the
     device's copies have finished."""
     with profiling.Span("scene.upload"):
         data = _scene_from_numpy(fields, device)
@@ -131,12 +107,17 @@ def _scene_from_numpy(fields: dict, device) -> SceneData:
     def up(a, dtype):  # np.array copies: the sources may be read-only views
         return torch.from_numpy(np.array(a, dtype)).to(device)
 
+    def host(names, dtype):  # the records are packed on the host
+        return [torch.from_numpy(np.array(fields[k], dtype)) for k in names]
+
     node_min = np.asarray(fields["node_min"], np.float32)
     node_max = np.asarray(fields["node_max"], np.float32)
-    rows = [(fields["p2_node_rows"], fields["p2_tri_rows"]),
-            *((n, t) for n, t, _ in fields["p2_extra"])]
-    k1 = [pack_k1(np.asarray(n, np.float32), np.asarray(t, np.float32))
-          for n, t in rows]
+    parts = [(fields["p2_node_rows"], fields["p2_tri_rows"],
+              fields["p2_remap"]), *fields["p2_extra"]]
+    if np.shape(fields["p2_node_rows"])[0] == 0:
+        parts = []  # over the builder's caps: no sub-block tables
+    k1 = [(*pack_k1(np.asarray(n, np.float32), np.asarray(t, np.float32)), r)
+          for n, t, r in parts]
     node_count = np.asarray(fields["node_count"])
     if node_count.max() > MAX_LEAF_COUNT:
         # K3's leaf entry cannot hold the leaf, and no path runs K3 on it
@@ -145,17 +126,22 @@ def _scene_from_numpy(fields: dict, device) -> SceneData:
     else:
         k3 = pack_k3(fields["pw_tiles"], fields["pl_tri_tiles"], node_count)
     return SceneData(
-        **{k: up(fields[k], np.float32) for k in _F32},
-        **{k: up(fields[k], np.int32) for k in _I32},
-        pw_max_stack=wide_max_stack(np.asarray(fields["pw_entry"])),
-        p2_extra=tuple(
-            (up(n, np.float32), up(t, np.float32), up(r, np.int32))
-            for n, t, r in fields["p2_extra"]),
-        k1_parts=tuple((up(n, np.int32), up(o, np.float32)) for n, o in k1),
+        tri_records=pack_tri_records(
+            *host(("v0", "e1", "e2", "face"), np.float32)).to(device),
+        node_records=pack_node_records(
+            *host(("node_min", "node_max"), np.float32),
+            *host(("node_miss", "node_first", "node_count"), np.int32)
+        ).to(device),
+        k1_parts=tuple((up(n, np.int32), up(o, np.float32), up(r, np.int32))
+                       for n, o, r in k1),
         k3=(up(k3[0], np.int32), up(k3[1], np.float32)),
+        pl_remap=up(fields["pl_remap"], np.int32),
+        pw_max_stack=wide_max_stack(np.asarray(fields["pw_entry"])),
+        max_leaf=int(node_count.max()) if node_count.size else 1,
+        sh_abc=up(fields["sh_abc"], np.float32),
+        sh_slot=up(fields["sh_slot"], np.float32),
         root_min=node_min[0].copy(),
         root_max=node_max[0].copy(),
-        records={},
     )
 
 

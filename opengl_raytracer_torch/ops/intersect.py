@@ -8,10 +8,11 @@
 * :func:`raycast_brute` — every ray against every triangle (the JAX
   package's ``raycast_brute``, ``opengl_raytracer_tpu/ops/intersect.py:
   120-205``): on the card one launch of the sweep kernel G8
-  (``csrc/brute_sweep.cu``) over the triangle records
-  (:func:`tri_records`), on the CPU its plain version :func:`_sweep_plain`,
-  the JAX package's plane-determinant formulas in chunks of 2048
-  triangles; the lowest index wins a tie.
+  (``csrc/brute_sweep.cu``) over the scene's triangle records
+  (``SceneData.tri_records``, :func:`pack_tri_records`), on the CPU its
+  plain version :func:`_sweep_plain` over the same records, the JAX
+  package's plane-determinant formulas in chunks of 2048 triangles; the
+  lowest index wins a tie.
 * :func:`finalize_hit_soa` — the nearest-hit record resolved into the
   shader's Hit fields (fragment.glsl:146-176); with the integrator's
   scatter and state update it forms the shade kernel's plain version;
@@ -121,8 +122,9 @@ def _cross3(a, b):
 
 
 def pack_tri_records(v0, e1, e2, face) -> torch.Tensor:
-    """The (T, 12) float32 triangle records G7 and G8 read: v0, e1, e2 and
-    face a row, 48 bytes, three 16-byte loads."""
+    """The (T, 12) float32 triangle records G7, G8 and G9 read, packed at
+    upload (``SceneData.tri_records``): v0, e1, e2 and face a row, 48
+    bytes, three 16-byte loads."""
     return torch.cat((v0, e1, e2, face), dim=1).contiguous()
 
 
@@ -132,22 +134,12 @@ def unpack_tri_records(rec: torch.Tensor) -> tuple:
     return tuple(rec[:, 3 * k:3 * k + 3].contiguous() for k in range(4))
 
 
-def tri_records(scene) -> torch.Tensor:
-    """``scene``'s triangle records, packed at the first call and kept in
-    ``scene.records`` (not at upload: a scene that never runs brute force
-    or the "bvh" walk carries none)."""
-    rec = scene.records.get("tris")
-    if rec is None:
-        rec = scene.records["tris"] = pack_tri_records(
-            scene.v0, scene.e1, scene.e2, scene.face)
-    return rec
-
-
 def _sweep_plain(scene, o3, d3, active=None, tri_chunk: int = 2048,
                  counts: bool = False):
     """Plain torch version of the sweep kernel (G8): the JAX package's
     plane-determinant formulas over (R, C) arrays, C = ``tri_chunk``
-    triangles at a time,
+    triangles at a time, over the columns of the scene's triangle
+    records,
 
         det = d . face
         t   = (v0.face - o.face) / det
@@ -171,11 +163,11 @@ def _sweep_plain(scene, o3, d3, active=None, tri_chunk: int = 2048,
     work = torch.zeros((2, R), dtype=torch.int64, device=dev) if counts \
         else None
     cod = _cross3(o, d)
-    T = scene.v0.shape[0]
+    cols = unpack_tri_records(scene.tri_records)
+    T = scene.num_tris
     for base in range(0, T, min(tri_chunk, T)):
         v0, e1, e2, face = (tuple(x[base:base + tri_chunk, a][None, :]
-                                  for a in range(3)) for x in
-                            (scene.v0, scene.e1, scene.e2, scene.face))
+                                  for a in range(3)) for x in cols)
         d0 = _dot3(v0, face)
         q1 = _cross3(e1, v0)
         q2 = _cross3(e2, v0)
@@ -215,8 +207,8 @@ def _sweep_cuda(scene, o3, d3, active=None) -> Nearest:
         req(x, name, torch.float32, dev, R)
     if active is not None:
         req(active, "active", torch.bool, dev, R)
-    T = scene.v0.shape[0]
-    tris = tri_records(scene)
+    T = scene.num_tris
+    tris = scene.tri_records
     req(tris, "triangle records", torch.float32, dev, T * 12)
     out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32)))

@@ -6,12 +6,11 @@ the traversal, resolves ``tri = pl_remap[slot]`` and masks dead rays to
 ``t = BIG``, the entry t and the resolution each one launch of G5
 (``csrc/wide_epilogue.cu``, :func:`wide_prologue`, :func:`wide_epilogue`)
 on the card.  The traversal is :func:`traverse_wide`, which picks the
-scene's tables by the rays' device: on CUDA tensors it launches the kernel
-of ``csrc/wide_traversal.cu`` over the scene's Hopper layout
-(``SceneData.k3``, ops/wide_bvh.pack_k3); on CPU tensors it runs
-:func:`_traverse_plain` over the JAX package's tiles (``pw_tiles``,
-``pl_tri_tiles``): the same per-ray stack walk written with torch ops (all
-rays stepping together, one stack entry popped per ray per step).
+version by the rays' device: on CUDA tensors it launches the kernel of
+``csrc/wide_traversal.cu``, on CPU tensors it runs :func:`_traverse_plain`,
+the same per-ray stack walk written with torch ops (all rays stepping
+together, one stack entry popped per ray per step).  Both read the scene's
+tables in the kernel's layout (``SceneData.k3``, ops/wide_bvh.pack_k3).
 
 Both versions keep the JAX kernel's semantics (its lines cited):
 
@@ -21,19 +20,18 @@ Both versions keep the JAX kernel's semantics (its lines cited):
   child is opened iff ``far >= near & far >= 0 & max(near, 0) <= best_t``
   (:123-138);
 * ordered children pushed far-first, each gated by the EMPTY_PACKED
-  sentinel only (empty slots' swapped boxes pass the slab test), decoded
-  as ``packed >> 3`` and ``packed & 7`` (:153-176);
+  sentinel only (empty slots' swapped boxes pass the slab test; here the
+  order word's mask of the non-empty slots, packed from those entries)
+  (:153-176);
 * within an octet the least ``t`` wins, the lowest slot among equal
   ``t``, and across octets a strict ``<`` (:216-223).  The kernel tests a
   leaf's triangles one after another with a strict ``<`` from the running
   best, which picks the same winner.
 
-Both test exactly each leaf's own triangles: the kernel's leaf entry holds
-the leaf's count (ops/wide_bvh.pack_k3), and the plain version reads it
-per first octet from the scene's ``node_count``
-(:func:`scene_leaf_counts`).  The JAX kernel's tiles name only a leaf's
-first octet, so it tests a fixed ``ceil(max_leaf / 8)`` octets from it,
-over-reading into neighbouring leaves' triangles (:179-184).  That changes
+Both test exactly each leaf's own triangles: the leaf entry holds the
+leaf's count (ops/wide_bvh.pack_k3).  The JAX kernel's tiles name only a
+leaf's first octet, so it tests a fixed ``ceil(max_leaf / 8)`` octets from
+it, over-reading into neighbouring leaves' triangles (:179-184).  That changes
 no nearest hit: every triangle a ray can hit is tested in its own leaf,
 whose box holds the hit point; only the slot that wins an exact ``t`` tie
 can differ.
@@ -58,12 +56,10 @@ import torch
 
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
-from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_PACKED, ORD_LANE0,
-                                                 leaf_counts, wide_depth)
-from opengl_raytracer_torch.ops.wide2 import K1_NODE_WORDS, K1_OCTET_FLOATS
+from opengl_raytracer_torch.ops.wide_bvh import decode_k3_leaf, wide_depth
+from opengl_raytracer_torch.ops.wide2 import (K1_ENTRY_WORD, K1_NODE_WORDS,
+                                              K1_OCTET_FLOATS, K1_ORDER_WORD)
 
-TILE = 8 * 128  # floats per (8, 128) tile
-GROUP = 16  # lanes per node or per triangle in a tile row
 STACKS = (64, 128, 512)  # the plain version's per-ray stack sizes
 # The kernel's compiled node-group columns: a tree of depth D keeps at most
 # D + 1 groups open; 71 holds the deepest tree ops/wide_bvh.py accepts.
@@ -101,27 +97,21 @@ def group_column(max_stack: int) -> int:
                      f"more than the kernel's {GROUPS[-1]}")
 
 
-def scene_leaf_counts(scene) -> torch.Tensor:
-    """(Q,) int32 on the scene's device: per octet of its triangle tiles,
-    the count of the leaf that starts there, 0 where none starts
-    (ops/wide_bvh.leaf_counts of its ``node_count``)."""
-    n_octets = scene.pl_tri_tiles.shape[0] * 8
-    counts = leaf_counts(scene.node_count.cpu().numpy(), n_octets)
-    return torch.from_numpy(counts.astype("int32")).to(
-        scene.pl_tri_tiles.device)
-
-
-def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
-                    stack: int, counts: bool = False):
-    """Plain torch version of the kernel.  ``leaf_count`` (Q,) holds, at
-    each leaf's first octet, the leaf's triangle count
-    (:func:`scene_leaf_counts`); a leaf entry tests exactly those
-    triangles.  Returns (t, slot, u, v, dropped_pushes); t is ``t0`` where
-    nothing improved it.  With ``counts``, also a (5, R) int32 tensor of
-    each ray's node visits, leaf entries, triangles whose ``t`` beat the
-    best hit at their test (``|det| >= EPS``, ``EPS < t < best_t``, the
-    best taken in the kernel's order, slot by slot: those whose edges the
-    kernel loads), octets and triangles tested."""
+def _traverse_plain(nodes, octets, o3, d3, t0, stack: int,
+                    counts: bool = False):
+    """Plain torch version of the kernel, over the scene's tables in the
+    kernel's layout (ops/wide_bvh.pack_k3): a node's child boxes are the
+    float bits of its words 0-47, its entries words 48-55 and octant o's
+    near-first order word ``56 + o`` (bits 24-31, the mask of the
+    non-empty slots, are masked off), taken from the far end so that the
+    stack pops near-first.  A leaf entry holds the leaf's first octet and
+    its triangle count (``wide_bvh.decode_k3_leaf``), and exactly those
+    triangles are tested.  Returns (t, slot, u, v, dropped_pushes); t is
+    ``t0`` where nothing improved it.  With ``counts``, also a (5, R)
+    int32 tensor of each ray's node visits, leaf entries, triangles whose
+    ``t`` beat the best hit at their test (``|det| >= EPS``, ``EPS < t <
+    best_t``, the best taken in the kernel's order, slot by slot: those
+    whose edges the kernel loads), octets and triangles tested."""
     dev = t0.device
     R = t0.shape[0]
     bt = t0.clone()
@@ -132,13 +122,8 @@ def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
     org = torch.stack(tuple(o3), dim=1)
     octant = (((d3[0] < 0.0).long() << 2) | ((d3[1] < 0.0).long() << 1)
               | (d3[2] < 0.0).long())
-    pw = pw_tiles.reshape(-1)
-    tri = tri_tiles.reshape(-1)
-    n_octets = tri_tiles.shape[0] * 8
-    leaf_count = leaf_count.long()
-    rows = torch.arange(8, device=dev) * 128  # child / triangle rows
-    lanes6 = torch.arange(6, device=dev)
-    lanes12 = torch.arange(12, device=dev)
+    n_octets = octets.shape[0]
+    far_first = 3 * (7 - torch.arange(8, device=dev))  # rank i's shift
     stk = torch.zeros((R, stack), dtype=torch.int32, device=dev)
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
@@ -157,10 +142,10 @@ def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
             work[0, rays] += 1
             work[1, act[~is_node]] += 1
         if rays.numel():
-            w = ent[is_node]
-            group = (w >> 3) * TILE + (w & 7) * GROUP  # (n,)
-            box = pw[group[:, None, None] + rows[None, :, None]
-                     + lanes6[None, None, :]]  # (n, child j, 6)
+            rows = nodes[ent[is_node]]
+            words = rows.long()
+            box = (rows[:, :48].view(torch.float32).reshape(-1, 6, 8)
+                   .transpose(1, 2))  # (n, child j, 6)
             o_r, inv_r = org[rays][:, None, :], inv[rays][:, None, :]
             t1 = (box[:, :, 0:3] - o_r) * inv_r
             t2 = (box[:, :, 3:6] - o_r) * inv_r
@@ -172,10 +157,11 @@ def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
             opened = ((far >= near) & (far >= 0.0)
                       & (torch.maximum(near, torch.zeros_like(near))
                          <= bt[rays][:, None]))  # (n, child j)
-            packed = pw[group[:, None] + rows[None, :] + ORD_LANE0
-                        + octant[rays][:, None]].long()  # (n, rank i)
-            child = packed >> 3
-            push = opened.gather(1, packed & 7) & (child != EMPTY_PACKED)
+            word = words.gather(1, K1_ORDER_WORD + octant[rays][:, None])
+            order = ((word & 0xFFFFFF) >> far_first) & 7  # (n, rank i)
+            child = words[:, K1_ENTRY_WORD:K1_ORDER_WORD].gather(1, order)
+            mask = words[:, K1_ORDER_WORD, None] >> 24  # non-empty slots
+            push = opened.gather(1, order) & ((mask >> order) & 1 > 0)
             for i in range(8):  # far first: rank 0 pops last
                 pos = sp[rays]
                 fits = push[:, i] & (pos < stack)
@@ -186,8 +172,7 @@ def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
 
         rays = act[~is_node]
         if rays.numel():
-            first = -ent[~is_node] - 1
-            n = leaf_count[first]  # the leaf's own triangles
+            first, n = decode_k3_leaf(ent[~is_node])  # the leaf's own
             if counts:
                 work[3, rays] += ((n + 7) >> 3).to(torch.int32)
                 work[4, rays] += n.to(torch.int32)
@@ -199,14 +184,13 @@ def _traverse_plain(pw_tiles, tri_tiles, leaf_count, o3, d3, t0,
                 q = first + k
                 own = slots[None, :] < (n - 8 * k)[:, None]  # (n, j)
                 qc = q.clamp_max(n_octets - 1)
-                base = (qc >> 3) * TILE + (qc & 7) * GROUP
-                c = tri[base[:, None, None] + rows[None, :, None]
-                        + lanes12[None, None, :]].unbind(2)  # 12 x (n, j)
-                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
-                                           c[9:12])
+                # 12 x (n, j): [v0, face, e1, e2] a triangle
+                c = octets[qc].reshape(-1, 8, 12).unbind(2)
+                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[6:9], c[9:12],
+                                           c[3:6])
                 valid = valid & own
                 if counts:
-                    det = d_r[0] * c[9] + d_r[1] * c[10] + d_r[2] * c[11]
+                    det = d_r[0] * c[3] + d_r[1] * c[4] + d_r[2] * c[5]
                     beat = own & (det.abs() >= EPS) & (t > EPS)
                     run = bt_r
                     for j in range(8):  # the kernel's running best
@@ -266,17 +250,16 @@ def traverse_wide(scene, o3, d3, t0):
     ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
     ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray, which comes
     out unchanged).  Each leaf entry tests that leaf's own triangles.
-    CUDA tensors launch the kernel over the scene's Hopper tables
-    (``scene.k3``) with the group column its depth needs; CPU tensors run
-    the plain version over its tiles.  Dropped pushes add to
+    CUDA tensors launch the kernel with the group column its depth needs,
+    CPU tensors run the plain version, both over the scene's tables
+    (``scene.k3``).  Dropped pushes add to
     :func:`overflow_tensor`."""
     overflow = overflow_tensor(t0.device)
     if t0.is_cuda:
         return _traverse_cuda(*scene.k3, o3, d3, t0,
                               group_column(scene.pw_max_stack), overflow)
     t, slot, u, v, dropped = _traverse_plain(
-        scene.pw_tiles, scene.pl_tri_tiles, scene_leaf_counts(scene), o3, d3,
-        t0, stack_size(scene.pw_max_stack))
+        *scene.k3, o3, d3, t0, stack_size(scene.pw_max_stack))
     overflow += dropped.to(torch.int32)
     return t, slot, u, v
 

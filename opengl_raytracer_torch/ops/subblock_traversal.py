@@ -10,11 +10,11 @@ plain :func:`_epilogue_plain` on CPU tensors).  Each part is one call of
 :func:`traverse_part`, which on CUDA tensors launches the kernel of
 ``csrc/subblock_traversal.cu`` over the part's Hopper tables
 (``SceneData.k1_parts``, ops/wide2.pack_k1) and on CPU tensors runs
-:func:`_traverse_plain` over its ``p2_*`` rows: the same per-ray stack walk
+:func:`_traverse_plain` over the same tables: the same per-ray stack walk
 written with torch ops (all rays stepping together, one stack entry popped
 per ray per step).
 
-Both versions visit a node's children near-first in the order its row
+Both versions visit a node's children near-first in the order its node
 stores for the ray's own octant, open a child iff its slab test hits with
 ``near <= best_t`` at the parent's visit, and update the best hit with a
 strict ``<``.  They visit the same nodes in the same order, so they agree
@@ -30,8 +30,9 @@ import torch
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import BIG, EPS, Nearest, mt_single
 from opengl_raytracer_torch.ops.pallas_traversal import wide_prologue
-from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, K1_NODE_WORDS,
-                                              K1_OCTET_FLOATS, ORD0)
+from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, K1_ENTRY_WORD,
+                                              K1_NODE_WORDS, K1_OCTET_FLOATS,
+                                              K1_ORDER_WORD)
 
 STACK = 128  # per-ray stack entries of the plain version
 INV_CLAMP = 1e18
@@ -49,9 +50,13 @@ def overflow_tensor(device) -> torch.Tensor:
     return _overflow[device]
 
 
-def _traverse_plain(node_rows, tri_rows, o3, d3, t0, counts: bool = False):
-    """Plain torch version of the kernel.  Returns (t, slot, u, v,
-    dropped_pushes) for one part; t is ``t0`` where nothing improved it.
+def _traverse_plain(nodes, octets, o3, d3, t0, counts: bool = False):
+    """Plain torch version of the kernel, over the part's tables in the
+    kernel's layout (ops/wide2.pack_k1): a node's child boxes are the
+    float bits of its words 0-47, its entries words 48-55 and octant o's
+    near-first order word ``56 + o``, taken from the far end so that the
+    stack pops near-first.  Returns (t, slot, u, v, dropped_pushes) for one
+    part; t is ``t0`` where nothing improved it.
 
     With ``counts``, also a (4, R) int32 tensor of each ray's node visits,
     leaf octets tested, loop steps (stack pops: visits + octets) and
@@ -68,10 +73,10 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0, counts: bool = False):
     oi = [o3[a] * inv[a] for a in range(3)]
     octant = (((d3[0] < 0.0).long() << 2) | ((d3[1] < 0.0).long() << 1)
               | (d3[2] < 0.0).long())
-    ord_lane = ORD0 + octant * 8
+    ord_word = K1_ORDER_WORD + octant
     stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
     sp = (bt > -BIG).long()  # live rays start with the root (entry 0)
-    lanes6 = torch.arange(6, device=dev)
+    axes6 = torch.arange(6, device=dev) * 8  # lo.xyz, hi.xyz of slot 0
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     work = torch.zeros((4, R), dtype=torch.int32, device=dev)
 
@@ -88,15 +93,16 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0, counts: bool = False):
             work[0, rays] += 1
             work[1, act[~is_node]] += 1
         if rays.numel():
-            rows = node_rows[ent[is_node]]
+            words = nodes[ent[is_node]]
+            box_w = words.view(torch.float32)
             inv_r = [x[rays] for x in inv]
             oi_r = [x[rays] for x in oi]
             bt_r = bt[rays]
-            lane = ord_lane[rays]
-            for k in range(8):
-                pk = rows.gather(1, (lane + k)[:, None]).squeeze(1).long()
-                child = pk >> 3
-                b = rows.gather(1, (pk & 7)[:, None] * 6 + lanes6)
+            order = words.gather(1, ord_word[rays][:, None]).long()
+            for k in range(8):  # far first: near-first rank 7 - k
+                s = (order >> (3 * (7 - k))) & 7
+                child = words.gather(1, K1_ENTRY_WORD + s)[:, 0].long()
+                b = box_w.gather(1, s + axes6)
                 t1 = [b[:, a] * inv_r[a] - oi_r[a] for a in range(3)]
                 t2 = [b[:, 3 + a] * inv_r[a] - oi_r[a] for a in range(3)]
                 near = torch.maximum(
@@ -119,16 +125,16 @@ def _traverse_plain(node_rows, tri_rows, o3, d3, t0, counts: bool = False):
         rays = act[~is_node]
         if rays.numel():
             q = -ent[~is_node] - 1
-            rows = tri_rows[q]
+            rows = octets[q]
             o_r = [x[rays] for x in o3]
             d_r = [x[rays] for x in d3]
             bt_r, sl_r, bu_r, bv_r = bt[rays], slot[rays], bu[rays], bv[rays]
-            for j in range(8):
-                c = rows[:, j * 16:j * 16 + 12].unbind(1)
-                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[3:6], c[6:9],
-                                           c[9:12])
+            for j in range(8):  # [v0, face, e1, e2] a triangle
+                c = rows[:, j * 12:j * 12 + 12].unbind(1)
+                valid, t, u, v = mt_single(o_r, d_r, c[0:3], c[6:9], c[9:12],
+                                           c[3:6])
                 if counts:
-                    det = d_r[0] * c[9] + d_r[1] * c[10] + d_r[2] * c[11]
+                    det = d_r[0] * c[3] + d_r[1] * c[4] + d_r[2] * c[5]
                     work[3, rays] += ((det.abs() >= EPS) & (t > EPS)
                                       & (t < bt_r)).to(torch.int32)
                 better = valid & (t < bt_r)  # strict <, fragment.glsl:275
@@ -178,15 +184,14 @@ def traverse_part(scene, part: int, o3, d3, t0):
 
     ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
     ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray).  CUDA
-    tensors launch the kernel over the part's Hopper tables
-    (``scene.k1_parts``); CPU tensors run the plain version over its rows
-    (``scene.parts``).  Dropped stack pushes add to
-    :func:`overflow_tensor`."""
+    tensors launch the kernel, CPU tensors run the plain version, both
+    over the part's tables (``scene.k1_parts``).  Dropped stack pushes add
+    to :func:`overflow_tensor`."""
     overflow = overflow_tensor(t0.device)
+    nodes, octets, _ = scene.k1_parts[part]
     if t0.is_cuda:
-        return _traverse_cuda(*scene.k1_parts[part], o3, d3, t0, overflow)
-    node_rows, tri_rows, _ = scene.parts[part]
-    t, slot, u, v, dropped = _traverse_plain(node_rows, tri_rows, o3, d3, t0)
+        return _traverse_cuda(nodes, octets, o3, d3, t0, overflow)
+    t, slot, u, v, dropped = _traverse_plain(nodes, octets, o3, d3, t0)
     overflow += dropped.to(torch.int32)
     return t, slot, u, v
 
@@ -275,14 +280,14 @@ def raycast_subblock(scene, o3, d3, active=None):
     optional (R,) bool mask whose False rays report ``t = BIG``.  The
     first part's entry t is K3's (G5's prologue, one launch on the
     card)."""
-    if scene.p2_node_rows.shape[0] == 0:
+    if not scene.k1_parts:
         raise ValueError("scene has no sub-block tables (exceeded caps?)")
     o3 = tuple(x.contiguous() for x in o3)
     d3 = tuple(x.contiguous() for x in d3)
     t0 = wide_prologue(active, o3[0].shape[0], o3[0].device)  # G5's
     near = None
     slot_base = 0
-    parts = scene.parts
+    parts = scene.k1_parts
     for part, (_, _, remap) in enumerate(parts):
         t, slot, u, v = traverse_part(scene, part, o3, d3, t0)
         near, t0 = part_epilogue(t, slot, u, v, remap, slot_base, near,

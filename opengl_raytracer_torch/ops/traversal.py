@@ -9,11 +9,11 @@ goes on to the node's miss link, an internal node steps to its first
 child.  A missed node jumps to its miss link.  The JAX version is XLA
 code outside any kernel.  On CUDA rays the walk is one launch of
 ``csrc/bvh_walk.cu`` (G7), one thread walking one ray to its end over the
-scene's node and triangle records (:func:`node_records`,
-``intersect.tri_records``), so a tile step's CUDA graph holds it; on CPU
-rays it runs :func:`_walk_plain`, one step per loop iteration over the
-rays still walking, with one host check per step.  The two agree bit for
-bit on the card.
+scene's node and triangle records (``SceneData.node_records``,
+:func:`pack_node_records`; ``SceneData.tri_records``), so a tile step's
+CUDA graph holds it; on CPU rays it runs :func:`_walk_plain` over the same
+records, one step per loop iteration over the rays still walking, with
+one host check per step.  The two agree bit for bit on the card.
 
 :func:`raycast_packet` is the port of
 ``opengl_raytracer_tpu/ops/traversal.py:raycast_packet``, the ``"packet"``
@@ -42,7 +42,8 @@ import torch
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops.intersect import (BIG, EPS, Nearest, _dot3,
                                                   init_nearest, mt_single,
-                                                  slab_test, tri_records)
+                                                  slab_test,
+                                                  unpack_tri_records)
 
 
 PACKET = 128  # rays a packet, as the JAX package's
@@ -50,7 +51,8 @@ PACKET = 128  # rays a packet, as the JAX package's
 
 def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
                 counts: bool = False):
-    """Plain torch version of the walk kernel.  With ``counts``, also a
+    """Plain torch version of the walk kernel, over the columns of the
+    scene's node and triangle records.  With ``counts``, also a
     (3, R) int32 tensor of each ray's loop steps (node visits), triangle
     tests, and candidates (tests with ``|det| >= EPS`` and ``EPS < t <``
     the nearest hit, whose u and v the kernel computes): the work the
@@ -58,7 +60,10 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
     origin = torch.stack(tuple(o3), dim=1)
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
-    N = scene.node_miss.shape[0]
+    node_min, node_max, node_miss, node_first, node_count = \
+        unpack_node_records(scene.node_records)
+    v0, e1, e2, face3 = unpack_tri_records(scene.tri_records)
+    N = node_miss.shape[0]
     inv_dir = 1.0 / direction
     t, tri, u, v, _ = init_nearest(R, origin.device)
     if active is not None:
@@ -74,12 +79,12 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
         if counts:
             work[0, rays] += 1
         o, d, bt = origin[rays], direction[rays], t[rays]
-        t_near = slab_test(o, inv_dir[rays], scene.node_min[nidx],
-                           scene.node_max[nidx])
+        t_near = slab_test(o, inv_dir[rays], node_min[nidx],
+                           node_max[nidx])
         # Visit iff the box is entered ahead of the nearest hit
         # (fragment.glsl:261-262).
         box_hit = (t_near >= 0.0) & (t_near <= bt)
-        count = scene.node_count[nidx]
+        count = node_count[nidx]
         is_leaf = count > 0
 
         leaf = torch.nonzero(box_hit & is_leaf).squeeze(1)
@@ -89,15 +94,15 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
                 work[1, lr] += count[leaf].clamp_max(max_leaf_tris)
             o_l = o[leaf].unbind(1)
             d_l = d[leaf].unbind(1)
-            first, cnt = scene.node_first[nidx[leaf]], count[leaf]
+            first, cnt = node_first[nidx[leaf]], count[leaf]
             bt_l, tri_l, u_l, v_l = bt[leaf], tri[lr], u[lr], v[lr]
             for k in range(max_leaf_tris):
                 ok = k < cnt
                 idx = torch.where(ok, first + k, 0).long()
-                face = scene.face[idx].unbind(1)
+                face = face3[idx].unbind(1)
                 valid, tk, uk, vk = mt_single(
-                    o_l, d_l, scene.v0[idx].unbind(1), scene.e1[idx].unbind(1),
-                    scene.e2[idx].unbind(1), face)
+                    o_l, d_l, v0[idx].unbind(1), e1[idx].unbind(1),
+                    e2[idx].unbind(1), face)
                 if counts:
                     work[2, lr] += (ok & (_dot3(d_l, face).abs() >= EPS)
                                     & (tk > EPS) & (tk < bt_l)).int()
@@ -109,7 +114,7 @@ def _walk_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
             t[lr], tri[lr], u[lr], v[lr] = bt_l, tri_l, u_l, v_l
 
         node[rays] = torch.where(box_hit & ~is_leaf, nidx + 1,
-                                 scene.node_miss[nidx].long())
+                                 node_miss[nidx].long())
     if active is not None:
         t = torch.where(active, t, BIG)
     near = Nearest(t=t, tri=tri, u=u, v=v)
@@ -125,8 +130,9 @@ _COUNT_BITS = 11
 
 def pack_node_records(node_min, node_max, node_miss, node_first,
                       node_count) -> torch.Tensor:
-    """The binary BVH as the node records G7 reads, int32 words (floats by
-    their bits): (N, 8), 32 bytes a node, ``min.xyz, miss, max.xyz,
+    """The binary BVH as the node records G7 and G9 read, packed at upload
+    (``SceneData.node_records``), int32 words (floats by their bits):
+    (N, 8), 32 bytes a node, ``min.xyz, miss, max.xyz,
     (first + 1) | count << 21``, or (N, 12), 48 bytes, ``min.xyz, miss,
     max.xyz, first, count, 0, 0, 0`` when a first or a count does not fit
     its bits.  Read with 16-byte loads; :func:`unpack_node_records` is the
@@ -164,18 +170,6 @@ def unpack_node_records(rec: torch.Tensor) -> tuple:
         (word >> _FIRST_BITS).to(torch.int32)
 
 
-def node_records(scene) -> torch.Tensor:
-    """``scene``'s node records, packed at the first call and kept in
-    ``scene.records`` (not at upload: a scene that never runs the "bvh"
-    walk carries none)."""
-    rec = scene.records.get("nodes")
-    if rec is None:
-        rec = scene.records["nodes"] = pack_node_records(
-            scene.node_min, scene.node_max, scene.node_miss,
-            scene.node_first, scene.node_count)
-    return rec
-
-
 def _launch_walk(symbol: str, counter: str, scene, o3, d3, active,
                  max_leaf_tris: int) -> Nearest:
     """One launch of a walk kernel over ``scene``'s node and triangle
@@ -187,13 +181,12 @@ def _launch_walk(symbol: str, counter: str, scene, o3, d3, active,
         req(x, name, torch.float32, dev, R)
     if active is not None:
         req(active, "active", torch.bool, dev, R)
-    N = scene.node_miss.shape[0]
-    nodes, tris = node_records(scene), tri_records(scene)
+    nodes, tris = scene.node_records, scene.tri_records
+    N = nodes.shape[0]
     if nodes.shape[1] not in (8, 12):
         raise ValueError(f"node records of {nodes.shape[1]} words")
     req(nodes, "node records", torch.int32, dev, N * nodes.shape[1])
-    req(tris, "triangle records", torch.float32, dev,
-        scene.v0.shape[0] * 12)
+    req(tris, "triangle records", torch.float32, dev, scene.num_tris * 12)
     out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32)))
     _kernels.launch(
@@ -253,7 +246,10 @@ def _packet_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
     direction = torch.stack(tuple(d3), dim=1)
     R = origin.shape[0]
     P = R // PACKET  # R a multiple of PACKET (raycast_packet checks)
-    N = scene.node_miss.shape[0]
+    node_min, node_max, node_miss, node_first, node_count = \
+        unpack_node_records(scene.node_records)
+    tri_cols = unpack_tri_records(scene.tri_records)
+    N = node_miss.shape[0]
     dev = origin.device
     o = origin.view(P, PACKET, 3)
     d = direction.view(P, PACKET, 3)
@@ -276,10 +272,10 @@ def _packet_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
         nidx = node[pk]
         if counts:
             visits[pk] += 1
-        t_near = slab_test(o[pk], inv[pk], scene.node_min[nidx][:, None],
-                           scene.node_max[nidx][:, None])
+        t_near = slab_test(o[pk], inv[pk], node_min[nidx][:, None],
+                           node_max[nidx][:, None])
         opened = ((t_near >= 0.0) & (t_near <= t[pk])).any(dim=1)
-        count = scene.node_count[nidx]
+        count = node_count[nidx]
         is_leaf = count > 0
 
         leaf = torch.nonzero(opened & is_leaf).squeeze(1)
@@ -293,10 +289,10 @@ def _packet_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
             # slot among equal t: argmin's first index
             ks = torch.arange(int(m.max()), device=dev)
             ok = (ks < m[:, None])[..., None]
-            first = scene.node_first[nidx[leaf]][:, None]
+            first = node_first[nidx[leaf]][:, None]
             idx = torch.where(ok[..., 0], first + ks, 0).long()
             tri_t = [tuple(x[..., None] for x in tab[idx].unbind(2))
-                     for tab in (scene.v0, scene.e1, scene.e2, scene.face)]
+                     for tab in tri_cols]
             o_l = tuple(x[:, None] for x in o[lp].unbind(2))
             d_l = tuple(x[:, None] for x in d[lp].unbind(2))
             valid, tk, uk, vk = mt_single(o_l, d_l, *tri_t)
@@ -316,7 +312,7 @@ def _packet_plain(scene, o3, d3, active=None, max_leaf_tris: int = 4,
             v[lp] = torch.where(upd, vk.gather(1, arg[:, None])[:, 0], v[lp])
 
         node[pk] = torch.where(opened & ~is_leaf, nidx + 1,
-                               scene.node_miss[nidx].long())
+                               node_miss[nidx].long())
     t = t.reshape(R)
     if active is not None:
         t = torch.where(active, t, BIG)

@@ -4,8 +4,8 @@ A NumPy copy of ``opengl_raytracer_tpu/ops/wide2.py``'s builder, so that
 this package and the JAX package traverse bit-identical tables and their
 nearest hits can be compared ray by ray.  The layout was shaped for the
 TPU kernel (one dynamically loadable 128-float row per node and per leaf
-octet); K1's plain torch version (ops/subblock_traversal.py) reads it as
-it is:
+octet).  Here it is the builder's output, what the tests hold against the
+JAX package, and the packer's input; no device holds it:
 
 * ``node_rows (Wp, 128) f32`` — wide node w = row w:
   - lanes ``[j*6, j*6+6)``: child j's [bmin.xyz, bmax.xyz]; empty slots
@@ -26,10 +26,11 @@ it is:
 Entries: internal child -> wide index (>= 0); leaf child -> ``-q - 1``;
 empty -> EMPTY_PACKED.
 
-The CUDA kernel (csrc/subblock_traversal.cu) reads the same tables in a
+On every device, the CUDA kernel (csrc/subblock_traversal.cu) and its
+plain torch version (ops/subblock_traversal.py) read the same tables in a
 Hopper layout, packed from these rows once per part at upload
-(:func:`pack_k1`; :func:`unpack_k1` gives the rows back bit for bit), and
-read with 16-byte loads:
+(:func:`pack_k1`; :func:`unpack_k1` gives the rows back bit for bit), the
+kernel with 16-byte loads:
 
 * ``nodes (Wp, 64) i32`` — wide node w, 256 bytes:
   - words ``[0, 48)``: the f32 bits of the 8 child boxes as structure of
@@ -276,16 +277,6 @@ def build_subblock(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     if (max_depth + 2) * (WIDTH - 1) + 4 > STACK_N:
         raise ValueError(f"wide depth {max_depth} exceeds the kernel's "
                          f"{STACK_N}-entry node stack")
-    # The dual-node-pop kernel variant (node_pops=2) doubles the stack to
-    # 2*STACK_N lanes; each iteration can then push up to 2*(WIDTH-1)
-    # children while retiring 2 entries.  Validate that worst case
-    # EXPLICITLY rather than deriving it from the single-pop bound, so a
-    # wrong doubling argument fails loudly at build time instead of
-    # silently dropping node pushes in-kernel (the push gate clamps at
-    # the stack size).
-    if (max_depth + 2) * 2 * (WIDTH - 1) + 4 > 2 * STACK_N:
-        raise ValueError(f"wide depth {max_depth} exceeds the dual-pop "
-                         f"kernel's {2 * STACK_N}-entry node stack")
 
     Wp = max(-(-W // 8) * 8, 8)
     rows = np.zeros((Wp, 128), np.float32)
@@ -344,8 +335,8 @@ def build_subblock(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
 K1_NODE_WORDS = 64
 K1_OCTET_FLOATS = 96
-_K1_ENT0 = 48  # first child-entry word of a Hopper node
-_K1_ORD0 = 56  # first order word
+K1_ENTRY_WORD = 48  # first child-entry word of a Hopper node
+K1_ORDER_WORD = 56  # first order word
 # a triangle's 12 floats of a tri_rows lane group, in the octet's order
 _K1_TRI = np.array([0, 1, 2, 9, 10, 11, 3, 4, 5, 6, 7, 8])
 
@@ -419,9 +410,9 @@ def pack_nodes(node_rows: np.ndarray) -> np.ndarray:
         near_first[w_k, o_k, hole_ranks[w_k, o_k, k]] = free_slots[w_k, k]
     if not (np.sort(near_first, axis=2) == np.arange(8)).all():
         raise ValueError("order lanes are not a permutation of the slots")
-    nodes[:, _K1_ENT0:_K1_ORD0] = entry
+    nodes[:, K1_ENTRY_WORD:K1_ORDER_WORD] = entry
     word = (near_first << (3 * np.arange(8))).sum(axis=2)
-    nodes[:, _K1_ORD0:] = word.astype(np.int32)
+    nodes[:, K1_ORDER_WORD:] = word.astype(np.int32)
     return nodes
 
 
@@ -432,8 +423,8 @@ def unpack_nodes(nodes: np.ndarray) -> np.ndarray:
     rows = np.zeros((W, 128), np.float32)
     rows[:, :48] = np.ascontiguousarray(nodes[:, :48]).view(
         np.float32).reshape(W, 6, 8).transpose(0, 2, 1).reshape(W, 48)
-    entry = nodes[:, _K1_ENT0:_K1_ORD0].astype(np.int64)
-    word = nodes[:, _K1_ORD0:].astype(np.int64) & 0xFFFFFF
+    entry = nodes[:, K1_ENTRY_WORD:K1_ORDER_WORD].astype(np.int64)
+    word = nodes[:, K1_ORDER_WORD:].astype(np.int64) & 0xFFFFFF
     near_first = (word[:, :, None] >> (3 * np.arange(8))) & 7
     slot = near_first[:, :, ::-1]  # back to far-first push lanes
     ent = np.take_along_axis(entry[:, None, :].repeat(8, 1), slot, axis=2)

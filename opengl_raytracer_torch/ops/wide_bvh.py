@@ -3,8 +3,9 @@
 A NumPy copy of ``opengl_raytracer_tpu/ops/wide_bvh.py`` (``collapse_wide``,
 ``validate_wide``, ``encode_leaf`` and their constants), so that both
 packages build bit-identical tables and their nearest hits can be compared
-ray by ray.  The layout was shaped for the TPU's (8, 128) tiles; the CUDA
-kernel (csrc/wide_traversal.cu) reads it as it is, by index arithmetic:
+ray by ray.  The layout was shaped for the TPU's (8, 128) tiles.  Here it
+is the builder's output, what the tests hold against the JAX package, and
+the packer's input; no device holds it:
 
 * ``tiles (ceil(W/8), 8, 128) f32`` — child j of wide node w at tile
   ``w//8``, row j, lanes ``(w%8)*16 + 0..5`` as [bmin.xyz, bmax.xyz]; at
@@ -17,9 +18,10 @@ kernel (csrc/wide_traversal.cu) reads it as it is, by index arithmetic:
   the stack bound): internal child -> its wide index (>= 0); leaf child ->
   ``-first_octet - 1`` (< 0); empty -> EMPTY_ENTRY.
 
-The K3 kernel (csrc/wide_traversal.cu) reads the same tree in a Hopper
+On every device, the K3 kernel (csrc/wide_traversal.cu) and its plain
+torch version (ops/pallas_traversal.py) read the same tree in a Hopper
 layout, packed from the tiles once at upload (:func:`pack_k3`, inverse
-:func:`unpack_k3`; ``SceneData.k3``) and read with 16-byte loads, the
+:func:`unpack_k3`; ``SceneData.k3``), the kernel with 16-byte loads, the
 layout of K1's tables (ops/wide2.py):
 
 * ``nodes (W, 64) i32`` — wide node w, 256 bytes: the 8 child boxes as

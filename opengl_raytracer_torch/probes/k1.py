@@ -116,10 +116,11 @@ def lib() -> ctypes.CDLL:
 
 
 def profile(k1, o3, d3, t0):
-    """One launch of the profile build over ``k1`` = (nodes, octets) ->
-    ((t, slot, u, v), {stage or event name: int}).  Its hits are the
-    kernel's; its cycles are summed over every ray's thread."""
-    nodes, octets = k1
+    """One launch of the profile build over ``k1``, one part's (nodes,
+    octets, remap) of ``SceneData.k1_parts`` -> ((t, slot, u, v), {stage
+    or event name: int}).  Its hits are the kernel's; its cycles are
+    summed over every ray's thread."""
+    nodes, octets, _ = k1
     dev = t0.device
     R = t0.shape[0]
     req = _kernels.require

@@ -18,8 +18,8 @@ measured the JAX package's K3 (``ops/pallas_traversal.py``):
 * ``onehot_test.py`` (``kern``: one octet of the triangle tiles selected on
   the hardware and checked against the host's tile): :func:`octet_fetch`
   reads chosen octets through the kernel's own triangle loads and gives
-  them back in the tiles' lane order, to be compared with
-  :func:`tile_octets`, the tiles' own slices, bit for bit.
+  them back in the tiles' lane order, to be compared bit for bit with
+  ``wide2.unpack_octets`` of the same rows of ``scene.k3``.
 
 :func:`work` sums the per-ray counts of the plain version
 (``_traverse_plain(..., counts=True)``): node visits, leaf entries, octets
@@ -49,7 +49,8 @@ import torch
 from opengl_raytracer_torch.ops import _kernels
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops.intersect import BIG
-from opengl_raytracer_torch.ops.wide_bvh import leaf_counts
+from opengl_raytracer_torch.ops.wide2 import K1_ENTRY_WORD, K1_ORDER_WORD
+from opengl_raytracer_torch.ops.wide_bvh import decode_k3_leaf
 from opengl_raytracer_torch.probes.k1 import lane_share
 
 STAGES = ("pop", "node_fetch", "slab", "push", "octet_fetch", "triangles")
@@ -173,6 +174,18 @@ def stage_report(stages: dict) -> dict:
     return out
 
 
+def _leaf_octet_counts(nodes: np.ndarray, n_octets: int) -> np.ndarray:
+    """Per octet q (Q,) int64 of K3's nodes (W, 64): the triangle count of
+    the leaf whose entry starts at q, 0 where none starts."""
+    entries = nodes[:, K1_ENTRY_WORD:K1_ORDER_WORD].astype(np.int64)
+    full = (nodes[:, K1_ORDER_WORD, None].astype(np.int64)
+            >> (24 + np.arange(8))) & 1
+    first, n = decode_k3_leaf(entries[(full > 0) & (entries < 0)])
+    out = np.zeros(n_octets, np.int64)
+    out[first] = n
+    return out
+
+
 def own_share(scene, hist: torch.Tensor, stages: dict) -> dict:
     """What the leaf side read, from the profile's leaf entries per first
     octet and its counts of octets and triangles tested (``stages``):
@@ -180,7 +193,7 @@ def own_share(scene, hist: torch.Tensor, stages: dict) -> dict:
     share of them that are the entered leaves' own (1 when no leaf reads a
     neighbour's triangles)."""
     h = hist.cpu().numpy().astype(np.int64)
-    count_q = leaf_counts(scene.node_count.cpu().numpy(), h.shape[0])
+    count_q = _leaf_octet_counts(scene.k3[0].cpu().numpy(), h.shape[0])
     if (h[count_q == 0] != 0).any():
         raise RuntimeError("a leaf entry starts at an octet no leaf starts at")
     entries = int(h.sum())
@@ -213,9 +226,3 @@ def octet_fetch(scene, octets_idx) -> torch.Tensor:
                     out.data_ptr(), library=lib())
     return out
 
-
-def tile_octets(pl_tri_tiles: torch.Tensor, octets_idx) -> torch.Tensor:
-    """The same octets sliced from the tiles: octet q is tile q // 8, its 8
-    rows, lanes ``(q % 8) * 16 .. + 16``."""
-    return torch.stack([pl_tri_tiles[q // 8, :, (q % 8) * 16:(q % 8) * 16 + 16]
-                        for q in octets_idx])

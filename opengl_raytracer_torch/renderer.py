@@ -41,10 +41,10 @@ from opengl_raytracer_torch.ops.camera import Camera, make_camera
 from opengl_raytracer_torch.ops.fold import fold_band
 from opengl_raytracer_torch.ops.front import BLOCK_H, BLOCK_W, ray_front
 from opengl_raytracer_torch.ops.integrator import trace
-from opengl_raytracer_torch.ops.intersect import raycast_brute, tri_records
+from opengl_raytracer_torch.ops.intersect import raycast_brute
 from opengl_raytracer_torch.ops.permute import SeedRecon
-from opengl_raytracer_torch.ops.traversal import (PACKET, node_records,
-                                                  raycast_bvh, raycast_packet)
+from opengl_raytracer_torch.ops.traversal import (PACKET, raycast_bvh,
+                                                  raycast_packet)
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
 from opengl_raytracer_torch.utils import profiling
 from opengl_raytracer_torch.utils.config import RenderConfig
@@ -61,12 +61,11 @@ _REORDER = ("packet", "pallas", "pallas2")
 
 
 def effective_max_leaf(scene: SceneData) -> int:
-    """The leaf-loop bound of this scene's BVH, from its own node table
-    (``opengl_raytracer_tpu/renderer.py:53-76``): a smaller bound would
-    skip triangles, a larger one would read past the slack of the wide
-    kernel's octet table."""
-    count = scene.node_count
-    return int(count.max()) if count.numel() else 1
+    """The leaf-loop bound of this scene's BVH, its largest leaf
+    (``opengl_raytracer_tpu/renderer.py:53-76``; ``SceneData.max_leaf``):
+    a smaller bound would skip triangles, a larger one would read past the
+    slack of the wide kernel's octet table."""
+    return scene.max_leaf
 
 
 def resolve_leaf_bound(scene: SceneData, config: RenderConfig) -> RenderConfig:
@@ -88,15 +87,10 @@ def make_raycast_fn(scene: SceneData, traversal: str, max_leaf_tris: int):
     G7), "packet" (the 128-ray packet walk, G9), "pallas" (the wide-BVH
     kernel, K3) or "pallas2" (the sub-block kernel, K1).
     ``max_leaf_tris`` must cover the scene's largest leaf
-    (:func:`effective_max_leaf`).  "brute", "bvh" and "packet" pack the
-    scene's records here, once a scene (``SceneData.records``), so no step
-    packs them."""
+    (:func:`effective_max_leaf`)."""
     if traversal == "brute":
-        tri_records(scene)
         return lambda o3, d3, active=None: raycast_brute(scene, o3, d3, active)
     if traversal in ("bvh", "packet"):
-        tri_records(scene)
-        node_records(scene)
         walk = raycast_bvh if traversal == "bvh" else raycast_packet
         return lambda o3, d3, active=None: walk(
             scene, o3, d3, active, max_leaf_tris=max_leaf_tris)
@@ -125,7 +119,7 @@ def resolve_traversal(scene: SceneData, traversal: str) -> str:
     if traversal == "auto":
         if scene.num_tris <= _BRUTE_MAX_TRIS:
             resolved = "brute"
-        elif scene.p2_node_rows.shape[0] > 0:
+        elif len(scene.k1_parts) > 0:
             resolved = "pallas2"
         else:
             resolved = "pallas"

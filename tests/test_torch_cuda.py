@@ -34,6 +34,7 @@ from opengl_raytracer_torch.ops import _kernels, shade
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
+from opengl_raytracer_torch.ops.wide2 import unpack_octets
 from opengl_raytracer_torch.renderer import effective_max_leaf
 from opengl_raytracer_torch.utils.image import rmse
 from torch_states import box_objects, recon_states
@@ -75,16 +76,16 @@ def _rays(R, device, seed=1):
 
 
 def _k1_matches_plain(data, o3, d3, t0):
-    """Every part of ``data``: the K1 kernel over its Hopper tables equals
-    the plain version over its rows, bit for bit; returns the hit count."""
+    """Every part of ``data``: the K1 kernel equals the plain version over
+    the same tables, bit for bit; returns the hit count."""
     n_hit = 0
-    for part, (node_rows, tri_rows, _) in enumerate(data.parts):
+    for part, (nodes, octets, _) in enumerate(data.k1_parts):
         ov = sbt.overflow_tensor(t0.device)
         ov.zero_()
         before = _kernels.launch_counts["subblock_traversal"]
         got = sbt.traverse_part(data, part, o3, d3, t0)
         assert _kernels.launch_counts["subblock_traversal"] == before + 1
-        *ref, dropped = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0)
+        *ref, dropped = sbt._traverse_plain(nodes, octets, o3, d3, t0)
         torch.cuda.synchronize()
         assert int(ov.item()) == 0 and int(dropped) == 0
         for a, b in zip(got, ref):
@@ -107,7 +108,7 @@ def test_traverse_kernel_matches_plain_multi_part(cuda, monkeypatch):
     monkeypatch.setattr(scene_mod, "build_subblock_parts",
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
     data = Scene(_objects(1200), max_leaf_tris=16).send(cuda)
-    assert len(data.k1_parts) == len(data.parts) > 1
+    assert len(data.k1_parts) > 1
     o3, d3, t0 = _rays(4096, cuda, seed=5)
     t0 = torch.where(torch.arange(4096, device=cuda) % 3 == 0,
                      torch.full_like(t0, 3.0), t0)
@@ -121,7 +122,7 @@ def test_k1_profile_matches_kernel(cuda):
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
-    (node_rows, tri_rows, _), k1 = data.parts[0], data.k1_parts[0]
+    k1 = data.k1_parts[0]
     o3, d3, t0 = _rays(3000, cuda, seed=6)
     kernel = sbt.traverse_part(data, 0, o3, d3, t0)
     before = dict(_kernels.launch_counts)
@@ -131,8 +132,7 @@ def test_k1_profile_matches_kernel(cuda):
             == before["subblock_traversal"])
     for a, b in zip(hits, kernel):
         assert torch.equal(a, b)
-    counts = sbt._traverse_plain(node_rows, tri_rows, o3, d3, t0,
-                                 counts=True)[5].long()
+    counts = sbt._traverse_plain(*k1[:2], o3, d3, t0, counts=True)[5].long()
     assert stages["visits"] == int(counts[0].sum())
     assert stages["octets"] == int(counts[1].sum())
     assert stages["edge_loads"] == int(counts[3].sum())
@@ -155,17 +155,16 @@ def _face_plane_rays(data, o3, d3, t0):
 
 
 def _k3_plain(data, o3, d3, t0, counts=False):
-    return wide._traverse_plain(data.pw_tiles, data.pl_tri_tiles,
-                                wide.scene_leaf_counts(data), o3, d3, t0,
+    return wide._traverse_plain(*data.k3, o3, d3, t0,
                                 wide.stack_size(data.pw_max_stack),
                                 counts=counts)
 
 
 def test_wide_kernel_matches_plain(cuda):
-    """K3 over the Hopper tables against its plain version over the tiles,
-    bit for bit, with three rays lying in face planes of the scene's
-    bounding box: their slab tests meet 0 * inf = NaN, which both versions
-    propagate, so both miss."""
+    """K3 against its plain version over the same tables, bit for bit,
+    with three rays lying in face planes of the scene's bounding box:
+    their slab tests meet 0 * inf = NaN, which both versions propagate, so
+    both miss."""
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     o3, d3, t0 = _rays(3000, cuda)
     _face_plane_rays(data, o3, d3, t0)
@@ -234,9 +233,10 @@ def test_k3_profile_matches_kernel(cuda):
 
 
 def test_k3_octet_fetch_matches_tiles(cuda):
-    """Octets read on the card by K3's own triangle loads equal the
-    triangle tiles' slices bit for bit (the TPU probe's octets 0, 1, 7, 8,
-    9, 100, 101, 555 and the last)."""
+    """Octets read on the card by K3's own triangle loads equal
+    ``unpack_octets`` of the same rows of ``data.k3`` bit for bit, the
+    triangle tiles' slices (``test_torch_k3.py`` holds the two equal; the
+    TPU probe's octets 0, 1, 7, 8, 9, 100, 101, 555 and the last)."""
     from opengl_raytracer_torch.probes import k3 as k3_probe
 
     data = Scene(_objects(1200), max_leaf_tris=32).send(cuda)
@@ -246,8 +246,8 @@ def test_k3_octet_fetch_matches_tiles(cuda):
     before = _kernels.launch_counts["k3_fetch"]
     got = k3_probe.octet_fetch(data, idx)
     assert _kernels.launch_counts["k3_fetch"] == before + 1
-    want = k3_probe.tile_octets(data.pl_tri_tiles, idx)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    want = torch.from_numpy(unpack_octets(data.k3[1][idx].cpu().numpy()))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_k2_probe_kernels_match_plain(cuda):
@@ -272,14 +272,15 @@ def test_k3_wrapper_rejects_bad_tables(cuda):
     16-byte boundary, are refused before any launch."""
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     nodes, octets = data.k3
+    tiles = torch.zeros((2, 8, 128), device=cuda)  # the TPU's tile shape
     o3, d3, t0 = _rays(256, cuda)
     before = _kernels.launch_counts["wide_traversal"]
     bad = [((nodes.cpu(), octets), "is on"),
            ((nodes, octets.cpu()), "is on"),
            ((nodes.float(), octets), "dtype"),
            ((nodes, octets.double()), "dtype"),
-           ((data.pw_tiles.view(torch.int32), octets), "must be"),
-           ((nodes, data.pl_tri_tiles), "must be"),
+           ((tiles.view(torch.int32), octets), "must be"),
+           ((nodes, tiles), "must be"),
            ((nodes[:0], octets), "must be"),
            ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
     for k3, match in bad:
@@ -296,7 +297,7 @@ def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
     scene = Scene(_objects(1200), max_leaf_tris=16)
     on_card, on_cpu = scene.send(cuda), scene.send("cpu")
-    assert len(on_card.parts) > 1
+    assert len(on_card.k1_parts) > 1
     o3, d3, _ = _rays(4096, cuda, seed=2)
     active = torch.from_numpy(np.random.default_rng(3).uniform(size=4096)
                               < 0.8)
@@ -321,7 +322,7 @@ def test_sixteen_part_chain_matches_plain(cuda, monkeypatch, n_parts):
     small_budget(monkeypatch, *SPLITS[n_parts])
     _, scene, on_card, _, _ = cornell(cuda)
     on_cpu = scene.send("cpu")
-    assert len(on_card.parts) == n_parts
+    assert len(on_card.k1_parts) == n_parts
     o3, d3, active = cornell_rays(16384)
     before = dict(_kernels.launch_counts)
     got = sbt.raycast_subblock(on_card, tuple(x.to(cuda) for x in o3),
@@ -391,20 +392,22 @@ def test_k1_wrapper_rejects_bad_tables(cuda):
     """K1's Hopper tables of the wrong shape, type or device, or not on a
     16-byte boundary, are refused before any launch."""
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
-    rows, (nodes, octets) = data.parts[0][:2], data.k1_parts[0]
+    nodes, octets, remap = data.k1_parts[0]
+    rows = torch.zeros((8, 128), device=cuda)  # the TPU's row shape
     o3, d3, t0 = _rays(256, cuda)
     before = _kernels.launch_counts["subblock_traversal"]
     bad = [((nodes.cpu(), octets), "is on"),
            ((nodes, octets.cpu()), "is on"),
            ((nodes.float(), octets), "dtype"),
            ((nodes, octets.double()), "dtype"),
-           ((rows[0].view(torch.int32), octets), "must be"),
-           ((nodes, rows[1]), "must be"),
+           ((rows.view(torch.int32), octets), "must be"),
+           ((nodes, rows), "must be"),
            ((nodes[:0], octets), "must be"),
            ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
     for k1, match in bad:
         with pytest.raises(ValueError, match=match):
-            sbt.traverse_part(data._replace(k1_parts=(k1,)), 0, o3, d3, t0)
+            sbt.traverse_part(data._replace(k1_parts=((*k1, remap),)), 0,
+                              o3, d3, t0)
     assert _kernels.launch_counts["subblock_traversal"] == before
 
 
@@ -442,7 +445,7 @@ def test_sharded_on_card_matches_cpu(cuda):
         before = _kernels.launch_counts["subblock_traversal"]
         imgs.append(sr.image(sr.render(cam, frames=2)))
         launched = _kernels.launch_counts["subblock_traversal"] - before
-        assert launched == (len(sr.scene.parts) * cfg.n_bounces * 4
+        assert launched == (len(sr.scene.k1_parts) * cfg.n_bounces * 4
                             if device.type == "cuda" else 0)
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
     assert rmse(imgs[0], imgs[1]) < 1e-4
@@ -649,7 +652,7 @@ def test_epilogue_kernel_matches_plain(cuda, monkeypatch, masked):
     monkeypatch.setattr(scene_mod, "build_subblock_parts",
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
     data = Scene(_objects(1200), max_leaf_tris=16).send(cuda)
-    parts = data.parts
+    parts = data.k1_parts
     assert len(parts) > 2
     o3, d3, _ = _rays(8191, cuda, seed=14)
     active = (torch.from_numpy(np.random.default_rng(15).uniform(size=8191)
@@ -821,9 +824,12 @@ def _edge_rays(data, o3, d3, first, n, seed):
     """Rays ``first .. first + n - 1`` aimed at the midpoint of a random
     triangle's first edge, which the quad's other triangle shares: hits
     on u = 0 or v = 0 and ties at equal t."""
+    from opengl_raytracer_torch.ops.intersect import unpack_tri_records
+
     g = np.random.default_rng(seed)
     k = torch.from_numpy(g.integers(0, data.num_tris, n)).to(data.device)
-    target = data.v0[k] + 0.5 * data.e1[k]
+    v0, e1, _, _ = unpack_tri_records(data.tri_records)
+    target = v0[k] + 0.5 * e1[k]
     o = torch.stack([x[first:first + n] for x in o3], dim=1)
     d = target - o
     d = d / d.norm(dim=1, keepdim=True)
@@ -867,9 +873,9 @@ def _wide_node_records(data):
     bits."""
     from opengl_raytracer_torch.ops import traversal
 
-    narrow = traversal.node_records(data)
-    return torch.cat((narrow[:, :7], data.node_first[:, None],
-                      data.node_count[:, None],
+    narrow = data.node_records
+    _, _, _, first, count = traversal.unpack_node_records(narrow)
+    return torch.cat((narrow[:, :7], first[:, None], count[:, None],
                       torch.zeros_like(narrow[:, :3])), 1).contiguous()
 
 
@@ -880,13 +886,13 @@ def test_bvh_walk_kernel_reads_wide_node_records(cuda):
     from opengl_raytracer_torch.ops import traversal
 
     data = Scene(_objects(), max_leaf_tris=4).send(cuda)
-    narrow = traversal.node_records(data)
+    narrow = data.node_records
     assert narrow.shape[1] == 8
     wide_rec = _wide_node_records(data)
     for a, b in zip(traversal.unpack_node_records(wide_rec),
                     traversal.unpack_node_records(narrow)):
         assert torch.equal(a, b)
-    data.records["nodes"] = wide_rec
+    data = data._replace(node_records=wide_rec)
     o3, d3, t0 = _rays(3001, cuda, seed=31)
     active = t0 > -BIG
     leaf = effective_max_leaf(data)
@@ -911,7 +917,7 @@ def test_packet_walk_kernel_matches_plain(cuda, masked, records):
 
     data = Scene(_objects(), max_leaf_tris=4).send(cuda)
     if records == "wide":
-        data.records["nodes"] = _wide_node_records(data)
+        data = data._replace(node_records=_wide_node_records(data))
     o3, d3, t0 = _rays(3072, cuda, seed=37)
     _face_plane_rays(data, o3, d3, t0)
     _edge_rays(data, o3, d3, 6, 200, seed=38)
@@ -952,7 +958,7 @@ def test_packet_walk_kernel_warps_match_plain(cuda, records):
 
     data = Scene(_objects(), max_leaf_tris=4).send(cuda)
     if records == "wide":
-        data.records["nodes"] = _wide_node_records(data)
+        data = data._replace(node_records=_wide_node_records(data))
     R = 11 * 128
     o3, d3, t0 = _rays(R, cuda, seed=41)
     _face_plane_rays(data, o3, d3, t0)
@@ -1000,7 +1006,8 @@ def test_packet_walk_kernel_stages_large_leaves(cuda, build):
           else dict(max_leaf_tris=512))
     data = Scene(_objects(300 if build == "unbuilt" else 600),
                  **kw).send(cuda)
-    counts = data.node_count[data.node_count > 0]
+    counts = traversal.unpack_node_records(data.node_records)[4]
+    counts = counts[counts > 0]
     assert len(counts) == (1 if build == "unbuilt" else 2)
     assert (counts > 256).all() and (counts % 128 > 0).all()
     R = 8 * 128
@@ -1317,7 +1324,7 @@ def test_graph_counts_replays_and_keeps_the_overflow_counters(cuda):
     state = r.step(r.init_state(), make_camera(*_CAMS[0]))
     counts = dict(_kernels.launch_counts)
     n = config.n_bounces
-    parts = len(r.scene.parts)
+    parts = len(r.scene.k1_parts)
     assert counts["subblock_traversal"] == parts * n and counts["shade"] == n
     assert counts["ray_front"] == counts["band_fold"] == 1
     assert counts["step_block"] == 1 and counts["restore"] == 1

@@ -401,7 +401,7 @@ def test_epilogue_on_four_parts_matches_jax(monkeypatch):
     split into 4 parts: every part after the first combines with the
     earlier parts' hits and prunes against their t."""
     jdata, tdata = _jax_scene(800, 64 * 1024, monkeypatch)
-    assert len(tdata.parts) == 4
+    assert len(tdata.k1_parts) == 4
     R = 512
     o, d = _rays(R, seed=4)
     active = np.random.default_rng(9).uniform(size=R) < 0.7
@@ -418,7 +418,7 @@ def _raycast_inline(scene, o3, d3, active):
     R = o3[0].shape[0]
     near = None
     slot_base = 0
-    for part, (_, _, remap) in enumerate(scene.parts):
+    for part, (_, _, remap) in enumerate(scene.k1_parts):
         t0 = (torch.full((R,), BIG, dtype=torch.float32)
               if near is None else near.t)
         if active is not None:

@@ -253,7 +253,7 @@ def test_bvh_walk_counts_its_work():
     o3 = tuple(torch.from_numpy(x.copy()) for x in o)
     d3 = tuple(torch.from_numpy(x.copy()) for x in d)
     active = torch.arange(400) % 5 != 0
-    leaf = int(tdata.node_count.max())
+    leaf = tdata.max_leaf
     near, work = traversal._walk_plain(tdata, o3, d3, active, leaf,
                                        counts=True)
     plain = traversal.raycast_bvh(tdata, o3, d3, active, leaf)

@@ -18,8 +18,8 @@
   deeper than the largest column is refused;
 * a scene past the sub-block builder's caps renders under ``"auto"`` as
   ``"pallas"`` (K3);
-* the plain versions of ``probes/k2.py`` and the leaf accounting of
-  ``probes/k3.py``.
+* the plain versions of ``probes/k2.py``, the leaf accounting of
+  ``probes/k3.py`` and the reference of its octet fetch.
 
 Tolerance: exact everywhere (bit for bit); the walk repeats the plain
 version's float32 operations in its order.
@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_traversal import (_cols, _jax_scene, _port_scene, _rays,
-                                  _slab_plane_rays)
+from test_torch_traversal import (_cols, _fields, _jax_scene, _port_scene,
+                                  _rays, _slab_plane_rays)
 
 from opengl_raytracer_torch import (RenderConfig, Renderer, Triangles,
                                     make_camera)
@@ -40,11 +40,12 @@ from opengl_raytracer_torch.ops.intersect import BIG
 from opengl_raytracer_torch.ops import wide2
 from opengl_raytracer_torch.ops.wide_bvh import (EMPTY_ENTRY, EMPTY_PACKED,
                                                  MAX_LEAF_COUNT, PACK_LIMIT,
-                                                 decode_k3_leaf, pack_k3,
-                                                 stack_bound, unpack_k3,
-                                                 wide_depth)
+                                                 decode_k3_leaf, leaf_counts,
+                                                 pack_k3, stack_bound,
+                                                 unpack_k3, wide_depth)
 from opengl_raytracer_torch.probes import k2 as k2_probe
 from opengl_raytracer_torch.probes import k3 as k3_probe
+from test_torch_scene import field_parts
 from test_torch_scene import jax_native  # noqa: F401 (autouse)
 
 
@@ -52,18 +53,20 @@ def _bits(x):
     return np.ascontiguousarray(np.asarray(x, np.float32)).view(np.int32)
 
 
-def _assert_round_trip(data):
+def _assert_round_trip(fields, data):
+    """``data.k3`` decodes to the tiles of ``fields`` (``Scene.fields()``
+    or a JAX SceneData's) bit for bit."""
     nodes, octets = (x.numpy() for x in data.k3)
     assert nodes.dtype == np.int32 and nodes.shape[1] == 64
     assert octets.dtype == np.float32 and octets.shape[1] == 96
-    assert octets.shape[0] == data.pl_tri_tiles.shape[0] * 8
+    assert octets.shape[0] == fields["pl_tri_tiles"].shape[0] * 8
     pw, pl = unpack_k3(nodes, octets)
-    np.testing.assert_array_equal(_bits(pw), _bits(data.pw_tiles))
-    np.testing.assert_array_equal(_bits(pl), _bits(data.pl_tri_tiles))
+    np.testing.assert_array_equal(_bits(pw), _bits(fields["pw_tiles"]))
+    np.testing.assert_array_equal(_bits(pl), _bits(fields["pl_tri_tiles"]))
     word = nodes[:, 56:].astype(np.int64) & 0xFFFFFFFF
     slots = (word[:, :, None] >> (3 * np.arange(8))) & 7
     assert (np.sort(slots, axis=2) == np.arange(8)).all()
-    entry = data.pw_entry.numpy()  # the tiles' entries, slot order
+    entry = fields["pw_entry"]  # the tiles' entries, slot order
     full = entry != EMPTY_ENTRY
     assert (word >> 24 == ((full.astype(np.int64) << np.arange(8))
                            .sum(axis=1))[:, None]).all()  # non-empty slots
@@ -74,7 +77,7 @@ def _assert_round_trip(data):
     leaf = full & (entry < 0)
     first, count = decode_k3_leaf(ents[leaf])
     assert (first == -entry[leaf].astype(np.int64) - 1).all()
-    counts = data.node_count.numpy().astype(np.int64)
+    counts = np.asarray(fields["node_count"]).astype(np.int64)
     counts = counts[counts > 0]
     firsts = np.concatenate(([0], np.cumsum(-(-counts // 8))))[:-1]
     order = np.argsort(first)
@@ -88,12 +91,13 @@ def test_k3_tables_round_trip(leaf):
     """The port's own scene: the Hopper tables decode to its tiles bit for
     bit, the tree has empty slots and padding groups, and only the real
     nodes are kept."""
-    data = _port_scene(300, leaf=leaf).send("cpu")
-    nodes = _assert_round_trip(data)
+    scene = _port_scene(300, leaf=leaf)
+    fields = scene.fields()
+    nodes = _assert_round_trip(fields, scene.send("cpu"))
     assert (nodes[:, 48:56] == EMPTY_PACKED).any()  # empty slots
     W = nodes.shape[0]
-    assert W == data.pw_entry.shape[0]
-    assert data.pw_tiles.shape[0] * 8 >= W
+    assert W == fields["pw_entry"].shape[0]
+    assert fields["pw_tiles"].shape[0] * 8 >= W
 
 
 @pytest.mark.parametrize("leaf", [8, 16, 32])
@@ -102,9 +106,7 @@ def test_k3_tables_from_jax_scene(leaf):
     same Hopper tables as the port's own Scene of the same objects, and
     decode back to the JAX tiles."""
     jdata, tdata = _jax_scene(300, leaf=leaf)
-    _assert_round_trip(tdata)
-    np.testing.assert_array_equal(_bits(tdata.pw_tiles),
-                                  _bits(np.asarray(jdata.pw_tiles)))
+    _assert_round_trip(_fields(jdata), tdata)
     port = _port_scene(300, leaf=leaf).send("cpu")
     for a, b in zip(tdata.k3, port.k3):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -130,9 +132,9 @@ def test_k3_pack_refuses_what_it_cannot_hold():
     where no leaf starts, an octet past the leaf entry's budget and a leaf
     of more triangles than it can count (a build_bvh=False scene, whose
     K3 tables are left empty)."""
-    data = _port_scene(300, leaf=16).send("cpu")
-    pw, pl = data.pw_tiles.numpy(), data.pl_tri_tiles.numpy()
-    count = data.node_count.numpy()
+    fields = _port_scene(300, leaf=16).fields()
+    pw, pl = fields["pw_tiles"], fields["pl_tri_tiles"]
+    count = fields["node_count"]
     bad = pw.copy()
     bad[0, 0, 15] = 1.0  # node 0's pad lane
     with pytest.raises(ValueError, match="pad lanes"):
@@ -151,8 +153,8 @@ def test_k3_pack_refuses_what_it_cannot_hold():
     lanes[np.nonzero(live)[0][1]] = lanes[np.nonzero(live)[0][0]]
     with pytest.raises(ValueError):
         pack_k3(bad, pl, count)
-    entry = data.pw_entry.numpy()
-    inner = int(np.nonzero(wide.scene_leaf_counts(data).numpy() == 0)[0][0])
+    entry = fields["pw_entry"]
+    inner = int(np.nonzero(leaf_counts(count, pl.shape[0] * 8) == 0)[0][0])
     with pytest.raises(ValueError, match="no leaf starts"):
         pack_k3(_moved_leaf(pw, entry, inner), pl, count)
     with pytest.raises(ValueError, match="does not fit K3's leaf entry"):
@@ -160,12 +162,12 @@ def test_k3_pack_refuses_what_it_cannot_hold():
     g = np.random.default_rng(4)
     tris = g.uniform(-1, 1, (MAX_LEAF_COUNT + 1, 3, 3)).astype(np.float32)
     flat = scene_mod.Scene([Triangles(tris)], build_bvh=False)
-    fdata = flat.send("cpu")
-    assert int(fdata.node_count.max()) == MAX_LEAF_COUNT + 1
+    fdata, ffields = flat.send("cpu"), flat.fields()
+    assert fdata.max_leaf == MAX_LEAF_COUNT + 1
     assert fdata.k3[0].shape == (0, 64) and fdata.k3[1].shape == (0, 96)
     with pytest.raises(ValueError, match=f"leaf of {MAX_LEAF_COUNT + 1} "):
-        pack_k3(fdata.pw_tiles.numpy(), fdata.pl_tri_tiles.numpy(),
-                fdata.node_count.numpy())
+        pack_k3(ffields["pw_tiles"], ffields["pl_tri_tiles"],
+                ffields["node_count"])
 
 
 def _grid_triangles(n=601):
@@ -204,13 +206,13 @@ def test_k1_tables_unchanged_by_k3_counts(monkeypatch):
     nodes, octets = wide2.pack_k1(t.node_rows, t.tri_rows)
     digest = hashlib.sha256(nodes.tobytes() + octets.tobytes()).hexdigest()
     assert digest == K1_GRID_SHA256
-    data = _port_scene(300, leaf=32).send("cpu")
-    rows = [x.numpy() for x in data.parts[0][:2]]
+    scene = _port_scene(300, leaf=32)
+    data, fields = scene.send("cpu"), scene.fields()
+    rows = field_parts(fields)[0][:2]
     before = wide2.pack_k1(*rows)
-    pack_k3(data.pw_tiles.numpy(), data.pl_tri_tiles.numpy(),
-            data.node_count.numpy())
+    pack_k3(fields["pw_tiles"], fields["pl_tri_tiles"], fields["node_count"])
     after = wide2.pack_k1(*rows)
-    for a, b, c in zip(before, after, data.k1_parts[0]):
+    for a, b, c in zip(before, after, data.k1_parts[0][:2]):
         assert a.tobytes() == b.tobytes() == c.numpy().tobytes()
 
 
@@ -298,14 +300,14 @@ def _walk(nodes, octets, o, d, inv, bt, slot, bu, bv, entries):
             groups.append((w, mask & (mask - 1)))
 
 
-def _walk_rays(data, R, seed):
+def _walk_rays(fields, R, seed):
     """Random rays with axis-parallel rays whose origins lie on the root's
     children's slab planes (4-15) and, as in
     test_k3_face_plane_rays_follow_per_ray_slab_test, one ray in a face
     plane of the scene's box and one just off it (0-1)."""
     o, d = _rays(R, seed=seed)
-    _slab_plane_rays(data, o, d)
-    lo0 = data.node_min[0].numpy()
+    _slab_plane_rays(fields, o, d)
+    lo0 = fields["node_min"][0]
     o[:, :2] = np.asarray([[0.0, lo0[1], lo0[2] - 1.0],
                            [0.0, lo0[1] + np.float32(1e-3), lo0[2] - 1.0]],
                           np.float32).T
@@ -319,15 +321,15 @@ def test_k3_scalar_walk_matches_plain(leaf):
     plain version's t, slot, u and v bit for bit, and its visits, leaf
     entries, candidate triangles, octets and triangles tested, ray by
     ray."""
-    data = _port_scene(800, leaf=leaf).send("cpu")
+    scene = _port_scene(800, leaf=leaf)
+    data = scene.send("cpu")
     R = 40
-    o, d = _walk_rays(data, R, seed=21)
+    o, d = _walk_rays(scene.fields(), R, seed=21)
     t0 = np.full(R, BIG, np.float32)
     t0[[17, 29]] = -BIG  # dead rays
     t0[33] = np.float32(2.5)  # an entry t: prunes against it
     *got, dropped, counts = wide._traverse_plain(
-        data.pw_tiles, data.pl_tri_tiles, wide.scene_leaf_counts(data),
-        _cols(o), _cols(d), torch.from_numpy(t0),
+        *data.k3, _cols(o), _cols(d), torch.from_numpy(t0),
         wide.stack_size(data.pw_max_stack), counts=True)
     assert int(dropped) == 0 and counts.shape == (5, R)
     nodes, octets = (x.numpy() for x in data.k3)
@@ -348,8 +350,7 @@ def test_k3_counting_leaves_hits_unchanged():
     """Counting does not change the plain version's results."""
     data = _port_scene(400, leaf=16).send("cpu")
     o, d = _rays(256, seed=22)
-    args = (data.pw_tiles, data.pl_tri_tiles, wide.scene_leaf_counts(data),
-            _cols(o), _cols(d), torch.full((256,), BIG),
+    args = (*data.k3, _cols(o), _cols(d), torch.full((256,), BIG),
             wide.stack_size(data.pw_max_stack))
     plain = wide._traverse_plain(*args)
     counted = wide._traverse_plain(*args, counts=True)
@@ -384,7 +385,7 @@ def test_auto_runs_k3_past_subblock_caps(monkeypatch):
     monkeypatch.setattr(scene_mod, "build_subblock_parts", over_caps)
     scene = _port_scene(400, leaf=32)
     data = scene.send("cpu")
-    assert data.p2_node_rows.shape[0] == 0 and data.sh_slot.shape[0] == 0
+    assert len(data.k1_parts) == 0 and data.sh_slot.shape[0] == 0
     cam = make_camera([0.0, 0.0, -14.0], (0.0, 0.0))
     imgs = []
     for traversal in ("auto", "pallas"):
@@ -402,10 +403,11 @@ def test_k3_own_share_reads_only_own_leaves():
     tests: every octet and triangle tested is the entered leaf's own
     (share 1.0), and short leaves test fewer than whole octets; an entry
     where no leaf starts is refused."""
-    data = _port_scene(600, leaf=32).send("cpu")
+    scene = _port_scene(600, leaf=32)
+    data, fields = scene.send("cpu"), scene.fields()
     nodes, octets = (x.numpy() for x in data.k3)
     Q = octets.shape[0]
-    o, d = _walk_rays(data, 48, seed=23)
+    o, d = _walk_rays(fields, 48, seed=23)
     hist = np.zeros(Q, np.int64)
     tested = np.zeros(2, np.int64)  # octets, triangles
     for r in range(o.shape[1]):
@@ -421,21 +423,23 @@ def test_k3_own_share_reads_only_own_leaves():
     stages["octets"] += 1  # a neighbour's octet read
     assert k3_probe.own_share(data, torch.from_numpy(hist),
                               stages)["own_share"] < 1.0
-    counts = wide.scene_leaf_counts(data).numpy()
+    counts = leaf_counts(fields["node_count"], Q)
     hist[int(np.nonzero(counts == 0)[0][0])] = 1
     with pytest.raises(RuntimeError, match="no leaf starts"):
         k3_probe.own_share(data, torch.from_numpy(hist), stages)
 
 
 def test_k3_tile_octets_are_the_tables_octets():
-    """The probe's tile slices (the octet fetch's reference) are the
-    Hopper octets read back in the tiles' lane order."""
-    data = _port_scene(300, leaf=16).send("cpu")
+    """The octet fetch's reference, ``unpack_octets`` of K3's octet rows,
+    is the tiles' octets (``Scene.fields()``): octet q is tile q // 8, its
+    8 rows, lanes ``(q % 8) * 16 .. + 16``."""
+    scene = _port_scene(300, leaf=16)
+    data, pl = scene.send("cpu"), scene.fields()["pl_tri_tiles"]
     Q = data.k3[1].shape[0]
     idx = [0, 1, 7, 8, 9, Q - 1]
-    tiles = k3_probe.tile_octets(data.pl_tri_tiles, idx).numpy()
-    _, pl = unpack_k3(*(x.numpy() for x in data.k3))
-    ref = k3_probe.tile_octets(torch.from_numpy(pl), idx).numpy()
+    ref = wide2.unpack_octets(data.k3[1].numpy()[idx])
+    tiles = np.stack([pl[q // 8, :, (q % 8) * 16:(q % 8) * 16 + 16]
+                      for q in idx])
     np.testing.assert_array_equal(_bits(tiles), _bits(ref))
     octs = data.k3[1].numpy()[idx].reshape(-1, 8, 12)
     np.testing.assert_array_equal(_bits(tiles[:, :, 0:3]),

@@ -236,7 +236,7 @@ def test_default_scene_tables_bit_equal_to_jax(tmp_path, monkeypatch):
     assert obj_mod.last_parser == "native"
     assert bvh_mod.last_builder == "native"
     assert jloader._lib is not None  # the JAX side ran native too
-    _assert_scene_equal(jdata, scene.send("cpu"))
+    _assert_scene_equal(jdata, scene)
 
 
 @pytest.mark.parametrize("name", ["objparser.cpp", "bvh.cpp"])

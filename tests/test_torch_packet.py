@@ -64,6 +64,15 @@ def _scene(n_tris, leaf, build_bvh=True):
     return data, scene_from_numpy(_fields(data), "cpu")
 
 
+def _tables(jdata):
+    """The binary BVH's five node arrays and the four triangle arrays of
+    a JAX SceneData, as NumPy arrays (the scalar walk's tables)."""
+    return ([np.asarray(getattr(jdata, k)) for k in (
+        "node_min", "node_max", "node_miss", "node_first", "node_count")],
+            [np.asarray(getattr(jdata, k)) for k in ("v0", "e1", "e2",
+                                                    "face")])
+
+
 def _odd_rays(jdata, R, seed):
     """Random rays with axis-parallel ones, rays in face planes of the
     root's and of an inner node's box, rays aimed at shared edges of the
@@ -110,7 +119,7 @@ def _cols(x):
 @pytest.mark.parametrize("masked", [True, False])
 def test_packet_plain_matches_jax(n_tris, leaf, masked):
     jdata, tdata = _scene(n_tris, leaf)
-    assert (tdata.node_miss.shape[0] == 1) == (n_tris == 4)
+    assert (tdata.node_records.shape[0] == 1) == (n_tris == 4)
     R = 8 * PACKET
     o, d, active = _odd_rays(jdata, R, seed=5)
     act = active if masked else None
@@ -179,16 +188,13 @@ def test_packet_counts_match_scalar_walk():
     R = 4 * PACKET
     o, d, active = _odd_rays(jdata, R, seed=9)
     act = torch.from_numpy(active)
-    leaf = int(tdata.node_count.max())
+    leaf = tdata.max_leaf
     near, work = _packet_plain(tdata, _cols(o), _cols(d), act, leaf,
                                counts=True)
     plain = _packet_plain(tdata, _cols(o), _cols(d), act, leaf)
     for a, b in zip(near[:4], plain[:4]):
         assert torch.equal(a, b)
-    nodes = [x.numpy() for x in (tdata.node_min, tdata.node_max,
-                                 tdata.node_miss, tdata.node_first,
-                                 tdata.node_count)]
-    tris = [x.numpy() for x in (tdata.v0, tdata.e1, tdata.e2, tdata.face)]
+    nodes, tris = _tables(jdata)
     for p in range(R // PACKET):
         s = slice(p * PACKET, (p + 1) * PACKET)
         visits, slots, cands = _scalar_packet(nodes, tris, o[:, s], d[:, s],
@@ -223,7 +229,8 @@ def test_packet_large_leaves(n_tris, leaf, build_bvh):
     packet walk's arithmetic.  (That walk unrolls a leaf's slots, too many
     here to compile on the CPU in a test's time.)"""
     jdata, tdata = _scene(n_tris, leaf, build_bvh)
-    counts = tdata.node_count[tdata.node_count > 0]
+    counts = np.asarray(jdata.node_count)
+    counts = counts[counts > 0]
     assert len(counts) == (1 if not build_bvh else 2)
     assert (counts > 2 * PACKET).all() and (counts % PACKET > 0).all()
     R = 8 * PACKET
@@ -236,10 +243,7 @@ def test_packet_large_leaves(n_tris, leaf, build_bvh):
     for x, y in zip(near[:4], got[:4]):
         assert torch.equal(x, y)
     assert (got.t[~act] == BIG).all() and not got.tri[~act].any()
-    nodes = [x.numpy() for x in (tdata.node_min, tdata.node_max,
-                                 tdata.node_miss, tdata.node_first,
-                                 tdata.node_count)]
-    tris = [x.numpy() for x in (tdata.v0, tdata.e1, tdata.e2, tdata.face)]
+    nodes, tris = _tables(jdata)
     for p in range(R // PACKET):
         s = slice(p * PACKET, (p + 1) * PACKET)
         visits, slots, cands = _scalar_packet(nodes, tris, o[:, s], d[:, s],
@@ -394,7 +398,6 @@ def test_renderer_packet_matches_jax(monkeypatch, cfg, blocked):
                  device="cpu")
     assert r.traversal == "packet"
     assert renderer.packet_blocks(r.config, "packet") == blocked
-    assert set(r.scene.records) == {"nodes", "tris"}
     got = r.image(r.render(make_camera(*CAM), frames=frames))
     assert seen and set(seen) == {not blocked}
     _assert_matches(ref, got)

@@ -30,7 +30,8 @@ from opengl_raytracer_torch import RenderConfig, Renderer, make_camera  # noqa: 
 from opengl_raytracer_torch.models import scene as scene_mod  # noqa: E402
 from opengl_raytracer_torch.ops import subblock_traversal as sbt  # noqa: E402
 from opengl_raytracer_torch.ops import wide2  # noqa: E402
-from opengl_raytracer_torch.ops.intersect import BIG, mt_single  # noqa: E402
+from opengl_raytracer_torch.ops.intersect import (  # noqa: E402
+    BIG, mt_single, unpack_tri_records)
 from opengl_raytracer_torch.renderer import resolve_traversal  # noqa: E402
 from opengl_raytracer_torch.utils import profiling  # noqa: E402
 from rtbench import compare, harness, scenes, trace  # noqa: E402
@@ -73,7 +74,7 @@ def test_sixteen_part_render_matches_the_reference(monkeypatch):
     bounces at 48x27 lie within the cell's limit of the reference."""
     small_budget(monkeypatch)
     objs, scene, data, pos, cam_dir = cornell()
-    assert len(data.parts) == 16
+    assert len(data.k1_parts) == 16
     config = harness.load_json(os.path.join(harness.HERE, "configs",
                                              "cornell-buddha.json"))
     render = dict(config["render"], width=48, height=27, bounces=3)
@@ -120,9 +121,9 @@ def test_sixteen_parts_hit_as_one(monkeypatch, n_parts):
     one = cornell()[2]
     small_budget(monkeypatch, *SPLITS[n_parts])
     sixteen = cornell()[2]
-    assert (len(one.parts), len(sixteen.parts)) == (1, n_parts)
-    for a in ("v0", "e1", "e2", "face"):  # one triangle order
-        assert torch.equal(getattr(one, a), getattr(sixteen, a))
+    assert (len(one.k1_parts), len(sixteen.k1_parts)) == (1, n_parts)
+    # one triangle order
+    assert torch.equal(one.tri_records, sixteen.tri_records)
 
     o3, d3, active = _rays(4096)
     ov = sbt.overflow_tensor("cpu")
@@ -141,8 +142,7 @@ def test_sixteen_parts_hit_as_one(monkeypatch, n_parts):
         o, d = tuple(x[tie] for x in o3), tuple(x[tie] for x in d3)
         for tri in (got.tri[tie].long(), ref.tri[tie].long()):
             valid, t, _, _ = mt_single(o, d, *(
-                getattr(one, a)[tri].unbind(1)
-                for a in ("v0", "e1", "e2", "face")))
+                x[tri].unbind(1) for x in unpack_tri_records(one.tri_records)))
             assert valid.all() and torch.equal(t, got.t[tie])
     same = hit & ~tie
     assert torch.equal(got.u[same], ref.u[same])
@@ -171,7 +171,7 @@ def test_subblock_span_reports_a_refused_build(monkeypatch):
     assert args["refused"] is True and args["parts"] == 0
     assert args["rounds"] >= 1 and args["largest_part_bytes"] > 2048
     assert (args["budget_bytes"], args["max_parts"]) == (2048, 16)
-    assert data.p2_node_rows.shape[0] == 0
+    assert len(data.k1_parts) == 0
     assert resolve_traversal(data, "auto") == "pallas"
 
 
@@ -190,7 +190,7 @@ def test_scene_splits_at_the_cards_budget(monkeypatch):
     monkeypatch.setattr(scene_mod, "build_subblock_parts", recorded)
     config = harness.load_json(os.path.join(harness.HERE, "configs",
                                              "cornell-minidragon.json"))
-    data = harness.build_scene(config, trace.Spans(False), "cpu")[2]
+    scene, data = harness.build_scene(config, trace.Spans(False), "cpu")[1:3]
     (args, kw), = calls
     assert (kw["budget_bytes"], kw["max_parts"]) == (
         wide2.CARD_TABLE_BUDGET_BYTES, wide2.CARD_MAX_PARTS) == (
@@ -200,8 +200,11 @@ def test_scene_splits_at_the_cards_budget(monkeypatch):
         1, 31_457_280, 4)
     assert args[0].shape[0] == 27_542
     jax_split = wide2.build_subblock_parts(*args)  # the JAX defaults
-    assert len(jax_split) == len(data.parts) == 1
-    for got, ref in zip(data.parts[0], jax_split[0]):
+    fields = scene.fields()
+    parts = [(fields["p2_node_rows"], fields["p2_tri_rows"],
+              fields["p2_remap"]), *fields["p2_extra"]]
+    assert len(jax_split) == len(parts) == len(data.k1_parts) == 1
+    for got, ref in zip(parts[0], jax_split[0]):
         assert np.array_equal(np.asarray(got).view(np.uint32),
                               np.asarray(ref).view(np.uint32))
 
@@ -231,7 +234,7 @@ def test_refusal_builds_no_part(monkeypatch):
     small_budget(monkeypatch, BUDGET, wide2.CARD_MAX_PARTS)
     data = cornell()[2]
     args = _subblock_span().args
-    assert args["refused"] is True and data.p2_node_rows.shape[0] == 0
+    assert args["refused"] is True and len(data.k1_parts) == 0
     assert (args["rounds"], args["largest_part_bytes"]) == (
         1, (80 + 8) * 512)
     assert not built

@@ -151,7 +151,7 @@ def test_auto_picks_brute_for_small_scenes():
 
 
 def test_auto_picks_subblock_kernel(scene):
-    assert scene.send("cpu").p2_node_rows.shape[0] > 0
+    assert len(scene.send("cpu").k1_parts) > 0
     assert _resolved(scene) == "pallas2"
 
 
@@ -163,7 +163,7 @@ def test_auto_picks_wide_kernel_without_subblock_tables(monkeypatch):
 
     monkeypatch.setattr(tscene_mod, "build_subblock_parts", over_caps)
     big = Scene(_objects(Rect, Triangles))
-    assert big.send("cpu").p2_node_rows.shape[0] == 0
+    assert len(big.send("cpu").k1_parts) == 0
     assert _resolved(big) == "pallas"
     r = Renderer(big, RenderConfig(width=16, height=16, bounces=2,
                                    traversal="pallas2"), device="cpu")

@@ -3,8 +3,10 @@
 Both packages build every table with the same builders from the same
 objects (the per-triangle arrays, the binary BVH, the wide-BVH tiles, the
 octet-aligned triangle tiles, the sub-block parts and both shading
-tables), so every table must be BIT-equal (compared as raw 32-bit
-patterns); the Morton/octant sort keys must be bit-equal too.
+tables), so every table of ``Scene.fields()`` must be BIT-equal (compared
+as raw 32-bit patterns) to the JAX SceneData's, and the port's upload,
+each table packed into its kernel's layout, must give them back bit for
+bit; the Morton/octant sort keys must be bit-equal too.
 
 Every port test module that builds a JAX scene imports :func:`jax_native`
 from here, which makes the JAX package's native library load first
@@ -33,8 +35,13 @@ from opengl_raytracer_tpu.ops.morton import ray_sort_keys_soa as j_keys
 import opengl_raytracer_torch.models.scene as tscene_mod
 import opengl_raytracer_torch.ops.wide2 as twide2
 from opengl_raytracer_torch import Rect, Scene, Triangles, scene_from_numpy
+from opengl_raytracer_torch.ops.intersect import unpack_tri_records
 from opengl_raytracer_torch.ops.morton import ray_sort_keys_soa
-from opengl_raytracer_torch.ops.wide_bvh import collapse_wide, validate_wide
+from opengl_raytracer_torch.ops.traversal import unpack_node_records
+from opengl_raytracer_torch.ops.wide2 import unpack_k1
+from opengl_raytracer_torch.ops.wide_bvh import (MAX_LEAF_COUNT, collapse_wide,
+                                                 unpack_k3, validate_wide,
+                                                 wide_max_stack)
 
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,10 +133,11 @@ def _assert_bit_equal(a, b, name):
     np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=name)
 
 
-# SceneData fields both packages have, besides the sub-block parts
+# SceneData fields both packages' tables have, besides the sub-block parts
 _SHARED = ("v0", "e1", "e2", "face", "node_min", "node_max", "node_miss",
            "node_first", "node_count", "pw_tiles", "pw_entry",
            "pl_tri_tiles", "pl_remap", "sh_abc", "sh_slot")
+_NODES = ("node_min", "node_max", "node_miss", "node_first", "node_count")
 
 
 def _jax_fields(data):
@@ -141,25 +149,72 @@ def _jax_fields(data):
     return fields
 
 
-def _assert_scene_equal(jdata, tdata):
+def field_parts(fields):
+    """The sub-block parts of a dict of tables named as the JAX
+    ``SceneData`` fields: a (node_rows, tri_rows, remap) a part, in part
+    order; none where the scene has no sub-block tables."""
+    if np.shape(fields["p2_node_rows"])[0] == 0:
+        return []
+    return [tuple(np.asarray(x) for x in p) for p in (
+        (fields["p2_node_rows"], fields["p2_tri_rows"], fields["p2_remap"]),
+        *fields["p2_extra"])]
+
+
+def _assert_upload_equal(fields, tdata):
+    """The uploaded tables give ``fields`` back bit for bit: each part's
+    K1 tables (``unpack_k1``) and remap, K3's (``unpack_k3``), the node and
+    triangle records, ``pl_remap``, the shading rows, the root bounds, and
+    the scalars."""
+    parts = field_parts(fields)
+    assert len(tdata.k1_parts) == len(parts)
+    for k, (p, (nodes, octets, remap)) in enumerate(zip(parts,
+                                                        tdata.k1_parts)):
+        got = (*unpack_k1(nodes.numpy(), octets.numpy()), remap.numpy())
+        for name, ref, x in zip(("node_rows", "tri_rows", "remap"), p, got):
+            _assert_bit_equal(ref, x, f"part {k} {name}")
+    node_count = np.asarray(fields["node_count"])
+    if node_count.max() > MAX_LEAF_COUNT:
+        assert tdata.k3[0].shape[0] == tdata.k3[1].shape[0] == 0
+    else:
+        for name, x in zip(("pw_tiles", "pl_tri_tiles"),
+                           unpack_k3(*(t.numpy() for t in tdata.k3))):
+            _assert_bit_equal(fields[name], x, name)
+    for name, x in zip(("v0", "e1", "e2", "face"),
+                       unpack_tri_records(tdata.tri_records)):
+        _assert_bit_equal(fields[name], x.numpy(), name)
+    for name, x in zip(_NODES, unpack_node_records(tdata.node_records)):
+        _assert_bit_equal(fields[name], x.numpy(), name)
+    for name in ("pl_remap", "sh_abc", "sh_slot"):
+        _assert_bit_equal(fields[name], getattr(tdata, name).numpy(), name)
+    _assert_bit_equal(np.asarray(fields["node_min"])[0], tdata.root_min,
+                      "root_min")
+    _assert_bit_equal(np.asarray(fields["node_max"])[0], tdata.root_max,
+                      "root_max")
+    assert tdata.pw_max_stack == wide_max_stack(np.asarray(fields["pw_entry"]))
+    assert tdata.max_leaf == int(node_count.max())
+
+
+def _assert_scene_equal(jdata, scene, tdata=None):
+    """``scene.fields()`` equal the JAX SceneData's tables bit for bit, and
+    the port's upload (``tdata``, else ``scene.send("cpu")``) gives them
+    back."""
+    jfields, fields = _jax_fields(jdata), scene.fields()
     for name in _SHARED:
-        _assert_bit_equal(getattr(jdata, name),
-                          getattr(tdata, name).numpy(), name)
-    assert len(tdata.p2_extra) == len(jdata.p2_extra)
-    jparts = [(jdata.p2_node_rows, jdata.p2_tri_rows, jdata.p2_remap),
-              *jdata.p2_extra]
-    for k, (jp, tp) in enumerate(zip(jparts, tdata.parts)):
+        _assert_bit_equal(jfields[name], fields[name], name)
+    jparts, parts = field_parts(jfields), field_parts(fields)
+    assert len(parts) == len(jparts)
+    for k, (jp, tp) in enumerate(zip(jparts, parts)):
         for name, ja, ta in zip(("node_rows", "tri_rows", "remap"), jp, tp):
-            _assert_bit_equal(ja, ta.numpy(), f"part {k} {name}")
-    _assert_bit_equal(np.asarray(jdata.node_min)[0], tdata.root_min, "root_min")
-    _assert_bit_equal(np.asarray(jdata.node_max)[0], tdata.root_max, "root_max")
+            _assert_bit_equal(ja, ta, f"part {k} {name}")
+    _assert_upload_equal(fields, scene.send("cpu") if tdata is None
+                         else tdata)
 
 
 def test_single_part_tables_bit_equal():
     jdata = JScene(_objects(JRect, JTriangles, 300)).send()
-    tdata = Scene(_objects(Rect, Triangles, 300)).send("cpu")
-    assert tdata.p2_node_rows.shape[0] > 0 and len(tdata.p2_extra) == 0
-    _assert_scene_equal(jdata, tdata)
+    scene = Scene(_objects(Rect, Triangles, 300))
+    assert len(scene.send("cpu").k1_parts) == 1
+    _assert_scene_equal(jdata, scene)
 
 
 def test_multi_part_tables_bit_equal(monkeypatch):
@@ -173,9 +228,9 @@ def test_multi_part_tables_bit_equal(monkeypatch):
     monkeypatch.setattr(tscene_mod, "build_subblock_parts",
                         lambda *a, **k: torig(*a, budget_bytes=64 * 1024))
     jdata = JScene(_objects(JRect, JTriangles, 1200), max_leaf_tris=16).send()
-    tdata = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16).send("cpu")
-    assert len(tdata.p2_extra) >= 1
-    _assert_scene_equal(jdata, tdata)
+    scene = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16)
+    assert len(scene.send("cpu").k1_parts) >= 2
+    _assert_scene_equal(jdata, scene)
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,10 +318,11 @@ def test_wide_tables_bit_equal(leaf):
     jdata = JScene(_objects(JRect, JTriangles, 300), **kw).send()
     scene = Scene(_objects(Rect, Triangles, 300), **kw)
     tdata = scene.send("cpu")
-    _assert_scene_equal(jdata, tdata)
+    _assert_scene_equal(jdata, scene)
     if leaf == "no_bvh":
         assert scene.bvh is None
-        assert tdata.node_count.tolist() == [scene.total_triangles]
+        assert scene.fields()["node_count"].tolist() == [
+            scene.total_triangles]
     else:
         # the leaves' first octets, as Scene.fields lays the octets out
         counts = scene.bvh.node_count
@@ -275,15 +331,15 @@ def test_wide_tables_bit_equal(leaf):
         first[counts > 0] = np.concatenate(([0], np.cumsum(octets)))[:-1]
         wide = collapse_wide(scene.bvh, first)
         validate_wide(wide, scene.bvh)
-        np.testing.assert_array_equal(wide.entry, tdata.pw_entry.numpy())
+        np.testing.assert_array_equal(wide.entry, scene.fields()["pw_entry"])
         assert wide.max_stack == tdata.pw_max_stack
 
 
 def test_scene_from_numpy_round_trip():
     """scene_from_numpy of the JAX SceneData's fields carries every table
-    over unchanged."""
-    jdata = JScene(_objects(JRect, JTriangles, 300)).send()
-    _assert_scene_equal(jdata, scene_from_numpy(_jax_fields(jdata), "cpu"))
+    over unchanged: the upload gives them back bit for bit."""
+    jfields = _jax_fields(JScene(_objects(JRect, JTriangles, 300)).send())
+    _assert_upload_equal(jfields, scene_from_numpy(jfields, "cpu"))
 
 
 @pytest.mark.parametrize("R", [1000, 4096])
@@ -322,7 +378,7 @@ def test_wait_for_jax_native_reloads_a_latched_failure(monkeypatch):
     # the JAX side now builds its BVH natively: the port's tables equal it
     objs = _objects(JRect, JTriangles, 300)
     _assert_scene_equal(JScene(objs).send(),
-                        Scene(_objects(Rect, Triangles, 300)).send("cpu"))
+                        Scene(_objects(Rect, Triangles, 300)))
 
 
 def test_morton3d_and_ray_sort_keys_match_jax():
@@ -385,10 +441,10 @@ def test_validate_subblock_passes_and_fails_as_jax(monkeypatch):
     monkeypatch.setattr(tscene_mod, "build_subblock_parts",
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
     scene = Scene(_objects(Rect, Triangles, 1200), max_leaf_tris=16)
-    parts = scene.send("cpu").parts
+    parts = field_parts(scene.fields())
     assert len(parts) > 1
     for nr, tr, rm in parts:
-        tables = SubblockTables(nr.numpy(), tr.numpy(), rm.numpy(), 0, 0, 0)
+        tables = SubblockTables(nr, tr, rm, 0, 0, 0)
         validate_subblock(tables)
         j_validate(tables, scene.total_triangles)
     # the root pushes its first entry twice: its octets are reached twice
@@ -418,7 +474,7 @@ def test_send_keeps_one_upload_a_device_until_clear_memory():
     scene.clearMemory()
     again = scene.send("cpu")
     assert again is not data
-    _assert_scene_equal(jscene.send(), again)
+    _assert_scene_equal(jscene.send(), scene, again)
 
 
 @pytest.mark.parametrize("leaf", [4, 16, 32, "no_bvh"])

@@ -543,12 +543,10 @@ def _launch(kernel, device, odd_one=None):
             o3, d3, t("alive", R, torch.bool), t("seed", R, torch.int64),
             block)
     if kernel in ("brute_sweep", "bvh_walk", "packet_walk"):
-        # the records as the first use packs them (intersect.tri_records,
-        # traversal.node_records)
+        # the scene's records, as the upload packs them
         scene = types.SimpleNamespace(
-            v0=t("v0", (8, 3)), node_miss=t("node_miss", 3, torch.int32),
-            records={"tris": t("tris", (8, 12)),
-                     "nodes": t("nodes", (3, 8), torch.int32)})
+            num_tris=8, tri_records=t("tris", (8, 12)),
+            node_records=t("nodes", (3, 8), torch.int32))
         if kernel == "brute_sweep":
             return intersect._sweep_cuda(scene, o3, d3)
         if kernel == "packet_walk":

@@ -9,13 +9,14 @@
 * ``raycast_brute`` (the sweep's plain version, ``_sweep_plain``) against
   the JAX ``raycast_brute`` and against the scalar oracle of
   tests/oracle.py, and ``raycast_bvh`` against the JAX ``raycast_bvh``;
-  the records G7 and G8 read give the tables back bit for bit;
+  the records G7, G8 and G9 read give the tables back bit for bit;
 * K1's Hopper tables (``SceneData.k1_parts``, ops/wide2.pack_k1): they
-  decode back to the ``p2_*`` rows bit for bit, the JAX scene's carry
-  over to the same tables as the port's own, and a scalar NumPy walk over
-  them in the kernel's way (a stack of node groups, each child opened at
-  its parent's visit with ``near <= best_t``) visits what the plain
-  version counts and finds its hits exactly.
+  decode back to the ``p2_*`` rows of ``Scene.fields()`` bit for bit, the
+  JAX scene's carry over to the same tables as the port's own, and a
+  scalar NumPy walk over them in the kernel's way (a stack of node
+  groups, each child opened at its parent's visit with ``near <=
+  best_t``) visits what the plain version counts and finds its hits
+  exactly.
 
 Tolerances:
 
@@ -53,13 +54,14 @@ from opengl_raytracer_torch.models import scene as scene_mod
 from opengl_raytracer_torch.ops import pallas_traversal
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import (BIG, _sweep_plain,
-                                                  raycast_brute, tri_records,
+                                                  raycast_brute,
                                                   unpack_tri_records)
 from opengl_raytracer_torch.ops.subblock_traversal import (overflow_tensor,
                                                            raycast_subblock)
-from opengl_raytracer_torch.ops.traversal import (node_records, raycast_bvh,
+from opengl_raytracer_torch.ops.traversal import (raycast_bvh,
                                                   unpack_node_records)
 from opengl_raytracer_torch.ops.wide2 import EMPTY_PACKED, pack_k1, unpack_k1
+from test_torch_scene import field_parts
 from test_torch_scene import jax_native  # noqa: F401 (autouse)
 from torch_states import box_objects
 
@@ -169,7 +171,7 @@ def test_plain_matches_jax_subblock(parts, monkeypatch):
     budget = 96 * 1024 if parts == "multi" else None  # two parts
     jdata, tdata = _jax_scene(600 if parts == "multi" else 257, budget,
                               monkeypatch)
-    assert len(tdata.parts) == (2 if parts == "multi" else 1)
+    assert len(tdata.k1_parts) == (2 if parts == "multi" else 1)
     R = 512
     o, d = _rays(R)
     active = np.random.default_rng(7).uniform(size=R) < 0.7
@@ -187,7 +189,7 @@ def test_plain_matches_jax_packet(parts, monkeypatch):
     budget = 64 * 1024 if parts == "multi" else None  # eight parts
     jdata, tdata = _jax_scene(1200 if parts == "multi" else 257, budget,
                               monkeypatch)
-    assert len(tdata.parts) == (8 if parts == "multi" else 1)
+    assert len(tdata.k1_parts) == (8 if parts == "multi" else 1)
     R = 4096
     o, d = _rays(R, seed=2)
     ref = j_packet(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
@@ -196,13 +198,14 @@ def test_plain_matches_jax_packet(parts, monkeypatch):
     assert _check(jdata, ref, got, o, d) < R // 100
 
 
-def _slab_plane_rays(jdata, o, d, first=4, n=12):
+def _slab_plane_rays(fields, o, d, first=4, n=12):
     """Rays ``first..first+n``: axis-parallel, each with its origin on a
-    slab plane of one of the root's child boxes, inside the scene's bounds,
-    so that box's slab test meets 0 * inf = NaN and the child is not
-    opened."""
-    tiles = np.asarray(jdata.pw_tiles)
-    lo0, hi0 = np.asarray(jdata.node_min)[0], np.asarray(jdata.node_max)[0]
+    slab plane of one of the root's child boxes (of the scene's tables
+    ``fields``), inside the scene's bounds, so that box's slab test meets
+    0 * inf = NaN and the child is not opened."""
+    tiles = np.asarray(fields["pw_tiles"])
+    lo0 = np.asarray(fields["node_min"])[0]
+    hi0 = np.asarray(fields["node_max"])[0]
     planes = [(j, a, side) for j in range(8) for a in range(3)
               for side in (0, 3)
               if tiles[0, j, 0] <= tiles[0, j, 3]  # not an empty slot
@@ -225,10 +228,10 @@ def test_k3_plain_matches_jax_pallas(leaf):
     """K3's plain version against the JAX kernel in interpret mode, with
     an active mask, on tables carried over by scene_from_numpy."""
     jdata, tdata = _jax_scene(200, leaf=leaf)
-    assert tdata.pl_tri_tiles.shape[0] > 0
+    assert tdata.k3[1].shape[0] > 0
     R = 256
     o, d = _rays(R, seed=3)
-    _slab_plane_rays(jdata, o, d)
+    _slab_plane_rays(_fields(jdata), o, d)
     active = np.random.default_rng(8).uniform(size=R) < 0.8
     active[:16] = True
     ref = j_pallas(jdata, jnp.asarray(o.T), jnp.asarray(d.T),
@@ -338,10 +341,11 @@ def _bits(x):
 @pytest.mark.parametrize("kind,width", [("box", 8), ("soup", 8),
                                         ("no_bvh", 12)])
 def test_records_round_trip(kind, width):
-    """G7's node records and the triangle records of G7 and G8 give the
-    scene's tables back bit for bit: the box, a triangle soup, and a
-    build_bvh=False scene, whose one leaf of 2,112 triangles does not fit
-    the 32-byte record's 11-bit count and takes the 48-byte one."""
+    """The node records of G7 and G9 and the triangle records of G7, G8
+    and G9, packed at upload, give the scene's tables (``Scene.fields()``)
+    back bit for bit: the box, a triangle soup, and a build_bvh=False
+    scene, whose one leaf of 2,112 triangles does not fit the 32-byte
+    record's 11-bit count and takes the 48-byte one."""
     g = np.random.default_rng(3)
     objs = {"box": box_objects,
             "soup": lambda: [Triangles(g.uniform(-3, 3, (500, 3, 3))
@@ -351,22 +355,22 @@ def test_records_round_trip(kind, width):
                                Rect([1, 1, 1], [0, 0, 0], [0, 0, 0],
                                     [1, 1, 1])]}[kind]()
     scene = Scene(objs, build_bvh=kind != "no_bvh")
-    data = scene.send("cpu")
+    data, fields = scene.send("cpu"), scene.fields()
     if kind == "box":
         assert scene.total_triangles == 84
-    assert not data.records
-    nodes, tris = node_records(data), tri_records(data)
-    assert node_records(data) is nodes and tri_records(data) is tris
+    nodes, tris = data.node_records, data.tri_records
     assert nodes.dtype == torch.int32 and nodes.shape == (
-        data.node_miss.shape[0], width)
+        fields["node_miss"].shape[0], width)
     assert tris.shape == (data.num_tris, 12)
+    assert data.max_leaf == int(fields["node_count"].max())
     names = ("node_min", "node_max", "node_miss", "node_first", "node_count")
     for name, x in zip(names, unpack_node_records(nodes)):
-        ref = getattr(data, name)
+        ref = torch.from_numpy(np.ascontiguousarray(fields[name]))
         assert x.dtype == ref.dtype and x.shape == ref.shape, name
         assert torch.equal(_bits(x), _bits(ref)), name
     for name, x in zip(("v0", "e1", "e2", "face"), unpack_tri_records(tris)):
-        assert torch.equal(_bits(x), _bits(getattr(data, name))), name
+        ref = torch.from_numpy(np.ascontiguousarray(fields[name]))
+        assert torch.equal(_bits(x), _bits(ref)), name
 
 
 @pytest.mark.parametrize("traversal", ["brute", "bvh"])
@@ -446,31 +450,34 @@ _PARTS = {"single": (257, None, 1), "multi": (600, 96 * 1024, 2)}
 
 @pytest.mark.parametrize("parts", ["single", "multi"])
 def test_k1_tables_decode_to_rows(parts, monkeypatch):
-    """Every part's Hopper tables give its rows back bit for bit, order
-    lanes included; each octant's order word is a permutation of the 8
-    slots; rows whose order lanes are not a permutation are refused."""
+    """Every part's Hopper tables give its rows (``Scene.fields()``) back
+    bit for bit, order lanes included, with its remap; each octant's order
+    word is a permutation of the 8 slots; rows whose order lanes are not a
+    permutation are refused."""
     n, budget, n_parts = _PARTS[parts]
-    data = _port_scene(n, budget, monkeypatch).send("cpu")
-    assert len(data.k1_parts) == len(data.parts) == n_parts
-    for (node_rows, tri_rows, _), (nodes, octets) in zip(data.parts,
-                                                         data.k1_parts):
+    scene = _port_scene(n, budget, monkeypatch)
+    data, rows_of = scene.send("cpu"), field_parts(scene.fields())
+    assert len(data.k1_parts) == len(rows_of) == n_parts
+    for (node_rows, tri_rows, remap), (nodes, octets, k1_remap) in zip(
+            rows_of, data.k1_parts):
         assert nodes.dtype == torch.int32 and octets.dtype == torch.float32
         assert tuple(nodes.shape) == (node_rows.shape[0], 64)
         assert tuple(octets.shape) == (tri_rows.shape[0], 96)
         rows, tris = unpack_k1(nodes.numpy(), octets.numpy())
         np.testing.assert_array_equal(rows.view(np.int32),
-                                      node_rows.numpy().view(np.int32))
+                                      node_rows.view(np.int32))
         np.testing.assert_array_equal(tris.view(np.int32),
-                                      tri_rows.numpy().view(np.int32))
+                                      tri_rows.view(np.int32))
+        np.testing.assert_array_equal(k1_remap.numpy(), remap)
         word = nodes.numpy()[:, 56:].astype(np.int64)
         slots = (word[:, :, None] >> (3 * np.arange(8))) & 7
         assert (np.sort(slots, axis=2) == np.arange(8)).all()
         assert (word >> 24 == 0).all()
-    bad = data.parts[0][0].numpy().copy()
+    bad = rows_of[0][0].copy()
     lanes = bad[0, 48:56]  # octant 0 of the root: a slot named twice
     lanes[lanes != EMPTY_PACKED * 8] = lanes[lanes != EMPTY_PACKED * 8][0]
     with pytest.raises(ValueError):
-        pack_k1(bad, data.parts[0][1].numpy())
+        pack_k1(bad, rows_of[0][1])
 
 
 @pytest.mark.parametrize("parts", ["single", "multi"])
@@ -565,14 +572,14 @@ def test_plain_counts_match_scalar_walk():
     barycentric tests equal those of the kernel's walk written as scalar NumPy over the
     Hopper tables, and so do t, slot, u and v, bit for bit."""
     data = _port_scene(2000).send("cpu")
-    (node_rows, tri_rows, _), (nodes, octets) = data.parts[0], data.k1_parts[0]
+    nodes, octets, _ = data.k1_parts[0]
     R = 48
     o, d = _rays(R, seed=12)
     t0 = np.full(R, BIG, np.float32)
     t0[[5, 17]] = -BIG  # dead rays
     t0[9] = np.float32(2.5)  # a later part's entry: prunes against it
     *got, dropped, counts = sbt._traverse_plain(
-        node_rows, tri_rows, _cols(o), _cols(d), torch.from_numpy(t0),
+        nodes, octets, _cols(o), _cols(d), torch.from_numpy(t0),
         counts=True)
     assert int(dropped) == 0
     nodes, octets = nodes.numpy(), octets.numpy()
@@ -596,11 +603,10 @@ def test_counting_leaves_hits_unchanged(parts, monkeypatch):
     R = 256
     o, d = _rays(R, seed=13)
     t0 = torch.full((R,), BIG)
-    for node_rows, tri_rows, _ in tdata.parts:
-        plain = sbt._traverse_plain(node_rows, tri_rows, _cols(o), _cols(d),
-                                    t0)
-        counted = sbt._traverse_plain(node_rows, tri_rows, _cols(o),
-                                      _cols(d), t0, counts=True)
+    for nodes, octets, _ in tdata.k1_parts:
+        plain = sbt._traverse_plain(nodes, octets, _cols(o), _cols(d), t0)
+        counted = sbt._traverse_plain(nodes, octets, _cols(o), _cols(d), t0,
+                                      counts=True)
         assert len(counted) == 6 and counted[5].shape == (4, R)
         for a, b in zip(plain, counted[:5]):
             assert torch.equal(a, b)
@@ -612,5 +618,5 @@ def test_counting_leaves_hits_unchanged(parts, monkeypatch):
                      tuple(jnp.asarray(x) for x in d), jnp.asarray(active),
                      interpret=True)
     got = _run_port(tdata, o, d, active)
-    assert len(tdata.parts) == n_parts
+    assert len(tdata.k1_parts) == n_parts
     _check(jdata, ref, got, o, d, active)
