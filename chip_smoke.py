@@ -15,21 +15,24 @@ Phases; each raises on failure, and the script then exits non-zero:
 1. build: nvcc compiles ``opengl_raytracer_torch/csrc/*.cu`` for sm_90a.
 2. K2 (fused shade, ``csrc/shade.cu``) against its plain torch version on
    1920x1080 = 2,073,600 rays of seeded random hits and path state.
-3. K1 (sub-block traversal, ``csrc/subblock_traversal.cu``) against its
-   plain torch version on two ray sets: 2,073,600 rays, half primary rays
-   of the 1080p camera and half bounce-like rays from random points in the
-   scene; and the five bounce segments of one 1080p "auto" frame, each
-   captured as ``raytrace`` hands it to the traversal (after the reorder
-   sort).  On each set t, slot, u and v must equal the plain version's
-   bit for bit, with no stack overflow; the script prints ms per launch,
-   the plain version's per-ray counts (node visits, leaf octets, loop
-   steps) and the share of a warp's lanes they keep busy, and the
-   operations, bound and share of bound.
+3. K1 (sub-block traversal, ``csrc/subblock_traversal.cu``): the main
+   path's launch, ``traverse_parts`` over the scene's one part (the chain
+   kernel of one part), against its plain torch version (``_chain_plain``)
+   on two ray sets: 2,073,600 rays, half primary rays of the 1080p camera
+   and half bounce-like rays from random points in the scene; and the five
+   bounce segments of one 1080p "auto" frame, each captured as
+   ``raytrace`` hands it to the traversal (after the reorder sort).  On
+   each set t, tri, u, v and slot must equal the plain version's bit for
+   bit, with one launch walking one part and no stack overflow; the
+   script prints ms per launch, the plain version's per-ray counts (node
+   visits, leaf octets, loop steps) and the share of a warp's lanes they
+   keep busy, and the operations, bound and share of bound.
 3b. k1prof: the profile build of K1 (``probes/k1.py``, the same source
-   compiled with ``-DOGLRT_K1_PROFILE``) on both ray sets: its hits must
-   equal the kernel's and its visit, octet and barycentric-test counts
-   the plain version's; it prints cycles per stage, per visit and per
-   fetch, and the ms of a profile launch on the random rays.
+   compiled with ``-DOGLRT_K1_PROFILE``) on both ray sets: its raw hits
+   (t, slot, u, v) must equal the plain walk's (``_traverse_plain``) and
+   its visit, octet and barycentric-test counts the plain walk's; it
+   prints cycles per stage, per visit and per fetch, and the ms of a
+   profile launch on the random rays.
 3c. glue: the main path's glue kernels against their plain torch versions
    at 2,073,600 rays, each bit for bit (max |d| 0): G1, the ray front
    (``csrc/ray_front.cu``, each ray's pixel and frame number from its
@@ -63,11 +66,9 @@ Phases; each raises on failure, and the script then exits non-zero:
    (12, R) buffer, ``index_copy_`` of the (3, R) light), the bytes bound
    at the live share beside the earlier 141-byte yardstick, and the
    scattered 32-byte sectors and the GB/s they imply (the reorder's ms
-   covers its two launches, index pass and gather); G4, K1's part epilogue
-   (``csrc/subblock_epilogue.cu``), on K1's output for each of phase 3's
-   sets, as the only part and as a later part against the previous set's
-   hits; G5, K3's wrapper prologue and epilogue (``csrc/wide_epilogue.cu``),
-   on K3's own output for phase 3's sets; G6, the band fold
+   covers its two launches, index pass and gather); G5, K3's wrapper
+   prologue and epilogue (``csrc/wide_epilogue.cu``), on K3's own output
+   for phase 3's sets; G6, the band fold
    (``csrc/band_fold.cu``), on the whole 1080p frame as one band at frame
    2^32 - 2 and on three tiles of tile_size 7 (remainders on both axes)
    with frames_per_step 2, into the buffer the step block names, and on
@@ -134,9 +135,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    tessellated sphere for the dragon, a smooth sphere for the mirror ball);
    "auto" resolves to "pallas2" (K1 + K2); 1 warm-up and 8 timed frames,
    each step a block write and a replay of the step's CUDA graph; every
-   kernel's launch count (per frame: K1 parts x 5, K2 5, G1 1 per
-   chunk, G2 4, the reorder 8 (4 calls of two launches), the restore 1,
-   G4 parts x 5, G5 5 (K1's entry t), G6 1, the block write 1; every
+   kernel's launch count (per frame: K1 5, one a segment walking every
+   part, so parts x 5 parts walked, K2 5, G1 1 per chunk, G2 4, the
+   reorder 8 (4 calls of two launches), the restore 1, G5 5 (K1's entry
+   t), G6 1, the block write 1; every
    other render phase checks the glue counts of its own path the same
    way, K3's paths with G5 10 a frame), image checks; then a 96x54 frame
    rendered on the card and on the CPU (the plain versions), which must
@@ -187,8 +189,12 @@ Phases; each raises on failure, and the script then exits non-zero:
    on the card and the CPU.
 8. multi-part: the phase-5 scene with a finer bumpy sphere (94,180
    triangles, 4 sub-block parts at the JAX package's 7.5 MB budget; the
-   card's keeps it in one), 1 warm-up and 4 1080p frames, each timed
-   alone (its own device sync).
+   card's keeps it in one): K1's chain kernel on the five sorted bounce
+   segments of one 1080p frame against the plain chain
+   (``_chain_plain``, on the card's tensors), bit for bit, one launch a
+   segment walking the 4 parts, with each segment's ms, the plain chain's
+   per-ray steps, and the operations, bound and share of bound; then 1
+   warm-up and 4 1080p frames, each timed alone (its own device sync).
 9. cli: the user's entry point.  Phase 5's two spheres are written as OBJ
    files (``stanford_minidragon/dragon.obj``, bare ``v``/``f``;
    ``sphere/sphere.obj``, ``v//n`` with normals) under
@@ -203,8 +209,8 @@ Phases; each raises on failure, and the script then exits non-zero:
 10. sharded: multi-device rendering (``parallel/sharding.py``) on the one
    card.  ``ShardedRenderer`` renders phase 5's scene at 1920x1080 / 4
    bounces over meshes of the card repeated, (dp, sp) in ``MESHES``: one
-   sweep of sp frames each, "auto" resolving to "pallas2" with parts x 5
-   x dp x sp K1 launches, 5 x dp x sp K2 and no K3, held against a
+   sweep of sp frames each, "auto" resolving to "pallas2" with 5 x dp x
+   sp K1 launches (each walking every part), 5 x dp x sp K2 and no K3, held against a
    sequential ``Renderer`` at sp frames (rmse <= 1e-6), its ``accum``
    dp slices of (1080/dp, 1920, 3), slice j on the mesh's devices[j, 0],
    and one fold and one block write a slice the band reaches (dp a step:
@@ -303,7 +309,7 @@ KERNELS = {
     "wide_traversal": dict(
         source="opengl_raytracer_torch/csrc/wide_traversal.cu",
         replaces="opengl_raytracer_tpu/ops/pallas_traversal.py:69"),
-    # the main path's glue (G1-G4): JAX code that XLA fuses under jax.jit,
+    # the main path's glue (G1-G3): JAX code that XLA fuses under jax.jit,
     # not Pallas kernels; "replaces" names the JAX lines
     "ray_front": dict(
         source="opengl_raytracer_torch/csrc/ray_front.cu",
@@ -317,9 +323,6 @@ KERNELS = {
     "restore": dict(
         source="opengl_raytracer_torch/csrc/permute.cu",
         replaces="opengl_raytracer_tpu/ops/integrator.py:336"),
-    "subblock_epilogue": dict(
-        source="opengl_raytracer_torch/csrc/subblock_epilogue.cu",
-        replaces="opengl_raytracer_tpu/ops/subblock_traversal.py:842"),
     # the compiled step's: K3's wrapper prologue and epilogue (G5, K1's
     # entry t too), the band fold (G6), and the step block's write (the
     # JAX step's traced arguments)
@@ -346,9 +349,8 @@ KERNELS = {
         source="opengl_raytracer_torch/csrc/packet_walk.cu",
         replaces="opengl_raytracer_tpu/ops/traversal.py:121"),
 }
-GLUE = ("ray_front", "sort_keys", "reorder", "restore", "subblock_epilogue",
-        "wide_epilogue", "band_fold", "step_block", "bvh_walk", "brute_sweep",
-        "packet_walk")
+GLUE = ("ray_front", "sort_keys", "reorder", "restore", "wide_epilogue",
+        "band_fold", "step_block", "bvh_walk", "brute_sweep", "packet_walk")
 GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
 # phase 5c: the reorder cadences (RenderConfig.sort_every) held to cadence
 # 1 bit for bit, and those timed in turns (each twice, CADENCE_FRAMES a run)
@@ -499,8 +501,7 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     ray front a render; with the reorder (the kernels' traversals) at
     cadence ``sort_every``, ``sorts_a_raytrace`` key launches and reorder
     calls, each call two launches (index pass and gather), and one
-    restore; after K1, one epilogue per
-    part and bounce segment; G5's entry t before each K1 or K3 segment and
+    restore; K1's chain walking ``parts`` parts a segment; G5's entry t before each K1 or K3 segment and
     its epilogue after each K3 one; G7, G8 or G9 a segment of "bvh",
     "brute" or "packet"; ``folds`` folds (default: one a step; on a mesh,
     one a slice that a dp row's piece reaches); and ``blocks`` block writes
@@ -513,7 +514,7 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     check_count(counts, "sort_keys", sorts)
     check_count(counts, "reorder", 2 * sorts)
     check_count(counts, "restore", renders if reorder else 0)
-    check_count(counts, "subblock_epilogue",
+    check_count(counts, "subblock_parts",
                 parts * n_bounces * renders if traversal == "pallas2" else 0)
     g5 = {"pallas2": 1, "pallas": 2}.get(traversal, 0)
     check_count(counts, "wide_epilogue", g5 * n_bounces * renders)
@@ -668,15 +669,25 @@ def build_phase() -> None:
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("== ")):
             say("ptxas", line=line.strip())
-    for tag, unit, kernel in (("k1", "subblock_traversal.cu", "traverse_kernel"),
+    # K1's two chain kernels (one part; several) and K3's instances
+    for tag, unit, kernel in (("k1", "subblock_traversal.cu",
+                               "subblock_traverse"),
                               ("k3", "wide_traversal.cu",
                                "wide_traverse_kernel")):
-        for props in ptxas_entries(_kernels.build_log, unit, kernel):
+        entries = ptxas_entries(_kernels.build_log, unit, kernel)
+        if tag == "k1" and len(entries) != 2:
+            raise RuntimeError(f"K1: {len(entries)} ptxas entries, expected "
+                               f"the chain kernels of one part and of "
+                               f"several")
+        for props in entries:
             say("ptxas", **{tag: props})
             if (props["spill_stores"] or props["spill_loads"]
                     or props["stack"] >= 64):
                 raise RuntimeError(f"{tag.upper()} spills or keeps a stack "
                                    f"frame of 64 bytes or more: {props}")
+            if tag == "k1" and props["registers"] > K1_REGISTERS:
+                raise RuntimeError(f"K1 uses more than {K1_REGISTERS} "
+                                   f"registers: {props}")
     for tag, unit, kernel in (("g7", "bvh_walk.cu", "bvh_walk_kernel"),
                               ("g8", "brute_sweep.cu", "brute_sweep_kernel"),
                               ("g9", "packet_walk.cu", "packet_walk_kernel")):
@@ -723,6 +734,11 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 # A traversal's rays (K1, K3): 7 f32 columns in; t, slot, u, v out.
 TRAVERSAL_BYTES_PER_RAY = 44
+# K1's chain resolves its hits: tri out too (its remap read, the table
+# counted once)
+K1_BYTES_PER_RAY = TRAVERSAL_BYTES_PER_RAY + 4
+# 8 blocks of 128 threads an SM: a cap below spilled and ran slower
+K1_REGISTERS = 64
 # K1's operations, as csrc/subblock_traversal.cu does them, from the plain
 # version's counts of this run's rays (probes/k1.work):
 K1_OPS_PER_RAY = 12  # 3 reciprocals, 6 clamps, 3 products o * inv
@@ -760,12 +776,12 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def k1_bound(w: dict, k1) -> tuple[int, int, float, str]:
     """K1's operations and bytes for the ray set whose counts ``w`` holds
-    (``probes/k1.work``), over the part's Hopper tables ``k1``, and the
-    bound they give."""
+    (``probes/k1.work``), over the part's tables ``k1`` (Hopper nodes and
+    octets, remap), and the bound they give."""
     ops = (w["live"] * K1_OPS_PER_RAY + w["visits"] * K1_OPS_PER_NODE
            + w["octets"] * K1_OPS_PER_OCTET
            + w["candidates"] * K1_OPS_PER_CANDIDATE)
-    n_bytes = (w["rays"] * TRAVERSAL_BYTES_PER_RAY
+    n_bytes = (w["rays"] * K1_BYTES_PER_RAY
                + sum(x.numel() * x.element_size() for x in k1))
     return (ops, n_bytes, *bound_ms(n_bytes, ops))
 
@@ -911,43 +927,63 @@ def frame_segments(scene, camera, traversal: str = "auto",
     return segments
 
 
+def _k1_chain_checked(label, data, o3, d3, t0):
+    """The main path's K1 launch (``traverse_parts``) on one ray set,
+    against its plain version (``_chain_plain``): t, tri, u, v and slot bit
+    for bit, one launch walking the scene's parts, no stack overflow.
+    Returns the kernel's ``Nearest`` and the plain chain's per-ray work
+    (``_traverse_plain``'s counts, summed over the parts)."""
+    from opengl_raytracer_torch.ops import _kernels
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+
+    ov = sbt.overflow_tensor(t0.device)
+    ov.zero_()
+    before = dict(_kernels.launch_counts)
+    kernel = sbt.traverse_parts(data, o3, d3, t0)
+    if (_kernels.launch_counts["subblock_traversal"]
+            - before["subblock_traversal"] != 1
+            or _kernels.launch_counts["subblock_parts"]
+            - before["subblock_parts"] != len(data.k1_parts)):
+        raise RuntimeError(f"K1 on {label}: not one launch walking "
+                           f"{len(data.k1_parts)} parts")
+    plain, dropped, counts = sbt._chain_plain(data.k1_parts, o3, d3, t0,
+                                              counts=True)
+    overflow = int(ov.item())
+    if overflow or int(dropped):
+        raise RuntimeError(f"K1 stack overflow on {label}: kernel "
+                           f"{overflow} group pushes, plain "
+                           f"{int(dropped)} pushes dropped")
+    for field, a, b in zip(kernel._fields, kernel, plain):
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max()
+            raise RuntimeError(f"K1 {field} differs from the plain "
+                               f"version on {label}: max |d| {diff}")
+    return kernel, counts
+
+
 def k1_phase(data, camera, segments, seed: int, device):
-    """K1 against its plain version on phase 3's rays and on the frame's
-    segments; returns (max_abs_err, ms, plain_ms, (bound_ms, bound_by),
-    frame_ms, the ray sets)."""
+    """K1 as the main path launches it (the chain kernel of the scene's
+    one part) against its plain version on phase 3's rays and on the
+    frame's segments; returns (max_abs_err, ms, plain_ms, (bound_ms,
+    bound_by), frame_ms, the ray sets)."""
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.ops.intersect import BIG
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
-    k1 = data.k1_parts[0][:2]
+    k1 = data.k1_parts[0]
     sets = [("random", *k1_rays(data, camera, seed, device))]
     sets += [(f"frame_b{i}", *seg) for i, seg in enumerate(segments)]
-    ov = sbt.overflow_tensor(device)
     frame_ms, out = 0.0, None
     for name, o3, d3, t0 in sets:
-        ov.zero_()
-        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
-        *plain, dropped, counts = sbt._traverse_plain(*k1, o3, d3, t0,
-                                                      counts=True)
-        overflow = int(ov.item())
-        if overflow or int(dropped):
-            raise RuntimeError(f"K1 stack overflow on {name}: kernel "
-                               f"{overflow} group pushes, plain "
-                               f"{int(dropped)} pushes dropped")
-        for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
-            if not torch.equal(a, b):
-                diff = (a.double() - b.double()).abs().max()
-                raise RuntimeError(f"K1 {field} differs from the plain "
-                                   f"version on {name}: max |d| {diff}")
-        t_k = kernel[0]
-        hit = int(((t_k < BIG) & (t_k > -BIG)).sum())
+        kernel, counts = _k1_chain_checked(name, data, o3, d3, t0)
+        hit = int((kernel.t < BIG).sum())
         w = k1_probe.work(counts, t0)
         ops, n_bytes, bound, by = k1_bound(w, k1)
         if name == "random" and hit < N_RAYS // 4:
             raise RuntimeError(f"K1: only {hit} of {N_RAYS} rays hit")
-        ms = cuda_ms(lambda: sbt.traverse_part(data, 0, o3, d3, t0), 10)
+        ms = cuda_ms(lambda: sbt.traverse_parts(data, o3, d3, t0), 10)
         say("k1", set=name, rays=w["rays"], live=w["live"], hit=hit,
-            max_abs_err=0.0, tri_ties=0, overflow=overflow, ms=ms,
+            max_abs_err=0.0, tri_ties=0, overflow=0, ms=ms,
             visits_per_ray=round(w["visits_per_ray"], 3),
             octets_per_ray=round(w["octets_per_ray"], 3),
             steps_per_ray=round(w["steps_per_ray"], 3),
@@ -959,20 +995,20 @@ def k1_phase(data, camera, segments, seed: int, device):
             bound_ms=round(bound, 5), bound_by=by,
             share_of_bound=round(bound / ms, 4))
         if name == "random":
-            plain_ms = min(cuda_ms(lambda: sbt._traverse_plain(
-                *k1, o3, d3, t0), 1) for _ in range(2))
+            plain_ms = min(cuda_ms(lambda: sbt._chain_plain(
+                data.k1_parts, o3, d3, t0), 1) for _ in range(2))
             out = (ms, plain_ms, (bound, by))
         else:
             frame_ms += ms
     say("k1", frame_ms=frame_ms, segments=len(segments),
-        tolerance="exact (t, slot, u, v bit for bit)")
+        tolerance="exact (t, tri, u, v, slot bit for bit)")
     return 0.0, *out, frame_ms, sets
 
 
 def k1prof_phase(data, sets):
-    """The K1 profile build on phase 3's ray sets: its hits against the
-    kernel's, its visit, octet and edge-load counts against the plain
-    version's, and the cycles of each stage."""
+    """The K1 profile build on phase 3's ray sets: its raw hits and its
+    visit, octet and edge-load counts against the plain walk's, and the
+    cycles of each stage."""
     from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.probes import k1 as k1_probe
@@ -982,11 +1018,11 @@ def k1prof_phase(data, sets):
     before = dict(_kernels.launch_counts)
     for name, o3, d3, t0 in sets:
         hits, stages = k1_probe.profile(k1, o3, d3, t0)
-        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
-        if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
-            raise RuntimeError(f"K1 profile build differs from the kernel "
-                               f"on {name}")
-        counts = sbt._traverse_plain(*k1[:2], o3, d3, t0, counts=True)[5]
+        *plain, _, counts = sbt._traverse_plain(*k1[:2], o3, d3, t0,
+                                                counts=True)
+        if not all(torch.equal(a, b) for a, b in zip(hits, plain)):
+            raise RuntimeError(f"K1 profile build differs from the plain "
+                               f"walk on {name}")
         for ev, row in (("visits", 0), ("octets", 1), ("edge_loads", 3)):
             if stages[ev] != int(counts[row].long().sum()):
                 raise RuntimeError(f"K1 profile {ev} {stages[ev]} on {name}, "
@@ -1015,16 +1051,13 @@ def _say_stages(name, rep):
 
 
 # The glue kernels' work per ray (csrc/ray_front.cu, sort_keys.cu,
-# permute.cu, subblock_epilogue.cu): bytes each input read once and each
+# permute.cu): bytes each input read once and each
 # output written once; integer and fp32 operations, each counted as 1
 # against the fp32 rate.  G1: px, py, a frame number (int64) in, six float
 # columns and a seed out; seed, warm-ups, two draws, uv, direction, jitter,
 # two normalizes.  G2: six float columns and a flag in, an int32 key out;
 # three quantized coordinates, five direction levels, the Morton spread.
-# G3: see g3_reorder_work and g3_restore_work.  G4 (per
-# part): K1's t, slot, u, v, a remap entry (the table counted once), the
-# active flag, the earlier parts' five columns from the second part on; out
-# five columns and, before the last part, the next entry t.
+# G3: see g3_reorder_work and g3_restore_work.
 G1_BYTES_PER_RAY = 32  # writes only: the pixel comes from the index
 G1_OPS_PER_RAY = 95  # with the pixel and frame from the index
 # G5 (csrc/wide_epilogue.cu), one bounce: the prologue reads a flag and
@@ -1058,7 +1091,6 @@ G8_OPS_PER_PAIR = 17
 G8_OPS_PER_CANDIDATE = 28
 G2_BYTES_PER_RAY = 29
 G2_OPS_PER_RAY = 90
-G4_OPS_PER_RAY = 12
 # G3 before the fold (the earlier yardstick, printed beside the new one):
 # every ray read an int64 index, a key, 12 columns, a seed and an int64
 # index and wrote 12 columns, a seed, an index and a flag; the restore
@@ -1093,12 +1125,6 @@ def g3_restore_work(n: int, with_seed: bool) -> tuple[int, int]:
     and an int32 index in, 3 columns out, each write scattered; 16 bytes
     and a sector more with the seed."""
     return n * (28 + (16 if with_seed else 0)), n * (4 if with_seed else 3)
-
-
-def g4_bytes(R: int, remap, first: bool, masked: bool, last: bool) -> int:
-    per_ray = 16 + 20 + (0 if first else 20) + (1 if masked else 0) \
-        + (4 if masked and not last else 0)
-    return R * per_ray + remap.numel() * remap.element_size()
 
 
 def _glue_row(name, err, ms, plain_ms, n_bytes, n_ops, **extra):
@@ -1147,7 +1173,6 @@ def glue_phase(data, camera, sets, seed: int, packet_segments):
     Returns ({counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))},
     {counter: more keys of its row in the kernels line})."""
     from opengl_raytracer_torch.ops import front, morton, permute
-    from opengl_raytracer_torch.ops import subblock_traversal as sbt
     from opengl_raytracer_torch.ops.intersect import BIG
 
     out, extras = {}, {}
@@ -1285,32 +1310,6 @@ def glue_phase(data, camera, sets, seed: int, packet_segments):
                                restore_row[3], 0, set="frame",
                                library_ms=restore_row[2], **restore_row[4])
     extras["restore"] = dict(library_ms=restore_row[2], **restore_row[4])
-
-    # G4: K1's own output on phase 3's sets, as the first and only part
-    # (the main path's) and as a later, not last part against the previous
-    # set's result
-    remap = data.k1_parts[0][2]
-    near, err = None, 0.0
-    for name, o3, d3, t0 in sets:
-        k1 = sbt.traverse_part(data, 0, o3, d3, t0)
-        active = t0 > -BIG
-        for prev, last in ((None, True), (near, False)):
-            if prev is None and not last:
-                continue
-            a = (*k1, remap, 0 if prev is None else remap.shape[0], prev,
-                 active, last)
-            err = max(err, _assert_equal(f"G4 {name}", sbt.part_epilogue(*a),
-                                         sbt._epilogue_plain(*a)))
-        near = sbt.part_epilogue(*k1, remap, 0, None, active, True)[0]
-    k1 = sbt.traverse_part(data, 0, *sets[0][1:])
-    active = sets[0][3] > -BIG
-    a = (*k1, remap, 0, None, active, True)
-    ms, plain_ms = time_pair(lambda: sbt.part_epilogue(*a),
-                             lambda: sbt._epilogue_plain(*a), 20, 3)
-    out["subblock_epilogue"] = _glue_row(
-        "subblock_epilogue", err, ms, plain_ms,
-        g4_bytes(N_RAYS, remap, True, True, True), N_RAYS * G4_OPS_PER_RAY,
-        part="first and last")
 
     out["wide_epilogue"] = _g5_rows(data, sets)
     out["band_fold"], extras["band_fold"] = _g6_rows(dev, camera, seed)
@@ -2338,8 +2337,7 @@ def main_path_phase(scene, camera, out_dir):
         raise RuntimeError(f"auto resolved to {r.traversal}, not pallas2")
     parts = len(r.scene.k1_parts)
     frames = 1 + TIMED_FRAMES
-    check_count(counts, "subblock_traversal",
-                parts * r.config.n_bounces * frames)
+    check_count(counts, "subblock_traversal", r.config.n_bounces * frames)
     check_count(counts, "shade", r.config.n_bounces * frames)
     check_count(counts, "wide_traversal", 0)
     check_glue(counts, r.traversal, r.config.n_bounces, frames, parts)
@@ -2527,12 +2525,12 @@ def _cadence_config(traversal: str, sort_every: int):
 
 def _check_path_counts(counts, r, frames: int) -> None:
     """A 1080p path's launches in ``frames`` frames of Renderer ``r``: its
-    traversal's (K1 parts x segments or K3 a segment), K2 a segment, the
+    traversal's (K1 or K3 a segment), K2 a segment, the
     glue at ``r``'s cadence, and no probe."""
     check_probes(counts)
     n, parts = r.config.n_bounces, len(r.scene.k1_parts)
     k1 = r.traversal == "pallas2"
-    check_count(counts, "subblock_traversal", parts * n * frames if k1 else 0)
+    check_count(counts, "subblock_traversal", n * frames if k1 else 0)
     check_count(counts, "wide_traversal", 0 if k1 else n * frames)
     check_count(counts, "shade", n * frames)
     check_glue(counts, r.traversal, n, frames, parts if k1 else 0,
@@ -2618,26 +2616,16 @@ def _k1_on_sets(name, data, sets) -> None:
     if len(data.k1_parts) != 1:
         raise RuntimeError(f"{name}: {len(data.k1_parts)} sub-block parts")
     k1 = data.k1_parts[0]
-    ov = sbt.overflow_tensor(data.device)
     for set_name, o3, d3, t0 in sets:
-        ov.zero_()
-        kernel = sbt.traverse_part(data, 0, o3, d3, t0)
-        *plain, dropped, counts = sbt._traverse_plain(*k1[:2], o3, d3, t0,
-                                                      counts=True)
-        if int(ov.item()) or int(dropped):
-            raise RuntimeError(f"K1 stack overflow on {name} {set_name}")
-        for field, a, b in zip(("t", "slot", "u", "v"), kernel, plain):
-            if not torch.equal(a, b):
-                diff = (a.double() - b.double()).abs().max()
-                raise RuntimeError(f"K1 {field} differs from the plain "
-                                   f"version on {name} {set_name}: max |d| "
-                                   f"{diff}")
+        _k1_chain_checked(f"{name} {set_name}", data, o3, d3, t0)
+        *plain, _, counts = sbt._traverse_plain(*k1[:2], o3, d3, t0,
+                                                counts=True)
         hits, stages = k1_probe.profile(k1, o3, d3, t0)
-        if not all(torch.equal(a, b) for a, b in zip(hits, kernel)):
-            raise RuntimeError(f"K1 profile build differs from the kernel "
-                               f"on {name} {set_name}")
+        if not all(torch.equal(a, b) for a, b in zip(hits, plain)):
+            raise RuntimeError(f"K1 profile build differs from the plain "
+                               f"walk on {name} {set_name}")
         w = k1_probe.work(counts, t0)
-        ms = cuda_ms(lambda: sbt.traverse_part(data, 0, o3, d3, t0), 10)
+        ms = cuda_ms(lambda: sbt.traverse_parts(data, o3, d3, t0), 10)
         rep = k1_probe.stage_report(stages)
         say("cadence", scene=name, kernel="K1", set=set_name, rays=w["rays"],
             live=w["live"], max_abs_err=0.0, tolerance="exact", ms=ms,
@@ -2726,20 +2714,19 @@ def cadence_profile_phase(cases, camera) -> None:
             state = r.render(camera, frames=2)  # warm-up
             torch.cuda.synchronize()
             n, f = r.config.n_bounces, PROFILED_FRAMES
-            per = len(r.scene.k1_parts) if r.traversal == "pallas2" else 1
             for tries in range(1, PROFILE_TRIES + 1):
                 source, events, _ = _profiled_events(r, camera, state)
                 trav = [e for e in events
                         if _kernel_group(e[0]) in ("K1", "K3")]
-                if len(trav) == per * n * f:
+                if len(trav) == n * f:
                     break
             else:
                 raise RuntimeError(f"{name} sort_every={k}: the profiler saw "
                                    f"{len(trav)} traversal launches in {f} "
-                                   f"frames, expected {per * n * f}")
+                                   f"frames, expected {n * f}")
             seg_ms = [0.0] * n
             for j, (_, t0, t1) in enumerate(trav):
-                seg_ms[j // per % n] += (t1 - t0) / 1e3 / f
+                seg_ms[j % n] += (t1 - t0) / 1e3 / f
             kind = ["primary"] + ["sorted" if (i - 1) % k == 0 else "stale"
                                   for i in range(1, n)]
             groups = {}
@@ -2773,7 +2760,6 @@ def _kernel_group(name: str) -> str:
                         ("G3 reorder index pass", ("reorder_index_kernel",)),
                         ("G3 reorder gather", ("reorder_kernel",)),
                         ("G3 restore", ("restore_kernel",)),
-                        ("G4 K1 epilogue", ("part_epilogue_kernel",)),
                         ("G7 bvh walk", ("bvh_walk",)),
                         ("G8 brute sweep", ("brute_sweep",)),
                         ("G9 packet walk", ("packet_walk",)),
@@ -3093,6 +3079,27 @@ def multipart_phase(camera):
     if parts != 4:
         raise RuntimeError(f"multi-part scene split into {parts} parts, "
                            f"expected 4")
+    from opengl_raytracer_torch.ops import subblock_traversal as sbt
+    from opengl_raytracer_torch.probes import k1 as k1_probe
+
+    tables = [x for part in data.k1_parts for x in part]
+    chain_ms = 0.0
+    for i, (o3, d3, t0) in enumerate(frame_segments(data, camera)):
+        _, work = _k1_chain_checked(f"the 4-part chain's segment {i}", data,
+                                    o3, d3, t0)
+        w = k1_probe.work(work, t0)
+        ops, n_bytes, bound, by = k1_bound(w, tables)
+        ms = cuda_ms(lambda: sbt.traverse_parts(data, o3, d3, t0), 10)
+        chain_ms += ms
+        say("multipart", kernel="K1 chain", set=f"frame_b{i}", parts=parts,
+            rays=w["rays"], live=w["live"], max_abs_err=0.0, ms=ms,
+            steps_per_ray=round(w["steps_per_ray"], 3),
+            lanes_steps=round(w["lanes_steps"], 4),
+            gops=round(ops / 1e9, 4), mbytes=round(n_bytes / 1e6, 3),
+            bound_ms=round(bound, 5), bound_by=by,
+            share_of_bound=round(bound / ms, 4))
+    say("multipart", kernel="K1 chain", frame_ms=chain_ms,
+        tolerance="exact (t, tri, u, v, slot bit for bit)")
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
     r = Renderer(data, cfg, device=DEVICE)
     state = r.render(camera, frames=1)  # warm-up
@@ -3106,8 +3113,7 @@ def multipart_phase(camera):
         frames_ms.append((time.perf_counter() - t0) * 1000.0)
     counts = dict(_kernels.launch_counts)
     check_probes(counts)
-    check_count(counts, "subblock_traversal",
-                parts * cfg.n_bounces * MULTIPART_FRAMES)
+    check_count(counts, "subblock_traversal", cfg.n_bounces * MULTIPART_FRAMES)
     check_count(counts, "shade", cfg.n_bounces * MULTIPART_FRAMES)
     check_glue(counts, r.traversal, cfg.n_bounces, MULTIPART_FRAMES, parts)
     img = r.image(state)
@@ -3233,7 +3239,7 @@ def cli_phase():
                                        f"{a.state.frame_count}")
                 parts = len(a.renderer.scene.k1_parts)
                 n = a.config.n_bounces
-                check_count(counts, "subblock_traversal", parts * n * 4)
+                check_count(counts, "subblock_traversal", n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
                 check_glue(counts, "pallas2", n, 4, parts)
@@ -3366,8 +3372,7 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
         torch.cuda.synchronize()
         counts = dict(_kernels.launch_counts)
         check_probes(counts)
-        check_count(counts, "subblock_traversal",
-                    parts * cfg.n_bounces * dp * sp)
+        check_count(counts, "subblock_traversal", cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
         check_count(counts, "wide_traversal", 0)
         # the band is the whole frame: dp row i's piece is slice i, one
@@ -3531,7 +3536,7 @@ def _sharded_cli(straight8) -> None:
                     raise RuntimeError(f"sharded CLI: {r.traversal} on "
                                        f"{r.home}")
                 n, parts = r.config.n_bounces, len(r.scene.k1_parts)
-                check_count(counts, "subblock_traversal", parts * n * 4)
+                check_count(counts, "subblock_traversal", n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
                 check_glue(counts, r.traversal, n, 4, parts, blocks=8)

@@ -8,9 +8,10 @@
 // live ray, -BIG for a dead one, which K3 leaves untouched); the epilogue
 // resolves K3's output: the hit mask (-BIG < t < BIG), t = BIG on a miss,
 // tri = remap[slot] with the slot clamped into the table (a JAX gather
-// clamps), and u = v = 0 on a miss.  Two entry points, one launch each, the
-// same kind of kernel as G4 (subblock_epilogue.cu).  K3's own source is
-// not touched: it keeps its 80 registers and its time.
+// clamps), and u = v = 0 on a miss.  Two entry points, one launch each.
+// K3's own source is not touched: it keeps its 80 registers and its time.
+// The prologue also gives K1's chain kernel (subblock_traversal.cu) its
+// entry t; that kernel resolves its own hits.
 //
 // Every output is a select, a clamp or a table read, so both equal their
 // plain versions bit for bit.

@@ -37,8 +37,10 @@ LIB_PATH = os.path.join(BUILD_DIR, "liboglrt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# K1, K2 and K3; the glue kernels of the main path: "ray_front" (G1),
-# "sort_keys" (G2), "reorder" and "restore" (G3), "subblock_epilogue" (G4),
+# K1, K2 and K3 ("subblock_traversal" counts K1's launches, each of a
+# whole part chain; "subblock_parts" the parts that they walked, P a
+# launch); the glue kernels of the main path:
+# "ray_front" (G1), "sort_keys" (G2), "reorder" and "restore" (G3),
 # "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
 # "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
 # traversal), "brute_sweep" (G8, the "brute" traversal), "packet_walk"
@@ -46,12 +48,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (opengl_raytracer_torch/probes/), which no path of the renderer launches:
 # "k1_profile" and "k3_profile" count the profile builds of K1 and K3,
 # "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
-launch_counts = {"subblock_traversal": 0, "shade": 0, "wide_traversal": 0,
-                 "ray_front": 0, "sort_keys": 0, "reorder": 0, "restore": 0,
-                 "subblock_epilogue": 0, "wide_epilogue": 0, "band_fold": 0,
-                 "step_block": 0, "bvh_walk": 0, "brute_sweep": 0,
-                 "packet_walk": 0, "k1_profile": 0, "k3_profile": 0,
-                 "k3_fetch": 0, "k2_probe": 0}
+launch_counts = {"subblock_traversal": 0, "subblock_parts": 0, "shade": 0,
+                 "wide_traversal": 0, "ray_front": 0, "sort_keys": 0,
+                 "reorder": 0, "restore": 0, "wide_epilogue": 0,
+                 "band_fold": 0, "step_block": 0, "bvh_walk": 0,
+                 "brute_sweep": 0, "packet_walk": 0, "k1_profile": 0,
+                 "k3_profile": 0, "k3_fetch": 0, "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
 
 _lock = threading.Lock()
@@ -166,8 +168,10 @@ def _load() -> ctypes.CDLL:
     p, i32, i64, f32, u32 = (ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float,
                              ctypes.c_uint32)
-    so.oglrt_subblock_traverse.restype = i32
-    so.oglrt_subblock_traverse.argtypes = [p] * 14 + [i64, p]
+    # (7 ray columns, the parts' host table, n_parts, 5 outputs, overflow, n)
+    so.oglrt_subblock_traverse_parts.restype = i32
+    so.oglrt_subblock_traverse_parts.argtypes = ([p] * 8 + [i32] + [p] * 6
+                                                 + [i64, p])
     so.oglrt_shade.restype = i32
     # (table, n_rows, 18 inputs, the step block, 14 outputs, n)
     so.oglrt_shade.argtypes = [p, i32] + [p] * 33 + [i64, p]
@@ -179,9 +183,7 @@ def _load() -> ctypes.CDLL:
     # keys, n); (perm, sorted keys, columns, seed, orig, scratch, 4
     # outputs, return_seed, block or null, base, n_rays, n_band, tw,
     # the LCG advance (a, c), n); (orig, 3 columns, seed or null, 2
-    # outputs, n); (K1's 4 columns, remap, n_remap, slot_base, 5
-    # earlier columns, active, last, 6 outputs, n); (active or
-    # null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
+    # outputs, n); (active or null, t0, n); (K3's 4 columns, remap, n_remap, 4 outputs, n);
     # (block, 3 colour columns, n_band, tw, th, n_frames, weight,
     # width, blocks); (block, host words)
     so.oglrt_ray_front.restype = i32
@@ -194,10 +196,6 @@ def _load() -> ctypes.CDLL:
                                              i32, u32, u32, i64, p])
     so.oglrt_restore.restype = i32
     so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
-    so.oglrt_subblock_epilogue.restype = i32
-    so.oglrt_subblock_epilogue.argtypes = ([p] * 5 + [i32, i32]
-                                           + [p] * 6 + [i32]
-                                           + [p] * 6 + [i64, p])
     so.oglrt_wide_prologue.restype = i32
     so.oglrt_wide_prologue.argtypes = [p, p, i64, p]
     so.oglrt_wide_epilogue.restype = i32

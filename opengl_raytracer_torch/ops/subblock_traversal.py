@@ -1,18 +1,22 @@
 """K1: nearest-hit traversal over the sub-block BVH tables.
 
 The wrapper :func:`raycast_subblock` is the port of
-``opengl_raytracer_tpu/ops/subblock_traversal.py:raycast_subblock``: it
-chains the scene's parts, feeding each the running best ``t`` so later
-parts prune against earlier hits, combines them with a strict ``<``, and
-resolves ``tri = remap[slot]``: after each part, :func:`part_epilogue`
-(G4; one launch of ``csrc/subblock_epilogue.cu`` on CUDA tensors, the
-plain :func:`_epilogue_plain` on CPU tensors).  Each part is one call of
-:func:`traverse_part`, which on CUDA tensors launches the kernel of
-``csrc/subblock_traversal.cu`` over the part's Hopper tables
-(``SceneData.k1_parts``, ops/wide2.pack_k1) and on CPU tensors runs
-:func:`_traverse_plain` over the same tables: the same per-ray stack walk
-written with torch ops (all rays stepping together, one stack entry popped
-per ray per step).
+``opengl_raytracer_tpu/ops/subblock_traversal.py:raycast_subblock``: G5's
+prologue (the entry t: ``BIG`` for a live ray, ``-BIG`` for a dead one),
+then :func:`traverse_parts`, the scene's whole part chain.  On CUDA
+tensors that is ONE launch of ``csrc/subblock_traversal.cu``'s chain
+kernel a bounce segment, whatever the number of parts P (one part has a
+kernel of its own, the same walk with plain arguments): each thread
+walks its ray through parts 0 .. P-1 in order over the parts' Hopper
+tables (``SceneData.k1_parts``, ops/wide2.pack_k1), carrying its best hit
+from part to part so later parts prune against earlier hits, and resolves
+the winner (miss selects, slot clamp, ``tri = remap[slot]``, the part's
+slot base) itself.  On CPU tensors :func:`_chain_plain` is its plain
+version: part by part, :func:`_traverse_plain` (the same per-ray stack
+walk written with torch ops, all rays stepping together, one stack entry
+popped per ray per step) and :func:`_resolve_plain`, combined with a
+strict ``<`` so that a tie keeps the earlier part, as the kernel's carried
+t does.
 
 Both versions visit a node's children near-first in the order its node
 stores for the ray's own octant, open a child iff its slab test hits with
@@ -25,6 +29,8 @@ differ.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from opengl_raytracer_torch.ops import _kernels
@@ -35,6 +41,7 @@ from opengl_raytracer_torch.ops.wide2 import (EMPTY_PACKED, K1_ENTRY_WORD,
                                               K1_ORDER_WORD)
 
 STACK = 128  # per-ray stack entries of the plain version
+MAX_PARTS = 16  # the chain kernel's table of parts (csrc: kMaxParts)
 INV_CLAMP = 1e18
 
 _overflow: dict = {}  # device -> int32 (1,) running count of dropped pushes
@@ -149,16 +156,10 @@ def _traverse_plain(nodes, octets, o3, d3, t0, counts: bool = False):
     return bt, slot, bu, bv, dropped
 
 
-def _traverse_cuda(nodes, octets, o3, d3, t0, overflow):
-    dev = t0.device
-    R = t0.shape[0]
+def _check_tables(nodes, octets, dev) -> None:
     req = _kernels.require
-    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
-                       (*o3, *d3, t0)):
-        req(x, name, torch.float32, dev, R)
     req(nodes, "k1 nodes", torch.int32, dev)
     req(octets, "k1 octets", torch.float32, dev)
-    req(overflow, "overflow", torch.int32, dev, 1)
     if nodes.dim() != 2 or nodes.shape[1] != K1_NODE_WORDS \
             or nodes.shape[0] == 0:
         raise ValueError(f"k1 nodes must be (W, {K1_NODE_WORDS}) with W > 0, "
@@ -168,42 +169,23 @@ def _traverse_cuda(nodes, octets, o3, d3, t0, overflow):
                          f"{tuple(octets.shape)}")
     if nodes.data_ptr() % 16 or octets.data_ptr() % 16:
         raise ValueError("k1 tables must be 16-byte aligned (16-byte loads)")
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    slot = torch.empty(R, dtype=torch.int32, device=dev)
-    u = torch.empty(R, dtype=torch.float32, device=dev)
-    v = torch.empty(R, dtype=torch.float32, device=dev)
-    ptr = [x.data_ptr() for x in (*o3, *d3, t0, nodes, octets,
-                                  t, slot, u, v, overflow)]
-    _kernels.launch("oglrt_subblock_traverse", "subblock_traversal", dev,
-                    *ptr, R)
-    return t, slot, u, v
 
 
-def traverse_part(scene, part: int, o3, d3, t0):
-    """Nearest hit over part ``part`` of ``scene`` -> (t, slot, u, v).
-
-    ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
-    ``t0`` (R,) the entry best ``t`` (``-BIG`` for a dead ray).  CUDA
-    tensors launch the kernel, CPU tensors run the plain version, both
-    over the part's tables (``scene.k1_parts``).  Dropped stack pushes add
-    to :func:`overflow_tensor`."""
-    overflow = overflow_tensor(t0.device)
-    nodes, octets, _ = scene.k1_parts[part]
-    if t0.is_cuda:
-        return _traverse_cuda(nodes, octets, o3, d3, t0, overflow)
-    t, slot, u, v, dropped = _traverse_plain(nodes, octets, o3, d3, t0)
-    overflow += dropped.to(torch.int32)
-    return t, slot, u, v
+def _check_rays(o3, d3, t0, overflow) -> None:
+    dev = t0.device
+    R = t0.shape[0]
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t0"),
+                       (*o3, *d3, t0)):
+        _kernels.require(x, name, torch.float32, dev, R)
+    _kernels.require(overflow, "overflow", torch.int32, dev, 1)
 
 
-def _epilogue_plain(t, slot, u, v, remap, slot_base: int, near, active,
-                    last: bool):
-    """Plain version of the G4 kernel: one part's hits resolved (miss
-    selects, slot clamp, ``tri = remap[slot]``, the part's slot base) and
-    combined with the earlier parts' ``near`` (None for the first part)
-    by a strict ``<``.  Returns (near, the next part's entry t): with
-    ``active``, the entry t is ``-BIG`` for an inactive ray, and after the
-    ``last`` part an inactive ray's t is ``BIG`` (entry t None)."""
+def _resolve_plain(t, slot, u, v, remap, slot_base: int, near) -> Nearest:
+    """One part's hits (t, slot, u, v) resolved, as the chain kernel
+    resolves its winner (a miss selects t = ``BIG``, u = v = 0; the slot
+    clamped into ``remap``; ``tri = remap[slot]``; the part's slot base),
+    and combined with the earlier parts' ``near`` (None for the first
+    part) by a strict ``<``: ties keep the earlier part."""
     did_hit = (t < BIG) & (t > -BIG)
     slot = slot.clamp(0, remap.shape[0] - 1)
     pn = Nearest(
@@ -214,63 +196,79 @@ def _epilogue_plain(t, slot, u, v, remap, slot_base: int, near, active,
         slot=slot + slot_base,
     )
     if near is None:
-        near = pn
-    else:
-        better = pn.t < near.t  # strict <: ties keep the earlier part
-        near = Nearest(*(torch.where(better, a, b)
-                         for a, b in zip(pn, near)))
-    if active is None:
-        return near, None if last else near.t
-    if last:
-        return near._replace(t=torch.where(active, near.t, BIG)), None
-    return near, torch.where(active, near.t, -BIG)
+        return pn
+    better = pn.t < near.t  # strict <: ties keep the earlier part
+    return Nearest(*(torch.where(better, a, b) for a, b in zip(pn, near)))
 
 
-def _epilogue_cuda(t, slot, u, v, remap, slot_base: int, near, active,
-                   last: bool):
-    dev = t.device
-    R = t.shape[0]
-    req = _kernels.require
-    for name, x, dtype in (("t", t, torch.float32), ("slot", slot, torch.int32),
-                           ("u", u, torch.float32), ("v", v, torch.float32)):
-        req(x, name, dtype, dev, R)
-    req(remap, "remap", torch.int32, dev)
-    if remap.dim() != 1 or remap.shape[0] == 0:
-        raise ValueError(f"remap must be (N,) with N > 0, got "
-                         f"{tuple(remap.shape)}")
-    if near is not None:
-        for name, x, dtype in zip(("t", "tri", "u", "v", "slot"), near,
-                                  (torch.float32, torch.int32, torch.float32,
-                                   torch.float32, torch.int32)):
-            req(x, f"earlier {name}", dtype, dev, R)
-    if active is not None:
-        req(active, "active", torch.bool, dev, R)
+def _chain_plain(parts, o3, d3, t0, counts: bool = False):
+    """Plain version of the chain kernel over ``parts`` (the scene's
+    ``k1_parts``): each part walked in order from the best t so far (a
+    dead ray, ``t0 = -BIG``, stays dead), its hits resolved and combined.
+    Returns (near, dropped pushes); with ``counts``, also the (4, R) work
+    of :func:`_traverse_plain` summed over the parts."""
+    near, slot_base, entry = None, 0, t0
+    dropped = torch.zeros((), dtype=torch.int64, device=t0.device)
+    work = 0
+    for nodes, octets, remap in parts:
+        if counts:
+            t, slot, u, v, d, w = _traverse_plain(nodes, octets, o3, d3,
+                                                  entry, counts=True)
+            work = work + w
+        else:
+            t, slot, u, v, d = _traverse_plain(nodes, octets, o3, d3, entry)
+        near = _resolve_plain(t, slot, u, v, remap, slot_base, near)
+        dropped += d
+        slot_base += int(remap.shape[0])
+        entry = torch.where(t0 > -BIG, near.t, t0)
+    return (near, dropped, work) if counts else (near, dropped)
+
+
+def _chain_cuda(parts, o3, d3, t0, overflow) -> Nearest:
+    dev = t0.device
+    R = t0.shape[0]
+    _check_rays(o3, d3, t0, overflow)
+    if not 1 <= len(parts) <= MAX_PARTS:
+        raise ValueError(f"the chain kernel takes 1 to {MAX_PARTS} parts, "
+                         f"got {len(parts)}")
+    table, slot_base = [], 0
+    for nodes, octets, remap in parts:
+        _check_tables(nodes, octets, dev)
+        _kernels.require(remap, "remap", torch.int32, dev)
+        if remap.dim() != 1 or remap.shape[0] == 0:
+            raise ValueError(f"remap must be (N,) with N > 0, got "
+                             f"{tuple(remap.shape)}")
+        table += [nodes.data_ptr(), octets.data_ptr(), remap.data_ptr(),
+                  remap.shape[0], slot_base]
+        slot_base += int(remap.shape[0])
+    if slot_base >= 2**31:
+        raise ValueError(f"{slot_base} slots overflow the kernel's int32")
+    words = (ctypes.c_longlong * len(table))(*table)
     out = Nearest(*(torch.empty(R, dtype=dt, device=dev) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32,
         torch.int32)))
-    entry = (torch.empty(R, dtype=torch.float32, device=dev)
-             if active is not None and not last else None)
-    prev = (None,) * 5 if near is None else tuple(x.data_ptr() for x in near)
-    _kernels.launch(
-        "oglrt_subblock_epilogue", "subblock_epilogue", dev,
-        t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
-        remap.data_ptr(), remap.shape[0], slot_base, *prev,
-        None if active is None else active.data_ptr(), int(last),
-        *(x.data_ptr() for x in out),
-        None if entry is None else entry.data_ptr(), R)
-    if active is None:
-        return out, None if last else out.t
-    return out, entry
+    _kernels.launch("oglrt_subblock_traverse_parts", "subblock_traversal",
+                    dev, *(x.data_ptr() for x in (*o3, *d3, t0)),
+                    ctypes.addressof(words), len(parts),
+                    *(x.data_ptr() for x in (*out, overflow)), R)
+    _kernels.launch_counts["subblock_parts"] += len(parts)
+    return out
 
 
-def part_epilogue(t, slot, u, v, remap, slot_base: int, near, active,
-                  last: bool):
-    """One part's K1 output (t, slot, u, v) resolved and combined with
-    the earlier parts' ``near`` (G4): on CUDA tensors one launch of
-    ``csrc/subblock_epilogue.cu``, on CPU tensors :func:`_epilogue_plain`.
-    Returns (near, the next part's entry t)."""
-    args = (t, slot, u, v, remap, slot_base, near, active, last)
-    return _epilogue_cuda(*args) if t.is_cuda else _epilogue_plain(*args)
+def traverse_parts(scene, o3, d3, t0) -> Nearest:
+    """Nearest hit over every sub-block part of ``scene``, resolved.
+
+    ``o3``/``d3`` are 3-tuples of contiguous (R,) float32 columns and
+    ``t0`` (R,) the entry best ``t`` (at most ``BIG``; ``-BIG`` for a dead
+    ray, which comes out as a miss).  CUDA tensors launch the chain kernel
+    once, CPU tensors run :func:`_chain_plain`.  Dropped stack pushes add
+    to :func:`overflow_tensor`."""
+    overflow = overflow_tensor(t0.device)
+    if t0.is_cuda:
+        return _chain_cuda(scene.k1_parts, o3, d3, t0, overflow)
+    near, dropped = _chain_plain(scene.k1_parts, o3, d3, t0)
+    overflow += dropped.to(torch.int32)
+    return near
 
 
 def raycast_subblock(scene, o3, d3, active=None):
@@ -278,19 +276,11 @@ def raycast_subblock(scene, o3, d3, active=None):
 
     ``o3``/``d3`` are 3-tuples of (R,) float32 columns; ``active`` an
     optional (R,) bool mask whose False rays report ``t = BIG``.  The
-    first part's entry t is K3's (G5's prologue, one launch on the
-    card)."""
+    entry t is K3's (G5's prologue, one launch on the card); the chain is
+    :func:`traverse_parts` (one launch on the card)."""
     if not scene.k1_parts:
         raise ValueError("scene has no sub-block tables (exceeded caps?)")
     o3 = tuple(x.contiguous() for x in o3)
     d3 = tuple(x.contiguous() for x in d3)
     t0 = wide_prologue(active, o3[0].shape[0], o3[0].device)  # G5's
-    near = None
-    slot_base = 0
-    parts = scene.k1_parts
-    for part, (_, _, remap) in enumerate(parts):
-        t, slot, u, v = traverse_part(scene, part, o3, d3, t0)
-        near, t0 = part_epilogue(t, slot, u, v, remap, slot_base, near,
-                                 active, part == len(parts) - 1)
-        slot_base += int(remap.shape[0])
-    return near
+    return traverse_parts(scene, o3, d3, t0)

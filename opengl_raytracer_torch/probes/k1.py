@@ -12,7 +12,7 @@ measured the JAX package's K1 (``ops/subblock_traversal.py``):
   stage (group pop, node fetch, slab tests, group push, octet fetch,
   triangle tests), per visit and per fetch (:func:`stage_report`);
 * ``subblock_correct.py`` (the kernel's primitives right on the hardware):
-  the profile build's and the kernel's hits against the plain version, and
+  the profile build's hits against the plain version, and
   the layout round trip of ``ops/wide2.pack_k1``/``unpack_k1``.
 
 :func:`work` sums the per-ray counts of the plain version
@@ -118,8 +118,9 @@ def lib() -> ctypes.CDLL:
 def profile(k1, o3, d3, t0):
     """One launch of the profile build over ``k1``, one part's (nodes,
     octets, remap) of ``SceneData.k1_parts`` -> ((t, slot, u, v), {stage
-    or event name: int}).  Its hits are the kernel's; its cycles are
-    summed over every ray's thread."""
+    or event name: int}).  Its hits are the part's raw ones, t = ``t0``
+    where nothing beat it (the plain walk's); its cycles are summed over
+    every ray's thread."""
     nodes, octets, _ = k1
     dev = t0.device
     R = t0.shape[0]

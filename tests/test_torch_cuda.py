@@ -9,8 +9,9 @@ skips without one.  On a machine with a card (and without JAX):
 
 Tolerances: the kernels round every float operation to nearest in the
 plain versions' order (no mul+add contraction), so they are expected to
-agree bit for bit; K1, K3, the probes and the glue kernels G1-G9 (ray
-front, int32 sort keys, reorder and restore, K1's part epilogue, K3's
+agree bit for bit; K1 (the whole part chain in one launch, of one
+part or several), K3, the probes and the glue kernels G1-G9 but G4 (ray
+front, int32 sort keys, reorder and restore, K3's
 prologue and epilogue, the band fold, the "bvh" walk, the brute-force
 sweep, the packet walk; G1 and G6 also in the packet traversal's 8x16
 block order) and the step block's write are held to that, the shade floats to ``rtol=1e-5,
@@ -76,23 +77,30 @@ def _rays(R, device, seed=1):
 
 
 def _k1_matches_plain(data, o3, d3, t0):
-    """Every part of ``data``: the K1 kernel equals the plain version over
-    the same tables, bit for bit; returns the hit count."""
-    n_hit = 0
-    for part, (nodes, octets, _) in enumerate(data.k1_parts):
-        ov = sbt.overflow_tensor(t0.device)
+    """K1's chain kernel against its plain version (``_chain_plain``) over
+    the same tables, bit for bit in all five columns: on each part of
+    ``data`` alone and, past one part, on the whole chain, one launch
+    walking its parts each time.  Returns the hit count of the last
+    chain."""
+    ov = sbt.overflow_tensor(t0.device)
+    chains = [(part,) for part in data.k1_parts]
+    if len(chains) > 1:
+        chains.append(data.k1_parts)
+    for parts in chains:
         ov.zero_()
-        before = _kernels.launch_counts["subblock_traversal"]
-        got = sbt.traverse_part(data, part, o3, d3, t0)
-        assert _kernels.launch_counts["subblock_traversal"] == before + 1
-        *ref, dropped = sbt._traverse_plain(nodes, octets, o3, d3, t0)
+        before = dict(_kernels.launch_counts)
+        got = sbt.traverse_parts(data._replace(k1_parts=parts), o3, d3, t0)
+        assert {k: n - before[k] for k, n in _kernels.launch_counts.items()
+                if n != before[k]} == {"subblock_traversal": 1,
+                                       "subblock_parts": len(parts)}
+        ref, dropped = sbt._chain_plain(parts, o3, d3, t0)
         torch.cuda.synchronize()
         assert int(ov.item()) == 0 and int(dropped) == 0
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-        assert (got[0][t0 <= -BIG] == -BIG).all()  # dead rays accept nothing
-        n_hit += int(((ref[0] < BIG) & (ref[0] > -BIG)).sum())
-    return n_hit
+        dead = t0 <= -BIG  # dead rays accept nothing: a miss at slot 0
+        assert (got.t[dead] == BIG).all() and (got.slot[dead] == 0).all()
+    return int((ref.t < BIG).sum())
 
 
 def test_traverse_kernel_matches_plain(cuda):
@@ -102,8 +110,8 @@ def test_traverse_kernel_matches_plain(cuda):
 
 
 def test_traverse_kernel_matches_plain_multi_part(cuda, monkeypatch):
-    """Each part of a scene split into several, with the entry t of a
-    later part (prunes against it)."""
+    """Each part of a scene split into several, and the whole chain, with
+    the entry t of a later part (prunes against it)."""
     orig = scene_mod.build_subblock_parts
     monkeypatch.setattr(scene_mod, "build_subblock_parts",
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
@@ -116,23 +124,25 @@ def test_traverse_kernel_matches_plain_multi_part(cuda, monkeypatch):
 
 
 def test_k1_profile_matches_kernel(cuda):
-    """The profile build (probes/k1.py) finds the kernel's hits, counts
-    the plain version's visits, octets and barycentric tests, and counts
-    its launches apart from the kernel's."""
+    """The profile build (probes/k1.py), the kernel's walk of one part,
+    finds the plain walk's raw hits (t, slot, u, v), counts its visits,
+    octets and barycentric tests, and counts its launches apart from the
+    kernel's."""
     from opengl_raytracer_torch.probes import k1 as k1_probe
 
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     k1 = data.k1_parts[0]
     o3, d3, t0 = _rays(3000, cuda, seed=6)
-    kernel = sbt.traverse_part(data, 0, o3, d3, t0)
     before = dict(_kernels.launch_counts)
     hits, stages = k1_probe.profile(k1, o3, d3, t0)
     assert _kernels.launch_counts["k1_profile"] == before["k1_profile"] + 1
     assert (_kernels.launch_counts["subblock_traversal"]
             == before["subblock_traversal"])
-    for a, b in zip(hits, kernel):
+    *plain, _, counts = sbt._traverse_plain(*k1[:2], o3, d3, t0,
+                                            counts=True)
+    for a, b in zip(hits, plain):
         assert torch.equal(a, b)
-    counts = sbt._traverse_plain(*k1[:2], o3, d3, t0, counts=True)[5].long()
+    counts = counts.long()
     assert stages["visits"] == int(counts[0].sum())
     assert stages["octets"] == int(counts[1].sum())
     assert stages["edge_loads"] == int(counts[3].sum())
@@ -310,30 +320,49 @@ def test_raycast_subblock_multi_part_matches_cpu(cuda, monkeypatch):
     assert (got.t.cpu()[~active] == BIG).all()
 
 
-@pytest.mark.parametrize("n_parts", [4, 16])
+@pytest.mark.parametrize("n_parts", [1, 2, 4, 16])
 def test_sixteen_part_chain_matches_plain(cuda, monkeypatch, n_parts):
-    """K1's chain at the JAX split's cap of 16 parts and at the card's cap
-    of 4 (``test_torch_parts.py``'s small Cornell scene under its small
-    budgets) on the card against the same chain's plain version on the
-    CPU: the nearest hits bit for bit."""
+    """K1's chain in one launch over 1 part, 2, the card's cap of 4 and
+    the JAX split's cap of 16 (``test_torch_parts.py``'s small Cornell
+    scene, under its small budgets past one part) on the card against the
+    same chain's plain version on the CPU: the nearest hits bit for bit,
+    on live and inactive rays, then from entry t's of the caller's: live
+    rays, dead ones (-BIG) and rays whose entry t is nearer than most hits.
+    A segment launches G5's prologue and one chain kernel walking P
+    parts, and nothing else."""
     from test_torch_parts import _rays as cornell_rays
     from test_torch_parts import SPLITS, cornell, small_budget
 
-    small_budget(monkeypatch, *SPLITS[n_parts])
+    if n_parts > 1:
+        small_budget(monkeypatch, *SPLITS[n_parts])
     _, scene, on_card, _, _ = cornell(cuda)
     on_cpu = scene.send("cpu")
     assert len(on_card.k1_parts) == n_parts
     o3, d3, active = cornell_rays(16384)
+    o3c, d3c = tuple(x.to(cuda) for x in o3), tuple(x.to(cuda) for x in d3)
     before = dict(_kernels.launch_counts)
-    got = sbt.raycast_subblock(on_card, tuple(x.to(cuda) for x in o3),
-                               tuple(x.to(cuda) for x in d3), active.to(cuda))
+    got = sbt.raycast_subblock(on_card, o3c, d3c, active.to(cuda))
     ref = sbt.raycast_subblock(on_cpu, o3, d3, active)
-    assert {k: _kernels.launch_counts[k] - before[k] for k in
-            ("subblock_traversal", "subblock_epilogue")} == {
-                "subblock_traversal": n_parts, "subblock_epilogue": n_parts}
+    assert {k: n - before[k] for k, n in _kernels.launch_counts.items()
+            if n != before[k]} == {"wide_epilogue": 1,
+                                   "subblock_traversal": 1,
+                                   "subblock_parts": n_parts}
     assert (ref.t < BIG).sum() > active.sum() * 0.9
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+    assert (ref.t[~active] == BIG).all()
+
+    t0 = torch.full((16384,), BIG)
+    t0[::5] = -BIG
+    t0[1::5] = 0.5
+    got = sbt.traverse_parts(on_card, o3c, d3c, t0.to(cuda))
+    ref = sbt.traverse_parts(on_cpu, o3, d3, t0)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    dead = t0 == -BIG
+    assert (ref.t[dead] == BIG).all() and (ref.slot[dead] == 0).all()
+    assert (ref.tri[dead] == on_cpu.k1_parts[0][2][0]).all()
+    assert (ref.t[1::5] == 0.5).sum() > 1000  # entry t kept, nothing nearer
 
 
 @pytest.mark.parametrize("lambertian", [True, False])
@@ -379,10 +408,10 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     o3, d3, t0 = _rays(256, cuda)
     with pytest.raises(ValueError, match="dtype"):
-        sbt.traverse_part(data, 0, o3, d3, t0.double())
+        sbt.traverse_parts(data, o3, d3, t0.double())
     strided = torch.zeros(512, device=cuda)[::2]
     with pytest.raises(ValueError, match="contiguous"):
-        sbt.traverse_part(data, 0, (strided, *o3[1:]), d3, t0)
+        sbt.traverse_parts(data, (strided, *o3[1:]), d3, t0)
     with pytest.raises(ValueError, match="group column"):
         wide._traverse_cuda(*data.k3, o3, d3, t0, 100,
                             wide.overflow_tensor(cuda))
@@ -390,7 +419,8 @@ def test_kernel_wrappers_reject_bad_input(cuda):
 
 def test_k1_wrapper_rejects_bad_tables(cuda):
     """K1's Hopper tables of the wrong shape, type or device, or not on a
-    16-byte boundary, are refused before any launch."""
+    16-byte boundary, are refused before any launch; so are a bad remap,
+    more than 16 parts and rays of another length."""
     data = Scene(_objects(), max_leaf_tris=16).send(cuda)
     nodes, octets, remap = data.k1_parts[0]
     rows = torch.zeros((8, 128), device=cuda)  # the TPU's row shape
@@ -406,8 +436,20 @@ def test_k1_wrapper_rejects_bad_tables(cuda):
            ((nodes, octets.reshape(-1)[1:97].reshape(1, 96)), "aligned")]
     for k1, match in bad:
         with pytest.raises(ValueError, match=match):
-            sbt.traverse_part(data._replace(k1_parts=((*k1, remap),)), 0,
-                              o3, d3, t0)
+            sbt.traverse_parts(data._replace(k1_parts=((*k1, remap),)), o3,
+                               d3, t0)
+    # the chain kernel's own: each part's remap, the number of parts, rays
+    for part, match in (((nodes, octets, remap.long()), "dtype"),
+                        ((nodes, octets, remap.cpu()), "is on"),
+                        ((nodes, octets, remap[:0]), "must be"),
+                        ((nodes, octets, remap[None]), "must be")):
+        with pytest.raises(ValueError, match=match):
+            sbt.traverse_parts(data._replace(k1_parts=(part,)), o3, d3, t0)
+    with pytest.raises(ValueError, match="1 to 16 parts"):
+        sbt.traverse_parts(data._replace(k1_parts=data.k1_parts * 17), o3,
+                           d3, t0)
+    with pytest.raises(ValueError, match="elements"):
+        sbt.traverse_parts(data, o3, d3, t0[:-1])
     assert _kernels.launch_counts["subblock_traversal"] == before
 
 
@@ -644,38 +686,61 @@ def test_reorder_index_pass_recon_matches_plain(cuda, frame):
 
 
 @pytest.mark.parametrize("masked", [True, False])
-def test_epilogue_kernel_matches_plain(cuda, monkeypatch, masked):
-    """Each part's epilogue on a scene split into several parts, on K1's
-    own output, against the plain version on the same inputs: the nearest
-    hit's five columns and the next part's entry t, bit for bit."""
+def test_chain_kernel_resolves_hits(cuda, monkeypatch, masked):
+    """The chain kernel resolves its winner as the plain chain does, on a
+    scene split into several parts, bit for bit, and by each rule: a miss
+    or an inactive ray gives t = BIG, u = v = 0, slot 0 and part 0's
+    remap[0]; a hit's slot lies in its part's range past the part's slot
+    base, and its tri is that part's remap of the slot; a slot past its
+    part's remap clamps to the remap's last entry."""
     orig = scene_mod.build_subblock_parts
     monkeypatch.setattr(scene_mod, "build_subblock_parts",
                         lambda *a, **k: orig(*a, budget_bytes=64 * 1024))
     data = Scene(_objects(1200), max_leaf_tris=16).send(cuda)
     parts = data.k1_parts
     assert len(parts) > 2
-    o3, d3, _ = _rays(8191, cuda, seed=14)
-    active = (torch.from_numpy(np.random.default_rng(15).uniform(size=8191)
+    R = 8191
+    o3, d3, _ = _rays(R, cuda, seed=14)
+    active = (torch.from_numpy(np.random.default_rng(15).uniform(size=R)
                                < 0.7).to(cuda) if masked else None)
-    t0 = (torch.where(active, BIG, -BIG).to(torch.float32) if masked
-          else torch.full((8191,), BIG, device=cuda))
-    near, slot_base = None, 0
-    for part, (_, _, remap) in enumerate(parts):
-        k1 = sbt.traverse_part(data, part, o3, d3, t0)
-        last = part == len(parts) - 1
-        before = _kernels.launch_counts["subblock_epilogue"]
-        got, t0 = sbt.part_epilogue(*k1, remap, slot_base, near, active,
-                                    last)
-        assert _kernels.launch_counts["subblock_epilogue"] == before + 1
-        ref, ref_t0 = sbt._epilogue_plain(*k1, remap, slot_base, near,
-                                          active, last)
-        for a, b in zip(got, ref):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        assert (t0 is None) == (ref_t0 is None) == last
-        if not last:
-            assert torch.equal(t0, ref_t0)
-        near, slot_base = got, slot_base + int(remap.shape[0])
-    assert int((near.t < BIG).sum()) > 1000
+    t0 = wide.wide_prologue(active, R, cuda)
+    ov = sbt.overflow_tensor(cuda)
+    ov.zero_()
+    before = dict(_kernels.launch_counts)
+    got = sbt.traverse_parts(data, o3, d3, t0)
+    assert _kernels.launch_counts["subblock_parts"] == (
+        before["subblock_parts"] + len(parts))
+    ref, dropped = sbt._chain_plain(parts, o3, d3, t0)
+    assert int(ov.item()) == 0 and int(dropped) == 0
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+    miss = got.t == BIG
+    assert (got.u[miss] == 0).all() and (got.v[miss] == 0).all()
+    assert (got.slot[miss] == 0).all()
+    assert (got.tri[miss] == parts[0][2][0]).all()
+    if masked:
+        assert miss[~active].all()
+    base, winners = 0, 0
+    for _, _, remap in parts:
+        mine = ~miss & (got.slot >= base) & (got.slot < base + remap.shape[0])
+        assert torch.equal(got.tri[mine],
+                           remap[(got.slot[mine] - base).long()])
+        winners += int(mine.any())
+        base += remap.shape[0]
+    assert int((~miss).sum()) > 1000 and winners > 1
+
+    # part 0's remap cut to 3 entries: its winners' slots clamp to 2
+    full = got
+    cut = ((*parts[0][:2], parts[0][2][:3].clone()), *parts[1:])
+    got = sbt.traverse_parts(data._replace(k1_parts=cut), o3, d3, t0)
+    ref, _ = sbt._chain_plain(cut, o3, d3, t0)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    first = ~miss & (full.slot < parts[0][2].shape[0])
+    assert int((full.slot[first] > 2).sum()) > 100
+    assert torch.equal(got.slot[first], full.slot[first].clamp_max(2))
+    assert torch.equal(got.tri[first], parts[0][2][got.slot[first].long()])
 
 
 def test_glue_wrappers_reject_bad_input(cuda):
@@ -710,14 +775,6 @@ def test_glue_wrappers_reject_bad_input(cuda):
         (lambda: permute.restore(d3, seed.cpu(), keys), "is on"),
         (lambda: permute.restore(d3, None, seed), "dtype"),
         (lambda: permute.restore(d3, seed, keys[:-1]), "elements"),
-        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap.long(), 0, None,
-                                   None, True), "dtype"),
-        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap[:0], 0, None,
-                                   None, True), "must be"),
-        (lambda: sbt.part_epilogue(t0, slot.float(), t0, t0, remap, 0, None,
-                                   None, True), "dtype"),
-        (lambda: sbt.part_epilogue(t0, slot, t0, t0, remap, 0, None,
-                                   keys[:-1].bool(), True), "elements"),
     ]
     before = dict(_kernels.launch_counts)
     for call, match in bad:
@@ -1325,7 +1382,8 @@ def test_graph_counts_replays_and_keeps_the_overflow_counters(cuda):
     counts = dict(_kernels.launch_counts)
     n = config.n_bounces
     parts = len(r.scene.k1_parts)
-    assert counts["subblock_traversal"] == parts * n and counts["shade"] == n
+    assert counts["subblock_traversal"] == n and counts["shade"] == n
+    assert counts["subblock_parts"] == parts * n
     assert counts["ray_front"] == counts["band_fold"] == 1
     assert counts["step_block"] == 1 and counts["restore"] == 1
     assert counts["wide_epilogue"] == n and counts["wide_traversal"] == 0

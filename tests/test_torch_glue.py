@@ -1,6 +1,6 @@
-"""The plain versions of the main path's glue kernels (G1-G4) against the
-JAX package, on the CPU, and against the torch code they were split out
-of.
+"""The plain versions of the main path's glue kernels (G1-G3) and of K1's
+part-chain resolution against the JAX package, on the CPU, and against
+the torch code they were split out of.
 
 * G1, the ray front (``ops/front.py``): its math for given pixels
   (``pixel_front``) against the JAX ``render_pixels``' hand-off to
@@ -20,8 +20,10 @@ of.
   the JAX sort's fold (``opengl_raytracer_tpu/ops/integrator.py:251-268``)
   on the same state; and on a small frame every live ray's incoming light
   is +0.0 in bits after each bounce, the fact the fold rests on.
-* G4, K1's part epilogue (``ops/subblock_traversal.py``): on a 4-part
-  scene with an active mask, the port's ``raycast_subblock`` against the
+* K1's part chain and its resolution of the hits
+  (``ops/subblock_traversal.py:_chain_plain``, the plain version of the
+  chain kernel, which also does what G4's launches did before it): on a
+  4-part scene with an active mask, the port's ``raycast_subblock`` against the
   JAX ``raycast_subblock`` in interpret mode (the tolerances of
   tests/test_torch_traversal.py: exact-t ties may pick another triangle),
   and against the former inline part loop bit for bit.
@@ -394,7 +396,7 @@ def test_live_rays_carry_no_light_after_each_bounce(monkeypatch):
     assert seen == {"shade": 4, "reorder": 3}
 
 
-# ----------------------------------------------------------- G4 epilogue
+# -------------------------------------------- K1's part-chain resolution
 
 def test_epilogue_on_four_parts_matches_jax(monkeypatch):
     """The JAX kernel in interpret mode, with an active mask, on a scene
@@ -418,13 +420,13 @@ def _raycast_inline(scene, o3, d3, active):
     R = o3[0].shape[0]
     near = None
     slot_base = 0
-    for part, (_, _, remap) in enumerate(scene.k1_parts):
+    for nodes, octets, remap in scene.k1_parts:
         t0 = (torch.full((R,), BIG, dtype=torch.float32)
               if near is None else near.t)
         if active is not None:
             t0 = torch.where(active, t0, -BIG)
-        t, slot, u, v = sbt.traverse_part(scene, part, o3, d3,
-                                          t0.contiguous())
+        t, slot, u, v, _ = sbt._traverse_plain(nodes, octets, o3, d3,
+                                               t0.contiguous())
         did_hit = (t < BIG) & (t > -BIG)
         slot = slot.clamp(0, remap.shape[0] - 1)
         pn = Nearest(t=torch.where(did_hit, t, BIG), tri=remap[slot.long()],

@@ -37,10 +37,12 @@ from opengl_raytracer_torch.utils import profiling  # noqa: E402
 from rtbench import compare, harness, scenes, trace  # noqa: E402
 
 # 2,448 triangles: the default budget keeps them in one part, this one
-# splits them into 16 at the first round, and four times it with a cap of
-# 4 parts (the card's budget to the JAX one, and the card's cap) into 4
+# splits them into 16 at the first round, four times it with a cap of 4
+# parts (the card's budget to the JAX one, and the card's cap) into 4, and
+# eight times it with a cap of 2 into 2
 BUDGET = 16 * 1024
-SPLITS = {16: (BUDGET, 16), 4: (4 * BUDGET, wide2.CARD_MAX_PARTS)}
+SPLITS = {16: (BUDGET, 16), 4: (4 * BUDGET, wide2.CARD_MAX_PARTS),
+          2: (8 * BUDGET, 2)}
 RECIPE = {"dragon_cells": [24, 48], "dragon_triangles": 2300,
           "ball_cells": [4, 8]}
 
@@ -115,9 +117,9 @@ def _rays(R, seed=3):
 
 @pytest.mark.parametrize("n_parts", sorted(SPLITS))
 def test_sixteen_parts_hit_as_one(monkeypatch, n_parts):
-    """The chain over 16 parts, and over 4, against the same scene in one
-    part: t bit for bit, the triangle the same but where two triangles
-    tie at that exact t."""
+    """The chain over 16 parts, over 4 and over 2, against the same scene
+    in one part: t bit for bit, the triangle the same but where two
+    triangles tie at that exact t."""
     one = cornell()[2]
     small_budget(monkeypatch, *SPLITS[n_parts])
     sixteen = cornell()[2]

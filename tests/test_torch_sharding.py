@@ -529,12 +529,6 @@ def _launch(kernel, device, odd_one=None):
                                      t("orig", R, i32), False)
     if kernel == "restore":
         return permute._restore_cuda(d3, t("seed", R, i64), t("orig", R, i32))
-    if kernel == "subblock_epilogue":
-        near = Nearest(t=t("t", R), tri=t("tri", R, i32), u=t("u", R),
-                       v=t("v", R), slot=t("slot", R, i32))
-        return sbt._epilogue_cuda(near.t, near.slot, near.u, near.v,
-                                  t("remap", 8, i32), 8, near,
-                                  t("active", R, torch.bool), False)
     if kernel == "shade":
         near = Nearest(t=t("t", R), tri=t("tri", R, torch.int32),
                        u=t("u", R), v=t("v", R))
@@ -554,23 +548,26 @@ def _launch(kernel, device, odd_one=None):
         return traversal._walk_cuda(scene, o3, d3, None, 4)
     t0 = t("t0", R).fill_(BIG)
     overflow = t("overflow", 1, torch.int32)
-    if kernel == "subblock_traversal":
-        return sbt._traverse_cuda(t("node_rows", (2, 64), torch.int32),
-                                  t("tri_rows", (2, 96)), o3, d3, t0,
-                                  overflow)
+    if kernel in ("subblock_traversal", "subblock_parts"):
+        parts = ((t("node_rows", (2, 64), torch.int32), t("tri_rows", (2, 96)),
+                  t("remap", 16, i32)),)
+        if kernel == "subblock_parts":
+            parts *= 2
+        return sbt._chain_cuda(parts, o3, d3, t0, overflow)
     return wide._traverse_cuda(t("pw_tiles", (2, 64), torch.int32),
                                t("pl_tri_tiles", (2, 96)), o3, d3, t0, 16,
                                overflow)
 
 
-KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
+# "subblock_traversal" is K1's chain of one part, "subblock_parts" of two
+KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse_parts",
+                  "subblock_parts": "oglrt_subblock_traverse_parts",
                   "shade": "oglrt_shade",
                   "wide_traversal": "oglrt_wide_traverse",
                   "ray_front": "oglrt_ray_front",
                   "sort_keys": "oglrt_sort_keys",
                   "reorder": "oglrt_reorder",
                   "restore": "oglrt_restore",
-                  "subblock_epilogue": "oglrt_subblock_epilogue",
                   "wide_prologue": "oglrt_wide_prologue",
                   "wide_epilogue": "oglrt_wide_epilogue",
                   "band_fold": "oglrt_band_fold",
@@ -581,8 +578,10 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse",
 # kernels a call of the symbol launches, where it is not one: the reorder's
 # index pass and gather
 KERNELS_A_CALL = {"reorder": 2}
-# the counter of a symbol named otherwise: G5's two entry points share one
-COUNTER = {"wide_prologue": "wide_epilogue"}
+# the counter of a symbol named otherwise: G5's two entry points share one,
+# and K1's chains of one part and of two count their launches in one
+COUNTER = {"wide_prologue": "wide_epilogue",
+           "subblock_parts": "subblock_traversal"}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -594,6 +593,9 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     counter = COUNTER.get(kernel, kernel)
     assert (_kernels.launch_counts[counter]
             == before[counter] + KERNELS_A_CALL.get(kernel, 1))
+    walked = {"subblock_traversal": 1, "subblock_parts": 2}.get(kernel, 0)
+    assert _kernels.launch_counts["subblock_parts"] == (
+        before["subblock_parts"] + walked)
     assert torch.cuda.current_device() == "outside the guard"
 
 
@@ -603,8 +605,8 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     ("wide_traversal", "oy"), ("wide_traversal", "pl_tri_tiles"),
     ("sort_keys", "dz"),
     ("sort_keys", "alive"), ("reorder", "perm"), ("reorder", "oz"),
-    ("restore", "seed"), ("subblock_epilogue", "remap"),
-    ("subblock_epilogue", "slot"), ("subblock_epilogue", "active"),
+    ("restore", "seed"), ("subblock_parts", "remap"),
+    ("subblock_parts", "node_rows"), ("subblock_parts", "dz"),
     ("wide_prologue", "active"), ("wide_epilogue", "slot"),
     ("wide_epilogue", "remap"), ("band_fold", "accum"),
     ("band_fold", "c1"), ("brute_sweep", "tris"), ("bvh_walk", "nodes"),
