@@ -168,6 +168,15 @@ Phases; each raises on failure, and the script then exits non-zero:
    cycles; then cadences 1, 2, 4, 1, 2, 4 timed in turns, 8 replayed
    frames a run, with the launches of each run checked and the path's
    peak device memory (its four renderers' graphs).
+5d. display: the App's display path (``App.frame``) at 1920x1080, 7
+   bounces on phase 5's scene: the 8-bit conversion kernel
+   (``csrc/to_uint8.cu``) byte for byte against ``to_uint8`` of the same
+   ``accum`` (also stretched past [0, 1], and the half steps), its device
+   ms hot, after an L2 flush and in frame against its bytes bound; the App's
+   frame body timed in turns with the parent's (a device clone shown one
+   frame later by a pageable ``.cpu()`` and the host's ``to_uint8``) by
+   the host clock and CUDA events; the copy to pinned memory's ms and the
+   share of it that overlapped other device work.
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
    may differ), and the 96x54 card-vs-CPU check.
@@ -2358,6 +2367,140 @@ def main_path_phase(scene, camera, out_dir):
     return counts, img, ms
 
 
+DISPLAY_FRAMES = 60  # frames a timed turn of the display phase
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+
+
+def display_least_bytes(width: int, height: int) -> int:
+    """Bytes one 8-bit conversion of a width x height frame must move: 3
+    float32 channels read and 3 uint8 channels written a pixel."""
+    return width * height * 3 * (4 + 1)
+
+
+def _display_turn(frame, n: int) -> tuple[float, float]:
+    """(host ms, CUDA-event ms) a frame of ``n`` calls of ``frame``, after
+    3 warm-up calls; each ends where the loop's last frame ended."""
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        frame()
+    end.record()
+    t1 = time.perf_counter()
+    end.synchronize()
+    return (t1 - t0) * 1e3 / n, start.elapsed_time(end) / n
+
+
+def display_phase(scene, camera):
+    """The App's display path at 1920x1080, 7 bounces (the App's
+    defaults) on phase 5's scene: the conversion kernel's bytes against
+    ``to_uint8`` of the same ``accum`` on the card (the frame, the frame
+    stretched past [0, 1], the half steps), its device ms hot and after an
+    L2 flush, its share of its bytes bound; then the App's frame body timed
+    in turns with the parent's (a device clone of ``accum`` at each
+    sweep's end, shown one frame later by a pageable ``.cpu()`` and the
+    host's ``to_uint8``), by the host clock and CUDA events; last, from a
+    profile of the new body, the copy's time and the share of it that
+    overlapped other device work, and the kernel's time in frame."""
+    from opengl_raytracer_torch.app import App
+    from opengl_raytracer_torch.ops import _kernels, display
+    from opengl_raytracer_torch.utils.image import to_uint8
+    from rtbench import trace as rtrace
+
+    app = App(scene=scene, headless=True, run=False, device=DEVICE)
+    app.camPos = np.array(CAM_POS, np.float32)
+    app.camDir = np.array(CAM_DIR, np.float32)
+    app.resetFrames()
+    held = [None]  # what the sink shows, kept until the next frame
+
+    def keep(image, frame_count):
+        held[0] = image
+
+    new_frame = lambda: app.frame("", (0, 0), keep)
+    for _ in range(4):
+        new_frame()
+    torch.cuda.synchronize()
+    acc = app.state.accum
+    k = torch.arange(255, dtype=torch.float64, device=acc.device)
+    halves = ((k + 0.5) / 255.0).float()
+    near = torch.cat([halves, torch.nextafter(halves, halves + 1),
+                      torch.nextafter(halves, halves - 1)])
+    cases = {"frame": acc, "stretched": acc * 1.7 - 0.2,
+             "half_steps": near.repeat(acc.numel() // near.numel() + 1)[
+                 :acc.numel()].view_as(acc).contiguous()}
+    out = torch.empty(acc.shape, dtype=torch.uint8, device=acc.device)
+    for name, img in cases.items():
+        display.to_uint8(img, out)
+        if not np.array_equal(out.cpu().numpy(), to_uint8(img.cpu().numpy())):
+            raise RuntimeError(f"display {name}: the kernel's bytes differ "
+                               f"from to_uint8")
+    # device times from a profile: hot (the frame and bytes in L2, each
+    # launch alone at the host's launch rate) and after a 128 MB flush
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=acc.device)
+    with rtrace.profiler() as prof:
+        for _ in range(50):
+            display.to_uint8(acc, out)
+        for _ in range(20):
+            flush.fill_(1)
+            display.to_uint8(acc, out)
+        torch.cuda.synchronize()
+    del flush
+    alone = [(b - a) / 1e3 for n, a, b in rtrace.read(prof)[0]
+             if "to_uint8_kernel" in n]
+    hot, cold = float(np.median(alone[:50])), float(np.median(alone[50:]))
+    least_ms = display_least_bytes(WIDTH, HEIGHT) / HBM_BYTES_S * 1e3
+
+    r = app.renderer
+    pending = []
+
+    def old_frame():  # the parent's App frame body
+        app.state = r.step(app.state, app.camera)
+        if pending:
+            img_dev, _ = pending.pop()
+            held[0] = to_uint8(img_dev.cpu().numpy())
+        pending.append((app.state.accum.clone(), app.state.frame_count))
+
+    turns = {"parent": [], "app_frame": []}
+    for name in ("parent", "app_frame", "app_frame", "parent"):
+        launches = _kernels.launch_counts["to_uint8"]
+        turns[name].append(_display_turn(
+            old_frame if name == "parent" else new_frame, DISPLAY_FRAMES))
+        pending.clear()
+        want = 0 if name == "parent" else DISPLAY_FRAMES + 3
+        check_count({"to_uint8": _kernels.launch_counts["to_uint8"]
+                     - launches}, "to_uint8", want)
+
+    with rtrace.profiler() as prof:
+        for _ in range(8):
+            new_frame()
+        torch.cuda.synchronize()
+    dev, _ = rtrace.read(prof)
+    copies = [(a, b) for n, a, b in dev if rtrace.group(n) == "readback"]
+    kernels = [b - a for n, a, b in dev if "to_uint8_kernel" in n]
+    busy = rtrace.busy_intervals(
+        [e for e in dev if rtrace.group(e[0]) != "readback"],
+        dev[0][1], dev[-1][2])
+    over = sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in copies for c, d in busy)
+    copy_us = sum(b - a for a, b in copies)
+    in_frame = sum(kernels) / len(kernels) / 1e3
+    say("display", width=WIDTH, height=HEIGHT, bounces=app.config.bounces,
+        exact=list(cases), kernel_hot_ms=hot, kernel_cold_ms=cold,
+        kernel_in_frame_ms=in_frame, least_ms=least_ms,
+        share_hot=least_ms / hot, share_cold=least_ms / cold,
+        share_in_frame=least_ms / in_frame,
+        parent_host_ms=[t[0] for t in turns["parent"]],
+        parent_event_ms=[t[1] for t in turns["parent"]],
+        app_frame_host_ms=[t[0] for t in turns["app_frame"]],
+        app_frame_event_ms=[t[1] for t in turns["app_frame"]],
+        copies=len(copies), copy_ms=copy_us / 1e3 / max(1, len(copies)),
+        copy_overlap_share=over / copy_us if copy_us else None)
+
+
 def graph_phase(cases, camera):
     """Phase 5b: the compiled step.  For each (name, scene data, traversal
     name, the traversal it must resolve to) of ``cases``: a Renderer whose
@@ -3664,6 +3807,7 @@ def main(argv=None) -> int:
     timed("k2probe", k2probe_phase, args.seed, k2[1])
     counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
                                       args.out)
+    timed("display", display_phase, scene, camera)
     pallas_counts = timed("pallas", wide_path_phase, scene, camera,
                           main_img)
     counts["wide_traversal"] = pallas_counts["wide_traversal"]

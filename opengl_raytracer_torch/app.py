@@ -9,7 +9,10 @@ framebuffer blitted to a pygame window, in place of a GL context, shaders
 and SSBO uploads.  ``device`` is explicit (default ``"cuda"``): without a
 card, pass ``device="cpu"`` to run the kernels' plain versions.
 
-Behavior of the reference's loop (main.py:273-430):
+Behavior of the reference's loop (main.py:273-430), one :meth:`App.frame`
+a loop turn, which the pygame shell (``_main_interactive``: input
+polling, events, window, caption) and the benchmark's ``app_fly`` loop
+(``rtbench/loops/fly.py``) both call:
 
 * WASD/QE fly camera scaled by ``speed``; mouse look scaled by
   ``sensitivity``; gated by the M toggle (main.py:292-351);
@@ -18,6 +21,10 @@ Behavior of the reference's loop (main.py:273-430):
   degrees (main.py:367-370); ESC quits;
 * any movement re-derives the camera basis and resets the progressive
   accumulation (resetFrames, main.py:252-271);
+* every finished sweep is shown one frame later, while the next one
+  renders (main.py:375-401): converted to 8 bits on the device, copied to
+  pinned host memory on a copy stream (``utils/image.py:Display``) and
+  handed to a sink, which in the shell blits it to the window;
 * the caption shows fps / frame count / frame time / total render time
   (main.py:405-407);
 * on exit, the accumulated frame is saved as ``render_<time>.png`` if the
@@ -44,9 +51,15 @@ from opengl_raytracer_torch.presets import (
     default_objects,
 )
 from opengl_raytracer_torch.renderer import Renderer
+from opengl_raytracer_torch.utils import profiling
 from opengl_raytracer_torch.utils.config import RenderConfig
-from opengl_raytracer_torch.utils.image import save_png, to_uint8
+from opengl_raytracer_torch.utils.image import Display, save_png
 from opengl_raytracer_torch.utils.profiling import device_sync
+
+# the fly keys (main.py:301-351): key, sign, axis of the camera basis
+# (0 right, 1 forward, 2 up)
+MOVE_KEYS = (("w", 1, 1), ("s", -1, 1), ("d", 1, 0), ("a", -1, 0),
+             ("e", 1, 2), ("q", -1, 2))
 
 
 class App:
@@ -118,6 +131,7 @@ class App:
         self.state = self.renderer.init_state()
         self.camera = self._make_camera()
         self.time_start = time.time()
+        self.display: Display | None = None  # made at the first frame
 
         if run:
             self.main()
@@ -152,6 +166,7 @@ class App:
         self.camera = self._make_camera()
         self.state = self.renderer.reset(self.state)
         self.time_start = time.time()
+        profiling.count("app.resets")
 
     def image(self) -> np.ndarray:
         return self.renderer.image(self.state)
@@ -159,11 +174,45 @@ class App:
     def save(self, path: str) -> None:
         save_png(path, self.image())
 
-    def _snapshot(self) -> tuple[torch.Tensor, int]:
-        """(a copy of ``accum``, frame count) for the display.  ``accum``
-        is updated in place by every step, so the copy is what keeps the
-        displayed frame from changing under the next sweep."""
-        return self.state.accum.clone(), self.state.frame_count
+    def _move(self, keys, mouse_rel) -> bool:
+        """Apply the mouse and the fly keys to the camera, gated by
+        ``canMove`` (main.py:292-351); True where anything moved, or a fly
+        key was held."""
+        delta = np.array([mouse_rel[0], -mouse_rel[1]],
+                         dtype=np.float32) * self.canMove
+        self.camDir += delta * self.sensitivity
+        basis = self.get_camera_basis(self.camDir)
+        moved = bool(delta.any())
+        move = self.speed * self.canMove
+        for key, sign, axis in MOVE_KEYS:
+            if key in keys:
+                self.camPos += sign * move * basis[axis]
+                moved = True
+        return moved
+
+    def frame(self, keys, mouse_rel, present) -> None:
+        """One turn of the App's loop, in the reference's order: apply
+        ``keys`` (the fly keys held, a string or set of "wasdqe") and
+        ``mouse_rel`` ((dx, dy) since the last frame) to the camera and
+        reset on movement (span ``app.input``); one ``Renderer.step``;
+        hand the previous sweep's 8-bit frame to ``present(image,
+        frame_count)`` (span ``app.present``, from the wait for its copy
+        to the sink's return), ``image`` an (H, W, 3) uint8 host tensor
+        that stays unchanged until the next frame's ``present``; and,
+        where this step ended a sweep, start that sweep's conversion and
+        copy (``utils/image.py:Display``)."""
+        with profiling.per_step("app.input"):
+            if self._move(keys, mouse_rel):
+                self.resetFrames()
+        self.state = self.renderer.step(self.state, self.camera,
+                                        lambertian=self.lambertian)
+        if self.display is None:
+            self.display = Display(self.config.height, self.config.width,
+                                   self.renderer.device)
+        with profiling.per_step("app.present"):
+            self.display.present(present)
+        if self.state.tile_x == 0 and self.state.tile_y == 0:
+            self.display.start(self.state.accum, self.state.frame_count)
 
     def main(self) -> None:
         if self.headless:
@@ -196,46 +245,30 @@ class App:
         print(f"Saved {out}")
 
     def _main_interactive(self) -> None:
+        """The pygame shell around :meth:`frame`: input polling, events,
+        the window and its caption."""
         import pygame as pg
 
         pg.init()
         surface = pg.display.set_mode(self.screen_size)
         pg.display.set_caption("PyTorch raytracer")
+        size = (self.config.width, self.config.height)
+        stats = profiling.FrameStats()
+
+        def show(image, frame_count):
+            frame = pg.image.frombuffer(image.numpy(), size, "RGB")
+            surface.blit(pg.transform.scale(frame, self.screen_size), (0, 0))
+            pg.display.flip()
+            stats.tick()
+            pg.display.set_caption("PyTorch raytracer! " + stats.caption(
+                frame_count, self.get_time()))
+
+        codes = {k: getattr(pg, f"K_{k}") for k, _, _ in MOVE_KEYS}
         running = True
-        fps = 0.0
-        delta_time = 0.0
-        last_frame_time = time.time()
-        pending = None  # _snapshot() of the last finished sweep, to display
-
         while running:
-            keys = pg.key.get_pressed()
+            pressed = pg.key.get_pressed()
+            keys = {k for k, code in codes.items() if pressed[code]}
             rel = pg.mouse.get_rel()
-            delta = np.array([rel[0], -rel[1]], dtype=np.float32) * self.canMove
-            self.camDir += delta * self.sensitivity
-
-            right, forward, up = self.get_camera_basis(self.camDir)
-            moved = bool(delta.any())
-            move = self.speed * self.canMove
-            if keys[pg.K_w]:
-                self.camPos += move * forward
-                moved = True
-            if keys[pg.K_s]:
-                self.camPos -= move * forward
-                moved = True
-            if keys[pg.K_d]:
-                self.camPos += move * right
-                moved = True
-            if keys[pg.K_a]:
-                self.camPos -= move * right
-                moved = True
-            if keys[pg.K_e]:
-                self.camPos += move * up
-                moved = True
-            if keys[pg.K_q]:
-                self.camPos -= move * up
-                moved = True
-            if moved:
-                self.resetFrames()
 
             for event in pg.event.get():
                 if event.type == pg.QUIT:
@@ -261,34 +294,7 @@ class App:
                     if event.key == pg.K_ESCAPE:
                         running = False
 
-            self.state = self.renderer.step(self.state, self.camera,
-                                            lambertian=self.lambertian)
-
-            # Display pipelining: on a card ``step`` only queues its work,
-            # so the previous sweep's snapshot is read back and blitted now,
-            # overlapping this sweep's device work (the analogue of the
-            # reference's FBO ping-pong, main.py:375-401).
-            if pending is not None:
-                img_dev, frame_count = pending
-                pending = None
-                img = to_uint8(img_dev.cpu().numpy())
-                frame = pg.surfarray.make_surface(img.transpose(1, 0, 2))
-                frame = pg.transform.scale(frame, self.screen_size)
-                surface.blit(frame, (0, 0))
-                pg.display.flip()
-
-                delta_time = time.time() - last_frame_time
-                fps = 1.0 / delta_time if delta_time > 0 else 0.0
-                last_frame_time = time.time()
-                pg.display.set_caption(
-                    f"PyTorch raytracer! Fps: {round(fps)} "
-                    f"Frame: {frame_count} "
-                    f"Frame render time: {round(delta_time * 1000)}ms "
-                    f"Total render time: {self.get_time()}"
-                )
-
-            if self.state.tile_x == 0 and self.state.tile_y == 0:
-                pending = self._snapshot()
+            self.frame(keys, rel, show)
 
         # Exit screenshot after long runs (reference main.py:432-439).
         if time.time() - self.time_start > 10 * 60:

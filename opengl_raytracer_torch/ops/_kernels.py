@@ -44,7 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
 # "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
 # traversal), "brute_sweep" (G8, the "brute" traversal), "packet_walk"
-# (G9, the "packet" traversal); and the probes' kernels
+# (G9, the "packet" traversal), "to_uint8" (the App's display conversion,
+# ops/display.py); and the probes' kernels
 # (opengl_raytracer_torch/probes/), which no path of the renderer launches:
 # "k1_profile" and "k3_profile" count the profile builds of K1 and K3,
 # "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
@@ -52,8 +53,9 @@ launch_counts = {"subblock_traversal": 0, "subblock_parts": 0, "shade": 0,
                  "wide_traversal": 0, "ray_front": 0, "sort_keys": 0,
                  "reorder": 0, "restore": 0, "wide_epilogue": 0,
                  "band_fold": 0, "step_block": 0, "bvh_walk": 0,
-                 "brute_sweep": 0, "packet_walk": 0, "k1_profile": 0,
-                 "k3_profile": 0, "k3_fetch": 0, "k2_probe": 0}
+                 "brute_sweep": 0, "packet_walk": 0, "to_uint8": 0,
+                 "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
+                 "k2_probe": 0}
 PROBE_COUNTERS = ("k1_profile", "k3_profile", "k3_fetch", "k2_probe")
 
 _lock = threading.Lock()
@@ -217,6 +219,9 @@ def _load() -> ctypes.CDLL:
     so.oglrt_brute_sweep.restype = i32
     so.oglrt_brute_sweep.argtypes = ([p] * 8 + [i32] + [p] * 4
                                      + [i64, p])
+    # (frame, bytes, n)
+    so.oglrt_to_uint8.restype = i32
+    so.oglrt_to_uint8.argtypes = [p, p, i64, p]
     return so
 
 

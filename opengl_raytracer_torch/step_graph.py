@@ -16,7 +16,8 @@ captures it.  There is no fallback: a body that cannot be captured (a host
 sync, say) raises here.  Launch counts: ``_kernels.launch`` counts in
 Python, where a replay does not pass, so the counts the capture added are
 taken back and kept with the graph, which adds them on each replay; the
-warm-up's launches set the graph up and are not counted either.
+warm-up's launches set the graph up and are not counted either.  Each
+capture adds one to the counter ``step.captures`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from opengl_raytracer_torch.ops import _kernels
+from opengl_raytracer_torch.utils import profiling
 
 
 class StepGraph:
@@ -71,4 +73,5 @@ def capture(body, device, warmup=None, pool=None) -> StepGraph:
                  if n != before[k]}
     finally:
         _kernels.launch_counts.update(counts)
+    profiling.count("step.captures")
     return StepGraph(graph, device, output, added)

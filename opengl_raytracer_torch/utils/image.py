@@ -2,9 +2,11 @@
 
 The reference displays by blitting the RGBA32F accumulation FBO to the
 8-bit default framebuffer (clamped unorm conversion, main.py:397-399) and
-saves a PNG on exit (main.py:432-439).  Here: explicit conversion, and a
-PNG encoder and decoder on the standard library (``zlib``, ``struct``) and
-NumPy, so writing an image needs no imaging package.
+saves a PNG on exit (main.py:432-439).  Here: explicit conversion
+(:func:`to_uint8`, and on the App's display path :class:`Display`, which
+converts on the frame's device), and a PNG encoder and decoder on the
+standard library (``zlib``, ``struct``) and NumPy, so writing an image
+needs no imaging package.
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ import struct
 import zlib
 
 import numpy as np
+import torch
+
+from opengl_raytracer_torch.ops import display as _display
+from opengl_raytracer_torch.utils import profiling
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -20,6 +26,70 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 def to_uint8(img: np.ndarray) -> np.ndarray:
     """Linear float image -> 8-bit, GL-style clamp + round."""
     return np.round(np.clip(np.asarray(img), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+class Display:
+    """The App's display path: each finished sweep converted to 8 bits
+    where it was rendered and handed to a sink one frame later.
+
+    :meth:`start` converts ``accum`` (``ops/display.py:to_uint8``, one
+    launch on the step's stream) into one of two device buffers, then
+    copies that buffer on a copy stream into one of two pinned host
+    buffers, so the copy overlaps the next sweep; span
+    ``display.convert``.  :meth:`present` waits for that copy alone and
+    calls ``sink(image, frame_count)`` with the (H, W, 3) uint8 host
+    buffer.  A buffer handed to a sink stays unchanged until the next
+    :meth:`present`: :meth:`start` writes the other pair, and on the card
+    a device buffer is rewritten only after the copy that read it.  On
+    the CPU the conversion is the plain version and the copy a copy."""
+
+    def __init__(self, height: int, width: int, device):
+        device = torch.device(device)
+        shape = (height, width, 3)
+        self.cuda = device.type == "cuda"
+        self._dev = [torch.empty(shape, dtype=torch.uint8, device=device)
+                     for _ in range(2)]
+        self._host = [torch.empty(shape, dtype=torch.uint8,
+                                  pin_memory=self.cuda) for _ in range(2)]
+        if self.cuda:
+            self._copy_stream = torch.cuda.Stream(device)
+            self._converted = [torch.cuda.Event() for _ in range(2)]
+            self._copied = [torch.cuda.Event() for _ in range(2)]
+        self._pending: tuple[int, int] | None = None  # (slot, frame count)
+        self._held: int | None = None  # the slot the last sink was handed
+
+    def start(self, accum: torch.Tensor, frame_count: int) -> None:
+        """Convert ``accum`` and start its copy to the host; the next
+        :meth:`present` shows it, as frame ``frame_count``."""
+        with profiling.per_step("display.convert"):
+            i = 1 if self._held == 0 else 0
+            if not self.cuda:
+                _display.to_uint8(accum, self._dev[i])
+                self._host[i].copy_(self._dev[i])
+            else:
+                main = torch.cuda.current_stream(accum.device)
+                main.wait_event(self._copied[i])  # the last copy of dev[i]
+                _display.to_uint8(accum, self._dev[i])
+                self._converted[i].record(main)
+                self._copy_stream.wait_event(self._converted[i])
+                with torch.cuda.stream(self._copy_stream):
+                    self._host[i].copy_(self._dev[i], non_blocking=True)
+                self._copied[i].record(self._copy_stream)
+            self._pending = (i, frame_count)
+
+    def present(self, sink) -> bool:
+        """Hand the last started frame to ``sink`` once its copy is done;
+        False where no frame was started since the last present."""
+        if self._pending is None:
+            return False
+        i, frame_count = self._pending
+        self._pending = None
+        if self.cuda:
+            self._copied[i].synchronize()
+        self._held = i
+        sink(self._host[i], frame_count)
+        profiling.count("app.presented")
+        return True
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:

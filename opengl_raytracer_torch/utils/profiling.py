@@ -12,11 +12,16 @@ scene.py:139-143, per-frame fps in the caption main.py:405-407).  Here:
   (:func:`set_step`).  Spans of a run's set-up (``scene.*``,
   ``step.capture``, ``kernels.load``, ``kernels.build``,
   ``native.build``) are always recorded; per-step spans (``step.block``,
-  ``step.replay`` or ``step.body``, ``sync.wait``, ``sync.read``) only
+  ``step.replay`` or ``step.body``, ``sync.wait``, ``sync.read``, and the
+  App's ``app.input``, ``app.present`` and ``display.convert``) only
   while :func:`tracing`, and otherwise cost one flag test.  The program
   opens no ``record_function`` or NVTX range: the profiler copies such a
   range onto the card's timeline, where a reader of device events would
   count it as a kernel;
+* counters, always kept, read with :func:`counts`: ``app.presented``
+  (frames the App handed to its display sink), ``app.resets`` (its
+  ``resetFrames``) and ``step.captures`` (CUDA graphs of a step
+  captured);
 * :func:`device_sync`, which fences on the card before reading back (torch
   returns before a CUDA card finishes);
 * :func:`trace`, a ``torch.profiler`` block that writes a Chrome trace
@@ -38,6 +43,7 @@ import torch.autograd.profiler as _autograd_profiler
 _enabled = False
 _step: int | None = None
 _spans: list = []
+_counts: dict[str, int] = {}
 _local = threading.local()  # .stack: the thread's open spans
 
 
@@ -121,6 +127,16 @@ def spans() -> list[Span]:
 
 def clear() -> None:
     _spans.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    """The counters, by name (a counter never added to is absent)."""
+    return dict(_counts)
 
 
 def device_sync(x: torch.Tensor) -> float:

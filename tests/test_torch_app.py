@@ -33,6 +33,7 @@ from opengl_raytracer_torch import (Rect, RenderConfig, Renderer, Scene,
 from opengl_raytracer_torch.__main__ import build_parser, main
 from opengl_raytracer_torch.app import App
 from opengl_raytracer_torch.presets import DEFAULT_CAM_DIR, DEFAULT_CAM_POS
+from opengl_raytracer_torch.utils import profiling
 from opengl_raytracer_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
 from opengl_raytracer_torch.utils.image import (load_png, rmse, save_png,
@@ -214,19 +215,91 @@ def test_reset_frames(tmp_path):
 
 
 def test_snapshot_survives_the_next_sweep(tmp_path):
-    """The display snapshot taken at a sweep's end must not change while
-    the next sweep updates ``accum`` in place."""
+    """The displayed frame, handed to the sink at a sweep's end, must not
+    change while the next sweep updates ``accum`` in place."""
     a = app(tmp_path, "s", tileSize=2, run=False)
+    shown = []
+
+    def sink(image, frame_count):
+        shown.append((image, frame_count))
+
     for _ in range(4):
-        a.state = a.renderer.step(a.state, a.camera)
-    assert a.state.tile_x == 0 and a.state.tile_y == 0
-    snap, frame = a._snapshot()
+        a.frame("", (0, 0), sink)
+    assert a.state.tile_x == 0 and a.state.tile_y == 0 and not shown
+    swept = to_uint8(a.image())
+    a.frame("", (0, 0), sink)  # the next sweep's first step shows sweep 1
+    (snap, frame), = shown
     kept = snap.clone()
     assert frame == 1
-    for _ in range(4):
-        a.state = a.renderer.step(a.state, a.camera)
-    assert not torch.equal(a.state.accum, kept)  # the sweep changed accum
+    np.testing.assert_array_equal(kept.numpy(), swept)
+    for _ in range(3):
+        a.frame("", (0, 0), sink)
+    assert len(shown) == 1 and a.state.frame_count == 2
+    assert not np.array_equal(to_uint8(a.image()), swept)  # accum changed
     assert torch.equal(snap, kept)
+
+
+def _delta(before, name):
+    return profiling.counts().get(name, 0) - before.get(name, 0)
+
+
+def test_frame_resets_on_a_move_and_not_when_still(tmp_path):
+    a = app(tmp_path, "m", run=False)
+    a.canMove = True
+    pos, yaw = a.camPos.copy(), a.camDir.copy()
+    before = profiling.counts()
+    for _ in range(3):
+        a.frame("", (0, 0), lambda *_: None)
+    assert a.state.frame_count == 3 and _delta(before, "app.resets") == 0
+    a.frame("w", (0, 0), lambda *_: None)
+    assert _delta(before, "app.resets") == 1 and a.state.frame_count == 1
+    forward = a.get_camera_basis(yaw)[1]
+    np.testing.assert_array_equal(a.camPos, pos + np.float32(1.0) * forward)
+    a.frame("", (20, 0), lambda *_: None)  # 20 units of mouse: 2 degrees
+    assert _delta(before, "app.resets") == 2 and a.state.frame_count == 1
+    np.testing.assert_array_equal(a.camDir, yaw + np.float32([2.0, 0.0]))
+    a.frame("", (0, 0), lambda *_: None)
+    assert _delta(before, "app.resets") == 2 and a.state.frame_count == 2
+    a.canMove = False  # the mouse is ignored, a fly key still resets
+    a.frame("", (20, 5), lambda *_: None)
+    assert _delta(before, "app.resets") == 2 and a.state.frame_count == 3
+    dir_before, pos_before = a.camDir.copy(), a.camPos.copy()
+    a.frame("s", (0, 0), lambda *_: None)
+    assert _delta(before, "app.resets") == 3 and a.state.frame_count == 1
+    np.testing.assert_array_equal(a.camDir, dir_before)
+    np.testing.assert_array_equal(a.camPos, pos_before)
+    assert _delta(before, "step.captures") == 0  # the CPU runs no graph
+
+
+def test_frame_presents_the_previous_sweep(tmp_path):
+    """The bytes presented at frame n are frame n-1's, through moves and
+    still frames, in two host buffers in turn, each unchanged until the
+    next present."""
+    a = app(tmp_path, "p", run=False)
+    a.canMove = True
+    shown, held = [], []
+
+    def sink(image, frame_count):
+        if held:
+            buf, kept = held[-1]
+            assert torch.equal(buf, kept)
+        held.append((image, image.clone()))
+        shown.append((image.clone(), frame_count))
+
+    swept = []
+    before = profiling.counts()
+    script = ["w", "", "", "s", "", "d", "", ""]
+    for n, key in enumerate(script):
+        a.frame(key, (10 if key else 0, 0), sink)
+        assert len(shown) == n  # the first frame has nothing to show
+        swept.append((to_uint8(a.image()), a.state.frame_count))
+    for (image, count), (want, want_count) in zip(shown, swept):
+        assert count == want_count
+        np.testing.assert_array_equal(image.numpy(), want)
+    ptrs = [buf.data_ptr() for buf, _ in held]
+    assert len(set(ptrs)) == 2 and all(p != q for p, q in zip(ptrs, ptrs[1:]))
+    assert _delta(before, "app.presented") == len(script) - 1
+    assert _delta(before, "app.resets") == 3
 
 
 def test_app_matches_jax_app(tmp_path):

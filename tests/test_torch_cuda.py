@@ -515,6 +515,75 @@ def test_app_on_card_matches_cpu(cuda, tmp_path):
     assert rmse(imgs[0], imgs[1]) < 1e-4
 
 
+@pytest.mark.parametrize("shape", [(1080, 1920), (7, 5)])
+def test_to_uint8_kernel_matches_to_uint8(cuda, shape):
+    """The display conversion on the card equals ``to_uint8`` bit for bit
+    on the CPU tests' cases (below 0, above 1, 0 and 1, every step and half
+    step and their neighbours, random), at 1080p (one launch) and at 7x5,
+    whose last channel the tail launch converts; a misaligned frame is
+    refused."""
+    from opengl_raytracer_torch.ops import display
+    from opengl_raytracer_torch.utils.image import to_uint8
+    from test_torch_display import conversion_cases
+
+    h, w = shape
+    values = np.concatenate(list(conversion_cases().values()))
+    if h * w * 3 < values.size:
+        values = np.random.default_rng(3).permutation(values)
+    img = np.resize(values, h * w * 3).reshape(h, w, 3)
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=cuda)
+    before = _kernels.launch_counts["to_uint8"]
+    display.to_uint8(torch.from_numpy(img).to(cuda), out)
+    assert _kernels.launch_counts["to_uint8"] == before + (
+        1 if (h * w * 3) % 4 == 0 else 2)
+    np.testing.assert_array_equal(out.cpu().numpy(), to_uint8(img))
+    odd = torch.zeros(h * w * 3 + 1, device=cuda)[1:].view(h, w, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        display.to_uint8(odd, out)
+
+
+def test_app_frame_on_card(cuda):
+    """``App.frame`` on the card: the first frame captures the step's
+    graph and no moving frame captures another; each frame presents the
+    previous sweep's bytes, ``to_uint8`` of its ``accum``, from pinned
+    host memory, two buffers in turn, one conversion launch a frame."""
+    from opengl_raytracer_torch.app import App
+    from opengl_raytracer_torch.utils import profiling
+    from opengl_raytracer_torch.utils.image import to_uint8
+
+    soup, _, light = _objects()
+    app = App(window_size=(24, 16), bounces=2,
+              scene=Scene([soup, light], max_leaf_tris=16), headless=True,
+              run=False, device=cuda)
+    app.camPos = np.array([0.0, 0.0, 4.4], np.float32)
+    app.camDir = np.array([180.0, 0.0], np.float32)
+    app.canMove = True
+    app.resetFrames()
+    shown, swept = [], []
+
+    def sink(image, frame_count):
+        assert image.is_pinned() and image.device.type == "cpu"
+        shown.append((image.clone(), frame_count, image.data_ptr()))
+
+    captures = profiling.counts().get("step.captures", 0)
+    launches = _kernels.launch_counts["to_uint8"]
+    script = ["w", "", "", "a", "a", "", "s", ""]
+    for n, key in enumerate(script):
+        app.frame(key, (20, 0) if key else (0, 0), sink)
+        if n == 0:
+            captures += 1
+        assert profiling.counts()["step.captures"] == captures
+        swept.append((to_uint8(app.image()), app.state.frame_count))
+    assert app.renderer.traversal == "pallas2"
+    assert _kernels.launch_counts["to_uint8"] == launches + len(script)
+    assert len(shown) == len(script) - 1
+    for (image, count, _), (want, want_count) in zip(shown, swept):
+        assert count == want_count
+        np.testing.assert_array_equal(image.numpy(), want)
+    ptrs = [p for _, _, p in shown]
+    assert len(set(ptrs)) == 2 and all(p != q for p, q in zip(ptrs, ptrs[1:]))
+
+
 # ------------------------------------------- the glue kernels (G1-G4)
 
 def _block(device, frame=0, window=(0, 0, 0, 0, 0), lambertian=True,
