@@ -177,6 +177,14 @@ Phases; each raises on failure, and the script then exits non-zero:
    frame later by a pageable ``.cpu()`` and the host's ``to_uint8``) by
    the host clock and CUDA events; the copy to pinned memory's ms and the
    share of it that overlapped other device work.
+5e. turnaround: the CLI frame's host turnaround, untraced, at the App's
+   defaults on phase 5's scene: 200 frames of the CLI's loop (jobs of 32
+   frames from a reset, each frame ``Renderer.step`` then
+   ``device_sync``), the host's clock read from the wait's return to the
+   replay's return, split into the read, the loop, the block and the
+   replay's call, and the step's time after the replay; in turns with 200
+   frames of ``App.frame``'s loop (cli, app, app, cli), ms a frame each,
+   and the steps that found their block written ahead.
 6. the K3 path: the same with ``traversal="pallas"`` (K3 + K2): launch
    counts, the image against phase 5's (the same seeds: only exact-t ties
    may differ), and the 96x54 card-vs-CPU check.
@@ -501,6 +509,35 @@ def sorts_a_raytrace(n_bounces: int, sort_every: int = 1) -> int:
     return sum(1 for i in range(1, n_bounces) if (i - 1) % sort_every == 0)
 
 
+_misses_at_reset = 0  # step.block_ahead_misses at the last reset_counts()
+
+
+def _block_misses() -> int:
+    from opengl_raytracer_torch.utils import profiling
+
+    return profiling.counts().get("step.block_ahead_misses", 0)
+
+
+def reset_counts() -> None:
+    """Set the port's launch counts to 0, and :func:`launches`'s count of
+    the steps that wrote their own block with them."""
+    from opengl_raytracer_torch.ops import _kernels
+
+    global _misses_at_reset
+    _kernels.reset_counts()
+    _misses_at_reset = _block_misses()
+
+
+def launches() -> dict:
+    """The port's launch counts since :func:`reset_counts`, and
+    ``block_misses``: the renderer steps meanwhile that wrote their own
+    step block, not finding it written ahead by the step before."""
+    from opengl_raytracer_torch.ops import _kernels
+
+    return dict(_kernels.launch_counts,
+                block_misses=_block_misses() - _misses_at_reset)
+
+
 def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
                parts: int = 0, steps: int | None = None,
                blocks: int | None = None, sort_every: int = 1,
@@ -514,7 +551,9 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     its epilogue after each K3 one; G7, G8 or G9 a segment of "bvh",
     "brute" or "packet"; ``folds`` folds (default: one a step; on a mesh,
     one a slice that a dp row's piece reaches); and ``blocks`` block writes
-    (default: one a step; on a mesh, one a shard and one a fold)."""
+    (default: one a step, the next step's written ahead, and one a step
+    that wrote its own, ``counts["block_misses"]`` (:func:`launches`); on
+    a mesh, one a shard and one a fold)."""
     steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
     sorts = sorts_a_raytrace(n_bounces, sort_every) * renders if reorder \
@@ -528,7 +567,8 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     g5 = {"pallas2": 1, "pallas": 2}.get(traversal, 0)
     check_count(counts, "wide_epilogue", g5 * n_bounces * renders)
     check_count(counts, "band_fold", steps if folds is None else folds)
-    check_count(counts, "step_block", steps if blocks is None else blocks)
+    check_count(counts, "step_block",
+                steps + counts["block_misses"] if blocks is None else blocks)
     check_count(counts, "bvh_walk",
                 n_bounces * renders if traversal == "bvh" else 0)
     check_count(counts, "brute_sweep",
@@ -1866,7 +1906,10 @@ def frame_states(data, camera, frames_per_step: int = 1, frame: int = 0):
         if args[9] is None:
             raise RuntimeError("the 1 spp frame reorders without seed "
                                "reconstruction")
-        states.append((clone(args[:8]), args[9], args[10]))
+        # the block as this reorder reads it: after the step it holds the
+        # next step's words, written ahead
+        recon = args[9]._replace(block=args[9].block.clone())
+        states.append((clone(args[:8]), recon, args[10]))
         return reorder(*args)
 
     def rec_restore(*args):
@@ -2280,11 +2323,10 @@ def render_1080p(scene, camera, traversal: str, frames: int = TIMED_FRAMES):
     launch counts set to 0 just before; returns (renderer, image, counts,
     ms/frame).  No probe kernel may launch."""
     from opengl_raytracer_torch import RenderConfig, Renderer
-    from opengl_raytracer_torch.ops import _kernels
 
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES,
                        traversal=traversal)
-    _kernels.reset_counts()
+    reset_counts()
     r = Renderer(scene, cfg, device=DEVICE)
     state = r.render(camera, frames=1)  # warm-up
     torch.cuda.synchronize()
@@ -2292,7 +2334,7 @@ def render_1080p(scene, camera, traversal: str, frames: int = TIMED_FRAMES):
     state = r.render(camera, frames=frames, state=state)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    counts = dict(_kernels.launch_counts)
+    counts = launches()
     check_probes(counts)
     img = r.image(state)
     if img.shape != (HEIGHT, WIDTH, 3):
@@ -2310,18 +2352,17 @@ def card_vs_cpu(scene, camera, traversal: str, limit: float = 1e-4,
     (the plain versions), which must agree; returns (the traversal it
     resolved to, the card run's launch counts)."""
     from opengl_raytracer_torch import RenderConfig, Renderer
-    from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.utils.image import rmse
 
     cfg = RenderConfig(width=size[0], height=size[1], bounces=BOUNCES,
                        traversal=traversal)
     imgs, resolved, counts = [], [], {}
     for device in (DEVICE, "cpu"):
-        _kernels.reset_counts()
+        reset_counts()
         rs = Renderer(scene, cfg, device=device)
         resolved.append(rs.traversal)
         imgs.append(rs.image(rs.render(camera, frames=1)))
-        counts = counts or dict(_kernels.launch_counts)
+        counts = counts or launches()
         check_probes(counts)
     err = rmse(imgs[0], imgs[1])
     if not (np.isfinite(imgs[0]).all() and float(imgs[0].mean()) > 0.01
@@ -2501,6 +2542,118 @@ def display_phase(scene, camera):
         copy_overlap_share=over / copy_us if copy_us else None)
 
 
+TURN_FRAMES = 200  # frames a turn of each loop in the turnaround phase
+TURN_JOB = 32  # the CLI's default --frames: a job's frames from a reset
+
+
+def _cli_turn(r, camera) -> tuple[float, dict]:
+    """TURN_FRAMES frames of the CLI's loop on Renderer ``r`` (captured):
+    jobs of TURN_JOB frames from a reset, each frame ``r.step`` then
+    ``device_sync``.  The host's clock is read where the wait returns
+    (``torch.cuda.synchronize``), where ``device_sync`` returns, where the
+    step is called, where the graph's replay starts and returns, and where
+    the step returns.  Returns (ms a frame, us a frame by part): ``read``
+    from the wait's return to device_sync's, ``loop`` from there to the
+    next step's call (a reset at a job's start), ``block`` from the call
+    to the replay, ``replay`` the replay's call, ``turnaround`` from the
+    wait's return to the replay's return (the four summed), and ``after``
+    from the replay's return to the step's."""
+    from opengl_raytracer_torch.utils.profiling import device_sync
+
+    marks, sync, graph = {}, torch.cuda.synchronize, r._graph
+    replay = graph.replay
+
+    def timed_sync(*args, **kwargs):
+        sync(*args, **kwargs)
+        marks["wait"] = time.perf_counter()
+
+    def timed_replay():
+        marks["replay0"] = time.perf_counter()
+        out = replay()
+        marks["replay1"] = time.perf_counter()
+        return out
+
+    parts = {k: [] for k in ("read", "loop", "block", "replay",
+                             "turnaround", "after")}
+    torch.cuda.synchronize = timed_sync
+    graph.replay = timed_replay
+    try:
+        state, prev, n = r.init_state(), None, 0
+        sync()
+        t_open = time.perf_counter()
+        while n < TURN_FRAMES:
+            state = r.reset(state)
+            for _ in range(min(TURN_JOB, TURN_FRAMES - n)):
+                t0 = time.perf_counter()
+                state = r.step(state, camera)
+                t1 = time.perf_counter()
+                device_sync(state.accum)
+                t2 = time.perf_counter()
+                if prev is not None:
+                    wait, back = prev
+                    parts["read"].append(back - wait)
+                    parts["loop"].append(t0 - back)
+                    parts["block"].append(marks["replay0"] - t0)
+                    parts["replay"].append(marks["replay1"]
+                                           - marks["replay0"])
+                    parts["turnaround"].append(marks["replay1"] - wait)
+                parts["after"].append(t1 - marks["replay1"])
+                prev = (marks["wait"], t2)
+                n += 1
+        ms = (time.perf_counter() - t_open) * 1e3 / TURN_FRAMES
+    finally:
+        torch.cuda.synchronize = sync
+        del graph.replay  # the class's method again
+    return ms, {k: [x * 1e6 for x in v] for k, v in parts.items()}
+
+
+def turnaround_phase(scene, camera):
+    """Phase 5e: the CLI frame's host turnaround, untraced, at the App's
+    defaults (1920x1080, 7 bounces) on phase 5's scene: the CLI's loop
+    (:func:`_cli_turn`) and ``App.frame``'s, which never waits a frame,
+    TURN_FRAMES frames a turn, in turns cli, app, app, cli, on one
+    renderer.  Prints each turn's ms a frame, the CLI turns' parts of the
+    turnaround (median and mean us a frame), and the steps that found
+    their block written ahead (``step.block_ahead_hits``; none where the
+    port does not write ahead)."""
+    from opengl_raytracer_torch.app import App
+    from opengl_raytracer_torch.utils import profiling
+
+    app = App(scene=scene, headless=True, run=False, device=DEVICE)
+    app.camPos = np.array(CAM_POS, np.float32)
+    app.camDir = np.array(CAM_DIR, np.float32)
+    app.resetFrames()
+    r = app.renderer
+    present = lambda image, frame_count: None
+    for _ in range(3):  # captures the graph, starts the display
+        app.frame("", (0, 0), present)
+    torch.cuda.synchronize()
+    turns = {"cli": [], "app": []}
+    parts = {}
+    for name in ("cli", "app", "app", "cli"):
+        before = profiling.counts()
+        if name == "cli":
+            ms, got = _cli_turn(r, app.camera)
+            for k, v in got.items():
+                parts.setdefault(k, []).extend(v)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(TURN_FRAMES):
+                app.frame("", (0, 0), present)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TURN_FRAMES
+        ahead = {k[len("step.block_ahead_"):]: n - before.get(k, 0)
+                 for k, n in profiling.counts().items()
+                 if k.startswith("step.block_ahead_")}
+        turns[name].append(dict(ms=ms, **ahead))
+    say("turnaround", width=app.config.width, height=app.config.height,
+        bounces=app.config.bounces, frames=TURN_FRAMES, job=TURN_JOB,
+        cli=turns["cli"], app=turns["app"],
+        us_median={k: float(np.median(v)) for k, v in parts.items()},
+        us_mean={k: float(np.mean(v)) for k, v in parts.items()},
+        card=repr(card_line()))
+
+
 def graph_phase(cases, camera):
     """Phase 5b: the compiled step.  For each (name, scene data, traversal
     name, the traversal it must resolve to) of ``cases``: a Renderer whose
@@ -2513,7 +2666,6 @@ def graph_phase(cases, camera):
     back with each step's host time and every kernel's launches a frame,
     then of 8 eager ones."""
     from opengl_raytracer_torch import RenderConfig, Renderer, make_camera
-    from opengl_raytracer_torch.ops import _kernels
 
     moved = make_camera((-30.0, 12.0, -20.0), (60.0, -20.0))
     script = [(camera, 1.0, True, False), (camera, 1.0, False, False),
@@ -2559,9 +2711,9 @@ def graph_phase(cases, camera):
         if not recon_calls or not all(recon_calls):
             raise RuntimeError(f"{name} {traversal}: the eager steps "
                                f"reordered without seed reconstruction")
-        _kernels.reset_counts()
+        reset_counts()
         ms_g, busy_g, sa = _timed_steps(graphed.step, sa, camera)
-        counts = dict(_kernels.launch_counts)
+        counts = launches()
         _check_path_counts(counts, graphed, TIMED_FRAMES)
         ms_e, busy_e, sb = _timed_steps(eager._step_eager, sb, camera)
         say("graph", scene=name, traversal=traversal,
@@ -2699,7 +2851,6 @@ def cadence_phase(cases, camera):
     twice, CADENCE_FRAMES replayed frames a run, with the launches a
     frame."""
     from opengl_raytracer_torch import Renderer
-    from opengl_raytracer_torch.ops import _kernels
 
     for name, data, traversal, expect in cases:
         renderers, ref = {}, None
@@ -2710,10 +2861,10 @@ def cadence_phase(cases, camera):
             if r.traversal != expect:
                 raise RuntimeError(f"{traversal} resolved to {r.traversal} "
                                    f"on {name}, not {expect}")
-            _kernels.reset_counts()
+            reset_counts()
             state = r.render(camera, frames=2)  # captures, then replays
             torch.cuda.synchronize()
-            counts = dict(_kernels.launch_counts)
+            counts = launches()
             _check_path_counts(counts, r, 2)
             ref = state.accum if ref is None else ref
             _equal_accum(f"{name} {traversal} sort_every={k} against 1",
@@ -2817,18 +2968,17 @@ def _k3_on_sets(name, data, sets) -> None:
 def _cadence_turns(name, traversal, renderers, camera) -> None:
     """CADENCE_TURNS in turns, twice: CADENCE_FRAMES replayed frames a run,
     timed between device syncs, their launches read just after."""
-    from opengl_raytracer_torch.ops import _kernels
 
     runs = {k: [] for k in CADENCE_TURNS}
     for k in CADENCE_TURNS * 2:
         r, state = renderers[k]
         torch.cuda.synchronize()
-        _kernels.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
         state = r.render(camera, frames=CADENCE_FRAMES, state=state)
         torch.cuda.synchronize()
         runs[k].append((time.perf_counter() - t0) * 1000.0 / CADENCE_FRAMES)
-        counts = dict(_kernels.launch_counts)
+        counts = launches()
         _check_path_counts(counts, r, CADENCE_FRAMES)
         renderers[k] = (r, state)
     for k in CADENCE_TURNS:
@@ -3209,7 +3359,6 @@ def packet_phase(scene, big, camera, main_img):
 def multipart_phase(camera):
     from opengl_raytracer_torch import RenderConfig, Renderer
     from opengl_raytracer_torch.models import scene as scene_mod
-    from opengl_raytracer_torch.ops import _kernels
 
     orig = scene_mod.build_subblock_parts  # split at its defaults
     scene_mod.build_subblock_parts = lambda *a, **k: orig(
@@ -3246,7 +3395,7 @@ def multipart_phase(camera):
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, bounces=BOUNCES)
     r = Renderer(data, cfg, device=DEVICE)
     state = r.render(camera, frames=1)  # warm-up
-    _kernels.reset_counts()
+    reset_counts()
     frames_ms = []
     for _ in range(MULTIPART_FRAMES):
         torch.cuda.synchronize()
@@ -3254,7 +3403,7 @@ def multipart_phase(camera):
         state = r.render(camera, frames=1, state=state)
         torch.cuda.synchronize()
         frames_ms.append((time.perf_counter() - t0) * 1000.0)
-    counts = dict(_kernels.launch_counts)
+    counts = launches()
     check_probes(counts)
     check_count(counts, "subblock_traversal", cfg.n_bounces * MULTIPART_FRAMES)
     check_count(counts, "shade", cfg.n_bounces * MULTIPART_FRAMES)
@@ -3311,7 +3460,7 @@ def cli_phase():
     from opengl_raytracer_torch import app as app_mod
     from opengl_raytracer_torch import presets
     from opengl_raytracer_torch.models import obj
-    from opengl_raytracer_torch.ops import _kernels, bvh
+    from opengl_raytracer_torch.ops import bvh
     from opengl_raytracer_torch.utils.image import load_png, rmse, to_uint8
 
     torch.cuda.reset_peak_memory_stats()
@@ -3360,7 +3509,7 @@ def cli_phase():
 
             app_mod.App = Recorded
             for call in (1, 2):
-                _kernels.reset_counts()
+                reset_counts()
                 tee = _Tee(sys.stdout)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3368,7 +3517,7 @@ def cli_phase():
                     rc = cli.main(argv)
                 torch.cuda.synchronize()
                 call_s = time.perf_counter() - t0
-                counts = dict(_kernels.launch_counts)
+                counts = launches()
                 check_probes(counts)
                 a = apps[-1]
                 if rc != 0 or a.device.type != torch.device(DEVICE).type:
@@ -3472,7 +3621,6 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
     frames, its slices and its copies checked, then timed; on real cards
     also the copies a step makes between cards."""
     from opengl_raytracer_torch import RenderConfig, Renderer
-    from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
     from opengl_raytracer_torch.parallel import sharding
     from opengl_raytracer_torch.utils.image import rmse
@@ -3510,10 +3658,10 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
                                f"{sr.traversal}, scene on {list(sr.scenes)}")
         parts = len(sr.scene.k1_parts)
         _check_slices(sr, cfg, dp)
-        _kernels.reset_counts()
+        reset_counts()
         state = sr.render(camera, frames=sp)
         torch.cuda.synchronize()
-        counts = dict(_kernels.launch_counts)
+        counts = launches()
         check_probes(counts)
         check_count(counts, "subblock_traversal", cfg.n_bounces * dp * sp)
         check_count(counts, "shade", cfg.n_bounces * dp * sp)
@@ -3634,7 +3782,6 @@ def _sharded_cli(straight8) -> None:
     import tempfile
 
     from opengl_raytracer_torch import __main__ as cli
-    from opengl_raytracer_torch.ops import _kernels
     from opengl_raytracer_torch.parallel import sharding
     from opengl_raytracer_torch.utils.checkpoint import load_checkpoint
     from opengl_raytracer_torch.utils.image import load_png, rmse, to_uint8
@@ -3659,7 +3806,7 @@ def _sharded_cli(straight8) -> None:
                     "--bounces", str(BOUNCES), "--frames", "4", "--dp", "1",
                     "--sp", "1", "--out", png, "--checkpoint", ck]
             for call in (1, 2):
-                _kernels.reset_counts()
+                reset_counts()
                 tee = _Tee(sys.stdout)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3667,7 +3814,7 @@ def _sharded_cli(straight8) -> None:
                     rc = cli.main(argv)
                 torch.cuda.synchronize()
                 call_s = time.perf_counter() - t0
-                counts = dict(_kernels.launch_counts)
+                counts = launches()
                 check_probes(counts)
                 r = made[-1]
                 out = "".join(tee.parts)
@@ -3808,6 +3955,7 @@ def main(argv=None) -> int:
     counts, main_img, main_ms = timed("main", main_path_phase, scene, camera,
                                       args.out)
     timed("display", display_phase, scene, camera)
+    timed("turnaround", turnaround_phase, scene, camera)
     pallas_counts = timed("pallas", wide_path_phase, scene, camera,
                           main_img)
     counts["wide_traversal"] = pallas_counts["wide_traversal"]

@@ -14,7 +14,9 @@ The port of ``opengl_raytracer_tpu/renderer.py``:
 Every value of a step that changes from step to step (frame number, tile
 window, camera, sky, jitter, ``lambertian``, ``accum``'s address) is
 written into the renderer's step block (``ops/step_block.py``) before the
-step, and the step's kernels read it there.  So on a card the step's body
+step, and the step's kernels read it there.  Each step writes the block of
+the step it predicts next behind its own body, so a step that follows as
+predicted enqueues nothing before its replay.  So on a card the step's body
 is captured once as a CUDA graph and replayed every step
 (``step_graph.py``), the counterpart of the JAX package's
 ``jax.jit(_tile_step)``.
@@ -329,6 +331,10 @@ class Renderer:
         self._block = step_block.new(self.device)
         self._graph = None
         self._steps = 0  # the step sequence number of profiling's spans
+        # the inputs of the step whose words the block holds, written
+        # ahead by the step before it (``_step``), and the stream the write
+        # went to; (None, None) where no write is ahead
+        self._ahead = (None, None)
 
     def init_state(self) -> RenderState:
         accum = torch.zeros((self.config.height, self.config.width, 3),
@@ -348,10 +354,16 @@ class Renderer:
         """One tile draw + tile cursor advance (main.py:375-418).
         ``state.accum`` is updated in place and carried into the result.
 
-        On a card the step is one write of the step block and one replay
-        of the step's CUDA graph, captured at the first step
-        (``step_graph.py``); a capture that fails raises.  On the CPU the
-        body runs eagerly."""
+        On a card the step is one replay of the step's CUDA graph,
+        captured at the first step (``step_graph.py``; a capture that
+        fails raises), and one write of the step block behind it: the
+        words of the step that :func:`advance` predicts, with this step's
+        camera and settings.  A step whose inputs (frame count, tile
+        cursor, the camera's values, sky, jitter, ``lambertian``,
+        ``accum``'s address, the stream) equal that prediction replays at
+        once; any other writes its own block first (counters
+        ``step.block_ahead_hits`` and ``step.block_ahead_misses``).  On
+        the CPU the body runs eagerly, with the same block writes."""
         return self._step(state, camera, sky_brightness, jitter_amount,
                           lambertian, eager=False)
 
@@ -366,36 +378,70 @@ class Renderer:
     def _step(self, state, camera, sky_brightness, jitter_amount, lambertian,
               eager: bool) -> RenderState:
         graphed = self.device.type == "cuda" and not eager
+        cfg = self.config
         self._steps += 1
         profiling.set_step(self._steps)
         if graphed and self._graph is None:
             with profiling.Span("step.capture"):
                 self._graph = self._capture()
+        settings = (
+            cfg.sky_brightness if sky_brightness is None else sky_brightness,
+            cfg.jitter_amount if jitter_amount is None else jitter_amount,
+            bool(cfg.lambertian if lambertian is None else lambertian))
         with profiling.per_step("step.block"):
-            self._write_block(state, camera, sky_brightness, jitter_amount,
-                              lambertian)
+            check_accum(state.accum, self.device, cfg)
+            cam = tuple(v.tobytes() for v in camera)
+            stream = self._stream_id()
+            (ahead, ahead_stream), self._ahead = self._ahead, (None, None)
+            if self._inputs(state, cam, settings, stream) == ahead:
+                profiling.count("step.block_ahead_hits")
+            else:
+                profiling.count("step.block_ahead_misses")
+                if ahead is not None and ahead[-1] != stream:
+                    # the write ahead went to another stream: it runs first
+                    torch.cuda.current_stream(self.device).wait_stream(
+                        ahead_stream)
+                self._write_block(state, camera, settings)
         if graphed:
             with profiling.per_step("step.replay"):
                 self._graph.replay()
         else:
             with profiling.per_step("step.body"):
                 self._body(state.accum)
-        return advance(self.config, state, self.config.frames_per_step)
+        nxt = advance(cfg, state, cfg.frames_per_step)
+        # the next step's block, written behind this step's body while the
+        # card renders; the next step reads it if its inputs are these
+        self._write_block(nxt, camera, settings)
+        self._ahead = (self._inputs(nxt, cam, settings, stream),
+                       None if stream is None
+                       else torch.cuda.current_stream(self.device))
+        return nxt
+
+    @staticmethod
+    def _inputs(state: RenderState, cam: tuple, settings: tuple, stream):
+        """What a step's block words follow from: its frame count, tile
+        cursor, camera (``cam``, each vector's bytes), sky, jitter and
+        ``lambertian`` (``settings``), ``accum``'s address, and the stream
+        its block is written on."""
+        return (state.frame_count, state.tile_x, state.tile_y, cam, settings,
+                state.accum.data_ptr(), stream)
+
+    def _write_block(self, state: RenderState, camera: Camera,
+                     settings: tuple) -> None:
+        step_block.write(self._block, step_words(
+            self.config, state.frame_count, state.tile_x, state.tile_y,
+            camera, *settings, state.accum))
+
+    def _stream_id(self):
+        """The current stream of the step's card, as (stream id, device
+        index, device type), or None on the CPU: the private call costs a
+        few us where ``torch.cuda.current_stream`` builds a Stream."""
+        return (torch._C._cuda_getCurrentStream(self.device.index)
+                if self.device.type == "cuda" else None)
 
     def _body(self, accum: torch.Tensor) -> None:
         _tile_step(self.scene, self._block, accum, config=self.config,
                    raycast_fn=self._raycast, traversal=self.traversal)
-
-    def _write_block(self, state: RenderState, camera: Camera,
-                     sky_brightness, jitter_amount, lambertian) -> None:
-        cfg = self.config
-        check_accum(state.accum, self.device, cfg)
-        step_block.write(self._block, step_words(
-            cfg, state.frame_count, state.tile_x, state.tile_y, camera,
-            cfg.sky_brightness if sky_brightness is None else sky_brightness,
-            cfg.jitter_amount if jitter_amount is None else jitter_amount,
-            cfg.lambertian if lambertian is None else lambertian,
-            state.accum))
 
     def _capture(self):
         """The step's graph.  Its warm-up step folds into a scratch buffer
@@ -403,6 +449,7 @@ class Renderer:
         cfg = self.config
         scratch = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                               device=self.device)
+        self._ahead = (None, None)  # the warm-up writes the block
 
         def warmup():
             step_block.write(self._block, step_words(

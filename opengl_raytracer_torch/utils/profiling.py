@@ -20,10 +20,11 @@ scene.py:139-143, per-frame fps in the caption main.py:405-407).  Here:
   count it as a kernel;
 * counters, always kept, read with :func:`counts`: ``app.presented``
   (frames the App handed to its display sink), ``app.resets`` (its
-  ``resetFrames``) and ``step.captures`` (CUDA graphs of a step
-  captured);
+  ``resetFrames``), ``step.captures`` (CUDA graphs of a step captured)
+  and ``step.block_ahead_hits`` / ``step.block_ahead_misses`` (steps
+  whose block was written ahead / written at the step, ``renderer.py``);
 * :func:`device_sync`, which fences on the card before reading back (torch
-  returns before a CUDA card finishes);
+  returns before a CUDA card finishes), the read queued before the fence;
 * :func:`trace`, a ``torch.profiler`` block that writes a Chrome trace
   with the program's spans of the block on a track of their own.
 """
@@ -45,6 +46,7 @@ _step: int | None = None
 _spans: list = []
 _counts: dict[str, int] = {}
 _local = threading.local()  # .stack: the thread's open spans
+_readbacks: dict = {}  # (device, dtype) -> device_sync's pinned scalar, view
 
 
 class Span:
@@ -139,15 +141,36 @@ def counts() -> dict[str, int]:
     return dict(_counts)
 
 
+def _readback(head: torch.Tensor) -> tuple:
+    """The pinned host scalar of ``head``'s device and dtype that
+    :func:`device_sync` copies into, made at its first use, and a NumPy
+    view of it (read with no torch call)."""
+    key = (head.device, head.dtype)
+    out = _readbacks.get(key)
+    if out is None:
+        pinned = torch.empty((), dtype=head.dtype, pin_memory=True)
+        out = _readbacks[key] = (pinned, pinned.numpy())
+    return out
+
+
 def device_sync(x: torch.Tensor) -> float:
     """Wait for everything queued on ``x``'s card (when it is a CUDA
     tensor), then read back a scalar: the sum of ``x``'s first four
-    values.  Spans ``sync.wait`` and ``sync.read``."""
+    values.  Spans ``sync.wait`` and ``sync.read``.
+
+    On a card the sum and its copy into a pinned host scalar are queued
+    before the wait, behind the work already queued on ``x``'s stream, so
+    the host launches nothing on a card gone idle and reads the scalar
+    with no CUDA call after it."""
+    view = None
     with per_step("sync.wait"):
         if x.is_cuda:
+            head = x.reshape(-1)[:4].sum()
+            pinned, view = _readback(head)
+            pinned.copy_(head, non_blocking=True)
             torch.cuda.synchronize(x.device)
     with per_step("sync.read"):
-        return float(x.reshape(-1)[:4].sum())
+        return float(x.reshape(-1)[:4].sum() if view is None else view)
 
 
 def _export_spans(path: str, since_ns: int) -> None:

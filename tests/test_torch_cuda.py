@@ -20,8 +20,10 @@ alive flags exact.  The compiled step: replayed CUDA graphs equal the
 eager body bit for bit (every traversal name, remainder tiles,
 frames_per_step 2 with rays_per_pixel 2, a (2, 2) mesh of the one card,
 the reorder cadence ``sort_every=2``), through camera moves, resets,
-lambertian toggles and sky changes; frames at cadences 1, 2 and 4 are
-equal bit for bit.
+lambertian toggles and sky changes, and with each step's block written
+ahead by the step before it; frames at cadences 1, 2 and 4 are equal bit
+for bit.  ``device_sync``, its read queued before its wait, returns the
+old read's value bit for bit.
 """
 
 import numpy as np
@@ -1454,15 +1456,73 @@ def test_graph_counts_replays_and_keeps_the_overflow_counters(cuda):
     assert counts["subblock_traversal"] == n and counts["shade"] == n
     assert counts["subblock_parts"] == parts * n
     assert counts["ray_front"] == counts["band_fold"] == 1
-    assert counts["step_block"] == 1 and counts["restore"] == 1
+    # the first step writes its own block and the next step's behind it;
+    # each later one, found written, writes the next step's
+    assert counts["step_block"] == 2 and counts["restore"] == 1
     assert counts["wide_epilogue"] == n and counts["wide_traversal"] == 0
     for _ in range(3):
         state = r.step(state, make_camera(*_CAMS[0]))
-    assert _kernels.launch_counts == {k: 4 * v for k, v in counts.items()}
+    assert _kernels.launch_counts == {
+        k: 5 if k == "step_block" else 4 * v for k, v in counts.items()}
     torch.cuda.synchronize()
     for ov in ovs:
         assert int(ov.item()) == 5
     assert [sbt.overflow_tensor(cuda), wide.overflow_tensor(cuda)] == ovs
+
+
+def test_graph_steps_with_blocks_written_ahead_equal_eager(cuda):
+    """64 replayed steps, the camera moved every 5th step (with a reset
+    every other move, as the App resets), equal the same steps through
+    ``_step_eager`` with every block written at its step, bit for bit;
+    the steps that found their block written ahead are all but the first
+    and those after a move."""
+    from opengl_raytracer_torch.utils import profiling
+
+    scene = _scene_small()
+    config = RenderConfig(width=24, height=16, bounces=2, tile_size=2)
+    graphed = Renderer(scene, config, device=cuda)
+    eager = Renderer(scene, config, device=cuda)
+    sa, sb = graphed.init_state(), eager.init_state()
+    camera = make_camera(*_CAMS[0])
+    found = []
+    for k in range(64):
+        if k and k % 5 == 0:
+            camera = make_camera([0.05 * k, -0.02 * k, 4.4],
+                                 (180.0 - 0.5 * k, 0.1 * k))
+            if k % 10 == 0:
+                sa, sb = graphed.reset(sa), eager.reset(sb)
+        hits = profiling.counts().get("step.block_ahead_hits", 0)
+        sa = graphed.step(sa, camera)
+        found.append(profiling.counts().get("step.block_ahead_hits", 0)
+                     - hits)
+        eager._ahead = (None, None)
+        sb = eager._step_eager(sb, camera)
+        assert torch.equal(sa.accum.view(torch.int32),
+                           sb.accum.view(torch.int32)), k
+    assert found == [int(k % 5 != 0) for k in range(64)]
+    assert graphed._graph is not None and eager._graph is None
+    assert float(sa.accum.mean()) > 0.01
+
+
+def test_device_sync_reads_what_was_queued(cuda):
+    """``device_sync`` returns the old read's value bit for bit (float and
+    int tensors, a strided view) and returns only after the card has run
+    what was queued before it: a value written behind a long kernel."""
+    from opengl_raytracer_torch.utils.profiling import device_sync
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((64, 48), device=cuda, generator=g)
+    for t in (x, x.t(), (x * 1000).to(torch.int32)):
+        old = float(t.reshape(-1)[:4].sum())
+        new = device_sync(t)
+        assert np.float64(new).view(np.int64) == np.float64(old).view(
+            np.int64)
+    y = torch.zeros(16, device=cuda)
+    for v in (2.5, -7.25, 0.125):
+        torch.cuda._sleep(50_000_000)
+        y.fill_(v)
+        assert device_sync(y) == 4 * v
+        assert torch.cuda.current_stream(cuda).query()
 
 
 def test_graph_follows_new_buffers(cuda):

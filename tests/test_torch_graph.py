@@ -16,9 +16,18 @@ step body that reads every per-step value from its block.
 * A step body built once and run with new block contents (frame, camera,
   tile, sky, jitter, ``lambertian``) equals a fresh ``Renderer.step``
   with those values, bit for bit: no Python value is baked into the body.
+* The block written ahead: through sequences of steps (nothing changed, a
+  camera moved or changed in place, resets, sky, jitter or ``lambertian``
+  changed, a new ``accum``, a step taken again from the state before the
+  last one, a sweep over four tiles) the body reads
+  exactly its step's words, ``step.block_ahead_hits`` and ``_misses``
+  count the steps that found the block written, and ``accum`` equals that
+  of a renderer that writes its block at every step, bit for bit.
 * Brute force's early exit is made on the device: a batch with no active
   ray reports misses, as before.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +45,7 @@ from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest, raycast_brute
 from opengl_raytracer_torch.renderer import (RenderState, _tile_step,
                                              band_window, step_words)
+from opengl_raytracer_torch.utils import profiling
 from test_torch_render import _objects
 from test_torch_traversal import _jax_scene, _rays
 from test_torch_scene import jax_native  # noqa: F401 (autouse)
@@ -218,6 +228,82 @@ def test_body_built_once_reads_its_block(scene, cfg):
         fresh.step(state, camera, sky, jitter, lam)
         assert torch.equal(accum, state.accum)
         assert not torch.equal(accum, start)
+
+
+# What changes before each step of a sequence ("" nothing): "move" a new
+# camera, "nudge" the same camera's position changed in place, "reset",
+# "sky", "jitter", "lambertian", "accum" a new buffer at the same counters,
+# "again" the state before the last step once more (its frame count, and
+# where a sweep has several tiles its tile cursor, not the predicted ones)
+_AHEAD = {
+    "still": ("",) * 5,
+    "camera": ("", "", "move", "", "nudge", ""),
+    "reset": ("", "", "reset", "", "reset"),
+    "settings": ("", "sky", "", "jitter", "", "lambertian", ""),
+    "accum": ("", "", "accum", ""),
+    "again": ("", "", "again", "", "again"),
+    "tiles": ("", "", "again") + ("",) * 5,  # 4 tiles a sweep
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AHEAD))
+def test_block_written_ahead(scene, case):
+    """A step finds its block written by the step before it where its
+    inputs are the predicted ones, and writes its own otherwise: the body
+    reads exactly the step's words, the counters say which steps found it,
+    and ``accum`` equals, bit for bit, that of a renderer whose every step
+    writes its own block (its prediction dropped before each step)."""
+    config = RenderConfig(width=16, height=12, bounces=2,
+                          tile_size=2 if case == "tiles" else 1)
+    r = Renderer(scene, config, device="cpu")
+    ref = Renderer(scene, config, device="cpu")
+    read, body = [], r._body
+
+    def spy(accum):
+        read.append(r._block.clone().numpy())
+        body(accum)
+
+    r._body = spy
+    camera = make_camera(*CAM)
+    sky, jitter, lam = 1.0, config.jitter_amount, True
+    sa, sb = r.init_state(), ref.init_state()
+    got, want = [], []
+    for k, change in enumerate(_AHEAD[case]):
+        if change == "move":
+            camera = make_camera([0.5, -0.25, 3.5], [170.0, 8.0])
+        elif change == "nudge":
+            camera.pos[0] += 0.25
+        elif change == "reset":
+            sa, sb = r.reset(sa), ref.reset(sb)
+        elif change == "sky":
+            sky = 0.6
+        elif change == "jitter":
+            jitter = 0.05
+        elif change == "lambertian":
+            lam = not lam
+        elif change == "accum":
+            sa = dataclasses.replace(sa, accum=sa.accum.clone())
+        elif change == "again":
+            sa, sb = last
+        last = sa, sb
+        want.append("step.block_ahead_misses" if k == 0 or change
+                    else "step.block_ahead_hits")
+        words = step_words(config, sa.frame_count, sa.tile_x, sa.tile_y,
+                           camera, sky, jitter, lam, sa.accum)
+        before = profiling.counts()
+        sa = r.step(sa, camera, sky, jitter, lam)
+        got.append({name for name, n in profiling.counts().items()
+                    if name.startswith("step.block_ahead_")
+                    and n != before.get(name, 0)})
+        ref._ahead = (None, None)
+        sb = ref.step(sb, camera, sky, jitter, lam)
+        assert np.array_equal(read[-1], words), (case, k)
+        assert torch.equal(sa.accum.view(torch.int32),
+                           sb.accum.view(torch.int32)), (case, k)
+    if case == "tiles":  # past a sweep's end
+        assert (sa.frame_count, sa.tile_x, sa.tile_y) == (1, 1, 1)
+    assert got == [{w} for w in want]
+    assert float(sa.accum.mean()) > 0.01
 
 
 def test_tile_step_folds_the_accum_it_is_given(scene):
