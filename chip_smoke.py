@@ -553,7 +553,8 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     one a slice that a dp row's piece reaches); and ``blocks`` block writes
     (default: one a step, the next step's written ahead, and one a step
     that wrote its own, ``counts["block_misses"]`` (:func:`launches`); on
-    a mesh, one a shard and one a fold)."""
+    a mesh, one a shard written ahead, one a fold, and one a shard that
+    wrote its own)."""
     steps = renders if steps is None else steps
     reorder = traversal in ("packet", "pallas", "pallas2")
     sorts = sorts_a_raytrace(n_bounces, sort_every) * renders if reorder \
@@ -3669,7 +3670,8 @@ def _sharded_api(scene, camera, card: str, cards: int = 1) -> None:
         # the band is the whole frame: dp row i's piece is slice i, one
         # fold and one block write a slice
         check_glue(counts, sr.traversal, cfg.n_bounces, dp * sp, parts,
-                   steps=1, blocks=dp * sp + dp, folds=dp)
+                   steps=1, blocks=dp * sp + dp + counts["block_misses"],
+                   folds=dp)
         # ... so a step copies only each dp row's sp shards to its first
         # device
         rows, tw = cfg.tile_h // dp, cfg.tile_w
@@ -3829,7 +3831,8 @@ def _sharded_cli(straight8) -> None:
                 check_count(counts, "subblock_traversal", n * 4)
                 check_count(counts, "shade", n * 4)
                 check_count(counts, "wide_traversal", 0)
-                check_glue(counts, r.traversal, n, 4, parts, blocks=8)
+                check_glue(counts, r.traversal, n, 4, parts,
+                           blocks=8 + counts["block_misses"])
                 state = load_checkpoint(ck, "cpu")[0]
                 if state.frame_count != 4 * call:
                     raise RuntimeError(f"sharded CLI call {call} ended at "

@@ -114,7 +114,9 @@ def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
     match the sequential renderer (tests/test_torch_sharding.py).  The mesh
     is the first ``--devices`` CUDA cards, or with ``--device cpu`` the CPU
     repeated ``--devices`` times (the counterpart of the JAX package's
-    virtual CPU devices)."""
+    virtual CPU devices).  The loop is ``App._main_headless``'s: the
+    steps of a sweep, then a sync of every card and the sweep's ms
+    printed."""
     import time
 
     import numpy as np
@@ -131,6 +133,7 @@ def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
                                                          save_checkpoint)
     from opengl_raytracer_torch.utils.config import RenderConfig
     from opengl_raytracer_torch.utils.image import save_png
+    from opengl_raytracer_torch.utils.profiling import device_sync
 
     if scene is None:
         scene = Scene(default_objects(args.dragon), max_leaf_tris=args.leaf,
@@ -169,9 +172,20 @@ def _main_sharded(args, scene, cam_pos, cam_dir) -> int:
     frames = -(-args.frames // sp) * sp
     if frames != args.frames:
         print(f"frames rounded up to {frames} (multiple of sp={sp})")
-    t0 = time.time()
-    state = r.render(camera=camera, frames=frames, state=state)
-    img = r.image(state)  # a copy to the host: waits for the devices
+    if state is None:
+        state = r.init_state()
+    tiles = cfg.num_tiles_x * cfg.num_tiles_y
+    t0 = last = time.time()
+    for _ in range(frames // sp * tiles):
+        state = r.step(state, camera)
+        if state.tile_x == 0 and state.tile_y == 0:
+            device_sync(state.accum)  # every card: honest per-frame timing
+            now = time.time()
+            print(f"\rFrame {state.frame_count}  {(now - last) * 1000:.0f} "
+                  f"ms  total {now - t0:.1f} s", end="", flush=True)
+            last = now
+    print()
+    img = r.image(state)
     dt = time.time() - t0
     print(f"{frames} frames in {dt:.1f} s ({frames / dt:.2f} frames/s)")
 

@@ -27,8 +27,9 @@ Design, and where it departs from the JAX module:
   thread, every shard before any copy.  On cards each shard's body is one
   CUDA graph, captured at its first step (``step_graph.py``; the JAX
   package jits its ``shard_map``ped step, ``sharding.py:119-126``), so a
-  shard costs the host one block write and one replay; shards on distinct
-  cards overlap on the devices.
+  shard costs the host one replay, its block written ahead by the step
+  before (as ``Renderer.step`` writes its own); shards on distinct cards
+  overlap on the devices.
 * ``accum`` is a :class:`RowShardedAccum`: slice j holds image rows
   ``j * H/dp ..`` on ``devices[j, 0]``, the JAX ``P("dp")``
   (``sharding.py:195``).  The JAX array is replicated over sp; the port
@@ -218,6 +219,27 @@ def _send(cols, device):
             sum(c.numel() * c.element_size() for c in cols))
 
 
+# a mesh on distinct owner cards times each card's step every this many
+# steps and issues the slowest card's shards first from then on
+ORDER_EVERY = 64
+
+
+def _slowest_first(clock) -> tuple:
+    """The dp rows of a timed step's ``clock`` ((row, start event, end
+    event) each) by their owner card's ms, the slowest first."""
+    return tuple(i for i, _, _ in sorted(
+        clock, key=lambda c: -c[1].elapsed_time(c[2])))
+
+
+def _block_key(values: tuple) -> tuple:
+    """What a shard block's words follow from besides its frame number and
+    window: the camera's values (each vector's bytes), sky, jitter and
+    ``lambertian``."""
+    camera, sky, jitter, lambertian = values
+    return (tuple(v.tobytes() for v in camera), float(sky), float(jitter),
+            bool(lambertian))
+
+
 class _Shard:
     """One (dp, sp) shard of a mesh: its device, its copy of the scene and
     its traversal, its step block, and the rows of the band it renders.
@@ -233,6 +255,9 @@ class _Shard:
         self.block = step_block.new(self.device)
         self.pool = pool
         self.graph = None
+        # the inputs and stream of the words last written to the block,
+        # and that stream (the next write on another stream waits for it)
+        self._written = (None, None)
 
     def body(self):
         tw = self.config.tile_w
@@ -240,19 +265,46 @@ class _Shard:
                            tw * self.rows, tw, 1, self.raycast_fn,
                            self.traversal)
 
-    def run(self, frame_count: int, window: tuple, values: tuple,
-            eager: bool = False):
-        """Write the shard's block (``step_block.pack(frame_count, window,
-        *values)``) and render its rows -> 3 color columns (in the graph's
-        pool when replayed: read them before the next replay)."""
+    def _stream_id(self):
+        """The device's current stream as (stream id, device index, device
+        type), or None on the CPU (``Renderer._stream_id``)."""
+        return (torch._C._cuda_getCurrentStream(self.device.index)
+                if self.device.type == "cuda" else None)
+
+    def write(self, inputs: tuple, values: tuple) -> None:
+        """Write the block of ``inputs`` = (frame number, window,
+        :func:`_block_key` of ``values``): ``step_block.pack(frame,
+        window, *values)``."""
+        frame_count, window, _ = inputs
+        step_block.write(self.block, step_block.pack(frame_count, window,
+                                                     *values))
+        self._written = ((inputs, self._stream_id()),
+                         torch.cuda.current_stream(self.device)
+                         if self.device.type == "cuda" else None)
+
+    def run(self, inputs: tuple, values: tuple, eager: bool = False):
+        """Render the shard's rows at ``inputs`` (:meth:`write`) -> 3
+        color columns (in the graph's pool when replayed: read them before
+        the next replay).  The block is written first unless it holds
+        these inputs' words already, written ahead on this stream
+        (counters ``step.block_ahead_hits`` / ``_misses``, one a shard)."""
         graphed = self.device.type == "cuda" and not eager
         if graphed and self.graph is None:
             with profiling.Span("step.capture", {"shard": self.index}):
                 self.graph = step_graph.capture(self.body, self.device,
                                                 pool=self.pool)
         with profiling.per_step("step.block", shard=self.index):
-            step_block.write(self.block, step_block.pack(frame_count, window,
-                                                         *values))
+            stream = self._stream_id()
+            written, written_on = self._written
+            if written == (inputs, stream):
+                profiling.count("step.block_ahead_hits")
+            else:
+                profiling.count("step.block_ahead_misses")
+                if written is not None and written[1] != stream:
+                    # the last write went to another stream: it runs first
+                    torch.cuda.current_stream(self.device).wait_stream(
+                        written_on)
+                self.write(inputs, values)
         if graphed:
             with profiling.per_step("step.replay", shard=self.index):
                 return self.graph.replay()
@@ -263,7 +315,8 @@ class _Shard:
 def sharded_tile_step(shards, blocks, accum: RowShardedAccum, plan,
                       state: RenderState, camera: Camera, sky_brightness,
                       jitter_amount, lambertian, *, config: RenderConfig,
-                      mesh: Mesh, eager: bool = False) -> int:
+                      mesh: Mesh, eager: bool = False, order=None,
+                      clock: list | None = None) -> int:
     """One mesh step: render one tile band, rows split over ``dp`` and
     frame numbers over ``sp``, and fold it into ``accum``'s slices in
     place.  Returns the bytes it copied between distinct devices.
@@ -277,38 +330,66 @@ def sharded_tile_step(shards, blocks, accum: RowShardedAccum, plan,
     folds on its owner (G6, weight sp) at its window in the slice: the
     band's columns and their remainder mask are ``_tile_step``'s
     (``renderer.band_window``), so the image equals the sequential
-    renderer's."""
+    renderer's.
+
+    The dp rows' shards are issued in ``order`` (default: top to
+    bottom); ``clock``, where given, gains (row, start, end) timing events
+    of each row's owner card, from before its shards to after its folds.
+
+    Per-step spans (while tracing): ``mesh.fold`` around the sums, copies
+    and folds (``args`` ``order``), and on cards one ``mesh.card`` device
+    span an owner card, from before its shard's first launch to after its
+    folds.  The counter ``mesh.bytes_moved`` gains the returned bytes."""
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     tw, rows = config.tile_w, config.tile_h // dp
     starts, parts = plan
     col0, py0, dx0, _ = band_window(config, state.tile_x, state.tile_y)
     values = (camera, sky_brightness, jitter_amount, lambertian)
-    colors = [[shards[i][s].run(state.frame_count + s,
-                                (col0, py0 + starts[i], 0, 0, 0), values,
-                                eager) for s in range(sp)] for i in range(dp)]
+    key = _block_key(values)
+    order = tuple(range(dp)) if order is None else order
+    marks = {} if profiling.tracing() else None
+    colors = [None] * dp
+    for i in order:
+        owner = mesh.devices[i, 0]
+        if marks is not None:  # owner card i's time, from its first launch
+            marks[i] = profiling.device_mark(owner)
+        if clock is not None:
+            clock.append((i, profiling.timing_event(owner)))
+        window = (col0, py0 + starts[i], 0, 0, 0)
+        colors[i] = [shards[i][s].run((state.frame_count + s, window, key),
+                                      values, eager) for s in range(sp)]
     moved, sums = 0, {}
-    for i in sorted({p.row for p in parts}):
-        lo = min(p.lo for p in parts if p.row == i)
-        total = None
-        for s in range(sp):
-            cols, n = _send(tuple(c[lo * tw:rows * tw] for c in colors[i][s]),
-                            mesh.devices[i, 0])
+    with profiling.per_step("mesh.fold", order=order):
+        for i in sorted({p.row for p in parts}):
+            lo = min(p.lo for p in parts if p.row == i)
+            total = None
+            for s in range(sp):
+                cols, n = _send(tuple(c[lo * tw:rows * tw]
+                                      for c in colors[i][s]),
+                                mesh.devices[i, 0])
+                moved += n
+                total = cols if total is None else tuple(
+                    a + b for a, b in zip(total, cols))
+            sums[i] = lo, total
+        for p in parts:
+            lo, total = sums[p.row]
+            cols, n = _send(tuple(c[(p.lo - lo) * tw:(p.hi - lo) * tw]
+                                  for c in total), mesh.devices[p.owner, 0])
             moved += n
-            total = cols if total is None else tuple(
-                a + b for a, b in zip(total, cols))
-        sums[i] = lo, total
-    for p in parts:
-        lo, total = sums[p.row]
-        cols, n = _send(tuple(c[(p.lo - lo) * tw:(p.hi - lo) * tw]
-                              for c in total), mesh.devices[p.owner, 0])
-        moved += n
-        target, block, th = accum.slices[p.owner], blocks[p.owner], p.hi - p.lo
-        words = step_block.pack(
-            state.frame_count, (col0, py0 + starts[p.row] + p.lo, dx0, 0,
-                                p.row0), *values, target.data_ptr())
-        check_target(target, words, tw, th)
-        step_block.write(block, words)
-        fold_band(target, cols, block, tw, th, 1, sp)
+            target, block = accum.slices[p.owner], blocks[p.owner]
+            th = p.hi - p.lo
+            words = step_block.pack(
+                state.frame_count, (col0, py0 + starts[p.row] + p.lo, dx0, 0,
+                                    p.row0), *values, target.data_ptr())
+            check_target(target, words, tw, th)
+            step_block.write(block, words)
+            fold_band(target, cols, block, tw, th, 1, sp)
+    for i, start in (marks or {}).items():  # ... to after its folds
+        profiling.device_span("mesh.card", start, card=i)
+    if clock is not None:
+        clock[:] = [(i, start, profiling.timing_event(mesh.devices[i, 0]))
+                    for i, start in clock]
+    profiling.count("mesh.bytes_moved", moved)
     return moved
 
 
@@ -377,6 +458,15 @@ class ShardedRenderer:
         self.frames_per_step = sp
         self.moved_bytes = 0
         self._steps = 0  # the step sequence number of profiling's spans
+        # the dp rows in the order their shards are issued.  A frame ends
+        # when its slowest card does, and the host issues card after card,
+        # so on distinct owner cards the slowest card goes first, timed by
+        # events every ORDER_EVERY steps (the first timed step is the
+        # second, after the capture); the others absorb the issue's delay
+        self._order = tuple(range(dp))
+        self._timed = (self.home.type == "cuda"
+                       and len(set(self.owners)) == dp > 1)
+        self._clock = None  # a timed step's events until they are read
 
     def init_state(self) -> RenderState:
         return RenderState(accum=RowShardedAccum.zeros(
@@ -404,9 +494,11 @@ class ShardedRenderer:
              lambertian: bool | None = None) -> RenderState:
         """One tile band across the mesh + tile cursor advance;
         ``state.accum`` is updated in place and carried into the result.
-        On cards each shard is one block write and one graph replay
-        (captured at its first step); the sums, copies and folds run on
-        the dp rows' and the owners' devices."""
+        On cards each shard is one graph replay (captured at its first
+        step), its block written ahead by the step before where that
+        step's :func:`advance`, camera and settings are this one's, else
+        written first; the sums, copies and folds run on the dp rows' and
+        the owners' devices."""
         return self._step(state, camera, sky_brightness, jitter_amount,
                           lambertian, eager=False)
 
@@ -441,17 +533,54 @@ class ShardedRenderer:
         self._steps += 1
         profiling.set_step(self._steps)
         self._check_accum(state.accum)
-        tile = (state.tile_x, state.tile_y)
-        if tile not in self._plans:
-            self._plans[tile] = plan_step(cfg, len(self.owners), *tile)
-        self.moved_bytes += sharded_tile_step(
-            self._shards, self._blocks, state.accum, self._plans[tile],
-            state, camera,
+        values = (
+            camera,
             cfg.sky_brightness if sky_brightness is None else sky_brightness,
             cfg.jitter_amount if jitter_amount is None else jitter_amount,
-            cfg.lambertian if lambertian is None else lambertian,
-            config=cfg, mesh=self.mesh, eager=eager)
-        return advance(cfg, state, self.frames_per_step)
+            cfg.lambertian if lambertian is None else lambertian)
+        clock = ([] if self._timed and self._steps % ORDER_EVERY == 2
+                 else None)
+        self.moved_bytes += sharded_tile_step(
+            self._shards, self._blocks, state.accum, self._plan(state),
+            state, *values, config=cfg, mesh=self.mesh, eager=eager,
+            order=self._order, clock=clock)
+        nxt = advance(cfg, state, self.frames_per_step)
+        self._write_ahead(nxt, values)
+        self._read_clock(clock)
+        return nxt
+
+    def _plan(self, state: RenderState):
+        """:func:`plan_step` of the state's tile, made once a tile."""
+        tile = (state.tile_x, state.tile_y)
+        if tile not in self._plans:
+            self._plans[tile] = plan_step(self.config, len(self.owners),
+                                          *tile)
+        return self._plans[tile]
+
+    def _read_clock(self, clock) -> None:
+        """Order the dp rows by the last timed step's card ms once its
+        events have completed (read without a wait, after this step's
+        work is issued); keep ``clock``, this step's, for later."""
+        done = self._clock
+        if done is not None and all(end.query() for _, _, end in done):
+            self._order = _slowest_first(done)
+            self._clock = None
+        if clock is not None:
+            self._clock = clock
+
+    def _write_ahead(self, state: RenderState, values: tuple) -> None:
+        """Each shard's block of the step ``state`` begins, with this
+        step's camera and settings, written behind this step's work while
+        the cards render: the next step's shards replay at once where its
+        inputs are these, so the host issues card after card faster."""
+        starts = self._plan(state)[0]
+        col0, py0, _, _ = band_window(self.config, state.tile_x,
+                                      state.tile_y)
+        key = _block_key(values)
+        for i, row in enumerate(self._shards):
+            window = (col0, py0 + starts[i], 0, 0, 0)
+            for s, shard in enumerate(row):
+                shard.write((state.frame_count + s, window, key), values)
 
     def render(self, camera: Camera | None = None, frames: int = 1,
                state: RenderState | None = None) -> RenderState:

@@ -12,19 +12,27 @@ scene.py:139-143, per-frame fps in the caption main.py:405-407).  Here:
   (:func:`set_step`).  Spans of a run's set-up (``scene.*``,
   ``step.capture``, ``kernels.load``, ``kernels.build``,
   ``native.build``) are always recorded; per-step spans (``step.block``,
-  ``step.replay`` or ``step.body``, ``sync.wait``, ``sync.read``, and the
-  App's ``app.input``, ``app.present`` and ``display.convert``) only
-  while :func:`tracing`, and otherwise cost one flag test.  The program
-  opens no ``record_function`` or NVTX range: the profiler copies such a
-  range onto the card's timeline, where a reader of device events would
-  count it as a kernel;
+  ``step.replay`` or ``step.body``, ``sync.wait``, ``sync.read``, a
+  mesh step's ``mesh.fold``, and the App's ``app.input``, ``app.present``
+  and ``display.convert``) only while :func:`tracing`, and otherwise cost
+  one flag test.  The program opens no ``record_function`` or NVTX range:
+  the profiler copies such a range onto the card's timeline, where a
+  reader of device events would count it as a kernel;
+* device spans, marked only while :func:`tracing`: two CUDA events on
+  one card (:func:`device_mark`, :func:`device_span`), read at the next
+  :func:`device_sync` of a mesh's ``accum`` and recorded as a span whose
+  ``args`` hold ``device_ms``, the card's time between them (a mesh
+  step's ``mesh.card``, one an owner card);
 * counters, always kept, read with :func:`counts`: ``app.presented``
   (frames the App handed to its display sink), ``app.resets`` (its
-  ``resetFrames``), ``step.captures`` (CUDA graphs of a step captured)
-  and ``step.block_ahead_hits`` / ``step.block_ahead_misses`` (steps
-  whose block was written ahead / written at the step, ``renderer.py``);
-* :func:`device_sync`, which fences on the card before reading back (torch
-  returns before a CUDA card finishes), the read queued before the fence;
+  ``resetFrames``), ``step.captures`` (CUDA graphs of a step captured),
+  ``step.block_ahead_hits`` / ``step.block_ahead_misses`` (steps
+  whose block was written ahead / written at the step, ``renderer.py``)
+  and ``mesh.bytes_moved`` (bytes a mesh step copied between distinct
+  devices, ``parallel/sharding.py``);
+* :func:`device_sync`, which fences on the card, or on every card of a
+  mesh's ``accum``, before reading back (torch returns before a CUDA card
+  finishes), the read queued before the fence;
 * :func:`trace`, a ``torch.profiler`` block that writes a Chrome trace
   with the program's spans of the block on a track of their own.
 """
@@ -46,7 +54,8 @@ _step: int | None = None
 _spans: list = []
 _counts: dict[str, int] = {}
 _local = threading.local()  # .stack: the thread's open spans
-_readbacks: dict = {}  # (device, dtype) -> device_sync's pinned scalar, view
+_readbacks: dict = {}  # (device, dtype, slot) -> pinned scalar, its view
+_marks: list = []  # device spans whose events are not read yet
 
 
 class Span:
@@ -129,6 +138,7 @@ def spans() -> list[Span]:
 
 def clear() -> None:
     _spans.clear()
+    _marks.clear()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -141,11 +151,52 @@ def counts() -> dict[str, int]:
     return dict(_counts)
 
 
-def _readback(head: torch.Tensor) -> tuple:
+def timing_event(device: torch.device) -> torch.cuda.Event:
+    """A timing event recorded now on card ``device``'s current stream."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def device_mark(device: torch.device):
+    """On a card, the start of a device span: a :func:`timing_event`;
+    None on the CPU, which has no events.  Callers mark only while
+    :func:`tracing`."""
+    if device.type != "cuda":
+        return None
+    return device, timing_event(device), time.time_ns(), _step
+
+
+def device_span(name: str, start, **args) -> None:
+    """End the device span begun by ``start`` (:func:`device_mark`; None
+    records nothing): an event recorded now on the same card.  The next
+    :func:`device_sync` of a mesh's ``accum`` reads the card's ms between
+    the two events and records span ``name`` over the host's time between
+    the marks, with ``args`` and ``device_ms``."""
+    if start is None:
+        return
+    device, begin, start_ns, step = start
+    end = timing_event(device)
+    span = Span(name, args)
+    span.start_ns, span.end_ns, span.step = start_ns, time.time_ns(), step
+    _marks.append((span, begin, end))
+
+
+def _read_marks() -> None:
+    """Record the queued device spans; every card they ran on has been
+    waited for."""
+    for span, begin, end in _marks:
+        span.args["device_ms"] = begin.elapsed_time(end)
+        _spans.append(span)
+    _marks.clear()
+
+
+def _readback(head: torch.Tensor, slot: int = 0) -> tuple:
     """The pinned host scalar of ``head``'s device and dtype that
-    :func:`device_sync` copies into, made at its first use, and a NumPy
-    view of it (read with no torch call)."""
-    key = (head.device, head.dtype)
+    :func:`device_sync` copies into (one a slice of a mesh's ``accum``:
+    ``slot``), made at its first use, and a NumPy view of it (read with
+    no torch call)."""
+    key = (head.device, head.dtype, slot)
     out = _readbacks.get(key)
     if out is None:
         pinned = torch.empty((), dtype=head.dtype, pin_memory=True)
@@ -153,7 +204,7 @@ def _readback(head: torch.Tensor) -> tuple:
     return out
 
 
-def device_sync(x: torch.Tensor) -> float:
+def device_sync(x) -> float:
     """Wait for everything queued on ``x``'s card (when it is a CUDA
     tensor), then read back a scalar: the sum of ``x``'s first four
     values.  Spans ``sync.wait`` and ``sync.read``.
@@ -161,7 +212,14 @@ def device_sync(x: torch.Tensor) -> float:
     On a card the sum and its copy into a pinned host scalar are queued
     before the wait, behind the work already queued on ``x``'s stream, so
     the host launches nothing on a card gone idle and reads the scalar
-    with no CUDA call after it."""
+    with no CUDA call after it.
+
+    ``x`` may also be a mesh's ``accum`` (``parallel.RowShardedAccum``):
+    each slice's sum and copy are queued on its card, every card before
+    the host waits on any, then each card is waited for; it returns slice
+    0's sum, and records the queued device spans (:func:`device_span`)."""
+    if not isinstance(x, torch.Tensor):
+        return _mesh_sync(x.slices)
     view = None
     with per_step("sync.wait"):
         if x.is_cuda:
@@ -171,6 +229,25 @@ def device_sync(x: torch.Tensor) -> float:
             torch.cuda.synchronize(x.device)
     with per_step("sync.read"):
         return float(x.reshape(-1)[:4].sum() if view is None else view)
+
+
+def _mesh_sync(slices) -> float:
+    """:func:`device_sync` of a mesh's ``accum`` slices."""
+    first = slices[0]
+    view = None
+    with per_step("sync.wait"):
+        if first.is_cuda:
+            for j, s in enumerate(slices):
+                head = s.reshape(-1)[:4].sum()
+                pinned, v = _readback(head, j)
+                pinned.copy_(head, non_blocking=True)
+                view = v if j == 0 else view
+            for device in dict.fromkeys(s.device for s in slices):
+                torch.cuda.synchronize(device)
+            if _marks:
+                _read_marks()
+    with per_step("sync.read"):
+        return float(first.reshape(-1)[:4].sum() if view is None else view)
 
 
 def _export_spans(path: str, since_ns: int) -> None:

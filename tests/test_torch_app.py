@@ -438,6 +438,27 @@ def test_cli_sharded_rounds_frames_up_and_resumes(tmp_path, capsys,
         to_uint8(state.accum.numpy()))
 
 
+def test_cli_mesh_prints_each_frame_and_writes_the_sequential_image(
+        tmp_path, capsys):
+    """``--devices 4 --dp 4 --sp 1`` runs ``App._main_headless``'s loop: a
+    sync and a line each frame; at sp = 1 its PNG is the one-device CLI's
+    (each slice folds its rows with the sequential arithmetic)."""
+    flags = _ball_flags(tmp_path)[:-4] + ["--traversal", "bvh",
+                                          "--frames", "2"]
+    assert main(flags + ["--device", "cpu", "--devices", "4", "--dp", "4",
+                         "--sp", "1", "--out", str(tmp_path / "m.png")]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: dp=4 x sp=1 on 4 cpu device(s)" in out
+    frames = [line.split()[1] for line in out.replace("\r", "\n").splitlines()
+              if line.startswith("Frame ")]
+    assert frames == ["1", "2"]
+    assert main(flags + ["--device", "cpu",
+                         "--out", str(tmp_path / "s.png")]) == 0
+    got = load_png(str(tmp_path / "m.png"))
+    assert got.mean() > 0.01
+    np.testing.assert_array_equal(got, load_png(str(tmp_path / "s.png")))
+
+
 def test_cli_sharded_refusals(tmp_path):
     with pytest.raises(SystemExit, match="headless-only"):
         main(["--interactive", "--devices", "2", "--device", "cpu"])

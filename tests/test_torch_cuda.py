@@ -1587,6 +1587,76 @@ def test_sharded_slices_match_sequential_on_card(cuda, dp, tile_size):
     assert got.mean() > 0.01 and sr.moved_bytes == 0
 
 
+def test_sharded_marks_one_span_per_owner_card(cuda):
+    """A traced (4, 1) mesh over the cards there are (one repeated where
+    there are fewer than four): each step records one ``mesh.fold`` and
+    one ``mesh.card`` device span an owner card, read at the sync of
+    every card, which returns slice 0's head sum."""
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+    from opengl_raytracer_torch.utils import profiling
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", k % n) for k in range(4)]
+    cfg = RenderConfig(width=24, height=24, bounces=2)
+    sr = ShardedRenderer(_scene_small(), cfg,
+                         make_mesh(devices=devices, dp=4, sp=1))
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    state = sr.render(cam, frames=1)  # captures each shard's graph
+    profiling.clear()
+    profiling.enable(True)
+    try:
+        for _ in range(2):
+            state = sr.step(state, cam)
+            got = profiling.device_sync(state.accum)
+            assert got == float(state.accum.slices[0].reshape(-1)[:4].sum())
+    finally:
+        profiling.enable(False)
+    spans = profiling.spans()
+    cards = sorted((s.step, s.args["card"]) for s in spans
+                   if s.name == "mesh.card")
+    steps = sorted({step for step, _ in cards})
+    assert len(steps) == 2
+    assert cards == [(step, j) for step in steps for j in range(4)]
+    assert all(s.args["device_ms"] > 0 for s in spans
+               if s.name == "mesh.card")
+    assert sorted(s.step for s in spans if s.name == "mesh.fold") == steps
+    profiling.clear()
+
+
+def test_sharded_issues_the_slowest_card_first(cuda, monkeypatch):
+    """A mesh over distinct cards (2 or 4 where there are) times its owner
+    cards at its second step and, once the events have completed, issues
+    the slowest card's shards first; the frames are the sequential
+    renderer's bit for bit whatever the order.  A mesh of one card
+    repeated keeps the rows' order and times nothing."""
+    from opengl_raytracer_torch.parallel import ShardedRenderer, make_mesh
+    from opengl_raytracer_torch.parallel import sharding
+
+    n = torch.cuda.device_count()
+    dp = 4 if n >= 4 else 2
+    devices = [torch.device("cuda", k % n) for k in range(dp)]
+    cfg = RenderConfig(width=24, height=24, bounces=2)
+    scene = _scene_small()
+    sr = ShardedRenderer(scene, cfg, make_mesh(devices=devices, dp=dp, sp=1))
+    r = Renderer(scene, cfg, device=cuda)
+    cam = make_camera([0.0, 0.0, 4.4], (180.0, 0.0))
+    timed = []
+    plain = sharding._slowest_first
+    monkeypatch.setattr(sharding, "_slowest_first",
+                        lambda clock: timed.append(plain(clock)) or
+                        tuple(reversed(timed[-1])))
+    a, b = sr.init_state(), r.init_state()
+    for _ in range(4):
+        a, b = sr.step(a, cam), r.step(b, cam)
+        got = sr.image(a)  # waits for every card
+    if n >= dp:
+        assert len(timed) == 1 and sorted(timed[0]) == list(range(dp))
+        assert sr._order == tuple(reversed(timed[0]))
+    else:
+        assert timed == [] and sr._order == tuple(range(dp))
+    np.testing.assert_array_equal(got, r.image(b))
+
+
 def test_failed_capture_raises(cuda):
     """A body that syncs with the host cannot be captured: capture raises
     and leaves the launch counts as they were."""

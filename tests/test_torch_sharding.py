@@ -333,6 +333,127 @@ def test_moved_bytes_within_the_home_card_rule(dp, sp):
     assert cases > 20
 
 
+@pytest.mark.parametrize("dp,sp", [(2, 2), (4, 1)])
+def test_bytes_moved_counter_follows_moved_bytes(scene, monkeypatch, dp, sp):
+    """The counter ``mesh.bytes_moved`` gains what ``moved_bytes`` counts:
+    nothing on one device, and where every send is priced as a copy
+    between cards, each send's bytes."""
+    from opengl_raytracer_torch.parallel import sharding
+    from opengl_raytracer_torch.utils import profiling
+
+    sr = ShardedRenderer(scene, RenderConfig(width=16, height=16, bounces=1,
+                                             traversal="bvh"),
+                         cpu_mesh(dp, sp))
+    camera, state = make_camera(*CAM), sr.init_state()
+
+    def counted():
+        return profiling.counts().get("mesh.bytes_moved", 0)
+
+    before = counted()
+    state = sr.step(state, camera)
+    assert counted() == before and sr.moved_bytes == 0
+    plain = sharding._send
+    monkeypatch.setattr(sharding, "_send", lambda cols, device: (
+        plain(cols, device)[0],
+        sum(c.numel() * c.element_size() for c in cols)))
+    for _ in range(2):
+        state = sr.step(state, camera)
+    # each dp row's sp shards to its first device, then its piece to its
+    # slice: (sp + 1) sends of the piece's colours a dp row
+    assert sr.moved_bytes == 2 * (sp + 1) * 16 * 16 * 12
+    assert counted() - before == sr.moved_bytes
+
+
+def test_shard_blocks_are_written_ahead(scene):
+    """Each step writes every shard's block of the step ``advance``
+    predicts, with its camera and settings: a step that follows it with
+    the same camera and settings writes none (a hit a shard), a moved
+    camera or another sky writes each (a miss a shard), and the frames
+    equal the sequential renderer's through the same script."""
+    from opengl_raytracer_torch.utils import profiling
+
+    cfg = RenderConfig(width=16, height=16, bounces=2, traversal="bvh",
+                       tile_size=2)
+    sr = ShardedRenderer(scene, cfg, cpu_mesh(2, 1))
+    r = Renderer(scene, cfg, device="cpu")
+    moved = make_camera([0.3, -0.2, 3.6], [176.0, 4.0])
+    script = [(make_camera(*CAM), None)] * 5 + [(moved, None)] * 2 + [
+        (moved, 0.5)]
+    a, b, got = sr.init_state(), r.init_state(), []
+    for camera, sky in script:
+        before = profiling.counts()
+        a = sr.step(a, camera, sky_brightness=sky)
+        after = profiling.counts()
+        b = r.step(b, camera, sky_brightness=sky)
+        got.append(tuple(after.get(k, 0) - before.get(k, 0) for k in (
+            "step.block_ahead_hits", "step.block_ahead_misses")))
+    assert got == [(0, 2)] + [(2, 0)] * 4 + [(0, 2), (2, 0), (0, 2)]
+    np.testing.assert_array_equal(sr.image(a), r.image(b))
+
+
+def test_slowest_card_first():
+    """The dp rows by their timed card ms, the slowest first, ties in the
+    rows' order; a mesh on the CPU times nothing and keeps the order."""
+    from opengl_raytracer_torch.parallel.sharding import _slowest_first
+
+    class Event:
+        def __init__(self, ms):
+            self.ms = ms
+
+        def elapsed_time(self, end):
+            return end.ms - self.ms
+
+    clock = [(i, Event(0.0), Event(ms))
+             for i, ms in enumerate([2.5, 3.0, 2.5, 2.0])]
+    assert _slowest_first(clock) == (1, 0, 2, 3)
+    sr = ShardedRenderer(small_scene(), RenderConfig(width=8, height=8),
+                         cpu_mesh(4, 1))
+    assert not sr._timed and sr._order == (0, 1, 2, 3)
+
+
+def test_mesh_issues_rows_in_the_timed_order(scene, monkeypatch):
+    """Where a mesh times its cards (here with fake events, row i's owner
+    taking i ms at the second step), the third step reads the events,
+    after its own shards, and the rows are issued slowest first from the
+    fourth, each row's shards spanned in that order; the image is the
+    sequential renderer's."""
+    from opengl_raytracer_torch.utils import profiling
+
+    made = []
+
+    class Event:
+        def __init__(self):
+            self.k = len(made) % 8  # a timed step: 4 starts, then 4 ends
+            made.append(self)
+
+        def query(self):
+            return True
+
+        def elapsed_time(self, end):
+            return float(self.k)
+
+    monkeypatch.setattr(profiling, "timing_event", lambda device: Event())
+    cfg = dict(width=16, height=16, bounces=2, traversal="bvh")
+    sr = ShardedRenderer(scene, RenderConfig(**cfg), cpu_mesh(4, 1))
+    sr._timed = True
+    camera, state = make_camera(*CAM), sr.init_state()
+    profiling.clear()
+    profiling.enable(True)
+    try:
+        for _ in range(4):
+            state = sr.step(state, camera)
+    finally:
+        profiling.enable(False)
+    assert len(made) == 8 and sr._order == (3, 2, 1, 0)
+    shards = [(s.step, s.args["shard"]) for s in profiling.spans()
+              if s.name == "step.body"]
+    assert shards == [(k, i) for k in (1, 2, 3) for i in range(4)] + [
+        (4, i) for i in (3, 2, 1, 0)]
+    profiling.clear()
+    np.testing.assert_array_equal(sr.image(state),
+                                  sequential(scene, 4, **cfg))
+
+
 @pytest.mark.parametrize("dp,w,h,tile_size", [
     (2, 16, 16, 1), (4, 16, 16, 1), (8, 16, 16, 1), (2, 16, 20, 3),
     (4, 15, 24, 3), (4, 10, 24, 5)])

@@ -149,15 +149,18 @@ def test_scene_readers_take_the_last_build(monkeypatch):
 @pytest.mark.parametrize("name", [*SCENE, *IDLE])
 def test_metric_entry_matches_its_file(name):
     """Each metric's entry names the three CLI cells, and the App's cell
-    where the App's loop holds its span (it takes no device sync), and
-    its file the entry's source, unit, layer and moved metric."""
+    where the App's loop holds its span (it takes no device sync), the
+    four-card cell for the scene's spans (the idle readers take the union
+    of the cards' kernels as busy), and its file the entry's source, unit,
+    layer and moved metric."""
     entry = next(m for m in harness.benchmark()["per_layer"]
                  if m["name"] == name)
     mod = harness.load_module("metrics", name)
     fly = [] if IDLE.get(name, "").startswith("sync.") else ["minidragon-fly"]
+    mesh = ["minidragon-mesh4"] if name in SCENE else []
     assert entry["workloads"] == ["minidragon-converge",
                                   "asiandragon-converge", "buddha-converge",
-                                  *fly]
+                                  *fly, *mesh]
     assert (mod.SOURCE, mod.UNIT, mod.LAYER, mod.MOVES) == (
         entry["source"], entry["unit"], entry["layer"], entry["moves"])
     assert entry["layer"] == ("Scene authoring" if name in SCENE

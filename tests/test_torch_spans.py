@@ -252,6 +252,39 @@ def test_sharded_steps_record_each_shard():
     assert [(s.name, s.args["shard"], s.step) for s in steps] == want
 
 
+def test_mesh_sync_reads_slice_zero():
+    """``device_sync`` of a mesh's ``accum`` (CPU slices) returns slice
+    0's head sum, not another slice's, under ``sync.wait`` and
+    ``sync.read``."""
+    from opengl_raytracer_torch.parallel import RowShardedAccum
+
+    slices = [torch.full((2, 3, 3), float(j + 1)) for j in range(4)]
+    slices[0][0, 0] = torch.tensor([0.5, 0.25, 2.0])
+    profiling.enable(True)
+    assert device_sync(RowShardedAccum(slices)) == 0.5 + 0.25 + 2.0 + 1.0
+    assert _names(profiling.spans()) == ["sync.wait", "sync.read"]
+
+
+def test_traced_mesh_step_records_one_fold_and_no_card_marks():
+    """A traced (4, 1) mesh step on the CPU: one ``mesh.fold`` span a
+    step, after the four shards' spans, and no ``mesh.card`` device span,
+    since the CPU has no events."""
+    scene = Scene(_objects())
+    r = ShardedRenderer(scene, RenderConfig(width=32, height=16, bounces=1),
+                        make_mesh(devices=["cpu"] * 4, dp=4, sp=1))
+    camera = make_camera([0, 0, 0], [0, 0])
+    state = r.init_state()
+    profiling.enable(True)
+    for _ in range(2):
+        state = r.step(state, camera)
+        device_sync(state.accum)
+    got = [(s.name, s.step) for s in profiling.spans()
+           if s.name.startswith(("mesh.", "step."))]
+    want = [(n, step) for step in (1, 2)
+            for n in ["step.block", "step.body"] * 4 + ["mesh.fold"]]
+    assert got == want
+
+
 def test_trace_exports_the_spans_of_its_block(tmp_path):
     with profiling.Span("before"):
         pass
