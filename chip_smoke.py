@@ -93,6 +93,16 @@ Phases; each raises on failure, and the script then exits non-zero:
    per launch, the plain version's, its bound and the share; G9's bound
    is the live rays' own per-ray work, priced as G7's is, with the lanes'
    (``lane_bound_ms``) beside it.
+3d. radix: G10, the sort (``csrc/radix_sort.cu``), on G2's keys of one
+   1080p "auto" frame as the integrator hands them to its four sorts
+   (captured by wrapping ``radix_sort.sort_rays``), whole (2,073,600) and
+   their first 518,400 (a quarter frame, as a minidragon-mesh4 card
+   sorts): equal to ``torch.sort(keys, stable=True)`` with the indices
+   as int32, bit for bit; ms a sort in turns with that library call
+   (``library_ms``, also the row's plain version), warm and after a
+   128 MB write that flushes L2 (``ms_after_flush``), and the two
+   bounds: 12 bytes a key (read a key, write a key and an index) and the
+   LSD floor (64 bytes a key at 8-bit digits), each at 3.35 TB/s.
 4. K3 (wide-BVH traversal, ``csrc/wide_traversal.cu``, over the scene's
    Hopper tables ``SceneData.k3``) against its plain torch version (over
    the same tables) on four ray sets: (a) phase 3's 2,073,600 random rays;
@@ -337,6 +347,9 @@ KERNELS = {
     "reorder": dict(
         source="opengl_raytracer_torch/csrc/permute.cu",
         replaces="opengl_raytracer_tpu/ops/integrator.py:209"),
+    "radix_sort": dict(
+        source="opengl_raytracer_torch/csrc/radix_sort.cu",
+        replaces="opengl_raytracer_tpu/ops/integrator.py:209"),
     "restore": dict(
         source="opengl_raytracer_torch/csrc/permute.cu",
         replaces="opengl_raytracer_tpu/ops/integrator.py:336"),
@@ -368,6 +381,10 @@ KERNELS = {
 }
 GLUE = ("ray_front", "sort_keys", "reorder", "restore", "wide_epilogue",
         "band_fold", "step_block", "bvh_walk", "brute_sweep", "packet_walk")
+RADIX_LAUNCHES = 5  # G10's launches a sort: its histogram and 4 passes
+# phase 3d: the sort's sizes (a frame's keys, a quarter frame's: a
+# minidragon-mesh4 shard's)
+RADIX_SIZES = (N_RAYS, N_RAYS // 4)
 GRAPH_FRAMES = 6  # frames replayed against the eager body in phase 5b
 # phase 5c: the reorder cadences (RenderConfig.sort_every) held to cadence
 # 1 bit for bit, and those timed in turns (each twice, CADENCE_FRAMES a run)
@@ -545,9 +562,9 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
     """The glue kernels' launches in ``renders`` chunk renders of
     ``traversal`` over ``steps`` tile steps (default: one a render): one
     ray front a render; with the reorder (the kernels' traversals) at
-    cadence ``sort_every``, ``sorts_a_raytrace`` key launches and reorder
-    calls, each call two launches (index pass and gather), and one
-    restore; K1's chain walking ``parts`` parts a segment; G5's entry t before each K1 or K3 segment and
+    cadence ``sort_every``, ``sorts_a_raytrace`` key launches, sorts (G10:
+    five launches each) and reorder calls, each call two launches (index
+    pass and gather), and one restore; K1's chain walking ``parts`` parts a segment; G5's entry t before each K1 or K3 segment and
     its epilogue after each K3 one; G7, G8 or G9 a segment of "bvh",
     "brute" or "packet"; ``folds`` folds (default: one a step; on a mesh,
     one a slice that a dp row's piece reaches); and ``blocks`` block writes
@@ -561,6 +578,7 @@ def check_glue(counts: dict, traversal: str, n_bounces: int, renders: int,
         else 0
     check_count(counts, "ray_front", renders)
     check_count(counts, "sort_keys", sorts)
+    check_count(counts, "radix_sort", RADIX_LAUNCHES * sorts)
     check_count(counts, "reorder", 2 * sorts)
     check_count(counts, "restore", renders if reorder else 0)
     check_count(counts, "subblock_parts",
@@ -1152,8 +1170,8 @@ G3_UNFOLDED_RESTORE_BYTES_PER_RAY = 8 + 12 + 8 + 12 + 8
 def g3_reorder_work(alive, return_seed: bool,
                     recon: bool = False) -> tuple[int, int]:
     """(bytes, scattered 32-byte sectors) of one reorder whose sorted rays
-    are live where ``alive``: every ray reads its int64 index, sorted key
-    and int32 original index, and writes 12 columns, a seed, an index and a
+    are live where ``alive``: every ray reads its int32 index (G10's
+    permutation), sorted key and int32 original index, and writes 12 columns, a seed, an index and a
     flag; a live ray reads 9 columns and its seed (not with ``recon``,
     which reads the 128-byte step block once instead), a dead ray 3
     columns (and its seed with ``return_seed``).  Each read by the permuted
@@ -1163,7 +1181,7 @@ def g3_reorder_work(alive, return_seed: bool,
     live = int(alive.sum())
     dead = n - live
     seed = 8 if return_seed else 0
-    n_bytes = (n * (8 + 4 + 4 + 48 + 8 + 4 + 1)
+    n_bytes = (n * (4 + 4 + 4 + 48 + 8 + 4 + 1)
                + live * (36 + (0 if recon else 8)) + dead * (12 + seed)
                + (128 if recon else 0))
     return n_bytes, live * (10 if recon else 11) + dead * (
@@ -1222,7 +1240,7 @@ def glue_phase(data, camera, sets, seed: int, packet_segments):
     frame of standin-31k, for G9.
     Returns ({counter: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))},
     {counter: more keys of its row in the kernels line})."""
-    from opengl_raytracer_torch.ops import front, morton, permute
+    from opengl_raytracer_torch.ops import front, morton, permute, radix_sort
     from opengl_raytracer_torch.ops.intersect import BIG
 
     out, extras = {}, {}
@@ -1319,9 +1337,10 @@ def glue_phase(data, camera, sets, seed: int, packet_segments):
     orig = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
     o, d, _ = key_sets[2]
     keys_f = morton.sort_keys(o, d, lo, hi, ~dead)
-    perm_r = torch.from_numpy(g.permutation(N_RAYS)).to(dev)
-    states = [("random", (keys_f[perm_r], perm_r, *groups, seeds, orig)),
-              ("sorted", (*torch.sort(keys_f, stable=True), *groups, seeds,
+    perm_r = torch.from_numpy(g.permutation(N_RAYS).astype(np.int32)).to(dev)
+    states = [("random", (keys_f[perm_r.long()], perm_r, *groups, seeds,
+                          orig)),
+              ("sorted", (*radix_sort.sort_rays(keys_f), *groups, seeds,
                           orig))]
     frame, restores = frame_states(data, camera)
     restore_in = restores[0]
@@ -2061,7 +2080,7 @@ def _g3_times(name, st, recon=None) -> dict:
     path runs it) and the restore of its output on state ``st``: ms of the
     kernel, in turns with the carried-seed reorder's, of its plain version
     and of the one PyTorch call (``torch.index_select`` of a pre-stacked
-    (12, R) buffer by the int64 permutation; ``index_copy_`` of a (3, R)
+    (12, R) buffer by the int32 permutation; ``index_copy_`` of a (3, R)
     light buffer by an int64 copy of the index); bytes, bound and scattered
     sectors at the state's live share.  The reorder's ms covers both its
     launches."""
@@ -2146,6 +2165,106 @@ def _g3_mean(rows):
                  restore_ms_segments=[r["restore_ms"] for r in rows])
     return (mean("ms"), mean("plain_ms"), mean("library_ms"),
             mean("n_bytes"), extra)
+
+
+def frame_sort_keys(data, camera) -> list:
+    """G2's keys of one 1920x1080 "auto" frame (K1), as the integrator
+    hands them to each of its four sorts (before segments 1-4), captured
+    by wrapping ``radix_sort.sort_rays`` during the frame."""
+    from opengl_raytracer_torch import RenderConfig, Renderer
+    from opengl_raytracer_torch.ops import radix_sort
+
+    taken = []
+    sort_rays = radix_sort.sort_rays
+
+    def spy(keys):
+        taken.append(keys.clone())
+        return sort_rays(keys)
+
+    r = Renderer(data, RenderConfig(width=WIDTH, height=HEIGHT,
+                                    bounces=BOUNCES), device=DEVICE)
+    radix_sort.sort_rays = spy
+    try:
+        eager_render(r, camera)
+    finally:
+        radix_sort.sort_rays = sort_rays
+    torch.cuda.synchronize()
+    if len(taken) != r.config.n_bounces - 1:
+        raise RuntimeError(f"captured {len(taken)} sorts of a frame")
+    return taken
+
+
+def radix_phase(data, camera):
+    """G10 (``csrc/radix_sort.cu``) on a frame's own keys: each of the
+    four sorts of a 1080p frame at 2,073,600 keys and the first 518,400
+    keys of each (a quarter frame's count), against ``torch.sort(keys,
+    stable=True)`` (its indices as int32; the plain version of G10), bit
+    for bit; ms a sort in turns with the library's, warm (the keys and
+    buffers left in L2 by the sort before) and after a 128 MB write that
+    flushes L2 before each sort (as in a frame, where K1 runs between two
+    sorts), and the two bounds: the least bytes (12 a key) and the LSD
+    floor (64 a key).  Returns the kernel row at 2,073,600 keys and its
+    extras."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    frame = frame_sort_keys(data, camera)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=frame[0].device)
+    rows = {}
+    err = 0.0
+    for n in RADIX_SIZES:
+        sets = [k[:n].contiguous() for k in frame]
+        want = [torch.sort(k, stable=True) for k in sets]
+        want = [(ks, p.int()) for ks, p in want]
+        for k, ref in zip(sets, want):
+            err = max(err, _assert_equal(f"G10 n={n}",
+                                         radix_sort.sort_rays(k), ref))
+
+        def g10():
+            for k in sets:
+                radix_sort.sort_rays(k)
+
+        def lib():
+            for k in sets:
+                torch.sort(k, stable=True)
+
+        ms, lib_ms = (t / len(sets) for t in time_pair(g10, lib, 20, 20))
+
+        def cold(sort, reps=5):
+            """Mean ms of a sort whose keys, buffers and code were pushed
+            out of L2 by the flush just before it."""
+            total = 0.0
+            for _ in range(reps):
+                for k in sets:
+                    flush.fill_(1)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    sort(k)
+                    b.record()
+                    b.synchronize()
+                    total += a.elapsed_time(b)
+            return total / (reps * len(sets))
+
+        lib_cold = cold(lambda k: torch.sort(k, stable=True))
+        ms_cold = cold(radix_sort.sort_rays)
+        lib_cold = min(lib_cold, cold(lambda k: torch.sort(k, stable=True)))
+        ms_cold = min(ms_cold, cold(radix_sort.sort_rays))
+        least, _ = bound_ms(n * 12, 0)
+        floor, _ = bound_ms(n * 64, 0)
+        say("radix", n=n, items=radix_sort.design(n), ms=ms,
+            library_ms=lib_ms, ms_after_flush=ms_cold,
+            library_ms_after_flush=lib_cold, least_bytes_bound_ms=least,
+            lsd_floor_ms=floor, share_of_least=least / ms,
+            share_of_floor=floor / ms, faster_than_library=ms < lib_ms,
+            dead_share=float((frame[-1][:n] == 2**31 - 1).float().mean()))
+        rows[n] = (ms, lib_ms, ms_cold, lib_cold)
+    del flush
+    ms, lib_ms, ms_cold, lib_cold = rows[N_RAYS]
+    row = (err, ms, lib_ms, bound_ms(N_RAYS * 12, 0))
+    return row, dict(library_ms=lib_ms, ms_after_flush=ms_cold,
+                     library_ms_after_flush=lib_cold,
+                     quarter_ms=rows[N_RAYS // 4][0],
+                     quarter_library_ms=rows[N_RAYS // 4][1])
 
 
 def _kernels_counts() -> dict:
@@ -3929,6 +4048,7 @@ def main(argv=None) -> int:
                             "packet", "packet")
     glue, glue_extra = timed("glue", glue_phase, data, camera, sets,
                              args.seed, packet_segments)
+    radix, radix_extra = timed("radix", radix_phase, data, camera)
     del sets, segments, packet_segments
     big_scene, big = timed("bigscene", make_scene, *BIG, DEVICE)
     if (big_scene.total_triangles != BIG_TRIANGLES
@@ -3986,7 +4106,7 @@ def main(argv=None) -> int:
     kernels = []
     for kname, (err, ms, plain_ms, (bound, by)) in (
             ("subblock_traversal", k1), ("shade", k2), ("wide_traversal", k3),
-            *((g, glue[g]) for g in GLUE)):
+            *((g, glue[g]) for g in GLUE), ("radix_sort", radix)):
         row = dict(name=kname, route="cuda", **KERNELS[kname],
                    launches=counts[kname], max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -3995,6 +4115,8 @@ def main(argv=None) -> int:
         kernels.append(row)
     kernels[0]["frame_ms"] = frame_ms  # K1 over the five captured segments
     kernels[3 + GLUE.index("reorder")]["calls"] = counts["reorder"] // 2
+    kernels[-1].update(radix_extra, calls=counts["radix_sort"]
+                       // RADIX_LAUNCHES)
     kernels[2]["launches_big_scene_auto"] = big_counts["wide_traversal"]
     g5 = kernels[3 + GLUE.index("wide_epilogue")]
     g5["launches_pallas"] = pallas_counts["wide_epilogue"]

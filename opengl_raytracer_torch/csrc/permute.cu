@@ -3,8 +3,9 @@
 // Replace the multi-operand sorts that carry the per-ray columns in the
 // JAX integrator (opengl_raytracer_tpu/ops/integrator.py:209-268 and
 // :336-354, XLA sorts, not Pallas kernels).  The port sorts only the keys
-// (torch.sort, which hands back the sorted keys and the permutation) and
-// moves the columns, in two launches forward and one back:
+// (G10, csrc/radix_sort.cu, which hands back the sorted keys and the int32
+// permutation) and moves the columns, in two launches forward and one
+// back:
 //
 //   * reorder_index_kernel, then reorder_kernel: out row r at position i is
 //     column r at perm[i], for the 12 float columns (origin, direction, ray
@@ -60,8 +61,8 @@
 // scattered writes a ray (4 with the seed).  The gather's grid walks the
 // columns, one at a time, so a column's scattered reads (8 or 16 MB at 2M
 // rays) stay in the 50 MB L2; its rows read one int32 a ray (index and
-// liveness, from the index pass) where each would otherwise read an
-// 8-byte index and a 4-byte key.  Dead rays hold the largest key and sort
+// liveness, from the index pass) where each would otherwise read a
+// 4-byte index and a 4-byte key.  Dead rays hold the largest key and sort
 // to the tail, so the live/dead branch is the same for every lane of a
 // warp but the one warp at the boundary.
 
@@ -126,7 +127,7 @@ __device__ __forceinline__ const float* pick(const Cols12& in, int k) {
 // computed from that original index in registers.
 template <bool kRecon>
 __global__ void __launch_bounds__(kBlock)
-reorder_index_kernel(const long long* __restrict__ perm,
+reorder_index_kernel(const int* __restrict__ perm,
                      const int* __restrict__ keys_s,
                      const int* __restrict__ orig, int* __restrict__ pa,
                      int* __restrict__ orig_out, bool* __restrict__ alive_out,
@@ -134,7 +135,7 @@ reorder_index_kernel(const long long* __restrict__ perm,
                      long long* __restrict__ seed_out, long long n) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int p = (int)perm[i];
+    const int p = perm[i];
     const bool live = keys_s[i] != kDeadKey;
     pa[i] = live ? p : ~p;
     const int o = orig[p];
@@ -219,12 +220,12 @@ restore_kernel(const int* __restrict__ orig, const float* __restrict__ i0,
 
 }  // namespace
 
-// perm: int64 (n < 2^31); cols: 12 float column pointers; pa: an (n,)
+// perm: int32 (n < 2^31); cols: 12 float column pointers; pa: an (n,)
 // int32 scratch buffer; out: (12, n) float32.  blk null: the seed is
 // gathered; else (return_seed off) it is reconstructed from the step block
 // blk and base, n_rays, n_band, tw, a and c (Recon).  Two launches on the
 // stream, the index pass first.
-extern "C" int oglrt_reorder(const long long* perm, const int* keys_s,
+extern "C" int oglrt_reorder(const int* perm, const int* keys_s,
                              const float* const* cols, const long long* seed,
                              const int* orig, int* pa, float* out,
                              long long* seed_out, int* orig_out,

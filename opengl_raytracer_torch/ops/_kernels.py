@@ -10,11 +10,11 @@ launches its kernel or raises.  The build is not fast-math (``/`` and
 
 Every wrapper launches through :func:`launch`, which makes its tensors'
 device the current one for the call.  ``launch_counts`` holds one integer
-per kernel (G3's reorder: its two kernels); ``launch`` adds one where it
-launches a kernel and nowhere else, so a caller can show which kernels a
-run went through.  A CUDA graph's replay passes no wrapper: the graph
-keeps the counts its capture made and adds them at each replay
-(``step_graph.py``).
+per kernel (G3's reorder: its two kernels; G10's sort: its 1 + passes);
+``launch`` adds one where it launches a kernel and nowhere else, so a
+caller can show which kernels a run went through.  A CUDA graph's replay
+passes no wrapper: the graph keeps the counts its capture made and adds
+them at each replay (``step_graph.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K1, K2 and K3 ("subblock_traversal" counts K1's launches, each of a
 # whole part chain; "subblock_parts" the parts that they walked, P a
 # launch); the glue kernels of the main path:
-# "ray_front" (G1), "sort_keys" (G2), "reorder" and "restore" (G3),
+# "ray_front" (G1), "sort_keys" (G2), "radix_sort" (G10, the sort: its
+# histogram launch and its passes), "reorder" and "restore" (G3),
 # "wide_epilogue" (G5, K3's prologue and epilogue), "band_fold" (G6) and
 # "step_block" (the step block's write), "bvh_walk" (G7, the "bvh"
 # traversal), "brute_sweep" (G8, the "brute" traversal), "packet_walk"
@@ -51,8 +52,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "k3_fetch" K3's octet fetch, "k2_probe" K2's row-fetch sums
 launch_counts = {"subblock_traversal": 0, "subblock_parts": 0, "shade": 0,
                  "wide_traversal": 0, "ray_front": 0, "sort_keys": 0,
-                 "reorder": 0, "restore": 0, "wide_epilogue": 0,
-                 "band_fold": 0, "step_block": 0, "bvh_walk": 0,
+                 "radix_sort": 0, "reorder": 0, "restore": 0,
+                 "wide_epilogue": 0, "band_fold": 0, "step_block": 0,
+                 "bvh_walk": 0,
                  "brute_sweep": 0, "packet_walk": 0, "to_uint8": 0,
                  "k1_profile": 0, "k3_profile": 0, "k3_fetch": 0,
                  "k2_probe": 0}
@@ -198,6 +200,10 @@ def _load() -> ctypes.CDLL:
                                              i32, u32, u32, i64, p])
     so.oglrt_restore.restype = i32
     so.oglrt_restore.argtypes = [p] * 7 + [i64, p]
+    # G10: (keys, sorted keys, permutation, workspace, its words, n, keys
+    # a pass thread)
+    so.oglrt_radix_sort.restype = i32
+    so.oglrt_radix_sort.argtypes = [p] * 4 + [i64, i64, i32, p]
     so.oglrt_wide_prologue.restype = i32
     so.oglrt_wide_prologue.argtypes = [p, p, i64, p]
     so.oglrt_wide_epilogue.restype = i32

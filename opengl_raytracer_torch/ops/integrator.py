@@ -11,8 +11,8 @@ The shader's path logic (fragment.glsl:220-366), as in
   ``i`` where ``i >= 1`` and ``(i - 1) % sort_every == 0`` (every segment
   but the first at the default cadence 1), rays are reordered by a
   Morton/octant coherence key (int32 keys, ``morton.sort_keys``; a
-  stable ``torch.sort``, which returns the sorted keys with the
-  permutation; one gather,
+  stable radix sort, ``radix_sort.sort_rays`` (G10), which returns the
+  sorted keys with the int32 permutation; one gather,
   ``permute.reorder``, that moves only the columns a ray still needs, as
   the JAX sort's folds do, ``opengl_raytracer_tpu/ops/integrator.py:226-268``),
   and at the end the light is scattered back to pixel order by each ray's
@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from opengl_raytracer_torch.ops import permute, rng
+from opengl_raytracer_torch.ops import permute, radix_sort, rng
 from opengl_raytracer_torch.ops.front import FRONT_DRAWS
 from opengl_raytracer_torch.ops.intersect import TINY, shading_table
 from opengl_raytracer_torch.ops.morton import sort_keys
@@ -144,10 +144,10 @@ def raytrace(scene, raycast_fn, o3, d3, seed0, block, n_bounces: int,
         if reorder and i > 0 and (i - 1) % sort_every == 0:
             # Primary rays arrive screen-coherent; bounce rays are sorted.
             # Dead rays hold the sentinel key and sort to the tail, and
-            # alive is re-derived from the sorted keys (G2 keys, G3 gather).
-            # On a skipped segment K2's columns go straight on.
-            keys_s, perm = torch.sort(
-                sort_keys(origin, direction, lo, hi, alive), stable=True)
+            # alive is re-derived from the sorted keys (G2 keys, G10 sort,
+            # G3 gather).  On a skipped segment K2's columns go straight on.
+            keys_s, perm = radix_sort.sort_rays(
+                sort_keys(origin, direction, lo, hi, alive))
             draws = FRONT_DRAWS + 3 * i
             origin, direction, ray_color, incoming, alive, seed, orig = (
                 permute.reorder(keys_s, perm, origin, direction, ray_color,

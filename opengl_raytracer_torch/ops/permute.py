@@ -140,7 +140,7 @@ def _reorder_cuda(keys_s, perm, origin, direction, ray_color, incoming, seed,
         rc = (recon.base, recon.n_rays, recon.n_band, recon.tw,
               *rng.advance_constants(draws))
     req(keys_s, "keys_s", torch.int32, dev, R)
-    req(perm, "perm", torch.int64, dev, R)
+    req(perm, "perm", torch.int32, dev, R)
     req(seed, "seed", torch.int64, dev, R)
     req(orig, "orig", torch.int32, dev, R)
     cols = (*origin, *direction, *ray_color, *incoming)
@@ -185,7 +185,8 @@ def reorder(keys_s, perm, origin, direction, ray_color, incoming, seed, orig,
             return_seed: bool = True, recon: SeedRecon | None = None,
             draws: int = 0):
     """The per-ray state in the order ``perm``: ``keys_s, perm =
-    torch.sort(keys, stable=True)`` of the int32 keys; origin, direction,
+    radix_sort.sort_rays(keys)`` of the int32 keys (``perm`` int32, as
+    ``torch.sort(keys, stable=True)``'s indices cast); origin, direction,
     ray colour and incoming light as
     3-tuples of (R,) float32 columns, ``seed`` (R,) int64, ``orig`` (R,)
     int32.  Returns (origin, direction, ray_color, incoming, alive, seed,

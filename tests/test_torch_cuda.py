@@ -40,7 +40,8 @@ from opengl_raytracer_torch.ops.intersect import BIG, Nearest
 from opengl_raytracer_torch.ops.wide2 import unpack_octets
 from opengl_raytracer_torch.renderer import effective_max_leaf
 from opengl_raytracer_torch.utils.image import rmse
-from torch_states import box_objects, recon_states
+from torch_states import (SORT_KINDS, box_objects, recon_states,
+                          sort_keys_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -666,6 +667,116 @@ def test_sort_keys_kernel_matches_plain(cuda):
     assert (got[:64] != got[64]).any()  # the far rays are not all one key
 
 
+def _stable_sort(keys):
+    keys_s, perm = torch.sort(keys, stable=True)
+    return keys_s, perm.int()
+
+
+def _same_sort(got, keys):
+    want = _stable_sort(keys)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32 and a.device == keys.device
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", SORT_KINDS)
+@pytest.mark.parametrize("n", [1, 255, 2047, 2049, 518_400, 2_073_600])
+def test_radix_sort_is_the_stable_sort(cuda, kind, n):
+    """G10's (keys_s, perm) equal ``torch.sort(keys, stable=True)``'s, the
+    indices as int32, bit for bit: at one key, under a warp, one tile
+    (2,048 keys below 2^20) less and more one, a quarter frame and a
+    frame (tiles of 4,096), on each kind of keys; a sort counts its
+    histogram launch and four passes."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    keys = sort_keys_case(kind, n, seed=n).to(cuda)
+    before = _kernels.launch_counts["radix_sort"]
+    got = radix_sort.sort_rays(keys)
+    assert _kernels.launch_counts["radix_sort"] == before + 5
+    _same_sort(got, keys)
+
+
+@pytest.mark.parametrize("items", [8, 16])
+@pytest.mark.parametrize("n", [4095, 4097, 518_400])
+def test_radix_sort_designs_are_the_stable_sort(cuda, items, n):
+    """Both tile sizes of G10 (2,048 and 4,096 keys; ``design`` picks one
+    by the count) sort as the library does at one and two tiles and at a
+    quarter frame, with dead keys among 16 distinct values; a sort
+    launches 5 kernels."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    keys = sort_keys_case("distinct16", n, seed=7).to(cuda)
+    keys[::5] = sort_keys_case("dead", 1)[0]
+    before = _kernels.launch_counts["radix_sort"]
+    got = radix_sort._sort_cuda(keys, items)
+    assert _kernels.launch_counts["radix_sort"] == before + 5
+    _same_sort(got, keys)
+
+
+def test_radix_sort_on_a_frames_keys(cuda, monkeypatch):
+    """G2's keys of a 1080p frame's second segment (the first sort, taken
+    from the renderer's warm-up): G10 sorts them as the library does, and
+    two runs give the same bytes."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    taken = []
+    sort_rays = radix_sort.sort_rays
+
+    def spy(keys):
+        taken.append(keys.clone())
+        return sort_rays(keys)
+
+    monkeypatch.setattr(radix_sort, "sort_rays", spy)
+    r = Renderer(_scene_small(), RenderConfig(width=1920, height=1080,
+                                              bounces=2), device=cuda)
+    r.render(make_camera(*_CAMS[0]), frames=1)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    keys = taken[0]
+    assert keys.numel() == 1920 * 1080
+    dead = int((keys == sort_keys_case("dead", 1)[0]).sum())
+    assert 0 < dead < keys.numel()
+    first = radix_sort.sort_rays(keys)
+    _same_sort(first, keys)
+    again = radix_sort.sort_rays(keys)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_radix_sort_replays_in_a_cuda_graph(cuda):
+    """One sort captured in a CUDA graph and replayed twice, new keys
+    written into its input between the replays, sorts both as the library
+    does: the histogram launch clears the passes' look-back words and
+    tickets in the graph."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    n = 518_400
+    keys = sort_keys_case("random", n, seed=1).to(cuda)
+    radix_sort.sort_rays(keys)  # loads the kernels outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = radix_sort.sort_rays(keys)
+    for kind in ("distinct16", "reversed"):
+        keys.copy_(sort_keys_case(kind, n, seed=2).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_sort(out, keys)
+
+
+def test_radix_sort_runs_on_the_keys_card(cuda):
+    """Keys on the last card (a second one where there is one) are sorted
+    there, whatever card is current, as the device guard tests hold the
+    other kernels."""
+    from opengl_raytracer_torch.ops import radix_sort
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    keys = sort_keys_case("random", 100_003, seed=4).to(dev)
+    with torch.cuda.device(0):
+        got = radix_sort.sort_rays(keys)
+    torch.cuda.synchronize(dev)
+    _same_sort(got, keys)
+
+
 def test_permute_kernels_match_plain(cuda):
     """Reorder and restore against their plain versions bit for bit, with
     and without ``return_seed``, on a random permutation (dead rays
@@ -686,8 +797,9 @@ def test_permute_kernels_match_plain(cuda):
     for c in cols[9:]:  # a live ray carries no light
         c[keys != morton.DEAD_KEY32] = 0.0
     seed = torch.from_numpy(g.integers(0, 2**32, R)).to(cuda)
-    random = torch.randperm(R, device=cuda)
+    random = torch.randperm(R, device=cuda).int()
     keys_s, perm = torch.sort(keys, stable=True)
+    perm = perm.int()
     orig = torch.randperm(R, device=cuda).int()
     groups = (tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9]),
               tuple(cols[9:12]))
@@ -816,7 +928,7 @@ def test_chain_kernel_resolves_hits(cuda, monkeypatch, masked):
 
 def test_glue_wrappers_reject_bad_input(cuda):
     """A wrong dtype, device or length is refused before any launch."""
-    from opengl_raytracer_torch.ops import front, morton, permute
+    from opengl_raytracer_torch.ops import front, morton, permute, radix_sort
 
     R = 256
     block = _block(cuda)
@@ -841,8 +953,12 @@ def test_glue_wrappers_reject_bad_input(cuda):
                                  keys), "dtype"),
         (lambda: permute.reorder(keys.long(), seed, o3, d3, o3, d3, seed,
                                  keys), "dtype"),
-        (lambda: permute.reorder(keys, seed, o3, d3, o3, d3, seed, seed,
+        (lambda: permute.reorder(keys, seed, o3, d3, o3, d3, seed, keys),
+         "dtype"),
+        (lambda: permute.reorder(keys, keys, o3, d3, o3, d3, seed, seed,
                                  False), "dtype"),
+        (lambda: radix_sort.sort_rays(keys.long()), "dtype"),
+        (lambda: radix_sort.sort_rays(keys[::2]), "contiguous"),
         (lambda: permute.restore(d3, seed.cpu(), keys), "is on"),
         (lambda: permute.restore(d3, None, seed), "dtype"),
         (lambda: permute.restore(d3, seed, keys[:-1]), "elements"),
@@ -1418,7 +1534,8 @@ def test_graph_replay_equals_eager_at_cadence_two(cuda, traversal):
 def test_cadence_frames_equal_on_card(cuda, traversal):
     """Two frames at sort_every 1, 2 and 4 (4 bounces) are equal bit for
     bit with the kernels, each with its cadence's reorders a frame (4, 2
-    and 1: G2, two reorder launches each) and one restore."""
+    and 1: G2, G10's five launches, two reorder launches each) and one
+    restore."""
     scene = _scene_small()
     cam = make_camera(*_CAMS[0])
     ref = None
@@ -1430,6 +1547,7 @@ def test_cadence_frames_equal_on_card(cuda, traversal):
         accum = r.render(cam, frames=2).accum
         counts = dict(_kernels.launch_counts)
         assert counts["sort_keys"] == 2 * sorts
+        assert counts["radix_sort"] == 2 * 5 * sorts
         assert counts["reorder"] == 2 * 2 * sorts
         assert counts["restore"] == 2 and counts["shade"] == 2 * 5
         ref = accum if ref is None else ref

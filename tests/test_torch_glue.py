@@ -14,11 +14,12 @@ the torch code they were split out of.
 * G2, the int32 sort keys (``ops/morton.py``): the JAX uint32 keys minus
   2^31, bit for bit, on live, dead and out-of-box rays; a stable argsort
   of them is the stable argsort of the uint32 keys.
-* G3, the reorder and restore (``ops/permute.py``): restore after reorder
-  is the identity; both equal the integrator's former inline code bit for
-  bit wherever the frame reads a column again; the plain reorder equals
-  the JAX sort's fold (``opengl_raytracer_tpu/ops/integrator.py:251-268``)
-  on the same state; and on a small frame every live ray's incoming light
+* G3, the reorder and restore (``ops/permute.py``), on G10's sort of the
+  keys (``ops/radix_sort.py``, its int32 permutation): restore after
+  reorder is the identity; both equal the integrator's former inline code
+  bit for bit wherever the frame reads a column again; the plain reorder
+  equals the JAX sort's fold
+  (``opengl_raytracer_tpu/ops/integrator.py:251-268``) on the same state; and on a small frame every live ray's incoming light
   is +0.0 in bits after each bounce, the fact the fold rests on.
 * K1's part chain and its resolution of the hits
   (``ops/subblock_traversal.py:_chain_plain``, the plain version of the
@@ -42,7 +43,8 @@ from opengl_raytracer_tpu.ops.subblock_traversal import (
     raycast_subblock as j_subblock)
 from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 
-from opengl_raytracer_torch.ops import front, morton, permute, step_block
+from opengl_raytracer_torch.ops import front, morton, permute, radix_sort
+from opengl_raytracer_torch.ops import step_block
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.camera import make_camera
 from opengl_raytracer_torch.ops.front import (pixel_front, ray_front,
@@ -227,14 +229,14 @@ def _bits(x):
 def test_restore_after_reorder_is_identity():
     R = 5000
     cols, keys, seed = _state(R, 1)
-    keys_s, perm = torch.sort(keys, stable=True)
+    keys_s, perm = radix_sort.sort_rays(keys)
     orig = torch.arange(R, dtype=torch.int32)
     n_dead = int((keys == morton.DEAD_KEY32).sum())
     for return_seed in (True, False):
         o, d, rc, inc, alive, seed_s, orig_s = permute.reorder(
             keys_s, perm, *_groups(cols), seed, orig, return_seed)
         assert orig_s.dtype == torch.int32
-        assert torch.equal(orig_s.long(), perm)
+        assert torch.equal(orig_s, perm)
         assert torch.equal(alive, keys[perm] != morton.DEAD_KEY32)
         assert alive[:-n_dead].all() and not alive[-n_dead:].any()
         back, seed_b = permute.restore(inc, seed_s if return_seed else None,
@@ -338,7 +340,7 @@ def test_plain_reorder_equals_the_jax_sort_fold(return_seed):
     inc_j = [np.asarray(jnp.where(alive_j, jnp.zeros_like(m), m))
              for m in (m0, m1, m2)]
 
-    keys_s, perm = torch.sort(keys, stable=True)
+    keys_s, perm = radix_sort.sort_rays(keys)
     got = permute.reorder_plain(keys_s, perm, *_groups(cols), seed,
                                 torch.from_numpy(orig), return_seed)
     live = got[4].numpy()

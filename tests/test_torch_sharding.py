@@ -30,8 +30,8 @@ from opengl_raytracer_tpu.utils.config import RenderConfig as JRenderConfig
 from opengl_raytracer_torch import Rect, RenderConfig, Renderer, Scene
 from opengl_raytracer_torch import make_camera
 from opengl_raytracer_torch.ops import (_kernels, fold, front, intersect,
-                                        morton, permute, shade, step_block,
-                                        traversal)
+                                        morton, permute, radix_sort, shade,
+                                        step_block, traversal)
 from opengl_raytracer_torch.ops import pallas_traversal as wide
 from opengl_raytracer_torch.ops import subblock_traversal as sbt
 from opengl_raytracer_torch.ops.intersect import BIG, Nearest
@@ -644,8 +644,10 @@ def _launch(kernel, device, odd_one=None):
         return morton._sort_keys_cuda(o3, d3, np.zeros(3, np.float32),
                                       np.ones(3, np.float32),
                                       t("alive", R, torch.bool))
+    if kernel == "radix_sort":
+        return radix_sort._sort_cuda(t("keys", R, i32))
     if kernel == "reorder":
-        return permute._reorder_cuda(t("keys", R, i32), t("perm", R, i64),
+        return permute._reorder_cuda(t("keys", R, i32), t("perm", R, i32),
                                      o3, d3, o3, d3, t("seed", R, i64),
                                      t("orig", R, i32), False)
     if kernel == "restore":
@@ -687,6 +689,7 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse_parts",
                   "wide_traversal": "oglrt_wide_traverse",
                   "ray_front": "oglrt_ray_front",
                   "sort_keys": "oglrt_sort_keys",
+                  "radix_sort": "oglrt_radix_sort",
                   "reorder": "oglrt_reorder",
                   "restore": "oglrt_restore",
                   "wide_prologue": "oglrt_wide_prologue",
@@ -697,8 +700,8 @@ KERNEL_SYMBOLS = {"subblock_traversal": "oglrt_subblock_traverse_parts",
                   "bvh_walk": "oglrt_bvh_walk",
                   "packet_walk": "oglrt_packet_walk"}
 # kernels a call of the symbol launches, where it is not one: the reorder's
-# index pass and gather
-KERNELS_A_CALL = {"reorder": 2}
+# index pass and gather, the sort's histogram launch and four passes
+KERNELS_A_CALL = {"reorder": 2, "radix_sort": 5}
 # the counter of a symbol named otherwise: G5's two entry points share one,
 # and K1's chains of one part and of two count their launches in one
 COUNTER = {"wide_prologue": "wide_epilogue",
@@ -718,6 +721,16 @@ def test_wrapper_launches_on_its_tensors_device(fake_card, kernel, device):
     assert _kernels.launch_counts["subblock_parts"] == (
         before["subblock_parts"] + walked)
     assert torch.cuda.current_device() == "outside the guard"
+
+
+def test_radix_sort_of_no_keys_launches_nothing(fake_card):
+    """G10 on no keys hands back two empty int32 tensors on the keys'
+    device and neither launches nor counts a kernel."""
+    before = dict(_kernels.launch_counts)
+    keys_s, perm = radix_sort._sort_cuda(torch.zeros(0, dtype=torch.int32))
+    assert keys_s.dtype == perm.dtype == torch.int32
+    assert keys_s.numel() == perm.numel() == 0
+    assert fake_card == [] and _kernels.launch_counts == before
 
 
 @pytest.mark.parametrize("kernel,odd_one", [

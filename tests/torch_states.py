@@ -1,8 +1,9 @@
 """Inputs shared by the port's CPU tests and the CUDA tests of its
 kernels (tests/test_torch_cuda.py), which build them alike: the states of
 the seed-reconstruction tests (G3's plain version in
-tests/test_torch_glue.py) and the reference's box (the small-scene
-traversals in tests/test_torch_traversal.py).  Imports torch and the port
+tests/test_torch_glue.py), the reference's box (the small-scene
+traversals in tests/test_torch_traversal.py) and the keys of the sort's
+tests (G10, tests/test_torch_sort.py).  Imports torch and the port
 only, as the CUDA tests run where JAX is absent."""
 
 import numpy as np
@@ -34,6 +35,35 @@ def box_objects():
     ]
 
 
+SORT_KINDS = ("random", "equal", "dead", "distinct16", "sorted", "reversed")
+
+
+def sort_keys_case(kind: str, n: int, seed: int = 0) -> torch.Tensor:
+    """(n,) int32 keys for the sort's tests: full-range random (the
+    extremes included), all one key, all the dead-ray key, 16 distinct
+    values (ties: the sort must be stable), random keys presorted, and
+    the same reversed."""
+    from opengl_raytracer_torch.ops.morton import DEAD_KEY32
+
+    g = np.random.default_rng(seed)
+    if kind == "equal":
+        k = np.full(n, -123_457, np.int64)
+    elif kind == "dead":
+        k = np.full(n, DEAD_KEY32, np.int64)
+    elif kind == "distinct16":
+        k = g.integers(-2**31, 2**31, 16)[g.integers(0, 16, n)]
+    else:
+        k = g.integers(-2**31, 2**31, n)
+        k[:2] = [-2**31, 2**31 - 1][:n]
+        if kind == "sorted":
+            k = np.sort(k)
+        elif kind == "reversed":
+            k = np.sort(k)[::-1]
+        elif kind != "random":
+            raise ValueError(kind)
+    return torch.from_numpy(np.ascontiguousarray(k).astype(np.int32))
+
+
 def recon_states(device, frame, F=2, tw=20, rows=12, chunk=256, W=64, H=48,
                  seed=21):
     """Pre-reorder states of a step's own rays at bounces 1-4, for seed
@@ -53,7 +83,8 @@ def recon_states(device, frame, F=2, tw=20, rows=12, chunk=256, W=64, H=48,
     frame with the seed rebuilt against one that carries it) and
     ``test_advance_constants_are_the_frames_draws``
     (tests/test_torch_rng_camera.py)."""
-    from opengl_raytracer_torch.ops import front, morton, permute, rng
+    from opengl_raytracer_torch.ops import front, morton, permute, radix_sort
+    from opengl_raytracer_torch.ops import rng
     from opengl_raytracer_torch.ops import step_block
 
     g = np.random.default_rng(seed)
@@ -83,8 +114,9 @@ def recon_states(device, frame, F=2, tw=20, rows=12, chunk=256, W=64, H=48,
             for c in cols[9:]:  # a live ray carries no light
                 c[live] = 0.0
             groups = tuple(tuple(cols[3 * k:3 * k + 3]) for k in range(4))
-            keys_s, perm = torch.sort(keys, stable=True)
+            keys_s, perm = radix_sort.sort_rays(keys.cpu())
             out.append((f"base{base}_b{i}",
-                        (keys_s, perm, *groups, seed, orig), recon,
+                        (keys_s.to(device), perm.to(device), *groups, seed,
+                         orig), recon,
                         front.FRONT_DRAWS + 3 * i))
     return out
